@@ -1,0 +1,188 @@
+"""The port's 3D periodic tile-binned slice against the JAX package.
+
+``warpx_tpu_torch.Simulation`` (CPU, float64, the kernels' plain versions)
+runs the configuration of ``test_binned.py``'s 3D order-1 case and must
+land on ``warpx_tpu.Simulation``'s checksums, with the JAX package's
+binned path (Pallas in interpret mode) and with its per-particle path, at
+the 1e-9 bar of ``test_binned.py``.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import warpx_tpu_torch
+from warpx_tpu.core.config import SimConfig as JSimConfig
+from warpx_tpu.core.config import SpeciesConfig as JSpeciesConfig
+from warpx_tpu.core.grid import Geometry as JGeometry
+from warpx_tpu.core.simulation import Simulation as JSimulation
+from warpx_tpu.solvers.yee import compute_dt_yee as j_compute_dt_yee
+from warpx_tpu_torch.core.binned_step import binned_pic_step
+from warpx_tpu_torch.core.config import SimConfig, SpeciesConfig
+from warpx_tpu_torch.core.grid import Geometry
+from warpx_tpu_torch.core.state import state_from_numpy, state_to_numpy
+from warpx_tpu_torch.solvers.yee import compute_dt_yee
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+RTOL = 1e-9
+
+
+def _species(sc):
+    return tuple(
+        sc(
+            name=nm, charge=q, mass=9.1093837015e-31,
+            injection_style="nuniformpercell",
+            num_particles_per_cell_each_dim=(2, 1, 1),
+            profile="constant", density=2.0e24,
+            momentum_distribution="gaussian",
+            ux_th=0.1, uy_th=0.1, uz_th=0.1,
+        )
+        for nm, q in (("electrons", -1.602176634e-19),
+                      ("positrons", 1.602176634e-19))
+    )
+
+
+def _geom(gc, n=16, lx=40e-6):
+    return gc(ndim=3, n_cell=(n,) * 3, prob_lo=(-lx / 2,) * 3,
+              prob_hi=(lx / 2,) * 3, periodic=(True,) * 3)
+
+
+def jax_cfg(tiled):
+    geom = _geom(JGeometry)
+    return JSimConfig(
+        geometry=geom, max_step=8, dt=j_compute_dt_yee(geom, 0.999),
+        particle_shape=1, species=_species(JSpeciesConfig), em_solver="yee",
+        tiled_particles=tiled, sort_interval=3,
+    )
+
+
+def torch_cfg():
+    geom = _geom(Geometry)
+    return SimConfig(
+        geometry=geom, max_step=8, dt=compute_dt_yee(geom, 0.999),
+        particle_shape=1, species=_species(SpeciesConfig), em_solver="yee",
+        tiled_particles="on", sort_interval=3,
+    )
+
+
+def _jax_state_numpy(state):
+    f = state.fields
+    return {
+        "fields": {nm: np.asarray(getattr(f, nm))
+                   for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz",
+                              "jx", "jy", "jz")},
+        "species": {
+            nm: {k: np.asarray(getattr(sp, k))
+                 for k in ("w", "ux", "uy", "uz", "alive", "x", "y", "z")}
+            for nm, sp in state.species.items()
+        },
+        "step": int(state.step),
+        "time": float(state.time),
+        "aux": {k: np.asarray(v) for k, v in state.aux.items()},
+    }
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """The JAX package's binned run (with its state at step 4 kept, and
+    the state one step later) and its per-particle run, both 8 steps."""
+    sim_on = JSimulation(jax_cfg("on"))
+    sim_on.init()
+    sim_on.evolve(4)
+    s4 = _jax_state_numpy(sim_on.state)
+    s5 = _jax_state_numpy(sim_on._step(sim_on.state))
+    sim_on.evolve()
+    sim_off = JSimulation(jax_cfg("off"))
+    sim_off.init()
+    sim_off.evolve()
+    return {"on": sim_on.checksums(), "off": sim_off.checksums(),
+            "s4": s4, "s5": s5}
+
+
+@pytest.fixture(scope="module")
+def torch_checksums():
+    sim = warpx_tpu_torch.Simulation(torch_cfg(), dtype=torch.float64,
+                                     device="cpu")
+    sim.init()
+    sim.evolve()
+    return sim.checksums()
+
+
+@pytest.mark.parametrize("path", ["on", "off"])
+def test_slice_checksums_match_jax(jax_runs, torch_checksums, path):
+    ref = jax_runs[path]
+    assert set(ref) == set(torch_checksums)
+    for group in ref:
+        for q in ref[group]:
+            if q in ("divB", "divE"):
+                continue  # roundoff noise whose value depends on sum order
+            a, b = ref[group][q], torch_checksums[group][q]
+            assert abs(a - b) <= RTOL * abs(a) + 1e-300, (group, q, a, b)
+
+
+def test_state_round_trip_step(jax_runs):
+    """A JAX state at step 4 carried across, stepped once by the port, lands
+    on the JAX package's step 5 (no rebin between: the slots line up)."""
+    cfg = torch_cfg()
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float64, device="cpu")
+    sim.init()  # builds the tile spec the JAX run also used
+    state = state_from_numpy(jax_runs["s4"], torch.float64, "cpu")
+    back = state_to_numpy(state)
+    for nm in back["fields"]:
+        np.testing.assert_array_equal(back["fields"][nm],
+                                      jax_runs["s4"]["fields"][nm])
+    out = state_to_numpy(binned_pic_step(state, cfg, sim.staggering,
+                                         sim.tile_spec, sim.params))
+    ref = jax_runs["s5"]
+    assert out["step"] == ref["step"] == 5
+    for nm, a in ref["fields"].items():
+        scale = np.abs(a).max()
+        assert np.abs(out["fields"][nm] - a).max() <= 1e-12 * scale, nm
+    for sp, arrs in ref["species"].items():
+        np.testing.assert_array_equal(out["species"][sp]["alive"],
+                                      arrs["alive"])
+        for k in ("x", "y", "z", "ux", "uy", "uz", "w"):
+            a = arrs[k]
+            err = np.abs(out["species"][sp][k] - a).max()
+            assert err <= 1e-12 * np.abs(a).max(), (sp, k, err)
+    for k in ("tile_overflow", "tile_violations"):
+        assert int(out["aux"][k]) == int(ref["aux"][k]) == 0
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    files = sorted((REPO / "warpx_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "warpx_tpu"), (path, mod)
+
+
+def test_simulation_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        warpx_tpu_torch.Simulation(torch_cfg())
+
+
+def test_unported_precision_modes_raise():
+    import dataclasses
+
+    cfg = dataclasses.replace(torch_cfg(), tile_mxu="mixed", max_step=1)
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float64, device="cpu")
+    sim.init()
+    with pytest.raises(NotImplementedError, match="K1d"):
+        sim.evolve()
+

@@ -1,0 +1,18 @@
+"""warpx_tpu_torch: the PyTorch + CUDA port of warpx_tpu for NVIDIA Hopper.
+
+The package mirrors ``warpx_tpu``'s layout module by module.  Plain tensor
+code is PyTorch; each Pallas TPU kernel of the ported path is a CUDA C++
+kernel under ``csrc/``, compiled with ``nvcc`` for ``sm_90a`` on first use and
+bound through ``ctypes`` (``build.py``).  Every kernel wrapper keeps a plain
+PyTorch version of the same function beside it: the wrapper runs that version
+only for tensors on the CPU (the parity tests) and launches the kernel for
+CUDA tensors.
+
+Ported so far: the 3D periodic, explicit electromagnetic, tile-binned PIC step
+(``core/binned_step.py``) driven by ``Simulation``.
+"""
+
+from . import constants  # noqa: F401
+from .core.simulation import Simulation  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,144 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under ``csrc/`` has a plain C interface.  It is compiled with
+``nvcc`` for ``sm_90a`` into its own shared library under ``_build/`` (one
+``nvcc`` per source, started together by ``build_all``) and loaded with
+``ctypes``.  A library's file name carries a hash of its source and flags,
+so an edited source is rebuilt and a stale one is never loaded.  Nothing is
+built when this module is imported: the kernels' wrappers ask for their
+library at their first launch on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["SOURCES", "build_all", "library", "cuda_error"]
+
+_HERE = Path(__file__).resolve().parent
+_CSRC = _HERE / "csrc"
+_BUILD = _HERE / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# library name -> (source file, nvcc -D defines, {C function: (argtypes,
+# restype)}).  Kernel K1 is built once per (type, shape order), so the six
+# builds run side by side.
+_K1_FUNCS = {
+    # (const FusedPicArgs*, cudaStream_t)
+    "fused_pic_launch": ([_P, _P], _I),
+    "fused_pic_error_string": ([_I], ctypes.c_char_p),
+}
+SOURCES = {
+    f"fused_pic_{tn}_o{order}": (
+        "fused_pic.cu", (f"FP_REAL={ct}", f"FP_ORDER={order}"), _K1_FUNCS)
+    for tn, ct in (("f32", "float"), ("f64", "double"))
+    for order in (1, 2, 3)
+}
+SOURCES["ragged_expand"] = ("ragged_expand.cu", (), {
+    # (is_f64, src, cap_in, offsets, counts, fill, out,
+    #  n_attr, n_tiles, p_max, stream)
+    "ragged_expand_launch": ([_I, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
+                             _I),
+    "ragged_expand_error_string": ([_I], ctypes.c_char_p),
+})
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = Path("/usr/local/cuda/bin/nvcc")
+    if fallback.exists():
+        return str(fallback)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _flags(name: str):
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in SOURCES[name][1]))
+
+
+def _lib_path(name: str) -> Path:
+    src = (_CSRC / SOURCES[name][0]).read_bytes()
+    digest = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()
+    return _BUILD / f"lib{name}-{digest[:12]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists; returns the
+    process (or None) and the paths it writes."""
+    out = _lib_path(name)
+    if out.exists():
+        return None, out, None
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    log = _BUILD / f"{name}.log"
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
+           str(_CSRC / SOURCES[name][0])]
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+    return proc, out, (tmp, log)
+
+
+def build_all(names=None) -> dict:
+    """Compile every library in ``names`` (default: all) in parallel.
+    Returns {name: seconds} (0 for a library already built); raises with
+    the compiler's output if one fails."""
+    names = list(SOURCES if names is None else names)
+    t0 = time.perf_counter()
+    started = {nm: _start(nm) for nm in names}
+    secs = {}
+    failures = []
+    for nm, (proc, out, paths) in started.items():
+        if proc is None:
+            secs[nm] = 0.0
+            continue
+        rc = proc.wait()
+        tmp, log = paths
+        secs[nm] = time.perf_counter() - t0
+        if rc != 0:
+            failures.append(f"{nm}: nvcc exit {rc}\n{log.read_text()}")
+            continue
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return secs
+
+
+def build_log(name: str) -> str:
+    """The compiler output of the last build of ``name`` (register and
+    shared-memory use from ``-Xptxas -v``), or "" if it was not built here."""
+    log = _BUILD / f"{name}.log"
+    return log.read_text() if log.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed, with every C
+    function's argtypes and restype declared."""
+    build_all([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    for fn, (argtypes, restype) in SOURCES[name][2].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def cuda_error(name: str, fn: str, code: int) -> str:
+    """CUDA's description of error ``code`` from ``fn`` in library
+    ``name`` (codes above 1000 carry the failing stage in their
+    thousands)."""
+    msg = getattr(library(name), fn)(code)
+    return f"{code} ({msg.decode()})"

@@ -1,0 +1,202 @@
+"""Tile-binned explicit EM PIC step (3D periodic) -- the port's hot path.
+
+The counterpart of ``warpx_tpu.core.binned_step``: the explicit step
+(OneStep_nosub, WarpXEvolve.cpp:354-460) restricted to its hot core (3D
+periodic, Yee/CKC, Boris/Vay/HC push, Esirkepov deposition, no particle
+creation), run through the tile-binned layout (``ops/tiling.py``) and the
+fused kernel (``ops/fused_pic.py``):
+
+  rebin every ``interval`` steps (kernel K3) -> guard-pad the fields ->
+  fused gather + push + deposit per pusher group (kernel K1) -> fold the J
+  windows -> Maxwell advance (``advance_fields``).
+
+Positions stay unwrapped between rebins so window-relative coordinates are
+continuous across the periodic boundary; rebin wraps them.
+``state.aux['tile_overflow']`` and ``state.aux['tile_violations']``
+accumulate the layout-safety counters that the host must find zero.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from ..constants import c as _c
+from ..ops.fused_pic import binned_push_deposit, pad_fields
+from ..ops.tiling import TileSpec, fold_windows, rebin
+from .config import SimConfig
+from .state import SimState
+from .step import advance_fields
+
+__all__ = ["binned_supported", "make_tile_spec", "binned_capacity",
+           "binned_pic_step", "pusher_params", "pusher_groups"]
+
+# per-component window-axis order emitted by the fused kernel
+_FOLD_AXES = ((0, 1, 2), (1, 0, 2), (2, 0, 1))
+
+
+def binned_supported(cfg: SimConfig) -> bool:
+    """Whether the port's tile-binned path covers this configuration (the
+    JAX package's ``binned_supported`` less what is not ported yet: 2D and
+    PSATD)."""
+    geom = cfg.geometry
+    if cfg.tiled_particles == "off":
+        return False
+    if geom.ndim != 3 or not geom.all_periodic:
+        return False
+    if cfg.em_solver not in ("yee", "ckc", "none"):
+        return False
+    if cfg.em_solver_medium != "vacuum":
+        return False
+    if cfg.current_deposition != "esirkepov":
+        return False
+    if cfg.grid_type != "staggered":
+        return False
+    if not (1 <= cfg.particle_shape <= 3):
+        return False
+    if cfg.do_dive_cleaning or cfg.do_divb_cleaning:
+        return False
+    if cfg.use_nci_corr or cfg.use_filter:
+        return False
+    if any(n % t for n, t in zip(geom.n_cell, cfg.tile_size[-geom.ndim:])):
+        return False
+    for sp in cfg.species:
+        if (sp.do_not_push or sp.do_not_deposit or sp.do_not_gather
+                or sp.species_type == "photon" or sp.mass == 0.0
+                or sp.pusher not in ("boris", "vay", "higuera")):
+            return False
+    return True
+
+
+def make_tile_spec(cfg: SimConfig, n_particles: int) -> TileSpec:
+    geom = cfg.geometry
+    margin = cfg.sort_margin
+    if margin <= 0:
+        # worst-case drift: c*dt/dx cells per step, for sort_interval steps
+        per_step = max(_c * cfg.dt / d for d in geom.dx)
+        margin = max(1, int(math.ceil(cfg.sort_interval * per_step)))
+    return TileSpec.create(
+        geom.n_cell,
+        order=cfg.particle_shape,
+        n_particles=n_particles,
+        tile=cfg.tile_size,
+        margin=margin,
+        interval=cfg.sort_interval,
+        headroom=cfg.tile_headroom,
+    )
+
+
+def binned_capacity(cfg: SimConfig, n_particles: int) -> int:
+    return make_tile_spec(cfg, n_particles).capacity
+
+
+def pusher_params(cfg: SimConfig, dtype: torch.dtype,
+                  device: torch.device) -> Dict[str, Tuple[tuple, torch.Tensor]]:
+    """Per pusher, its species' configs and their fused-kernel params
+    (n_sp, 8): charge, mass, external E, external B.  Built once per
+    simulation, so no step copies them to the device."""
+    groups: Dict[str, list] = {}
+    for sp_cfg in cfg.species:
+        groups.setdefault(sp_cfg.pusher, []).append(sp_cfg)
+    return {
+        name: (tuple(sps), torch.tensor(
+            [[s.charge, s.mass, *cfg.e_ext_particle, *cfg.b_ext_particle]
+             for s in sps], dtype=dtype, device=device))
+        for name, sps in groups.items()
+    }
+
+
+def pusher_groups(state: SimState, spec: TileSpec, params: Dict):
+    """The fused kernel's inputs, one launch per pusher: yields
+    (pusher_name, species configs, params (n_sp, 8), parts7, counts), with
+    ``params`` from ``pusher_params``."""
+    nt, pmax = spec.n_tiles, spec.p_max
+    for pusher_name, (sps, p) in params.items():
+        cols = [[] for _ in range(7)]
+        cnts = []
+        for sp_cfg in sps:
+            sp = state.species[sp_cfg.name]
+            w_eff = torch.where(sp.alive, sp.w, torch.zeros((), dtype=p.dtype,
+                                                             device=p.device))
+            for ci, a in enumerate((sp.x, sp.y, sp.z, sp.ux, sp.uy, sp.uz,
+                                    w_eff)):
+                cols[ci].append(a.reshape(nt, pmax))
+            cnts.append(sp.alive.reshape(nt, pmax).sum(dim=1,
+                                                       dtype=torch.int32))
+        parts7 = tuple(torch.cat(c, dim=0) for c in cols)
+        yield pusher_name, sps, p, parts7, torch.cat(cnts)
+
+
+def binned_pic_step(state: SimState, cfg: SimConfig, staggering: Dict,
+                    spec: TileSpec, params: Dict) -> SimState:
+    """One fused explicit EM PIC step over the tile-binned layout;
+    ``params`` is ``pusher_params(cfg, ...)`` on the state's device."""
+    geom = cfg.geometry
+    dt = cfg.dt
+    nt = spec.n_tiles
+    stag_items = tuple(sorted((k, tuple(v)) for k, v in staggering.items()))
+
+    # --- rebin (every spec.interval steps) --------------------------------
+    species = dict(state.species)
+    overflow = state.aux["tile_overflow"]
+    if state.step % spec.interval == 0:
+        for sp_cfg in cfg.species:
+            species[sp_cfg.name], ovf = rebin(species[sp_cfg.name], geom,
+                                              spec)
+            overflow = overflow + ovf
+    state = state.replace(species=species)
+
+    # --- guard-padded fields (FillBoundary analog) ------------------------
+    farr = state.fields
+    fields6 = pad_fields(
+        (farr.Ex, farr.Ey, farr.Ez, farr.Bx, farr.By, farr.Bz), spec
+    )
+
+    # --- fused gather + push + deposit: one launch per pusher -------------
+    jw_tot = None
+    violations = state.aux["tile_violations"]
+    new_species = {}
+    for pusher_name, sps, params, parts7, counts in pusher_groups(
+            state, spec, params):
+        newp, jw, viol = binned_push_deposit(
+            params, fields6, parts7, counts=counts,
+            spec=spec, geom=geom, order=cfg.particle_shape,
+            galerkin=cfg.galerkin, pusher_name=pusher_name, dt=dt,
+            stag_items=stag_items, mxu=cfg.tile_mxu,
+        )
+        jw_tot = jw if jw_tot is None else tuple(
+            a + b for a, b in zip(jw_tot, jw)
+        )
+        violations = violations + viol.sum(dtype=torch.int32)
+        for k, sp_cfg in enumerate(sps):
+            sl = slice(k * nt, (k + 1) * nt)
+            flat = [a[sl].reshape(-1) for a in newp]
+            new_species[sp_cfg.name] = species[sp_cfg.name].replace(
+                x=flat[0], y=flat[1], z=flat[2],
+                ux=flat[3], uy=flat[4], uz=flat[5],
+            )
+
+    # --- fold J windows (SumBoundary analog) ------------------------------
+    f = farr.Ex
+    if jw_tot is None:
+        j_total = tuple(torch.zeros(geom.n_cell, dtype=f.dtype,
+                                    device=f.device) for _ in range(3))
+    else:
+        j_total = tuple(
+            fold_windows(jw_tot[i], spec, geom.n_cell, axes=_FOLD_AXES[i])
+            for i in range(3)
+        )
+
+    fields = advance_fields(state.fields, cfg, j_total)
+    aux = dict(state.aux)
+    aux["tile_overflow"] = overflow
+    aux["tile_violations"] = violations
+    return state.replace(
+        fields=fields,
+        species=new_species,
+        step=state.step + 1,
+        time=state.time + dt,
+        aux=aux,
+    )

@@ -1,0 +1,97 @@
+"""Resolved static simulation configuration.
+
+A copy of ``warpx_tpu.core.config``'s ``SpeciesConfig`` and ``SimConfig``,
+cut to the fields the ported path reads (3D periodic explicit EM with the
+tile-binned step).  Fields keep the reference's names and defaults, so a
+configuration built for ``warpx_tpu`` with these fields builds here with the
+same keyword arguments.  Features whose fields are absent come with later
+items of ROADMAP.md's Queue A.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+from .grid import Geometry
+
+__all__ = ["SpeciesConfig", "SimConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeciesConfig:
+    name: str
+    charge: float
+    mass: float
+    injection_style: str = "none"  # nuniformpercell | nrandompercell | none
+    num_particles_per_cell_each_dim: Tuple[int, ...] = ()
+    num_particles_per_cell: int = 0
+    profile: str = "constant"
+    density: float = 0.0
+    momentum_distribution: str = "at_rest"  # at_rest | constant | gaussian
+    # constant momentum (units of gamma*beta, multiplied by c at injection)
+    ux: float = 0.0
+    uy: float = 0.0
+    uz: float = 0.0
+    # gaussian momentum spread
+    ux_th: float = 0.0
+    uy_th: float = 0.0
+    uz_th: float = 0.0
+    do_not_push: bool = False
+    do_not_gather: bool = False
+    do_not_deposit: bool = False
+    pusher: str = "boris"  # boris | vay | higuera
+    species_type: str = ""
+
+    @property
+    def qm(self) -> float:
+        return self.charge / self.mass
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    geometry: Geometry
+    max_step: int
+    dt: float
+    particle_shape: int = 1
+    em_solver: str = "yee"  # yee | ckc | none
+    current_deposition: str = "esirkepov"
+    field_gathering: str = "energy-conserving"
+    grid_type: str = "staggered"
+    use_filter: bool = False
+    use_nci_corr: bool = False
+    species: Tuple[SpeciesConfig, ...] = ()
+    cfl: float = 0.999
+    seed: int = 0
+    # constant external fields applied to particles during gather
+    e_ext_particle: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    b_ext_particle: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    em_solver_medium: str = "vacuum"
+    do_dive_cleaning: bool = False
+    do_divb_cleaning: bool = False
+    # tile-binned hot path (ops/tiling.py + ops/fused_pic.py); the analog of
+    # the reference's binned shared-memory deposition
+    # (WarpXParticleContainer.cpp:490-548) at the SortParticlesByBin cadence
+    tiled_particles: str = "auto"  # auto | on | off
+    tile_size: Tuple[int, int, int] = (8, 8, 8)
+    sort_interval: int = 4
+    sort_margin: int = 0  # 0 = auto: ceil(interval * c*dt/min(dx))
+    tile_headroom: float = 2.0
+    # contraction precision of the TPU kernel; only 'f32' is ported
+    tile_mxu: str = "f32"  # f32 | mixed | bf16
+
+    @property
+    def galerkin(self) -> bool:
+        """Reduced-order gather along staggered axes (WarpX.cpp:154,
+        967, 1207-1214): off for collocated grids, momentum-conserving
+        gathering, and direct deposition with an EM solver."""
+        if self.grid_type == "collocated":
+            return False
+        if self.field_gathering == "momentum-conserving":
+            return False
+        if self.current_deposition == "direct" and self.em_solver not in (
+            "none",
+            "hybrid",
+        ):
+            return False
+        return True

@@ -1,0 +1,155 @@
+"""Simulation state as frozen dataclasses of tensors.
+
+The counterpart of ``warpx_tpu.core.state``: the same containers and field
+names, holding ``torch.Tensor``s on one device.  Steps return new states
+through ``.replace``; nothing updates a state in place.
+
+``state_from_numpy`` / ``state_to_numpy`` carry a state across frameworks as
+a nested dict of numpy arrays (``{"fields": {...}, "species": {name:
+{...}}, "step", "time", "aux"}``).  The tests use them to start the port
+from a ``warpx_tpu`` state and to compare the two.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["FieldState", "ParticleState", "SimState", "state_from_numpy",
+           "state_to_numpy"]
+
+_FIELD_NAMES = ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")
+_PARTICLE_NAMES = ("w", "ux", "uy", "uz", "alive", "x", "y", "z")
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldState:
+    """Per-level electromagnetic grid state on the periodic torus: one
+    (nx, ny, nz) array per component (reference: Source/Fields.H:28-81)."""
+
+    Ex: torch.Tensor
+    Ey: torch.Tensor
+    Ez: torch.Tensor
+    Bx: torch.Tensor
+    By: torch.Tensor
+    Bz: torch.Tensor
+    jx: torch.Tensor
+    jy: torch.Tensor
+    jz: torch.Tensor
+
+    def e(self):
+        return (self.Ex, self.Ey, self.Ez)
+
+    def b(self):
+        return (self.Bx, self.By, self.Bz)
+
+    def j(self):
+        return (self.jx, self.jy, self.jz)
+
+    def replace(self, **kw) -> "FieldState":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParticleState:
+    """Fixed-capacity SoA particle arrays for one species with an ``alive``
+    mask.  Positions are absolute SI coordinates; ``ux, uy, uz`` are proper
+    velocities gamma*v [m/s]."""
+
+    w: torch.Tensor
+    ux: torch.Tensor
+    uy: torch.Tensor
+    uz: torch.Tensor
+    alive: torch.Tensor  # bool
+    x: Optional[torch.Tensor] = None
+    y: Optional[torch.Tensor] = None
+    z: Optional[torch.Tensor] = None
+
+    @property
+    def capacity(self) -> int:
+        return self.w.shape[0]
+
+    def positions(self, ndim: int):
+        if ndim == 1:
+            return (self.z,)
+        if ndim == 2:
+            return (self.x, self.z)
+        return (self.x, self.y, self.z)
+
+    def with_positions(self, ndim: int, pos) -> "ParticleState":
+        if ndim == 1:
+            return dataclasses.replace(self, z=pos[0])
+        if ndim == 2:
+            return dataclasses.replace(self, x=pos[0], z=pos[1])
+        return dataclasses.replace(self, x=pos[0], y=pos[1], z=pos[2])
+
+    def replace(self, **kw) -> "ParticleState":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class SimState:
+    """Complete state advanced by the step function.  ``step`` and ``time``
+    are host numbers (the step loop branches on them without a device
+    sync); ``aux`` holds device counters such as ``tile_overflow``."""
+
+    fields: FieldState
+    species: Dict[str, ParticleState]
+    step: int
+    time: float
+    aux: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+    def replace(self, **kw) -> "SimState":
+        return dataclasses.replace(self, **kw)
+
+
+def _tensor(a, dtype, device):
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return torch.from_numpy(a.copy()).to(device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.from_numpy(a.astype(np.int32)).to(device)
+    return torch.from_numpy(a.copy()).to(device=device, dtype=dtype)
+
+
+def state_from_numpy(data: dict, dtype: torch.dtype,
+                     device: torch.device | str) -> SimState:
+    """Build a ``SimState`` from the nested numpy dict described in the
+    module docstring (absent position arrays stay None)."""
+    fields = FieldState(**{
+        nm: _tensor(data["fields"][nm], dtype, device) for nm in _FIELD_NAMES
+    })
+    species = {}
+    for name, sp in data["species"].items():
+        species[name] = ParticleState(**{
+            nm: _tensor(sp[nm], dtype, device)
+            for nm in _PARTICLE_NAMES if sp.get(nm) is not None
+        })
+    return SimState(
+        fields=fields,
+        species=species,
+        step=int(data["step"]),
+        time=float(data["time"]),
+        aux={k: _tensor(v, dtype, device)
+             for k, v in data.get("aux", {}).items()},
+    )
+
+
+def state_to_numpy(state: SimState) -> dict:
+    """The inverse of ``state_from_numpy``."""
+    def host(t):
+        return None if t is None else t.detach().cpu().numpy()
+
+    return {
+        "fields": {nm: host(getattr(state.fields, nm)) for nm in _FIELD_NAMES},
+        "species": {
+            name: {nm: host(getattr(sp, nm)) for nm in _PARTICLE_NAMES}
+            for name, sp in state.species.items()
+        },
+        "step": state.step,
+        "time": state.time,
+        "aux": {k: host(v) for k, v in state.aux.items()},
+    }

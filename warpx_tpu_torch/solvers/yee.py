@@ -1,0 +1,173 @@
+"""FDTD Maxwell updates on the staggered Yee mesh (periodic torus, 3D).
+
+The counterpart of ``warpx_tpu.solvers.yee`` (reference:
+FiniteDifferenceSolver EvolveB.cpp:120-190, EvolveE.cpp:120-215,
+CartesianYeeAlgorithm.H / CartesianCKCAlgorithm.H).  On the periodic
+domain the guard-cell exchange is ``torch.roll``.
+
+dB/dt = -curl E   (upward differences)
+dE/dt = c^2 (curl B - mu0 J)   (downward differences)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..constants import c as _c
+from ..constants import mu0 as _mu0
+from ..core.state import FieldState
+
+__all__ = [
+    "evolve_b", "evolve_e", "compute_dt_yee", "compute_dt_ckc",
+    "compute_div_e", "compute_div_b",
+]
+
+_c2 = _c * _c
+
+
+def _need_3d(geom):
+    if geom.ndim != 3:
+        raise NotImplementedError(
+            "1D/2D field advance (ROADMAP.md Queue A 9)"
+        )
+
+
+def _up(F, axis, inv_d):
+    return (torch.roll(F, -1, axis) - F) * inv_d
+
+
+def _down(F, axis, inv_d):
+    return (F - torch.roll(F, 1, axis)) * inv_d
+
+
+def compute_dt_ckc(geom, cfl: float) -> float:
+    """CKC timestep (CartesianCKCAlgorithm.H ComputeMaxDt)."""
+    return cfl * (min(geom.dx) / _c)
+
+
+def compute_dt_yee(geom, cfl: float) -> float:
+    """CFL timestep with the reference's rounding order
+    (CartesianYeeAlgorithm.H:48-56, WarpXComputeDt.cpp)."""
+    s = 0.0
+    for d in geom.dx:
+        s += 1.0 / (d * d)
+    deltat = 1.0 / ((s ** 0.5) * _c)
+    return cfl * deltat
+
+
+def _ckc_coefs(geom):
+    """Cole-Karkkainen-Cowan stencil coefficients, 3D
+    (CartesianCKCAlgorithm.H:36-105)."""
+    inv = [1.0 / d for d in geom.dx]
+    delta = max(inv)
+    rx, ry, rz = [(v / delta) ** 2 for v in inv]
+    beta = 0.125 * (1.0 - rx * ry * rz / (ry * rz + rz * rx + rx * ry))
+    inv_r = 1.0 / (ry * rz + rz * rx + rx * ry)
+    gx = ry * rz * (0.0625 - 0.125 * ry * rz * inv_r)
+    gy = rx * rz * (0.0625 - 0.125 * rx * rz * inv_r)
+    gz = rx * ry * (0.0625 - 0.125 * rx * ry * inv_r)
+    return {
+        "alphax": (1 - 2 * ry * beta - 2 * rz * beta - 4 * gx) * inv[0],
+        "alphay": (1 - 2 * rx * beta - 2 * rz * beta - 4 * gy) * inv[1],
+        "alphaz": (1 - 2 * rx * beta - 2 * ry * beta - 4 * gz) * inv[2],
+        "betaxy": ry * beta * inv[0], "betaxz": rz * beta * inv[0],
+        "betayx": rx * beta * inv[1], "betayz": rz * beta * inv[1],
+        "betazx": rx * beta * inv[2], "betazy": ry * beta * inv[2],
+        "gammax": gx * inv[0], "gammay": gy * inv[1], "gammaz": gz * inv[2],
+    }
+
+
+def _up_ckc(F, daxis, coefs):
+    """CKC extended upward difference along array axis ``daxis``."""
+    a, b = [ax for ax in range(3) if ax != daxis]
+    name = "xyz"[daxis]
+    alpha = coefs["alpha" + name]
+    beta_a = coefs["beta" + name + "xyz"[a]]
+    beta_b = coefs["beta" + name + "xyz"[b]]
+    gamma = coefs["gamma" + name]
+    base = torch.roll(F, -1, daxis) - F
+    term = alpha * base
+    term = term + beta_a * (torch.roll(base, -1, a) + torch.roll(base, 1, a))
+    term = term + beta_b * (torch.roll(base, -1, b) + torch.roll(base, 1, b))
+    term = term + gamma * (
+        torch.roll(torch.roll(base, -1, a), -1, b)
+        + torch.roll(torch.roll(base, 1, a), -1, b)
+        + torch.roll(torch.roll(base, -1, a), 1, b)
+        + torch.roll(torch.roll(base, 1, a), 1, b)
+    )
+    return term
+
+
+def evolve_b(fields: FieldState, geom, dt: float,
+             algo: str = "yee") -> FieldState:
+    _need_3d(geom)
+    Ex, Ey, Ez = fields.Ex, fields.Ey, fields.Ez
+    if algo == "ckc":
+        coefs = _ckc_coefs(geom)
+
+        def upx(F):
+            return _up_ckc(F, 0, coefs)
+
+        def upy(F):
+            return _up_ckc(F, 1, coefs)
+
+        def upz(F):
+            return _up_ckc(F, 2, coefs)
+    elif algo == "yee":
+        idx, idy, idz = (1.0 / d for d in geom.dx)
+
+        def upx(F):
+            return _up(F, 0, idx)
+
+        def upy(F):
+            return _up(F, 1, idy)
+
+        def upz(F):
+            return _up(F, 2, idz)
+    else:
+        raise NotImplementedError(
+            f"field solver {algo!r} (ROADMAP.md Queue A 10-11)"
+        )
+    Bx = fields.Bx + dt * (upz(Ey) - upy(Ez))
+    By = fields.By + dt * (upx(Ez) - upz(Ex))
+    Bz = fields.Bz + dt * (upy(Ex) - upx(Ey))
+    return fields.replace(Bx=Bx, By=By, Bz=Bz)
+
+
+def evolve_e(fields: FieldState, geom, dt: float,
+             algo: str = "yee") -> FieldState:
+    """E update; CKC uses the plain Yee downward differences for E."""
+    _need_3d(geom)
+    if algo not in ("yee", "ckc"):
+        raise NotImplementedError(
+            f"field solver {algo!r} (ROADMAP.md Queue A 10-11)"
+        )
+    Bx, By, Bz = fields.Bx, fields.By, fields.Bz
+    jx, jy, jz = fields.jx, fields.jy, fields.jz
+    k = _c2 * dt
+    idx, idy, idz = (1.0 / d for d in geom.dx)
+    Ex = fields.Ex + k * (_down(Bz, 1, idy) - _down(By, 2, idz) - _mu0 * jx)
+    Ey = fields.Ey + k * (_down(Bx, 2, idz) - _down(Bz, 0, idx) - _mu0 * jy)
+    Ez = fields.Ez + k * (_down(By, 0, idx) - _down(Bx, 1, idy) - _mu0 * jz)
+    return fields.replace(Ex=Ex, Ey=Ey, Ez=Ez)
+
+
+def compute_div_e(fields: FieldState, geom) -> torch.Tensor:
+    """Nodal div(E) (ComputeDivE.cpp; downward differences onto nodes)."""
+    _need_3d(geom)
+    idx, idy, idz = (1.0 / d for d in geom.dx)
+    return (
+        _down(fields.Ex, 0, idx)
+        + _down(fields.Ey, 1, idy)
+        + _down(fields.Ez, 2, idz)
+    )
+
+
+def compute_div_b(fields: FieldState, geom) -> torch.Tensor:
+    """Cell-centered div(B) (upward differences from faces to centers)."""
+    _need_3d(geom)
+    idx, idy, idz = (1.0 / d for d in geom.dx)
+    return (
+        _up(fields.Bx, 0, idx) + _up(fields.By, 1, idy)
+        + _up(fields.Bz, 2, idz)
+    )
