@@ -13,13 +13,23 @@ exits non-zero:
                Vay and Higuera-Cary pushers, float64 and float32, each case
                launched K1_REPEATS times (its shared-memory atomics sum in
                an order that changes from launch to launch);
+  k2_parity    kernel K2 (the 2D XZ fused kernel) against its plain version
+               at 32^2, the same cases and launches;
+  k1c_parity   K1 and K2 in moving-window mode (smax = 8, zshift 0, 3 and 8,
+               tiles anchored off prob_lo) against their plain versions, and
+               the mode's neutral arguments against the call without them;
   k3_parity    kernel K3 (rebin slot expansion) against its plain version;
   slice_parity 8 steps of Simulation at 16^3 in float64 on the card and on
                the CPU: every checksum but divE/divB agrees to 1e-9;
-  main         the main path at 128^3 cells, 2 species, 8.39 M particles,
+  slice2d_parity  the same for the 2D slice at 32^2;
+  main         the 3D main path at 128^3 cells, 2 species, 8.39 M particles,
                float32: init, one warm step, 20 timed steps, 3 profiled
                steps, the closing step; then each kernel at the main path's
-               shapes against its plain version, timed beside its bound.
+               shapes against its plain version, timed beside its bound;
+  main2d       the 2D main path at 2048^2 cells, 2 species, 33.6 M particles,
+               order 3, float32: init, one warm step, 33 timed steps (rebins
+               at steps 16 and 32), 3 profiled steps, the closing step; then
+               K2 and K3 at its shapes as above.
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  With no GPU, or without the package beside
@@ -41,12 +51,13 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
-# The main path's current windows in float32: its thermal particles drift
+# The main paths' current windows in float32: their thermal particles drift
 # ~0.006 cells a step, and the current is a difference of shape factors over
 # that drift.  Kernel and plain version push with velocities that differ in
 # the 7th digit, so now and then x_new rounds to the neighbouring float32
-# (2^-20 cells at W = 16), which moves that particle's current by
-# ~1e-6/0.006 ~ 2e-4 of itself.  1e-4 of the largest window value bounds it.
+# (2^-20 cells at W = 16, 2^-19 at W = 24), which moves that particle's
+# current by ~1e-6/0.006 ~ 2e-4 of itself.  1e-4 of the largest window value
+# bounds it.
 TOL_J_MAIN = 1e-4
 
 
@@ -84,32 +95,37 @@ def rel_err(got, ref):
     return d, d / scale if scale else d
 
 
-# ---- kernel K1 ------------------------------------------------------------
+# ---- kernels K1 (3D) and K2 (2D) -------------------------------------------
 
-def k1_inputs(n, order, dtype, dev, seed):
-    """Two species in the tile layout at n^3 with random fields, dead slots,
-    one empty (species, tile) and one alive particle whose deposit stencil
-    is clipped at its window's low side (a counted violation)."""
+def kernel_inputs(ndim, n, order, dtype, dev, seed, smax=0, anchor_off=0.0):
+    """Two species in the tile layout at n^ndim with random fields, dead
+    slots, one empty (species, tile) and one alive particle whose deposit
+    stencil is clipped at its window's low side (a counted violation).
+    With ``smax`` the padded fields are that much longer on the last axis;
+    with ``anchor_off`` the tiles are anchored that many cells above
+    prob_lo.  Returns ((params, fields6, parts), counts, keywords, anchors).
+    """
     from warpx_tpu_torch.core.grid import Geometry
     from warpx_tpu_torch.core.state import ParticleState
-    from warpx_tpu_torch.ops.fused_pic import pad_fields
+    from warpx_tpu_torch.ops.fused_pic import pad_fields, padded_shape
     from warpx_tpu_torch.ops.tiling import TileSpec, rebin
     from warpx_tpu_torch.solvers.yee import compute_dt_yee
 
     rng = np.random.default_rng(seed)
     lx = 40e-6
-    geom = Geometry(ndim=3, n_cell=(n,) * 3, prob_lo=(-lx / 2,) * 3,
-                    prob_hi=(lx / 2,) * 3, periodic=(True,) * 3)
+    geom = Geometry(ndim=ndim, n_cell=(n,) * ndim, prob_lo=(-lx / 2,) * ndim,
+                    prob_hi=(lx / 2,) * ndim, periodic=(True,) * ndim)
     dt = compute_dt_yee(geom, 0.999)
-    npart = 2 * n ** 3
+    npart = 2 * n ** ndim
     spec = TileSpec.create(geom.n_cell, order=order, n_particles=npart,
                            margin=1, interval=4)
     c = 299792458.0
     t64 = dict(dtype=torch.float64)
+    names = ("x", "z") if ndim == 2 else ("x", "y", "z")
     parts = []
     for s in range(2):
         alive = rng.random(npart) > 0.1
-        pos = rng.uniform(-lx / 2, lx / 2, (3, npart))
+        pos = rng.uniform(-lx / 2, lx / 2, (ndim, npart))
         if s == 1:  # leave tile 0 empty for this species
             alive &= ~np.all(pos < -lx / 2 + spec.tile[0] * geom.dx[0],
                              axis=0)
@@ -118,8 +134,7 @@ def k1_inputs(n, order, dtype, dev, seed):
             w=torch.tensor(rng.uniform(0.5, 1.5, npart) * 1e10 * alive, **t64),
             ux=torch.tensor(u[0], **t64), uy=torch.tensor(u[1], **t64),
             uz=torch.tensor(u[2], **t64), alive=torch.tensor(alive),
-            x=torch.tensor(pos[0], **t64), y=torch.tensor(pos[1], **t64),
-            z=torch.tensor(pos[2], **t64),
+            **{nm: torch.tensor(pos[d], **t64) for d, nm in enumerate(names)},
         )
         sp, _ = rebin(sp, geom, spec)
         parts.append(sp)
@@ -128,7 +143,7 @@ def k1_inputs(n, order, dtype, dev, seed):
     sp0 = parts[0]
     k = int(torch.nonzero(sp0.alive)[0])
     t = k // spec.p_max
-    tx = t // (spec.tiles_per_dim[1] * spec.tiles_per_dim[2])
+    tx = t // int(np.prod(spec.tiles_per_dim[1:]))
     xwin = 0.25 + 0.5 * order  # start_index(x, order) == 0
     x = sp0.x.clone()
     x[k] = geom.prob_lo[0] + (tx * spec.tile[0] - spec.off + xwin) * geom.dx[0]
@@ -136,41 +151,56 @@ def k1_inputs(n, order, dtype, dev, seed):
     ux[k] = 0.0
     parts[0] = sp0.replace(x=x, ux=ux)
     nt, P = spec.n_tiles, spec.p_max
+    anchors = tuple(lo + anchor_off * d
+                    for lo, d in zip(geom.prob_lo, geom.dx))
     cols = [torch.cat([getattr(sp, a).reshape(nt, P) for sp in parts])
-            for a in ("x", "y", "z", "ux", "uy", "uz")]
+            + anchor_off * geom.dx[d] for d, a in enumerate(names)]
+    cols += [torch.cat([getattr(sp, a).reshape(nt, P) for sp in parts])
+             for a in ("ux", "uy", "uz")]
     cols.append(torch.cat([torch.where(sp.alive, sp.w, 0.0).reshape(nt, P)
                            for sp in parts]))
     counts = torch.cat([sp.alive.reshape(nt, P).sum(1, dtype=torch.int32)
                         for sp in parts])
-    assert int((counts == 0).sum()) >= 1
-    fields = []
-    for scale in (1e10,) * 3 + (30.0,) * 3:
-        fields.append(torch.tensor(rng.normal(0, scale, geom.n_cell), **t64))
+    if int((counts == 0).sum()) < 1:
+        raise AssertionError("the test layout lost its empty tile")
+    to = dict(dtype=dtype, device=dev)
+    fshape = geom.n_cell if smax == 0 else padded_shape(spec, geom.n_cell,
+                                                        smax)
+    fields = tuple(torch.tensor(rng.normal(0, scale, fshape), **t64).to(**to)
+                   for scale in (1e10,) * 3 + (30.0,) * 3)
+    if smax == 0:
+        fields = pad_fields(fields, spec)
     params = torch.tensor([[-1.602176634e-19, 9.1093837015e-31, 1e9, 0, 0,
                             0, 0, 1.0],
                            [1.602176634e-19, 1.67262192369e-27, 0, 0, 0,
                             0, 0, 0]], **t64)
-    to = dict(dtype=dtype, device=dev)
-    args = (params.to(**to), pad_fields(tuple(f.to(**to) for f in fields),
-                                        spec),
+    args = (params.to(**to), fields,
             tuple(a.to(**to).contiguous() for a in cols))
-    return args, counts.to(dev), dict(spec=spec, geom=geom, dt=dt)
+    return args, counts.to(dev), dict(spec=spec, geom=geom, dt=dt), anchors
 
 
-def k1_compare(fp, args, counts, kw, tol, tol_j=None, repeats=1):
-    """K1 against its plain version on the same inputs, over ``repeats``
-    launches of K1: max |diff| over max |ref| per output must stay within
-    ``tol`` (``tol_j`` for the current windows, default ``tol``) in every
-    launch; the violation counts must be equal.  Returns the errors of the
-    worst launch per output, the violation count, the worst relative error
-    of the particles and of the J windows, and the J error of each launch."""
+def kernel_compare(fp, args, counts, kw, tol, tol_j=None, repeats=1,
+                   anchors=None, zshift=None, smax=0):
+    """K1 or K2 against the plain version on the same inputs, over
+    ``repeats`` launches of the kernel: max |diff| over max |ref| per output
+    must stay within ``tol`` (``tol_j`` for the current windows, default
+    ``tol``) in every launch; the violation counts must be equal.  Returns
+    the errors of the worst launch per output, the violation count, the
+    worst relative error of the particles and of the J windows, and the J
+    error of each launch."""
     tol_j = tol if tol_j is None else tol_j
-    out_p = fp.binned_push_deposit_plain(*args, counts, **kw)
-    names = ("x", "y", "z", "ux", "uy", "uz")
+    mode = {} if zshift is None else dict(anchors=anchors, zshift=zshift)
+    plain_mode = {} if zshift is None else dict(lo=anchors,
+                                                zoff=smax - zshift)
+    out_p = fp.binned_push_deposit_plain(*args, counts, **plain_mode, **kw)
+    ndim = kw["spec"].ndim
+    names = (("x", "z") if ndim == 2 else ("x", "y", "z")) + ("ux", "uy",
+                                                              "uz")
     errs = {}
     j_runs = []
     for _ in range(repeats):
-        out_k = fp.binned_push_deposit(*args, counts=counts, **kw)
+        out_k = fp.binned_push_deposit(*args, counts=counts, smax=smax,
+                                       **mode, **kw)
         torch.cuda.synchronize()
         run = {}
         for nm, a, b in zip(names, out_k[0], out_p[0]):
@@ -178,46 +208,111 @@ def k1_compare(fp, args, counts, kw, tol, tol_j=None, repeats=1):
         for nm, a, b in zip(("jx", "jy", "jz"), out_k[1], out_p[1]):
             run[nm] = rel_err(a, b)
         if not torch.equal(out_k[2], out_p[2]):
-            raise AssertionError("K1's violation counts differ from its "
-                                 "plain version's")
+            raise AssertionError("the kernel's violation counts differ from "
+                                 "its plain version's")
         for nm, e in run.items():
             errs[nm] = max(errs.get(nm, e), e, key=lambda t: t[1])
         j_runs.append(max(run[nm][1] for nm in ("jx", "jy", "jz")))
     worst_p = max(errs[nm][1] for nm in names)
     worst_j = max(errs[nm][1] for nm in ("jx", "jy", "jz"))
     if worst_p > tol or worst_j > tol_j:
-        raise AssertionError(f"K1 disagrees with its plain version: {errs}")
+        raise AssertionError(f"the {ndim}D kernel disagrees with its plain "
+                             f"version: {errs}")
     return errs, int(out_p[2].sum()), worst_p, worst_j, j_runs
 
 
 K1_REPEATS = 5
 
 
-def phase_k1_parity(dev):
+def stag_items(ndim):
     from warpx_tpu_torch.core.grid import yee_staggering
+
+    return tuple(sorted((k, tuple(v))
+                        for k, v in yee_staggering(ndim).items()))
+
+
+def phase_kernel_parity(dev, phase, ndim, n):
+    """K1 (ndim 3) or K2 (ndim 2) against the plain version: both types,
+    orders 1-3, three pushers, K1_REPEATS launches per case."""
     from warpx_tpu_torch.ops import fused_pic as fp
 
-    stag = tuple(sorted((k, tuple(v)) for k, v in yee_staggering(3).items()))
     cases = []
     for dtype in (torch.float64, torch.float32):
         for order in (1, 2, 3):
             for pusher in ("boris", "vay", "higuera"):
-                args, counts, kw = k1_inputs(16, order, dtype, dev,
-                                             seed=order)
+                args, counts, kw, _ = kernel_inputs(ndim, n, order, dtype,
+                                                    dev, seed=order)
                 kw.update(order=order, galerkin=True, pusher_name=pusher,
-                          stag_items=stag)
-                _, nviol, worst_p, worst_j, j_runs = k1_compare(
+                          stag_items=stag_items(ndim))
+                _, nviol, worst_p, worst_j, j_runs = kernel_compare(
                     fp, args, counts, kw, TOL[dtype], repeats=K1_REPEATS)
+                if not nviol:
+                    raise AssertionError("the clipped particle was not "
+                                         "counted as a violation")
                 cases.append({"dtype": str(dtype), "order": order,
                               "pusher": pusher, "particles_rel_err": worst_p,
                               "j_rel_err": worst_j, "j_rel_err_min": min(j_runs),
                               "violations": nviol})
-    worst = {str(dt): max(max(c["particles_rel_err"], c["j_rel_err"])
-                          for c in cases if c["dtype"] == str(dt))
+    worst = {str(dt): {k: max(c[k] for c in cases if c["dtype"] == str(dt))
+                       for k in ("particles_rel_err", "j_rel_err")}
              for dt in TOL}
-    emit("k1_parity", ok=True, repeats=K1_REPEATS,
+    emit(phase, ok=True, repeats=K1_REPEATS, n_cell=(n,) * ndim,
          tol=dict((str(k), v) for k, v in TOL.items()), worst=worst,
          cases=cases)
+
+
+def phase_k1c_parity(dev):
+    """The moving-window mode of K1 and K2: smax = 8 slack cells, zshift 0, 3
+    and 8, tiles anchored 0.37 cells off prob_lo, against the plain versions.
+    Then the mode's neutral arguments (anchors = prob_lo, zshift = 0,
+    smax = 0) against the call without them: the particles and the violation
+    counts must be bit-identical; the J windows are sums of shared-memory
+    atomics, whose order changes from launch to launch, so they are held to
+    the kernels' tolerance and their bitwise equality is only reported."""
+    from warpx_tpu_torch.ops import fused_pic as fp
+
+    smax = 8
+    cases = []
+    for ndim, n, order in ((3, 16, 1), (2, 32, 3)):
+        for dtype in (torch.float64, torch.float32):
+            for zshift in (0, 3, 8):
+                args, counts, kw, anchors = kernel_inputs(
+                    ndim, n, order, dtype, dev, seed=7, smax=smax,
+                    anchor_off=0.37)
+                kw.update(order=order, galerkin=True, pusher_name="boris",
+                          stag_items=stag_items(ndim))
+                _, nviol, worst_p, worst_j, _ = kernel_compare(
+                    fp, args, counts, kw, TOL[dtype], anchors=anchors,
+                    zshift=zshift, smax=smax)
+                cases.append({"ndim": ndim, "dtype": str(dtype),
+                              "zshift": zshift, "particles_rel_err": worst_p,
+                              "j_rel_err": worst_j, "violations": nviol})
+    neutral = []
+    for ndim, n, order in ((3, 16, 1), (2, 32, 3)):
+        for dtype in (torch.float64, torch.float32):
+            args, counts, kw, anchors = kernel_inputs(ndim, n, order, dtype,
+                                                      dev, seed=8)
+            kw.update(order=order, galerkin=True, pusher_name="boris",
+                      stag_items=stag_items(ndim), counts=counts)
+            a = fp.binned_push_deposit(*args, **kw)
+            b = fp.binned_push_deposit(*args, anchors=kw["geom"].prob_lo,
+                                       zshift=0, smax=0, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(a[0] + (a[2],),
+                                                         b[0] + (b[2],))):
+                raise AssertionError("neutral moving-window arguments "
+                                     "changed the particles")
+            j_err = max(rel_err(x, y)[1] for x, y in zip(a[1], b[1]))
+            if j_err > TOL[dtype]:
+                raise AssertionError(f"neutral moving-window arguments "
+                                     f"changed J by {j_err}")
+            neutral.append({"ndim": ndim, "dtype": str(dtype),
+                            "particles_bitwise": True, "j_rel_err": j_err,
+                            "j_bitwise": all(torch.equal(x, y) for x, y
+                                             in zip(a[1], b[1]))})
+    emit("k1c_parity", ok=True, smax=smax,
+         tol=dict((str(k), v) for k, v in TOL.items()), cases=cases,
+         neutral=neutral)
 
 
 # ---- kernel K3 ------------------------------------------------------------
@@ -252,13 +347,13 @@ def phase_k3_parity(dev):
 
 # ---- the slice on the card against the CPU --------------------------------
 
-def phase_slice_parity(dev):
+def phase_slice_parity(dev, phase, ndim):
     import warpx_tpu_torch
 
     sums = {}
     for device in (dev, "cpu"):
-        sim = warpx_tpu_torch.Simulation(small_cfg(), dtype=torch.float64,
-                                         device=device)
+        sim = warpx_tpu_torch.Simulation(small_cfg(ndim),
+                                         dtype=torch.float64, device=device)
         sim.init()
         sim.evolve()
         sums[str(device)] = sim.checksums()
@@ -273,7 +368,7 @@ def phase_slice_parity(dev):
             if r > 1e-9:
                 raise AssertionError(f"slice checksum {group}/{q}: card "
                                      f"{got[group][q]!r} vs CPU {a!r}")
-    emit("slice_parity", ok=True, max_rel_err=worst, tol=1e-9)
+    emit(phase, ok=True, ndim=ndim, max_rel_err=worst, tol=1e-9)
 
 
 # ---- the main path --------------------------------------------------------
@@ -312,23 +407,23 @@ def profile_steps(sim, steps):
                     for ms, n, k in rows[:15]]}
 
 
-def plasma_cfg(n, u_th, second, max_step, **kw):
-    """bench.py::_build_sim's uniform thermal plasma at n^3 cells: electrons
-    and a second species of the electron's mass and opposite charge, (2,1,1)
-    particles per cell each, order 1, Yee, dt at 0.999 of the Courant
-    limit; ``kw`` sets the tiling."""
+def plasma_cfg(ndim, n, ppc, order, u_th, second, max_step, **kw):
+    """bench.py::_build_sim's uniform thermal plasma at n^ndim cells in a
+    40 um box: electrons and a second species of the electron's mass and
+    opposite charge, ``ppc`` particles per cell each, Yee, dt at 0.999 of
+    the Courant limit; ``kw`` sets the tiling."""
     from warpx_tpu_torch.core.config import SimConfig, SpeciesConfig
     from warpx_tpu_torch.core.grid import Geometry
     from warpx_tpu_torch.solvers.yee import compute_dt_yee
 
     lx = 40e-6
-    geom = Geometry(ndim=3, n_cell=(n,) * 3, prob_lo=(-lx / 2,) * 3,
-                    prob_hi=(lx / 2,) * 3, periodic=(True,) * 3)
+    geom = Geometry(ndim=ndim, n_cell=(n,) * ndim, prob_lo=(-lx / 2,) * ndim,
+                    prob_hi=(lx / 2,) * ndim, periodic=(True,) * ndim)
     species = tuple(
         SpeciesConfig(
             name=nm, charge=q, mass=9.1093837015e-31,
             injection_style="nuniformpercell",
-            num_particles_per_cell_each_dim=(2, 1, 1),
+            num_particles_per_cell_each_dim=ppc,
             profile="constant", density=2.0e24,
             momentum_distribution="gaussian",
             ux_th=u_th, uy_th=u_th, uz_th=u_th,
@@ -337,68 +432,134 @@ def plasma_cfg(n, u_th, second, max_step, **kw):
                       (second, 1.602176634e-19))
     )
     return SimConfig(geometry=geom, max_step=max_step,
-                     dt=compute_dt_yee(geom, 0.999), particle_shape=1,
+                     dt=compute_dt_yee(geom, 0.999), particle_shape=order,
                      species=species, tiled_particles="on", **kw)
 
 
-def small_cfg():
-    """test_binned.py's 3D order-1 configuration: 16^3, 8 steps."""
-    return plasma_cfg(16, 0.1, "positrons", 8, sort_interval=3)
+def small_cfg(ndim):
+    """test_binned.py's order-1 configurations: 16^3 or 32^2, 8 steps."""
+    return plasma_cfg(ndim, 16 if ndim == 3 else 32, (2, 1, 1), 1, 0.1,
+                      "positrons", 8, sort_interval=3)
 
 
 def main_cfg(n=128, steps=25):
-    """The main path: bench.py::_build_sim at n = 128, ppc = 2, with the
-    f32 deposit and gather (tile_mxu='f32')."""
-    return plasma_cfg(n, 0.01, "ions", steps, sort_interval=60,
-                      sort_margin=1, tile_headroom=1.125, tile_mxu="f32")
+    """uniform-128, the 3D main path: bench.py::_build_sim at n = 128,
+    ppc = 2, order 1, with the f32 deposit and gather (tile_mxu='f32')."""
+    return plasma_cfg(3, n, (2, 1, 1), 1, 0.01, "ions", steps,
+                      sort_interval=60, sort_margin=1, tile_headroom=1.125,
+                      tile_mxu="f32")
 
 
-def k1_flops_per_slot(order, galerkin):
-    """Arithmetic of the kernel's loops for one slot: 3 per gather tap,
-    ~80 for the push, 6 per Esirkepov tap of each current component and
-    ~16 per deposit stencil row."""
+def main2d_cfg(n=2048, steps=38):
+    """uniform2d-2048, the 2D main path: the same plasma in the XZ plane at
+    2048^2 cells, (2, 2) particles per cell each, with the shape order (3)
+    and the sort interval (16) of bench.py::run_lwfa's deck."""
+    return plasma_cfg(2, n, (2, 2), 3, 0.01, "ions", steps,
+                      sort_interval=16, sort_margin=1, tile_headroom=1.125,
+                      tile_mxu="f32")
+
+
+# Floating-point operations of one call of each pusher in
+# csrc/fused_pic_common.cuh, counted term by term (an add, a multiply, a
+# divide and a square root are one each; inv_gamma is 9)
+PUSH_FLOPS = {"boris": 64, "vay": 99, "higuera": 95}
+# ... and of the order + 1 non-zero values of spline() a particle has at
+# orders 1-3 (order 2: one inner branch of 2 and two outer of 3; order 3: two
+# inner of 5 and two outer of 4); a value outside the support costs none
+SPLINE_SET_FLOPS = {1: 2, 2: 8, 3: 18}
+
+
+def fused_flops(order, galerkin, ndim, pusher):
+    """Floating-point operations of K1 (ndim 3) or K2 (ndim 2) for one slot,
+    counted from the loops of csrc/fused_pic.cu and csrc/fused_pic_2d.cu as
+    (what every slot of an occupied tile needs: coordinates, gather, push;
+    what only an alive slot needs: the Esirkepov weights and the deposit).
+    The kernels' tails for a stencil clipped at the window's low side are
+    left out: on a path with zero violations no alive particle takes them."""
     from warpx_tpu_torch.core.grid import yee_staggering
     from warpx_tpu_torch.ops.fused_pic import _gather_table
 
-    gorder, _ = _gather_table(order, galerkin, yee_staggering(3))
-    taps = sum(int(np.prod([gorder[c * 3 + d] + 1 for d in range(3)]))
-               for c in range(6))
     nt = order + 3
-    return 3 * taps + 80 + 3 * nt ** 3 * 6 + 3 * nt * 16
+    gorder, gstag = _gather_table(order, galerkin, yee_staggering(ndim), ndim)
+
+    def weights(o):  # gather_weights(): rounding add, offsets, splines
+        return 2 if o == 0 else (o % 2 == 0) + (o + 1) + SPLINE_SET_FLOPS[o]
+
+    every = 3 * ndim  # X = (pos - lo) * inv_dx - worig
+    for c in range(6):
+        o = gorder[c * ndim:(c + 1) * ndim]
+        taps = int(np.prod([v + 1 for v in o]))
+        every += sum(gstag[c * ndim:(c + 1) * ndim])  # X - 1/2
+        every += sum(weights(v) for v in o)
+        # per tap a multiply-add (3D: and the product of two weights), per x
+        # row a multiply-add, then the external field
+        every += (ndim * taps) + 2 * (o[0] + 1) + 1
+    # the pusher, 1 / gamma again, the velocities, pos + v * dt
+    every += PUSH_FLOPS[pusher] + 9 + 3 + 2 * ndim
+    # per axis: x_new (2), its rounding add at order 2, and per stencil row
+    # two offsets, sm, df and the running sum, with both spline sets
+    alive = ndim * (2 + (order % 2 == 0) + nt * 5
+                    + 2 * SPLINE_SET_FLOPS[order])
+    if ndim == 3:
+        # wq; per component its scale, per row cs * scale, per point seven
+        alive += 1 + 3 * (1 + nt * (1 + nt * nt * 7))
+    else:
+        # wq, the three scales (5); per x row four factors (6); per point
+        # Jx (2), Jz (2), Jy (3) and their three atomic adds
+        alive += 5 + nt * 6 + nt * nt * 10
+    return every, alive
 
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def phase_main(dev, smi, n=128):
+def run_main_path(dev, smi, phase, cfg, n_particles, steps, counters):
+    """Drive one main path through Simulation: init, a warm step, ``steps``
+    timed steps, PROFILED_STEPS profiled steps and the closing step, with
+    the launch counters in ``counters`` (name -> (object, attribute)) set
+    to 0 just before and read just after.  Checks the result (zero overflow
+    and violations, every particle alive, weight conserved, finite fields
+    of the grid's shape) and emits the phase's line and its profile.
+    Returns (sim, launches)."""
     import warpx_tpu_torch
-    from warpx_tpu_torch.core.binned_step import pusher_groups
-    from warpx_tpu_torch.ops import fused_pic as fp
-    from warpx_tpu_torch.ops import tiling
 
-    cfg = main_cfg(n)
-    n_particles = 2 * 2 * n ** 3
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
-    fp.binned_push_deposit.launches = 0
-    tiling.ragged_expand.launches = 0
+    if not sim.binned:
+        raise AssertionError(f"the {phase} path did not take the tile-binned "
+                             "step")
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
     sim.init()
-    sim.evolve(1)  # warm step: rebins (K3) and the first K1 launch
+    sim.evolve(1)  # warm step: rebins (K3) and the first fused launch
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    steps = 20
-    ms_total = cuda_ms(lambda: sim.evolve(steps), 1)
+    # the timed window, with an event after every step: the window's time
+    # is first to last event, the series shows how the step's cost moves
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    marks[0].record()
+    for mark in marks[1:]:
+        sim.evolve(1)
+        mark.record()
+    marks[-1].synchronize()
+    ms_total = marks[0].elapsed_time(marks[-1])
+    series = [round(a.elapsed_time(b), 3) for a, b in zip(marks, marks[1:])]
     breakdown = profile_steps(sim, PROFILED_STEPS)
     sim.evolve()  # the closing step, with the +dt/2 synchronization
     torch.cuda.synchronize()
-    launches = {"fused_pic": fp.binned_push_deposit.launches,
-                "ragged_expand": tiling.ragged_expand.launches}
+    launches = {nm: getattr(obj, attr)
+                for nm, (obj, attr) in counters.items()}
+    peak_steps = torch.cuda.max_memory_allocated()
+    # one more step from the state the run ended in, not kept: the step's
+    # time under the conditions the kernels are timed in below
+    ms_final = cuda_ms(lambda: sim.step(sim.state), 5)
     if not all(launches.values()):
-        raise AssertionError(f"a kernel of the main path never ran: "
+        raise AssertionError(f"a kernel of the {phase} path never ran: "
                              f"{launches}")
     spec = sim.tile_spec
-    state = sim.state
+    geom = cfg.geometry
     sums = sim.checksums()  # raises on tile overflow or violations
     for group in sums.values():
         for q, v in group.items():
@@ -407,89 +568,149 @@ def phase_main(dev, smi, n=128):
     alive = sum(int(sp.alive.sum()) for sp in sim.state.species.values())
     if alive != n_particles:
         raise AssertionError(f"{alive} alive particles of {n_particles}")
-    w0 = 2.0e24 * sim.cfg.geometry.cell_volume / 2  # weight per particle
-    for nm, group in sums.items():
-        if nm != "lev=0":
-            w_rel = abs(group["particle_weight"] / (n_particles / 2 * w0) - 1)
-            if w_rel > 1e-5:
-                raise AssertionError(f"{nm} weight drifted by {w_rel}")
+    for sp_cfg in cfg.species:
+        # a uniform species' weights sum to density * volume
+        total_w = sp_cfg.density * geom.cell_volume * np.prod(geom.n_cell)
+        w_rel = abs(sums[sp_cfg.name]["particle_weight"] / total_w - 1)
+        if w_rel > 1e-5:
+            raise AssertionError(f"{sp_cfg.name} weight drifted by {w_rel}")
     for f in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz"):
         a = getattr(sim.state.fields, f)
-        if tuple(a.shape) != (n,) * 3 or not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"field {f} is not finite at ({n},)*3")
+        if (tuple(a.shape) != tuple(geom.n_cell)
+                or not bool(torch.isfinite(a).all())):
+            raise AssertionError(f"field {f} is not finite at {geom.n_cell}")
     ms_step = ms_total / steps
-    emit("main", ok=True, n_cell=n, n_particles=n_particles,
-         n_tiles=spec.n_tiles, w=spec.w, p_max=spec.p_max,
-         steps_timed=steps, ms_per_step=ms_step,
+    emit(phase, ok=True, n_cell=geom.n_cell, n_particles=n_particles,
+         order=cfg.particle_shape, n_tiles=spec.n_tiles, w=spec.w,
+         p_max=spec.p_max, steps_timed=steps, ms_per_step=ms_step,
          pushes_per_s=n_particles / (ms_step * 1e-3), init_s=init_s,
          launches=launches, tile_overflow=0, tile_violations=0,
+         ms_per_step_final_state=ms_final, ms_each_step=series,
+         peak_memory_bytes={"steps": peak_steps, "with_checksums":
+                            torch.cuda.max_memory_allocated()},
          checksum_Ex=sums["lev=0"]["Ex"], checksum_jx=sums["lev=0"]["jx"],
          device=torch.cuda.get_device_name(0), nvidia_smi=smi)
-    emit("main_profile", steps=PROFILED_STEPS, **breakdown)
+    emit(phase + "_profile", steps=PROFILED_STEPS, **breakdown)
+    return sim, launches
 
-    # ---- each kernel at the main path's shapes ---------------------------
-    stag = tuple(sorted((k, tuple(v)) for k, v in sim.staggering.items()))
+
+def fused_at_main_shapes(sim, plain_reps):
+    """K1 or K2 on the state ``sim`` ended in, against the plain version:
+    errors, times, bytes (each input read once, each output written once),
+    operations (``fused_flops``: gather and push for every slot of an
+    occupied tile, weights and deposit for the alive slots) and the bound.
+    Returns the kernels-line fields that are measured here."""
+    from warpx_tpu_torch.core.binned_step import pusher_groups
+    from warpx_tpu_torch.ops import fused_pic as fp
+
+    cfg, spec, state = sim.cfg, sim.tile_spec, sim.state
     farr = state.fields
     fields6 = fp.pad_fields((farr.Ex, farr.Ey, farr.Ez, farr.Bx, farr.By,
                              farr.Bz), spec)
-    ((pname, _, params, parts7, counts),) = list(
+    ((pname, _, params, parts, counts),) = list(
         pusher_groups(state, spec, sim.params))
     kw = dict(spec=spec, geom=cfg.geometry, order=cfg.particle_shape,
               galerkin=cfg.galerkin, pusher_name=pname, dt=cfg.dt,
-              stag_items=stag)
-    args = (params, fields6, parts7)
-    errs, _, worst_p, worst_j, _ = k1_compare(
+              stag_items=stag_items(spec.ndim))
+    args = (params, fields6, parts)
+    errs, _, worst_p, worst_j, _ = kernel_compare(
         fp, args, counts, kw, TOL[torch.float32], TOL_J_MAIN)
-    k1_abs = max(a for a, _ in errs.values())
-    k1_ms = cuda_ms(lambda: fp.binned_push_deposit(*args, counts=counts,
-                                                   **kw), 10)
-    k1_plain_ms = cuda_ms(lambda: fp.binned_push_deposit_plain(
-        *args, counts, **kw), 2)
-    out = fp.binned_push_deposit(*args, counts=counts, **kw)
-    k1_bytes = (nbytes(params, counts, *fields6, *parts7)
-                + nbytes(*out[0], *out[1], out[2]))
-    occupied_slots = int((counts > 0).sum()) * spec.p_max
-    k1_flops = occupied_slots * k1_flops_per_slot(cfg.particle_shape,
-                                                  cfg.galerkin)
-    k1_tb = k1_bytes / PEAK_BYTES_PER_S * 1e3
-    k1_tf = k1_flops / PEAK_FLOPS[torch.float32] * 1e3
 
-    sp = state.species["electrons"]
-    k3_in = tiling.rebin_inputs(sp, cfg.geometry, spec)
+    def launch():
+        return fp.binned_push_deposit(*args, counts=counts, **kw)
+
+    ms = cuda_ms(launch, 10)
+    plain_ms = cuda_ms(lambda: fp.binned_push_deposit_plain(
+        *args, counts, **kw), plain_reps)
+    out = launch()
+    n_bytes = (nbytes(params, counts, *fields6, *parts)
+               + nbytes(*out[0], *out[1], out[2]))
+    every, alive = fused_flops(cfg.particle_shape, cfg.galerkin, spec.ndim,
+                               pname)
+    flops = (int((counts > 0).sum()) * spec.p_max * every
+             + int(counts.sum()) * alive)
+    tb = n_bytes / PEAK_BYTES_PER_S * 1e3
+    tf = flops / PEAK_FLOPS[torch.float32] * 1e3
+    row = {"max_abs_err": max(a for a, _ in errs.values()),
+           "max_rel_err": {"particles": worst_p, "j": worst_j},
+           "tol_rel": {"particles": TOL[torch.float32], "j": TOL_J_MAIN},
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(tb, tf),
+           "bound_by": "bytes" if tb >= tf else "operations",
+           "bytes": n_bytes, "flops": flops,
+           "flops_per_slot": {"every": every, "alive": alive},
+           "library_ms": None}
+    return row
+
+
+def k3_at_main_shapes(sim):
+    """K3 on the electrons of the state ``sim`` ended in, against the plain
+    version (exactly), with its times, bytes and bound."""
+    from warpx_tpu_torch.ops import tiling
+
+    spec = sim.tile_spec
+    k3_in = tiling.rebin_inputs(sim.state.species["electrons"],
+                                sim.cfg.geometry, spec)
     got = tiling.ragged_expand(*k3_in, spec.p_max)
     ref = tiling.ragged_expand_plain(*k3_in, spec.p_max)
     torch.cuda.synchronize()
     if not torch.equal(got, ref):
         raise AssertionError("K3 disagrees with its plain version at the "
                              "main path's shapes")
-    k3_ms = cuda_ms(lambda: tiling.ragged_expand(*k3_in, spec.p_max), 10)
-    k3_plain_ms = cuda_ms(lambda: tiling.ragged_expand_plain(
+    del ref
+    ms = cuda_ms(lambda: tiling.ragged_expand(*k3_in, spec.p_max), 10)
+    plain_ms = cuda_ms(lambda: tiling.ragged_expand_plain(
         *k3_in, spec.p_max), 3)
-    payload, offsets, k3_counts, fill = k3_in
-    kept = int(torch.clamp(k3_counts, max=spec.p_max).sum())
-    k3_bytes = (payload.shape[0] * kept * payload.element_size()
-                + nbytes(offsets, k3_counts, fill, got))
-    k3_tb = k3_bytes / PEAK_BYTES_PER_S * 1e3
+    payload, offsets, counts, fill = k3_in
+    kept = int(torch.clamp(counts, max=spec.p_max).sum())
+    n_bytes = (payload.shape[0] * kept * payload.element_size()
+               + nbytes(offsets, counts, fill, got))
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": n_bytes, "library_ms": None}
 
-    kernels = [
-        {"name": "fused_pic", "route": "cuda",
-         "source": "warpx_tpu_torch/csrc/fused_pic.cu",
-         "replaces": "warpx_tpu/ops/pallas_pic.py:116",
-         "launches": launches["fused_pic"], "max_abs_err": k1_abs,
-         "max_rel_err": {"particles": worst_p, "j": worst_j},
-         "tol_rel": {"particles": TOL[torch.float32], "j": TOL_J_MAIN},
-         "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": max(k1_tb, k1_tf),
-         "bound_by": "bytes" if k1_tb >= k1_tf else "operations",
-         "bytes": k1_bytes, "flops": k1_flops, "library_ms": None},
-        {"name": "ragged_expand", "route": "cuda",
-         "source": "warpx_tpu_torch/csrc/ragged_expand.cu",
-         "replaces": "warpx_tpu/ops/tiling.py:142",
-         "launches": launches["ragged_expand"], "max_abs_err": 0.0,
-         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_tb,
-         "bound_by": "bytes", "bytes": k3_bytes, "library_ms": None},
-    ]
-    return kernels
+
+def phase_main(dev, smi, n=128):
+    """uniform-128 through K1 and K3; returns their kernels-line rows."""
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.ops import tiling
+
+    sim, launches = run_main_path(
+        dev, smi, "main", main_cfg(n), 2 * 2 * n ** 3, 20,
+        {"fused_pic": (fp.binned_push_deposit, "launches"),
+         "ragged_expand": (tiling.ragged_expand, "launches")})
+    k1 = fused_at_main_shapes(sim, 2)
+    k3 = k3_at_main_shapes(sim)
+    return ({"name": "fused_pic", "route": "cuda",
+             "source": "warpx_tpu_torch/csrc/fused_pic.cu",
+             "replaces": "warpx_tpu/ops/pallas_pic.py:116",
+             "launches": launches["fused_pic"], **k1},
+            {"name": "ragged_expand", "route": "cuda",
+             "source": "warpx_tpu_torch/csrc/ragged_expand.cu",
+             "replaces": "warpx_tpu/ops/tiling.py:142",
+             "launches": launches["ragged_expand"],
+             "launches_by_path": {"main": launches["ragged_expand"]}, **k3})
+
+
+def phase_main2d(dev, smi, k3_row, n=2048):
+    """uniform2d-2048 through K2 and K3; returns K2's kernels-line row and
+    adds this path's K3 launches and times to ``k3_row``."""
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.ops import tiling
+
+    steps = 33  # after the warm step 0: rebins at steps 16 and 32
+    sim, launches = run_main_path(
+        dev, smi, "main2d", main2d_cfg(n), 2 * 4 * n * n, steps,
+        {"fused_pic_2d": (fp.binned_push_deposit, "launches_2d"),
+         "ragged_expand": (tiling.ragged_expand, "launches")})
+    k2 = fused_at_main_shapes(sim, 1)
+    k3 = k3_at_main_shapes(sim)
+    k3_row["launches"] += launches["ragged_expand"]
+    k3_row["launches_by_path"]["main2d"] = launches["ragged_expand"]
+    k3_row["at_main2d"] = k3
+    return {"name": "fused_pic_2d", "route": "cuda",
+            "source": "warpx_tpu_torch/csrc/fused_pic_2d.cu",
+            "replaces": "warpx_tpu/ops/pallas_pic.py:408",
+            "launches": launches["fused_pic_2d"], **k2}
 
 
 def main() -> int:
@@ -516,12 +737,16 @@ def main() -> int:
             for nm in build.SOURCES}
     emit("build", ok=True, seconds=time.perf_counter() - t0,
          per_library=secs, ptxas=regs)
-    phase_k1_parity(dev)
+    phase_kernel_parity(dev, "k1_parity", 3, 16)
+    phase_kernel_parity(dev, "k2_parity", 2, 32)
+    phase_k1c_parity(dev)
     phase_k3_parity(dev)
-    phase_slice_parity(dev)
-    kernels = phase_main(dev, smi)
+    phase_slice_parity(dev, "slice_parity", 3)
+    phase_slice_parity(dev, "slice2d_parity", 2)
+    k1_row, k3_row = phase_main(dev, smi)
+    k2_row = phase_main2d(dev, smi, k3_row)
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": [k1_row, k2_row, k3_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

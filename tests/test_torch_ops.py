@@ -21,12 +21,14 @@ from warpx_tpu.ops import deposit as j_deposit
 from warpx_tpu.ops import gather as j_gather
 from warpx_tpu.ops import push as j_push
 from warpx_tpu.ops import shapes as j_shapes
+from warpx_tpu.solvers import filter as j_filter
 from warpx_tpu.solvers import yee as j_yee
 from warpx_tpu_torch.core import injection
 from warpx_tpu_torch.core.config import SpeciesConfig
 from warpx_tpu_torch.core.grid import Geometry, yee_staggering
 from warpx_tpu_torch.core.state import FieldState
 from warpx_tpu_torch.ops import deposit, gather, push, shapes
+from warpx_tpu_torch.solvers import filter as t_filter
 from warpx_tpu_torch.solvers import yee
 
 RTOL = 1e-12
@@ -50,6 +52,12 @@ def close(got, ref, rtol=RTOL):
 def geoms(n=(16, 12, 8)):
     kw = dict(ndim=3, n_cell=n, prob_lo=(-LX / 2, -LX / 3, -LX / 4),
               prob_hi=(LX / 2, LX / 3, LX / 4), periodic=(True,) * 3)
+    return JGeometry(**kw), Geometry(**kw)
+
+
+def geoms2d(n=(16, 12)):
+    kw = dict(ndim=2, n_cell=n, prob_lo=(-LX / 2, -LX / 4),
+              prob_hi=(LX / 2, LX / 4), periodic=(True,) * 2)
     return JGeometry(**kw), Geometry(**kw)
 
 
@@ -235,3 +243,103 @@ def test_unported_injection_raises():
     with pytest.raises(NotImplementedError, match="Queue A 11"):
         injection.inject_species(sp, g, np.random.default_rng(0),
                                  dtype=torch.float64, device="cpu")
+
+
+# ---- the 2D XZ cases ---------------------------------------------------------
+
+@pytest.mark.parametrize("order,galerkin", [(1, True), (2, True), (3, True),
+                                            (2, False)])
+def test_gather_eb_2d(order, galerkin):
+    rng = np.random.default_rng(40 + order)
+    jg, g = geoms2d()
+    pos = positions(rng, g, 3000)
+    fields = {nm: rng.normal(size=g.n_cell)
+              for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz")}
+    assert yee_staggering(2) == j_yee_staggering(2)
+    got = gather.gather_eb([t(p) for p in pos],
+                           {k: t(v) for k, v in fields.items()},
+                           yee_staggering(2), g, order, galerkin)
+    ref = j_gather.gather_eb([jnp.asarray(p) for p in pos],
+                             {k: jnp.asarray(v) for k, v in fields.items()},
+                             j_yee_staggering(2), jg, order, galerkin)
+    for a, b in zip(got, ref):
+        close(a, b)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_deposit_2d(order):
+    """2D deposit_rho, part_per_cell and the 2D Esirkepov branch (Jx, Jz
+    cumulative, Jy direct)."""
+    rng = np.random.default_rng(50 + order)
+    jg, g = geoms2d()
+    n = 3000
+    pos = positions(rng, g, n)
+    u = rng.normal(0, 0.3 * C, (3, n))
+    w = rng.uniform(0.5, 1.5, n) * 1e9
+    q, dt = 1.602176634e-19, 0.5 * min(g.dx) / C
+    close(deposit.deposit_rho([t(p) for p in pos], t(w), q, g, order),
+          j_deposit.deposit_rho([jnp.asarray(p) for p in pos],
+                                jnp.asarray(w), q, jg, order))
+    got = deposit.deposit_current_esirkepov(
+        [t(p) for p in pos], *map(t, u), t(w), q, g, dt, order)
+    ref = j_deposit.deposit_current_esirkepov(
+        [jnp.asarray(p) for p in pos], *map(jnp.asarray, u), jnp.asarray(w),
+        q, jg, dt, order)
+    for a, b in zip(got, ref):
+        assert a.shape == g.n_cell
+        close(a, b)
+    for a, b in zip(push.position_step(tuple(map(t, pos)), *map(t, u), dt, 2),
+                    j_push.position_step(tuple(map(jnp.asarray, pos)),
+                                         *map(jnp.asarray, u), dt, 2)):
+        close(a, b)
+
+
+@pytest.mark.parametrize("algo", ["yee", "ckc"])
+def test_yee_evolve_2d(algo):
+    rng = np.random.default_rng(31)
+    jg, g = geoms2d()
+    f = _fields(rng, g.n_cell)
+    tf = FieldState(**{k: t(v) for k, v in f.items()})
+    jf = JFieldState(**{k: jnp.asarray(v) for k, v in f.items()})
+    dt = (j_yee.compute_dt_yee(jg, 0.99) if algo == "yee"
+          else j_yee.compute_dt_ckc(jg, 0.99))
+    assert dt == (yee.compute_dt_yee(g, 0.99) if algo == "yee"
+                  else yee.compute_dt_ckc(g, 0.99))
+    got = yee.evolve_e(yee.evolve_b(tf, g, 0.5 * dt, algo), g, dt, algo)
+    ref = j_yee.evolve_e(j_yee.evolve_b(jf, jg, 0.5 * dt, algo), jg, dt, algo)
+    for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"):
+        close(getattr(got, nm), getattr(ref, nm))
+    close(yee.compute_div_e(got, g), j_yee.compute_div_e(ref, jg))
+    close(yee.compute_div_b(got, g), j_yee.compute_div_b(ref, jg))
+
+
+@pytest.mark.parametrize("shape,npass", [
+    ((16, 12), (1, 1)), ((16, 12), (2, 1)),
+    ((16, 12, 8), (1, 1, 1)), ((16, 12, 8), (2, 1, 1)),
+])
+def test_bilinear_filter(shape, npass):
+    arr = np.random.default_rng(len(shape)).normal(size=shape)
+    close(t_filter.bilinear_filter(t(arr), npass),
+          j_filter.bilinear_filter(jnp.asarray(arr), npass))
+    # a binomial pass conserves the sum on the periodic torus
+    assert abs(float(t_filter.bilinear_filter(t(arr), npass).sum())
+               - arr.sum()) <= 1e-12 * np.abs(arr).sum()
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("case", range(len(_INJECT)))
+def test_inject_species_2d_bit_identical(case, dtype):
+    kw = dict(name="e", charge=-1.602176634e-19, mass=9.1093837015e-31,
+              profile="constant", density=1e24, **_INJECT[case])
+    jg, g = geoms2d((8, 6))
+    ref = j_injection.inject_species(JSpeciesConfig(**kw), jg, dtype,
+                                     np.random.default_rng(5))
+    got = injection.inject_species(
+        SpeciesConfig(**kw), g, np.random.default_rng(5),
+        dtype=torch.float64 if dtype == np.float64 else torch.float32,
+        device="cpu")
+    assert got.y is None and ref.y is None  # (x, z) are the coordinates
+    for k in ("x", "z", "ux", "uy", "uz", "w", "alive"):
+        a, b = getattr(got, k).numpy(), np.asarray(getattr(ref, k))
+        assert a.dtype == b.dtype, k
+        np.testing.assert_array_equal(a, b, err_msg=k)

@@ -1,10 +1,13 @@
-"""The port's 3D periodic tile-binned slice against the JAX package.
+"""The port's periodic slices, 3D and 2D XZ, against the JAX package.
 
 ``warpx_tpu_torch.Simulation`` (CPU, float64, the kernels' plain versions)
-runs the configuration of ``test_binned.py``'s 3D order-1 case and must
-land on ``warpx_tpu.Simulation``'s checksums, with the JAX package's
-binned path (Pallas in interpret mode) and with its per-particle path, at
-the 1e-9 bar of ``test_binned.py``.
+runs the configurations of ``test_binned.py``'s order-1 cases (16^3 and
+32^2, two species, 8 steps, ``sort_interval=3``) and must land on
+``warpx_tpu.Simulation``'s checksums, with the JAX package's binned path
+(Pallas in interpret mode) and with its per-particle path, at the 1e-9 bar
+of ``test_binned.py``.  The port's per-particle step ``pic_step``
+(``tiled_particles="off"``) is held to the same bar, once with the current
+filter on.
 """
 
 import ast
@@ -45,26 +48,27 @@ def _species(sc):
     )
 
 
-def _geom(gc, n=16, lx=40e-6):
-    return gc(ndim=3, n_cell=(n,) * 3, prob_lo=(-lx / 2,) * 3,
-              prob_hi=(lx / 2,) * 3, periodic=(True,) * 3)
+def _geom(gc, ndim=3, lx=40e-6):
+    n = 16 if ndim == 3 else 32
+    return gc(ndim=ndim, n_cell=(n,) * ndim, prob_lo=(-lx / 2,) * ndim,
+              prob_hi=(lx / 2,) * ndim, periodic=(True,) * ndim)
 
 
-def jax_cfg(tiled):
-    geom = _geom(JGeometry)
+def jax_cfg(tiled, ndim=3, **kw):
+    geom = _geom(JGeometry, ndim)
     return JSimConfig(
         geometry=geom, max_step=8, dt=j_compute_dt_yee(geom, 0.999),
         particle_shape=1, species=_species(JSpeciesConfig), em_solver="yee",
-        tiled_particles=tiled, sort_interval=3,
+        tiled_particles=tiled, sort_interval=3, **kw,
     )
 
 
-def torch_cfg():
-    geom = _geom(Geometry)
+def torch_cfg(tiled="on", ndim=3, **kw):
+    geom = _geom(Geometry, ndim)
     return SimConfig(
         geometry=geom, max_step=8, dt=compute_dt_yee(geom, 0.999),
         particle_shape=1, species=_species(SpeciesConfig), em_solver="yee",
-        tiled_particles="on", sort_interval=3,
+        tiled_particles=tiled, sort_interval=3, **kw,
     )
 
 
@@ -75,7 +79,8 @@ def _jax_state_numpy(state):
                    for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz",
                               "jx", "jy", "jz")},
         "species": {
-            nm: {k: np.asarray(getattr(sp, k))
+            nm: {k: None if getattr(sp, k) is None
+                 else np.asarray(getattr(sp, k))
                  for k in ("w", "ux", "uy", "uz", "alive", "x", "y", "z")}
             for nm, sp in state.species.items()
         },
@@ -85,17 +90,16 @@ def _jax_state_numpy(state):
     }
 
 
-@pytest.fixture(scope="module")
-def jax_runs():
+def _jax_runs(ndim):
     """The JAX package's binned run (with its state at step 4 kept, and
     the state one step later) and its per-particle run, both 8 steps."""
-    sim_on = JSimulation(jax_cfg("on"))
+    sim_on = JSimulation(jax_cfg("on", ndim))
     sim_on.init()
     sim_on.evolve(4)
     s4 = _jax_state_numpy(sim_on.state)
     s5 = _jax_state_numpy(sim_on._step(sim_on.state))
     sim_on.evolve()
-    sim_off = JSimulation(jax_cfg("off"))
+    sim_off = JSimulation(jax_cfg("off", ndim))
     sim_off.init()
     sim_off.evolve()
     return {"on": sim_on.checksums(), "off": sim_off.checksums(),
@@ -103,30 +107,82 @@ def jax_runs():
 
 
 @pytest.fixture(scope="module")
-def torch_checksums():
-    sim = warpx_tpu_torch.Simulation(torch_cfg(), dtype=torch.float64,
-                                     device="cpu")
+def jax_runs():
+    return _jax_runs(3)
+
+
+@pytest.fixture(scope="module")
+def jax_runs_2d():
+    return _jax_runs(2)
+
+
+def _torch_checksums(cfg):
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float64, device="cpu")
     sim.init()
     sim.evolve()
     return sim.checksums()
 
 
-@pytest.mark.parametrize("path", ["on", "off"])
-def test_slice_checksums_match_jax(jax_runs, torch_checksums, path):
-    ref = jax_runs[path]
-    assert set(ref) == set(torch_checksums)
+@pytest.fixture(scope="module")
+def torch_checksums():
+    return _torch_checksums(torch_cfg())
+
+
+@pytest.fixture(scope="module")
+def torch_checksums_2d():
+    return _torch_checksums(torch_cfg(ndim=2))
+
+
+def _assert_checksums(ref, got):
+    assert set(ref) == set(got)
     for group in ref:
+        assert set(ref[group]) == set(got[group])
         for q in ref[group]:
             if q in ("divB", "divE"):
                 continue  # roundoff noise whose value depends on sum order
-            a, b = ref[group][q], torch_checksums[group][q]
+            a, b = ref[group][q], got[group][q]
             assert abs(a - b) <= RTOL * abs(a) + 1e-300, (group, q, a, b)
 
 
-def test_state_round_trip_step(jax_runs):
+@pytest.mark.parametrize("path", ["on", "off"])
+def test_slice_checksums_match_jax(jax_runs, torch_checksums, path):
+    _assert_checksums(jax_runs[path], torch_checksums)
+
+
+@pytest.mark.parametrize("path", ["on", "off"])
+def test_slice_2d_checksums_match_jax(jax_runs_2d, torch_checksums_2d, path):
+    assert "particle_position_y" in torch_checksums_2d["electrons"]
+    assert "particle_position_z" not in torch_checksums_2d["electrons"]
+    _assert_checksums(jax_runs_2d[path], torch_checksums_2d)
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_pic_step_matches_jax(jax_runs, jax_runs_2d, ndim):
+    """The port's per-particle step against the JAX package's."""
+    ref = (jax_runs if ndim == 3 else jax_runs_2d)["off"]
+    _assert_checksums(ref, _torch_checksums(torch_cfg("off", ndim)))
+
+
+@pytest.mark.parametrize("tiled", ["off", "on"])
+def test_current_filter_matches_jax(tiled):
+    """use_filter with two passes along x and one along z, on the
+    per-particle and the binned step, against the JAX per-particle step."""
+    kw = dict(use_filter=True, filter_npass_each_dir=(2, 1))
+    sim = JSimulation(jax_cfg("off", 2, **kw))
+    sim.init()
+    sim.evolve()
+    got = _torch_checksums(torch_cfg(tiled, 2, **kw))
+    _assert_checksums(sim.checksums(), got)
+    unfiltered = _torch_checksums(torch_cfg(tiled, 2))
+    assert got["lev=0"]["jx"] != unfiltered["lev=0"]["jx"]
+
+
+@pytest.mark.parametrize("ndim", [3, 2])
+def test_state_round_trip_step(jax_runs, jax_runs_2d, ndim):
     """A JAX state at step 4 carried across, stepped once by the port, lands
     on the JAX package's step 5 (no rebin between: the slots line up)."""
-    cfg = torch_cfg()
+    jax_runs = jax_runs if ndim == 3 else jax_runs_2d
+    cfg = torch_cfg(ndim=ndim)
     sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float64, device="cpu")
     sim.init()  # builds the tile spec the JAX run also used
     state = state_from_numpy(jax_runs["s4"], torch.float64, "cpu")
@@ -146,10 +202,43 @@ def test_state_round_trip_step(jax_runs):
                                       arrs["alive"])
         for k in ("x", "y", "z", "ux", "uy", "uz", "w"):
             a = arrs[k]
+            if a is None:  # 2D carries no y
+                assert ndim == 2 and k == "y"
+                assert out["species"][sp][k] is None
+                continue
             err = np.abs(out["species"][sp][k] - a).max()
             assert err <= 1e-12 * np.abs(a).max(), (sp, k, err)
     for k in ("tile_overflow", "tile_violations"):
         assert int(out["aux"][k]) == int(ref["aux"][k]) == 0
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(current_deposition="direct"), "Queue A 3"),
+    (dict(field_gathering="momentum-conserving"), "Queue A 11"),
+    (dict(use_nci_corr=True), "Queue A 9"),
+    (dict(em_solver="psatd"), "Queue A 10"),
+])
+def test_pic_step_unported_features_raise(kw, match):
+    """What the per-particle step does not cover names its ROADMAP item."""
+    import dataclasses
+
+    cfg = dataclasses.replace(torch_cfg("off", 2), max_step=1, **kw)
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float64, device="cpu")
+    assert not sim.binned
+    sim.init()
+    with pytest.raises(NotImplementedError, match=match):
+        sim.evolve()
+
+
+def test_tiled_on_outside_binned_path_raises():
+    import dataclasses
+
+    cfg = dataclasses.replace(torch_cfg("on", 2), current_deposition="direct")
+    with pytest.raises(NotImplementedError, match="binned_supported"):
+        warpx_tpu_torch.Simulation(cfg, dtype=torch.float64, device="cpu")
+    auto = dataclasses.replace(cfg, tiled_particles="auto")
+    assert not warpx_tpu_torch.Simulation(auto, dtype=torch.float64,
+                                          device="cpu").binned
 
 
 def _imports(path):

@@ -154,3 +154,109 @@ def test_ragged_expand_plain_formula():
                    np.repeat(fill, p_max, axis=1))
     np.testing.assert_array_equal(got, ref)
     assert tiling.ragged_expand.launches == 0  # CPU tensors: plain version
+
+
+# ---- the 2D XZ layout and the open fold --------------------------------------
+
+def geoms2d(n=32):
+    kw = dict(ndim=2, n_cell=(n,) * 2, prob_lo=(-LX / 2,) * 2,
+              prob_hi=(LX / 2,) * 2, periodic=(True,) * 2)
+    return JGeometry(**kw), Geometry(**kw)
+
+
+def _specs(n_cell, **kw):
+    return (tiling.TileSpec.create(n_cell, **kw),
+            j_tiling.TileSpec.create(n_cell, **kw))
+
+
+@pytest.mark.parametrize("order,tile", [(1, (8, 8)), (3, (8, 8)),
+                                        (1, (16, 16))])
+def test_extract_fold_2d_adjoint_and_match(order, tile):
+    """2D windows are (n_tiles, W, W) in layout (x, z); (16, 16) tiles take
+    the general fold path (w % tile != 0)."""
+    jg, g = geoms2d()
+    spec, jspec = _specs(g.n_cell, order=order, n_particles=1000, tile=tile,
+                         margin=1, interval=1, p_max=128)
+    assert dataclasses_equal(spec, jspec) and spec.ndim == 2
+    rng = np.random.default_rng(order)
+    grid = rng.normal(size=g.n_cell)
+    wr = rng.normal(size=(spec.n_tiles, spec.w, spec.w))
+    ext = tiling.extract_windows(torch.from_numpy(grid), spec)
+    assert ext.shape == (spec.n_tiles, spec.w, spec.w)
+    np.testing.assert_array_equal(
+        ext.numpy(), np.asarray(j_tiling.extract_windows(jnp.asarray(grid),
+                                                          jspec)))
+    fold = tiling.fold_windows(torch.from_numpy(wr), spec, g.n_cell,
+                               axes=(0, 1))
+    ref = np.asarray(j_tiling.fold_windows(jnp.asarray(wr), jspec, jg.n_cell,
+                                           axes=(0, 1)))
+    assert np.abs(fold.numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
+    lhs = float((ext * torch.from_numpy(wr)).sum())
+    rhs = float((torch.from_numpy(grid) * fold).sum())
+    assert abs(lhs - rhs) <= 1e-10 * abs(lhs)
+
+
+@pytest.mark.parametrize("overfull", [None, 300])
+def test_rebin_2d_matches_jax(overfull):
+    """Payload order x, z, ux, uy, uz, w, alive; y is not carried."""
+    jg, g = geoms2d()
+    spec, jspec = _specs(g.n_cell, order=1, n_particles=4096, margin=1,
+                         interval=1, p_max=256)
+    sp3, jsp3 = _particles(np.random.default_rng(4), 4096, overfull)
+    sp, jsp = sp3.replace(y=None), jsp3.replace(y=None)
+    new, ovf = tiling.rebin(sp, g, spec)
+    jnew, jovf = j_tiling.rebin(jsp, jg, jspec)
+    assert new.y is None
+    assert int(ovf) == int(jovf)
+    assert (int(ovf) > 0) == (overfull is not None)
+    P = spec.p_max
+    names = ("x", "z", "ux", "uy", "uz", "w")
+    alive = new.alive.numpy()
+    np.testing.assert_array_equal(alive, np.asarray(jnew.alive))
+    got = np.stack([getattr(new, k).numpy() for k in names], axis=1)
+    ref = np.stack([np.asarray(getattr(jnew, k)) for k in names], axis=1)
+    np.testing.assert_array_equal(got[~alive], ref[~alive])
+    counts = np.bincount(np.nonzero(alive)[0] // P, minlength=spec.n_tiles)
+    for tt in range(spec.n_tiles):
+        if counts[tt] >= P:
+            continue  # which particles an overfull tile keeps is order-dependent
+        sl = slice(tt * P, (tt + 1) * P)
+        a = got[sl][alive[sl]]
+        b = ref[sl][alive[sl]]
+        np.testing.assert_array_equal(a[np.lexsort(a.T[::-1])],
+                                      b[np.lexsort(b.T[::-1])])
+    np.testing.assert_array_equal(
+        tiling.tile_ids(new.positions(2), g, spec).numpy(),
+        np.asarray(j_tiling.tile_ids(jnew.positions(2), jg, jspec)))
+
+
+@pytest.mark.parametrize("ndim,axes", [
+    (2, (0, 1)), (3, (0, 1, 2)), (3, (1, 0, 2)), (3, (2, 0, 1)),
+])
+def test_fold_windows_open_matches_jax(ndim, axes):
+    n = (32, 16) if ndim == 2 else (16, 8, 24)
+    spec, jspec = _specs(n, order=3 if ndim == 2 else 1, n_particles=1000,
+                         tile=(8,) * ndim, margin=1, interval=1, p_max=128)
+    wr = np.random.default_rng(ndim).normal(
+        size=(spec.n_tiles, spec.w, spec.w ** (ndim - 1)))
+    got = tiling.fold_windows_open(torch.from_numpy(wr), spec, axes=axes)
+    ref = np.asarray(j_tiling.fold_windows_open(jnp.asarray(wr), jspec,
+                                                axes=axes))
+    assert got.shape == tuple(nd + spec.w - 8 for nd in n)
+    assert np.abs(got.numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
+    # wrapping the open fold's guard cells gives the periodic fold
+    per = tiling.fold_windows(torch.from_numpy(wr), spec, n, axes=axes)
+    idx = np.ix_(*[(np.arange(e) - spec.off) % nd
+                   for e, nd in zip(got.shape, n)])
+    wrapped = np.zeros(n)
+    np.add.at(wrapped, idx, got.numpy())
+    assert np.abs(wrapped - per.numpy()).max() <= 1e-12 * np.abs(wrapped).max()
+
+
+def test_fold_windows_open_needs_divisible_window():
+    spec = tiling.TileSpec.create((32, 32), order=1, n_particles=100,
+                                  tile=(16, 16), margin=1, interval=1,
+                                  p_max=128)
+    with pytest.raises(NotImplementedError, match="w % tile"):
+        tiling.fold_windows_open(
+            torch.zeros(spec.n_tiles, spec.w, spec.w), spec)

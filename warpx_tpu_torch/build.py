@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each source under ``csrc/`` has a plain C interface.  It is compiled with
+Each ``.cu`` source under ``csrc/`` has a plain C interface (``.cuh`` files
+are headers the sources share).  It is compiled with
 ``nvcc`` for ``sm_90a`` into its own shared library under ``_build/`` (one
 ``nvcc`` per source, started together by ``build_all``) and loaded with
 ``ctypes``.  A library's file name carries a hash of its source and flags,
@@ -34,16 +35,24 @@ NVCC_FLAGS = (
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 # library name -> (source file, nvcc -D defines, {C function: (argtypes,
-# restype)}).  Kernel K1 is built once per (type, shape order), so the six
-# builds run side by side.
-_K1_FUNCS = {
-    # (const FusedPicArgs*, cudaStream_t)
-    "fused_pic_launch": ([_P, _P], _I),
-    "fused_pic_error_string": ([_I], ctypes.c_char_p),
-}
+# restype)}).  Kernels K1 (fused_pic.cu, 3D) and K2 (fused_pic_2d.cu, 2D)
+# are built once per (type, shape order), so the twelve builds run side by
+# side.
+
+
+def _fused_funcs(stem):
+    return {
+        # (const FusedPicArgs*, cudaStream_t)
+        f"{stem}_launch": ([_P, _P], _I),
+        f"{stem}_error_string": ([_I], ctypes.c_char_p),
+    }
+
+
 SOURCES = {
-    f"fused_pic_{tn}_o{order}": (
-        "fused_pic.cu", (f"FP_REAL={ct}", f"FP_ORDER={order}"), _K1_FUNCS)
+    f"{stem}_{tn}_o{order}": (
+        f"{stem}.cu", (f"FP_REAL={ct}", f"FP_ORDER={order}"),
+        _fused_funcs(stem))
+    for stem in ("fused_pic", "fused_pic_2d")
     for tn, ct in (("f32", "float"), ("f64", "double"))
     for order in (1, 2, 3)
 }
@@ -71,7 +80,9 @@ def _flags(name: str):
 
 
 def _lib_path(name: str) -> Path:
-    src = (_CSRC / SOURCES[name][0]).read_bytes()
+    # the source and every header beside it that it may include
+    src = (_CSRC / SOURCES[name][0]).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()
     return _BUILD / f"lib{name}-{digest[:12]}.so"
 

@@ -1,8 +1,8 @@
 """Resolved static simulation configuration.
 
 A copy of ``warpx_tpu.core.config``'s ``SpeciesConfig`` and ``SimConfig``,
-cut to the fields the ported path reads (3D periodic explicit EM with the
-tile-binned step).  Fields keep the reference's names and defaults, so a
+cut to the fields the ported paths read (2D XZ and 3D periodic explicit EM,
+per-particle and tile-binned steps).  Fields keep the reference's names and defaults, so a
 configuration built for ``warpx_tpu`` with these fields builds here with the
 same keyword arguments.  Features whose fields are absent come with later
 items of ROADMAP.md's Queue A.
@@ -59,6 +59,7 @@ class SimConfig:
     field_gathering: str = "energy-conserving"
     grid_type: str = "staggered"
     use_filter: bool = False
+    filter_npass_each_dir: Tuple[int, ...] = ()  # () = one pass per axis
     use_nci_corr: bool = False
     species: Tuple[SpeciesConfig, ...] = ()
     cfl: float = 0.999

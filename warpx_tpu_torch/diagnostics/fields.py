@@ -17,6 +17,7 @@ from ..core.config import SimConfig
 from ..core.state import SimState
 from ..ops.deposit import count_particles_per_cell, deposit_rho
 from ..solvers import yee
+from ..solvers.filter import bilinear_filter
 
 __all__ = ["cell_center", "cell_centered_output", "deposit_total_rho"]
 
@@ -32,7 +33,8 @@ def cell_center(arr: torch.Tensor, nodal_flags) -> torch.Tensor:
 
 def deposit_total_rho(state: SimState, cfg: SimConfig) -> torch.Tensor:
     """Nodal charge density summed over species at the current positions
-    (RhoFunctor -> GetChargeDensity, periodic fold)."""
+    (RhoFunctor -> GetChargeDensity, periodic fold), smoothed like J when
+    the current filter is on."""
     geom = cfg.geometry
     f = state.fields.Ex
     rho = torch.zeros(geom.n_cell, dtype=f.dtype, device=f.device)
@@ -43,6 +45,9 @@ def deposit_total_rho(state: SimState, cfg: SimConfig) -> torch.Tensor:
         w_eff = torch.where(sp.alive, sp.w, torch.zeros_like(sp.w))
         rho = deposit_rho(sp.positions(geom.ndim), w_eff, sp_cfg.charge,
                           geom, cfg.particle_shape, out=rho)
+    if cfg.use_filter:
+        rho = bilinear_filter(
+            rho, cfg.filter_npass_each_dir or (1,) * geom.ndim)
     return rho
 
 

@@ -7,9 +7,10 @@ guard-cell fold is implicit in the wrap).
 
 * ``deposit_rho``: nodal charge density (ChargeDeposition.H shape-N);
 * ``count_particles_per_cell``: the ``part_per_cell`` diagnostic;
-* ``deposit_current_esirkepov``: charge-conserving 3D current
-  (CurrentDeposition.H:643-900).  The binned step does not call it; it is
-  the port's own slow-path oracle for the fused kernel in ``fused_pic``.
+* ``deposit_current_esirkepov``: charge-conserving current, 2D XZ and 3D
+  (CurrentDeposition.H:643-900).  The per-particle step ``pic_step`` runs
+  it; the binned step does not, so it is also the port's own slow-path
+  oracle for the fused kernels in ``fused_pic``.
 """
 
 from __future__ import annotations
@@ -108,16 +109,16 @@ def deposit_current_esirkepov(
     dt: float,
     order: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Charge-conserving 3D current deposition of ``warpx_tpu.ops.deposit.
-    _esirkepov_body`` at the default relative time -dt/2.
+    """Charge-conserving current deposition of ``warpx_tpu.ops.deposit.
+    _esirkepov_body`` at the default relative time -dt/2 (2D XZ and 3D).
 
     ``positions`` are the already-pushed x^{n+1}; the old position is
     reconstructed as x^{n+1} - dt*v (CurrentDeposition.H:725-738), and the
     deposited J is the Yee-staggered J^{n+1/2}.
     """
-    if geom.ndim != 3:
+    if geom.ndim not in (2, 3):
         raise NotImplementedError(
-            "1D/2D Esirkepov deposition (ROADMAP.md Queue A 3)"
+            "1D Esirkepov deposition (ROADMAP.md Queue A 3)"
         )
     n_cell = geom.n_cell
     gaminv = 1.0 / torch.sqrt(1.0 + (ux * ux + uy * uy + uz * uz) * inv_c2)
@@ -125,6 +126,14 @@ def deposit_current_esirkepov(
     dtype = w.dtype
     taps = order + 3
     dxs = geom.dx
+
+    def zeros():
+        return torch.zeros(n_cell, dtype=dtype, device=w.device)
+
+    if geom.ndim == 2:  # XZ plane: Jx, Jz cumulative, Jy direct
+        return _esirkepov_2d(positions, (ux * gaminv, uy * gaminv,
+                                         uz * gaminv), wq, geom, dt, order,
+                             zeros)
     invdtd = (
         1.0 / (dt * dxs[1] * dxs[2]),
         1.0 / (dt * dxs[0] * dxs[2]),
@@ -158,11 +167,42 @@ def deposit_current_esirkepov(
     IX = torch.broadcast_to(ix[:, None, None], valx.shape)
     IY = torch.broadcast_to(iy[None, :, None], valx.shape)
     IZ = torch.broadcast_to(iz[None, None, :], valx.shape)
-
-    def zeros():
-        return torch.zeros(n_cell, dtype=dtype, device=w.device)
-
     jx = _scatter_add(zeros(), [IX, IY, IZ], valx)
     jy = _scatter_add(zeros(), [IX, IY, IZ], valy)
     jz = _scatter_add(zeros(), [IX, IY, IZ], valz)
     return jx, jy, jz
+
+
+def _esirkepov_2d(positions, vel, wq, geom, dt, order, zeros):
+    """The 2D branch (CurrentDeposition.H, WARPX_DIM_XZ): the in-plane
+    components are running sums weighted by the half-sum of the other axis'
+    old and new shapes; the out-of-plane Jy is wq*vy times the 1/3-1/6 mix."""
+    dx, dz = geom.dx
+    vx, vy, vz = vel
+    invvol = 1.0 / (dx * dz)
+    xn = (positions[0] - geom.prob_lo[0]) / dx
+    zn = (positions[1] - geom.prob_lo[1]) / dz
+    xo = xn - dt / dx * vx
+    zo = zn - dt / dz * vz
+    taps = order + 3
+    i0x, snx, sox = esirkepov_weights(xn, xo, order)
+    i0z, snz, soz = esirkepov_weights(zn, zo, order)
+    SNx, SOx = torch.stack(snx, dim=0), torch.stack(sox, dim=0)
+    SNz, SOz = torch.stack(snz, dim=0), torch.stack(soz, dim=0)
+    CUMx = torch.cumsum(SOx - SNx, dim=0)
+    CUMz = torch.cumsum(SOz - SNz, dim=0)
+    mixxz = (
+        (SNx[:, None] * SNz[None, :] + SOx[:, None] * SOz[None, :]) / 3.0
+        + (SNx[:, None] * SOz[None, :] + SOx[:, None] * SNz[None, :]) / 6.0
+    )
+    valx = (wq * (1.0 / (dt * dz))) * CUMx[:, None] \
+        * (0.5 * (SNz + SOz))[None, :]
+    valy = (wq * vy * invvol) * mixxz
+    valz = (wq * (1.0 / (dt * dx))) * CUMz[None, :] \
+        * (0.5 * (SNx + SOx))[:, None]
+    ix = _tap_idx(i0x, taps, geom.n_cell[0])
+    iz = _tap_idx(i0z, taps, geom.n_cell[1])
+    IX = torch.broadcast_to(ix[:, None], valx.shape)
+    IZ = torch.broadcast_to(iz[None, :], valx.shape)
+    return tuple(_scatter_add(zeros(), [IX, IZ], v)
+                 for v in (valx, valy, valz))

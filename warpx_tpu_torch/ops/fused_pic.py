@@ -1,17 +1,26 @@
-"""Fused gather + push + Esirkepov deposit over the tile-binned layout (3D).
+"""Fused gather + push + Esirkepov deposit over the tile-binned layout
+(2D XZ and 3D).
 
 The counterpart of ``warpx_tpu.ops.pallas_pic``: ``pad_fields`` and
-``binned_push_deposit``, with the same arguments and returns.  The wrapper
-launches kernel K1 (``csrc/fused_pic.cu``, see its header for the design)
-on CUDA tensors and runs ``binned_push_deposit_plain`` on CPU tensors.
+``binned_push_deposit``, with the same arguments and returns.  On CUDA
+tensors the wrapper launches kernel K1 (3D, ``csrc/fused_pic.cu``) or K2
+(2D, ``csrc/fused_pic_2d.cu``; see their headers for the design); on CPU
+tensors it runs ``binned_push_deposit_plain``.
 
-The plain version repeats the TPU kernel's arithmetic in its own dense
+The plain version repeats the TPU kernels' arithmetic in its own dense
 formulation: per tile, every shape weight becomes a (W, p_max) band matrix
 over the window rows, the gather is a batched matrix product against the
-(W, W*W) field window, and the deposit is a batched product of the
-Esirkepov running sums against the transverse outer products.  It is the
-oracle the CPU tests hold against the JAX package and the kernel is held
-against on the card; it is not built for speed.
+field window, and the deposit is a batched product of the Esirkepov running
+sums against the transverse weights.  It is the oracle the CPU tests hold
+against the JAX package and the kernels are held against on the card; it
+is not built for speed.
+
+Moving-window mode (``anchors``, ``zshift``, ``smax``): the tiles stay
+anchored where the last rebin laid them out (``anchors`` replaces
+``prob_lo``) while the grid has slid ``zshift`` whole cells along the last
+axis since; the padded fields are ``smax`` cells longer on that axis and
+the window of tile t starts at ``t*tile + (smax - zshift)`` there.  Both
+are host numbers, so neither path waits for the device.
 """
 
 from __future__ import annotations
@@ -22,121 +31,142 @@ import torch
 
 from .. import build
 from ..constants import c as _c
+from ..core.grid import AXIS_NAMES
 from .gather import GALERKIN_AXES
 from .push import PUSHERS
 from .shapes import spline, start_index
+from .tiling import broadcast_index
 
-__all__ = ["binned_push_deposit", "binned_push_deposit_plain", "pad_fields"]
+__all__ = ["binned_push_deposit", "binned_push_deposit_plain", "pad_fields",
+           "padded_shape"]
 
-_AXES = ("x", "y", "z")
 _COMPS = ("Ex", "Ey", "Ez", "Bx", "By", "Bz")
 _PUSHER_IDS = {"boris": 0, "vay": 1, "higuera": 2}
+
+
+def padded_shape(spec, n_cell, smax=0):
+    """Extents of the guard-padded fields the fused kernels read."""
+    shape = [n + spec.w - t for n, t in zip(n_cell, spec.tile)]
+    shape[-1] += smax
+    return tuple(shape)
 
 
 def pad_fields(fields6, spec):
     """Guard-pad the six field arrays by periodic wrap: ``off`` cells below
     and ``W - tile - off`` above per axis, so the window of tile t starts
     at t*tile in padded coordinates (the FillBoundary analog)."""
-    if spec.ndim != 3:
-        raise NotImplementedError("2D fused step (ROADMAP.md Queue B K2)")
+    ndim = spec.ndim
     out = []
     for a in fields6:
-        idx = [
-            torch.remainder(
+        idx = []
+        for d in range(ndim):
+            ix = torch.remainder(
                 torch.arange(-spec.off, a.shape[d] + spec.w - spec.tile[d]
                              - spec.off, device=a.device),
                 a.shape[d],
             )
-            for d in range(3)
-        ]
-        out.append(a[idx[0][:, None, None], idx[1][None, :, None],
-                     idx[2][None, None, :]])
+            shape = [1] * ndim
+            shape[d] = -1
+            idx.append(ix.reshape(shape))
+        out.append(a[tuple(idx)])
     return tuple(out)
 
 
-def _gather_table(order, galerkin, staggering):
+def _gather_table(order, galerkin, staggering, ndim):
     """Per (component, axis): the gather's shape order (reduced by one on
     the Galerkin axes) and whether the component sits at i + 1/2."""
     gorder, gstag = [], []
     for comp in _COMPS:
-        for d in range(3):
-            reduced = galerkin and (_AXES[d] in GALERKIN_AXES[comp])
+        for d, ax in enumerate(AXIS_NAMES[ndim]):
+            reduced = galerkin and (ax in GALERKIN_AXES[comp])
             gorder.append(order - 1 if reduced else order)
             gstag.append(int(staggering[comp][d] == 0))
     return gorder, gstag
 
 
-def _check(params, fields6, parts7, counts, spec, mxu, anchors, zshift):
-    if spec.ndim != 3:
-        raise NotImplementedError("2D fused step (ROADMAP.md Queue B K2)")
+def _check(parts, counts, spec, geom, mxu, anchors, zshift, smax):
+    """Validate the mode arguments; returns (counts, tiling origin, offset
+    of window 0 on the last field axis)."""
+    ndim = spec.ndim
+    if ndim not in (2, 3):
+        raise ValueError(f"tile-binned layout is 2D/3D, got ndim={ndim}")
     if mxu != "f32":
         raise NotImplementedError(
             f"tile_mxu={mxu!r}: the TPU matrix-unit precision modes are "
             "ROADMAP.md Queue B K1d"
         )
-    if anchors is not None or zshift is not None:
-        raise NotImplementedError(
-            "moving-window anchors (ROADMAP.md Queue B K1c)"
-        )
-    if len(parts7) != 7:
-        raise ValueError(f"expected 7 particle arrays, got {len(parts7)}")
+    if len(parts) != ndim + 4:
+        raise ValueError(f"expected {ndim + 4} particle arrays, got "
+                         f"{len(parts)}")
+    lo = tuple(float(v) for v in (geom.prob_lo if anchors is None
+                                  else anchors))
+    if len(lo) != ndim:
+        raise ValueError(f"anchors must have {ndim} entries")
+    zshift = 0 if zshift is None else int(zshift)
+    smax = int(smax)
+    if not 0 <= zshift <= smax:
+        raise ValueError(f"zshift={zshift} outside [0, smax={smax}]")
     if counts is None:
-        counts = torch.ones(parts7[0].shape[0], dtype=torch.int32,
-                            device=parts7[0].device)
-    return counts
+        counts = torch.ones(parts[0].shape[0], dtype=torch.int32,
+                            device=parts[0].device)
+    return counts, lo, smax - zshift
 
 
 def binned_push_deposit_plain(
-    params, fields6, parts7, counts, *, spec, geom, order, galerkin,
-    pusher_name, dt, stag_items,
+    params, fields6, parts, counts, *, spec, geom, order, galerkin,
+    pusher_name, dt, stag_items, lo=None, zoff=0,
 ):
-    """Plain PyTorch version of K1 (same arguments as
-    ``binned_push_deposit``; ``counts`` is required)."""
+    """Plain PyTorch version of K1 (3D) and K2 (2D): the arguments of
+    ``binned_push_deposit`` with ``counts`` required, the tiling origin
+    ``lo`` (default ``geom.prob_lo``) and ``zoff = smax - zshift``."""
     staggering = dict(stag_items)
-    dtype = parts7[0].dtype
-    dev = parts7[0].device
+    nd = spec.ndim
+    dtype = parts[0].dtype
+    dev = parts[0].device
     W, P, T = spec.w, spec.p_max, order + 3
+    WT = W ** (nd - 1)  # transverse window size
     nt = spec.n_tiles
-    ns = parts7[0].shape[0] // nt
-    ntx, nty, ntz = spec.tiles_per_dim
+    ns = parts[0].shape[0] // nt
+    lo = geom.prob_lo if lo is None else lo
     inv_dx = tuple(1.0 / d for d in geom.dx)
-    invdtd = (
-        1.0 / (dt * geom.dx[1] * geom.dx[2]),
-        1.0 / (dt * geom.dx[0] * geom.dx[2]),
-        1.0 / (dt * geom.dx[0] * geom.dx[1]),
-    )
+    dx = geom.dx
+    if nd == 3:
+        invdtd = (1.0 / (dt * dx[1] * dx[2]), 1.0 / (dt * dx[0] * dx[2]),
+                  1.0 / (dt * dx[0] * dx[1]))
+    else:  # (Jx, Jz) running sums; Jy is direct, per unit area
+        invdtd = (1.0 / (dt * dx[1]), 1.0 / (dt * dx[0]))
+        invvol = 1.0 / (dx[0] * dx[1])
     pusher = PUSHERS[pusher_name]
     inv_c2 = 1.0 / (_c * _c)
-    gorder, gstag = _gather_table(order, galerkin, staggering)
+    gorder, gstag = _gather_table(order, galerkin, staggering, nd)
 
-    # (n_tiles, W, W*W) windows of the padded fields, layout (x, (y,z))
+    # (n_tiles, W, WT) windows of the padded fields, layout (x, (y,z)) / (x, z)
     ar = torch.arange(W, device=dev)
-    idx = [
-        (torch.arange(spec.tiles_per_dim[d], device=dev) * spec.tile[d])
-        [:, None] + ar[None, :]
-        for d in range(3)
-    ]
-    win = [
-        f[idx[0][:, None, None, :, None, None],
-          idx[1][None, :, None, None, :, None],
-          idx[2][None, None, :, None, None, :]].reshape(nt, W, W * W)
-        for f in fields6
-    ]
+    idx = tuple(broadcast_index(
+        [(torch.arange(spec.tiles_per_dim[d], device=dev)
+          * spec.tile[d])[:, None] + ar[None, :]
+         + (zoff if d == nd - 1 else 0) for d in range(nd)], nd))
+    win = [f[idx].reshape(nt, W, WT) for f in fields6]
     tix = torch.arange(nt, device=dev)
-    worig = torch.stack([
-        (tix // (nty * ntz)) * spec.tile[0] - spec.off,
-        ((tix // ntz) % nty) * spec.tile[1] - spec.off,
-        (tix % ntz) * spec.tile[2] - spec.off,
-    ]).to(dtype)  # (3, nt)
+    worig = []
+    for d in range(nd):
+        stride = 1
+        for n in spec.tiles_per_dim[d + 1:]:
+            stride *= n
+        worig.append((tix // stride) % spec.tiles_per_dim[d] * spec.tile[d]
+                     - spec.off)
+    worig = torch.stack(worig).to(dtype)  # (nd, nt)
     rows = ar.to(dtype)[None, :, None]  # (1, W, 1)
 
-    out_parts = [torch.empty_like(parts7[c]) for c in range(6)]
-    jw = [torch.zeros((nt, W, W * W), dtype=dtype, device=dev)
+    out_parts = [torch.empty_like(parts[c]) for c in range(nd + 3)]
+    jw = [torch.zeros((nt, W, WT), dtype=dtype, device=dev)
           for _ in range(3)]
     viol = torch.zeros(ns * nt, dtype=torch.int32, device=dev)
-    # tiles per chunk: bounds the (chunk, W*W, P) intermediates
-    per_tile = W * W * P * parts7[0].element_size()
-    chunk = max(1, min(nt, (256 << 20) // per_tile))
+    # tiles per chunk: bounds the (chunk, WT, P) intermediates; in 2D these
+    # are the bands themselves, of which some twenty live at once
+    budget = (256 << 20) if nd == 3 else (64 << 20)
+    chunk = max(1, min(nt, budget // (WT * P * parts[0].element_size())))
+    zero = torch.zeros((), dtype=dtype, device=dev)
 
     def band(xc, o):
         """(C, W, P) band matrix A[t, i, p] = S_o(xc[t, p] - i); order 0 is
@@ -156,10 +186,10 @@ def binned_push_deposit_plain(
         for c0 in range(0, nt, chunk):
             c1 = min(nt, c0 + chunk)
             rsel = slice(s * nt + c0, s * nt + c1)
-            pin = [parts7[c][rsel] for c in range(7)]
+            pin = [a[rsel] for a in parts]
             occ = counts[rsel] > 0  # (C,)
-            X = [(pin[d] - geom.prob_lo[d]) * inv_dx[d]
-                 - worig[d, c0:c1, None] for d in range(3)]
+            X = [(pin[d] - lo[d]) * inv_dx[d]
+                 - worig[d, c0:c1, None] for d in range(nd)]
             acache = {}
 
             def axis_mat(d, o, stag):
@@ -168,29 +198,34 @@ def binned_push_deposit_plain(
                     acache[key] = band(X[d] - (0.5 if stag else 0.0), o)
                 return acache[key]
 
-            # ---- gather
+            # ---- gather: contract the transverse axes, then the x axis
             e6 = []
             for ci in range(6):
-                keys = [(gorder[ci * 3 + d], gstag[ci * 3 + d])
-                        for d in range(3)]
-                byz = outer(axis_mat(1, *keys[1]), axis_mat(2, *keys[2]))
-                h = torch.bmm(win[ci][c0:c1], byz)  # (C, W, P)
+                keys = [(gorder[ci * nd + d], gstag[ci * nd + d])
+                        for d in range(nd)]
+                if nd == 3:
+                    trans = outer(axis_mat(1, *keys[1]),
+                                  axis_mat(2, *keys[2]))
+                else:
+                    trans = axis_mat(1, *keys[1])
+                h = torch.bmm(win[ci][c0:c1], trans)  # (C, W, P)
                 e6.append((axis_mat(0, *keys[0]) * h).sum(dim=1)
                           + params[s, 2 + ci])
             # ---- push
-            ux, uy, uz = pusher(pin[3], pin[4], pin[5], *e6, q, m, dt)
+            ux, uy, uz = pusher(*pin[nd:nd + 3], *e6, q, m, dt)
             gaminv = 1.0 / torch.sqrt(1.0 + (ux * ux + uy * uy + uz * uz)
                                       * inv_c2)
-            vel = (ux * gaminv, uy * gaminv, uz * gaminv)
-            new = [pin[d] + vel[d] * dt for d in range(3)] + [ux, uy, uz]
+            vel3 = (ux * gaminv, uy * gaminv, uz * gaminv)
+            vel = vel3 if nd == 3 else (vel3[0], vel3[2])  # active axes
+            new = [pin[d] + vel[d] * dt for d in range(nd)] + [ux, uy, uz]
             keep = occ[:, None]
-            for c in range(6):
+            for c in range(nd + 3):
                 out_parts[c][rsel] = torch.where(keep, new[c], pin[c])
             # ---- Esirkepov deposit
-            wq = q * pin[6]
+            wq = q * pin[nd + 3]
             sm, df, cs = [], [], []
             bad = torch.zeros_like(occ[:, None].expand(-1, P))
-            for d in range(3):
+            for d in range(nd):
                 xn = X[d] + vel[d] * (dt * inv_dx[d])
                 nn = band(xn, order)
                 no = axis_mat(d, order, False)
@@ -199,22 +234,37 @@ def binned_push_deposit_plain(
                 cs.append(torch.cumsum(no - nn, dim=1))
                 i0 = start_index(xn, order) - 1
                 bad = bad | (i0 < 0) | (i0 > W - T)
-            for d, (a, b) in enumerate(((1, 2), (0, 2), (0, 1))):
-                lhs = cs[d] * (wq * invdtd[d])[:, None, :]
-                rhs = (0.25 * outer(sm[a], sm[b])
-                       + (1.0 / 12.0) * outer(df[a], df[b]))
-                jd = torch.bmm(lhs, rhs.transpose(1, 2))  # (C, W, W*W)
-                jw[d][c0:c1] += torch.where(occ[:, None, None], jd,
-                                            torch.zeros((), dtype=dtype,
-                                                        device=dev))
-            alive = pin[6] > 0
+            if nd == 3:
+                jd3 = []
+                for d, (a, b) in enumerate(((1, 2), (0, 2), (0, 1))):
+                    lhs = cs[d] * (wq * invdtd[d])[:, None, :]
+                    rhs = (0.25 * outer(sm[a], sm[b])
+                           + (1.0 / 12.0) * outer(df[a], df[b]))
+                    jd3.append(torch.bmm(lhs, rhs.transpose(1, 2)))
+            else:
+                # all three windows in layout (x, z): J[i, k] = sum over p
+                # of (x-side)[i, p] * (z-side)[k, p]
+                def xz(a, b):
+                    return torch.bmm(a, b.transpose(1, 2))
+
+                wqvy = (wq * (vel3[1] * invvol))[:, None, :]
+                jd3 = [
+                    xz(cs[0] * (wq * invdtd[0])[:, None, :], 0.5 * sm[1]),
+                    xz((0.25 * wqvy) * sm[0], sm[1])
+                    + xz(((1.0 / 12.0) * wqvy) * df[0], df[1]),
+                    xz(0.5 * sm[0], cs[1] * (wq * invdtd[1])[:, None, :]),
+                ]
+            for d in range(3):
+                jw[d][c0:c1] += torch.where(occ[:, None, None], jd3[d], zero)
+            alive = pin[nd + 3] > 0
             cnt = (bad & alive).sum(dim=1, dtype=torch.int32)
             viol[rsel] = torch.where(occ, cnt, torch.zeros_like(cnt))
     return tuple(out_parts), tuple(jw), viol
 
 
 class _FusedPicArgs(ctypes.Structure):
-    """Mirror of ``struct FusedPicArgs`` in ``csrc/fused_pic.cu``."""
+    """Mirror of ``struct FusedPicArgs`` in ``csrc/fused_pic_common.cuh``
+    (2D fills the first entries of the per-axis and per-column arrays)."""
 
     _fields_ = [
         ("fields", ctypes.c_void_p * 6),
@@ -234,6 +284,7 @@ class _FusedPicArgs(ctypes.Structure):
         ("fdim", ctypes.c_int * 3),
         ("order", ctypes.c_int),
         ("pusher", ctypes.c_int),
+        ("zoff", ctypes.c_int),
         ("gorder", ctypes.c_int * 18),
         ("gstag", ctypes.c_int * 18),
         ("lo", ctypes.c_double * 3),
@@ -244,14 +295,16 @@ class _FusedPicArgs(ctypes.Structure):
     ]
 
 
-def _library_name(dtype, order):
-    return f"fused_pic_{'f64' if dtype == torch.float64 else 'f32'}_o{order}"
+def _library_name(ndim, dtype, order):
+    stem = "fused_pic" if ndim == 3 else "fused_pic_2d"
+    return f"{stem}_{'f64' if dtype == torch.float64 else 'f32'}_o{order}"
 
 
-def _launch_kernel(params, fields6, parts7, counts, *, spec, geom, order,
-                   galerkin, pusher_name, dt, stag_items):
-    dtype = parts7[0].dtype
-    dev = parts7[0].device
+def _launch_kernel(params, fields6, parts, counts, *, spec, geom, order,
+                   galerkin, pusher_name, dt, stag_items, lo, zoff, smax):
+    nd = spec.ndim
+    dtype = parts[0].dtype
+    dev = parts[0].device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"fused kernel takes float32/float64, got {dtype}")
     if not 1 <= order <= 3:
@@ -261,15 +314,15 @@ def _launch_kernel(params, fields6, parts7, counts, *, spec, geom, order,
             f"pusher {pusher_name!r} in the fused kernel (ROADMAP.md Queue A 11)"
         )
     nt, P, W = spec.n_tiles, spec.p_max, spec.w
-    rows = parts7[0].shape[0]
+    rows = parts[0].shape[0]
     ns = rows // nt
-    padded = tuple(n + W - t for n, t in zip(geom.n_cell, spec.tile))
+    padded = padded_shape(spec, geom.n_cell, smax)
     for f in fields6:
         if (f.dtype != dtype or f.device != dev or not f.is_contiguous()
                 or tuple(f.shape) != padded):
             raise ValueError(f"fields must be contiguous {dtype} {padded} "
                              f"tensors on {dev} (pad_fields)")
-    for a in parts7:
+    for a in parts:
         if (a.dtype != dtype or a.device != dev or not a.is_contiguous()
                 or tuple(a.shape) != (ns * nt, P)):
             raise ValueError(f"particle arrays must be contiguous {dtype} "
@@ -282,81 +335,97 @@ def _launch_kernel(params, fields6, parts7, counts, *, spec, geom, order,
             or tuple(counts.shape) != (rows,) or not counts.is_contiguous()):
         raise ValueError(f"counts must be a contiguous ({rows},) int32 "
                          f"tensor on {dev}")
-    out_parts = tuple(torch.empty_like(parts7[c]) for c in range(6))
-    jw = tuple(torch.empty((nt, W, W * W), dtype=dtype, device=dev)
+    out_parts = tuple(torch.empty_like(parts[c]) for c in range(nd + 3))
+    jw = tuple(torch.empty((nt, W, W ** (nd - 1)), dtype=dtype, device=dev)
                for _ in range(3))
     viol = torch.empty(rows, dtype=torch.int32, device=dev)
-    gorder, gstag = _gather_table(order, galerkin, dict(stag_items))
+    gorder, gstag = _gather_table(order, galerkin, dict(stag_items), nd)
+    dx = geom.dx
     a = _FusedPicArgs()
     a.fields[:] = [f.data_ptr() for f in fields6]
-    a.parts[:] = [p.data_ptr() for p in parts7]
-    a.out_parts[:] = [p.data_ptr() for p in out_parts]
+    a.parts[:nd + 4] = [p.data_ptr() for p in parts]
+    a.out_parts[:nd + 3] = [p.data_ptr() for p in out_parts]
     a.jw[:] = [j.data_ptr() for j in jw]
     a.viol = viol.data_ptr()
     a.counts = counts.data_ptr()
     a.sp_params = params.data_ptr()
     a.n_sp, a.n_tiles, a.p_max, a.w, a.off = ns, nt, P, W, spec.off
-    a.tiles_per_dim[:] = list(spec.tiles_per_dim)
-    a.tile[:] = list(spec.tile)
-    a.fdim[:] = list(padded)
+    a.tiles_per_dim[:nd] = list(spec.tiles_per_dim)
+    a.tile[:nd] = list(spec.tile)
+    a.fdim[:nd] = list(padded)
     a.order = order
     a.pusher = _PUSHER_IDS[pusher_name]
-    a.gorder[:] = gorder
-    a.gstag[:] = gstag
-    a.lo[:] = list(geom.prob_lo)
-    a.inv_dx[:] = [1.0 / d for d in geom.dx]
-    a.dt_inv_dx[:] = [dt * (1.0 / d) for d in geom.dx]
-    a.invdtd[:] = [
-        1.0 / (dt * geom.dx[1] * geom.dx[2]),
-        1.0 / (dt * geom.dx[0] * geom.dx[2]),
-        1.0 / (dt * geom.dx[0] * geom.dx[1]),
-    ]
+    a.zoff = zoff
+    a.gorder[:6 * nd] = gorder
+    a.gstag[:6 * nd] = gstag
+    a.lo[:nd] = list(lo)
+    a.inv_dx[:nd] = [1.0 / d for d in dx]
+    a.dt_inv_dx[:nd] = [dt * (1.0 / d) for d in dx]
+    if nd == 3:
+        a.invdtd[:] = [1.0 / (dt * dx[1] * dx[2]), 1.0 / (dt * dx[0] * dx[2]),
+                       1.0 / (dt * dx[0] * dx[1])]
+    else:  # Jx and Jz scales, then 1 / cell area for the direct Jy
+        a.invdtd[:] = [1.0 / (dt * dx[1]), 1.0 / (dt * dx[0]),
+                       1.0 / (dx[0] * dx[1])]
     a.dt = dt
-    lib = _library_name(dtype, order)
-    err = build.library(lib).fused_pic_launch(
+    lib = _library_name(nd, dtype, order)
+    stem = "fused_pic" if nd == 3 else "fused_pic_2d"
+    err = getattr(build.library(lib), f"{stem}_launch")(
         ctypes.addressof(a), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         stage = {1: "device query", 2: "shared-memory opt-in", 3: "launch",
                  4: "arguments"}.get(err // 1000, "?")
         raise RuntimeError(
-            f"fused_pic {stage} failed: "
-            f"{build.cuda_error(lib, 'fused_pic_error_string', err)}"
+            f"{stem} {stage} failed: "
+            f"{build.cuda_error(lib, f'{stem}_error_string', err)}"
         )
-    binned_push_deposit.launches += 1
+    if nd == 3:
+        binned_push_deposit.launches += 1
+    else:
+        binned_push_deposit.launches_2d += 1
     return out_parts, jw, viol
 
 
 def binned_push_deposit(
     params, fields6, parts7, anchors=None, zshift=None, counts=None, *,
     spec, geom, order, galerkin, pusher_name, dt, stag_items, mxu="f32",
+    smax=0,
 ):
     """Run the fused gather + push + deposit over all tiles for all species
-    of one pusher at once (kernel K1 on CUDA tensors).
+    of one pusher at once (kernel K1 in 3D, K2 in 2D, on CUDA tensors).
 
     params: (n_sp, 8) [q, m, Eext(3), Bext(3)] per species; fields6: the six
-    guard-padded fields from ``pad_fields``; parts7: (x, y, z, ux, uy, uz, w)
-    each (n_sp * n_tiles, p_max), the species' tile arrays stacked along the
-    tile axis; counts: alive particles per (species, tile) (default: all
+    guard-padded fields (``pad_fields``; ``smax`` cells longer on the last
+    axis in moving-window mode); parts7: (x, y, z, ux, uy, uz, w) in 3D,
+    (x, z, ux, uy, uz, w) in 2D, each (n_sp * n_tiles, p_max), the species'
+    tile arrays stacked along the tile axis; anchors: the tiling origin as
+    ndim host numbers (default ``geom.prob_lo``); zshift: whole cells the
+    grid has slid along the last axis since the rebin, a host int in
+    [0, smax]; counts: alive particles per (species, tile) (default: all
     tiles occupied).
 
-    Returns (new_parts6 (x, y, z, ux, uy, uz), (jx_w, jy_w, jz_w) summed over
-    species, violations (n_sp * n_tiles,)).  J windows are (n_tiles, W, W*W)
-    in layouts (x,(y,z)), (y,(x,z)), (z,(x,y)): fold them with axes
-    (0,1,2), (1,0,2), (2,0,1).  ``violations`` counts alive particles that
+    Returns (new particle columns (the inputs less w), (jx_w, jy_w, jz_w)
+    summed over species, violations (n_sp * n_tiles,)).  In 3D the J windows
+    are (n_tiles, W, W*W) in layouts (x,(y,z)), (y,(x,z)), (z,(x,y)): fold
+    them with axes (0,1,2), (1,0,2), (2,0,1).  In 2D they are (n_tiles, W,
+    W), all in layout (x, z).  ``violations`` counts alive particles that
     drifted beyond the rebin margin (must be all zero).
     """
-    counts = _check(params, fields6, parts7, counts, spec, mxu, anchors,
-                    zshift)
+    counts, lo, zoff = _check(parts7, counts, spec, geom, mxu, anchors,
+                              zshift, smax)
     kw = dict(spec=spec, geom=geom, order=order, galerkin=galerkin,
-              pusher_name=pusher_name, dt=dt, stag_items=stag_items)
+              pusher_name=pusher_name, dt=dt, stag_items=stag_items, lo=lo,
+              zoff=zoff)
     dev = parts7[0].device.type
     if dev == "cpu":
         return binned_push_deposit_plain(params, fields6, parts7, counts,
                                          **kw)
     if dev != "cuda":
         raise ValueError(f"unsupported device {parts7[0].device}")
-    return _launch_kernel(params, fields6, parts7, counts, **kw)
+    return _launch_kernel(params, fields6, parts7, counts, smax=smax, **kw)
 
 
+# launches of K1 (3D) and of K2 (2D)
 binned_push_deposit.launches = 0
+binned_push_deposit.launches_2d = 0

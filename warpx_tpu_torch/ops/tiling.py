@@ -15,6 +15,8 @@ Pieces:
                        (``csrc/ragged_expand.cu``)
   * extract_windows -- grid -> per-tile field windows (periodic)
   * fold_windows    -- per-tile J windows -> grid (periodic overlap-add)
+  * fold_windows_open -- the same overlap-add without the wrap, for the
+                       bounded step's guard-padded deposition block
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import torch
 from .. import build
 
 __all__ = ["TileSpec", "tile_ids", "rebin", "rebin_inputs", "ragged_expand",
-           "ragged_expand_plain", "extract_windows", "fold_windows"]
+           "ragged_expand_plain", "extract_windows", "fold_windows",
+           "fold_windows_open"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -275,46 +278,63 @@ def _window_index(spec: TileSpec, d: int, n: int, device):
     return torch.remainder(t * spec.tile[d] - spec.off + a, n)
 
 
+def _tile_window_view(windows, spec: TileSpec, axes):
+    """``windows`` as (tiles_per_dim..., W per spatial axis): ``axes`` names
+    the spatial axis of each window dim (default: in order)."""
+    ndim = spec.ndim
+    arr = windows.reshape(*spec.tiles_per_dim, *((spec.w,) * ndim))
+    if axes is not None and tuple(axes) != tuple(range(ndim)):
+        inv = [0] * ndim
+        for pos_, ax in enumerate(axes):
+            inv[ax] = ndim + pos_
+        arr = arr.permute(*range(ndim), *inv)
+    return arr
+
+
+def broadcast_index(idx, ndim):
+    """Per-axis (n_tiles_d, W) index tables shaped to broadcast over
+    (tiles..., windows...)."""
+    out = []
+    for d, ix in enumerate(idx):
+        shape = [1] * (2 * ndim)
+        shape[d], shape[ndim + d] = ix.shape
+        out.append(ix.reshape(shape))
+    return out
+
+
 def extract_windows(grid: torch.Tensor, spec: TileSpec) -> torch.Tensor:
-    """Per-tile periodic windows, (n_tiles, W, W*W) with layout (x, (y,z)):
+    """Per-tile periodic windows: (n_tiles, W, W*W) with layout (x, (y,z))
+    in 3D, (n_tiles, W, W) with layout (x, z) in 2D:
 
         windows[t, a, b*W+c] = grid[(t_x*tx - off + a) % nx,
                                     (t_y*ty - off + b) % ny,
                                     (t_z*tz - off + c) % nz]
     """
-    if spec.ndim != 3:
-        raise NotImplementedError("2D windows (ROADMAP.md Queue A 9)")
-    ix, iy, iz = (_window_index(spec, d, grid.shape[d], grid.device)
-                  for d in range(3))
-    win = grid[ix[:, None, None, :, None, None],
-               iy[None, :, None, None, :, None],
-               iz[None, None, :, None, None, :]]
-    return win.reshape(spec.n_tiles, spec.w, spec.w * spec.w)
+    ndim = spec.ndim
+    idx = broadcast_index(
+        [_window_index(spec, d, grid.shape[d], grid.device)
+         for d in range(ndim)], ndim)
+    win = grid[tuple(idx)]
+    return win.reshape(spec.n_tiles, spec.w, spec.w ** (ndim - 1))
 
 
 def fold_windows(windows: torch.Tensor, spec: TileSpec, n_cell,
-                 axes=(0, 1, 2)) -> torch.Tensor:
+                 axes=None) -> torch.Tensor:
     """Overlap-add per-tile windows onto the periodic grid, the adjoint of
     ``extract_windows`` and the analog of SumBoundary after deposition
     (WarpXComm.cpp:1074): grid[(t*tile - off + a) % n] += windows[t, a].
-    ``axes`` names the spatial axis of each of the three window dims (the
-    fused kernel emits each J component in its own axis order)."""
-    if spec.ndim != 3:
-        raise NotImplementedError("2D windows (ROADMAP.md Queue A 9)")
+    ``axes`` names the spatial axis of each window dim (the 3D fused kernel
+    emits each J component in its own axis order)."""
     w, off = spec.w, spec.off
-    arr = windows.reshape(*spec.tiles_per_dim, w, w, w)
-    if tuple(axes) != (0, 1, 2):
-        inv = [0] * 3
-        for pos_, ax in enumerate(axes):
-            inv[ax] = 3 + pos_
-        arr = arr.permute(0, 1, 2, *inv)
+    ndim = spec.ndim
+    arr = _tile_window_view(windows, spec, axes)
     if all(w % t == 0 for t in spec.tile):
         # roll-based overlap-add: chunk j of the window axis adds into tile
         # t+j; then merge (nt, tile) -> n and shift back by off
         out = arr
-        for d in reversed(range(3)):
+        for d in reversed(range(ndim)):
             tile = spec.tile[d]
-            t_ax, w_ax = d, 3 + d
+            t_ax, w_ax = d, ndim + d
             chunks = [
                 torch.roll(out.narrow(w_ax, j * tile, tile), j, dims=t_ax)
                 for j in range(w // tile)
@@ -326,13 +346,45 @@ def fold_windows(windows: torch.Tensor, spec: TileSpec, n_cell,
             out = torch.roll(merged, -off, dims=t_ax)
         return out
     # general case: one scatter-add through the periodic window indices
-    ix, iy, iz = (_window_index(spec, d, n_cell[d], arr.device)
-                  for d in range(3))
-    lin = ((ix[:, None, None, :, None, None] * n_cell[1]
-            + iy[None, :, None, None, :, None]) * n_cell[2]
-           + iz[None, None, :, None, None, :])
+    idx = broadcast_index(
+        [_window_index(spec, d, n_cell[d], arr.device) for d in range(ndim)],
+        ndim)
+    lin = idx[0]
+    for d in range(1, ndim):
+        lin = lin * n_cell[d] + idx[d]
     out = torch.zeros(int(np.prod(n_cell)), dtype=arr.dtype,
                       device=arr.device)
     out.index_add_(0, torch.broadcast_to(lin, arr.shape).reshape(-1),
                    arr.reshape(-1))
     return out.reshape(tuple(n_cell))
+
+
+def fold_windows_open(windows: torch.Tensor, spec: TileSpec,
+                      axes=None) -> torch.Tensor:
+    """Open (non-periodic) overlap-add of per-tile windows: no wrap-around.
+    Returns an array of extent ``n_d + w - tile_d`` per dim whose index p
+    is the anchor-frame grid index ``p - off``; the bounded step embeds it
+    in its guard-padded deposition block.  Needs ``w % tile == 0``."""
+    w = spec.w
+    ndim = spec.ndim
+    if not all(w % t == 0 for t in spec.tile):
+        raise NotImplementedError("fold_windows_open needs w % tile == 0")
+    out = _tile_window_view(windows, spec, axes)
+    for d in reversed(range(ndim)):
+        tile = spec.tile[d]
+        k = w // tile
+        t_ax, w_ax = d, ndim + d
+        nt = spec.tiles_per_dim[d]
+        # chunk j of the window axis adds into padded tile slot t + j: the
+        # tile axis grows to nt + k - 1 (extent n + w - tile)
+        shape = list(out.shape)
+        shape[t_ax] = nt + k - 1
+        shape[w_ax] = tile
+        total = torch.zeros(shape, dtype=out.dtype, device=out.device)
+        for j in range(k):
+            total.narrow(t_ax, j, nt).add_(out.narrow(w_ax, j * tile, tile))
+        moved = torch.movedim(total, w_ax, t_ax + 1)
+        ms = list(moved.shape)
+        out = moved.reshape(ms[:t_ax] + [(nt + k - 1) * tile]
+                            + ms[t_ax + 2:])
+    return out

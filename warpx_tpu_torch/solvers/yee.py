@@ -1,4 +1,5 @@
-"""FDTD Maxwell updates on the staggered Yee mesh (periodic torus, 3D).
+"""FDTD Maxwell updates on the staggered Yee mesh (periodic torus, 2D XZ
+and 3D).
 
 The counterpart of ``warpx_tpu.solvers.yee`` (reference:
 FiniteDifferenceSolver EvolveB.cpp:120-190, EvolveE.cpp:120-215,
@@ -25,10 +26,10 @@ __all__ = [
 _c2 = _c * _c
 
 
-def _need_3d(geom):
-    if geom.ndim != 3:
+def _need_2d_3d(geom):
+    if geom.ndim not in (2, 3):
         raise NotImplementedError(
-            "1D/2D field advance (ROADMAP.md Queue A 9)"
+            "1D field advance (ROADMAP.md Queue A 4)"
         )
 
 
@@ -56,10 +57,18 @@ def compute_dt_yee(geom, cfl: float) -> float:
 
 
 def _ckc_coefs(geom):
-    """Cole-Karkkainen-Cowan stencil coefficients, 3D
+    """Cole-Karkkainen-Cowan stencil coefficients
     (CartesianCKCAlgorithm.H:36-105)."""
     inv = [1.0 / d for d in geom.dx]
     delta = max(inv)
+    if geom.ndim == 2:
+        rx, rz = (inv[0] / delta) ** 2, (inv[1] / delta) ** 2
+        beta = 0.125
+        return {
+            "alphax": (1 - 2 * rz * beta) * inv[0],
+            "alphaz": (1 - 2 * rx * beta) * inv[1],
+            "betaxz": beta * rz * inv[0], "betazx": beta * rx * inv[1],
+        }
     rx, ry, rz = [(v / delta) ** 2 for v in inv]
     beta = 0.125 * (1.0 - rx * ry * rz / (ry * rz + rz * rx + rx * ry))
     inv_r = 1.0 / (ry * rz + rz * rx + rx * ry)
@@ -79,6 +88,13 @@ def _ckc_coefs(geom):
 
 def _up_ckc(F, daxis, coefs):
     """CKC extended upward difference along array axis ``daxis``."""
+    if F.ndim == 2:
+        other = 1 - daxis
+        base = torch.roll(F, -1, daxis) - F
+        beta = coefs["betaxz"] if daxis == 0 else coefs["betazx"]
+        return coefs["alpha" + "xz"[daxis]] * base + beta * (
+            torch.roll(base, -1, other) + torch.roll(base, 1, other)
+        )
     a, b = [ax for ax in range(3) if ax != daxis]
     name = "xyz"[daxis]
     alpha = coefs["alpha" + name]
@@ -100,44 +116,37 @@ def _up_ckc(F, daxis, coefs):
 
 def evolve_b(fields: FieldState, geom, dt: float,
              algo: str = "yee") -> FieldState:
-    _need_3d(geom)
+    _need_2d_3d(geom)
     Ex, Ey, Ez = fields.Ex, fields.Ey, fields.Ez
     if algo == "ckc":
         coefs = _ckc_coefs(geom)
 
-        def upx(F):
-            return _up_ckc(F, 0, coefs)
-
-        def upy(F):
-            return _up_ckc(F, 1, coefs)
-
-        def upz(F):
-            return _up_ckc(F, 2, coefs)
+        def up(F, axis):
+            return _up_ckc(F, axis, coefs)
     elif algo == "yee":
-        idx, idy, idz = (1.0 / d for d in geom.dx)
+        inv = [1.0 / d for d in geom.dx]
 
-        def upx(F):
-            return _up(F, 0, idx)
-
-        def upy(F):
-            return _up(F, 1, idy)
-
-        def upz(F):
-            return _up(F, 2, idz)
+        def up(F, axis):
+            return _up(F, axis, inv[axis])
     else:
         raise NotImplementedError(
             f"field solver {algo!r} (ROADMAP.md Queue A 10-11)"
         )
-    Bx = fields.Bx + dt * (upz(Ey) - upy(Ez))
-    By = fields.By + dt * (upx(Ez) - upz(Ex))
-    Bz = fields.Bz + dt * (upy(Ex) - upx(Ey))
+    if geom.ndim == 2:  # axes (x, z); d/dy = 0
+        Bx = fields.Bx + dt * up(Ey, 1)
+        By = fields.By + dt * (up(Ez, 0) - up(Ex, 1))
+        Bz = fields.Bz - dt * up(Ey, 0)
+    else:
+        Bx = fields.Bx + dt * (up(Ey, 2) - up(Ez, 1))
+        By = fields.By + dt * (up(Ez, 0) - up(Ex, 2))
+        Bz = fields.Bz + dt * (up(Ex, 1) - up(Ey, 0))
     return fields.replace(Bx=Bx, By=By, Bz=Bz)
 
 
 def evolve_e(fields: FieldState, geom, dt: float,
              algo: str = "yee") -> FieldState:
     """E update; CKC uses the plain Yee downward differences for E."""
-    _need_3d(geom)
+    _need_2d_3d(geom)
     if algo not in ("yee", "ckc"):
         raise NotImplementedError(
             f"field solver {algo!r} (ROADMAP.md Queue A 10-11)"
@@ -145,6 +154,13 @@ def evolve_e(fields: FieldState, geom, dt: float,
     Bx, By, Bz = fields.Bx, fields.By, fields.Bz
     jx, jy, jz = fields.jx, fields.jy, fields.jz
     k = _c2 * dt
+    if geom.ndim == 2:
+        idx, idz = (1.0 / d for d in geom.dx)
+        Ex = fields.Ex + k * (-_down(By, 1, idz) - _mu0 * jx)
+        Ey = fields.Ey + k * (_down(Bx, 1, idz) - _down(Bz, 0, idx)
+                              - _mu0 * jy)
+        Ez = fields.Ez + k * (_down(By, 0, idx) - _mu0 * jz)
+        return fields.replace(Ex=Ex, Ey=Ey, Ez=Ez)
     idx, idy, idz = (1.0 / d for d in geom.dx)
     Ex = fields.Ex + k * (_down(Bz, 1, idy) - _down(By, 2, idz) - _mu0 * jx)
     Ey = fields.Ey + k * (_down(Bx, 2, idz) - _down(Bz, 0, idx) - _mu0 * jy)
@@ -154,7 +170,10 @@ def evolve_e(fields: FieldState, geom, dt: float,
 
 def compute_div_e(fields: FieldState, geom) -> torch.Tensor:
     """Nodal div(E) (ComputeDivE.cpp; downward differences onto nodes)."""
-    _need_3d(geom)
+    _need_2d_3d(geom)
+    if geom.ndim == 2:
+        idx, idz = (1.0 / d for d in geom.dx)
+        return _down(fields.Ex, 0, idx) + _down(fields.Ez, 1, idz)
     idx, idy, idz = (1.0 / d for d in geom.dx)
     return (
         _down(fields.Ex, 0, idx)
@@ -165,7 +184,10 @@ def compute_div_e(fields: FieldState, geom) -> torch.Tensor:
 
 def compute_div_b(fields: FieldState, geom) -> torch.Tensor:
     """Cell-centered div(B) (upward differences from faces to centers)."""
-    _need_3d(geom)
+    _need_2d_3d(geom)
+    if geom.ndim == 2:
+        idx, idz = (1.0 / d for d in geom.dx)
+        return _up(fields.Bx, 0, idx) + _up(fields.Bz, 1, idz)
     idx, idy, idz = (1.0 / d for d in geom.dx)
     return (
         _up(fields.Bx, 0, idx) + _up(fields.By, 1, idy)
