@@ -22,6 +22,14 @@ exits non-zero:
   slice_parity 8 steps of Simulation at 16^3 in float64 on the card and on
                the CPU: every checksum but divE/divB agrees to 1e-9;
   slice2d_parity  the same for the 2D slice at 32^2;
+  bounded_parity  the bounded step in float64 on the card (kernels) and on
+               the CPU (plain versions): the 32 x 64 laser-wakefield deck
+               (PML, moving window, antenna, continuous injection, beam,
+               filter, order 3; 12 steps, K2 in moving-window mode) and the
+               16^3 deck with PEC walls along z (three particles per cell,
+               8 steps, K1): every
+               checksum but divE/divB agrees to 1e-9, the window moved, the
+               kernels were launched once per step;
   main         the 3D main path at 128^3 cells, 2 species, 8.39 M particles,
                float32: init, one warm step, 20 timed steps, 3 profiled
                steps, the closing step; then each kernel at the main path's
@@ -29,7 +37,18 @@ exits non-zero:
   main2d       the 2D main path at 2048^2 cells, 2 species, 33.6 M particles,
                order 3, float32: init, one warm step, 33 timed steps (rebins
                at steps 16 and 32), 3 profiled steps, the closing step; then
-               K2 and K3 at its shapes as above.
+               K2 and K3 at its shapes as above;
+  main_lwfa    the bounded main path, bench.py's 2D laser-wakefield deck at
+               2048 x 8192 cells (PML on four faces, moving window along z,
+               Gaussian laser antenna, continuously injected plasma of
+               ~45 M electrons at 2 x 2 per cell, a 100-particle beam,
+               bilinear filter, order 3, sort interval 16), float32: init,
+               32 warm steps, 32 timed steps, 16 steps with the host's waits
+               for the device counted, 3 profiled steps, the closing steps;
+               then the step's layers timed one by one, and K2 in
+               moving-window mode (K1c)
+               at its shapes against its plain version, timed beside its
+               bound.
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  With no GPU, or without the package beside
@@ -59,6 +78,12 @@ TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # current by ~1e-6/0.006 ~ 2e-4 of itself.  1e-4 of the largest window value
 # bounds it.
 TOL_J_MAIN = 1e-4
+# The same for the laser-wakefield path's windows: at W = 48 an ulp of the
+# window coordinate is 2^-18 cells, and the plasma is at rest but for what the
+# laser's leading edge moves (a drift of a few hundredths of a cell a step
+# carries the largest current), so one ulp of x_new is ~1e-4 of the largest
+# window value; 8.2e-5 was measured.
+TOL_J_WINDOW = 4e-4
 
 
 def emit(phase, **kw):
@@ -376,7 +401,7 @@ def phase_slice_parity(dev, phase, ndim):
 PROFILED_STEPS = 3
 
 
-def profile_steps(sim, steps):
+def profile_steps(sim, steps, top=15):
     """Device time by kernel over ``steps`` steps of the main path (from
     torch.profiler), per step, and the device's busy share of the wall
     time of those steps."""
@@ -404,7 +429,7 @@ def profile_steps(sim, steps):
             "device_ms_per_step": busy,
             "device_busy_share": busy * steps / wall_ms if wall_ms else 0.0,
             "top": [{"ms_per_step": ms, "calls_per_step": n, "name": k[:80]}
-                    for ms, n, k in rows[:15]]}
+                    for ms, n, k in rows[:top]]}
 
 
 def plasma_cfg(ndim, n, ppc, order, u_th, second, max_step, **kw):
@@ -594,34 +619,45 @@ def run_main_path(dev, smi, phase, cfg, n_particles, steps, counters):
     return sim, launches
 
 
-def fused_at_main_shapes(sim, plain_reps):
+def fused_at_main_shapes(sim, plain_reps, window=None):
     """K1 or K2 on the state ``sim`` ended in, against the plain version:
     errors, times, bytes (each input read once, each output written once),
     operations (``fused_flops``: gather and push for every slot of an
     occupied tile, weights and deposit for the alive slots) and the bound.
-    Returns the kernels-line fields that are measured here."""
+    ``window`` = (fields6, pusher params, anchors, zshift, smax) runs the
+    kernel in moving-window mode on the bounded step's inputs.  Returns the
+    kernels-line fields that are measured here."""
     from warpx_tpu_torch.core.binned_step import pusher_groups
     from warpx_tpu_torch.ops import fused_pic as fp
 
     cfg, spec, state = sim.cfg, sim.tile_spec, sim.state
-    farr = state.fields
-    fields6 = fp.pad_fields((farr.Ex, farr.Ey, farr.Ez, farr.Bx, farr.By,
-                             farr.Bz), spec)
+    mode, plain_mode, group_params = {}, {}, sim.params
+    if window is None:
+        farr = state.fields
+        fields6 = fp.pad_fields((farr.Ex, farr.Ey, farr.Ez, farr.Bx, farr.By,
+                                 farr.Bz), spec)
+    else:
+        fields6, group_params, anchors, zshift, smax = window
+        mode = dict(anchors=anchors, zshift=zshift, smax=smax)
+        plain_mode = dict(lo=anchors, zoff=smax - zshift)
     ((pname, _, params, parts, counts),) = list(
-        pusher_groups(state, spec, sim.params))
+        pusher_groups(state, spec, group_params))
     kw = dict(spec=spec, geom=cfg.geometry, order=cfg.particle_shape,
               galerkin=cfg.galerkin, pusher_name=pname, dt=cfg.dt,
               stag_items=stag_items(spec.ndim))
     args = (params, fields6, parts)
+    tol_j = TOL_J_MAIN if window is None else TOL_J_WINDOW
     errs, _, worst_p, worst_j, _ = kernel_compare(
-        fp, args, counts, kw, TOL[torch.float32], TOL_J_MAIN)
+        fp, args, counts, kw, TOL[torch.float32], tol_j,
+        anchors=mode.get("anchors"), zshift=mode.get("zshift"),
+        smax=mode.get("smax", 0))
 
     def launch():
-        return fp.binned_push_deposit(*args, counts=counts, **kw)
+        return fp.binned_push_deposit(*args, counts=counts, **mode, **kw)
 
     ms = cuda_ms(launch, 10)
     plain_ms = cuda_ms(lambda: fp.binned_push_deposit_plain(
-        *args, counts, **kw), plain_reps)
+        *args, counts, **plain_mode, **kw), plain_reps)
     out = launch()
     n_bytes = (nbytes(params, counts, *fields6, *parts)
                + nbytes(*out[0], *out[1], out[2]))
@@ -633,7 +669,7 @@ def fused_at_main_shapes(sim, plain_reps):
     tf = flops / PEAK_FLOPS[torch.float32] * 1e3
     row = {"max_abs_err": max(a for a, _ in errs.values()),
            "max_rel_err": {"particles": worst_p, "j": worst_j},
-           "tol_rel": {"particles": TOL[torch.float32], "j": TOL_J_MAIN},
+           "tol_rel": {"particles": TOL[torch.float32], "j": tol_j},
            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(tb, tf),
            "bound_by": "bytes" if tb >= tf else "operations",
            "bytes": n_bytes, "flops": flops,
@@ -642,14 +678,16 @@ def fused_at_main_shapes(sim, plain_reps):
     return row
 
 
-def k3_at_main_shapes(sim):
+def k3_at_main_shapes(sim, origin=None, wrap_dims=None):
     """K3 on the electrons of the state ``sim`` ended in, against the plain
-    version (exactly), with its times, bytes and bound."""
+    version (exactly), with its times, bytes and bound; ``origin`` and
+    ``wrap_dims`` as the bounded step gives them to the rebin."""
     from warpx_tpu_torch.ops import tiling
 
     spec = sim.tile_spec
     k3_in = tiling.rebin_inputs(sim.state.species["electrons"],
-                                sim.cfg.geometry, spec)
+                                sim.cfg.geometry, spec, origin=origin,
+                                wrap_dims=wrap_dims)
     got = tiling.ragged_expand(*k3_in, spec.p_max)
     ref = tiling.ragged_expand_plain(*k3_in, spec.p_max)
     torch.cuda.synchronize()
@@ -713,6 +751,356 @@ def phase_main2d(dev, smi, k3_row, n=2048):
             "launches": launches["fused_pic_2d"], **k2}
 
 
+# ---- the bounded step ------------------------------------------------------
+
+Q_E = 1.602176634e-19
+M_E = 9.1093837015e-31
+M_P = 1.67262192369e-27
+
+
+def lwfa_cfg(n_cell, lo, hi, x_bound, zmin, beam_z, laser_z, ppc, max_step,
+             interval, **kw):
+    """The 2D laser-wakefield deck of bench.py (``_LWFA_2D_DECK``) and of
+    tests/test_binned_bounded.py as a SimConfig, field for field: PML on the
+    four faces, absorbing particle faces, moving window along z at c, current
+    filter, order 3, Yee at 0.98 of the Courant limit; electrons at
+    2e23 m^-3 within |x| <= ``x_bound`` above ``zmin``, continuously
+    injected; a 100-particle Gaussian beam at ``beam_z``; a Gaussian laser
+    antenna at ``laser_z``.  The laser's species comes last, as the deck
+    reader orders it."""
+    from warpx_tpu_torch.core.config import (LaserConfig, SimConfig,
+                                             SpeciesConfig)
+    from warpx_tpu_torch.core.grid import Geometry
+    from warpx_tpu_torch.solvers.yee import compute_dt_yee
+
+    inf = float("inf")
+    geom = Geometry(ndim=2, n_cell=tuple(n_cell), prob_lo=tuple(lo),
+                    prob_hi=tuple(hi), periodic=(False, False))
+    electrons = SpeciesConfig(
+        name="electrons", charge=-Q_E, mass=M_E, species_type="electron",
+        injection_style="nuniformpercell",
+        num_particles_per_cell_each_dim=ppc, profile="constant",
+        density=2.0e23, momentum_distribution="at_rest",
+        bounds_lo=(-x_bound, zmin), bounds_hi=(x_bound, inf),
+        do_continuous_injection=True)
+    beam = SpeciesConfig(
+        name="beam", charge=-Q_E, mass=M_E, species_type="electron",
+        injection_style="gaussian_beam", x_rms=0.5e-6, y_rms=0.5e-6,
+        z_rms=0.5e-6, x_m=0.0, y_m=0.0, z_m=beam_z, npart=100,
+        q_tot=-1.0e-12, momentum_distribution="gaussian", ux=0.0, uy=0.0,
+        uz=500.0, ux_th=2.0, uy_th=2.0, uz_th=50.0,
+        bounds_lo=(-inf, -inf), bounds_hi=(inf, inf))
+    laser = LaserConfig(
+        name="laser1", profile="gaussian", position=(0.0, 0.0, laser_z),
+        direction=(0.0, 0.0, 1.0), polarization=(0.0, 1.0, 0.0),
+        e_max=16.0e12, profile_waist=5.0e-6, profile_duration=15.0e-15,
+        profile_t_peak=30.0e-15, profile_focal_distance=100.0e-6,
+        wavelength=0.8e-6)
+    antenna = SpeciesConfig(name="laser1", charge=1.0, mass=0.0,
+                            injection_style="laser")
+    return SimConfig(
+        geometry=geom, max_step=max_step, dt=compute_dt_yee(geom, 0.98),
+        cfl=0.98, particle_shape=3, em_solver="yee", use_filter=True,
+        filter_npass_each_dir=(1, 1), species=(electrons, beam, antenna),
+        lasers=(laser,), field_bc_lo=("pml", "pml"),
+        field_bc_hi=("pml", "pml"), particle_bc_lo=("absorbing",) * 2,
+        particle_bc_hi=("absorbing",) * 2, do_moving_window=True,
+        moving_window_dir=1, moving_window_v=1.0, sort_interval=interval,
+        tiled_particles="on", tile_mxu="f32", **kw)
+
+
+def small_lwfa_cfg():
+    """tests/test_binned_bounded.py's 32 x 64 deck, 12 steps."""
+    return lwfa_cfg((32, 64), (-15e-6, -28e-6), (15e-6, 6e-6), 12e-6, -20e-6,
+                    -14e-6, -10e-6, (1, 1, 1), 12, 4)
+
+
+def main_lwfa_cfg(nx=2048, nz=8192, steps=95):
+    """lwfa2d-2048x8192: bench.py::run_lwfa's deck (60 um x 68 um window,
+    the plasma filling it from its lower edge, 2 x 2 per cell, sort interval
+    16) with tile_mxu='f32'."""
+    return lwfa_cfg((nx, nz), (-30e-6, -56e-6), (30e-6, 12e-6), 20e-6,
+                    -56e-6, -28e-6, 9e-6, (2, 2, 1), steps, 16)
+
+
+def pec3d_cfg():
+    """tests/test_binned_bounded.py's 16^3 deck: periodic in x and y, PEC
+    walls and reflecting particles along z, thermal electrons and protons
+    at rest, order 2, current filter, 8 steps; with three particles per
+    cell instead of one, because a species of at most 8192 particles keeps
+    its compact layout and would never reach K1."""
+    from warpx_tpu_torch.core.config import SimConfig, SpeciesConfig
+    from warpx_tpu_torch.core.grid import Geometry
+    from warpx_tpu_torch.solvers.yee import compute_dt_yee
+
+    geom = Geometry(ndim=3, n_cell=(16,) * 3, prob_lo=(-8e-6,) * 3,
+                    prob_hi=(8e-6,) * 3, periodic=(True, True, False))
+    common = dict(injection_style="nuniformpercell",
+                  num_particles_per_cell_each_dim=(1, 1, 3),
+                  profile="constant", density=1.0e24)
+    species = (
+        SpeciesConfig(name="electrons", charge=-Q_E, mass=M_E,
+                      species_type="electron",
+                      momentum_distribution="gaussian", ux_th=0.05,
+                      uy_th=0.05, uz_th=0.05, **common),
+        SpeciesConfig(name="protons", charge=Q_E, mass=M_P,
+                      species_type="proton",
+                      momentum_distribution="at_rest", **common))
+    return SimConfig(
+        geometry=geom, max_step=8, dt=compute_dt_yee(geom, 0.98), cfl=0.98,
+        particle_shape=2, use_filter=True, filter_npass_each_dir=(1, 1, 1),
+        species=species, field_bc_lo=("periodic", "periodic", "pec"),
+        field_bc_hi=("periodic", "periodic", "pec"),
+        particle_bc_lo=("periodic", "periodic", "reflecting"),
+        particle_bc_hi=("periodic", "periodic", "reflecting"),
+        tiled_particles="on")
+
+
+def phase_bounded_parity(dev):
+    """The bounded tile-binned step on the card (kernels) against the same
+    run on the CPU (plain versions), float64: every checksum but divE/divB
+    within 1e-9, no overflow or violation, the window moved, and the fused
+    kernel was launched once per step, so that a fall to the per-particle
+    step fails."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.ops import fused_pic as fp
+
+    cases = []
+    for name, cfg, counter in (("lwfa_32x64", small_lwfa_cfg(), "launches_2d"),
+                               ("pec_16^3", pec3d_cfg(), "launches")):
+        sums = {}
+        before = getattr(fp.binned_push_deposit, counter)
+        for device in (dev, "cpu"):
+            sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float64,
+                                             device=device)
+            if not (sim.is_bounded and sim.binned):
+                raise AssertionError(f"{name} did not take the bounded "
+                                     "tile-binned step")
+            sim.init()
+            sim.evolve()
+            sums[str(device)] = sim.checksums()  # raises on overflow etc.
+            if device is dev:
+                aux = sim.state.aux
+                zshifts = sorted(sim.stepper.zshifts_seen)
+        grew = getattr(fp.binned_push_deposit, counter) - before
+        if grew != cfg.max_step:
+            raise AssertionError(f"{name}: {grew} fused launches in "
+                                 f"{cfg.max_step} steps")
+        if cfg.do_moving_window and not (
+                aux["window_offset"] > 0
+                and aux["window_lo"] > cfg.geometry.prob_lo[1]):
+            raise AssertionError(f"{name}: the window did not move")
+        got, ref = sums[str(dev)], sums["cpu"]
+        worst = 0.0
+        for group in ref:
+            for q, a in ref[group].items():
+                if q in ("divE", "divB"):
+                    continue
+                r = (abs(got[group][q] - a) / abs(a) if a
+                     else abs(got[group][q]))
+                worst = max(worst, r)
+                if r > 1e-9:
+                    raise AssertionError(
+                        f"{name} checksum {group}/{q}: card "
+                        f"{got[group][q]!r} vs CPU {a!r}")
+        cases.append({"case": name, "steps": cfg.max_step,
+                      "fused_launches": grew, "max_rel_err": worst,
+                      "window_offset": int(aux.get("window_offset", 0)),
+                      "zshifts_seen": zshifts})
+    emit("bounded_parity", ok=True, tol=1e-9, cases=cases)
+
+
+def count_device_waits(fn):
+    """The number of times ``fn()`` makes the host wait for the device, from
+    PyTorch's own warnings (torch.cuda.set_sync_debug_mode)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def lwfa_layers(sim, anchors, zshift):
+    """Device milliseconds of the bounded step's layers, each called alone
+    on the state the run ended in (a step without rebin or injection), and
+    of the whole step there."""
+    from warpx_tpu_torch.core.binned_step import pusher_groups
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.ops import tiling
+    from warpx_tpu_torch.solvers.filter import bilinear_filter_padded
+
+    stepper, spec, cfg, state = sim.stepper, sim.tile_spec, sim.cfg, sim.state
+    geom, fields = cfg.geometry, state.fields
+    fields6 = stepper.to_kernel_frame(stepper._padded_eb(fields))
+    ((pname, _, params, parts, counts),) = list(
+        pusher_groups(state, spec, stepper.params))
+    _, jw, _ = fp.binned_push_deposit(
+        params, fields6, parts, anchors, zshift, counts=counts, spec=spec,
+        geom=geom, order=cfg.particle_shape, galerkin=cfg.galerkin,
+        pusher_name=pname, dt=cfg.dt, stag_items=stepper.stag_items,
+        smax=stepper.smax)
+    del fields6, parts
+
+    def fold():
+        return tuple(stepper.embed_folded(
+            tiling.fold_windows_open(jw[i], spec), zshift) for i in range(3))
+
+    j_total = fold()
+    npass = cfg.filter_npass_each_dir
+    el = state.species["electrons"]
+    return {
+        "pad_eb_and_kernel_frame": cuda_ms(
+            lambda: stepper.to_kernel_frame(stepper._padded_eb(fields)), 5),
+        "pack_species_columns": cuda_ms(
+            lambda: list(pusher_groups(state, spec, stepper.params)), 5),
+        "fold_windows_open_and_embed": cuda_ms(fold, 5),
+        "filter_j": cuda_ms(
+            lambda: [bilinear_filter_padded(a, npass) for a in j_total], 5),
+        "field_tail_filter_included": cuda_ms(
+            lambda: stepper.field_tail(state, state.species, j_total, {}), 5),
+        "step_window_shift_and_faces": cuda_ms(
+            lambda: stepper.step_window(state, False), 5),
+        "rebin_electrons": cuda_ms(
+            lambda: tiling.rebin(el, geom, spec, origin=anchors,
+                                 wrap_dims=stepper.wrap_dims), 3),
+        "continuous_injection": cuda_ms(
+            lambda: stepper.continuous_injection(
+                state, cfg.species[0], el, stepper.phys_lo_of(state),
+                stepper.domain_hi_of(state)), 3),
+        "step_binned": cuda_ms(lambda: stepper.step(state), 5),
+    }
+
+
+def phase_main_lwfa(dev, smi, k2_row, k3_row, nx=2048, nz=8192):
+    """lwfa2d-2048x8192 through K2 in moving-window mode (K1c) and K3;
+    returns K1c's kernels-line row and adds this path's launches to the rows
+    of K2 and K3."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.ops import tiling
+
+    warm, timed, counted, interval = 32, 32, 16, 16
+    steps = warm + timed + counted + 1 + PROFILED_STEPS + 2
+    cfg = main_lwfa_cfg(nx, nz, steps)
+    geom = cfg.geometry
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
+    if not (sim.is_bounded and sim.binned):
+        raise AssertionError("main_lwfa did not take the bounded tile-binned "
+                             "step")
+    fp.binned_push_deposit.launches_2d = 0
+    tiling.ragged_expand.launches = 0
+    sim.init()
+    spec, stepper = sim.tile_spec, sim.stepper
+    n0 = {nm: int(sp.alive.sum()) for nm, sp in sim.state.species.items()}
+    host_init_s = time.perf_counter() - t0
+    sim.evolve(warm)  # two rebins, the window moving
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    marks[0].record()
+    for mark in marks[1:]:
+        sim.evolve(1)
+        mark.record()
+    marks[-1].synchronize()
+    ms_step = marks[0].elapsed_time(marks[-1]) / timed
+    series = [round(a.elapsed_time(b), 3) for a, b in zip(marks, marks[1:])]
+    waits = count_device_waits(lambda: sim.evolve(counted))
+    sim.evolve(1)  # a rebin step: the profiled ones that follow have none
+    breakdown = profile_steps(sim, PROFILED_STEPS, top=30)
+    sim.evolve()  # the closing steps, with the +dt/2 synchronization
+    torch.cuda.synchronize()
+    if sim.state.step != steps:
+        raise AssertionError(f"main_lwfa ended at step {sim.state.step}")
+    launches = {"fused_pic_2d": fp.binned_push_deposit.launches_2d,
+                "ragged_expand": tiling.ragged_expand.launches}
+    rebins = len(range(0, steps, interval))
+    if launches != {"fused_pic_2d": steps, "ragged_expand": rebins}:
+        raise AssertionError(f"main_lwfa launched {launches} in {steps} "
+                             f"steps with {rebins} rebins")
+    peak_steps = torch.cuda.max_memory_allocated()
+    zshifts = sorted(stepper.zshifts_seen)
+    if not (zshifts[0] == 0 and zshifts[-1] < stepper.smax
+            and len(zshifts) >= interval - 1):
+        raise AssertionError(f"zshift took {zshifts} of [0, {stepper.smax})")
+    sums = sim.checksums()  # raises on tile overflow or violations
+    for group in sums.values():
+        for q, v in group.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"non-finite checksum {q}")
+    for nm, shape in stepper.shapes.items():
+        if nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz"):
+            a = getattr(sim.state.fields, nm)
+            if (tuple(a.shape) != tuple(shape)
+                    or not bool(torch.isfinite(a).all())):
+                raise AssertionError(f"field {nm} is not finite at {shape}")
+    aux = sim.state.aux
+    offset = int(aux["window_offset"])
+    if offset <= 0:
+        raise AssertionError("the window did not move")
+    # the electrons are at rest: each cell row along z that the window left
+    # behind took its particles along, each row injected brought as many
+    alive = {nm: int(sp.alive.sum()) for nm, sp in sim.state.species.items()}
+    per_row = n0["electrons"] / geom.n_cell[1]
+    rows_in = round(float(aux["inject_pos:electrons"] - geom.prob_hi[1])
+                    / geom.dx[1])
+    expected = n0["electrons"] + (rows_in - offset) * per_row
+    if abs(alive["electrons"] - expected) > per_row:
+        raise AssertionError(f"{alive['electrons']} electrons alive, "
+                             f"{expected} explained by {offset} rows "
+                             f"absorbed and {rows_in} injected")
+    n_mean = 0.5 * (n0["electrons"] + alive["electrons"])
+    emit("main_lwfa", ok=True, n_cell=geom.n_cell,
+         field_shape=stepper.shapes["Ex"], alive_at_init=n0, alive_at_end=alive, electrons_expected=expected,
+         rows_absorbed=offset, rows_injected=rows_in, order=cfg.particle_shape,
+         n_tiles=spec.n_tiles, w=spec.w, p_max=spec.p_max,
+         slots=spec.capacity, smax=stepper.smax, zshifts_seen=zshifts,
+         slow_species=sorted(stepper.slow_species), steps=steps,
+         steps_timed=timed, ms_per_step=ms_step,
+         pushes_per_s=n_mean / (ms_step * 1e-3), ms_each_step=series,
+         host_init_s=host_init_s, init_and_warm_s=init_s, launches=launches,
+         device_waits={"steps": counted, "waits": waits},
+         tile_overflow=0, tile_violations=0,
+         window_offset=offset,
+         peak_memory_bytes={"steps": peak_steps, "with_checksums":
+                            torch.cuda.max_memory_allocated()},
+         checksum_Ey=sums["lev=0"]["Ey"], checksum_jz=sums["lev=0"]["jz"],
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    emit("main_lwfa_profile", steps=PROFILED_STEPS, nvidia_smi=smi,
+         **breakdown)
+    # K2 in moving-window mode on the inputs the next step would give it
+    f = stepper._f
+    anchors = list(geom.prob_lo)
+    anchors[1] = aux["tile_anchor"]
+    zshift = int(np.round(f(f(aux["window_lo"] - aux["tile_anchor"])
+                            / f(geom.dx[1]))))
+    fields6 = stepper.to_kernel_frame(stepper._padded_eb(sim.state.fields))
+    k1c = fused_at_main_shapes(
+        sim, 1, window=(fields6, stepper.params, tuple(anchors), zshift,
+                        stepper.smax))
+    k3 = k3_at_main_shapes(sim, origin=tuple(anchors),
+                           wrap_dims=stepper.wrap_dims)
+    emit("main_lwfa_layers", step=sim.state.step, zshift=zshift,
+         ms=lwfa_layers(sim, tuple(anchors), zshift), fused_pic_2d=k1c["ms"],
+         ragged_expand=k3["ms"], nvidia_smi=smi)
+    for row, nm in ((k2_row, "fused_pic_2d"), (k3_row, "ragged_expand")):
+        row["launches"] += launches[nm]
+        row.setdefault("launches_by_path", {})["main_lwfa"] = launches[nm]
+    k3_row["at_main_lwfa"] = k3
+    return {"name": "fused_pic_moving_window", "route": "cuda",
+            "source": "warpx_tpu_torch/csrc/fused_pic_2d.cu",
+            "replaces": "warpx_tpu/ops/pallas_pic.py:197",
+            "launches": launches["fused_pic_2d"], "zshift": zshift,
+            "smax": stepper.smax, **k1c}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -743,10 +1131,14 @@ def main() -> int:
     phase_k3_parity(dev)
     phase_slice_parity(dev, "slice_parity", 3)
     phase_slice_parity(dev, "slice2d_parity", 2)
+    phase_bounded_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
     k2_row = phase_main2d(dev, smi, k3_row)
+    k2_row["launches_by_path"] = {"main2d": k2_row["launches"]}
+    torch.cuda.empty_cache()
+    k1c_row = phase_main_lwfa(dev, smi, k2_row, k3_row)
     print(smi)
-    print(json.dumps({"kernels": [k1_row, k2_row, k3_row]}))
+    print(json.dumps({"kernels": [k1_row, k2_row, k1c_row, k3_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -343,3 +343,43 @@ def test_inject_species_2d_bit_identical(case, dtype):
         a, b = getattr(got, k).numpy(), np.asarray(getattr(ref, k))
         assert a.dtype == b.dtype, k
         np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("kw", [
+    dict(bounds_lo=(-1.2e-5, -0.5e-5), bounds_hi=(0.8e-5, float("inf"))),
+    dict(bounds_lo=(-1.0e-5, -1.0e-5), bounds_hi=(1.0e-5, 1.0e-5),
+         capacity_factor=1.5),
+])
+def test_inject_species_bounds_and_capacity_bit_identical(kw, dtype):
+    """Injection bounds, the capacity factor and an explicit capacity, as
+    the bounded step's continuously injected plasma uses them."""
+    base = dict(name="e", charge=-1.602176634e-19, mass=9.1093837015e-31,
+                profile="constant", density=1e24,
+                injection_style="nuniformpercell",
+                num_particles_per_cell_each_dim=(2, 2, 1), **kw)
+    jg, g = geoms2d((8, 6))
+    tdtype = torch.float64 if dtype == np.float64 else torch.float32
+    for capacity in (None, 400):
+        ref = j_injection.inject_species(JSpeciesConfig(**base), jg, dtype,
+                                         np.random.default_rng(5), capacity)
+        got = injection.inject_species(
+            SpeciesConfig(**base), g, np.random.default_rng(5), dtype=tdtype,
+            device="cpu", capacity=capacity)
+        assert 0 < int(got.alive.sum()) < 8 * 6 * 4 < got.capacity + 200
+        for k in ("x", "z", "ux", "uy", "uz", "w", "alive"):
+            np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                          np.asarray(getattr(ref, k)), k)
+
+
+def test_count_particles_per_cell_with_origin():
+    rng = np.random.default_rng(8)
+    jg, g = geoms2d((8, 6))
+    pos = positions(rng, g, 500)[:2]
+    alive = rng.random(500) > 0.3
+    origin = (g.prob_lo[0], g.prob_lo[1] + 2.5 * g.dx[1])
+    ref = j_deposit.count_particles_per_cell(
+        [jnp.asarray(p) for p in pos], jnp.asarray(alive), jg, origin=origin)
+    got = deposit.count_particles_per_cell(
+        [t(p) for p in pos], torch.tensor(alive), g, origin=origin)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))

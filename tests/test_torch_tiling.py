@@ -260,3 +260,26 @@ def test_fold_windows_open_needs_divisible_window():
     with pytest.raises(NotImplementedError, match="w % tile"):
         tiling.fold_windows_open(
             torch.zeros(spec.n_tiles, spec.w, spec.w), spec)
+
+
+@pytest.mark.parametrize("shift", [0.0, 2.25, -3.5])
+def test_tile_ids_with_origin_match(shift):
+    """tile_ids with the tiling anchored ``shift`` cells off prob_lo along
+    z; positions beyond the tiling clip into the edge tiles."""
+    rng = np.random.default_rng(4)
+    jg, g = geoms(16)
+    spec = tiling.TileSpec.create(g.n_cell, order=1, n_particles=1000,
+                                  margin=1, interval=1)
+    jspec = j_tiling.TileSpec.create(g.n_cell, order=1, n_particles=1000,
+                                     margin=1, interval=1)
+    pos = rng.uniform(-0.6 * LX, 0.6 * LX, (3, 2000))
+    origin = (g.prob_lo[0], g.prob_lo[1], g.prob_lo[2] + shift * g.dx[2])
+    ref = j_tiling.tile_ids([jnp.asarray(p) for p in pos], jg, jspec,
+                            origin=origin)
+    got = tiling.tile_ids([torch.tensor(p) for p in pos], g, spec,
+                          origin=origin)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    centers = tiling.tile_centers(g, spec, torch.float64, "cpu",
+                                  origin=origin)
+    assert float(centers[2, 0]) == pytest.approx(
+        origin[2] + 0.5 * spec.tile[2] * g.dx[2], rel=1e-14)

@@ -31,8 +31,9 @@ from .config import SimConfig
 from .state import SimState
 from .step import advance_fields
 
-__all__ = ["binned_supported", "make_tile_spec", "binned_capacity",
-           "binned_pic_step", "pusher_params", "pusher_groups"]
+__all__ = ["binned_supported", "bounded_binned_supported", "make_tile_spec",
+           "binned_capacity", "binned_pic_step", "pusher_params",
+           "pusher_groups"]
 
 # per-component window-axis order emitted by the fused kernels
 _FOLD_AXES = {3: ((0, 1, 2), (1, 0, 2), (2, 0, 1)),
@@ -72,6 +73,47 @@ def binned_supported(cfg: SimConfig) -> bool:
     return True
 
 
+def bounded_binned_supported(cfg: SimConfig) -> bool:
+    """Whether the tile-binned step covers this bounded configuration
+    (non-periodic faces, moving window, lasers:
+    ``core/bounded_step.py::step_binned``): the JAX package's
+    ``bounded_binned_supported`` less what is not ported yet (PSATD).  Only
+    the gather + push + deposit block moves onto the fused kernels; guard
+    fills, J filter and fold, field advance, PML, particle boundaries and
+    continuous injection are the per-particle step's."""
+    geom = cfg.geometry
+    if cfg.tiled_particles == "off":
+        return False
+    if geom.ndim not in (2, 3) or geom.rz:
+        return False
+    if cfg.em_solver not in ("yee", "ckc"):
+        return False
+    if cfg.em_solver_medium != "vacuum":
+        return False
+    if cfg.current_deposition != "esirkepov":
+        return False
+    if cfg.grid_type != "staggered":
+        return False
+    if cfg.field_gathering == "momentum-conserving":
+        return False
+    if not (1 <= cfg.particle_shape <= 3):
+        return False
+    if cfg.do_dive_cleaning or cfg.do_divb_cleaning:
+        return False
+    if cfg.do_moving_window and cfg.moving_window_dir != geom.ndim - 1:
+        return False
+    if any(n % t for n, t in zip(geom.n_cell, cfg.tile_size[-geom.ndim:])):
+        return False
+    for sp in cfg.species:
+        if sp.injection_style == "laser":
+            continue  # the antenna deposits on the per-particle path
+        if (sp.do_not_push or sp.do_not_deposit or sp.do_not_gather
+                or sp.species_type == "photon" or sp.mass == 0.0
+                or sp.pusher not in ("boris", "vay", "higuera")):
+            return False
+    return True
+
+
 def make_tile_spec(cfg: SimConfig, n_particles: int) -> TileSpec:
     geom = cfg.geometry
     margin = cfg.sort_margin
@@ -94,13 +136,14 @@ def binned_capacity(cfg: SimConfig, n_particles: int) -> int:
     return make_tile_spec(cfg, n_particles).capacity
 
 
-def pusher_params(cfg: SimConfig, dtype: torch.dtype,
-                  device: torch.device) -> Dict[str, Tuple[tuple, torch.Tensor]]:
+def pusher_params(cfg: SimConfig, dtype: torch.dtype, device: torch.device,
+                  species=None) -> Dict[str, Tuple[tuple, torch.Tensor]]:
     """Per pusher, its species' configs and their fused-kernel params
     (n_sp, 8): charge, mass, external E, external B.  Built once per
-    simulation, so no step copies them to the device."""
+    simulation, so no step copies them to the device.  ``species`` (default
+    all of ``cfg.species``) are the species laid out in tiles."""
     groups: Dict[str, list] = {}
-    for sp_cfg in cfg.species:
+    for sp_cfg in (cfg.species if species is None else species):
         groups.setdefault(sp_cfg.pusher, []).append(sp_cfg)
     return {
         name: (tuple(sps), torch.tensor(

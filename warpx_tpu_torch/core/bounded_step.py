@@ -1,0 +1,935 @@
+"""PIC step on bounded (non-periodic) domains with a moving window.
+
+The counterpart of ``warpx_tpu.core.bounded_step`` (there one closure,
+``make_bounded_kernels``; here the class ``BoundedStepper``) for the explicit
+FDTD case, 2D XZ and 3D:
+
+* per-face field boundaries (periodic | pec | pml) as guard fills on
+  ng-padded blocks (WarpX_PEC.cpp mirror rules, ``core/boundaries.py``); a
+  component nodal in a bounded dimension stores n+1 values, both wall nodes
+  included; PML strips are ordinary array regions (``core/domain.py``) that
+  evolve the Berenger split fields ``aux["pml:<comp>:<axis>"]``;
+* deposition guards at non-periodic faces are dropped, periodic ones folded
+  (SumBoundary folds only the periodic directions, WarpXComm.cpp:1552);
+* the bilinear filter of J on the padded block (WarpXComm.cpp:1357);
+* laser antennas as prescribed-motion particle species that deposit current
+  (LaserParticleContainer::Evolve);
+* the moving window: a whole-cell shift of every field array, domain edges
+  accumulated on the host, continuous plasma injection into the newly
+  uncovered cells (WarpXMovingWindow.cpp:139-479);
+* absorbing and reflecting particle boundaries.
+
+``step_main`` is the per-particle step and the oracle of ``step_binned``,
+the tile-binned step: there the gather + push + deposit of the plasma runs
+through the fused kernels (``ops/fused_pic.py``) over tiles anchored in
+space where the window stood at the last rebin, while the grid slides under
+them by whole cells (the kernels' ``anchors``/``zshift``/``smax`` mode);
+guard fills, filter, field advance, PML, particle boundaries and injection
+are shared with ``step_main``.
+
+The window's scalars (``window_x``, ``window_lo``, ``window_hi``,
+``window_offset``, ``tile_anchor``, ``inject_pos:<species>``) are host
+numbers in the state's precision, and ``state.step`` is a host int, so every
+branch of the step (rebin or not, inject or not, how far to shift) is
+decided without waiting for the device.  The one wait is in
+``continuous_injection``, which asks for the free slots
+(``torch.nonzero``); it runs on the steps before a rebin only.
+
+What the JAX function does beyond this raises ``NotImplementedError`` with
+its ROADMAP.md queue item (``check_bounded_supported``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..constants import c as _c
+from ..constants import mu0 as _mu0
+from ..ops.deposit import deposit_current_esirkepov
+from ..ops.fused_pic import binned_push_deposit, padded_shape
+from ..ops.gather import gather_eb
+from ..ops.push import PUSHERS, position_step
+from ..ops.tiling import fold_windows_open, rebin
+from ..solvers import yee
+from ..solvers.filter import bilinear_filter_padded
+from .binned_step import _FOLD_AXES, pusher_groups, pusher_params
+from .boundaries import fill_guards_pec, is_tangential
+from .config import SimConfig
+from .domain import DomainLayout
+from .injection import _AXES3, _bulk_momentum, _regular_unit_positions
+from .laser import update_antenna
+from .state import SimState
+from .step import _add_ext
+
+__all__ = ["BoundedStepper", "guard_width", "field_shapes",
+           "check_bounded_supported", "needs_bounded_step"]
+
+_COMP_AXIS = {"x": 0, "y": 1, "z": 2}
+_c2 = _c * _c
+_EB = ("Ex", "Ey", "Ez", "Bx", "By", "Bz")
+
+# Yee curl terms: output comp -> [(sign, input comp, diff xyz-axis, up|dn)]
+B_TERMS = {
+    "Bx": [(+1.0, "Ey", "z", "up"), (-1.0, "Ez", "y", "up")],
+    "By": [(+1.0, "Ez", "x", "up"), (-1.0, "Ex", "z", "up")],
+    "Bz": [(+1.0, "Ex", "y", "up"), (-1.0, "Ey", "x", "up")],
+}
+E_TERMS = {
+    "Ex": [(+1.0, "Bz", "y", "dn"), (-1.0, "By", "z", "dn")],
+    "Ey": [(+1.0, "Bx", "z", "dn"), (-1.0, "Bz", "x", "dn")],
+    "Ez": [(+1.0, "By", "x", "dn"), (-1.0, "Bx", "y", "dn")],
+}
+
+
+def guard_width(cfg: SimConfig) -> int:
+    ng = cfg.particle_shape + 3
+    if cfg.use_filter:
+        ng += max(cfg.filter_npass_each_dir or (1,))
+    return ng
+
+
+def field_shapes(cfg, staggering) -> Dict[str, tuple]:
+    """Per-component allocated shapes (PML strips and wall nodes included)."""
+    return DomainLayout.from_config(cfg).field_shapes(staggering)
+
+
+def needs_bounded_step(cfg: SimConfig) -> bool:
+    """Whether ``cfg`` runs through the bounded step: a non-periodic field
+    face, a moving window or a laser."""
+    nonperiodic = any(bc != "periodic"
+                      for bc in (cfg.field_bc_lo + cfg.field_bc_hi))
+    return nonperiodic or cfg.do_moving_window or bool(cfg.lasers)
+
+
+def check_bounded_supported(cfg: SimConfig) -> None:
+    """Refuse every branch of the JAX package's bounded step that is not
+    ported, naming the ROADMAP.md item it waits for."""
+    ndim = cfg.geometry.ndim
+
+    def no(what, item):
+        raise NotImplementedError(f"bounded step: {what} (ROADMAP.md {item})")
+
+    if ndim not in (2, 3):
+        no("1D", "Queue A 3-4")
+    if cfg.em_solver == "psatd":
+        no("the PSATD solver with damped or PML faces", "Queue A 10")
+    if cfg.em_solver not in ("yee", "ckc"):
+        no(f"em_solver {cfg.em_solver!r}", "Queue A 11")
+    for bc in tuple(cfg.field_bc_lo) + tuple(cfg.field_bc_hi):
+        if bc not in ("periodic", "pec", "pml"):
+            no(f"field boundary {bc!r} (Silver-Mueller, damped, open)",
+               "Queue A 11")
+    for lo, hi in zip(cfg.field_bc_lo, cfg.field_bc_hi):
+        if (lo == "periodic") != (hi == "periodic"):
+            no("a dimension periodic on one face only", "Queue A 11")
+    for bc in tuple(cfg.particle_bc_lo) + tuple(cfg.particle_bc_hi):
+        if bc not in ("periodic", "absorbing", "reflecting"):
+            no(f"particle boundary {bc!r} (thermal walls)", "Queue A 11")
+    if cfg.em_solver_medium != "vacuum":
+        no("a macroscopic medium", "Queue A 11")
+    if cfg.do_dive_cleaning or cfg.do_divb_cleaning:
+        no("divergence cleaning", "Queue A 11")
+    if cfg.current_deposition != "esirkepov":
+        no(f"current deposition {cfg.current_deposition!r}", "Queue A 3")
+    if cfg.grid_type != "staggered":
+        no(f"grid type {cfg.grid_type!r}", "Queue A 11")
+    if cfg.field_gathering == "momentum-conserving":
+        no("momentum-conserving gathering", "Queue A 11")
+    if cfg.use_nci_corr:
+        no("the Godfrey NCI corrector", "Queue A 9, left out")
+    if cfg.gamma_boost > 1.0:
+        no("the Lorentz-boosted frame", "Queue A 11")
+    if cfg.do_moving_window and not 0 <= cfg.moving_window_dir < ndim:
+        raise ValueError("moving_window_dir must be an active-axis index")
+    laser_names = {las.name for las in cfg.lasers}
+    for las in cfg.lasers:
+        if las.profile != "gaussian":
+            no(f"laser profile {las.profile!r}", "Queue A 11")
+        if las.do_continuous_injection:
+            no("continuous injection of a laser antenna", "Queue A 11")
+    for sp in cfg.species:
+        if sp.injection_style == "laser":
+            if sp.name not in laser_names:
+                raise ValueError(f"laser species {sp.name!r} has no "
+                                 "LaserConfig")
+            continue
+        if sp.do_not_push or sp.do_not_gather or sp.do_not_deposit:
+            no(f"do_not_push/gather/deposit of {sp.name!r}", "Queue A 11")
+        if sp.species_type == "photon" or sp.mass == 0.0:
+            no(f"massless species {sp.name!r}", "Queue A 11")
+        if sp.pusher not in PUSHERS:
+            no(f"pusher {sp.pusher!r}", "Queue A 11")
+        if sp.do_continuous_injection:
+            if sp.injection_style != "nuniformpercell":
+                no("continuous injection other than NUniformPerCell",
+                   "Queue A 11")
+            if sp.profile != "constant":
+                no(f"continuous injection with the {sp.profile!r} profile "
+                   "(needs utils/expression.py)", "Queue A 15")
+            if sp.momentum_distribution not in ("at_rest", "none",
+                                                "constant"):
+                no("continuous injection with momentum distribution "
+                   f"{sp.momentum_distribution!r} (the JAX package draws it "
+                   "from jax.random)", "Queue A 11")
+
+
+def _slice(ndim, d, a, b):
+    idx = [slice(None)] * ndim
+    idx[d] = slice(a, b)
+    return tuple(idx)
+
+
+def _overlap(start, n_src, n_dst):
+    """Source and destination slices that place a length-``n_src`` axis at
+    index ``start`` of a length-``n_dst`` axis, cropped to both."""
+    a = max(0, -start)
+    b = min(n_src, n_dst - start)
+    return slice(a, max(a, b)), slice(a + start, max(a, b) + start)
+
+
+class BoundedStepper:
+    """The bounded step's functions over one configuration.  With
+    ``tile_spec`` (from ``binned_step.make_tile_spec``; configuration held to
+    ``bounded_binned_supported``) ``step`` is the tile-binned ``step_binned``
+    and the species named in ``slow_species`` (small, static: a beam) keep
+    their compact layout and ride the per-particle path inside it; without,
+    ``step`` is ``step_main``.
+
+    A laser antenna and a slow species deposit into the whole padded block
+    (``index_add_`` costs by the particle, not by the block), where the JAX
+    package deposits into a thin slab around their mean position along the
+    window axis: the slab's base index would have to be read back from the
+    device every step, and at a fine grid a beam outgrows the slab's fixed
+    128 cells.  Both give the same J to roundoff.
+    """
+
+    def __init__(self, cfg: SimConfig, staggering: Dict, dtype: torch.dtype,
+                 device, tile_spec=None, slow_species=()):
+        check_bounded_supported(cfg)
+        self.cfg = cfg
+        self.staggering = staggering
+        self.dtype = dtype
+        self.device = torch.device(device)
+        # host numbers in the state's precision, as the device arithmetic
+        # of the JAX package holds them: self._f(x)
+        self._f = torch.empty((), dtype=dtype).numpy().dtype.type
+        self.spec = tile_spec
+        self.slow_species = frozenset(slow_species)
+        geom = cfg.geometry
+        ndim = self.ndim = geom.ndim
+        self.ng = guard_width(cfg)
+        self.axes = geom.axis_names
+        self.bc_lo = tuple(cfg.field_bc_lo or ("periodic",) * ndim)
+        self.bc_hi = tuple(cfg.field_bc_hi or ("periodic",) * ndim)
+        self.pbc_lo = tuple(cfg.particle_bc_lo or ("periodic",) * ndim)
+        self.pbc_hi = tuple(cfg.particle_bc_hi or ("periodic",) * ndim)
+        self.wdir = cfg.moving_window_dir
+        bounded = [bc != "periodic" for bc in self.bc_lo]
+        layout = DomainLayout.from_config(cfg)
+        self.shapes = layout.field_shapes(staggering)
+        self.ext_lo = [layout.ext_lo(d) for d in range(ndim)]
+        # allocated cell extent per dim (a nodal component holds one more)
+        self.n_ext = [geom.n_cell[d] + self.ext_lo[d] + layout.ext_hi(d)
+                      for d in range(ndim)]
+        # the deposition block: covers the nodal top in bounded dims
+        self.big_shape = tuple(
+            self.n_ext[d] + (1 if bounded[d] else 0) + 2 * self.ng
+            for d in range(ndim))
+        self.static_origin = layout.static_origin()
+        self.is_ckc = cfg.em_solver == "ckc"
+        self.ckc = yee._ckc_coefs(geom) if self.is_ckc else None
+        self.is_laser = {sp.name: sp.injection_style == "laser"
+                         for sp in cfg.species}
+        self.laser_cfg = {las.name: las for las in cfg.lasers}
+        self.max_shift = (
+            int(math.ceil(abs(cfg.moving_window_v * _c) * cfg.dt
+                          / geom.dx[self.wdir])) + 1
+            if cfg.do_moving_window else 0)
+
+        # --- PML: split-field ownership masks and damping factors
+        self.has_pml = layout.has_pml
+        kw = dict(dtype=dtype, device=self.device)
+        if self.has_pml:
+            self.pml_mask = {
+                nm: torch.as_tensor(layout.in_pml_mask(staggering[nm]), **kw)
+                for nm in _EB}
+            self.pml_owned = {nm: m > 0 for nm, m in self.pml_mask.items()}
+            self._damp = {}
+            for d in range(ndim):
+                fac_node, fac_star = layout.sigma_factors(d, cfg.dt)
+                for nm in _EB:
+                    nodal = staggering[nm][d] == 1
+                    cnt = self.shapes[nm][d]
+                    shape = [1] * ndim
+                    shape[d] = cnt
+                    v = (fac_node if nodal else fac_star)[:cnt]
+                    self._damp[nm, d] = torch.as_tensor(
+                        v.reshape(shape), **kw)
+
+        # --- tile-binned step
+        if tile_spec is not None:
+            spec = tile_spec
+            self.smax = (self.max_shift * spec.interval
+                         if cfg.do_moving_window else 0)
+            self.waxis = self.wdir if cfg.do_moving_window else -1
+            # kernel index t*tile + a on axis d reads padded index
+            # kbase[d] + t*tile + a (less the accumulated window shift on
+            # the window axis)
+            self.kbase = [self.ext_lo[d] + self.ng - spec.off
+                          for d in range(ndim)]
+            self.wrap_dims = tuple(bc == "periodic" for bc in self.pbc_lo)
+            self.stag_items = tuple(
+                sorted((k, tuple(v)) for k, v in staggering.items()))
+            self.binned_cfgs = tuple(
+                sp for sp in cfg.species
+                if not self.is_laser[sp.name]
+                and sp.name not in self.slow_species)
+            self.params = pusher_params(cfg, dtype, self.device,
+                                        species=self.binned_cfgs)
+            # every zshift handed to the kernels, for the callers that check
+            # the moving-window mode really ran
+            self.zshifts_seen = set()
+
+    # ------------------------------------------------------------ host scalars
+    def origin_of(self, state):
+        """Coordinates of array index 0 (PML strips included)."""
+        out = list(self.static_origin)
+        if self.cfg.do_moving_window:
+            w = self.wdir
+            strip = self._f(self.ext_lo[w] * self.cfg.geometry.dx[w])
+            out[w] = self._f(state.aux["window_lo"] - strip)
+        return out
+
+    def phys_lo_of(self, state):
+        out = list(self.cfg.geometry.prob_lo)
+        if self.cfg.do_moving_window:
+            out[self.wdir] = state.aux["window_lo"]
+        return out
+
+    def domain_hi_of(self, state):
+        out = list(self.cfg.geometry.prob_hi)
+        if self.cfg.do_moving_window:
+            out[self.wdir] = state.aux["window_hi"]
+        return out
+
+    # --------------------------------------------------------- padded blocks
+    def pad_eb(self, arr, comp_name):
+        """Pad one E/B component with ``ng`` guards per side, filled by its
+        boundary condition: wrapped (periodic), mirrored (pec) or zero."""
+        ndim, ng = self.ndim, self.ng
+        out = arr.new_zeros([n + 2 * ng for n in arr.shape])
+        out[tuple(slice(ng, ng + n) for n in arr.shape)] = arr
+        for d in range(ndim):
+            if self.bc_lo[d] != "periodic":
+                continue
+            n_val = arr.shape[d]
+            # dims before d are already wrapped: corners come along
+            out[_slice(ndim, d, 0, ng)] = \
+                out[_slice(ndim, d, n_val, n_val + ng)]
+            out[_slice(ndim, d, ng + n_val, 2 * ng + n_val)] = \
+                out[_slice(ndim, d, ng, 2 * ng)]
+        comp_axis = _COMP_AXIS[comp_name[-1].lower()]
+        for d in range(ndim):
+            nodal = self.staggering[comp_name][d] == 1
+            tang = is_tangential(comp_axis, _COMP_AXIS[self.axes[d]])
+            if comp_name[0] == "E":
+                zero_wall, mirror_tang = tang and nodal, tang
+            else:
+                zero_wall, mirror_tang = (not tang) and nodal, not tang
+            for side, bc in (("lo", self.bc_lo[d]), ("hi", self.bc_hi[d])):
+                if bc == "pec":
+                    out = fill_guards_pec(out, d, ng, self.n_ext[d], nodal,
+                                          mirror_tang, side, zero_wall)
+        return out
+
+    def fold_and_crop(self, padded, comp_name):
+        """Fold periodic guards, drop bounded guards; crop to the
+        component's shape."""
+        ng = self.ng
+        out = padded
+        for d in reversed(range(self.ndim)):
+            nv = self.shapes[comp_name][d]
+            nd = out.ndim
+            if self.bc_lo[d] == "periodic":
+                n_tot = out.shape[d]
+                valid = out[_slice(nd, d, ng, n_tot - ng)].clone()
+                valid[_slice(nd, d, nv - ng, nv)] += out[_slice(nd, d, 0, ng)]
+                valid[_slice(nd, d, 0, ng)] += \
+                    out[_slice(nd, d, n_tot - ng, n_tot)]
+                out = valid
+            else:
+                out = out[_slice(nd, d, ng, ng + nv)]
+        return out.contiguous()
+
+    def curl_term(self, out_name, term, pads, coef):
+        """One curl contribution, sign * coef * d(in)/d(axis), on the
+        shape of ``out_name``."""
+        sgn, in_name, dd_xyz, kind = term
+        nv = self.shapes[out_name]
+        ng = self.ng
+        dd = self.axes.index(dd_xyz)
+        P = pads[in_name]
+        if self.is_ckc and kind == "up" and in_name[0] == "E":
+            # the CKC stencil applies to the E-curl of the B push only
+            G = yee._up_ckc(P, dd, self.ckc)
+            sl = tuple(slice(ng, ng + nv[d]) for d in range(self.ndim))
+            return (sgn * coef) * G[sl]
+        sl_a, sl_b = [], []
+        for d in range(self.ndim):
+            if d == dd:
+                a, b = (ng + 1, ng) if kind == "up" else (ng, ng - 1)
+            else:
+                a = b = ng
+            sl_a.append(slice(a, a + nv[d]))
+            sl_b.append(slice(b, b + nv[d]))
+        diff = P[tuple(sl_a)] - P[tuple(sl_b)]
+        return (sgn * coef / self.cfg.geometry.dx[dd]) * diff
+
+    def enforce_walls(self, fields):
+        """Zero the tangential-E and normal-B wall nodes at PEC faces."""
+        if "pec" not in self.bc_lo + self.bc_hi:
+            return fields
+        upd = {}
+        for name in _EB:
+            arr = getattr(fields, name)
+            comp_axis = _COMP_AXIS[name[-1].lower()]
+            for d in range(self.ndim):
+                nodal = self.staggering[name][d] == 1
+                tang = is_tangential(comp_axis, _COMP_AXIS[self.axes[d]])
+                zero_wall = ((tang and nodal) if name[0] == "E"
+                             else ((not tang) and nodal))
+                if not zero_wall:
+                    continue
+                for bc, i in ((self.bc_lo[d], 0),
+                              (self.bc_hi[d], arr.shape[d] - 1)):
+                    if bc == "pec":
+                        if arr is getattr(fields, name):
+                            arr = arr.clone()
+                        arr[_slice(self.ndim, d, i, i + 1)] = 0.0
+            upd[name] = arr
+        return fields.replace(**upd)
+
+    def _padded_eb(self, fields):
+        return {name: self.pad_eb(getattr(fields, name), name)
+                for name in _EB}
+
+    def _gather(self, pos, farr_pad, origin):
+        return _add_ext(
+            gather_eb(pos, farr_pad, self.staggering, self.cfg.geometry,
+                      self.cfg.particle_shape, self.cfg.galerkin,
+                      origin=origin, wrap=False, offset=self.ng),
+            self.cfg)
+
+    def _wrap_periodic(self, pos):
+        """Wrap the periodic particle dims into the (static) domain."""
+        geom = self.cfg.geometry
+        out = list(pos)
+        for d in range(self.ndim):
+            if self.pbc_lo[d] == "periodic":
+                lo, hi = geom.prob_lo[d], geom.prob_hi[d]
+                out[d] = lo + torch.remainder(out[d] - lo, hi - lo)
+        return out
+
+    def _deposit(self, pos, u, w_eff, q, origin, shape, out=None):
+        cfg = self.cfg
+        return deposit_current_esirkepov(
+            pos, *u, w_eff, q, cfg.geometry, cfg.dt, cfg.particle_shape,
+            origin=origin, wrap=False, offset=self.ng, out_shape=shape,
+            chunk_size=cfg.deposit_chunk_size, out=out)
+
+    def _advance_antenna(self, sp, name, time):
+        laser = self.laser_cfg[name]
+        return update_antenna(sp, laser, self.cfg.geometry,
+                              0.05 / laser.e_max, time, self.cfg.dt)
+
+    # ------------------------------------------------------------- step_main
+    def step_main(self, state: SimState) -> SimState:
+        """The per-particle bounded step: gather on the padded blocks, push,
+        Esirkepov deposit into the ``big_shape`` block, field tail."""
+        cfg = self.cfg
+        ndim = self.ndim
+        origin = self.origin_of(state)
+        farr_pad = self._padded_eb(state.fields)
+        j_total = None
+        new_species = {}
+        for sp_cfg in cfg.species:
+            sp = state.species[sp_cfg.name]
+            if sp.capacity == 0:
+                new_species[sp_cfg.name] = sp
+                continue
+            if self.is_laser[sp_cfg.name]:
+                sp_new = self._advance_antenna(sp, sp_cfg.name, state.time)
+                q_eff = 1.0
+            else:
+                pos = sp.positions(ndim)
+                e6 = self._gather(pos, farr_pad, origin)
+                ux, uy, uz = PUSHERS[sp_cfg.pusher](
+                    sp.ux, sp.uy, sp.uz, *e6, sp_cfg.charge, sp_cfg.mass,
+                    cfg.dt)
+                sp_new = sp.replace(ux=ux, uy=uy, uz=uz).with_positions(
+                    ndim, position_step(pos, ux, uy, uz, cfg.dt, ndim))
+                q_eff = sp_cfg.charge
+            w_eff = torch.where(sp.alive, sp_new.w, torch.zeros_like(sp.w))
+            j_total = self._deposit(
+                sp_new.positions(ndim), (sp_new.ux, sp_new.uy, sp_new.uz),
+                w_eff, q_eff, origin, self.big_shape, out=j_total)
+            new_species[sp_cfg.name] = sp_new.with_positions(
+                ndim, self._wrap_periodic(sp_new.positions(ndim)))
+        return self.field_tail(state, new_species, j_total, {})
+
+    # ------------------------------------------------------------ field tail
+    def field_tail(self, state, new_species, j_total, aux_updates):
+        """Filter J on the padded block, fold and crop it, then advance the
+        fields: B half, E full with J, B half.  In the PML strips each
+        Berenger split field integrates one curl term of the total fields
+        (EvolveBPML.cpp, EvolveEPML.cpp) and is damped once per step
+        (DampPML); the totals there are the sums of the splits, which makes
+        the reference's domain <-> PML exchange shared storage."""
+        cfg = self.cfg
+        dt = cfg.dt
+        kw = dict(dtype=self.dtype, device=self.device)
+        if j_total is None:
+            j_valid = tuple(torch.zeros(self.shapes[nm], **kw)
+                            for nm in ("jx", "jy", "jz"))
+        else:
+            if cfg.use_filter:
+                npass = cfg.filter_npass_each_dir or (1,) * self.ndim
+                j_total = tuple(bilinear_filter_padded(a, npass)
+                                for a in j_total)
+            j_valid = tuple(self.fold_and_crop(a, name)
+                            for a, name in zip(j_total, ("jx", "jy", "jz")))
+        fields = state.fields.replace(jx=j_valid[0], jy=j_valid[1],
+                                      jz=j_valid[2])
+        aux = dict(state.aux)
+        aux.update(aux_updates)
+        jmap = dict(zip(("Ex", "Ey", "Ez"), ("jx", "jy", "jz")))
+
+        def advance(fields, out_names, terms_map, in_names, coef, dth,
+                    with_j=False):
+            pads = {nm: self.pad_eb(getattr(fields, nm), nm)
+                    for nm in in_names}
+            upd = {}
+            for nm in out_names:
+                terms = [t for t in terms_map[nm] if t[2] in self.axes]
+                curls = [self.curl_term(nm, t, pads, coef) for t in terms]
+                total = curls[0]
+                for t in curls[1:]:
+                    total = total + t
+                reg = getattr(fields, nm) + dth * total
+                if with_j:
+                    reg = reg - dth * _c2 * _mu0 * getattr(fields, jmap[nm])
+                if self.has_pml:
+                    tot = None
+                    for term, cur in zip(terms, curls):
+                        key = f"pml:{nm}:{term[2]}"
+                        split = self.pml_mask[nm] * (aux[key] + dth * cur)
+                        aux[key] = split
+                        tot = split if tot is None else tot + split
+                    reg = torch.where(self.pml_owned[nm], tot, reg)
+                upd[nm] = reg
+            return fields.replace(**upd)
+
+        e_comps, b_comps = _EB[:3], _EB[3:]
+        fields = advance(fields, b_comps, B_TERMS, e_comps, 1.0, 0.5 * dt)
+        fields = advance(fields, e_comps, E_TERMS, b_comps, _c2, dt,
+                         with_j=True)
+        fields = advance(fields, b_comps, B_TERMS, e_comps, 1.0, 0.5 * dt)
+
+        if self.has_pml:
+            # DampPML: damp each split along its own direction, refresh the
+            # totals
+            split_dirs: Dict[str, list] = {}
+            for key in aux:
+                if key.startswith("pml:"):
+                    _, nm, ax = key.split(":")
+                    split_dirs.setdefault(nm, []).append(ax)
+            upd = {}
+            for nm, dirs in split_dirs.items():
+                tot = None
+                for ax in sorted(dirs):
+                    key = f"pml:{nm}:{ax}"
+                    aux[key] = aux[key] * self._damp[nm, self.axes.index(ax)]
+                    tot = aux[key] if tot is None else tot + aux[key]
+                upd[nm] = torch.where(self.pml_owned[nm], tot,
+                                      getattr(fields, nm))
+            fields = fields.replace(**upd)
+
+        fields = self.enforce_walls(fields)
+        return state.replace(fields=fields, species=new_species,
+                             step=state.step + 1, time=state.time + dt,
+                             aux=aux)
+
+    # ----------------------------------------------------------- step_window
+    def shift_field(self, arr, num_shift: int):
+        """Slide ``arr`` down the window axis by ``num_shift`` cells; the
+        cells that enter at the top are zero."""
+        if num_shift == 0:
+            return arr
+        w = self.wdir
+        n = arr.shape[w]
+        out = torch.zeros_like(arr)
+        out.narrow(w, 0, n - num_shift).copy_(
+            arr.narrow(w, num_shift, n - num_shift))
+        return out
+
+    def continuous_injection(self, state, sp_cfg, sp, phys_lo, new_hi):
+        """Inject plasma into the whole cells newly uncovered at the window's
+        top (WarpXMovingWindow.cpp:395-440 with AddPlasma's layout).  The
+        j-th selected candidate takes the j-th free slot; asking for the
+        free slots waits for the device."""
+        cfg = self.cfg
+        geom = cfg.geometry
+        ndim, wdir = self.ndim, self.wdir
+        dxs = geom.dx
+        f = self._f
+        key = f"inject_pos:{sp_cfg.name}"
+        cur_pos = state.aux[key]
+        dz = f(dxs[wdir])
+        # (new_hi - cur_pos) is a whole number of cells for a plasma at rest
+        # (both move in dz quanta): nudge the floor so that accumulated
+        # rounding cannot hold the newest column back for a step
+        new_pos = f(cur_pos + f(np.floor(
+            f(f(f(new_hi[wdir] - cur_pos) / dz) + f(1e-9))) * dz))
+        # the band of candidate cells: with the tile-binned step injection
+        # is batched to the steps before a rebin, so the band covers a whole
+        # interval of window motion
+        K = max(self.max_shift * (2 if self.spec is None
+                                  else self.spec.interval + 2), 4)
+        unit = _regular_unit_positions(
+            sp_cfg.num_particles_per_cell_each_dim, ndim)
+        ppc_tot = unit.shape[0]
+        kw = dict(dtype=self.dtype, device=self.device)
+        unit_active = torch.as_tensor(unit[:, list(_AXES3[ndim])], **kw)
+        grids = []
+        for d in range(ndim):
+            if d == wdir:
+                cells = torch.arange(geom.n_cell[wdir] - K, geom.n_cell[wdir],
+                                     **kw)
+                grids.append(phys_lo[wdir] + cells * dxs[wdir])
+            else:
+                grids.append(geom.prob_lo[d]
+                             + torch.arange(geom.n_cell[d], **kw) * dxs[d])
+        mesh = torch.meshgrid(*grids, indexing="ij")
+        cell_lo = torch.stack([m.reshape(-1) for m in mesh], dim=-1)
+        npart = cell_lo.shape[0] * ppc_tot
+        pos = (cell_lo[:, None, :]
+               + unit_active * torch.as_tensor(dxs, **kw)).reshape(npart,
+                                                                   ndim)
+        pz = pos[:, wdir]
+        sel = (pz > cur_pos) & (pz < new_pos)
+        if sp_cfg.bounds_lo:
+            for d in range(ndim):
+                sel &= ((pos[:, d] >= sp_cfg.bounds_lo[d])
+                        & (pos[:, d] <= sp_cfg.bounds_hi[d]))
+        w_new = torch.where(
+            sel, torch.full((npart,), sp_cfg.density, **kw)
+            * (geom.cell_volume / ppc_tot), torch.zeros((), **kw))
+        sel &= w_new > 0
+        if sp_cfg.momentum_distribution == "constant":
+            u_new = [torch.full((npart,), v * _c, **kw)
+                     for v in (sp_cfg.ux, sp_cfg.uy, sp_cfg.uz)]
+        else:  # at rest
+            u_new = [torch.zeros(npart, **kw) for _ in range(3)]
+
+        src = torch.nonzero(sel).reshape(-1)
+        free = torch.nonzero(~sp.alive).reshape(-1)[:npart]
+        if src.numel() > free.numel():
+            raise RuntimeError(
+                f"continuous injection of {sp_cfg.name!r}: {src.numel()} new "
+                f"particles but {free.numel()} free slots (raise "
+                "tile_headroom or capacity_factor)")
+        tgt = free[:src.numel()]
+
+        def put(arr, vals):
+            out = arr.clone()
+            out[tgt] = vals[src].to(arr.dtype)
+            return out
+
+        alive = sp.alive.clone()
+        alive[tgt] = True
+        new = sp.replace(w=put(sp.w, w_new), ux=put(sp.ux, u_new[0]),
+                         uy=put(sp.uy, u_new[1]), uz=put(sp.uz, u_new[2]),
+                         alive=alive)
+        new = new.with_positions(ndim, [
+            put(p, pos[:, d]) for d, p in enumerate(sp.positions(ndim))])
+        aux = dict(state.aux)
+        aux[key] = new_pos
+        return state.replace(aux=aux), new
+
+    def step_window(self, state: SimState, move_j: bool) -> SimState:
+        """MoveWindow and the particle boundaries: advance the window's host
+        scalars, shift the fields and the PML splits (and J when
+        ``move_j``), inject into the uncovered cells, then absorb or reflect
+        what crossed a face."""
+        cfg = self.cfg
+        ndim, wdir = self.ndim, self.wdir
+        f = self._f
+        if cfg.do_moving_window:
+            aux = dict(state.aux)
+            # the injection front rides with the plasma's bulk velocity
+            # (UpdateInjectionPosition, WarpXMovingWindow.cpp:61-134)
+            for sp_cfg in cfg.species:
+                if (not sp_cfg.do_continuous_injection
+                        or self.is_laser[sp_cfg.name]):
+                    continue
+                u_d = float(_bulk_momentum(sp_cfg)[_AXES3[ndim][wdir]])
+                v_shift = _c * u_d / math.sqrt(1.0 + u_d * u_d)
+                key_ip = f"inject_pos:{sp_cfg.name}"
+                aux[key_ip] = f(aux[key_ip] + f(v_shift * cfg.dt))
+            dz = f(cfg.geometry.dx[wdir])
+            window_x = f(aux["window_x"]
+                         + f(cfg.moving_window_v * _c * cfg.dt))
+            num_shift = int(np.floor(
+                f(f(window_x - aux["window_lo"]) / dz)))
+            num_shift = min(max(num_shift, 0), self.max_shift)
+            shift_len = f(f(num_shift) * dz)
+            aux["window_x"] = window_x
+            aux["window_offset"] = int(aux["window_offset"]) + num_shift
+            aux["window_lo"] = f(aux["window_lo"] + shift_len)
+            aux["window_hi"] = f(aux["window_hi"] + shift_len)
+
+            fl = state.fields
+            names = list(_EB) + (["jx", "jy", "jz"] if move_j else [])
+            upd = {nm: self.shift_field(getattr(fl, nm), num_shift)
+                   for nm in names}
+            for key in aux:
+                if key.startswith("pml:"):
+                    aux[key] = self.shift_field(aux[key], num_shift)
+            state = state.replace(fields=fl.replace(**upd), aux=aux)
+            new_phys_lo = self.phys_lo_of(state)
+            new_hi = self.domain_hi_of(state)
+
+            # binned mode: new particles land in arbitrary dead slots, which
+            # only the rebin re-sorts, so inject only when the next step
+            # rebins (state.step is already that step's number)
+            due = (self.spec is None
+                   or state.step % self.spec.interval == 0)
+            if due:
+                new_species = dict(state.species)
+                for sp_cfg in cfg.species:
+                    if (not sp_cfg.do_continuous_injection
+                            or self.is_laser[sp_cfg.name]):
+                        continue
+                    state, new_species[sp_cfg.name] = \
+                        self.continuous_injection(
+                            state, sp_cfg, new_species[sp_cfg.name],
+                            new_phys_lo, new_hi)
+                state = state.replace(species=new_species)
+
+        origin = self.phys_lo_of(state)
+        hi = self.domain_hi_of(state)
+        new_species = {}
+        for sp_cfg in cfg.species:
+            sp = state.species[sp_cfg.name]
+            if sp.capacity == 0:
+                new_species[sp_cfg.name] = sp
+                continue
+            alive = sp.alive
+            pos = list(sp.positions(ndim))
+            for d in range(ndim):
+                if self.pbc_lo[d] == "absorbing":
+                    alive = alive & (pos[d] >= origin[d])
+                if self.pbc_hi[d] == "absorbing":
+                    alive = alive & (pos[d] <= hi[d])
+            u = {"x": sp.ux, "y": sp.uy, "z": sp.uz}
+            for d in range(ndim):
+                ax = self.axes[d]
+                if self.pbc_lo[d] == "reflecting":
+                    ref = pos[d] < origin[d]
+                    pos[d] = torch.where(ref, 2 * origin[d] - pos[d], pos[d])
+                    u[ax] = torch.where(ref, -u[ax], u[ax])
+                if self.pbc_hi[d] == "reflecting":
+                    ref = pos[d] > hi[d]
+                    pos[d] = torch.where(ref, 2 * hi[d] - pos[d], pos[d])
+                    u[ax] = torch.where(ref, -u[ax], u[ax])
+            new_species[sp_cfg.name] = sp.replace(
+                alive=alive, ux=u["x"], uy=u["y"], uz=u["z"],
+            ).with_positions(ndim, pos)
+        return state.replace(species=new_species)
+
+    # ------------------------------------------------------------- half push
+    def half_push(self, state: SimState, dt_half: float) -> SimState:
+        """Gather on the padded blocks at the current positions and push the
+        momenta by ``dt_half`` only."""
+        origin = self.origin_of(state)
+        farr_pad = self._padded_eb(state.fields)
+        new_species = {}
+        for sp_cfg in self.cfg.species:
+            sp = state.species[sp_cfg.name]
+            if sp.capacity == 0 or self.is_laser[sp_cfg.name]:
+                new_species[sp_cfg.name] = sp
+                continue
+            pos = sp.positions(self.ndim)
+            if self.spec is not None:
+                # binned layouts leave the positions unwrapped between
+                # rebins: wrap the gather's coordinate, not the state's
+                pos = self._wrap_periodic(pos)
+            e6 = self._gather(pos, farr_pad, origin)
+            ux, uy, uz = PUSHERS[sp_cfg.pusher](
+                sp.ux, sp.uy, sp.uz, *e6, sp_cfg.charge, sp_cfg.mass,
+                dt_half)
+            new_species[sp_cfg.name] = sp.replace(ux=ux, uy=uy, uz=uz)
+        return state.replace(species=new_species)
+
+    # ------------------------------------------------------------ step_binned
+    def to_kernel_frame(self, farr_pad):
+        """Slice the guard-padded component blocks to the fused kernels'
+        window-aligned layout (the bounded ``pad_fields``): extents
+        ``padded_shape(spec, n_cell, smax)``, the window axis with ``smax``
+        cells of slack below so that the kernels' window start
+        ``t*tile + smax - zshift`` stays in range for any shift in
+        [0, smax].  Rows outside the block are zero: only a particle beyond
+        the margin reaches them, and the violation count flags it."""
+        shape = padded_shape(self.spec, self.cfg.geometry.n_cell, self.smax)
+        outs = []
+        for nm in _EB:
+            a = farr_pad[nm]
+            src, dst = [], []
+            for d in range(self.ndim):
+                lo_i = self.kbase[d] - (self.smax if d == self.waxis else 0)
+                s_sl, d_sl = _overlap(-lo_i, a.shape[d], shape[d])
+                src.append(s_sl)
+                dst.append(d_sl)
+            out = a.new_zeros(shape)
+            out[tuple(dst)] = a[tuple(src)]
+            outs.append(out)
+        return tuple(outs)
+
+    def embed_folded(self, F, shift: int):
+        """Place an open-folded J (``fold_windows_open``: extent
+        n + w - tile per dim, index p <-> anchor-frame cell p - off) in a
+        zeroed ``big_shape`` block at the base the gather frame uses, less
+        the window's shift since the rebin; what falls outside is dropped
+        (zero by the violation count)."""
+        src, dst = [], []
+        for d in range(self.ndim):
+            start = self.kbase[d] - (shift if d == self.waxis else 0)
+            s_sl, d_sl = _overlap(start, F.shape[d], self.big_shape[d])
+            src.append(s_sl)
+            dst.append(d_sl)
+        out = F.new_zeros(self.big_shape)
+        out[tuple(dst)] = F[tuple(src)]
+        return out
+
+    def step_binned(self, state: SimState) -> SimState:
+        """The tile-binned bounded step: rebin every ``interval`` steps
+        around the window's current edge, fused gather + push + deposit over
+        the anchored tiles, open fold into the deposition block, the beam
+        and the antenna alongside on the per-particle path, field tail."""
+        cfg, spec = self.cfg, self.spec
+        geom = cfg.geometry
+        ndim = self.ndim
+        f = self._f
+        nt = spec.n_tiles
+        do_rebin = state.step % spec.interval == 0
+        aux_updates = {}
+        origin_t = list(geom.prob_lo)
+        shift = 0
+        if cfg.do_moving_window:
+            # the tiles re-anchor to the window's edge at each rebin;
+            # between rebins the grid slides under them by whole cells
+            anchor = (state.aux["window_lo"] if do_rebin
+                      else state.aux["tile_anchor"])
+            aux_updates["tile_anchor"] = anchor
+            shift = int(np.round(f(f(state.aux["window_lo"] - anchor)
+                                   / f(geom.dx[self.wdir]))))
+            origin_t[self.wdir] = anchor
+            self.zshifts_seen.add(shift)
+
+        # --- rebin: absorbed slots sort past the last tile and free up
+        overflow = state.aux["tile_overflow"]
+        species = dict(state.species)
+        if do_rebin:
+            for sp_cfg in self.binned_cfgs:
+                species[sp_cfg.name], ovf = rebin(
+                    species[sp_cfg.name], geom, spec, origin=tuple(origin_t),
+                    wrap_dims=self.wrap_dims)
+                overflow = overflow + ovf
+        state_b = state.replace(species=species)
+
+        # --- guard-padded fields -> kernel frame
+        farr_pad = self._padded_eb(state.fields)
+        fields6 = self.to_kernel_frame(farr_pad)
+
+        # --- fused gather + push + deposit: one launch per pusher
+        jw_tot = None
+        violations = state.aux["tile_violations"]
+        new_species = {}
+        for pusher_name, sps, params, parts, counts in pusher_groups(
+                state_b, spec, self.params):
+            newp, jw, viol = binned_push_deposit(
+                params, fields6, parts, tuple(origin_t), shift,
+                counts=counts, spec=spec, geom=geom,
+                order=cfg.particle_shape, galerkin=cfg.galerkin,
+                pusher_name=pusher_name, dt=cfg.dt,
+                stag_items=self.stag_items, mxu=cfg.tile_mxu,
+                smax=self.smax)
+            jw_tot = jw if jw_tot is None else tuple(
+                a + b for a, b in zip(jw_tot, jw))
+            violations = violations + viol.sum(dtype=torch.int32)
+            for k, sp_cfg in enumerate(sps):
+                sl = slice(k * nt, (k + 1) * nt)
+                flat = [a[sl].reshape(-1) for a in newp]
+                new_species[sp_cfg.name] = species[sp_cfg.name].replace(
+                    ux=flat[ndim], uy=flat[ndim + 1], uz=flat[ndim + 2],
+                ).with_positions(ndim, flat[:ndim])
+
+        # --- open fold into the big_shape guard frame
+        j_total = None
+        if jw_tot is not None:
+            j_total = tuple(
+                self.embed_folded(
+                    fold_windows_open(jw_tot[i], spec,
+                                      axes=_FOLD_AXES[ndim][i]), shift)
+                for i in range(3))
+
+        # --- small static species ride the per-particle path in their
+        # compact layout (no rebin: expanding a 100-particle beam to
+        # n_tiles * p_max slots would cost a sort as large as the plasma's)
+        origin = self.origin_of(state)
+        for sp_cfg in cfg.species:
+            if sp_cfg.name not in self.slow_species:
+                continue
+            sp = state.species[sp_cfg.name]
+            if sp.capacity == 0:
+                new_species[sp_cfg.name] = sp
+                continue
+            pos = sp.positions(ndim)
+            e6 = self._gather(pos, farr_pad, origin)
+            ux, uy, uz = PUSHERS[sp_cfg.pusher](
+                sp.ux, sp.uy, sp.uz, *e6, sp_cfg.charge, sp_cfg.mass, cfg.dt)
+            new_pos = position_step(pos, ux, uy, uz, cfg.dt, ndim)
+            sp_new = sp.replace(ux=ux, uy=uy, uz=uz).with_positions(ndim,
+                                                                    new_pos)
+            new_species[sp_cfg.name] = sp_new
+            w_eff = torch.where(sp.alive, sp_new.w, torch.zeros_like(sp.w))
+            j_total = self._deposit(new_pos, (ux, uy, uz), w_eff,
+                                    sp_cfg.charge, origin, self.big_shape,
+                                    out=j_total)
+
+        # --- laser antennas deposit alongside
+        for sp_cfg in cfg.species:
+            if not self.is_laser[sp_cfg.name]:
+                continue
+            sp = state.species[sp_cfg.name]
+            if sp.capacity == 0:
+                new_species[sp_cfg.name] = sp
+                continue
+            sp_new = self._advance_antenna(sp, sp_cfg.name, state.time)
+            w_eff = torch.where(sp.alive, sp_new.w, torch.zeros_like(sp.w))
+            j_total = self._deposit(
+                sp_new.positions(ndim), (sp_new.ux, sp_new.uy, sp_new.uz),
+                w_eff, 1.0, origin, self.big_shape, out=j_total)
+            new_species[sp_cfg.name] = sp_new
+
+        aux_updates["tile_overflow"] = overflow
+        aux_updates["tile_violations"] = violations
+        return self.field_tail(state, new_species, j_total, aux_updates)
+
+    def step(self, state: SimState) -> SimState:
+        return (self.step_main(state) if self.spec is None
+                else self.step_binned(state))

@@ -1,8 +1,10 @@
 """Resolved static simulation configuration.
 
-A copy of ``warpx_tpu.core.config``'s ``SpeciesConfig`` and ``SimConfig``,
-cut to the fields the ported paths read (2D XZ and 3D periodic explicit EM,
-per-particle and tile-binned steps).  Fields keep the reference's names and defaults, so a
+A copy of ``warpx_tpu.core.config``'s ``LaserConfig``, ``SpeciesConfig``
+and ``SimConfig``, cut to the fields the ported paths read (2D XZ and 3D
+explicit EM, periodic and bounded with PML/PEC faces, moving window, laser
+antennas, continuous injection and Gaussian beams; per-particle and
+tile-binned steps).  Fields keep the reference's names and defaults, so a
 configuration built for ``warpx_tpu`` with these fields builds here with the
 same keyword arguments.  Features whose fields are absent come with later
 items of ROADMAP.md's Queue A.
@@ -15,7 +17,33 @@ from typing import Tuple
 
 from .grid import Geometry
 
-__all__ = ["SpeciesConfig", "SimConfig"]
+__all__ = ["LaserConfig", "SpeciesConfig", "SimConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LaserConfig:
+    """One laser antenna (reference: Source/Laser/LaserProfiles.H and
+    Source/Particles/LaserParticleContainer.H)."""
+
+    name: str
+    profile: str = "gaussian"
+    position: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    direction: Tuple[float, float, float] = (0.0, 0.0, 1.0)
+    polarization: Tuple[float, float, float] = (1.0, 0.0, 0.0)
+    e_max: float = 0.0
+    wavelength: float = 1e-6
+    profile_waist: float = 1e-6
+    profile_duration: float = 1e-15
+    profile_t_peak: float = 0.0
+    profile_focal_distance: float = 0.0
+    phi0: float = 0.0
+    zeta: float = 0.0
+    beta: float = 0.0
+    phi2: float = 0.0
+    theta_stc: float = 0.0
+    do_continuous_injection: bool = False
+    # lab-frame plane coordinate along the normal (boosted runs)
+    z0_lab: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,7 +51,8 @@ class SpeciesConfig:
     name: str
     charge: float
     mass: float
-    injection_style: str = "none"  # nuniformpercell | nrandompercell | none
+    # nuniformpercell | nrandompercell | gaussian_beam | laser | none
+    injection_style: str = "none"
     num_particles_per_cell_each_dim: Tuple[int, ...] = ()
     num_particles_per_cell: int = 0
     profile: str = "constant"
@@ -37,11 +66,27 @@ class SpeciesConfig:
     ux_th: float = 0.0
     uy_th: float = 0.0
     uz_th: float = 0.0
+    # injection bounds (SI) on the active axes; () when unbounded
+    bounds_lo: Tuple[float, ...] = ()
+    bounds_hi: Tuple[float, ...] = ()
     do_not_push: bool = False
     do_not_gather: bool = False
     do_not_deposit: bool = False
     pusher: str = "boris"  # boris | vay | higuera
+    do_continuous_injection: bool = False
+    # gaussian beam injection
+    x_rms: float = 0.0
+    y_rms: float = 0.0
+    z_rms: float = 0.0
+    x_m: float = 0.0
+    y_m: float = 0.0
+    z_m: float = 0.0
+    npart: int = 0
+    q_tot: float = 0.0
+    z_cut: float = float("inf")
     species_type: str = ""
+    # extra particle capacity headroom factor for continuous injection
+    capacity_factor: float = 1.0
 
     @property
     def qm(self) -> float:
@@ -64,6 +109,22 @@ class SimConfig:
     species: Tuple[SpeciesConfig, ...] = ()
     cfl: float = 0.999
     seed: int = 0
+    # bound peak memory of deposition tap intermediates (None = no chunking)
+    deposit_chunk_size: int | None = 2_000_000
+    # per-dim field boundaries on the active axes: periodic | pec | pml
+    field_bc_lo: Tuple[str, ...] = ()
+    field_bc_hi: Tuple[str, ...] = ()
+    # per-dim particle boundaries: periodic | absorbing | reflecting
+    particle_bc_lo: Tuple[str, ...] = ()
+    particle_bc_hi: Tuple[str, ...] = ()
+    # moving window (reference: WarpXMovingWindow.cpp)
+    do_moving_window: bool = False
+    moving_window_dir: int = -1  # active-axis index
+    moving_window_v: float = 1.0  # units of c
+    lasers: Tuple[LaserConfig, ...] = ()
+    pml_ncell: int = 10
+    # Lorentz-boosted frame; only the lab frame (1.0) is ported
+    gamma_boost: float = 1.0
     # constant external fields applied to particles during gather
     e_ext_particle: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     b_ext_particle: Tuple[float, float, float] = (0.0, 0.0, 0.0)

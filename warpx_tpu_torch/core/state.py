@@ -7,7 +7,11 @@ through ``.replace``; nothing updates a state in place.
 ``state_from_numpy`` / ``state_to_numpy`` carry a state across frameworks as
 a nested dict of numpy arrays (``{"fields": {...}, "species": {name:
 {...}}, "step", "time", "aux"}``).  The tests use them to start the port
-from a ``warpx_tpu`` state and to compare the two.
+from a ``warpx_tpu`` state and to compare the two.  In ``aux`` the moving
+window's scalars (``HOST_AUX``, ``inject_pos:<species>``) are host numbers
+in the state's precision, because the step branches on them and hands them
+to the kernels; everything else there (PML split fields, the layout's
+safety counters) is a tensor.
 """
 
 from __future__ import annotations
@@ -19,7 +23,18 @@ import numpy as np
 import torch
 
 __all__ = ["FieldState", "ParticleState", "SimState", "state_from_numpy",
-           "state_to_numpy"]
+           "state_to_numpy", "HOST_AUX", "is_host_aux"]
+
+# aux entries kept as host numbers; ``inject_pos:`` prefixes one entry per
+# continuously injected species
+HOST_AUX = ("window_x", "window_lo", "window_hi", "window_offset",
+            "tile_anchor")
+_HOST_AUX_PREFIX = "inject_pos:"
+
+
+def is_host_aux(key: str) -> bool:
+    return key in HOST_AUX or key.startswith(_HOST_AUX_PREFIX)
+
 
 _FIELD_NAMES = ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")
 _PARTICLE_NAMES = ("w", "ux", "uy", "uz", "alive", "x", "y", "z")
@@ -27,8 +42,9 @@ _PARTICLE_NAMES = ("w", "ux", "uy", "uz", "alive", "x", "y", "z")
 
 @dataclasses.dataclass(frozen=True)
 class FieldState:
-    """Per-level electromagnetic grid state on the periodic torus: one
-    (nx, ny, nz) array per component (reference: Source/Fields.H:28-81)."""
+    """Per-level electromagnetic grid state: one array per component
+    (reference: Source/Fields.H:28-81), of the grid's shape on the periodic
+    torus and of ``DomainLayout.field_shapes`` on a bounded domain."""
 
     Ex: torch.Tensor
     Ey: torch.Tensor
@@ -94,13 +110,14 @@ class ParticleState:
 class SimState:
     """Complete state advanced by the step function.  ``step`` and ``time``
     are host numbers (the step loop branches on them without a device
-    sync); ``aux`` holds device counters such as ``tile_overflow``."""
+    sync); ``aux`` holds device tensors such as ``tile_overflow`` and the
+    PML split fields, and the moving window's host scalars."""
 
     fields: FieldState
     species: Dict[str, ParticleState]
     step: int
     time: float
-    aux: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    aux: Dict[str, object] = dataclasses.field(default_factory=dict)
 
     def replace(self, **kw) -> "SimState":
         return dataclasses.replace(self, **kw)
@@ -113,6 +130,13 @@ def _tensor(a, dtype, device):
     if np.issubdtype(a.dtype, np.integer):
         return torch.from_numpy(a.astype(np.int32)).to(device)
     return torch.from_numpy(a.copy()).to(device=device, dtype=dtype)
+
+
+def _host_scalar(v, dtype):
+    v = np.asarray(v)
+    if np.issubdtype(v.dtype, np.integer):
+        return int(v)
+    return torch.empty((), dtype=dtype).numpy().dtype.type(v)
 
 
 def state_from_numpy(data: dict, dtype: torch.dtype,
@@ -133,7 +157,8 @@ def state_from_numpy(data: dict, dtype: torch.dtype,
         species=species,
         step=int(data["step"]),
         time=float(data["time"]),
-        aux={k: _tensor(v, dtype, device)
+        aux={k: (_host_scalar(v, dtype) if is_host_aux(k)
+                 else _tensor(v, dtype, device))
              for k, v in data.get("aux", {}).items()},
     )
 
@@ -151,5 +176,6 @@ def state_to_numpy(state: SimState) -> dict:
         },
         "step": state.step,
         "time": state.time,
-        "aux": {k: host(v) for k, v in state.aux.items()},
+        "aux": {k: (np.asarray(v) if is_host_aux(k) else host(v))
+                for k, v in state.aux.items()},
     }

@@ -1,16 +1,26 @@
 """Charge and current deposition (particles -> grid) by scatter-add.
 
-The counterpart of ``warpx_tpu.ops.deposit`` on the periodic torus: the
-per-particle tap weights become (taps, n) tensors and the reference's
-atomicAdd becomes ``index_add_`` with modular indices (the SumBoundary
-guard-cell fold is implicit in the wrap).
+The counterpart of ``warpx_tpu.ops.deposit``: the per-particle tap weights
+become (taps, n) tensors and the reference's atomicAdd becomes
+``index_add_``.  Two index modes:
+
+* ``wrap=True``: the periodic torus, modular indices (the SumBoundary
+  guard-cell fold is implicit in the wrap);
+* ``wrap=False``: a block of shape ``out_shape`` padded with ``offset``
+  guard cells per side whose index 0 sits at ``origin``; the caller folds or
+  drops the guards.  Taps past the block land on its edge: only a dead slot
+  (weight 0) that the moving window left behind reaches there.
 
 * ``deposit_rho``: nodal charge density (ChargeDeposition.H shape-N);
 * ``count_particles_per_cell``: the ``part_per_cell`` diagnostic;
 * ``deposit_current_esirkepov``: charge-conserving current, 2D XZ and 3D
-  (CurrentDeposition.H:643-900).  The per-particle step ``pic_step`` runs
-  it; the binned step does not, so it is also the port's own slow-path
-  oracle for the fused kernels in ``fused_pic``.
+  (CurrentDeposition.H:643-900).  The per-particle steps run it; the binned
+  steps run it only for laser antennas and small compact species, so it is
+  also the port's own slow-path oracle for the fused kernels in
+  ``fused_pic``.
+
+``chunk_size`` bounds the (taps, n) intermediates: the particles are
+deposited that many at a time into the same block.
 """
 
 from __future__ import annotations
@@ -30,21 +40,27 @@ __all__ = [
 ]
 
 
-def _scatter_add(target: torch.Tensor, idx_per_dim, values: torch.Tensor):
-    """target[ravel(idx)] += values with C-order linearization."""
+def _scatter_add_(target: torch.Tensor, idx_per_dim, values: torch.Tensor):
+    """target[ravel(idx)] += values in place, C-order linearization."""
     n = target.shape
     lin = idx_per_dim[0]
     for d in range(1, len(n)):
         lin = lin * n[d] + idx_per_dim[d]
-    flat = target.reshape(-1).clone()
-    flat.index_add_(0, lin.reshape(-1), values.reshape(-1))
-    return flat.reshape(n)
+    target.view(-1).index_add_(0, lin.reshape(-1), values.reshape(-1))
 
 
-def _tap_idx(i0, taps, n):
+def _tap_idx(i0, taps, n, wrap=True, offset=0):
     # tap axis first: (taps, np)
     ar = torch.arange(taps, device=i0.device, dtype=torch.int64)
-    return torch.remainder(i0.long()[None, :] + ar[:, None], n)
+    idx = i0.long()[None, :] + ar[:, None] + offset
+    return torch.remainder(idx, n) if wrap else torch.clamp(idx, 0, n - 1)
+
+
+def _chunks(n, chunk_size):
+    if not chunk_size or n <= chunk_size:
+        return [slice(0, n)]
+    return [slice(a, min(n, a + chunk_size))
+            for a in range(0, n, chunk_size)]
 
 
 def deposit_rho(
@@ -54,43 +70,52 @@ def deposit_rho(
     geom,
     order: int,
     out: torch.Tensor | None = None,
+    origin=None,
+    wrap: bool = True,
+    offset: int = 0,
+    out_shape=None,
+    chunk_size: int | None = None,
 ) -> torch.Tensor:
-    """Deposit nodal charge density rho [C/m^3] on the periodic grid."""
+    """Deposit nodal charge density rho [C/m^3]; ``out`` (if given) is
+    left as it was and the sum returned."""
     ndim = geom.ndim
+    shape = tuple(out_shape or geom.n_cell)
     invvol = 1.0 / geom.cell_volume
-    coords = [
-        (positions[d] - geom.prob_lo[d]) / geom.dx[d] for d in range(ndim)
-    ]
-    starts, weights = [], []
-    for d in range(ndim):
-        i0, ws = shape_weights(coords[d], order)
-        starts.append(i0.long())
-        weights.append(ws)
-    wq = q * w * invvol
-    rho = (torch.zeros(geom.n_cell, dtype=w.dtype, device=w.device)
-           if out is None else out)
-    vals, idxs = [], []
-    for taps in itertools.product(*[range(order + 1)] * ndim):
-        val = wq
+    lo = geom.prob_lo if origin is None else origin
+    rho = (torch.zeros(shape, dtype=w.dtype, device=w.device)
+           if out is None else out.clone())
+    for sl in _chunks(w.shape[0], chunk_size):
+        starts, weights = [], []
         for d in range(ndim):
-            val = val * weights[d][taps[d]]
-        vals.append(val)
-        idxs.append([torch.remainder(starts[d] + taps[d], geom.n_cell[d])
-                     for d in range(ndim)])
-    values = torch.stack(vals, dim=0)  # (ntaps, np)
-    idx_per_dim = [
-        torch.stack([ix[d] for ix in idxs], dim=0) for d in range(ndim)
-    ]
-    return _scatter_add(rho, idx_per_dim, values)
+            i0, ws = shape_weights((positions[d][sl] - lo[d]) / geom.dx[d],
+                                   order)
+            starts.append(i0.long())
+            weights.append(ws)
+        wq = q * w[sl] * invvol
+        idx1 = [_tap_idx(starts[d], order + 1, shape[d], wrap, offset)
+                for d in range(ndim)]
+        vals, idxs = [], []
+        for taps in itertools.product(*[range(order + 1)] * ndim):
+            val = wq
+            for d in range(ndim):
+                val = val * weights[d][taps[d]]
+            vals.append(val)
+            idxs.append([idx1[d][taps[d]] for d in range(ndim)])
+        values = torch.stack(vals, dim=0)  # (ntaps, np)
+        idx_per_dim = [
+            torch.stack([ix[d] for ix in idxs], dim=0) for d in range(ndim)
+        ]
+        _scatter_add_(rho, idx_per_dim, values)
+    return rho
 
 
-def count_particles_per_cell(positions, alive, geom) -> torch.Tensor:
+def count_particles_per_cell(positions, alive, geom,
+                             origin=None) -> torch.Tensor:
     """Particle count per cell (diagnostic 'part_per_cell')."""
+    lo = geom.prob_lo if origin is None else origin
     idx = [
         torch.clamp(
-            torch.floor(
-                (positions[d] - geom.prob_lo[d]) / geom.dx[d]
-            ).long(),
+            torch.floor((positions[d] - lo[d]) / geom.dx[d]).long(),
             0,
             geom.n_cell[d] - 1,
         )
@@ -98,7 +123,8 @@ def count_particles_per_cell(positions, alive, geom) -> torch.Tensor:
     ]
     target = torch.zeros(geom.n_cell, dtype=positions[0].dtype,
                          device=positions[0].device)
-    return _scatter_add(target, idx, alive.to(target.dtype))
+    _scatter_add_(target, idx, alive.to(target.dtype))
+    return target
 
 
 def deposit_current_esirkepov(
@@ -108,41 +134,51 @@ def deposit_current_esirkepov(
     geom,
     dt: float,
     order: int,
+    origin=None,
+    wrap: bool = True,
+    offset: int = 0,
+    out_shape=None,
+    chunk_size: int | None = None,
+    out=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Charge-conserving current deposition of ``warpx_tpu.ops.deposit.
     _esirkepov_body`` at the default relative time -dt/2 (2D XZ and 3D).
 
     ``positions`` are the already-pushed x^{n+1}; the old position is
     reconstructed as x^{n+1} - dt*v (CurrentDeposition.H:725-738), and the
-    deposited J is the Yee-staggered J^{n+1/2}.
+    deposited J is the Yee-staggered J^{n+1/2}.  ``out`` (three blocks of
+    the deposit's shape) is added to in place and returned.
     """
     if geom.ndim not in (2, 3):
         raise NotImplementedError(
             "1D Esirkepov deposition (ROADMAP.md Queue A 3)"
         )
-    n_cell = geom.n_cell
-    gaminv = 1.0 / torch.sqrt(1.0 + (ux * ux + uy * uy + uz * uz) * inv_c2)
-    wq = q * w
-    dtype = w.dtype
+    shape = tuple(out_shape or geom.n_cell)
+    lo = geom.prob_lo if origin is None else origin
+    j3 = out if out is not None else tuple(
+        torch.zeros(shape, dtype=w.dtype, device=w.device) for _ in range(3))
+    body = _esirkepov_2d if geom.ndim == 2 else _esirkepov_3d
+    for sl in _chunks(w.shape[0], chunk_size):
+        u = (ux[sl], uy[sl], uz[sl])
+        gaminv = 1.0 / torch.sqrt(
+            1.0 + (u[0] * u[0] + u[1] * u[1] + u[2] * u[2]) * inv_c2)
+        body([p[sl] for p in positions], tuple(a * gaminv for a in u),
+             q * w[sl], geom, dt, order, lo, wrap, offset, j3)
+    return j3
+
+
+def _esirkepov_3d(positions, vel, wq, geom, dt, order, lo, wrap, offset, j3):
+    shape = j3[0].shape
     taps = order + 3
     dxs = geom.dx
-
-    def zeros():
-        return torch.zeros(n_cell, dtype=dtype, device=w.device)
-
-    if geom.ndim == 2:  # XZ plane: Jx, Jz cumulative, Jy direct
-        return _esirkepov_2d(positions, (ux * gaminv, uy * gaminv,
-                                         uz * gaminv), wq, geom, dt, order,
-                             zeros)
     invdtd = (
         1.0 / (dt * dxs[1] * dxs[2]),
         1.0 / (dt * dxs[0] * dxs[2]),
         1.0 / (dt * dxs[0] * dxs[1]),
     )
-    vel = (ux * gaminv, uy * gaminv, uz * gaminv)
     i0s, SN, SO = [], [], []
     for d in range(3):
-        xn = (positions[d] - geom.prob_lo[d]) / dxs[d]
+        xn = (positions[d] - lo[d]) / dxs[d]
         xo = xn - dt / dxs[d] * vel[d]
         i0, s_new, s_old = esirkepov_weights(xn, xo, order)
         i0s.append(i0)
@@ -163,25 +199,25 @@ def deposit_current_esirkepov(
     valy = (wq * invdtd[1]) * CUM[1][None, :, None] * tmix(0, 2)[:, None, :]
     valz = (wq * invdtd[2]) * CUM[2][None, None, :] * tmix(0, 1)[:, :, None]
 
-    ix, iy, iz = (_tap_idx(i0s[d], taps, n_cell[d]) for d in range(3))
-    IX = torch.broadcast_to(ix[:, None, None], valx.shape)
-    IY = torch.broadcast_to(iy[None, :, None], valx.shape)
-    IZ = torch.broadcast_to(iz[None, None, :], valx.shape)
-    jx = _scatter_add(zeros(), [IX, IY, IZ], valx)
-    jy = _scatter_add(zeros(), [IX, IY, IZ], valy)
-    jz = _scatter_add(zeros(), [IX, IY, IZ], valz)
-    return jx, jy, jz
+    ix, iy, iz = (_tap_idx(i0s[d], taps, shape[d], wrap, offset)
+                  for d in range(3))
+    idx = [torch.broadcast_to(ix[:, None, None], valx.shape),
+           torch.broadcast_to(iy[None, :, None], valx.shape),
+           torch.broadcast_to(iz[None, None, :], valx.shape)]
+    for j, v in zip(j3, (valx, valy, valz)):
+        _scatter_add_(j, idx, v)
 
 
-def _esirkepov_2d(positions, vel, wq, geom, dt, order, zeros):
+def _esirkepov_2d(positions, vel, wq, geom, dt, order, lo, wrap, offset, j3):
     """The 2D branch (CurrentDeposition.H, WARPX_DIM_XZ): the in-plane
     components are running sums weighted by the half-sum of the other axis'
     old and new shapes; the out-of-plane Jy is wq*vy times the 1/3-1/6 mix."""
+    shape = j3[0].shape
     dx, dz = geom.dx
     vx, vy, vz = vel
     invvol = 1.0 / (dx * dz)
-    xn = (positions[0] - geom.prob_lo[0]) / dx
-    zn = (positions[1] - geom.prob_lo[1]) / dz
+    xn = (positions[0] - lo[0]) / dx
+    zn = (positions[1] - lo[1]) / dz
     xo = xn - dt / dx * vx
     zo = zn - dt / dz * vz
     taps = order + 3
@@ -200,9 +236,9 @@ def _esirkepov_2d(positions, vel, wq, geom, dt, order, zeros):
     valy = (wq * vy * invvol) * mixxz
     valz = (wq * (1.0 / (dt * dx))) * CUMz[None, :] \
         * (0.5 * (SNx + SOx))[:, None]
-    ix = _tap_idx(i0x, taps, geom.n_cell[0])
-    iz = _tap_idx(i0z, taps, geom.n_cell[1])
-    IX = torch.broadcast_to(ix[:, None], valx.shape)
-    IZ = torch.broadcast_to(iz[None, :], valx.shape)
-    return tuple(_scatter_add(zeros(), [IX, IZ], v)
-                 for v in (valx, valy, valz))
+    ix = _tap_idx(i0x, taps, shape[0], wrap, offset)
+    iz = _tap_idx(i0z, taps, shape[1], wrap, offset)
+    idx = [torch.broadcast_to(ix[:, None], valx.shape),
+           torch.broadcast_to(iz[None, :], valx.shape)]
+    for j, v in zip(j3, (valx, valy, valz)):
+        _scatter_add_(j, idx, v)

@@ -115,11 +115,15 @@ class TileSpec:
         )
 
 
-def tile_ids(positions, geom, spec: TileSpec) -> torch.Tensor:
-    """Linear (C-order) tile id per particle from wrapped positions."""
+def tile_ids(positions, geom, spec: TileSpec, origin=None) -> torch.Tensor:
+    """Linear (C-order) tile id per particle from wrapped positions.
+    ``origin`` replaces ``prob_lo`` as the tiling origin (the moving-window
+    step anchors the tiles where the window stood at the last rebin);
+    positions outside the tiling clip into the edge tiles."""
+    lo = geom.prob_lo if origin is None else origin
     ids = 0
     for d in range(spec.ndim):
-        gd = (positions[d] - geom.prob_lo[d]) * (1.0 / geom.dx[d])
+        gd = (positions[d] - lo[d]) * (1.0 / geom.dx[d])
         idx = torch.clamp(
             torch.floor(gd).to(torch.int32) // spec.tile[d],
             0, spec.tiles_per_dim[d] - 1,
@@ -128,14 +132,16 @@ def tile_ids(positions, geom, spec: TileSpec) -> torch.Tensor:
     return ids
 
 
-def tile_centers(geom, spec: TileSpec, dtype, device) -> torch.Tensor:
+def tile_centers(geom, spec: TileSpec, dtype, device,
+                 origin=None) -> torch.Tensor:
     """(ndim, n_tiles) tile-center coordinates, the dead-slot position."""
+    lo = geom.prob_lo if origin is None else origin
     tile_i = torch.arange(spec.n_tiles, dtype=torch.int32, device=device)
     out = []
     for d in range(spec.ndim):
         stride = int(np.prod(spec.tiles_per_dim[d + 1:], initial=1))
         idx_d = (tile_i // stride) % spec.tiles_per_dim[d]
-        out.append(geom.prob_lo[d]
+        out.append(lo[d]
                    + (idx_d.to(dtype) + 0.5) * (spec.tile[d] * geom.dx[d]))
     return torch.stack(out, dim=0)
 
@@ -211,10 +217,12 @@ ragged_expand.launches = 0
 
 # ---- rebin ---------------------------------------------------------------
 
-def rebin_inputs(sp, geom, spec: TileSpec):
-    """The rebin up to the slot expansion: wrap the positions, sort the
-    payload by tile (``torch.sort(stable=True)`` on the key, then one gather
-    of the payload), and locate each tile's segment.
+def rebin_inputs(sp, geom, spec: TileSpec, origin=None, wrap_dims=None):
+    """The rebin up to the slot expansion: wrap the positions on
+    ``wrap_dims`` (default: all), sort the payload by tile
+    (``torch.sort(stable=True)`` on the key, then one gather of the
+    payload), and locate each tile's segment.  Dead slots sort to the bucket
+    past the last tile, which no segment covers: the rebin frees them.
 
     Returns (payload_sorted (n_attr, cap), offsets, counts (n_tiles,) int32,
     fill (n_attr, n_tiles)); the payload rows are the positions, ux, uy, uz,
@@ -223,11 +231,15 @@ def rebin_inputs(sp, geom, spec: TileSpec):
     ndim = spec.ndim
     n_tiles = spec.n_tiles
     dtype = sp.w.dtype
+    lo_all = geom.prob_lo if origin is None else origin
     pos = list(sp.positions(ndim))
     for d in range(ndim):
-        lo, hi = geom.prob_lo[d], geom.prob_hi[d]
+        if wrap_dims is not None and not wrap_dims[d]:
+            continue
+        lo = lo_all[d]
+        hi = lo + (geom.prob_hi[d] - geom.prob_lo[d])
         pos[d] = lo + torch.remainder(pos[d] - lo, hi - lo)
-    tid = torch.where(sp.alive, tile_ids(pos, geom, spec),
+    tid = torch.where(sp.alive, tile_ids(pos, geom, spec, origin=lo_all),
                       torch.full_like(sp.alive, n_tiles, dtype=torch.int32))
     payload = torch.stack(
         pos + [sp.ux, sp.uy, sp.uz, sp.w, sp.alive.to(dtype)], dim=0
@@ -240,11 +252,11 @@ def rebin_inputs(sp, geom, spec: TileSpec):
     counts = (bounds[1:] - bounds[:-1]).contiguous()
     fill = torch.zeros((payload.shape[0], n_tiles), dtype=dtype,
                        device=tid.device)
-    fill[:ndim] = tile_centers(geom, spec, dtype, tid.device)
+    fill[:ndim] = tile_centers(geom, spec, dtype, tid.device, origin=lo_all)
     return payload_sorted, offsets, counts, fill
 
 
-def rebin(sp, geom, spec: TileSpec):
+def rebin(sp, geom, spec: TileSpec, origin=None, wrap_dims=None):
     """Sort a species into the padded (n_tiles, p_max) tile layout.
 
     Positions are wrapped into the periodic domain first (between rebins
@@ -252,12 +264,19 @@ def rebin(sp, geom, spec: TileSpec):
     continuous across the boundary).  Dead slots get weight 0, zero
     momentum, and the center position of their tile.
 
+    ``origin`` (ndim host numbers) replaces ``prob_lo`` as the tiling origin
+    for the bounded and moving-window steps; ``wrap_dims`` selects the dims
+    that wrap (default: all).  On the others a particle outside the domain
+    clips into the edge tile: the caller has absorbed it (alive False)
+    beforehand.
+
     Returns (new ParticleState with capacity n_tiles*p_max, overflow): the
     overflow counts alive particles that did not fit in their tile's p_max
     slots; callers treat overflow > 0 as a hard error.
     """
     ndim = spec.ndim
-    payload_sorted, offsets, counts, fill = rebin_inputs(sp, geom, spec)
+    payload_sorted, offsets, counts, fill = rebin_inputs(
+        sp, geom, spec, origin=origin, wrap_dims=wrap_dims)
     overflow = torch.clamp(counts - spec.p_max, min=0).sum(dtype=torch.int32)
     out = ragged_expand(payload_sorted, offsets, counts, fill, spec.p_max)
     names = ("x", "z") if ndim == 2 else ("x", "y", "z")
