@@ -15,6 +15,9 @@ exits non-zero:
                an order that changes from launch to launch);
   k2_parity    kernel K2 (the 2D XZ fused kernel) against its plain version
                at 32^2, the same cases and launches;
+  k1d_parity   K1 and K2 in the precision modes 'mixed' and 'bf16' (kernel
+               mode K1d), the same cases and launches, float32 to TOL_MXU,
+               and each mode once per kernel in moving-window mode;
   k1c_parity   K1 and K2 in moving-window mode (smax = 8, zshift 0, 3 and 8,
                tiles anchored off prob_lo) against their plain versions, and
                the mode's neutral arguments against the call without them;
@@ -30,10 +33,17 @@ exits non-zero:
                8 steps, K1): every
                checksum but divE/divB agrees to 1e-9, the window moved, the
                kernels were launched once per step;
+  deck_parity  the 32 x 64 deck at tpu.tile_mxu = mixed through
+               Simulation.from_deck, card against CPU, 12 steps (1e-9); then
+               the CLI (python -m warpx_tpu_torch) on the card as a process
+               of its own, its checksums against an in-process run;
   main         the 3D main path at 128^3 cells, 2 species, 8.39 M particles,
                float32: init, one warm step, 20 timed steps, 3 profiled
                steps, the closing step; then each kernel at the main path's
                shapes against its plain version, timed beside its bound;
+  main_mixed   the same path at tile_mxu = 'mixed' (bench.py's default), and
+               main_bf16 at 'bf16'; K1 in each mode at its shapes against
+               its plain version, timed beside K1 at 'f32';
   main2d       the 2D main path at 2048^2 cells, 2 species, 33.6 M particles,
                order 3, float32: init, one warm step, 33 timed steps (rebins
                at steps 16 and 32), 3 profiled steps, the closing step; then
@@ -48,7 +58,11 @@ exits non-zero:
                then the step's layers timed one by one, and K2 in
                moving-window mode (K1c)
                at its shapes against its plain version, timed beside its
-               bound.
+               bound;
+  main_lwfa_deck  the same run from bench.py's deck text (a copy here)
+               through Simulation.from_deck at tpu.tile_mxu = mixed, as
+               bench.py runs it; then K2 in moving-window mode at 'mixed'
+               against its plain version, timed beside K1c at 'f32'.
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  With no GPU, or without the package beside
@@ -57,9 +71,12 @@ this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -84,6 +101,11 @@ TOL_J_MAIN = 1e-4
 # carries the largest current), so one ulp of x_new is ~1e-4 of the largest
 # window value; 8.2e-5 was measured.
 TOL_J_WINDOW = 4e-4
+# K1 at 'bf16' at the main path's shapes: an ulp of x_new that carries a
+# deposit operand across a bfloat16 rounding boundary moves that point's
+# value by up to 2^-8 (3.9e-3) of itself, and the point may hold the largest
+# window value; 3.3e-4 was measured at uniform-128 after 25 steps.
+TOL_J_BF16 = 4e-3
 
 
 def emit(phase, **kw):
@@ -286,6 +308,65 @@ def phase_kernel_parity(dev, phase, ndim, n):
          cases=cases)
 
 
+# The precision modes in float32, kernel against plain version at 16^3 and
+# 32^2: the relative error of the particles and of the J windows that
+# k1d_parity allows.  'mixed' splits each deposit operand into two bfloat16
+# parts, so an ulp of x_new moves its current as in 'f32' (5.8e-6 measured);
+# 'bf16' rounds each operand once, and an ulp of x_new that carries an
+# operand across a bfloat16 rounding boundary moves that point's value by up
+# to 2^-8 of itself (8.7e-5 measured).
+TOL_MXU = {"mixed": {"particles": 1e-5, "j": 1e-5},
+           "bf16": {"particles": 1e-5, "j": 4e-4}}
+
+
+def phase_k1d_parity(dev):
+    """K1d, the precision modes 'mixed' and 'bf16' of K1 (16^3) and K2
+    (32^2), against the plain version: both types, orders 1-3, three
+    pushers, K1_REPEATS launches per case (1e-12 in float64, TOL_MXU in
+    float32); then each mode once per kernel in moving-window mode (smax 8,
+    zshift 3, tiles anchored 0.37 cells off prob_lo)."""
+    from warpx_tpu_torch.ops import fused_pic as fp
+
+    cases = []
+    for ndim, n in ((3, 16), (2, 32)):
+        for mxu in ("mixed", "bf16"):
+            for dtype in (torch.float64, torch.float32):
+                tol = ({"particles": TOL[dtype], "j": TOL[dtype]}
+                       if dtype == torch.float64 else TOL_MXU[mxu])
+                runs = [(order, pusher, None) for order in (1, 2, 3)
+                        for pusher in ("boris", "vay", "higuera")]
+                runs.append((1 if ndim == 3 else 3, "boris", 3))
+                for order, pusher, zshift in runs:
+                    smax = 0 if zshift is None else 8
+                    args, counts, kw, anchors = kernel_inputs(
+                        ndim, n, order, dtype, dev, seed=order, smax=smax,
+                        anchor_off=0.0 if zshift is None else 0.37)
+                    kw.update(order=order, galerkin=True, pusher_name=pusher,
+                              stag_items=stag_items(ndim), mxu=mxu)
+                    _, nviol, worst_p, worst_j, j_runs = kernel_compare(
+                        fp, args, counts, kw, tol["particles"], tol["j"],
+                        repeats=K1_REPEATS, anchors=anchors, zshift=zshift,
+                        smax=smax)
+                    if not nviol:
+                        raise AssertionError("the clipped particle was not "
+                                             "counted as a violation")
+                    cases.append({"ndim": ndim, "mxu": mxu,
+                                  "dtype": str(dtype), "order": order,
+                                  "pusher": pusher, "zshift": zshift,
+                                  "particles_rel_err": worst_p,
+                                  "j_rel_err": worst_j,
+                                  "j_rel_err_min": min(j_runs),
+                                  "violations": nviol})
+    worst = {f"{nd}d/{m}/{dt}": {
+        k: max(c[k] for c in cases if (c["ndim"], c["mxu"], c["dtype"])
+               == (nd, m, dt)) for k in ("particles_rel_err", "j_rel_err")}
+        for nd in (3, 2) for m in ("mixed", "bf16")
+        for dt in (str(torch.float64), str(torch.float32))}
+    emit("k1d_parity", ok=True, repeats=K1_REPEATS,
+         tol={"float64": TOL[torch.float64], "float32": TOL_MXU},
+         worst=worst, cases=cases)
+
+
 def phase_k1c_parity(dev):
     """The moving-window mode of K1 and K2: smax = 8 slack cells, zshift 0, 3
     and 8, tiles anchored 0.37 cells off prob_lo, against the plain versions.
@@ -372,6 +453,23 @@ def phase_k3_parity(dev):
 
 # ---- the slice on the card against the CPU --------------------------------
 
+def checksums_agree(got, ref, tol, what):
+    """The worst relative difference of every checksum but divE/divB
+    (roundoff noise; test_binned.py excludes them too); raises above
+    ``tol``."""
+    worst = 0.0
+    for group in ref:
+        for q, a in ref[group].items():
+            if q in ("divE", "divB"):
+                continue
+            r = abs(got[group][q] - a) / abs(a) if a else abs(got[group][q])
+            worst = max(worst, r)
+            if r > tol:
+                raise AssertionError(f"{what} checksum {group}/{q}: "
+                                     f"{got[group][q]!r} vs {a!r}")
+    return worst
+
+
 def phase_slice_parity(dev, phase, ndim):
     import warpx_tpu_torch
 
@@ -382,17 +480,8 @@ def phase_slice_parity(dev, phase, ndim):
         sim.init()
         sim.evolve()
         sums[str(device)] = sim.checksums()
-    got, ref = sums[str(dev)], sums["cpu"]
-    worst = 0.0
-    for group in ref:
-        for q, a in ref[group].items():
-            if q in ("divE", "divB"):
-                continue  # roundoff noise; test_binned.py excludes them too
-            r = abs(got[group][q] - a) / abs(a) if a else abs(got[group][q])
-            worst = max(worst, r)
-            if r > 1e-9:
-                raise AssertionError(f"slice checksum {group}/{q}: card "
-                                     f"{got[group][q]!r} vs CPU {a!r}")
+    worst = checksums_agree(sums[str(dev)], sums["cpu"], 1e-9,
+                            f"{phase} card vs CPU")
     emit(phase, ok=True, ndim=ndim, max_rel_err=worst, tol=1e-9)
 
 
@@ -494,13 +583,18 @@ PUSH_FLOPS = {"boris": 64, "vay": 99, "higuera": 95}
 SPLINE_SET_FLOPS = {1: 2, 2: 8, 3: 18}
 
 
-def fused_flops(order, galerkin, ndim, pusher):
+def fused_flops(order, galerkin, ndim, pusher, mxu="f32"):
     """Floating-point operations of K1 (ndim 3) or K2 (ndim 2) for one slot,
     counted from the loops of csrc/fused_pic.cu and csrc/fused_pic_2d.cu as
     (what every slot of an occupied tile needs: coordinates, gather, push;
     what only an alive slot needs: the Esirkepov weights and the deposit).
     The kernels' tails for a stencil clipped at the window's low side are
-    left out: on a path with zero violations no alive particle takes them."""
+    left out: on a path with zero violations no alive particle takes them.
+    In the precision modes a conversion to or from bfloat16 is not counted
+    (it is no arithmetic): the gather's count is unchanged, and a deposit
+    product becomes dot3x's seven operations in 'mixed' (two remainders,
+    three products, two adds); in 3D 'bf16' adds one per point (two
+    products where 'f32' has one) and two per row (the two scaled rows)."""
     from warpx_tpu_torch.core.grid import yee_staggering
     from warpx_tpu_torch.ops.fused_pic import _gather_table
 
@@ -527,11 +621,15 @@ def fused_flops(order, galerkin, ndim, pusher):
                     + 2 * SPLINE_SET_FLOPS[order])
     if ndim == 3:
         # wq; per component its scale, per row cs * scale, per point seven
-        alive += 1 + 3 * (1 + nt * (1 + nt * nt * 7))
+        point = {"f32": 7, "mixed": 13, "bf16": 8}[mxu]
+        row = 1 + (2 if mxu == "bf16" else 0)
+        alive += 1 + 3 * (1 + nt * (row + nt * nt * point))
     else:
         # wq, the three scales (5); per x row four factors (6); per point
-        # Jx (2), Jz (2), Jy (3) and their three atomic adds
-        alive += 5 + nt * 6 + nt * nt * 10
+        # Jx (2), Jz (2), Jy (3) and their three atomic adds; 'mixed' makes
+        # each of the four products seven
+        point = 10 + (24 if mxu == "mixed" else 0)
+        alive += 5 + nt * 6 + nt * nt * point
     return every, alive
 
 
@@ -539,11 +637,23 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _counter(obj, key, value=None):
+    """Read a launch counter (an attribute, or an entry of a dict such as
+    ``binned_push_deposit.launches_by_mode``), or set it to ``value``."""
+    if value is None:
+        return obj[key] if isinstance(obj, dict) else getattr(obj, key)
+    if isinstance(obj, dict):
+        obj[key] = value
+    else:
+        setattr(obj, key, value)
+    return value
+
+
 def run_main_path(dev, smi, phase, cfg, n_particles, steps, counters):
     """Drive one main path through Simulation: init, a warm step, ``steps``
     timed steps, PROFILED_STEPS profiled steps and the closing step, with
-    the launch counters in ``counters`` (name -> (object, attribute)) set
-    to 0 just before and read just after.  Checks the result (zero overflow
+    the launch counters in ``counters`` (name -> (object, attribute or
+    key)) set to 0 just before and read just after.  Checks the result (zero overflow
     and violations, every particle alive, weight conserved, finite fields
     of the grid's shape) and emits the phase's line and its profile.
     Returns (sim, launches)."""
@@ -556,7 +666,7 @@ def run_main_path(dev, smi, phase, cfg, n_particles, steps, counters):
         raise AssertionError(f"the {phase} path did not take the tile-binned "
                              "step")
     for obj, attr in counters.values():
-        setattr(obj, attr, 0)
+        _counter(obj, attr, 0)
     sim.init()
     sim.evolve(1)  # warm step: rebins (K3) and the first fused launch
     torch.cuda.synchronize()
@@ -574,7 +684,7 @@ def run_main_path(dev, smi, phase, cfg, n_particles, steps, counters):
     breakdown = profile_steps(sim, PROFILED_STEPS)
     sim.evolve()  # the closing step, with the +dt/2 synchronization
     torch.cuda.synchronize()
-    launches = {nm: getattr(obj, attr)
+    launches = {nm: _counter(obj, attr)
                 for nm, (obj, attr) in counters.items()}
     peak_steps = torch.cuda.max_memory_allocated()
     # one more step from the state the run ended in, not kept: the step's
@@ -606,7 +716,8 @@ def run_main_path(dev, smi, phase, cfg, n_particles, steps, counters):
             raise AssertionError(f"field {f} is not finite at {geom.n_cell}")
     ms_step = ms_total / steps
     emit(phase, ok=True, n_cell=geom.n_cell, n_particles=n_particles,
-         order=cfg.particle_shape, n_tiles=spec.n_tiles, w=spec.w,
+         order=cfg.particle_shape, tile_mxu=cfg.tile_mxu,
+         n_tiles=spec.n_tiles, w=spec.w,
          p_max=spec.p_max, steps_timed=steps, ms_per_step=ms_step,
          pushes_per_s=n_particles / (ms_step * 1e-3), init_s=init_s,
          launches=launches, tile_overflow=0, tile_violations=0,
@@ -619,14 +730,16 @@ def run_main_path(dev, smi, phase, cfg, n_particles, steps, counters):
     return sim, launches
 
 
-def fused_at_main_shapes(sim, plain_reps, window=None):
+def fused_at_main_shapes(sim, plain_reps, window=None, mxu="f32"):
     """K1 or K2 on the state ``sim`` ended in, against the plain version:
     errors, times, bytes (each input read once, each output written once),
     operations (``fused_flops``: gather and push for every slot of an
     occupied tile, weights and deposit for the alive slots) and the bound.
     ``window`` = (fields6, pusher params, anchors, zshift, smax) runs the
-    kernel in moving-window mode on the bounded step's inputs.  Returns the
-    kernels-line fields that are measured here."""
+    kernel in moving-window mode on the bounded step's inputs; ``mxu`` is
+    the precision mode, and a mode other than 'f32' is timed beside the
+    kernel at 'f32' on the same inputs.  Returns the kernels-line fields
+    that are measured here."""
     from warpx_tpu_torch.core.binned_step import pusher_groups
     from warpx_tpu_torch.ops import fused_pic as fp
 
@@ -644,9 +757,10 @@ def fused_at_main_shapes(sim, plain_reps, window=None):
         pusher_groups(state, spec, group_params))
     kw = dict(spec=spec, geom=cfg.geometry, order=cfg.particle_shape,
               galerkin=cfg.galerkin, pusher_name=pname, dt=cfg.dt,
-              stag_items=stag_items(spec.ndim))
+              stag_items=stag_items(spec.ndim), mxu=mxu)
     args = (params, fields6, parts)
-    tol_j = TOL_J_MAIN if window is None else TOL_J_WINDOW
+    tol_j = (TOL_J_BF16 if mxu == "bf16"
+             else TOL_J_MAIN if window is None else TOL_J_WINDOW)
     errs, _, worst_p, worst_j, _ = kernel_compare(
         fp, args, counts, kw, TOL[torch.float32], tol_j,
         anchors=mode.get("anchors"), zshift=mode.get("zshift"),
@@ -656,13 +770,17 @@ def fused_at_main_shapes(sim, plain_reps, window=None):
         return fp.binned_push_deposit(*args, counts=counts, **mode, **kw)
 
     ms = cuda_ms(launch, 10)
+    f32_ms = None
+    if mxu != "f32":
+        f32_ms = cuda_ms(lambda: fp.binned_push_deposit(
+            *args, counts=counts, **mode, **{**kw, "mxu": "f32"}), 10)
     plain_ms = cuda_ms(lambda: fp.binned_push_deposit_plain(
         *args, counts, **plain_mode, **kw), plain_reps)
     out = launch()
     n_bytes = (nbytes(params, counts, *fields6, *parts)
                + nbytes(*out[0], *out[1], out[2]))
     every, alive = fused_flops(cfg.particle_shape, cfg.galerkin, spec.ndim,
-                               pname)
+                               pname, mxu)
     flops = (int((counts > 0).sum()) * spec.p_max * every
              + int(counts.sum()) * alive)
     tb = n_bytes / PEAK_BYTES_PER_S * 1e3
@@ -670,7 +788,8 @@ def fused_at_main_shapes(sim, plain_reps, window=None):
     row = {"max_abs_err": max(a for a, _ in errs.values()),
            "max_rel_err": {"particles": worst_p, "j": worst_j},
            "tol_rel": {"particles": TOL[torch.float32], "j": tol_j},
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(tb, tf),
+           "ms": ms, "f32_ms": f32_ms, "plain_ms": plain_ms,
+           "bound_ms": max(tb, tf),
            "bound_by": "bytes" if tb >= tf else "operations",
            "bytes": n_bytes, "flops": flops,
            "flops_per_slot": {"every": every, "alive": alive},
@@ -727,6 +846,43 @@ def phase_main(dev, smi, n=128):
              "replaces": "warpx_tpu/ops/tiling.py:142",
              "launches": launches["ragged_expand"],
              "launches_by_path": {"main": launches["ragged_expand"]}, **k3})
+
+
+def phase_main_mixed(dev, smi, k3_row, n=128):
+    """uniform-128 at tile_mxu = 'mixed', bench.py's default for this
+    workload, driven as ``main`` drives it; then the same at 'bf16', which
+    bench.py measures beside 'f32'.  After each, K1 in that mode at
+    the main path's shapes against its plain version, timed beside K1 at
+    'f32' on the same inputs and beside its bound.  Returns the two
+    kernels-line rows and adds these paths' K3 launches to ``k3_row``."""
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.ops import tiling
+
+    by_mode = fp.binned_push_deposit.launches_by_mode
+    rows = []
+    for mxu in ("mixed", "bf16"):
+        phase = f"main_{mxu}"
+        by_mode["f32"] = 0
+        sim, launches = run_main_path(
+            dev, smi, phase, dataclasses.replace(main_cfg(n), tile_mxu=mxu),
+            2 * 2 * n ** 3, 20,
+            {"fused_pic": (fp.binned_push_deposit, "launches"),
+             f"fused_pic_{mxu}": (by_mode, mxu),
+             "ragged_expand": (tiling.ragged_expand, "launches")})
+        if by_mode["f32"] or launches[f"fused_pic_{mxu}"] != launches[
+                "fused_pic"]:
+            raise AssertionError(f"{phase} launched K1 in another mode: "
+                                 f"{launches}, {by_mode}")
+        k1 = fused_at_main_shapes(sim, 2, mxu=mxu)
+        k3_row["launches"] += launches["ragged_expand"]
+        k3_row["launches_by_path"][phase] = launches["ragged_expand"]
+        rows.append({"name": f"fused_pic_{mxu}", "route": "cuda",
+                     "source": "warpx_tpu_torch/csrc/fused_pic.cu",
+                     "replaces": "warpx_tpu/ops/pallas_pic.py:133",
+                     "mxu": mxu, "launches": launches[f"fused_pic_{mxu}"],
+                     **k1})
+        del sim
+    return rows
 
 
 def phase_main2d(dev, smi, k3_row, n=2048):
@@ -807,6 +963,127 @@ def lwfa_cfg(n_cell, lo, hi, x_bound, zmin, beam_z, laser_z, ppc, max_step,
         particle_bc_hi=("absorbing",) * 2, do_moving_window=True,
         moving_window_dir=1, moving_window_v=1.0, sort_interval=interval,
         tiled_particles="on", tile_mxu="f32", **kw)
+
+
+# The deck texts this script runs through Simulation.from_deck, kept as
+# copies (it imports neither bench.py nor the tests, which import JAX;
+# tests/test_torch_deck.py holds the copies equal): bench.py::_LWFA_2D_DECK
+# and tests/test_binned_bounded.py::_LWFA_2D.
+LWFA_2D_DECK = """
+max_step = {max_step}
+amr.n_cell = {nx} {nz}
+geometry.dims = 2
+geometry.prob_lo = -30.e-6 -56.e-6
+geometry.prob_hi =  30.e-6  12.e-6
+boundary.field_lo = pml pml
+boundary.field_hi = pml pml
+warpx.verbose = 0
+warpx.use_filter = 1
+warpx.cfl = 0.98
+warpx.do_moving_window = 1
+warpx.moving_window_dir = z
+warpx.moving_window_v = 1.0
+warpx.sort_intervals = {interval}
+tpu.tiled_particles = on
+tpu.tile_mxu = {mxu}
+algo.particle_shape = 3
+algo.maxwell_solver = yee
+particles.species_names = electrons beam
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = {ppcx} {ppcz} 1
+electrons.xmin = -20.e-6
+electrons.xmax =  20.e-6
+electrons.zmin = -56.e-6
+electrons.profile = constant
+electrons.density = 2.e23
+electrons.momentum_distribution_type = at_rest
+electrons.do_continuous_injection = 1
+beam.species_type = electron
+beam.injection_style = gaussian_beam
+beam.x_rms = .5e-6
+beam.y_rms = .5e-6
+beam.z_rms = .5e-6
+beam.x_m = 0.
+beam.y_m = 0.
+beam.z_m = -28.e-6
+beam.npart = 100
+beam.q_tot = -1.e-12
+beam.momentum_distribution_type = gaussian
+beam.ux_m = 0.0
+beam.uy_m = 0.0
+beam.uz_m = 500.
+beam.ux_th = 2.
+beam.uy_th = 2.
+beam.uz_th = 50.
+lasers.names = laser1
+laser1.profile = Gaussian
+laser1.position = 0. 0. 9.e-6
+laser1.direction = 0. 0. 1.
+laser1.polarization = 0. 1. 0.
+laser1.e_max = 16.e12
+laser1.profile_waist = 5.e-6
+laser1.profile_duration = 15.e-15
+laser1.profile_t_peak = 30.e-15
+laser1.profile_focal_distance = 100.e-6
+laser1.wavelength = 0.8e-6
+"""
+LWFA_32X64_DECK = """
+max_step = 12
+amr.n_cell = 32 64
+geometry.dims = 2
+geometry.prob_lo = -15.e-6 -28.e-6
+geometry.prob_hi =  15.e-6   6.e-6
+boundary.field_lo = pml pml
+boundary.field_hi = pml pml
+warpx.cfl = 0.98
+warpx.use_filter = 1
+warpx.do_moving_window = 1
+warpx.moving_window_dir = z
+warpx.moving_window_v = 1.0
+warpx.sort_intervals = 4
+algo.particle_shape = 3
+algo.maxwell_solver = yee
+particles.species_names = electrons beam
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = 1 1 1
+electrons.xmin = -12.e-6
+electrons.xmax =  12.e-6
+electrons.zmin = -20.e-6
+electrons.profile = constant
+electrons.density = 2.e23
+electrons.momentum_distribution_type = at_rest
+electrons.do_continuous_injection = 1
+beam.species_type = electron
+beam.injection_style = gaussian_beam
+beam.x_rms = .5e-6
+beam.y_rms = .5e-6
+beam.z_rms = .5e-6
+beam.x_m = 0.
+beam.y_m = 0.
+beam.z_m = -14.e-6
+beam.npart = 100
+beam.q_tot = -1.e-12
+beam.momentum_distribution_type = gaussian
+beam.ux_m = 0.0
+beam.uy_m = 0.0
+beam.uz_m = 500.
+beam.ux_th = 2.
+beam.uy_th = 2.
+beam.uz_th = 50.
+lasers.names = laser1
+laser1.profile = Gaussian
+laser1.position = 0. 0. -10.e-6
+laser1.direction = 0. 0. 1.
+laser1.polarization = 0. 1. 0.
+laser1.e_max = 16.e12
+laser1.profile_waist = 5.e-6
+laser1.profile_duration = 15.e-15
+laser1.profile_t_peak = 30.e-15
+laser1.profile_focal_distance = 100.e-6
+laser1.wavelength = 0.8e-6
+"""
 
 
 def small_lwfa_cfg():
@@ -890,19 +1167,8 @@ def phase_bounded_parity(dev):
                 aux["window_offset"] > 0
                 and aux["window_lo"] > cfg.geometry.prob_lo[1]):
             raise AssertionError(f"{name}: the window did not move")
-        got, ref = sums[str(dev)], sums["cpu"]
-        worst = 0.0
-        for group in ref:
-            for q, a in ref[group].items():
-                if q in ("divE", "divB"):
-                    continue
-                r = (abs(got[group][q] - a) / abs(a) if a
-                     else abs(got[group][q]))
-                worst = max(worst, r)
-                if r > 1e-9:
-                    raise AssertionError(
-                        f"{name} checksum {group}/{q}: card "
-                        f"{got[group][q]!r} vs CPU {a!r}")
+        worst = checksums_agree(sums[str(dev)], sums["cpu"], 1e-9,
+                                f"{name} card vs CPU")
         cases.append({"case": name, "steps": cfg.max_step,
                       "fused_launches": grew, "max_rel_err": worst,
                       "window_offset": int(aux.get("window_offset", 0)),
@@ -977,33 +1243,55 @@ def lwfa_layers(sim, anchors, zshift):
     }
 
 
-def phase_main_lwfa(dev, smi, k2_row, k3_row, nx=2048, nz=8192):
-    """lwfa2d-2048x8192 through K2 in moving-window mode (K1c) and K3;
-    returns K1c's kernels-line row and adds this path's launches to the rows
-    of K2 and K3."""
-    import warpx_tpu_torch
+LWFA_PLAN = dict(warm=32, timed=32, counted=16, interval=16)
+
+
+def lwfa_steps(plan):
+    """The steps a laser-wakefield phase runs: warm, timed, counted, one
+    rebin step, the profiled steps and two closing steps."""
+    return (plan["warm"] + plan["timed"] + plan["counted"] + 1
+            + PROFILED_STEPS + 2)
+
+
+def run_lwfa_path(dev, smi, phase, sim, plan):
+    """Drive the bounded laser-wakefield path ``sim`` (built, not yet
+    initialised): init, ``warm`` steps (two rebins, the window moving),
+    ``timed`` steps with an event after each, ``counted`` steps with the
+    host's waits for the device counted, a rebin step, PROFILED_STEPS
+    profiled steps and the closing steps, with the launch counters of K2
+    (in ``cfg.tile_mxu``, and in no other mode) and K3 set to 0 just before
+    and read just after.  Checks the result (zero overflow and violations,
+    finite fields of the block's shapes, the window moved, the alive
+    electrons explained by the rows absorbed and injected) and emits the
+    phase's line and its profile.  Returns (launches, anchors, zshift):
+    the tiling anchor and the window's slide the next step would give K2."""
     from warpx_tpu_torch.ops import fused_pic as fp
     from warpx_tpu_torch.ops import tiling
 
-    warm, timed, counted, interval = 32, 32, 16, 16
-    steps = warm + timed + counted + 1 + PROFILED_STEPS + 2
-    cfg = main_lwfa_cfg(nx, nz, steps)
+    cfg = sim.cfg
     geom = cfg.geometry
+    steps = lwfa_steps(plan)
+    if cfg.max_step != steps:
+        raise AssertionError(f"{phase}: max_step {cfg.max_step} for {steps} "
+                             "steps")
+    if not (sim.is_bounded and sim.binned):
+        raise AssertionError(f"{phase} did not take the bounded tile-binned "
+                             "step")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
-    if not (sim.is_bounded and sim.binned):
-        raise AssertionError("main_lwfa did not take the bounded tile-binned "
-                             "step")
+    by_mode = fp.binned_push_deposit.launches_by_mode
+    for k in by_mode:
+        by_mode[k] = 0
     fp.binned_push_deposit.launches_2d = 0
     tiling.ragged_expand.launches = 0
     sim.init()
     spec, stepper = sim.tile_spec, sim.stepper
     n0 = {nm: int(sp.alive.sum()) for nm, sp in sim.state.species.items()}
     host_init_s = time.perf_counter() - t0
-    sim.evolve(warm)  # two rebins, the window moving
+    sim.evolve(plan["warm"])  # two rebins, the window moving
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    timed = plan["timed"]
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
     marks[0].record()
     for mark in marks[1:]:
@@ -1012,23 +1300,26 @@ def phase_main_lwfa(dev, smi, k2_row, k3_row, nx=2048, nz=8192):
     marks[-1].synchronize()
     ms_step = marks[0].elapsed_time(marks[-1]) / timed
     series = [round(a.elapsed_time(b), 3) for a, b in zip(marks, marks[1:])]
-    waits = count_device_waits(lambda: sim.evolve(counted))
+    waits = count_device_waits(lambda: sim.evolve(plan["counted"]))
     sim.evolve(1)  # a rebin step: the profiled ones that follow have none
     breakdown = profile_steps(sim, PROFILED_STEPS, top=30)
     sim.evolve()  # the closing steps, with the +dt/2 synchronization
     torch.cuda.synchronize()
     if sim.state.step != steps:
-        raise AssertionError(f"main_lwfa ended at step {sim.state.step}")
+        raise AssertionError(f"{phase} ended at step {sim.state.step}")
     launches = {"fused_pic_2d": fp.binned_push_deposit.launches_2d,
                 "ragged_expand": tiling.ragged_expand.launches}
-    rebins = len(range(0, steps, interval))
+    rebins = len(range(0, steps, plan["interval"]))
     if launches != {"fused_pic_2d": steps, "ragged_expand": rebins}:
-        raise AssertionError(f"main_lwfa launched {launches} in {steps} "
+        raise AssertionError(f"{phase} launched {launches} in {steps} "
                              f"steps with {rebins} rebins")
+    if by_mode != {m: (steps if m == cfg.tile_mxu else 0) for m in by_mode}:
+        raise AssertionError(f"{phase} at tile_mxu={cfg.tile_mxu!r} "
+                             f"launched K2 in the modes {by_mode}")
     peak_steps = torch.cuda.max_memory_allocated()
     zshifts = sorted(stepper.zshifts_seen)
     if not (zshifts[0] == 0 and zshifts[-1] < stepper.smax
-            and len(zshifts) >= interval - 1):
+            and len(zshifts) >= plan["interval"] - 1):
         raise AssertionError(f"zshift took {zshifts} of [0, {stepper.smax})")
     sums = sim.checksums()  # raises on tile overflow or violations
     for group in sums.values():
@@ -1057,8 +1348,9 @@ def phase_main_lwfa(dev, smi, k2_row, k3_row, nx=2048, nz=8192):
                              f"{expected} explained by {offset} rows "
                              f"absorbed and {rows_in} injected")
     n_mean = 0.5 * (n0["electrons"] + alive["electrons"])
-    emit("main_lwfa", ok=True, n_cell=geom.n_cell,
-         field_shape=stepper.shapes["Ex"], alive_at_init=n0, alive_at_end=alive, electrons_expected=expected,
+    emit(phase, ok=True, n_cell=geom.n_cell, tile_mxu=cfg.tile_mxu,
+         field_shape=stepper.shapes["Ex"], alive_at_init=n0,
+         alive_at_end=alive, electrons_expected=expected,
          rows_absorbed=offset, rows_injected=rows_in, order=cfg.particle_shape,
          n_tiles=spec.n_tiles, w=spec.w, p_max=spec.p_max,
          slots=spec.capacity, smax=stepper.smax, zshifts_seen=zshifts,
@@ -1066,39 +1358,161 @@ def phase_main_lwfa(dev, smi, k2_row, k3_row, nx=2048, nz=8192):
          steps_timed=timed, ms_per_step=ms_step,
          pushes_per_s=n_mean / (ms_step * 1e-3), ms_each_step=series,
          host_init_s=host_init_s, init_and_warm_s=init_s, launches=launches,
-         device_waits={"steps": counted, "waits": waits},
+         launches_by_mode=dict(by_mode),
+         device_waits={"steps": plan["counted"], "waits": waits},
          tile_overflow=0, tile_violations=0,
          window_offset=offset,
          peak_memory_bytes={"steps": peak_steps, "with_checksums":
                             torch.cuda.max_memory_allocated()},
          checksum_Ey=sums["lev=0"]["Ey"], checksum_jz=sums["lev=0"]["jz"],
          device=torch.cuda.get_device_name(0), nvidia_smi=smi)
-    emit("main_lwfa_profile", steps=PROFILED_STEPS, nvidia_smi=smi,
+    emit(phase + "_profile", steps=PROFILED_STEPS, nvidia_smi=smi,
          **breakdown)
-    # K2 in moving-window mode on the inputs the next step would give it
+    # the inputs the next step would give K2 in moving-window mode
     f = stepper._f
     anchors = list(geom.prob_lo)
     anchors[1] = aux["tile_anchor"]
     zshift = int(np.round(f(f(aux["window_lo"] - aux["tile_anchor"])
                             / f(geom.dx[1]))))
+    return launches, tuple(anchors), zshift
+
+
+def k2_window_at_main_shapes(sim, anchors, zshift, mxu="f32"):
+    """K2 in moving-window mode on the state the run ended in, against its
+    plain version and timed (``fused_at_main_shapes``)."""
+    stepper = sim.stepper
     fields6 = stepper.to_kernel_frame(stepper._padded_eb(sim.state.fields))
-    k1c = fused_at_main_shapes(
-        sim, 1, window=(fields6, stepper.params, tuple(anchors), zshift,
-                        stepper.smax))
-    k3 = k3_at_main_shapes(sim, origin=tuple(anchors),
-                           wrap_dims=stepper.wrap_dims)
-    emit("main_lwfa_layers", step=sim.state.step, zshift=zshift,
-         ms=lwfa_layers(sim, tuple(anchors), zshift), fused_pic_2d=k1c["ms"],
-         ragged_expand=k3["ms"], nvidia_smi=smi)
-    for row, nm in ((k2_row, "fused_pic_2d"), (k3_row, "ragged_expand")):
+    return fused_at_main_shapes(
+        sim, 1, window=(fields6, stepper.params, anchors, zshift,
+                        stepper.smax), mxu=mxu)
+
+
+def add_launches(rows_by_name, launches, phase):
+    for nm, row in rows_by_name.items():
         row["launches"] += launches[nm]
-        row.setdefault("launches_by_path", {})["main_lwfa"] = launches[nm]
+        row.setdefault("launches_by_path", {})[phase] = launches[nm]
+
+
+def phase_main_lwfa(dev, smi, k2_row, k3_row, nx=2048, nz=8192):
+    """lwfa2d-2048x8192 (the configuration built field for field) through K2
+    in moving-window mode (K1c) at 'f32' and K3; returns K1c's kernels-line
+    row and adds this path's launches to the rows of K2 and K3."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.ops import tiling
+
+    cfg = main_lwfa_cfg(nx, nz, lwfa_steps(LWFA_PLAN))
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
+    launches, anchors, zshift = run_lwfa_path(dev, smi, "main_lwfa", sim,
+                                              LWFA_PLAN)
+    k1c = k2_window_at_main_shapes(sim, anchors, zshift)
+    k3 = k3_at_main_shapes(sim, origin=anchors,
+                           wrap_dims=sim.stepper.wrap_dims)
+    emit("main_lwfa_layers", step=sim.state.step, zshift=zshift,
+         ms=lwfa_layers(sim, anchors, zshift), fused_pic_2d=k1c["ms"],
+         ragged_expand=k3["ms"], nvidia_smi=smi)
+    add_launches({"fused_pic_2d": k2_row, "ragged_expand": k3_row}, launches,
+                 "main_lwfa")
     k3_row["at_main_lwfa"] = k3
     return {"name": "fused_pic_moving_window", "route": "cuda",
             "source": "warpx_tpu_torch/csrc/fused_pic_2d.cu",
             "replaces": "warpx_tpu/ops/pallas_pic.py:197",
             "launches": launches["fused_pic_2d"], "zshift": zshift,
-            "smax": stepper.smax, **k1c}
+            "smax": sim.stepper.smax, **k1c}
+
+
+def lwfa_deck_text(nx, nz, steps, mxu):
+    """bench.py::run_lwfa's deck as bench.py formats it (2 x 2 particles
+    per cell, sort interval 16), with max_step the steps the phase runs:
+    the slot capacity of continuous injection grows with max_step."""
+    return LWFA_2D_DECK.format(nx=nx, nz=nz, ppcx=2, ppcz=2, interval=16,
+                               max_step=steps, mxu=mxu)
+
+
+def phase_main_lwfa_deck(dev, smi, k3_row, nx=2048, nz=8192):
+    """lwfa2d-2048x8192 from bench.py's deck text through
+    Simulation.from_deck at tile_mxu = mixed (bench.py's default), driven
+    as main_lwfa is; its configuration must equal main_lwfa's but for the
+    mode.  Then K2 in moving-window mode at 'mixed' at its shapes against
+    its plain version, timed beside K1c at 'f32' on the same state and
+    beside its bound.  Returns the kernels-line row; adds this path's K3
+    launches to ``k3_row``."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.utils.parser import Deck
+
+    steps = lwfa_steps(LWFA_PLAN)
+    sim = warpx_tpu_torch.Simulation.from_deck(
+        Deck.from_string(lwfa_deck_text(nx, nz, steps, "mixed")),
+        dtype=torch.float32, device=dev)
+    if sim.cfg != dataclasses.replace(main_lwfa_cfg(nx, nz, steps),
+                                      tile_mxu="mixed"):
+        raise AssertionError("the deck's configuration differs from "
+                             "main_lwfa's")
+    launches, anchors, zshift = run_lwfa_path(dev, smi, "main_lwfa_deck",
+                                              sim, LWFA_PLAN)
+    row = k2_window_at_main_shapes(sim, anchors, zshift, mxu="mixed")
+    add_launches({"ragged_expand": k3_row}, launches, "main_lwfa_deck")
+    return {"name": "fused_pic_moving_window_mixed", "route": "cuda",
+            "source": "warpx_tpu_torch/csrc/fused_pic_2d.cu",
+            "replaces": "warpx_tpu/ops/pallas_pic.py:433", "mxu": "mixed",
+            "launches": launches["fused_pic_2d"], "zshift": zshift,
+            "smax": sim.stepper.smax, **row}
+
+
+def phase_deck_parity(dev):
+    """tests/test_binned_bounded.py's 32 x 64 laser-wakefield deck at
+    tpu.tile_mxu = mixed through Simulation.from_deck, float64, on the card
+    (K2 at 'mixed', once a step) and on the CPU (plain versions), 12 steps:
+    every checksum but divE/divB within 1e-9.  Then the CLI as a process of
+    its own on the card, on the same deck with --steps 4 --checksums: its
+    printed checksums against an in-process run of 4 steps, within 1e-12
+    (the J windows' shared-memory atomics sum in an order that changes from
+    run to run)."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.utils.parser import Deck
+
+    text = LWFA_32X64_DECK + "\ntpu.tiled_particles = on\ntpu.tile_mxu = mixed\n"
+    by_mode = fp.binned_push_deposit.launches_by_mode
+    sums = {}
+    before = by_mode["mixed"]
+    for device in (dev, "cpu"):
+        sim = warpx_tpu_torch.Simulation.from_deck(
+            Deck.from_string(text), dtype=torch.float64, device=device)
+        if not (sim.is_bounded and sim.binned and sim.cfg.tile_mxu == "mixed"):
+            raise AssertionError("the deck did not take the bounded "
+                                 "tile-binned step at 'mixed'")
+        sim.init()
+        sim.evolve()
+        sums[str(device)] = sim.checksums()
+        if device is dev:
+            launched = by_mode["mixed"] - before
+    if launched != sim.cfg.max_step:
+        raise AssertionError(f"{launched} launches of K2 at 'mixed' in "
+                             f"{sim.cfg.max_step} steps")
+    worst = checksums_agree(sums[str(dev)], sums["cpu"], 1e-9,
+                            "deck card vs CPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "inputs"
+        path.write_text(text)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "warpx_tpu_torch", str(path), "--steps",
+             "4", "--checksums"], capture_output=True, text=True, timeout=600,
+            cwd=pathlib.Path(__file__).resolve().parent)
+        cli_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"the CLI failed: {run.stderr[-2000:]}")
+        printed = json.loads(run.stdout[run.stdout.index("\n") + 1:])
+        sim = warpx_tpu_torch.Simulation.from_deck(
+            str(path), dtype=torch.float64, device=dev)
+        sim.init()
+        sim.evolve(4)
+        cli_err = checksums_agree(printed, sim.checksums(), 1e-12,
+                                  "CLI vs in-process")
+    emit("deck_parity", ok=True, tol=1e-9, steps=12, max_rel_err=worst,
+         k2_mixed_launches=launched, cli={
+             "steps": 4, "max_rel_err": cli_err, "tol": 1e-12,
+             "seconds": cli_s, "first_line": run.stdout.splitlines()[0]})
 
 
 def main() -> int:
@@ -1127,18 +1541,24 @@ def main() -> int:
          per_library=secs, ptxas=regs)
     phase_kernel_parity(dev, "k1_parity", 3, 16)
     phase_kernel_parity(dev, "k2_parity", 2, 32)
+    phase_k1d_parity(dev)
     phase_k1c_parity(dev)
     phase_k3_parity(dev)
     phase_slice_parity(dev, "slice_parity", 3)
     phase_slice_parity(dev, "slice2d_parity", 2)
     phase_bounded_parity(dev)
+    phase_deck_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
+    k1d_rows = phase_main_mixed(dev, smi, k3_row)
     k2_row = phase_main2d(dev, smi, k3_row)
     k2_row["launches_by_path"] = {"main2d": k2_row["launches"]}
     torch.cuda.empty_cache()
     k1c_row = phase_main_lwfa(dev, smi, k2_row, k3_row)
+    torch.cuda.empty_cache()
+    k1c_mixed_row = phase_main_lwfa_deck(dev, smi, k3_row)
     print(smi)
-    print(json.dumps({"kernels": [k1_row, k2_row, k1c_row, k3_row]}))
+    print(json.dumps({"kernels": [k1_row, *k1d_rows, k2_row, k1c_row,
+                                  k1c_mixed_row, k3_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -569,7 +569,7 @@ def _with_species(cfg, i, **kw):
     (lambda c: dataclasses.replace(c, grid_type="collocated"), "Queue A 11"),
     (lambda c: dataclasses.replace(
         c, field_gathering="momentum-conserving"), "Queue A 11"),
-    (lambda c: dataclasses.replace(c, use_nci_corr=True), "Queue A 9"),
+    (lambda c: dataclasses.replace(c, use_nci_corr=True), "Queue A 11.3"),
     (lambda c: dataclasses.replace(c, gamma_boost=10.0), "Queue A 11"),
     (lambda c: dataclasses.replace(c, lasers=(dataclasses.replace(
         c.lasers[0], profile="from_file"),)), "Queue A 11"),
@@ -578,8 +578,7 @@ def _with_species(cfg, i, **kw):
      "Queue A 11"),
     (lambda c: _with_species(c, 0, momentum_distribution="gaussian",
                              ux_th=0.01), "Queue A 11"),
-    (lambda c: _with_species(c, 0, profile="parse_density_function"),
-     "Queue A 15"),
+    (lambda c: _with_species(c, 0, profile="predefined"), "Queue A 11"),
     (lambda c: _with_species(c, 0, injection_style="nrandompercell",
                              num_particles_per_cell=2), "Queue A 11"),
 ])
@@ -592,11 +591,23 @@ def test_unported_bounded_branches_raise(jax_lwfa, change, match):
 
 
 def test_unported_precision_modes_raise_on_bounded_path(jax_lwfa):
-    cfg = port_config(jax_lwfa["cfg"], tile_mxu="mixed", max_step=1)
-    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float64, device="cpu")
-    sim.init()
-    with pytest.raises(NotImplementedError, match="K1d"):
+    """The bounded step runs K2 at 'mixed' and 'bf16' (their step differs
+    from the 'f32' step); a mode the kernel does not have raises."""
+    jy = {}
+    for mxu in ("f32", "mixed", "bf16", "tf32"):
+        cfg = port_config(jax_lwfa["cfg"], tile_mxu=mxu, max_step=2)
+        sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float64,
+                                         device="cpu")
+        sim.init()
+        if mxu == "tf32":
+            with pytest.raises(ValueError, match="tile_mxu"):
+                sim.evolve()
+            continue
         sim.evolve()
+        jy[mxu] = sim.state.fields.jy
+    for mxu in ("mixed", "bf16"):
+        assert bool(torch.isfinite(jy[mxu]).all())
+        assert not torch.equal(jy[mxu], jy["f32"])
 
 
 def test_lwfa_float32_run(jax_lwfa, port_lwfa):

@@ -81,14 +81,15 @@ def _lane_pad(f):
     return jnp.asarray(np.pad(f, pw))
 
 
-def _compare(ndim, order, pusher, smax=0, zshift=None, anchor_off=0.0):
+def _compare(ndim, order, pusher, smax=0, zshift=None, anchor_off=0.0,
+             mxu="f32"):
     geom, jgeom, spec, jspec, cols, counts, fields, lo = _layout(
         order, ndim, smax, anchor_off)
     stag = tuple(sorted((k, tuple(v))
                         for k, v in yee_staggering(ndim).items()))
     kw = dict(order=order, galerkin=True, pusher_name=pusher,
               dt=0.999 * min(geom.dx) / (C * ndim ** 0.5), stag_items=stag,
-              smax=smax)
+              smax=smax, mxu=mxu)
     mode = {} if zshift is None else dict(anchors=lo, zshift=zshift)
     jmode = {} if zshift is None else dict(
         anchors=jnp.asarray(lo), zshift=jnp.asarray(zshift, jnp.int32))
@@ -192,8 +193,12 @@ def test_unported_modes_raise():
     kw = dict(counts=torch.from_numpy(counts), spec=spec, geom=geom, order=1,
               galerkin=True, pusher_name="boris", dt=1e-15,
               stag_items=tuple(yee_staggering(3).items()))
-    with pytest.raises(NotImplementedError, match="K1d"):
-        fused_pic.binned_push_deposit(*args, mxu="bf16", **kw)
+    # 'mixed' and 'bf16' are ported (tests/test_torch_mxu.py)
+    with pytest.raises(ValueError, match="tile_mxu"):
+        fused_pic.binned_push_deposit(*args, mxu="tf32", **kw)
+    for mxu in ("mixed", "bf16"):
+        out = fused_pic.binned_push_deposit(*args, mxu=mxu, **kw)
+        assert all(bool(torch.isfinite(j).all()) for j in out[1])
     with pytest.raises(ValueError, match="zshift"):
         fused_pic.binned_push_deposit(*args, zshift=3, smax=2, **kw)
     with pytest.raises(ValueError, match="particle arrays"):

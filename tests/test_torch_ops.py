@@ -238,9 +238,15 @@ def test_unported_injection_raises():
     with pytest.raises(NotImplementedError, match="Queue A 11"):
         injection.inject_species(sp, g, np.random.default_rng(0),
                                  dtype=torch.float64, device="cpu")
+    # parsed profiles are ported (tests/test_torch_deck.py); a predefined
+    # one is not
     sp = dataclasses.replace(sp, injection_style="nrandompercell",
-                             num_particles_per_cell=1, profile="parse")
+                             num_particles_per_cell=1, profile="predefined")
     with pytest.raises(NotImplementedError, match="Queue A 11"):
+        injection.inject_species(sp, g, np.random.default_rng(0),
+                                 dtype=torch.float64, device="cpu")
+    sp = dataclasses.replace(sp, profile="parse_density_function")
+    with pytest.raises(ValueError, match="density_function"):
         injection.inject_species(sp, g, np.random.default_rng(0),
                                  dtype=torch.float64, device="cpu")
 

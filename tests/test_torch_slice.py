@@ -215,7 +215,7 @@ def test_state_round_trip_step(jax_runs, jax_runs_2d, ndim):
 @pytest.mark.parametrize("kw,match", [
     (dict(current_deposition="direct"), "Queue A 3"),
     (dict(field_gathering="momentum-conserving"), "Queue A 11"),
-    (dict(use_nci_corr=True), "Queue A 9"),
+    (dict(use_nci_corr=True), "Queue A 11.3"),
     (dict(em_solver="psatd"), "Queue A 10"),
 ])
 def test_pic_step_unported_features_raise(kw, match):
@@ -267,11 +267,24 @@ def test_simulation_without_gpu_raises(monkeypatch):
 
 
 def test_unported_precision_modes_raise():
+    """The TPU kernel's precision modes run ('mixed', 'bf16': their step
+    differs from the 'f32' step, ROADMAP.md Queue B K1d); a mode it does
+    not have raises."""
     import dataclasses
 
-    cfg = dataclasses.replace(torch_cfg(), tile_mxu="mixed", max_step=1)
-    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float64, device="cpu")
-    sim.init()
-    with pytest.raises(NotImplementedError, match="K1d"):
+    ex = {}
+    for mxu in ("f32", "mixed", "bf16", "tf32"):
+        cfg = dataclasses.replace(torch_cfg(), tile_mxu=mxu, max_step=1)
+        sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float64,
+                                         device="cpu")
+        sim.init()
+        if mxu == "tf32":
+            with pytest.raises(ValueError, match="tile_mxu"):
+                sim.evolve()
+            continue
         sim.evolve()
+        ex[mxu] = sim.state.fields.Ex
+    for mxu in ("mixed", "bf16"):
+        assert bool(torch.isfinite(ex[mxu]).all())
+        assert not torch.equal(ex[mxu], ex["f32"])
 

@@ -8,8 +8,11 @@ PyTorch version of the same function beside it: the wrapper runs that version
 only for tensors on the CPU (the parity tests) and launches the kernel for
 CUDA tensors.
 
-Ported so far: the 3D periodic, explicit electromagnetic, tile-binned PIC step
-(``core/binned_step.py``) driven by ``Simulation``.
+Ported so far: the explicit electromagnetic PIC step in 2D XZ and 3D,
+periodic (``core/binned_step.py``, ``core/step.py``) and bounded
+(``core/bounded_step.py``), driven by ``Simulation``, which is built from a
+configuration or from an inputs deck (``Simulation.from_deck``,
+``core/deck.py``; the CLI is ``python -m warpx_tpu_torch``).
 """
 
 from . import constants  # noqa: F401

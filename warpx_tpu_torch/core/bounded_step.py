@@ -60,7 +60,8 @@ from .binned_step import _FOLD_AXES, pusher_groups, pusher_params
 from .boundaries import fill_guards_pec, is_tangential
 from .config import SimConfig
 from .domain import DomainLayout
-from .injection import _AXES3, _bulk_momentum, _regular_unit_positions
+from .injection import (PARSED_PROFILES, _AXES3, _bulk_momentum,
+                        _regular_unit_positions, profile_values)
 from .laser import update_antenna
 from .state import SimState
 from .step import _add_ext
@@ -140,7 +141,7 @@ def check_bounded_supported(cfg: SimConfig) -> None:
     if cfg.field_gathering == "momentum-conserving":
         no("momentum-conserving gathering", "Queue A 11")
     if cfg.use_nci_corr:
-        no("the Godfrey NCI corrector", "Queue A 9, left out")
+        no("the Godfrey NCI corrector", "Queue A 11.3")
     if cfg.gamma_boost > 1.0:
         no("the Lorentz-boosted frame", "Queue A 11")
     if cfg.do_moving_window and not 0 <= cfg.moving_window_dir < ndim:
@@ -167,11 +168,11 @@ def check_bounded_supported(cfg: SimConfig) -> None:
             if sp.injection_style != "nuniformpercell":
                 no("continuous injection other than NUniformPerCell",
                    "Queue A 11")
-            if sp.profile != "constant":
-                no(f"continuous injection with the {sp.profile!r} profile "
-                   "(needs utils/expression.py)", "Queue A 15")
-            if sp.momentum_distribution not in ("at_rest", "none",
-                                                "constant"):
+            if sp.profile != "constant" and sp.profile not in PARSED_PROFILES:
+                no(f"continuous injection with the {sp.profile!r} profile",
+                   "Queue A 11")
+            if sp.momentum_distribution not in ("at_rest", "none", "constant",
+                                                "parse_momentum_function"):
                 no("continuous injection with momentum distribution "
                    f"{sp.momentum_distribution!r} (the JAX package draws it "
                    "from jax.random)", "Queue A 11")
@@ -625,13 +626,20 @@ class BoundedStepper:
             for d in range(ndim):
                 sel &= ((pos[:, d] >= sp_cfg.bounds_lo[d])
                         & (pos[:, d] <= sp_cfg.bounds_hi[d]))
-        w_new = torch.where(
-            sel, torch.full((npart,), sp_cfg.density, **kw)
-            * (geom.cell_volume / ppc_tot), torch.zeros((), **kw))
+        if sp_cfg.profile == "constant":
+            dens = torch.full((npart,), sp_cfg.density, **kw)
+        else:
+            dens = profile_values(sp_cfg.density_expr, sp_cfg, pos,
+                                  ndim).to(self.dtype)
+        w_new = torch.where(sel, dens * (geom.cell_volume / ppc_tot),
+                            torch.zeros((), **kw))
         sel &= w_new > 0
         if sp_cfg.momentum_distribution == "constant":
             u_new = [torch.full((npart,), v * _c, **kw)
                      for v in (sp_cfg.ux, sp_cfg.uy, sp_cfg.uz)]
+        elif sp_cfg.momentum_distribution == "parse_momentum_function":
+            u_new = [profile_values(e, sp_cfg, pos, ndim).to(self.dtype) * _c
+                     for e in sp_cfg.momentum_exprs]
         else:  # at rest
             u_new = [torch.zeros(npart, **kw) for _ in range(3)]
 

@@ -3,17 +3,17 @@
 A copy of ``warpx_tpu.core.config``'s ``LaserConfig``, ``SpeciesConfig``
 and ``SimConfig``, cut to the fields the ported paths read (2D XZ and 3D
 explicit EM, periodic and bounded with PML/PEC faces, moving window, laser
-antennas, continuous injection and Gaussian beams; per-particle and
-tile-binned steps).  Fields keep the reference's names and defaults, so a
-configuration built for ``warpx_tpu`` with these fields builds here with the
-same keyword arguments.  Features whose fields are absent come with later
+antennas, continuous injection and Gaussian beams, constant and parsed
+profiles; per-particle and tile-binned steps).  Fields keep the reference's
+names and defaults, so a configuration built for ``warpx_tpu`` with these
+fields builds here with the same keyword arguments.  Features whose fields are absent come with later
 items of ROADMAP.md's Queue A.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 from .grid import Geometry
 
@@ -55,9 +55,14 @@ class SpeciesConfig:
     injection_style: str = "none"
     num_particles_per_cell_each_dim: Tuple[int, ...] = ()
     num_particles_per_cell: int = 0
-    profile: str = "constant"
+    profile: str = "constant"  # constant | parse_density_function
     density: float = 0.0
-    momentum_distribution: str = "at_rest"  # at_rest | constant | gaussian
+    # parse_density_function: n(x, y, z) in m^-3 (utils/expression.py)
+    density_expr: Optional[str] = None
+    # at_rest | constant | gaussian | parse_momentum_function
+    momentum_distribution: str = "at_rest"
+    # parse_momentum_function: (ux, uy, uz)(x, y, z) in units of c
+    momentum_exprs: Optional[Tuple[str, str, str]] = None
     # constant momentum (units of gamma*beta, multiplied by c at injection)
     ux: float = 0.0
     uy: float = 0.0
@@ -85,6 +90,8 @@ class SpeciesConfig:
     q_tot: float = 0.0
     z_cut: float = float("inf")
     species_type: str = ""
+    # the deck's my_constants, which the parsed profiles may name
+    user_constants: Tuple[Tuple[str, float], ...] = ()
     # extra particle capacity headroom factor for continuous injection
     capacity_factor: float = 1.0
 
@@ -139,8 +146,8 @@ class SimConfig:
     sort_interval: int = 4
     sort_margin: int = 0  # 0 = auto: ceil(interval * c*dt/min(dx))
     tile_headroom: float = 2.0
-    # contraction precision of the TPU kernel; only 'f32' is ported
-    tile_mxu: str = "f32"  # f32 | mixed | bf16
+    # precision of the fused kernels (ops/fused_pic.py): f32 | mixed | bf16
+    tile_mxu: str = "f32"
 
     @property
     def galerkin(self) -> bool:

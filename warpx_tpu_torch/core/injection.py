@@ -1,8 +1,9 @@
 """Plasma injection: per-cell particle placement, weights, momentum sampling.
 
 The counterpart of ``warpx_tpu.core.injection``: ``inject_species`` for
-NUniformPerCell / NRandomPerCell placement, a constant density profile
-inside optional bounds and ``at_rest`` / ``constant`` / ``gaussian`` momenta
+NUniformPerCell / NRandomPerCell placement, a constant or parsed
+(``parse_density_function``) density profile inside optional bounds and
+``at_rest`` / ``constant`` / ``gaussian`` / ``parse_momentum_function`` momenta
 (reference: PhysicalParticleContainer.cpp:925-1334,
 InjectorPosition.H:67-107), and ``inject_gaussian_beam``
 (PhysicalParticleContainer.cpp:503-680), both in the lab frame.  They run on
@@ -21,14 +22,30 @@ import numpy as np
 import torch
 
 from .. import constants
+from ..utils.expression import compile_expression
 from .config import SpeciesConfig
 from .grid import Geometry
 from .state import ParticleState
 
 __all__ = ["inject_species", "inject_species_host", "inject_gaussian_beam",
-           "inject_gaussian_beam_host", "columns_to_state"]
+           "inject_gaussian_beam_host", "columns_to_state", "profile_values"]
 
 _AXES3 = {1: (2,), 2: (0, 2), 3: (0, 1, 2)}
+PARSED_PROFILES = ("parse", "parse_density_function")
+
+
+def profile_values(expr: str, sp: SpeciesConfig, pos, ndim: int):
+    """The deck expression ``expr`` of (x, y, z) with the species' constants
+    at the (n, ndim) positions ``pos`` (a tensor, or a numpy array whose
+    result comes back as one); the inactive axes of 2D are 0."""
+    fn = compile_expression(expr, ["x", "y", "z"], dict(sp.user_constants))
+    cols = [pos[:, d] for d in range(ndim)]
+    if ndim == 2:
+        zero = cols[0] * 0
+        cols = [cols[0], zero, cols[1]]
+    if isinstance(pos, np.ndarray):
+        return fn(*(np.ascontiguousarray(c) for c in cols)).numpy()
+    return fn(*cols)
 
 
 def _np_dtype(dtype: torch.dtype):
@@ -87,12 +104,15 @@ def inject_species_host(
         raise NotImplementedError(
             f"injection style {sp.injection_style!r} (ROADMAP.md Queue A 11)"
         )
-    if sp.profile != "constant":
+    if sp.profile != "constant" and sp.profile not in PARSED_PROFILES:
         raise NotImplementedError(
             f"density profile {sp.profile!r} (ROADMAP.md Queue A 11)"
         )
+    if sp.profile in PARSED_PROFILES and not sp.density_expr:
+        raise ValueError(f"{sp.name}: profile {sp.profile!r} without a "
+                         "density_function")
     if sp.momentum_distribution not in ("at_rest", "none", "constant",
-                                        "gaussian"):
+                                        "gaussian", "parse_momentum_function"):
         raise NotImplementedError(
             f"momentum distribution {sp.momentum_distribution!r} "
             "(ROADMAP.md Queue A 11)"
@@ -126,7 +146,10 @@ def inject_species_host(
             mask &= (coord >= sp.bounds_lo[d]) & (coord <= sp.bounds_hi[d])
 
     # --- density -> weight
-    dens = np.full(pos.shape[0], sp.density, dtype=np_dtype)
+    if sp.profile == "constant":
+        dens = np.full(pos.shape[0], sp.density, dtype=np_dtype)
+    else:
+        dens = profile_values(sp.density_expr, sp, pos, ndim).astype(np_dtype)
     w = np.where(mask, dens * scale_vec, 0.0).astype(np_dtype)
     mask &= w > 0
 
@@ -140,10 +163,13 @@ def inject_species_host(
         ux = np.full(n, sp.ux, dtype=np_dtype)
         uy = np.full(n, sp.uy, dtype=np_dtype)
         uz = np.full(n, sp.uz, dtype=np_dtype)
-    else:  # gaussian
+    elif sp.momentum_distribution == "gaussian":
         ux = rng.normal(sp.ux, sp.ux_th or 0.0, n).astype(np_dtype)
         uy = rng.normal(sp.uy, sp.uy_th or 0.0, n).astype(np_dtype)
         uz = rng.normal(sp.uz, sp.uz_th or 0.0, n).astype(np_dtype)
+    else:  # parse_momentum_function
+        ux, uy, uz = (profile_values(e, sp, pos, ndim).astype(np_dtype)
+                      for e in sp.momentum_exprs)
     ux = (ux * constants.c).astype(np_dtype)
     uy = (uy * constants.c).astype(np_dtype)
     uz = (uz * constants.c).astype(np_dtype)

@@ -10,7 +10,8 @@ periodic torus the step is the tile-binned ``binned_pic_step``, or the
 per-particle ``pic_step`` for ``tiled_particles="off"``.  A configuration
 with a non-periodic field face, a moving window or a laser runs through
 ``core/bounded_step.py::BoundedStepper`` (``is_bounded``): ``step_binned``
-or ``step_main``, then ``step_window`` after every step.  The simulation
+or ``step_main``, then ``step_window`` after every step.  ``from_deck``
+builds one from an inputs deck (``core/deck.py``).  The simulation
 runs on the CUDA device unless the caller names another device; with no GPU
 it raises rather than run on the CPU unasked.
 """
@@ -27,12 +28,14 @@ import torch
 from ..constants import c as _c
 from ..diagnostics.checksum import compute_checksums
 from ..diagnostics.fields import cell_centered_output
+from ..utils.parser import Deck
 from .binned_step import (binned_pic_step, binned_supported,
                            bounded_binned_supported, make_tile_spec,
                            pusher_params)
 from .bounded_step import (B_TERMS, E_TERMS, BoundedStepper,
                            check_bounded_supported, needs_bounded_step)
 from .config import SimConfig
+from .deck import config_from_deck
 from .grid import yee_staggering
 from .injection import (columns_to_state, inject_gaussian_beam_host,
                         inject_species, inject_species_host)
@@ -84,12 +87,26 @@ class Simulation:
         self.tile_spec = None
         self.is_synchronized = True
         self.stepper = None
+        self.deck: Deck | None = None
         if self.is_bounded:
             check_bounded_supported(cfg)
             self.params = None
         else:
             self.params = (pusher_params(cfg, dtype, self.device)
                            if self.binned else None)
+
+    @classmethod
+    def from_deck(cls, deck, overrides=(),
+                  dtype: torch.dtype = torch.float32,
+                  device: torch.device | str | None = None) -> "Simulation":
+        """A simulation of the inputs deck ``deck`` (a ``Deck`` or the path
+        of a deck file, with ParmParse ``key=value`` ``overrides``); the
+        deck is kept as ``sim.deck``."""
+        if not isinstance(deck, Deck):
+            deck = Deck.from_file(deck, overrides)
+        sim = cls(config_from_deck(deck), dtype=dtype, device=device)
+        sim.deck = deck
+        return sim
 
     def init(self, seed: int | None = None) -> SimState:
         cfg = self.cfg

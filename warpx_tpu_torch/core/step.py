@@ -106,7 +106,7 @@ def _check_pic_step(cfg: SimConfig):
         )
     if cfg.use_nci_corr:
         raise NotImplementedError(
-            "Godfrey NCI corrector (ROADMAP.md Queue A 9)"
+            "Godfrey NCI corrector (ROADMAP.md Queue A 11.3)"
         )
     for sp_cfg in cfg.species:
         if sp_cfg.species_type == "photon" or sp_cfg.mass == 0.0:

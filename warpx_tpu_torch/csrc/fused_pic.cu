@@ -29,6 +29,16 @@
 //     memory (float64 with W = 24) the atomics go to the block's own tile
 //     window in device memory instead, which no other block touches.
 //
+// Precision modes (the TPU kernel's mxu argument, kernel mode K1d;
+// pallas_pic.py:57-69, 133-136, 268-306, 363-390), a template parameter
+// instantiated in every library: in 'mixed' and 'bf16' each field value and
+// each transverse weight bf16(wy*wz) of the gather is rounded to bfloat16, the
+// x weight is not; the deposit's point value is dot3x(cs*scale, 1/4 sa sb +
+// 1/12 da db) in 'mixed' and bf16(cs*scale/4) bf16(sa sb) + bf16(cs*scale/12)
+// bf16(da db) in 'bf16' (fused_pic_common.cuh).  The field values are
+// rounded as they are loaded (the fields are not staged in shared memory);
+// the splines and every rounded operand are formed without FMA contraction.
+//
 // Moving-window mode (the TPU kernel's anchors / zshift / smax arguments,
 // pallas_pic.py:197-208): lo is the anchor the tiles were laid out from at the
 // last rebin, and the grid has slid zshift cells along z since, inside a
@@ -52,10 +62,26 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T, int ORDER, int PUSHER, bool SMEM>
+// J_d at one stencil point: cval = cs_d * wq*invdtd_d times the transverse
+// mix 1/4 sa sb + 1/12 da db, at precision MXU (pallas_pic.py:363-390).
+template <int MXU, typename T>
+__device__ __forceinline__ T esirkepov_point(T cval, T sa, T sb, T da, T db) {
+  if (MXU == kMxuMixed) {
+    return dot3x(cval, add_rn(mul_rn(T(0.25), mul_rn(sa, sb)),
+                              mul_rn(T(1.0 / 12.0), mul_rn(da, db))));
+  }
+  if (MXU == kMxuBf16) {
+    return bf16_round(mul_rn(T(0.25), cval)) * bf16_round(mul_rn(sa, sb)) +
+           bf16_round(mul_rn(T(1.0 / 12.0), cval)) * bf16_round(mul_rn(da, db));
+  }
+  return cval * (T(0.25) * (sa * sb) + T(1.0 / 12.0) * (da * db));
+}
+
+template <typename T, int ORDER, bool SMEM, int MXU>
 __global__ void __launch_bounds__(kThreads)
 fused_pic_kernel(const FusedPicArgs a) {
   constexpr int NT = ORDER + 3;  // Esirkepov taps per axis
+  constexpr bool EXACT = MXU != kMxuF32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_viol;
 
@@ -143,7 +169,7 @@ fused_pic_kernel(const FusedPicArgs a) {
 #pragma unroll
           for (int d = 0; d < 3; ++d) {
             const T xc = a.gstag[c * 3 + d] ? X[d] - T(0.5) : X[d];
-            i0[d] = gather_weights(xc, a.gorder[c * 3 + d], wt[d]);
+            i0[d] = gather_weights<T, EXACT>(xc, a.gorder[c * 3 + d], wt[d]);
           }
           T e = T(0);
 #pragma unroll
@@ -161,7 +187,12 @@ fused_pic_kernel(const FusedPicArgs a) {
                 if (ic > a.gorder[c * 3 + 2] || rz < 0 || rz >= W) continue;
                 const long long fi = (f0[0] + rx) * fs0 + (f0[1] + ry) * fs1 +
                                      (f0[2] + rz);
-                h += (wt[1][ib] * wt[2][ic]) * __ldg(F[c] + fi);
+                if (MXU == kMxuF32) {
+                  h += (wt[1][ib] * wt[2][ic]) * __ldg(F[c] + fi);
+                } else {
+                  h += bf16_round(mul_rn(wt[1][ib], wt[2][ic])) *
+                       bf16_round(__ldg(F[c] + fi));
+                }
               }
             }
             e += wt[0][ia] * h;
@@ -170,10 +201,11 @@ fused_pic_kernel(const FusedPicArgs a) {
         }
 
         // ---- push
-        if (PUSHER == 0) {
+        // the pusher is uniform over the launch: a branch no warp diverges on
+        if (a.pusher == 0) {
           push_boris(ux, uy, uz, e6[0], e6[1], e6[2], e6[3], e6[4], e6[5], q,
                      m, dt);
-        } else if (PUSHER == 1) {
+        } else if (a.pusher == 1) {
           push_vay(ux, uy, uz, e6[0], e6[1], e6[2], e6[3], e6[4], e6[5], q, m,
                    dt);
         } else {
@@ -206,8 +238,10 @@ fused_pic_kernel(const FusedPicArgs a) {
           for (int r = 0; r < NT; ++r) {
             const int row_ = j0[d] + r;
             const bool in = row_ >= 0 && row_ < W;
-            const T sn = in ? spline(xn - static_cast<T>(row_), ORDER) : T(0);
-            const T so = in ? spline(X[d] - static_cast<T>(row_), ORDER) : T(0);
+            const T sn =
+                in ? spline<T, EXACT>(xn - static_cast<T>(row_), ORDER) : T(0);
+            const T so =
+                in ? spline<T, EXACT>(X[d] - static_cast<T>(row_), ORDER) : T(0);
             sm[d][r] = sn + so;
             df[d][r] = so - sn;
             acc += df[d][r];
@@ -238,8 +272,8 @@ fused_pic_kernel(const FusedPicArgs a) {
               for (int jb = 0; jb < NT; ++jb) {
                 const int rb = j0[db] + jb;
                 if (rb < 0 || rb >= W) continue;
-                const T v = cval * (T(0.25) * (sm[da][ja] * sm[db][jb]) +
-                                    T(1.0 / 12.0) * (df[da][ja] * df[db][jb]));
+                const T v = esirkepov_point<MXU>(cval, sm[da][ja], sm[db][jb],
+                                                 df[da][ja], df[db][jb]);
                 if (v != T(0)) atomicAdd(Jd + (row_ * W + ra) * W + rb, v);
               }
             }
@@ -256,8 +290,8 @@ fused_pic_kernel(const FusedPicArgs a) {
                 for (int jb = 0; jb < NT; ++jb) {
                   const int rb = j0[db] + jb;
                   if (rb < 0 || rb >= W) continue;
-                  const T v = cval * (T(0.25) * (sm[da][ja] * sm[db][jb]) +
-                                      T(1.0 / 12.0) * (df[da][ja] * df[db][jb]));
+                  const T v = esirkepov_point<MXU>(cval, sm[da][ja], sm[db][jb],
+                                                   df[da][ja], df[db][jb]);
                   if (v != T(0)) atomicAdd(Jd + (row_ * W + ra) * W + rb, v);
                 }
               }
@@ -280,10 +314,10 @@ fused_pic_kernel(const FusedPicArgs a) {
   }
 }
 
-template <typename T, int O, int PU, bool SM>
+template <typename T, int O, bool SM, int MX>
 int launch_one(const FusedPicArgs& a, cudaStream_t st) {
   const size_t smem = SM ? 3ull * a.w * a.w * a.w * sizeof(T) : 0;
-  auto kern = fused_pic_kernel<T, O, PU, SM>;
+  auto kern = fused_pic_kernel<T, O, SM, MX>;
   if (SM) {
     // dynamic shared memory beyond the default 48 KB (static included)
     // needs the opt-in, so always ask for it
@@ -297,7 +331,7 @@ int launch_one(const FusedPicArgs& a, cudaStream_t st) {
   return e == cudaSuccess ? 0 : kStageLaunch * 1000 + static_cast<int>(e);
 }
 
-template <typename T, int O, int PU>
+template <typename T, int O, int MX>
 int launch_smem(const FusedPicArgs& a, cudaStream_t st) {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -308,24 +342,28 @@ int launch_smem(const FusedPicArgs& a, cudaStream_t st) {
   if (e != cudaSuccess) return kStageAttr * 1000 + static_cast<int>(e);
   // the static s_viol counter shares the block's budget
   const size_t need = 3ull * a.w * a.w * a.w * sizeof(T) + 64;
-  return need <= static_cast<size_t>(optin) ? launch_one<T, O, PU, true>(a, st)
-                                            : launch_one<T, O, PU, false>(a, st);
+  return need <= static_cast<size_t>(optin)
+             ? launch_one<T, O, true, MX>(a, st)
+             : launch_one<T, O, false, MX>(a, st);
 }
 
 }  // namespace
 
 // One library per (type, order): FP_REAL and FP_ORDER are set on the nvcc
-// command line (warpx_tpu_torch/build.py), so the builds run in parallel.
+// command line (warpx_tpu_torch/build.py), so the builds run in parallel;
+// each holds the three precision modes.  The pusher is a kernel argument:
+// as a template parameter too, its nine instantiations per library tripled
+// the build.
 extern "C" int fused_pic_launch(const FusedPicArgs* a, void* stream) {
   if (a->n_tiles <= 0) return 0;
-  if (a->order != FP_ORDER) {
+  if (a->order != FP_ORDER || a->pusher < 0 || a->pusher > 2) {
     return kStageArgs * 1000 + static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (a->pusher) {
-    case 0: return launch_smem<FP_REAL, FP_ORDER, 0>(*a, st);
-    case 1: return launch_smem<FP_REAL, FP_ORDER, 1>(*a, st);
-    case 2: return launch_smem<FP_REAL, FP_ORDER, 2>(*a, st);
+  switch (a->mxu) {
+    case kMxuF32: return launch_smem<FP_REAL, FP_ORDER, kMxuF32>(*a, st);
+    case kMxuMixed: return launch_smem<FP_REAL, FP_ORDER, kMxuMixed>(*a, st);
+    case kMxuBf16: return launch_smem<FP_REAL, FP_ORDER, kMxuBf16>(*a, st);
     default:
       return kStageArgs * 1000 + static_cast<int>(cudaErrorInvalidValue);
   }

@@ -47,6 +47,21 @@
 // alive particles whose deposit stencil start, start_index(x_new) - 1, leaves
 // [0, W - order - 3] on either axis.  In moving-window mode the window of
 // tile tz starts at tz*tile_z + zoff on the last axis of the padded field.
+//
+// Precision modes (the TPU kernel's mxu argument, kernel mode K1d;
+// pallas_pic.py:57-69, 433-436, 483, 527-561, 604-626), a template parameter
+// instantiated in every library: in 'mixed' and 'bf16' the six field windows
+// are staged in shared memory as bfloat16 (half the bytes of float32) and
+// the z weight of the gather is rounded to bfloat16, the x weight is not.
+// The deposit is four (x-side, z-side) products per point, as the TPU kernel
+// stacks them:
+//   Jx: (cs_x * wq/(dt*dz), sm_z/2)       Jz: (sm_x/2, cs_z * wq/(dt*dx))
+//   Jy: ((wqvy/4) sm_x, sm_z) + ((wqvy/12) df_x, df_z),  wqvy = wq*vy/(dx*dz)
+// each taken by mxu_mul (fused_pic_common.cuh): dot3x in 'mixed', both
+// operands rounded to bfloat16 in 'bf16'.  The splines are formed without FMA
+// contraction in the modes.
+
+#include <type_traits>
 
 #include "fused_pic_common.cuh"
 
@@ -54,10 +69,36 @@ namespace {
 
 constexpr int kThreads = 192;
 
-template <typename T, int ORDER, int PUSHER>
+// The staged field windows: the state's type, or bfloat16 in the modes.
+template <typename T>
+__device__ __forceinline__ T staged(T v) {
+  return v;
+}
+__device__ __forceinline__ float staged(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename G, typename T>
+__device__ __forceinline__ G to_staged(T v) {
+  if constexpr (std::is_same<G, T>::value) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(static_cast<float>(v));
+  }
+}
+
+// Bytes of the staged field windows, rounded up so the current windows
+// that follow them are aligned for either type.
+template <typename G>
+__host__ __device__ __forceinline__ size_t staged_bytes(int w) {
+  return (6ull * w * w * sizeof(G) + 15) & ~size_t(15);
+}
+
+template <typename T, int ORDER, int MXU>
 __global__ void __launch_bounds__(kThreads)
 fused_pic_2d_kernel(const FusedPicArgs a) {
+  using G = typename std::conditional<MXU == kMxuF32, T, __nv_bfloat16>::type;
   constexpr int NT = ORDER + 3;  // Esirkepov taps per axis
+  constexpr bool EXACT = MXU != kMxuF32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_viol;
 
@@ -81,8 +122,9 @@ fused_pic_2d_kernel(const FusedPicArgs a) {
   const T dt = static_cast<T>(a.dt);
 
   // ---- stage the six field windows, zero the three current windows
-  T* Fw = reinterpret_cast<T*>(smem_raw);  // 6 x (W, W)
-  T* J = Fw + 6 * W2;                      // Jx, Jy, Jz: 3 x (W, W)
+  G* Fw = reinterpret_cast<G*>(smem_raw);  // 6 x (W, W)
+  // Jx, Jy, Jz: 3 x (W, W)
+  T* J = reinterpret_cast<T*>(smem_raw + staged_bytes<G>(W));
   {
     const long long fs0 = a.fdim[1];
     const long long forig = g0[0] * fs0 + (g0[1] + a.zoff);
@@ -91,7 +133,8 @@ fused_pic_2d_kernel(const FusedPicArgs a) {
       const int rem = i - c * W2;
       const int r = rem / W;
       const int k = rem - r * W;
-      Fw[i] = __ldg(static_cast<const T*>(a.fields[c]) + forig + r * fs0 + k);
+      Fw[i] = to_staged<G>(
+          __ldg(static_cast<const T*>(a.fields[c]) + forig + r * fs0 + k));
     }
     for (int i = threadIdx.x; i < 3 * W2; i += kThreads) J[i] = T(0);
   }
@@ -135,9 +178,13 @@ fused_pic_2d_kernel(const FusedPicArgs a) {
 #pragma unroll
           for (int d = 0; d < 2; ++d) {
             const T xc = a.gstag[c * 2 + d] ? X[d] - T(0.5) : X[d];
-            i0[d] = gather_weights(xc, a.gorder[c * 2 + d], wt[d]);
+            i0[d] = gather_weights<T, EXACT>(xc, a.gorder[c * 2 + d], wt[d]);
           }
-          const T* Fc = Fw + c * W2;
+          if (MXU != kMxuF32) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) wt[1][j] = bf16_round(wt[1][j]);
+          }
+          const G* Fc = Fw + c * W2;
           T e = T(0);
 #pragma unroll
           for (int ia = 0; ia <= ORDER; ++ia) {
@@ -148,7 +195,7 @@ fused_pic_2d_kernel(const FusedPicArgs a) {
             for (int ic = 0; ic <= ORDER; ++ic) {
               const int rz = i0[1] + ic;
               if (ic > a.gorder[c * 2 + 1] || rz < 0 || rz >= W) continue;
-              h += wt[1][ic] * Fc[rx * W + rz];
+              h += wt[1][ic] * static_cast<T>(staged(Fc[rx * W + rz]));
             }
             e += wt[0][ia] * h;
           }
@@ -156,10 +203,11 @@ fused_pic_2d_kernel(const FusedPicArgs a) {
         }
 
         // ---- push
-        if (PUSHER == 0) {
+        // the pusher is uniform over the launch: a branch no warp diverges on
+        if (a.pusher == 0) {
           push_boris(ux, uy, uz, e6[0], e6[1], e6[2], e6[3], e6[4], e6[5], q,
                      m, dt);
-        } else if (PUSHER == 1) {
+        } else if (a.pusher == 1) {
           push_vay(ux, uy, uz, e6[0], e6[1], e6[2], e6[3], e6[4], e6[5], q, m,
                    dt);
         } else {
@@ -190,8 +238,10 @@ fused_pic_2d_kernel(const FusedPicArgs a) {
           for (int r = 0; r < NT; ++r) {
             const int row_ = j0[d] + r;
             const bool in = row_ >= 0 && row_ < W;
-            const T sn = in ? spline(xn - static_cast<T>(row_), ORDER) : T(0);
-            const T so = in ? spline(X[d] - static_cast<T>(row_), ORDER) : T(0);
+            const T sn =
+                in ? spline<T, EXACT>(xn - static_cast<T>(row_), ORDER) : T(0);
+            const T so =
+                in ? spline<T, EXACT>(X[d] - static_cast<T>(row_), ORDER) : T(0);
             sm[d][r] = sn + so;
             df[d][r] = so - sn;
             acc += df[d][r];
@@ -222,9 +272,10 @@ fused_pic_2d_kernel(const FusedPicArgs a) {
               const int rz = j0[1] + kk;
               if (rz < 0 || rz >= W) continue;
               const int at = rx * W + rz;
-              const T vx = cx * (T(0.5) * sm[1][kk]);
-              const T vz = hx * (cs[1][kk] * sz);
-              const T vyv = ax * sm[1][kk] + bx * df[1][kk];
+              const T vx = mxu_mul<MXU>(cx, T(0.5) * sm[1][kk]);
+              const T vz = mxu_mul<MXU>(hx, cs[1][kk] * sz);
+              const T vyv =
+                  mxu_mul<MXU>(ax, sm[1][kk]) + mxu_mul<MXU>(bx, df[1][kk]);
               if (vx != T(0)) atomicAdd(Jx + at, vx);
               if (vz != T(0)) atomicAdd(Jz + at, vz);
               if (vyv != T(0)) atomicAdd(Jy + at, vyv);
@@ -238,7 +289,7 @@ fused_pic_2d_kernel(const FusedPicArgs a) {
               for (int kk = 0; kk < NT; ++kk) {
                 const int rz = j0[1] + kk;
                 if (rz < 0 || rz >= W) continue;
-                const T vx = cx * (T(0.5) * sm[1][kk]);
+                const T vx = mxu_mul<MXU>(cx, T(0.5) * sm[1][kk]);
                 if (vx != T(0)) atomicAdd(Jx + rx * W + rz, vx);
               }
             }
@@ -249,7 +300,7 @@ fused_pic_2d_kernel(const FusedPicArgs a) {
               for (int r = 0; r < NT; ++r) {
                 const int rx = j0[0] + r;
                 if (rx < 0 || rx >= W) continue;
-                const T vz = (T(0.5) * sm[0][r]) * cz;
+                const T vz = mxu_mul<MXU>(T(0.5) * sm[0][r], cz);
                 if (vz != T(0)) atomicAdd(Jz + rx * W + rz, vz);
               }
             }
@@ -269,10 +320,11 @@ fused_pic_2d_kernel(const FusedPicArgs a) {
   }
 }
 
-template <typename T, int O, int PU>
+template <typename T, int O, int MX>
 int launch_2d(const FusedPicArgs& a, cudaStream_t st) {
-  const size_t smem = 9ull * a.w * a.w * sizeof(T);
-  auto kern = fused_pic_2d_kernel<T, O, PU>;
+  using G = typename std::conditional<MX == kMxuF32, T, __nv_bfloat16>::type;
+  const size_t smem = staged_bytes<G>(a.w) + 3ull * a.w * a.w * sizeof(T);
+  auto kern = fused_pic_2d_kernel<T, O, MX>;
   // dynamic shared memory beyond the default 48 KB (static included) needs
   // the opt-in, so always ask for it
   cudaError_t e = cudaFuncSetAttribute(
@@ -287,17 +339,19 @@ int launch_2d(const FusedPicArgs& a, cudaStream_t st) {
 }  // namespace
 
 // One library per (type, order): FP_REAL and FP_ORDER are set on the nvcc
-// command line (warpx_tpu_torch/build.py), so the builds run in parallel.
+// command line (warpx_tpu_torch/build.py), so the builds run in parallel;
+// each holds the three precision modes.  The pusher is a kernel argument
+// (see fused_pic.cu).
 extern "C" int fused_pic_2d_launch(const FusedPicArgs* a, void* stream) {
   if (a->n_tiles <= 0) return 0;
-  if (a->order != FP_ORDER) {
+  if (a->order != FP_ORDER || a->pusher < 0 || a->pusher > 2) {
     return kStageArgs * 1000 + static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (a->pusher) {
-    case 0: return launch_2d<FP_REAL, FP_ORDER, 0>(*a, st);
-    case 1: return launch_2d<FP_REAL, FP_ORDER, 1>(*a, st);
-    case 2: return launch_2d<FP_REAL, FP_ORDER, 2>(*a, st);
+  switch (a->mxu) {
+    case kMxuF32: return launch_2d<FP_REAL, FP_ORDER, kMxuF32>(*a, st);
+    case kMxuMixed: return launch_2d<FP_REAL, FP_ORDER, kMxuMixed>(*a, st);
+    case kMxuBf16: return launch_2d<FP_REAL, FP_ORDER, kMxuBf16>(*a, st);
     default:
       return kStageArgs * 1000 + static_cast<int>(cudaErrorInvalidValue);
   }

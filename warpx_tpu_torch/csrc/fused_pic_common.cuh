@@ -1,9 +1,11 @@
 // Shared by kernels K1 (fused_pic.cu, 3D) and K2 (fused_pic_2d.cu, 2D XZ):
 // the launch arguments, the never-contracted coordinate arithmetic, the
-// B-spline shape factors and the three momentum pushers.
+// B-spline shape factors, the three momentum pushers and the roundings of the
+// precision modes.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // Must match warpx_tpu_torch/ops/fused_pic.py::_FusedPicArgs field by field.
@@ -22,6 +24,7 @@ struct FusedPicArgs {
   int order, pusher;
   int zoff;               // smax - zshift: where window 0 starts on the last
                           // field axis (0 on the periodic path)
+  int mxu;                // precision mode: kMxuF32, kMxuMixed or kMxuBf16
   int gorder[18];         // gather shape order per (component, axis)
   int gstag[18];          // 1 where the component sits at i + 1/2 on the axis
   double lo[3];           // tiling origin: prob_lo, or the moving-window anchor
@@ -62,12 +65,60 @@ __device__ __forceinline__ double sub_rn(double a, double b) {
   return __dsub_rn(a, b);
 }
 
+// The precision modes of the TPU kernel's matrix unit (tile_mxu,
+// pallas_pic.py:57-69): 'f32' computes in the state's type; 'mixed' rounds
+// the gather's operands to bfloat16 and splits the deposit's (dot3x);
+// 'bf16' rounds the deposit's operands to bfloat16 too.  Products of
+// bfloat16 values are exact in float and double, and every sum stays in the
+// state's type, as the TPU kernel's dots with preferred_element_type do.
+constexpr int kMxuF32 = 0, kMxuMixed = 1, kMxuBf16 = 2;
+
+// x rounded to the nearest bfloat16, in x's own type.  A double is rounded to
+// float first, as PyTorch's and XLA's conversions to bfloat16 do (a direct
+// rounding differs when x lies within a float ulp of a tie).
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ double bf16_round(double x) {
+  return static_cast<double>(bf16_round(static_cast<float>(x)));
+}
+
+// x * y with both split into a bfloat16 high part and a bfloat16 remainder,
+// the remainder-remainder product dropped (pallas_pic.py:101 _dot3x).  The
+// remainders use sub_rn: an x that is a product would otherwise be fused
+// into an FMA with the subtraction and lose its rounding.
 template <typename T>
+__device__ __forceinline__ T dot3x(T x, T y) {
+  const T xh = bf16_round(x);
+  const T xl = bf16_round(sub_rn(x, xh));
+  const T yh = bf16_round(y);
+  const T yl = bf16_round(sub_rn(y, yh));
+  return xh * yh + xh * yl + xl * yh;
+}
+
+// One product of the deposit at precision MXU.  The operands of the modes
+// must carry the plain version's bits, so the callers form them with the
+// _rn helpers: an FMA would move a value by an ulp before its rounding, and
+// about 2^-16 of the float32 operands would then round to the other
+// bfloat16.
+template <int MXU, typename T>
+__device__ __forceinline__ T mxu_mul(T x, T y) {
+  if (MXU == kMxuMixed) return dot3x(x, y);
+  if (MXU == kMxuBf16) return bf16_round(x) * bf16_round(y);
+  return x * y;
+}
+
+// The B-spline.  EXACT (the precision modes) forms it without FMA
+// contraction, as PyTorch does, so that the weights that are rounded to
+// bfloat16 carry the plain version's bits.
+template <typename T, bool EXACT = false>
 __device__ __forceinline__ T spline(T xi, int order) {
   const T t = fabs(xi);
   if (order == 1) return t < T(1) ? T(1) - t : T(0);
   if (order == 2) {
-    if (t <= T(0.5)) return T(0.75) - t * t;
+    if (t <= T(0.5)) {
+      return EXACT ? sub_rn(T(0.75), mul_rn(t, t)) : T(0.75) - t * t;
+    }
     if (t < T(1.5)) {
       const T u = T(1.5) - t;
       return T(0.5) * (u * u);
@@ -75,7 +126,11 @@ __device__ __forceinline__ T spline(T xi, int order) {
     return T(0);
   }
   // order 3
-  if (t <= T(1)) return T(2.0 / 3.0) - t * t * (T(1) - T(0.5) * t);
+  if (t <= T(1)) {
+    return EXACT ? sub_rn(T(2.0 / 3.0),
+                          mul_rn(mul_rn(t, t), sub_rn(T(1), mul_rn(T(0.5), t))))
+                 : T(2.0 / 3.0) - t * t * (T(1) - T(0.5) * t);
+  }
   if (t < T(2)) {
     const T u = T(2) - t;
     return u * u * u / T(6);
@@ -91,7 +146,7 @@ __device__ __forceinline__ int start_index(T x, int order) {
 
 // Gather weights of shape order o (0..3) at grid coordinate xc; returns the
 // first row.  Order 0 is the half-open box [-1/2, 1/2) of the TPU kernel.
-template <typename T>
+template <typename T, bool EXACT = false>
 __device__ __forceinline__ int gather_weights(T xc, int o, T (&wt)[4]) {
   if (o == 0) {
     int i = static_cast<int>(floor(xc + T(0.5)));
@@ -108,7 +163,7 @@ __device__ __forceinline__ int gather_weights(T xc, int o, T (&wt)[4]) {
   const int i0 = start_index(xc, o);
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
-    wt[m] = (m <= o) ? spline(xc - static_cast<T>(i0 + m), o) : T(0);
+    wt[m] = (m <= o) ? spline<T, EXACT>(xc - static_cast<T>(i0 + m), o) : T(0);
   }
   return i0;
 }

@@ -15,6 +15,18 @@ sums against the transverse weights.  It is the oracle the CPU tests hold
 against the JAX package and the kernels are held against on the card; it
 is not built for speed.
 
+Precision modes (``mxu``, the TPU kernel's matrix-unit modes,
+pallas_pic.py:57-69): 'f32' computes in the state's type throughout.
+'mixed' rounds the gather's operands to bfloat16 (each field-window value;
+in 3D the transverse weight ``bf16(wy * wz)``, in 2D the z weight; the x
+weight stays unrounded) and splits each deposit operand into a bfloat16
+high part and a bfloat16 remainder, dropping only the remainder-remainder
+product (``_dot3x``, pallas_pic.py:101).  'bf16' rounds the deposit's
+operands to bfloat16 once as well.  Products of bfloat16 values are exact
+in float32 and float64, and every sum is taken in the state's type, as the
+TPU kernel's dots with ``preferred_element_type`` do.  A float64 value is
+rounded to bfloat16 through float32, as PyTorch and XLA convert it.
+
 Moving-window mode (``anchors``, ``zshift``, ``smax``): the tiles stay
 anchored where the last rebin laid them out (``anchors`` replaces
 ``prob_lo``) while the grid has slid ``zshift`` whole cells along the last
@@ -42,6 +54,7 @@ __all__ = ["binned_push_deposit", "binned_push_deposit_plain", "pad_fields",
 
 _COMPS = ("Ex", "Ey", "Ez", "Bx", "By", "Bz")
 _PUSHER_IDS = {"boris": 0, "vay": 1, "higuera": 2}
+MXU_MODES = {"f32": 0, "mixed": 1, "bf16": 2}
 
 
 def padded_shape(spec, n_cell, smax=0):
@@ -90,11 +103,9 @@ def _check(parts, counts, spec, geom, mxu, anchors, zshift, smax):
     ndim = spec.ndim
     if ndim not in (2, 3):
         raise ValueError(f"tile-binned layout is 2D/3D, got ndim={ndim}")
-    if mxu != "f32":
-        raise NotImplementedError(
-            f"tile_mxu={mxu!r}: the TPU matrix-unit precision modes are "
-            "ROADMAP.md Queue B K1d"
-        )
+    if mxu not in MXU_MODES:
+        raise ValueError(f"tile_mxu must be one of {sorted(MXU_MODES)}, "
+                         f"got {mxu!r}")
     if len(parts) != ndim + 4:
         raise ValueError(f"expected {ndim + 4} particle arrays, got "
                          f"{len(parts)}")
@@ -112,9 +123,20 @@ def _check(parts, counts, spec, geom, mxu, anchors, zshift, smax):
     return counts, lo, smax - zshift
 
 
+def _bf16(a):
+    """``a`` rounded to the nearest bfloat16, in its own type."""
+    return a.to(torch.bfloat16).to(a.dtype)
+
+
+def _split(a):
+    """The bfloat16 high part of ``a`` and the bfloat16 remainder."""
+    hi = _bf16(a)
+    return hi, _bf16(a - hi)
+
+
 def binned_push_deposit_plain(
     params, fields6, parts, counts, *, spec, geom, order, galerkin,
-    pusher_name, dt, stag_items, lo=None, zoff=0,
+    pusher_name, dt, stag_items, lo=None, zoff=0, mxu="f32",
 ):
     """Plain PyTorch version of K1 (3D) and K2 (2D): the arguments of
     ``binned_push_deposit`` with ``counts`` required, the tiling origin
@@ -147,6 +169,9 @@ def binned_push_deposit_plain(
           * spec.tile[d])[:, None] + ar[None, :]
          + (zoff if d == nd - 1 else 0) for d in range(nd)], nd))
     win = [f[idx].reshape(nt, W, WT) for f in fields6]
+    round_gather = mxu in ("mixed", "bf16")
+    if round_gather:
+        win = [_bf16(w) for w in win]
     tix = torch.arange(nt, device=dev)
     worig = []
     for d in range(nd):
@@ -180,6 +205,22 @@ def binned_push_deposit_plain(
         return (a[:, :, None, :] * b[:, None, :, :]).reshape(
             a.shape[0], W * W, P)
 
+    def mm(a, b):
+        """J[t, i, k] = sum over p of a[t, i, p] * b[t, k, p]."""
+        return torch.bmm(a, b.transpose(1, 2))
+
+    def dot(a, b):
+        """``mm`` at the deposit's precision: 'mixed' sums the three
+        products of the high parts and remainders but the
+        remainder-remainder one; 'bf16' rounds both operands once."""
+        if mxu == "mixed":
+            ah, al = _split(a)
+            bh, bl = _split(b)
+            return mm(ah, bh) + mm(ah, bl) + mm(al, bh)
+        if mxu == "bf16":
+            return mm(_bf16(a), _bf16(b))
+        return mm(a, b)
+
     for s in range(ns):
         q = params[s, 0]
         m = params[s, 1]
@@ -208,6 +249,8 @@ def binned_push_deposit_plain(
                                   axis_mat(2, *keys[2]))
                 else:
                     trans = axis_mat(1, *keys[1])
+                if round_gather:
+                    trans = _bf16(trans)
                 h = torch.bmm(win[ci][c0:c1], trans)  # (C, W, P)
                 e6.append((axis_mat(0, *keys[0]) * h).sum(dim=1)
                           + params[s, 2 + ci])
@@ -238,21 +281,25 @@ def binned_push_deposit_plain(
                 jd3 = []
                 for d, (a, b) in enumerate(((1, 2), (0, 2), (0, 1))):
                     lhs = cs[d] * (wq * invdtd[d])[:, None, :]
+                    if mxu == "bf16":
+                        # two single-pass products (pallas_pic.py:379-390)
+                        jd3.append(
+                            dot(0.25 * lhs, outer(sm[a], sm[b]))
+                            + dot((1.0 / 12.0) * lhs, outer(df[a], df[b])))
+                        continue
                     rhs = (0.25 * outer(sm[a], sm[b])
                            + (1.0 / 12.0) * outer(df[a], df[b]))
-                    jd3.append(torch.bmm(lhs, rhs.transpose(1, 2)))
+                    jd3.append(dot(lhs, rhs))
             else:
                 # all three windows in layout (x, z): J[i, k] = sum over p
-                # of (x-side)[i, p] * (z-side)[k, p]
-                def xz(a, b):
-                    return torch.bmm(a, b.transpose(1, 2))
-
+                # of (x-side)[i, p] * (z-side)[k, p]; the four (x-side,
+                # z-side) pairs of pallas_pic.py:604-618
                 wqvy = (wq * (vel3[1] * invvol))[:, None, :]
                 jd3 = [
-                    xz(cs[0] * (wq * invdtd[0])[:, None, :], 0.5 * sm[1]),
-                    xz((0.25 * wqvy) * sm[0], sm[1])
-                    + xz(((1.0 / 12.0) * wqvy) * df[0], df[1]),
-                    xz(0.5 * sm[0], cs[1] * (wq * invdtd[1])[:, None, :]),
+                    dot(cs[0] * (wq * invdtd[0])[:, None, :], 0.5 * sm[1]),
+                    dot((0.25 * wqvy) * sm[0], sm[1])
+                    + dot(((1.0 / 12.0) * wqvy) * df[0], df[1]),
+                    dot(0.5 * sm[0], cs[1] * (wq * invdtd[1])[:, None, :]),
                 ]
             for d in range(3):
                 jw[d][c0:c1] += torch.where(occ[:, None, None], jd3[d], zero)
@@ -285,6 +332,7 @@ class _FusedPicArgs(ctypes.Structure):
         ("order", ctypes.c_int),
         ("pusher", ctypes.c_int),
         ("zoff", ctypes.c_int),
+        ("mxu", ctypes.c_int),
         ("gorder", ctypes.c_int * 18),
         ("gstag", ctypes.c_int * 18),
         ("lo", ctypes.c_double * 3),
@@ -301,7 +349,8 @@ def _library_name(ndim, dtype, order):
 
 
 def _launch_kernel(params, fields6, parts, counts, *, spec, geom, order,
-                   galerkin, pusher_name, dt, stag_items, lo, zoff, smax):
+                   galerkin, pusher_name, dt, stag_items, lo, zoff, mxu,
+                   smax):
     nd = spec.ndim
     dtype = parts[0].dtype
     dev = parts[0].device
@@ -356,6 +405,7 @@ def _launch_kernel(params, fields6, parts, counts, *, spec, geom, order,
     a.order = order
     a.pusher = _PUSHER_IDS[pusher_name]
     a.zoff = zoff
+    a.mxu = MXU_MODES[mxu]
     a.gorder[:6 * nd] = gorder
     a.gstag[:6 * nd] = gstag
     a.lo[:nd] = list(lo)
@@ -384,6 +434,7 @@ def _launch_kernel(params, fields6, parts, counts, *, spec, geom, order,
         binned_push_deposit.launches += 1
     else:
         binned_push_deposit.launches_2d += 1
+    binned_push_deposit.launches_by_mode[mxu] += 1
     return out_parts, jw, viol
 
 
@@ -399,7 +450,8 @@ def binned_push_deposit(
     guard-padded fields (``pad_fields``; ``smax`` cells longer on the last
     axis in moving-window mode); parts7: (x, y, z, ux, uy, uz, w) in 3D,
     (x, z, ux, uy, uz, w) in 2D, each (n_sp * n_tiles, p_max), the species'
-    tile arrays stacked along the tile axis; anchors: the tiling origin as
+    tile arrays stacked along the tile axis; mxu: the precision mode,
+    'f32', 'mixed' or 'bf16' (module docstring); anchors: the tiling origin as
     ndim host numbers (default ``geom.prob_lo``); zshift: whole cells the
     grid has slid along the last axis since the rebin, a host int in
     [0, smax]; counts: alive particles per (species, tile) (default: all
@@ -416,7 +468,7 @@ def binned_push_deposit(
                               zshift, smax)
     kw = dict(spec=spec, geom=geom, order=order, galerkin=galerkin,
               pusher_name=pusher_name, dt=dt, stag_items=stag_items, lo=lo,
-              zoff=zoff)
+              zoff=zoff, mxu=mxu)
     dev = parts7[0].device.type
     if dev == "cpu":
         return binned_push_deposit_plain(params, fields6, parts7, counts,
@@ -426,6 +478,7 @@ def binned_push_deposit(
     return _launch_kernel(params, fields6, parts7, counts, smax=smax, **kw)
 
 
-# launches of K1 (3D) and of K2 (2D)
+# launches of K1 (3D) and of K2 (2D), and of both by precision mode
 binned_push_deposit.launches = 0
 binned_push_deposit.launches_2d = 0
+binned_push_deposit.launches_by_mode = dict.fromkeys(MXU_MODES, 0)

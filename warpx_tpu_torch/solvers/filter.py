@@ -6,7 +6,7 @@ one dimension; ``warpx.use_filter`` with ``warpx.filter_npass_each_dir``
 passes per dimension, applied to the deposited current before the field
 solve, WarpXComm.cpp:1357 ApplyFilterJ), and of its guard-padded form
 ``bilinear_filter_padded``.  The Godfrey NCI stencil is not ported
-(ROADMAP.md Queue A 9, left out).
+(``nci_tables.py``, ROADMAP.md Queue A 11.3).
 """
 
 from __future__ import annotations
