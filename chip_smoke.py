@@ -22,6 +22,10 @@ exits non-zero:
                tiles anchored off prob_lo) against their plain versions, and
                the mode's neutral arguments against the call without them;
   k3_parity    kernel K3 (rebin slot expansion) against its plain version;
+  lab_parity   the four kernels of the Hopper labs (warpx_tpu_torch/tools/:
+               lab_fused, lab_widelane, tile_dot, slot_copy) against their
+               plain versions at small shapes, every mode and both layouts,
+               each case launched three times (slot_copy exactly);
   slice_parity 8 steps of Simulation at 16^3 in float64 on the card and on
                the CPU: every checksum but divE/divB agrees to 1e-9;
   slice2d_parity  the same for the 2D slice at 32^2;
@@ -62,7 +66,11 @@ exits non-zero:
   main_lwfa_deck  the same run from bench.py's deck text (a copy here)
                through Simulation.from_deck at tpu.tile_mxu = mixed, as
                bench.py runs it; then K2 in moving-window mode at 'mixed'
-               against its plain version, timed beside K1c at 'f32'.
+               against its plain version, timed beside K1c at 'f32';
+  labs         each Hopper lab's main() at the TPU lab's default shapes (L1
+               in every mode): kernel against plain version, times, bounds,
+               the library's yardstick where there is one; each lab prints
+               its lines and one JSON line.
 
 The line before the last lists the kernels; the last line is
 {"ok": true, "device": {...}}.  With no GPU, or without the package beside
@@ -1515,6 +1523,231 @@ def phase_deck_parity(dev):
              "seconds": cli_s, "first_line": run.stdout.splitlines()[0]})
 
 
+# ---- the Hopper labs (warpx_tpu_torch/tools/) ------------------------------
+
+# tile_dot (L3, L4) against its plain version, relative to the largest
+# output: both add reps products, each a float32 sum of K exact products
+# (bfloat16 operands, or float32 in both) taken in another order (the
+# tensor cores' float32 accumulation also truncates), which a sequential
+# sum bounds by ~K 2^-24 (7e-5 at K = 1152); random rounding keeps it near
+# sqrt(K) 2^-24 (2e-6).
+TOL_DOT = 1e-4
+# lab_widelane (L2): exact bfloat16 products, float32 sums of up to W^2
+# (gather) or P (deposit) terms in another order.
+TOL_WIDELANE = 1e-5
+# lab_fused (L1), per output: the particles (their fields are float32 sums
+# of W^2 exact bfloat16 products, or float32 FMA sums, in another order) and
+# the J windows.  J's bands are differences over a drift of ~1e-4 cells, so
+# an ulp of a particle's field moves x_new across a float32 rounding now and
+# then, which changes that particle's df by ~1e-3 of itself; where the
+# deposit's operands are rounded to bfloat16 such a change can also cross a
+# bfloat16 rounding boundary (2^-8 of that operand).
+TOL_LAB_FUSED = {"particles": 1e-5, "j_f32": 1e-4, "j_bf16": 4e-3}
+# Each lab at its own shapes (`labs`), relative to the largest output.  The
+# sums are longer than lab_parity's: L1 adds 32 chunks of 64 particles into
+# J, and L3 and L4 add the same product reps times (400 in L3, up to 16384
+# in L4), where the accumulator's rounding is systematic, up to
+# reps 2^-24 of it (L4 at M = 8: 9.8e-4).  Each limit stays below the
+# difference a lower precision makes: bfloat16 operands against float32
+# move L1's outputs ('full' against 'prec_xx') and L3/L4's zero-mean
+# products by more than 1e-3 (the tests *_limit*_sees_bf16_operands in
+# tests/test_torch_labs_*.py).  L5 moves values and must be exact.
+TOL_LABS = {"L1": 1e-4, "L2": 1e-4, "L3": 1e-4, "L4": 1e-3, "L5": 0.0}
+
+
+def lab_err(got, ref):
+    d = (got.double() - ref.double()).abs().max().item()
+    s = ref.double().abs().max().item()
+    return d, (d / s if s else d)
+
+
+def phase_lab_parity(dev):
+    """Each lab kernel against its plain version at small shapes, every
+    mode and both layouts, each case launched three times: L5 exactly (and
+    its wrapper refuses rows that are not 16-byte aligned), L3/L4 within
+    TOL_DOT, L2 within TOL_WIDELANE, L1 within TOL_LAB_FUSED."""
+    from warpx_tpu_torch.tools import bench_dot_shapes as dots
+    from warpx_tpu_torch.tools import kernel_lab as l1
+    from warpx_tpu_torch.tools import lab_widelane as l2
+    from warpx_tpu_torch.tools import profile_rebin_lwfa as l5
+
+    launches = 3
+    out = {}
+    # L5: random offsets (bulk copies of the enclosing aligned ranges,
+    # shifted), for a payload whose length is and one whose length is not a
+    # multiple of 4 (padded to 16-byte rows by l5.pad); then a row of
+    # 50,513 floats, which the wrapper must refuse
+    cases = []
+    for cap in (50_000, 50_001):
+        ps, ks = l5.inputs(cap, 96, 5, dev)
+        offsets, counts = l5.prelude(ks, 96)
+        psp = l5.pad(ps, 512)
+        ref = l5.slot_copy_plain(psp, offsets, counts, 512)
+        for _ in range(launches):
+            got = l5.slot_copy(psp, offsets, counts, 512)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"slot_copy (cap {cap}) differs from "
+                                     "its plain version")
+        cases.append({"cap": cap, "row_len": psp.shape[1], "equal": True})
+    try:
+        l5.slot_copy(psp[:, :50_513].contiguous(), offsets, counts, 512)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("slot_copy took a row that is not 16-byte "
+                             "aligned")
+    out["L5"] = {"cases": cases, "misaligned_row_refused": True}
+    # L3/L4: both layouts, every mode, both operand types, padded rows
+    gen = torch.Generator().manual_seed(4)
+    worst = 0.0
+    cases = []
+    for layout in ("nn", "nt"):
+        for mode in ("f32", "bf16", "3pass"):
+            for dtype in (torch.float32, torch.bfloat16):
+                for batch, m, k, n in ((3, 8, 64, 40), (2, 16, 1152, 256),
+                                       (2, 40, 256, 64)):
+                    bshape = ((batch, k, n) if layout == "nn" else
+                              (batch, n, k))
+                    # zero-mean, so that a lower precision shows
+                    a = (torch.rand((batch, m, k), generator=gen)
+                         - 0.5).to(dev, dtype)
+                    b = (torch.rand(bshape, generator=gen) - 0.5).to(dev,
+                                                                     dtype)
+                    ref = dots.tile_dot_plain(a, b, 3, mode, layout)
+                    for _ in range(launches):
+                        got = dots.tile_dot(a, b, 3, mode, layout)
+                        e = lab_err(got, ref)[1]
+                        worst = max(worst, e)
+                        if e > TOL_DOT:
+                            raise AssertionError(
+                                f"tile_dot {layout} {mode} {dtype} "
+                                f"({batch}, {m}, {k}, {n}): {e}")
+                    cases.append({"layout": layout, "mode": mode,
+                                  "operands": str(dtype), "shape":
+                                  (batch, m, k, n), "rel_err": e})
+    out["L3_L4"] = {"worst_rel_err": worst, "tol": TOL_DOT,
+                    "cases": len(cases)}
+    # L2: both layouts, both deposit precisions, W 16 and 8
+    worst = {}
+    for w in (16, 8):
+        for mode in ("batched", "wide"):
+            for dep in ("bf16", "f32"):
+                fn, args = l2.make(mode, dep, dev, nt=5, w=w, p=256, seed=w)
+                ref = l2.widelane_plain(*args, mode == "batched", dep)
+                for _ in range(launches):
+                    got = fn(*args)
+                    for nm, x, y in zip(("out", "jw"), got, ref):
+                        e = lab_err(x, y)[1]
+                        key = f"W{w}/{mode}/{dep}/{nm}"
+                        worst[key] = max(worst.get(key, 0.0), e)
+                        if e > TOL_WIDELANE:
+                            raise AssertionError(f"lab_widelane {key}: {e}")
+    out["L2"] = {"worst_rel_err": worst, "tol": TOL_WIDELANE}
+    # L1: every mode, unpacked and packed, W 16 (and W 8 for three modes)
+    worst = {}
+    runs = [(m, 16) for m in l1.MODES] + [(m, 8) for m in
+                                          ("full", "nomxu", "prec_xh")]
+    for mode, w in runs:
+        for packed in (False, True):
+            name = f"pk_{mode}" if packed else mode
+            wins, parts, _ = l1.inputs(name, nt=3, w=w, p=256, seed=11,
+                                       device=dev)
+            ref = l1.lab_fused_plain(name, wins, parts, packed)
+            spec = l1.mode_spec(name)
+            tol_j = TOL_LAB_FUSED["j_bf16" if spec["deposit"] == "bf16"
+                                  else "j_f32"]
+            for _ in range(launches):
+                got = l1.lab_fused(name, wins, parts, packed)
+                if packed:
+                    pairs = [("particles", got[0], ref[0]),
+                             ("j", got[1], ref[1])]
+                else:
+                    pairs = ([("particles", x, y) for x, y in zip(got[0],
+                                                                  ref[0])]
+                             + [("j", x, y)
+                                for x, y in zip(got[1], ref[1])])
+                for kind, x, y in pairs:
+                    e = lab_err(x, y)[1]
+                    key = f"W{w}/{name}/{kind}"
+                    worst[key] = max(worst.get(key, 0.0), e)
+                    tol = (TOL_LAB_FUSED["particles"]
+                           if kind == "particles" else tol_j)
+                    if e > tol:
+                        raise AssertionError(
+                            f"lab_fused {key}: {e} > {tol}")
+    out["L1"] = {"worst_rel_err": worst, "tol": TOL_LAB_FUSED}
+    emit("lab_parity", ok=True, launches_per_case=launches, **out)
+
+
+def lab_row(name, source, replaces, case, launches):
+    """A kernels-line row from a lab's principal case."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            **{k: case[k] for k in keys}, "case": case["lab"]}
+
+
+def phase_labs(dev):
+    """Each lab's main() at the TPU lab's default shapes (L1 in every mode),
+    with the labs' launch counters set to 0 just before and read just after
+    (launches made by lab_parity do not count); each lab prints its lines
+    and one JSON line.  Returns the kernels-line rows of L1-L5."""
+    from warpx_tpu_torch.tools import bench_deposit_prec as l3
+    from warpx_tpu_torch.tools import bench_dot_shapes as l4
+    from warpx_tpu_torch.tools import kernel_lab as l1
+    from warpx_tpu_torch.tools import lab_widelane as l2
+    from warpx_tpu_torch.tools import profile_rebin_lwfa as l5
+
+    counters = ((l1.lab_fused, "L1"), (l2.widelane, "L2"),
+                (l4.tile_dot, "L3/L4"), (l5.slot_copy, "L5"))
+    for fn, _ in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = {"L5": l5.main([])}
+    n5 = l5.slot_copy.launches
+    res["L4"] = l4.main([])
+    n4 = l4.tile_dot.launches
+    res["L3"] = l3.main([])
+    n3 = l4.tile_dot.launches - n4
+    res["L1"] = l1.main(list(l1.MODES) + ["pk_full", "pk_empty"])
+    res["L2"] = l2.main([])
+    seconds = time.perf_counter() - t0
+    launches = {"L1": l1.lab_fused.launches, "L2": l2.widelane.launches,
+                "L3": n3, "L4": n4, "L5": n5}
+    if not all(launches.values()):
+        raise AssertionError(f"a lab kernel never ran: {launches}")
+    for lab in ("L1", "L2", "L3", "L4", "L5"):
+        for case in res[lab]["cases"]:
+            rel = case.get("max_rel_err", case["max_abs_err"])
+            if isinstance(rel, dict):
+                rel = max(rel.values())
+            if not rel <= TOL_LABS[lab]:
+                raise AssertionError(f"{case['lab']} disagrees with its "
+                                     f"plain version: {case}")
+    emit("labs", ok=True, seconds=seconds, launches=launches, tol=TOL_LABS,
+         reps_scaling_x4={"L4": res["L4"]["reps_scaling_x4"],
+                          "L3": res["L3"]["reps_scaling_x4"]})
+    full = next(c for c in res["L1"]["cases"] if c["mode"] == "full")
+    return [
+        lab_row("lab_fused", "warpx_tpu_torch/csrc/lab_fused.cu",
+                "tools/kernel_lab.py:289", full, launches["L1"]),
+        lab_row("lab_widelane", "warpx_tpu_torch/csrc/lab_widelane.cu",
+                "tools/lab_widelane.py:158", res["L2"]["cases"][0],
+                launches["L2"]),
+        lab_row("tile_dot_deposit_prec", "warpx_tpu_torch/csrc/tile_dot.cu",
+                "tools/bench_deposit_prec.py:69", res["L3"]["cases"][0],
+                launches["L3"]),
+        lab_row("tile_dot_shapes", "warpx_tpu_torch/csrc/tile_dot.cu",
+                "tools/bench_dot_shapes.py:40", res["L4"]["cases"][0],
+                launches["L4"]),
+        lab_row("slot_copy", "warpx_tpu_torch/csrc/slot_copy.cu",
+                "tools/profile_rebin_lwfa.py:338", res["L5"]["cases"][0],
+                launches["L5"]),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1544,6 +1777,7 @@ def main() -> int:
     phase_k1d_parity(dev)
     phase_k1c_parity(dev)
     phase_k3_parity(dev)
+    phase_lab_parity(dev)
     phase_slice_parity(dev, "slice_parity", 3)
     phase_slice_parity(dev, "slice2d_parity", 2)
     phase_bounded_parity(dev)
@@ -1556,9 +1790,11 @@ def main() -> int:
     k1c_row = phase_main_lwfa(dev, smi, k2_row, k3_row)
     torch.cuda.empty_cache()
     k1c_mixed_row = phase_main_lwfa_deck(dev, smi, k3_row)
+    torch.cuda.empty_cache()
+    lab_rows = phase_labs(dev)
     print(smi)
     print(json.dumps({"kernels": [k1_row, *k1d_rows, k2_row, k1c_row,
-                                  k1c_mixed_row, k3_row]}))
+                                  k1c_mixed_row, k3_row, *lab_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -63,6 +63,30 @@ SOURCES["ragged_expand"] = ("ragged_expand.cu", (), {
                              _I),
     "ragged_expand_error_string": ([_I], ctypes.c_char_p),
 })
+# The Hopper labs (warpx_tpu_torch/tools/): one library each, every mode a
+# runtime argument, so each holds one or two template instantiations.
+SOURCES["slot_copy"] = ("slot_copy.cu", (), {
+    # (psp, row_len, offsets, counts, out, n_rows, n_tiles, pmax, stream)
+    "slot_copy_launch": ([_P, _LL, _P, _P, _P, _I, _I, _I, _P], _I),
+    "slot_copy_error_string": ([_I], ctypes.c_char_p),
+})
+SOURCES["tile_dot"] = ("tile_dot.cu", (), {
+    # (a, b, out, batch, m, k, n, layout_nt, in_bf16, mode, reps, warps,
+    #  stream)
+    "tile_dot_launch": ([_P, _P, _P] + [_I] * 9 + [_P], _I),
+    "tile_dot_smem": ([_I, _I, _I], _LL),
+    "tile_dot_error_string": ([_I], ctypes.c_char_p),
+})
+SOURCES["lab_widelane"] = ("lab_widelane.cu", (), {
+    # (const LabWidelaneArgs*, stream)
+    "lab_widelane_launch": ([_P, _P], _I),
+    "lab_widelane_error_string": ([_I], ctypes.c_char_p),
+})
+SOURCES["lab_fused"] = ("lab_fused.cu", (), {
+    # (const LabFusedArgs*, stream)
+    "lab_fused_launch": ([_P, _P], _I),
+    "lab_fused_error_string": ([_I], ctypes.c_char_p),
+})
 
 
 def _nvcc() -> str:
