@@ -14,13 +14,19 @@ exits non-zero:
                launched K1_REPEATS times (its shared-memory atomics sum in
                an order that changes from launch to launch);
   k2_parity    kernel K2 (the 2D XZ fused kernel) against its plain version
-               at 32^2, the same cases and launches;
+               at 32^2, the same cases and launches; then K2's branch cases
+               (``branch_inputs``: a window wider than K2's shared box, a
+               tile whose particles reach past the box, dead slots unlike
+               their row's first, dead slots with a weight, an all-empty
+               tile, external fields) in float64 and float32, every mode,
+               orders 1-3, Galerkin on and off;
   k1d_parity   K1 and K2 in the precision modes 'mixed' and 'bf16' (kernel
                mode K1d), the same cases and launches, float32 to TOL_MXU,
                and each mode once per kernel in moving-window mode;
   k1c_parity   K1 and K2 in moving-window mode (smax = 8, zshift 0, 3 and 8,
                tiles anchored off prob_lo) against their plain versions, and
                the mode's neutral arguments against the call without them;
+               then K2's branch cases in moving-window mode (zshift 3);
   k3_parity    kernel K3 (rebin slot expansion) against its plain version;
   lab_parity   the four kernels of the Hopper labs (warpx_tpu_torch/tools/:
                lab_fused, lab_widelane, tile_dot, slot_copy) against their
@@ -72,7 +78,11 @@ exits non-zero:
                the library's yardstick where there is one; each lab prints
                its lines and one JSON line.
 
-The line before the last lists the kernels; the last line is
+The build line reports every library's registers and spill bytes (ptxas);
+the kernels line gives K2's rows their registers, spills, resident blocks
+per SM and the tiles of one launch that took its checked path
+(``wide_tiles``).  The line before the last lists the kernels; the last
+line is
 {"ok": true, "device": {...}}.  With no GPU, or without the package beside
 this script, it exits non-zero and prints no result.
 """
@@ -152,13 +162,15 @@ def rel_err(got, ref):
 
 # ---- kernels K1 (3D) and K2 (2D) -------------------------------------------
 
-def kernel_inputs(ndim, n, order, dtype, dev, seed, smax=0, anchor_off=0.0):
+def kernel_inputs(ndim, n, order, dtype, dev, seed, smax=0, anchor_off=0.0,
+                  margin=1):
     """Two species in the tile layout at n^ndim with random fields, dead
     slots, one empty (species, tile) and one alive particle whose deposit
     stencil is clipped at its window's low side (a counted violation).
     With ``smax`` the padded fields are that much longer on the last axis;
     with ``anchor_off`` the tiles are anchored that many cells above
-    prob_lo.  Returns ((params, fields6, parts), counts, keywords, anchors).
+    prob_lo; ``margin`` is the tiling's sort margin in cells.  Returns
+    ((params, fields6, parts), counts, keywords, anchors).
     """
     from warpx_tpu_torch.core.grid import Geometry
     from warpx_tpu_torch.core.state import ParticleState
@@ -173,7 +185,7 @@ def kernel_inputs(ndim, n, order, dtype, dev, seed, smax=0, anchor_off=0.0):
     dt = compute_dt_yee(geom, 0.999)
     npart = 2 * n ** ndim
     spec = TileSpec.create(geom.n_cell, order=order, n_particles=npart,
-                           margin=1, interval=4)
+                           margin=margin, interval=4)
     c = 299792458.0
     t64 = dict(dtype=torch.float64)
     names = ("x", "z") if ndim == 2 else ("x", "y", "z")
@@ -278,6 +290,113 @@ def kernel_compare(fp, args, counts, kw, tol, tol_j=None, repeats=1,
 
 K1_REPEATS = 5
 
+# Sort margin of K2's branch cases: W = 32 at orders 1-3, wider than K2's
+# shared box (kBox = 24 in csrc/fused_pic_2d.cu), so the box sits inside
+# the window and a tile whose particles drifted apart reaches past it.
+BRANCH_MARGIN = 8
+
+
+def branch_inputs(n, order, dtype, dev, seed, smax=0, anchor_off=0.0):
+    """``kernel_inputs`` in 2D at BRANCH_MARGIN with every branch of K2
+    reached: besides the clipped particle and the empty (species, tile), an
+    all-empty tile (the last, in both species); in every occupied row, dead
+    slots 3 and 5 past the first dead one with other momenta and positions
+    than it; in one row, dead slots with a weight, which deposit, so the
+    first is copied by nobody; in one tile, two alive particles moved 6
+    cells up and down along x and z, so the tile's reach exceeds the shared
+    box; all six
+    external particle fields of both species nonzero.  Returns what
+    ``kernel_inputs`` returns and the slots of the changed dead slots."""
+    args, counts, kw, anchors = kernel_inputs(
+        2, n, order, dtype, dev, seed, smax=smax, anchor_off=anchor_off,
+        margin=BRANCH_MARGIN)
+    params, fields, cols = args
+    spec, geom = kw["spec"], kw["geom"]
+    nt, P = spec.n_tiles, spec.p_max
+    cols = [c.clone() for c in cols]
+    counts = counts.clone()
+    for s in range(2):
+        counts[s * nt + nt - 1] = 0
+        cols[5][s * nt + nt - 1] = 0.0
+    rows = torch.nonzero((counts > 0) & (counts + 6 <= P))[:, 0]
+    first = counts[rows].long()
+    c = 299792458.0
+    cols[2][rows, first + 3] += 0.05 * c
+    cols[4][rows, first + 3] -= 0.03 * c
+    cols[0][rows, first + 5] += 0.3 * geom.dx[0]
+    cols[1][rows, first + 5] -= 0.2 * geom.dx[1]
+    r0 = int(rows[len(rows) // 2])
+    cols[5][r0, int(counts[r0]):] = 1e10
+    # a tile whose particles drifted apart: not the clipped particle's
+    wt = int(rows[-1]) % nt
+    if wt == int(rows[0]) % nt or int(counts[wt]) < 2:
+        raise AssertionError("the branch layout has no tile to spread")
+    for slot, sign in ((0, 1.0), (1, -1.0)):
+        cols[0][wt, slot] += sign * 6 * geom.dx[0]
+        cols[1][wt, slot] -= sign * 6 * geom.dx[1]
+    params = params.clone()
+    params[:, 2:8] = torch.tensor([1e9, -2e9, 3e9, 5.0, -3.0, 2.0],
+                                  dtype=params.dtype, device=params.device)
+    changed = (rows, first)
+    return (params, fields, tuple(cols)), counts, kw, anchors, changed
+
+
+def k2_branch_cases(dev, repeats, smax=0, zshift=None):
+    """K2 against its plain version on ``branch_inputs``: float64 and
+    float32, the modes 'f32', 'mixed' and 'bf16', orders 1-3, Galerkin on
+    and off, Boris; ``repeats`` launches a case.  Tolerances as in
+    k2_parity and k1d_parity, but float32 J at TOL_J_MAIN or more.  The
+    tiles that took K2's checked path must be > 0 in every case; the
+    changed dead slots must come out unlike the first dead slot of their
+    row.  Returns the cases."""
+    from warpx_tpu_torch.ops import fused_pic as fp
+
+    cases = []
+    for dtype in (torch.float64, torch.float32):
+        for mxu in ("f32", "mixed", "bf16"):
+            tol = ({"particles": TOL[dtype], "j": TOL[dtype]}
+                   if dtype == torch.float64 or mxu == "f32"
+                   else dict(TOL_MXU[mxu]))
+            if dtype == torch.float32:
+                # W = 32: window coordinates reach past 16 cells, where an
+                # ulp of x_new is 2^-19 cells as at the main paths' W = 24
+                tol["j"] = max(tol["j"], TOL_J_MAIN)
+            for order in (1, 2, 3):
+                for galerkin in (True, False):
+                    args, counts, kw, anchors, (rows, first) = branch_inputs(
+                        32, order, dtype, dev, seed=10 + order, smax=smax,
+                        anchor_off=0.0 if zshift is None else 0.37)
+                    kw.update(order=order, galerkin=galerkin,
+                              pusher_name="boris", stag_items=stag_items(2),
+                              mxu=mxu)
+                    wide0 = fp.wide_tiles_2d(dev)
+                    _, nviol, worst_p, worst_j, _ = kernel_compare(
+                        fp, args, counts, kw, tol["particles"], tol["j"],
+                        repeats=repeats, anchors=anchors, zshift=zshift,
+                        smax=smax)
+                    wide = (fp.wide_tiles_2d(dev) - wide0) // repeats
+                    if wide < 1 or not nviol:
+                        raise AssertionError(
+                            f"K2's checked path ran in {wide} tiles, "
+                            f"{nviol} violations")
+                    out = fp.binned_push_deposit(
+                        *args, counts=counts, smax=smax, **kw,
+                        **({} if zshift is None else
+                           dict(anchors=anchors, zshift=zshift)))[0]
+                    for k in (3, 5):
+                        if torch.equal(out[2][rows, first + k],
+                                       out[2][rows, first]) and torch.equal(
+                                out[0][rows, first + k], out[0][rows, first]):
+                            raise AssertionError(
+                                f"dead slot {k} past the first took its "
+                                "outputs")
+                    cases.append({"dtype": str(dtype), "mxu": mxu,
+                                  "order": order, "galerkin": galerkin,
+                                  "particles_rel_err": worst_p,
+                                  "j_rel_err": worst_j, "violations": nviol,
+                                  "wide_tiles": wide})
+    return cases
+
 
 def stag_items(ndim):
     from warpx_tpu_torch.core.grid import yee_staggering
@@ -311,9 +430,10 @@ def phase_kernel_parity(dev, phase, ndim, n):
     worst = {str(dt): {k: max(c[k] for c in cases if c["dtype"] == str(dt))
                        for k in ("particles_rel_err", "j_rel_err")}
              for dt in TOL}
+    branches = k2_branch_cases(dev, K1_REPEATS) if ndim == 2 else None
     emit(phase, ok=True, repeats=K1_REPEATS, n_cell=(n,) * ndim,
          tol=dict((str(k), v) for k, v in TOL.items()), worst=worst,
-         cases=cases)
+         cases=cases, branch_cases=branches)
 
 
 # The precision modes in float32, kernel against plain version at 16^3 and
@@ -424,9 +544,10 @@ def phase_k1c_parity(dev):
                             "particles_bitwise": True, "j_rel_err": j_err,
                             "j_bitwise": all(torch.equal(x, y) for x, y
                                              in zip(a[1], b[1]))})
+    branches = k2_branch_cases(dev, 1, smax=smax, zshift=3)
     emit("k1c_parity", ok=True, smax=smax,
          tol=dict((str(k), v) for k, v in TOL.items()), cases=cases,
-         neutral=neutral)
+         neutral=neutral, branch_cases=branches)
 
 
 # ---- kernel K3 ------------------------------------------------------------
@@ -641,6 +762,48 @@ def fused_flops(order, galerkin, ndim, pusher, mxu="f32"):
     return every, alive
 
 
+def ptxas_report(log):
+    """ptxas's -v report in a library's build log: {function: registers}
+    for the kernels and {function: spill bytes (stores and loads)} for every
+    function, device functions included."""
+    import re
+
+    regs, spills = {}, {}
+    fn = entry = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+        if "spill stores" in ln and fn is not None:
+            spills[fn] = sum(int(v) for v in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", ln))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry is not None:
+            regs[entry] = int(m.group(1))
+    return regs, spills
+
+
+def k2_resources(dtype, order, mxu):
+    """K2's kernel in precision mode ``mxu``: registers a thread and spill
+    bytes (stores and loads) from ptxas's report in its library's build
+    log, resident blocks per SM from the CUDA occupancy calculator."""
+    from warpx_tpu_torch import build
+    from warpx_tpu_torch.ops import fused_pic as fp
+
+    lib = fp._library_name(2, dtype, order)
+    want = "fused_pic_2d_kernelI{}Li{}ELi{}E".format(
+        "d" if dtype == torch.float64 else "f", order, fp.MXU_MODES[mxu])
+    regs, spills = ptxas_report(build.build_log(lib))
+    kern = [nm for nm in regs if want in nm]
+    if len(kern) != 1 or kern[0] not in spills:
+        raise AssertionError(f"no ptxas report for {want} in {lib}'s log")
+    return {"registers": regs[kern[0]], "spills": spills[kern[0]],
+            "blocks_per_sm": fp.blocks_per_sm_2d(dtype, order, mxu)}
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -703,6 +866,7 @@ def run_main_path(dev, smi, phase, cfg, n_particles, steps, counters):
                              f"{launches}")
     spec = sim.tile_spec
     geom = cfg.geometry
+    stepped = sim.state
     sums = sim.checksums()  # raises on tile overflow or violations
     for group in sums.values():
         for q, v in group.items():
@@ -735,6 +899,9 @@ def run_main_path(dev, smi, phase, cfg, n_particles, steps, counters):
          checksum_Ex=sums["lev=0"]["Ex"], checksum_jx=sums["lev=0"]["jx"],
          device=torch.cuda.get_device_name(0), nvidia_smi=smi)
     emit(phase + "_profile", steps=PROFILED_STEPS, **breakdown)
+    # checksums() wrapped the positions; the kernels are timed on the state
+    # the next step would give them
+    sim.state = stepped
     return sim, launches
 
 
@@ -746,8 +913,10 @@ def fused_at_main_shapes(sim, plain_reps, window=None, mxu="f32"):
     ``window`` = (fields6, pusher params, anchors, zshift, smax) runs the
     kernel in moving-window mode on the bounded step's inputs; ``mxu`` is
     the precision mode, and a mode other than 'f32' is timed beside the
-    kernel at 'f32' on the same inputs.  Returns the kernels-line fields
-    that are measured here."""
+    kernel at 'f32' on the same inputs.  K2 adds its registers, spills and
+    resident blocks per SM (``k2_resources``), the tiles of one launch that
+    took its checked path and the tiles with an alive particle.  Returns
+    the kernels-line fields that are measured here."""
     from warpx_tpu_torch.core.binned_step import pusher_groups
     from warpx_tpu_torch.ops import fused_pic as fp
 
@@ -784,6 +953,8 @@ def fused_at_main_shapes(sim, plain_reps, window=None, mxu="f32"):
             *args, counts=counts, **mode, **{**kw, "mxu": "f32"}), 10)
     plain_ms = cuda_ms(lambda: fp.binned_push_deposit_plain(
         *args, counts, **plain_mode, **kw), plain_reps)
+    dev = parts[0].device
+    wide0 = fp.wide_tiles_2d(dev) if spec.ndim == 2 else 0
     out = launch()
     n_bytes = (nbytes(params, counts, *fields6, *parts)
                + nbytes(*out[0], *out[1], out[2]))
@@ -802,6 +973,11 @@ def fused_at_main_shapes(sim, plain_reps, window=None, mxu="f32"):
            "bytes": n_bytes, "flops": flops,
            "flops_per_slot": {"every": every, "alive": alive},
            "library_ms": None}
+    if spec.ndim == 2:
+        row.update(k2_resources(torch.float32, cfg.particle_shape, mxu),
+                   wide_tiles=fp.wide_tiles_2d(dev) - wide0,
+                   occupied_tiles=int((counts.reshape(
+                       -1, spec.n_tiles) > 0).any(0).sum()))
     return row
 
 
@@ -1329,6 +1505,7 @@ def run_lwfa_path(dev, smi, phase, sim, plan):
     if not (zshifts[0] == 0 and zshifts[-1] < stepper.smax
             and len(zshifts) >= plan["interval"] - 1):
         raise AssertionError(f"zshift took {zshifts} of [0, {stepper.smax})")
+    stepped = sim.state
     sums = sim.checksums()  # raises on tile overflow or violations
     for group in sums.values():
         for q, v in group.items():
@@ -1376,7 +1553,9 @@ def run_lwfa_path(dev, smi, phase, sim, plan):
          device=torch.cuda.get_device_name(0), nvidia_smi=smi)
     emit(phase + "_profile", steps=PROFILED_STEPS, nvidia_smi=smi,
          **breakdown)
-    # the inputs the next step would give K2 in moving-window mode
+    # checksums() wrapped the positions; the kernels are timed on the state
+    # the next step would give them, with these inputs in moving-window mode
+    sim.state = stepped
     f = stepper._f
     anchors = list(geom.prob_lo)
     anchors[1] = aux["tile_anchor"]
@@ -1770,8 +1949,12 @@ def main() -> int:
     regs = {nm: [ln.strip() for ln in build.build_log(nm).splitlines()
                  if "registers" in ln or "spill" in ln][:8]
             for nm in build.SOURCES}
+    reports = {nm: ptxas_report(build.build_log(nm)) for nm in build.SOURCES}
     emit("build", ok=True, seconds=time.perf_counter() - t0,
-         per_library=secs, ptxas=regs)
+         per_library=secs, ptxas=regs,
+         registers={nm: sorted(set(r.values()))
+                    for nm, (r, _) in reports.items()},
+         spill_bytes={nm: sum(sp.values()) for nm, (_, sp) in reports.items()})
     phase_kernel_parity(dev, "k1_parity", 3, 16)
     phase_kernel_parity(dev, "k2_parity", 2, 32)
     phase_k1d_parity(dev)

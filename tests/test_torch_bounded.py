@@ -53,6 +53,10 @@ from .test_torch_bounded_util import (LWFA_2D, assert_checksums,
                                       jax_state_replace, port_config,
                                       randomize_fields, run_jax, run_port)
 
+# one intra-op thread: the test runner's workers share the machine's
+# cores, and more threads each oversubscribe them
+torch.set_num_threads(1)
+
 T64 = dict(dtype=torch.float64)
 
 

@@ -31,6 +31,10 @@ from .test_torch_bounded_util import (PEC_3D, PEC_3D_BINNED,
                                       port_config, randomize_fields, run_jax,
                                       run_port)
 
+# one intra-op thread: the test runner's workers share the machine's
+# cores, and more threads each oversubscribe them
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def jax_pec():

@@ -17,6 +17,10 @@ from warpx_tpu_torch.core.grid import Geometry
 
 from .test_binned_bounded import _LWFA_2D, _PEC_3D
 
+# one intra-op thread: the test runner's workers share the machine's
+# cores, and more threads each oversubscribe them
+torch.set_num_threads(1)
+
 LWFA_2D = _LWFA_2D
 PEC_3D = _PEC_3D
 # three particles per cell: 12288 per species, above the 8192 below which a

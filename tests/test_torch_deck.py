@@ -37,6 +37,10 @@ from warpx_tpu_torch.utils.parser import Deck
 from .test_binned_bounded import _LWFA_2D, _PEC_3D
 from .test_torch_bounded_util import assert_checksums, port_config
 
+# one intra-op thread: the test runner's workers share the machine's
+# cores, and more threads each oversubscribe them
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 

@@ -25,6 +25,10 @@ from warpx_tpu_torch.core.grid import Geometry, yee_staggering
 from warpx_tpu_torch.ops import fused_pic
 from warpx_tpu_torch.ops.tiling import TileSpec
 
+# one intra-op thread: the test runner's workers share the machine's
+# cores, and more threads each oversubscribe them
+torch.set_num_threads(1)
+
 LX = 40e-6
 C = 299792458.0
 RTOL = 1e-12

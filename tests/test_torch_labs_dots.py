@@ -24,6 +24,10 @@ from jax.experimental import pallas as pl
 from warpx_tpu_torch.tools import (bench_deposit_prec, bench_dot_shapes,
                                    profile_rebin_lwfa)
 
+# one intra-op thread: the test runner's workers share the machine's
+# cores, and more threads each oversubscribe them
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 # float32 sums of reps x K exact products in another order (torch's matmul
 # against XLA's dot): K 2^-24 bounds it at K = 1152 (7e-5), random rounding

@@ -24,6 +24,10 @@ from jax.experimental import pallas as pl
 
 from warpx_tpu_torch.tools import kernel_lab, lab_widelane
 
+# one intra-op thread: the test runner's workers share the machine's
+# cores, and more threads each oversubscribe them
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 # float32 sums of the same exactly rounded terms in another order (torch's
 # matmul and row sums against XLA's); 2.1e-7 measured

@@ -22,6 +22,10 @@ from warpx_tpu.core.simulation import Simulation as JSimulation
 from .test_torch_fused_pic import _compare
 from .test_torch_slice import _assert_checksums, jax_cfg, torch_cfg
 
+# one intra-op thread: the test runner's workers share the machine's
+# cores, and more threads each oversubscribe them
+torch.set_num_threads(1)
+
 _PUSHER = {1: "boris", 2: "vay", 3: "higuera"}
 
 

@@ -31,6 +31,10 @@ from warpx_tpu_torch.ops import deposit, gather, push, shapes
 from warpx_tpu_torch.solvers import filter as t_filter
 from warpx_tpu_torch.solvers import yee
 
+# one intra-op thread: the test runner's workers share the machine's
+# cores, and more threads each oversubscribe them
+torch.set_num_threads(1)
+
 RTOL = 1e-12
 LX = 40e-6
 C = 299792458.0

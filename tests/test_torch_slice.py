@@ -29,6 +29,10 @@ from warpx_tpu_torch.core.grid import Geometry
 from warpx_tpu_torch.core.state import state_from_numpy, state_to_numpy
 from warpx_tpu_torch.solvers.yee import compute_dt_yee
 
+# one intra-op thread: the test runner's workers share the machine's
+# cores, and more threads each oversubscribe them
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 RTOL = 1e-9
 

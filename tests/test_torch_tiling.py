@@ -17,6 +17,10 @@ from warpx_tpu_torch.core.grid import Geometry
 from warpx_tpu_torch.core.state import ParticleState
 from warpx_tpu_torch.ops import tiling
 
+# one intra-op thread: the test runner's workers share the machine's
+# cores, and more threads each oversubscribe them
+torch.set_num_threads(1)
+
 LX = 40e-6
 FIELDS = ("x", "y", "z", "ux", "uy", "uz", "w")
 

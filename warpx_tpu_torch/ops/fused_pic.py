@@ -43,14 +43,15 @@ import torch
 
 from .. import build
 from ..constants import c as _c
-from ..core.grid import AXIS_NAMES
+from ..core.grid import AXIS_NAMES, yee_staggering
 from .gather import GALERKIN_AXES
 from .push import PUSHERS
 from .shapes import spline, start_index
 from .tiling import broadcast_index
 
 __all__ = ["binned_push_deposit", "binned_push_deposit_plain", "pad_fields",
-           "padded_shape"]
+           "padded_shape", "gather_table_2d", "wide_tiles_2d",
+           "blocks_per_sm_2d"]
 
 _COMPS = ("Ex", "Ey", "Ez", "Bx", "By", "Bz")
 _PUSHER_IDS = {"boris": 0, "vay": 1, "higuera": 2}
@@ -95,6 +96,20 @@ def _gather_table(order, galerkin, staggering, ndim):
             gorder.append(order - 1 if reduced else order)
             gstag.append(int(staggering[comp][d] == 0))
     return gorder, gstag
+
+
+def gather_table_2d(galerkin, stag_items):
+    """The ``galerkin`` argument of K2 (1 on, 0 off).  K2 fixes its gather
+    table at compile time (``csrc/fused_pic_2d.cu``): the Yee staggering,
+    reduced by one order on the staggered axes with Galerkin on, as
+    ``_gather_table`` builds it for the paths.  Any other staggering of the
+    fields raises."""
+    stag, yee = dict(stag_items), yee_staggering(2)
+    if any(tuple(stag[c]) != yee[c] for c in _COMPS):
+        raise NotImplementedError(
+            "the 2D fused kernel gathers on the Yee staggering only "
+            "(ROADMAP.md Queue A 11)")
+    return int(bool(galerkin))
 
 
 def _check(parts, counts, spec, geom, mxu, anchors, zshift, smax):
@@ -348,9 +363,10 @@ def _library_name(ndim, dtype, order):
     return f"{stem}_{'f64' if dtype == torch.float64 else 'f32'}_o{order}"
 
 
-def _launch_kernel(params, fields6, parts, counts, *, spec, geom, order,
-                   galerkin, pusher_name, dt, stag_items, lo, zoff, mxu,
-                   smax):
+def _kernel_args(params, fields6, parts, counts, *, spec, geom, order,
+                 galerkin, pusher_name, dt, stag_items, lo, zoff, mxu, smax):
+    """Check the kernel's inputs and allocate its outputs; returns the
+    ``_FusedPicArgs`` of one launch and the outputs it points to."""
     nd = spec.ndim
     dtype = parts[0].dtype
     dev = parts[0].device
@@ -418,11 +434,55 @@ def _launch_kernel(params, fields6, parts, counts, *, spec, geom, order,
         a.invdtd[:] = [1.0 / (dt * dx[1]), 1.0 / (dt * dx[0]),
                        1.0 / (dx[0] * dx[1])]
     a.dt = dt
-    lib = _library_name(nd, dtype, order)
-    stem = "fused_pic" if nd == 3 else "fused_pic_2d"
-    err = getattr(build.library(lib), f"{stem}_launch")(
-        ctypes.addressof(a), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    return a, (out_parts, jw, viol)
+
+
+# K2's count of tiles that took its checked path, per device: one int32
+# that every launch there adds to
+_WIDE = {}
+
+
+def _wide_counter(dev):
+    key = str(dev)
+    if key not in _WIDE:
+        _WIDE[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _WIDE[key]
+
+
+def wide_tiles_2d(device):
+    """Tiles that took K2's checked path (a stencil outside the tile's
+    shared box), summed over every launch so far on ``device``."""
+    return int(_wide_counter(torch.device(device)).item())
+
+
+def blocks_per_sm_2d(dtype, order, mxu):
+    """Resident blocks per SM of K2 for ``dtype``, ``order`` and ``mxu``
+    (the CUDA occupancy calculator on the current device)."""
+    lib = _library_name(2, dtype, order)
+    n = build.library(lib).fused_pic_2d_blocks_per_sm(MXU_MODES[mxu])
+    if n < 0:
+        raise RuntimeError("fused_pic_2d occupancy query failed: "
+                           + build.cuda_error(lib, "fused_pic_2d_error_string",
+                                              -n))
+    return n
+
+
+def _launch_kernel(params, fields6, parts, counts, **kw):
+    nd, mxu = kw["spec"].ndim, kw["mxu"]
+    if nd == 2:
+        gal = gather_table_2d(kw["galerkin"], kw["stag_items"])
+    a, (out_parts, jw, viol) = _kernel_args(params, fields6, parts, counts,
+                                            **kw)
+    dev = parts[0].device
+    lib = _library_name(nd, parts[0].dtype, kw["order"])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if nd == 3:
+        stem = "fused_pic"
+        err = build.library(lib).fused_pic_launch(ctypes.addressof(a), stream)
+    else:
+        stem = "fused_pic_2d"
+        err = build.library(lib).fused_pic_2d_launch(
+            ctypes.addressof(a), gal, _wide_counter(dev).data_ptr(), stream)
     if err:
         stage = {1: "device query", 2: "shared-memory opt-in", 3: "launch",
                  4: "arguments"}.get(err // 1000, "?")
