@@ -12,21 +12,25 @@ exits non-zero:
                PyTorch version at 16^3, two species, orders 1-3, the Boris,
                Vay and Higuera-Cary pushers, float64 and float32, each case
                launched K1_REPEATS times (its shared-memory atomics sum in
-               an order that changes from launch to launch);
+               an order that changes from launch to launch); then K1's
+               branch cases (``branch_inputs``: a window wider than K1's
+               shared box, a tile whose particles reach past the box, dead
+               slots like and unlike their row's first, dead slots with a
+               weight, a stencil clipped at the window's low side, a
+               counted violation, an all-empty tile, external fields) in
+               float64 and float32, every mode, orders 1-3, Galerkin on and
+               off;
   k2_parity    kernel K2 (the 2D XZ fused kernel) against its plain version
-               at 32^2, the same cases and launches; then K2's branch cases
-               (``branch_inputs``: a window wider than K2's shared box, a
-               tile whose particles reach past the box, dead slots unlike
-               their row's first, dead slots with a weight, an all-empty
-               tile, external fields) in float64 and float32, every mode,
-               orders 1-3, Galerkin on and off;
+               at 32^2, the same cases and launches, then K2's branch
+               cases;
   k1d_parity   K1 and K2 in the precision modes 'mixed' and 'bf16' (kernel
                mode K1d), the same cases and launches, float32 to TOL_MXU,
                and each mode once per kernel in moving-window mode;
   k1c_parity   K1 and K2 in moving-window mode (smax = 8, zshift 0, 3 and 8,
                tiles anchored off prob_lo) against their plain versions, and
                the mode's neutral arguments against the call without them;
-               then K2's branch cases in moving-window mode (zshift 3);
+               then K1's and K2's branch cases in moving-window mode
+               (zshift 3);
   k3_parity    kernel K3 (rebin slot expansion) against its plain version;
   lab_parity   the four kernels of the Hopper labs (warpx_tpu_torch/tools/:
                lab_fused, lab_widelane, tile_dot, slot_copy) against their
@@ -79,9 +83,9 @@ exits non-zero:
                its lines and one JSON line.
 
 The build line reports every library's registers and spill bytes (ptxas);
-the kernels line gives K2's rows their registers, spills, resident blocks
-per SM and the tiles of one launch that took its checked path
-(``wide_tiles``).  The line before the last lists the kernels; the last
+the kernels line gives K1's and K2's rows their registers, spills,
+resident blocks per SM and the tiles of one launch that took the checked
+path (``wide_tiles``).  The line before the last lists the kernels; the last
 line is
 {"ok": true, "device": {...}}.  With no GPU, or without the package beside
 this script, it exits non-zero and prints no result.
@@ -292,48 +296,69 @@ K1_REPEATS = 5
 
 # Sort margin of K2's branch cases: W = 32 at orders 1-3, wider than K2's
 # shared box (kBox = 24 in csrc/fused_pic_2d.cu), so the box sits inside
-# the window and a tile whose particles drifted apart reaches past it.
-BRANCH_MARGIN = 8
+# the window and a tile whose particles drifted apart reaches past it.  K1's
+# take the main path's margin, 1: W = 16 at orders 1-2 and 24 at order 3,
+# wider than its box of 12 + order cells an edge (csrc/fused_pic.cu).
+BRANCH_MARGIN = {2: 8, 3: 1}
 
 
-def branch_inputs(n, order, dtype, dev, seed, smax=0, anchor_off=0.0):
-    """``kernel_inputs`` in 2D at BRANCH_MARGIN with every branch of K2
-    reached: besides the clipped particle and the empty (species, tile), an
-    all-empty tile (the last, in both species); in every occupied row, dead
-    slots 3 and 5 past the first dead one with other momenta and positions
-    than it; in one row, dead slots with a weight, which deposit, so the
-    first is copied by nobody; in one tile, two alive particles moved 6
-    cells up and down along x and z, so the tile's reach exceeds the shared
-    box; all six
-    external particle fields of both species nonzero.  Returns what
+def branch_inputs(ndim, n, order, dtype, dev, seed, smax=0, anchor_off=0.0):
+    """``kernel_inputs`` at BRANCH_MARGIN with every branch of K2 (ndim 2)
+    or K1 (ndim 3) reached: besides the clipped particle and the empty
+    (species, tile), an all-empty tile (the last, in both species); in
+    every occupied row, dead slots 3 and 5 past the first dead one with
+    other momenta and positions than it; in one row, dead slots with a
+    weight (in 3D the first three), which deposit, so the first is copied
+    by nobody; in one tile, two alive particles moved apart (2D: 6 cells up
+    and down along x and z; 3D: to window coordinate off - 1.4 and off +
+    tile + 1.4 on every axis, at rest, so their stencils stay in the window
+    and count no violation), so the tile's reach exceeds the shared box;
+    all six external particle fields of both species nonzero.  Returns what
     ``kernel_inputs`` returns and the slots of the changed dead slots."""
     args, counts, kw, anchors = kernel_inputs(
-        2, n, order, dtype, dev, seed, smax=smax, anchor_off=anchor_off,
-        margin=BRANCH_MARGIN)
+        ndim, n, order, dtype, dev, seed, smax=smax, anchor_off=anchor_off,
+        margin=BRANCH_MARGIN[ndim])
     params, fields, cols = args
     spec, geom = kw["spec"], kw["geom"]
     nt, P = spec.n_tiles, spec.p_max
     cols = [c.clone() for c in cols]
     counts = counts.clone()
+    iw = ndim + 3  # the weight column
     for s in range(2):
         counts[s * nt + nt - 1] = 0
-        cols[5][s * nt + nt - 1] = 0.0
+        cols[iw][s * nt + nt - 1] = 0.0
     rows = torch.nonzero((counts > 0) & (counts + 6 <= P))[:, 0]
     first = counts[rows].long()
     c = 299792458.0
-    cols[2][rows, first + 3] += 0.05 * c
-    cols[4][rows, first + 3] -= 0.03 * c
+    cols[ndim][rows, first + 3] += 0.05 * c
+    cols[ndim + 2][rows, first + 3] -= 0.03 * c
     cols[0][rows, first + 5] += 0.3 * geom.dx[0]
     cols[1][rows, first + 5] -= 0.2 * geom.dx[1]
     r0 = int(rows[len(rows) // 2])
-    cols[5][r0, int(counts[r0]):] = 1e10
+    # 3D: three such slots, bitwise alike: a hundred coincident ones would
+    # add one ulp of their common x_new coherently (2.0e-4 of the largest
+    # J value on the card, the first design's K1 alike)
+    heavy = P if ndim == 2 else int(counts[r0]) + 3
+    cols[iw][r0, int(counts[r0]):heavy] = 1e10
     # a tile whose particles drifted apart: not the clipped particle's
     wt = int(rows[-1]) % nt
     if wt == int(rows[0]) % nt or int(counts[wt]) < 2:
         raise AssertionError("the branch layout has no tile to spread")
-    for slot, sign in ((0, 1.0), (1, -1.0)):
-        cols[0][wt, slot] += sign * 6 * geom.dx[0]
-        cols[1][wt, slot] -= sign * 6 * geom.dx[1]
+    if ndim == 2:
+        for slot, sign in ((0, 1.0), (1, -1.0)):
+            cols[0][wt, slot] += sign * 6 * geom.dx[0]
+            cols[1][wt, slot] -= sign * 6 * geom.dx[1]
+    else:
+        tix = []
+        for d in range(3):
+            stride = int(np.prod(spec.tiles_per_dim[d + 1:]))
+            tix.append(wt // stride % spec.tiles_per_dim[d])
+        for slot, xwin in ((0, spec.off - 1.4), (1, spec.off + 1.4)):
+            for d in range(3):
+                x = xwin + (spec.tile[d] if slot else 0)
+                cols[d][wt, slot] = anchors[d] + (
+                    tix[d] * spec.tile[d] - spec.off + x) * geom.dx[d]
+                cols[3 + d][wt, slot] = 0.0
     params = params.clone()
     params[:, 2:8] = torch.tensor([1e9, -2e9, 3e9, 5.0, -3.0, 2.0],
                                   dtype=params.dtype, device=params.device)
@@ -341,14 +366,14 @@ def branch_inputs(n, order, dtype, dev, seed, smax=0, anchor_off=0.0):
     return (params, fields, tuple(cols)), counts, kw, anchors, changed
 
 
-def k2_branch_cases(dev, repeats, smax=0, zshift=None):
-    """K2 against its plain version on ``branch_inputs``: float64 and
-    float32, the modes 'f32', 'mixed' and 'bf16', orders 1-3, Galerkin on
-    and off, Boris; ``repeats`` launches a case.  Tolerances as in
-    k2_parity and k1d_parity, but float32 J at TOL_J_MAIN or more.  The
-    tiles that took K2's checked path must be > 0 in every case; the
-    changed dead slots must come out unlike the first dead slot of their
-    row.  Returns the cases."""
+def branch_cases(ndim, dev, repeats, smax=0, zshift=None):
+    """K2 (ndim 2, 32^2) or K1 (ndim 3, 16^3) against its plain version on
+    ``branch_inputs``: float64 and float32, the modes 'f32', 'mixed' and
+    'bf16', orders 1-3, Galerkin on and off, Boris; ``repeats`` launches a
+    case.  Tolerances as in k1_parity, k2_parity and k1d_parity, but float32
+    J at TOL_J_MAIN or more.  The tiles that took the kernel's checked path
+    must be > 0 in every case; the changed dead slots must come out unlike
+    the first dead slot of their row.  Returns the cases."""
     from warpx_tpu_torch.ops import fused_pic as fp
 
     cases = []
@@ -358,34 +383,36 @@ def k2_branch_cases(dev, repeats, smax=0, zshift=None):
                    if dtype == torch.float64 or mxu == "f32"
                    else dict(TOL_MXU[mxu]))
             if dtype == torch.float32:
-                # W = 32: window coordinates reach past 16 cells, where an
-                # ulp of x_new is 2^-19 cells as at the main paths' W = 24
+                # window coordinates reach past 16 cells (2D: W = 32; 3D at
+                # order 3: W = 24), where an ulp of x_new is 2^-19 cells as
+                # at the main paths' W = 24
                 tol["j"] = max(tol["j"], TOL_J_MAIN)
             for order in (1, 2, 3):
                 for galerkin in (True, False):
                     args, counts, kw, anchors, (rows, first) = branch_inputs(
-                        32, order, dtype, dev, seed=10 + order, smax=smax,
+                        ndim, 32 if ndim == 2 else 16, order, dtype, dev,
+                        seed=10 + order, smax=smax,
                         anchor_off=0.0 if zshift is None else 0.37)
                     kw.update(order=order, galerkin=galerkin,
-                              pusher_name="boris", stag_items=stag_items(2),
-                              mxu=mxu)
-                    wide0 = fp.wide_tiles_2d(dev)
+                              pusher_name="boris",
+                              stag_items=stag_items(ndim), mxu=mxu)
+                    wide0 = fp.wide_tiles(dev, ndim)
                     _, nviol, worst_p, worst_j, _ = kernel_compare(
                         fp, args, counts, kw, tol["particles"], tol["j"],
                         repeats=repeats, anchors=anchors, zshift=zshift,
                         smax=smax)
-                    wide = (fp.wide_tiles_2d(dev) - wide0) // repeats
+                    wide = (fp.wide_tiles(dev, ndim) - wide0) // repeats
                     if wide < 1 or not nviol:
                         raise AssertionError(
-                            f"K2's checked path ran in {wide} tiles, "
-                            f"{nviol} violations")
+                            f"the {ndim}D kernel's checked path ran in "
+                            f"{wide} tiles, {nviol} violations")
                     out = fp.binned_push_deposit(
                         *args, counts=counts, smax=smax, **kw,
                         **({} if zshift is None else
                            dict(anchors=anchors, zshift=zshift)))[0]
                     for k in (3, 5):
-                        if torch.equal(out[2][rows, first + k],
-                                       out[2][rows, first]) and torch.equal(
+                        if torch.equal(out[ndim][rows, first + k],
+                                       out[ndim][rows, first]) and torch.equal(
                                 out[0][rows, first + k], out[0][rows, first]):
                             raise AssertionError(
                                 f"dead slot {k} past the first took its "
@@ -430,7 +457,7 @@ def phase_kernel_parity(dev, phase, ndim, n):
     worst = {str(dt): {k: max(c[k] for c in cases if c["dtype"] == str(dt))
                        for k in ("particles_rel_err", "j_rel_err")}
              for dt in TOL}
-    branches = k2_branch_cases(dev, K1_REPEATS) if ndim == 2 else None
+    branches = branch_cases(ndim, dev, K1_REPEATS)
     emit(phase, ok=True, repeats=K1_REPEATS, n_cell=(n,) * ndim,
          tol=dict((str(k), v) for k, v in TOL.items()), worst=worst,
          cases=cases, branch_cases=branches)
@@ -544,7 +571,8 @@ def phase_k1c_parity(dev):
                             "particles_bitwise": True, "j_rel_err": j_err,
                             "j_bitwise": all(torch.equal(x, y) for x, y
                                              in zip(a[1], b[1]))})
-    branches = k2_branch_cases(dev, 1, smax=smax, zshift=3)
+    branches = {f"{nd}d": branch_cases(nd, dev, 1, smax=smax, zshift=3)
+                for nd in (3, 2)}
     emit("k1c_parity", ok=True, smax=smax,
          tol=dict((str(k), v) for k, v in TOL.items()), cases=cases,
          neutral=neutral, branch_cases=branches)
@@ -723,7 +751,10 @@ def fused_flops(order, galerkin, ndim, pusher, mxu="f32"):
     (it is no arithmetic): the gather's count is unchanged, and a deposit
     product becomes dot3x's seven operations in 'mixed' (two remainders,
     three products, two adds); in 3D 'bf16' adds one per point (two
-    products where 'f32' has one) and two per row (the two scaled rows)."""
+    products where 'f32' has one) and two per row (the two scaled rows).
+    K1 computes each axis's two gather weight sets once; its deposit
+    counts the ``order`` rows along the deposit axis that every alive
+    particle visits (one that crosses a cell face visits one more)."""
     from warpx_tpu_torch.core.grid import yee_staggering
     from warpx_tpu_torch.ops.fused_pic import _gather_table
 
@@ -734,26 +765,34 @@ def fused_flops(order, galerkin, ndim, pusher, mxu="f32"):
         return 2 if o == 0 else (o % 2 == 0) + (o + 1) + SPLINE_SET_FLOPS[o]
 
     every = 3 * ndim  # X = (pos - lo) * inv_dx - worig
+    if ndim == 3:  # per axis the nodal set, X - 1/2 and the staggered set
+        every += 3 * (weights(order) + 1 + weights(order - bool(galerkin)))
     for c in range(6):
         o = gorder[c * ndim:(c + 1) * ndim]
         taps = int(np.prod([v + 1 for v in o]))
-        every += sum(gstag[c * ndim:(c + 1) * ndim])  # X - 1/2
-        every += sum(weights(v) for v in o)
+        if ndim == 2:
+            every += sum(gstag[c * ndim:(c + 1) * ndim])  # X - 1/2
+            every += sum(weights(v) for v in o)
         # per tap a multiply-add (3D: and the product of two weights), per x
         # row a multiply-add, then the external field
         every += (ndim * taps) + 2 * (o[0] + 1) + 1
     # the pusher, 1 / gamma again, the velocities, pos + v * dt
     every += PUSH_FLOPS[pusher] + 9 + 3 + 2 * ndim
-    # per axis: x_new (2), its rounding add at order 2, and per stencil row
-    # two offsets, sm, df and the running sum, with both spline sets
-    alive = ndim * (2 + (order % 2 == 0) + nt * 5
-                    + 2 * SPLINE_SET_FLOPS[order])
     if ndim == 3:
-        # wq; per component its scale, per row cs * scale, per point seven
+        # X, 1 / gamma and the velocities again, x_new; per axis the old
+        # and new weight sets and per spanned row sm, df and the running
+        # sum; wq; per component its scale, per row cs * scale, per point
+        # seven
+        nu = order + 2
         point = {"f32": 7, "mixed": 13, "bf16": 8}[mxu]
         row = 1 + (2 if mxu == "bf16" else 0)
-        alive += 1 + 3 * (1 + nt * (row + nt * nt * point))
+        alive = (9 + 9 + 3 + 6 + 3 * (2 * weights(order) + 3 * nu) + 1
+                 + 3 * (1 + order * (row + nu * nu * point)))
     else:
+        # per axis: x_new (2), its rounding add at order 2, and per stencil
+        # row two offsets, sm, df and the running sum, with both spline sets
+        alive = 2 * (2 + (order % 2 == 0) + nt * 5
+                     + 2 * SPLINE_SET_FLOPS[order])
         # wq, the three scales (5); per x row four factors (6); per point
         # Jx (2), Jz (2), Jy (3) and their three atomic adds; 'mixed' makes
         # each of the four products seven
@@ -786,22 +825,24 @@ def ptxas_report(log):
     return regs, spills
 
 
-def k2_resources(dtype, order, mxu):
-    """K2's kernel in precision mode ``mxu``: registers a thread and spill
-    bytes (stores and loads) from ptxas's report in its library's build
-    log, resident blocks per SM from the CUDA occupancy calculator."""
+def fused_resources(ndim, dtype, order, mxu):
+    """K1's (ndim 3) or K2's (ndim 2) kernel in precision mode ``mxu``:
+    registers a thread and spill bytes (stores and loads) from ptxas's
+    report in its library's build log, resident blocks per SM from the CUDA
+    occupancy calculator."""
     from warpx_tpu_torch import build
     from warpx_tpu_torch.ops import fused_pic as fp
 
-    lib = fp._library_name(2, dtype, order)
-    want = "fused_pic_2d_kernelI{}Li{}ELi{}E".format(
+    lib = fp._library_name(ndim, dtype, order)
+    want = "{}_kernelI{}Li{}ELi{}E".format(
+        "fused_pic" if ndim == 3 else "fused_pic_2d",
         "d" if dtype == torch.float64 else "f", order, fp.MXU_MODES[mxu])
     regs, spills = ptxas_report(build.build_log(lib))
     kern = [nm for nm in regs if want in nm]
     if len(kern) != 1 or kern[0] not in spills:
         raise AssertionError(f"no ptxas report for {want} in {lib}'s log")
     return {"registers": regs[kern[0]], "spills": spills[kern[0]],
-            "blocks_per_sm": fp.blocks_per_sm_2d(dtype, order, mxu)}
+            "blocks_per_sm": fp.blocks_per_sm(ndim, dtype, order, mxu)}
 
 
 def nbytes(*ts):
@@ -913,10 +954,11 @@ def fused_at_main_shapes(sim, plain_reps, window=None, mxu="f32"):
     ``window`` = (fields6, pusher params, anchors, zshift, smax) runs the
     kernel in moving-window mode on the bounded step's inputs; ``mxu`` is
     the precision mode, and a mode other than 'f32' is timed beside the
-    kernel at 'f32' on the same inputs.  K2 adds its registers, spills and
-    resident blocks per SM (``k2_resources``), the tiles of one launch that
-    took its checked path and the tiles with an alive particle.  Returns
-    the kernels-line fields that are measured here."""
+    kernel at 'f32' on the same inputs.  The row adds the kernel's
+    registers, spills and resident blocks per SM (``fused_resources``), the
+    tiles of one launch that took its checked path and the tiles with an
+    alive particle.  Returns the kernels-line fields that are measured
+    here."""
     from warpx_tpu_torch.core.binned_step import pusher_groups
     from warpx_tpu_torch.ops import fused_pic as fp
 
@@ -954,7 +996,7 @@ def fused_at_main_shapes(sim, plain_reps, window=None, mxu="f32"):
     plain_ms = cuda_ms(lambda: fp.binned_push_deposit_plain(
         *args, counts, **plain_mode, **kw), plain_reps)
     dev = parts[0].device
-    wide0 = fp.wide_tiles_2d(dev) if spec.ndim == 2 else 0
+    wide0 = fp.wide_tiles(dev, spec.ndim)
     out = launch()
     n_bytes = (nbytes(params, counts, *fields6, *parts)
                + nbytes(*out[0], *out[1], out[2]))
@@ -973,11 +1015,11 @@ def fused_at_main_shapes(sim, plain_reps, window=None, mxu="f32"):
            "bytes": n_bytes, "flops": flops,
            "flops_per_slot": {"every": every, "alive": alive},
            "library_ms": None}
-    if spec.ndim == 2:
-        row.update(k2_resources(torch.float32, cfg.particle_shape, mxu),
-                   wide_tiles=fp.wide_tiles_2d(dev) - wide0,
-                   occupied_tiles=int((counts.reshape(
-                       -1, spec.n_tiles) > 0).any(0).sum()))
+    row.update(fused_resources(spec.ndim, torch.float32, cfg.particle_shape,
+                               mxu),
+               wide_tiles=fp.wide_tiles(dev, spec.ndim) - wide0,
+               occupied_tiles=int((counts.reshape(
+                   -1, spec.n_tiles) > 0).any(0).sum()))
     return row
 
 

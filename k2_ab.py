@@ -23,7 +23,8 @@ variant's (bitwise and relative), then ten launches timed with CUDA
 events, three rounds in the order first..last, last..first.  Prints one
 JSON line per result: the card, the build (ptxas registers and spills),
 the form of the shared and global atomics in the built SASS, the resident
-blocks per SM, one line per (shape, mode).
+blocks per SM, one line per (shape, mode).  ``k1_ab.py`` runs kernel K1
+through the same helpers.
 """
 
 from __future__ import annotations
@@ -48,7 +49,6 @@ from warpx_tpu_torch.ops import fused_pic as fp
 ROOT = pathlib.Path(__file__).resolve().parent
 PARENT = ROOT / "_ab" / "parent"
 SRC = ROOT / "warpx_tpu_torch" / "csrc"
-OUT = ROOT / "warpx_tpu_torch" / "_build" / "k2_ab"
 
 # (old, new) edits of csrc/fused_pic_2d.cu, each found exactly once
 VARIANTS = {
@@ -79,36 +79,38 @@ def emit(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def start_build(name, src_dir, edits):
-    """Copy the kernel's source with ``edits`` and start nvcc on it;
+def start_build(name, src_dir, edits, stem, order, out):
+    """Copy the kernel's source ``stem``.cu from ``src_dir`` with ``edits``
+    into ``out``/``name`` and start nvcc on it for float32 at ``order``;
     returns (process, library path)."""
-    d = OUT / name
+    d = out / name
     d.mkdir(parents=True, exist_ok=True)
-    text = (src_dir / "fused_pic_2d.cu").read_text()
+    text = (src_dir / f"{stem}.cu").read_text()
     for old, new in edits:
         if text.count(old) != 1:
             raise ValueError(f"{name}: edit target not found once: {old!r}")
         text = text.replace(old, new)
-    (d / "fused_pic_2d.cu").write_text(text)
+    (d / f"{stem}.cu").write_text(text)
     shutil.copy(src_dir / "fused_pic_common.cuh", d)
     lib = d / "lib.so"
     cmd = [build._nvcc(), *build.NVCC_FLAGS, "-DFP_REAL=float",
-           "-DFP_ORDER=3", "-o", str(lib), str(d / "fused_pic_2d.cu")]
+           f"-DFP_ORDER={order}", "-o", str(lib), str(d / f"{stem}.cu")]
     with open(d / "build.log", "w") as log:
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     return proc, lib
 
 
-def load(lib, parent):
+def load(lib, parent, stem):
     """The variant's launch function: (args, stream) for the parent's
     source, (args, galerkin, wide counter, stream) for this kernel's."""
     L = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
-    L.fused_pic_2d_launch.restype = I
-    L.fused_pic_2d_launch.argtypes = [P, P] if parent else [P, I, P, P]
+    launch = getattr(L, f"{stem}_launch")
+    launch.restype = I
+    launch.argtypes = [P, P] if parent else [P, I, P, P]
     if not parent:
-        L.fused_pic_2d_blocks_per_sm.argtypes = [I]
-        L.fused_pic_2d_blocks_per_sm.restype = I
+        getattr(L, f"{stem}_blocks_per_sm").argtypes = [I]
+        getattr(L, f"{stem}_blocks_per_sm").restype = I
     return L
 
 
@@ -153,27 +155,43 @@ def lwfa_inputs(dev, smi):
         anchors=anchors, zshift=zshift, smax=st.smax)
 
 
-def run_shape(shape, libs, sim, inputs, pname, mode, mxu):
+def first_difference(parts, got, ref):
+    """The first slot where ``got`` and ``ref`` differ: its column, row,
+    slot, inputs and both outputs; None where they are bitwise equal."""
+    for c, (x, y) in enumerate(zip(got, ref)):
+        nz = torch.nonzero(x != y)
+        if len(nz):
+            r, p = (int(v) for v in nz[0])
+            return {"column": c, "row": r, "slot": p,
+                    "inputs": [float(a[r, p]) for a in parts],
+                    "got": [float(a[r, p]) for a in got],
+                    "ref": [float(a[r, p]) for a in ref]}
+    return None
+
+
+def run_shape(shape, libs, sim, inputs, pname, mode, mxu, stem):
     params, fields6, parts, counts = inputs
     cfg, spec = sim.cfg, sim.tile_spec
+    nd = spec.ndim
     kw = dict(spec=spec, geom=cfg.geometry, order=cfg.particle_shape,
               galerkin=cfg.galerkin, pusher_name=pname, dt=cfg.dt,
-              stag_items=cs.stag_items(2), mxu=mxu)
+              stag_items=cs.stag_items(nd), mxu=mxu)
     counts, lo, zoff = fp._check(parts, counts, spec, cfg.geometry, mxu,
                                  mode.get("anchors"), mode.get("zshift"),
                                  mode.get("smax", 0))
     a, outs = fp._kernel_args(params, fields6, parts, counts, lo=lo,
                               zoff=zoff, smax=mode.get("smax", 0), **kw)
-    gal = fp.gather_table_2d(kw["galerkin"], kw["stag_items"])
+    table = fp.gather_table_3d if nd == 3 else fp.gather_table_2d
+    gal = table(kw["galerkin"], kw["stag_items"])
     wide = torch.zeros(1, dtype=torch.int32, device=parts[0].device)
     stream = torch.cuda.current_stream().cuda_stream
     addr = ctypes.addressof(a)
 
     def launcher(L, parent):
+        launch = getattr(L, f"{stem}_launch")
         if parent:
-            return lambda: L.fused_pic_2d_launch(addr, stream)
-        return lambda: L.fused_pic_2d_launch(addr, gal, wide.data_ptr(),
-                                             stream)
+            return lambda: launch(addr, stream)
+        return lambda: launch(addr, gal, wide.data_ptr(), stream)
 
     fns = {nm: launcher(L, parent) for nm, (L, parent) in libs.items()}
     results, first = {}, None
@@ -190,6 +208,9 @@ def run_shape(shape, libs, sim, inputs, pname, mode, mxu):
             first = got
         else:
             res.update(
+                particles_differ=[int((x != y).sum())
+                                  for x, y in zip(got[0], first[0])],
+                first_difference=first_difference(parts, got[0], first[0]),
                 particles_bitwise=all(torch.equal(x, y)
                                       for x, y in zip(got[0], first[0])),
                 violations_bitwise=torch.equal(got[2], first[2]),
@@ -211,44 +232,60 @@ def run_shape(shape, libs, sim, inputs, pname, mode, mxu):
     emit(kind="ab", shape=shape, mxu=mxu, first=order[0], results=results)
 
 
-def main() -> int:
+def run_ab(tool, stem, order, parents, variants, states):
+    """Build every parent variant (edits of ``_ab/parent/``) and every
+    variant of the kernel ``stem`` at ``order`` side by side, print the
+    build's registers, spills and SASS atomics and the resident blocks per
+    SM, then run all of them on each state that ``states(dev, smi)``
+    yields, (shape, sim, inputs, pusher, mode), in every precision mode."""
     if not torch.cuda.is_available():
-        raise SystemExit("k2_ab: no CUDA device")
+        raise SystemExit(f"{tool}: no CUDA device")
     dev = torch.device("cuda", 0)
     smi = cs.nvidia_smi_line()
     emit(kind="device", name=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    out = ROOT / "warpx_tpu_torch" / "_build" / tool
     t0 = time.perf_counter()
-    procs = {"parent": start_build("parent", PARENT, [])}
-    procs.update({nm: start_build(nm, SRC, edits)
-                  for nm, edits in VARIANTS.items()})
+    procs = {nm: start_build(nm, PARENT, edits, stem, order, out)
+             for nm, edits in parents.items()}
+    procs.update({nm: start_build(nm, SRC, edits, stem, order, out)
+                  for nm, edits in variants.items()})
     for nm, (proc, _) in procs.items():
         if proc.wait() != 0:
-            raise SystemExit(f"k2_ab: the build of {nm} failed:\n"
-                             + (OUT / nm / "build.log").read_text())
-    reports = {nm: cs.ptxas_report((OUT / nm / "build.log").read_text())
+            raise SystemExit(f"{tool}: the build of {nm} failed:\n"
+                             + (out / nm / "build.log").read_text())
+    reports = {nm: cs.ptxas_report((out / nm / "build.log").read_text())
                for nm in procs}
     emit(kind="build", seconds=time.perf_counter() - t0,
-         registers={nm: sorted(set(r.values()))
+         registers={nm: dict(sorted(r.items()))
                     for nm, (r, _) in reports.items()},
          spill_bytes={nm: sum(sp.values())
                       for nm, (_, sp) in reports.items()},
          sass_atomics={nm: sass_atomics(lib)
                        for nm, (_, lib) in procs.items()
                        if nm in ("parent", "new")})
-    libs = {nm: (load(lib, nm == "parent"), nm == "parent")
+    libs = {nm: (load(lib, nm in parents, stem), nm in parents)
             for nm, (_, lib) in procs.items()}
     emit(kind="blocks_per_sm", modes=list(fp.MXU_MODES),
-         blocks={nm: [L.fused_pic_2d_blocks_per_sm(m) for m in range(3)]
+         blocks={nm: [getattr(L, f"{stem}_blocks_per_sm")(m)
+                      for m in range(3)]
                  for nm, (L, parent) in libs.items() if not parent})
-    for shape, inputs_of in (("uniform2d", main2d_inputs),
-                             ("lwfa", lambda d: lwfa_inputs(d, smi))):
-        sim, inputs, pname, mode = inputs_of(dev)
+    for shape, sim, inputs, pname, mode in states(dev, smi):
         for mxu in fp.MXU_MODES:
-            run_shape(shape, libs, sim, inputs, pname, mode, mxu)
+            run_shape(shape, libs, sim, inputs, pname, mode, mxu, stem)
         del sim, inputs
         torch.cuda.empty_cache()
     emit(kind="done", seconds=time.perf_counter() - t0)
     return 0
+
+
+def states_2d(dev, smi):
+    yield ("uniform2d", *main2d_inputs(dev))
+    yield ("lwfa", *lwfa_inputs(dev, smi))
+
+
+def main() -> int:
+    return run_ab("k2_ab", "fused_pic_2d", 3, {"parent": []}, VARIANTS,
+                  states_2d)
 
 
 if __name__ == "__main__":

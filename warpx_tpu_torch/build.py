@@ -41,18 +41,12 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _fused_funcs(stem):
-    if stem == "fused_pic":
-        return {
-            # (const FusedPicArgs*, cudaStream_t)
-            "fused_pic_launch": ([_P, _P], _I),
-            "fused_pic_error_string": ([_I], ctypes.c_char_p),
-        }
     return {
         # (const FusedPicArgs*, galerkin, int* wide_tiles, cudaStream_t)
-        "fused_pic_2d_launch": ([_P, _I, _P, _P], _I),
+        f"{stem}_launch": ([_P, _I, _P, _P], _I),
         # (mxu) -> resident blocks per SM
-        "fused_pic_2d_blocks_per_sm": ([_I], _I),
-        "fused_pic_2d_error_string": ([_I], ctypes.c_char_p),
+        f"{stem}_blocks_per_sm": ([_I], _I),
+        f"{stem}_error_string": ([_I], ctypes.c_char_p),
     }
 
 

@@ -129,23 +129,6 @@ __host__ __device__ constexpr bool yee_stag(int c, int d) {
   return d == 0 ? (c == 0 || c == 4 || c == 5) : (c == 2 || c == 3 || c == 4);
 }
 
-// The staged field boxes: the state's type, or bfloat16 in the modes.
-template <typename T>
-__device__ __forceinline__ T staged(T v) {
-  return v;
-}
-__device__ __forceinline__ float staged(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename G, typename T>
-__device__ __forceinline__ G to_staged(T v) {
-  if constexpr (std::is_same<G, T>::value) {
-    return v;
-  } else {
-    return __float2bfloat16_rn(static_cast<float>(v));
-  }
-}
-
 // Bytes of the staged field boxes, rounded up so the current boxes that
 // follow them are aligned for either type.
 template <typename G>
@@ -191,31 +174,6 @@ struct Box {
     return (rx - b0[0]) * kBox + rz - b0[1];
   }
 };
-
-// Weights of one shape set of compile-time order O at grid coordinate xc;
-// returns the first row.  The per-tap formula of gather_weights, so the
-// bits are the same; order 0 is the half-open box [-1/2, 1/2).
-template <typename T, bool EXACT, int O>
-__device__ __forceinline__ int set_weights(T xc, T (&wt)[O + 1]) {
-  if constexpr (O == 0) {
-    int i = static_cast<int>(floor(xc + T(0.5)));
-    const T xi = xc - static_cast<T>(i);
-    if (xi < T(-0.5)) {
-      i -= 1;
-    } else if (xi >= T(0.5)) {
-      i += 1;
-    }
-    wt[0] = T(1);
-    return i;
-  } else {
-    const int i0 = start_index(xc, O);
-#pragma unroll
-    for (int m = 0; m <= O; ++m) {
-      wt[m] = spline<T, EXACT>(xc - static_cast<T>(i0 + m), O);
-    }
-    return i0;
-  }
-}
 
 // One component of the gather from its staged box: sum over z taps, then x
 // taps, from box rows (ix, iz) on.

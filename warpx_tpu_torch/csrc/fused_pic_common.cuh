@@ -8,6 +8,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 // Must match warpx_tpu_torch/ops/fused_pic.py::_FusedPicArgs field by field.
 struct FusedPicArgs {
   const void* fields[6];  // guard-padded Ex, Ey, Ez, Bx, By, Bz
@@ -166,6 +168,49 @@ __device__ __forceinline__ int gather_weights(T xc, int o, T (&wt)[4]) {
     wt[m] = (m <= o) ? spline<T, EXACT>(xc - static_cast<T>(i0 + m), o) : T(0);
   }
   return i0;
+}
+
+// Weights of one shape set of compile-time order O at grid coordinate xc;
+// returns the first row.  The per-tap formula of gather_weights, so the
+// bits are the same; order 0 is the half-open box [-1/2, 1/2).
+template <typename T, bool EXACT, int O>
+__device__ __forceinline__ int set_weights(T xc, T (&wt)[O + 1]) {
+  if constexpr (O == 0) {
+    int i = static_cast<int>(floor(xc + T(0.5)));
+    const T xi = xc - static_cast<T>(i);
+    if (xi < T(-0.5)) {
+      i -= 1;
+    } else if (xi >= T(0.5)) {
+      i += 1;
+    }
+    wt[0] = T(1);
+    return i;
+  } else {
+    const int i0 = start_index(xc, O);
+#pragma unroll
+    for (int m = 0; m <= O; ++m) {
+      wt[m] = spline<T, EXACT>(xc - static_cast<T>(i0 + m), O);
+    }
+    return i0;
+  }
+}
+
+// The staged field boxes of K1 and K2: the state's type, or bfloat16 in the
+// precision modes (rounded once, as they are staged).
+template <typename T>
+__device__ __forceinline__ T staged(T v) {
+  return v;
+}
+__device__ __forceinline__ float staged(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename G, typename T>
+__device__ __forceinline__ G to_staged(T v) {
+  if constexpr (std::is_same<G, T>::value) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(static_cast<float>(v));
+  }
 }
 
 template <typename T>

@@ -4,8 +4,10 @@
 The counterpart of ``warpx_tpu.ops.pallas_pic``: ``pad_fields`` and
 ``binned_push_deposit``, with the same arguments and returns.  On CUDA
 tensors the wrapper launches kernel K1 (3D, ``csrc/fused_pic.cu``) or K2
-(2D, ``csrc/fused_pic_2d.cu``; see their headers for the design); on CPU
-tensors it runs ``binned_push_deposit_plain``.
+(2D, ``csrc/fused_pic_2d.cu``; see their headers for the design), which
+gather on the Yee staggering only (``gather_table_3d``, ``gather_table_2d``:
+any other raises, with no fallback); on CPU tensors it runs
+``binned_push_deposit_plain``.
 
 The plain version repeats the TPU kernels' arithmetic in its own dense
 formulation: per tile, every shape weight becomes a (W, p_max) band matrix
@@ -50,8 +52,8 @@ from .shapes import spline, start_index
 from .tiling import broadcast_index
 
 __all__ = ["binned_push_deposit", "binned_push_deposit_plain", "pad_fields",
-           "padded_shape", "gather_table_2d", "wide_tiles_2d",
-           "blocks_per_sm_2d"]
+           "padded_shape", "gather_table_2d", "gather_table_3d", "wide_tiles",
+           "blocks_per_sm"]
 
 _COMPS = ("Ex", "Ey", "Ez", "Bx", "By", "Bz")
 _PUSHER_IDS = {"boris": 0, "vay": 1, "higuera": 2}
@@ -98,18 +100,29 @@ def _gather_table(order, galerkin, staggering, ndim):
     return gorder, gstag
 
 
+def _yee_gather_flag(ndim, galerkin, stag_items):
+    stag, yee = dict(stag_items), yee_staggering(ndim)
+    if any(tuple(stag[c]) != yee[c] for c in _COMPS):
+        raise NotImplementedError(
+            f"the {ndim}D fused kernel gathers on the Yee staggering only "
+            "(ROADMAP.md Queue A 11)")
+    return int(bool(galerkin))
+
+
 def gather_table_2d(galerkin, stag_items):
     """The ``galerkin`` argument of K2 (1 on, 0 off).  K2 fixes its gather
     table at compile time (``csrc/fused_pic_2d.cu``): the Yee staggering,
     reduced by one order on the staggered axes with Galerkin on, as
     ``_gather_table`` builds it for the paths.  Any other staggering of the
     fields raises."""
-    stag, yee = dict(stag_items), yee_staggering(2)
-    if any(tuple(stag[c]) != yee[c] for c in _COMPS):
-        raise NotImplementedError(
-            "the 2D fused kernel gathers on the Yee staggering only "
-            "(ROADMAP.md Queue A 11)")
-    return int(bool(galerkin))
+    return _yee_gather_flag(2, galerkin, stag_items)
+
+
+def gather_table_3d(galerkin, stag_items):
+    """The ``galerkin`` argument of K1 (1 on, 0 off), whose gather table is
+    fixed at compile time as K2's is (``csrc/fused_pic.cu``).  Any other
+    staggering of the fields raises."""
+    return _yee_gather_flag(3, galerkin, stag_items)
 
 
 def _check(parts, counts, spec, geom, mxu, anchors, zshift, smax):
@@ -348,6 +361,9 @@ class _FusedPicArgs(ctypes.Structure):
         ("pusher", ctypes.c_int),
         ("zoff", ctypes.c_int),
         ("mxu", ctypes.c_int),
+        # the first design's runtime gather table, which K1 and K2 now fix
+        # at compile time: kept so k1_ab.py and k2_ab.py can launch that
+        # design's source on these same arguments
         ("gorder", ctypes.c_int * 18),
         ("gstag", ctypes.c_int * 18),
         ("lo", ctypes.c_double * 3),
@@ -358,9 +374,14 @@ class _FusedPicArgs(ctypes.Structure):
     ]
 
 
+def _stem(ndim):
+    """The kernel's source and C-function prefix: K1 in 3D, K2 in 2D."""
+    return "fused_pic" if ndim == 3 else "fused_pic_2d"
+
+
 def _library_name(ndim, dtype, order):
-    stem = "fused_pic" if ndim == 3 else "fused_pic_2d"
-    return f"{stem}_{'f64' if dtype == torch.float64 else 'f32'}_o{order}"
+    tn = "f64" if dtype == torch.float64 else "f32"
+    return f"{_stem(ndim)}_{tn}_o{order}"
 
 
 def _kernel_args(params, fields6, parts, counts, *, spec, geom, order,
@@ -437,52 +458,50 @@ def _kernel_args(params, fields6, parts, counts, *, spec, geom, order,
     return a, (out_parts, jw, viol)
 
 
-# K2's count of tiles that took its checked path, per device: one int32
-# that every launch there adds to
+# The count of tiles that took K1's or K2's checked path, per (device,
+# ndim): one int32 that every launch there adds to
 _WIDE = {}
 
 
-def _wide_counter(dev):
-    key = str(dev)
+def _wide_counter(dev, ndim):
+    key = (str(dev), ndim)
     if key not in _WIDE:
         _WIDE[key] = torch.zeros(1, dtype=torch.int32, device=dev)
     return _WIDE[key]
 
 
-def wide_tiles_2d(device):
-    """Tiles that took K2's checked path (a stencil outside the tile's
-    shared box), summed over every launch so far on ``device``."""
-    return int(_wide_counter(torch.device(device)).item())
+def wide_tiles(device, ndim):
+    """Tiles that took the checked path of K1 (``ndim`` 3) or K2 (2), a
+    stencil outside the tile's shared box, summed over every launch so far
+    on ``device``."""
+    return int(_wide_counter(torch.device(device), ndim).item())
 
 
-def blocks_per_sm_2d(dtype, order, mxu):
-    """Resident blocks per SM of K2 for ``dtype``, ``order`` and ``mxu``
-    (the CUDA occupancy calculator on the current device)."""
-    lib = _library_name(2, dtype, order)
-    n = build.library(lib).fused_pic_2d_blocks_per_sm(MXU_MODES[mxu])
+def blocks_per_sm(ndim, dtype, order, mxu):
+    """Resident blocks per SM of K1 (``ndim`` 3) or K2 (2) for ``dtype``,
+    ``order`` and ``mxu`` (the CUDA occupancy calculator on the current
+    device)."""
+    lib = _library_name(ndim, dtype, order)
+    stem = _stem(ndim)
+    n = getattr(build.library(lib), f"{stem}_blocks_per_sm")(MXU_MODES[mxu])
     if n < 0:
-        raise RuntimeError("fused_pic_2d occupancy query failed: "
-                           + build.cuda_error(lib, "fused_pic_2d_error_string",
-                                              -n))
+        raise RuntimeError(f"{stem} occupancy query failed: "
+                           + build.cuda_error(lib, f"{stem}_error_string", -n))
     return n
 
 
 def _launch_kernel(params, fields6, parts, counts, **kw):
     nd, mxu = kw["spec"].ndim, kw["mxu"]
-    if nd == 2:
-        gal = gather_table_2d(kw["galerkin"], kw["stag_items"])
+    table = gather_table_3d if nd == 3 else gather_table_2d
+    gal = table(kw["galerkin"], kw["stag_items"])
     a, (out_parts, jw, viol) = _kernel_args(params, fields6, parts, counts,
                                             **kw)
     dev = parts[0].device
     lib = _library_name(nd, parts[0].dtype, kw["order"])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if nd == 3:
-        stem = "fused_pic"
-        err = build.library(lib).fused_pic_launch(ctypes.addressof(a), stream)
-    else:
-        stem = "fused_pic_2d"
-        err = build.library(lib).fused_pic_2d_launch(
-            ctypes.addressof(a), gal, _wide_counter(dev).data_ptr(), stream)
+    stem = _stem(nd)
+    err = getattr(build.library(lib), f"{stem}_launch")(
+        ctypes.addressof(a), gal, _wide_counter(dev, nd).data_ptr(), stream)
     if err:
         stage = {1: "device query", 2: "shared-memory opt-in", 3: "launch",
                  4: "arguments"}.get(err // 1000, "?")

@@ -36,7 +36,10 @@ def spline(xi: torch.Tensor, order: int) -> torch.Tensor:
         return torch.where(t <= 0.5, inner, torch.where(t < 1.5, outer, zero))
     if order == 3:
         inner = 2.0 / 3.0 - t * t * (1.0 - 0.5 * t)
-        outer = (2.0 - t) ** 3 / 6.0
+        # a tensor divisor: PyTorch's CUDA kernels multiply by the rounded
+        # reciprocal of a Python-number divisor, which is not the correctly
+        # rounded quotient the CPU and the fused kernels compute
+        outer = (2.0 - t) ** 3 / (zero + 6.0)
         return torch.where(t <= 1.0, inner, torch.where(t < 2.0, outer, zero))
     raise NotImplementedError(
         f"shape order {order} (orders 1-3 are ported; ROADMAP.md Queue A 11)"
