@@ -77,6 +77,19 @@ exits non-zero:
                through Simulation.from_deck at tpu.tile_mxu = mixed, as
                bench.py runs it; then K2 in moving-window mode at 'mixed'
                against its plain version, timed beside K1c at 'f32';
+  main_lwfa_diags  the same deck at 'mixed' with outputs, as a user runs
+               it (Simulation.from_deck with an output directory), 40 steps:
+               a plotfile of Ex Ez By jz rho and both species at steps 20
+               and 40, each read back and held exactly against the tensors
+               it was written from; a checkpoint at 20; eight reduced
+               diagnostics every 4 steps (rows and ParticleNumber checked);
+               an openPMD file of the beam at 40 where h5py is installed
+               (held against the plotfile's beam); the host's waits for the
+               device on steps with no output due against main_lwfa_deck's
+               steps without a rebin; each flush kind timed alone on the
+               final state (ms, bytes written, bytes from the device); then
+               a fresh simulation restarted from the checkpoint and run to
+               40, its checksums within TOL_RESTART of the run's;
   labs         each Hopper lab's main() at the TPU lab's default shapes (L1
                in every mode): kernel against plain version, times, bounds,
                the library's yardstick where there is one; each lab prints
@@ -1402,6 +1415,13 @@ def phase_bounded_parity(dev):
     emit("bounded_parity", ok=True, tol=1e-9, cases=cases)
 
 
+def quiet_step(s0, interval):
+    """Whether the bounded binned step from step ``s0`` neither rebins (it
+    does when ``s0`` is a multiple of the sort interval) nor injects (at the
+    end of the step before a rebin)."""
+    return bool(s0 % interval and (s0 + 1) % interval)
+
+
 def count_device_waits(fn):
     """The number of times ``fn()`` makes the host wait for the device, from
     PyTorch's own warnings (torch.cuda.set_sync_debug_mode)."""
@@ -1489,8 +1509,10 @@ def run_lwfa_path(dev, smi, phase, sim, plan):
     and read just after.  Checks the result (zero overflow and violations,
     finite fields of the block's shapes, the window moved, the alive
     electrons explained by the rows absorbed and injected) and emits the
-    phase's line and its profile.  Returns (launches, anchors, zshift):
-    the tiling anchor and the window's slide the next step would give K2."""
+    phase's line and its profile.  Returns (launches, anchors, zshift,
+    waits): the tiling anchor and the window's slide the next step would
+    give K2, and the counted steps' waits for the device (``idle``: the set
+    of counts of the steps that neither rebin nor inject)."""
     from warpx_tpu_torch.ops import fused_pic as fp
     from warpx_tpu_torch.ops import tiling
 
@@ -1526,7 +1548,13 @@ def run_lwfa_path(dev, smi, phase, sim, plan):
     marks[-1].synchronize()
     ms_step = marks[0].elapsed_time(marks[-1]) / timed
     series = [round(a.elapsed_time(b), 3) for a, b in zip(marks, marks[1:])]
-    waits = count_device_waits(lambda: sim.evolve(plan["counted"]))
+    first = sim.state.step
+    per_step = [count_device_waits(lambda: sim.evolve(1))
+                for _ in range(plan["counted"])]
+    waits_by_step = {
+        "first_step": first, "per_step": per_step,
+        "idle": sorted({w for i, w in enumerate(per_step)
+                        if quiet_step(first + i, plan["interval"])})}
     sim.evolve(1)  # a rebin step: the profiled ones that follow have none
     breakdown = profile_steps(sim, PROFILED_STEPS, top=30)
     sim.evolve()  # the closing steps, with the +dt/2 synchronization
@@ -1586,7 +1614,8 @@ def run_lwfa_path(dev, smi, phase, sim, plan):
          pushes_per_s=n_mean / (ms_step * 1e-3), ms_each_step=series,
          host_init_s=host_init_s, init_and_warm_s=init_s, launches=launches,
          launches_by_mode=dict(by_mode),
-         device_waits={"steps": plan["counted"], "waits": waits},
+         device_waits={"steps": plan["counted"], "waits": sum(per_step),
+                       **waits_by_step},
          tile_overflow=0, tile_violations=0,
          window_offset=offset,
          peak_memory_bytes={"steps": peak_steps, "with_checksums":
@@ -1603,7 +1632,7 @@ def run_lwfa_path(dev, smi, phase, sim, plan):
     anchors[1] = aux["tile_anchor"]
     zshift = int(np.round(f(f(aux["window_lo"] - aux["tile_anchor"])
                             / f(geom.dx[1]))))
-    return launches, tuple(anchors), zshift
+    return launches, tuple(anchors), zshift, waits_by_step
 
 
 def k2_window_at_main_shapes(sim, anchors, zshift, mxu="f32"):
@@ -1631,8 +1660,8 @@ def phase_main_lwfa(dev, smi, k2_row, k3_row, nx=2048, nz=8192):
 
     cfg = main_lwfa_cfg(nx, nz, lwfa_steps(LWFA_PLAN))
     sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
-    launches, anchors, zshift = run_lwfa_path(dev, smi, "main_lwfa", sim,
-                                              LWFA_PLAN)
+    launches, anchors, zshift, _ = run_lwfa_path(dev, smi, "main_lwfa",
+                                                 sim, LWFA_PLAN)
     k1c = k2_window_at_main_shapes(sim, anchors, zshift)
     k3 = k3_at_main_shapes(sim, origin=anchors,
                            wrap_dims=sim.stepper.wrap_dims)
@@ -1676,15 +1705,319 @@ def phase_main_lwfa_deck(dev, smi, k3_row, nx=2048, nz=8192):
                                       tile_mxu="mixed"):
         raise AssertionError("the deck's configuration differs from "
                              "main_lwfa's")
-    launches, anchors, zshift = run_lwfa_path(dev, smi, "main_lwfa_deck",
-                                              sim, LWFA_PLAN)
+    launches, anchors, zshift, waits = run_lwfa_path(
+        dev, smi, "main_lwfa_deck", sim, LWFA_PLAN)
     row = k2_window_at_main_shapes(sim, anchors, zshift, mxu="mixed")
     add_launches({"ragged_expand": k3_row}, launches, "main_lwfa_deck")
     return {"name": "fused_pic_moving_window_mixed", "route": "cuda",
             "source": "warpx_tpu_torch/csrc/fused_pic_2d.cu",
             "replaces": "warpx_tpu/ops/pallas_pic.py:433", "mxu": "mixed",
-            "launches": launches["fused_pic_2d"], "zshift": zshift,
-            "smax": sim.stepper.smax, **row}
+            "launches": launches["fused_pic_2d"], "launches_by_path": {
+                "main_lwfa_deck": launches["fused_pic_2d"]},
+            "zshift": zshift, "smax": sim.stepper.smax, **row}, waits
+
+
+# ---- the output path -------------------------------------------------------
+
+# The outputs main_lwfa_diags adds to bench.py's deck: a plotfile at steps 20
+# and 40, a checkpoint at 20, the reduced diagnostics every 4 steps, and (where
+# h5py is installed) an openPMD file of the beam at 40.
+LWFA_DIAGS = """
+diagnostics.diags_names = {names}
+diag1.intervals = 20
+diag1.fields_to_plot = Ex Ez By jz rho
+diag1.species = electrons beam
+chk.format = checkpoint
+chk.intervals = 20:20
+diag2.format = openpmd
+diag2.intervals = 40:40
+diag2.fields_to_plot = none
+diag2.species = beam
+warpx.reduced_diags_names = fe fm pe pn px rm br ph
+fe.type = FieldEnergy
+fm.type = FieldMaximum
+pe.type = ParticleEnergy
+pn.type = ParticleNumber
+px.type = ParticleExtrema
+rm.type = RhoMaximum
+br.type = BeamRelevant
+br.species = beam
+ph.type = ParticleHistogram
+ph.species = electrons
+ph.histogram_function(t,x,y,z,ux,uy,uz) = "uz"
+ph.bin_number = 50
+ph.bin_min = -0.05
+ph.bin_max = 0.05
+fe.intervals = 4
+fm.intervals = 4
+pe.intervals = 4
+pn.intervals = 4
+px.intervals = 4
+rm.intervals = 4
+br.intervals = 4
+ph.intervals = 4
+"""
+DIAGS_STEPS = 40
+# Restarted from step 20 and run to 40, the card's run differs from the
+# uninterrupted one only in the order of K2's float32 shared-memory atomics:
+# J differs by up to ~1.5e-7 of itself from launch to launch (ROADMAP Queue
+# C), and 20 steps carry that into the fields and the particles.  Two runs
+# on one NVIDIA H100 80GB HBM3 at 700 W measured 2.1e-8 and 4.7e-7 (the
+# spread itself varies by 20x from run to run); 1e-4 leaves a factor 200
+# over the larger, and a restart that lost a field, a window scalar or the
+# synchronization flag moves the checksums by far more.
+TOL_RESTART = 1e-4
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*")
+               if f.is_file())
+
+
+def state_bytes(state) -> int:
+    """The bytes of every tensor of a state (a checkpoint's transfer)."""
+    tensors = [*vars(state.fields).values(), *state.aux.values()]
+    for sp in state.species.values():
+        tensors += [t for t in vars(sp).values() if t is not None]
+    return sum(t.nelement() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def phase_main_lwfa_diags(dev, smi, k2_row, k3_row, idle_waits, nx=2048,
+                          nz=8192):
+    """lwfa2d-2048x8192 from bench.py's deck text at 'mixed' with the
+    outputs of LWFA_DIAGS, 40 steps (rebins at 0, 16, 32), as a user runs a
+    deck with outputs (Simulation.from_deck with an output directory).  It
+    checks that each plotfile reads back exactly as the port held it (the
+    cell-centered fields and the compacted particle columns, float64 of the
+    float32 tensors), that the reduced files have a row every 4 steps and
+    ParticleNumber the alive counts, the openPMD beam against the plotfile's
+    beam, that a step with no output due waits for the device as often as
+    main_lwfa_deck's steps that neither rebin nor inject (``idle_waits``;
+    ``quiet_step``), and that a
+    fresh simulation restarted from the step-20 checkpoint and run to 40
+    agrees with the run on every checksum but divE/divB within TOL_RESTART.
+    It times each flush kind alone on the final state.  Adds the run's K2
+    and K3 launches to ``k2_row`` and ``k3_row``."""
+    import gc
+    import importlib.util
+    import shutil
+
+    from warpx_tpu_torch.core.simulation import Simulation
+    from warpx_tpu_torch.diagnostics.fields import cell_centered_output
+    from warpx_tpu_torch.diagnostics.reduced import compute_reduced
+    from warpx_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from warpx_tpu_torch.io.openpmd import write_openpmd_iteration
+    from warpx_tpu_torch.io.plotfile import read_particles, read_plotfile
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.ops import tiling
+    from warpx_tpu_torch.utils.parser import Deck
+
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    names = "diag1 chk diag2" if has_h5py else "diag1 chk"
+    text = (lwfa_deck_text(nx, nz, DIAGS_STEPS, "mixed")
+            + LWFA_DIAGS.format(names=names))
+    if not has_h5py:
+        # no openPMD diagnostic at all: its keys would be unread
+        text = "\n".join(ln for ln in text.splitlines()
+                         if not ln.startswith("diag2."))
+    plotfiles = []
+
+    class Checked(Simulation):
+        """The port's Simulation with each plotfile read back right after
+        it is written, held against the tensors it was written from, then
+        deleted (each is ~2.8 GB)."""
+
+        def _flush_plotfile(self, dg, path, step, fields, select):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._flush_plotfile(dg, path, step, fields, select)
+            write_s = time.perf_counter() - t0
+            (level,), meta = read_plotfile(path)
+            if list(level) != list(fields) or meta["step"] != step:
+                raise AssertionError(f"plotfile {path}: {list(level)}")
+            for k, v in fields.items():
+                if not np.array_equal(level[k], v.double().cpu().numpy()):
+                    raise AssertionError(f"plotfile {path}: {k} differs")
+            n_cols = 0
+            for sp, cols in self.plotfile_particles(dg["species"],
+                                                    select).items():
+                back = read_particles(path, sp)
+                for c, a in cols.items():
+                    n_cols += a.size
+                    if not np.array_equal(back[c], np.asarray(a, np.float64)):
+                        raise AssertionError(f"plotfile {path}: {sp}.{c}")
+            plotfiles.append({
+                "step": step, "write_s": write_s, "bytes": dir_bytes(path),
+                "d2h_bytes": sum(v.nelement() * v.element_size()
+                                 for v in fields.values()) + 4 * n_cols})
+            shutil.rmtree(path)
+
+    out = pathlib.Path(tempfile.mkdtemp(prefix="lwfa_diags_"))
+    try:
+        for k in fp.binned_push_deposit.launches_by_mode:
+            fp.binned_push_deposit.launches_by_mode[k] = 0
+        fp.binned_push_deposit.launches_2d = 0
+        tiling.ragged_expand.launches = 0
+        sim = Checked.from_deck(Deck.from_string(text), dtype=torch.float32,
+                                device=dev, output_dir=str(out / "run"))
+        t0 = time.perf_counter()
+        sim.init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_el = int(sim.state.species["electrons"].alive.sum())
+        chk_bytes = state_bytes(sim.state)
+        plot_bytes = 8 * (5 * nx * nz + 6 * 2 * n_el)
+        free = shutil.disk_usage(out).free
+        if free < 2 * (chk_bytes + plot_bytes):
+            raise AssertionError(f"{free} bytes free under {out}, "
+                                 f"{2 * (chk_bytes + plot_bytes)} needed")
+        interval = sim.cfg.sort_interval
+        outputs = sim.reduced + sim.diags
+        step_s, due_steps, waits = {}, {}, {}
+        while sim.state.step < DIAGS_STEPS:
+            s0 = sim.state.step
+            due = sorted(o["name"] for o in outputs
+                         if o["intervals"].contains(s0 + 1))
+            if (not due and quiet_step(s0, interval)
+                    and s0 >= DIAGS_STEPS // 2 and len(waits) < 3):
+                waits[s0 + 1] = count_device_waits(lambda: sim.evolve(1))
+                continue
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.evolve(1)
+            torch.cuda.synchronize()
+            step_s[s0 + 1] = time.perf_counter() - t0
+            due_steps[s0 + 1] = due
+        launches = {"fused_pic_2d": fp.binned_push_deposit.launches_2d,
+                    "ragged_expand": tiling.ragged_expand.launches}
+        rebins = len(range(0, DIAGS_STEPS, interval))
+        if (launches != {"fused_pic_2d": DIAGS_STEPS, "ragged_expand": rebins}
+                or fp.binned_push_deposit.launches_by_mode["mixed"]
+                != DIAGS_STEPS):
+            raise AssertionError(f"main_lwfa_diags launched {launches}")
+        if sorted(set(waits.values())) != idle_waits:
+            raise AssertionError(f"steps with no output due waited {waits} "
+                                 f"times; main_lwfa_deck's idle steps "
+                                 f"{idle_waits}")
+        if [p["step"] for p in plotfiles] != [20, 40]:
+            raise AssertionError(f"plotfiles at {plotfiles}")
+        if not (out / "run" / "chk000020" / "state.npz").exists():
+            raise AssertionError("no checkpoint at step 20")
+        alive = {nm: int(sp.alive.sum())
+                 for nm, sp in sim.state.species.items()}
+        reduced_rows = {}
+        for rd in sim.reduced:
+            lines = pathlib.Path(rd["writer"].path).read_text().splitlines()
+            rows = [ln.split(",") for ln in lines[1:]]
+            if [int(r[0]) for r in rows] != list(range(4, DIAGS_STEPS + 1,
+                                                       4)):
+                raise AssertionError(f"{rd['name']}: rows {len(rows)}")
+            reduced_rows[rd["name"]] = dict(zip(
+                lines[0].lstrip("#").split(","), rows[-1]))
+        last = {k.split("]", 1)[1]: float(v)
+                for k, v in reduced_rows["pn"].items()}
+        for nm in ("electrons", "beam"):
+            if last[f"{nm}_macroparticles()"] != alive[nm]:
+                raise AssertionError(f"ParticleNumber {nm}: {last}, "
+                                     f"alive {alive}")
+        if has_h5py:
+            import h5py
+
+            cols = sim.plotfile_particles(["beam"])["beam"]
+            with h5py.File(out / "run" / "diag2.h5") as fh:
+                grp = fh[f"data/{DIAGS_STEPS}/particles/beam"]
+                got = {"x": grp["position/x"][...],
+                       "y": grp["position/z"][...],
+                       "weight": grp["weighting/value"][...],
+                       **{f"momentum_{c}": grp[f"momentum/{c}"][...]
+                          for c in "xyz"}}
+            for c, a in cols.items():
+                if not np.array_equal(np.asarray(got[c], np.float64),
+                                      np.asarray(a, np.float64)):
+                    raise AssertionError(f"openPMD beam {c} differs")
+        sums = sim.checksums()
+
+        # each flush kind alone on the final state
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        alone = out / "alone"
+        dg1 = next(d for d in sim.diags if d["name"] == "diag1")
+        flush = {}
+        by_kind = {rd["kind"]: timed(lambda: compute_reduced(
+            rd["kind"], sim.state, sim.cfg, sim.staggering,
+            params=rd["params"])) for rd in sim.reduced}
+        flush["reduced"] = {
+            "ms": sum(by_kind.values()), "ms_by_kind": by_kind,
+            "bytes_a_row": sum(len(",".join(r.values())) + 1
+                               for r in reduced_rows.values()),
+            "d2h_bytes": 8 * sum(len(r) - 2 for r in reduced_rows.values())}
+        flush["plotfile"] = {"ms": timed(lambda: Simulation._flush_plotfile(
+            sim, dg1, str(alone / "plt"), DIAGS_STEPS,
+            dict(sorted(cell_centered_output(
+                sim.state, sim.cfg, sim.staggering,
+                names=dg1["fields"]).items())), None)),
+            "bytes": dir_bytes(alone / "plt"),
+            "d2h_bytes": plotfiles[-1]["d2h_bytes"]}
+        shutil.rmtree(alone / "plt")
+        flush["checkpoint"] = {"ms": timed(lambda: save_checkpoint(
+            str(alone / "chk"), sim.state, sim.is_synchronized)),
+            "bytes": dir_bytes(alone / "chk"),
+            "d2h_bytes": state_bytes(sim.state)}
+        shutil.rmtree(alone / "chk")
+        if has_h5py:
+            flush["openpmd"] = {"ms": timed(lambda: write_openpmd_iteration(
+                str(alone / "beam.h5"), DIAGS_STEPS, sim.state, sim.cfg, {},
+                sim.state.time, sim.cfg.dt, [0.0, 0.0],
+                species_names=["beam"])),
+                "bytes": dir_bytes(alone), "d2h_bytes": 4 * 6 * alive["beam"]}
+        flush_steps = {s: t for s, t in step_s.items() if due_steps[s]}
+        idle_steps = {s: t for s, t in step_s.items()
+                      if not due_steps[s] and quiet_step(s - 1, interval)}
+        del sim
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        sim = Checked.from_deck(Deck.from_string(text), dtype=torch.float32,
+                                device=dev, output_dir=str(out / "restart"))
+        sim.init()
+        sim.state, sim.is_synchronized = load_checkpoint(
+            str(out / "run" / "chk000020"), sim.state)
+        if sim.state.step != 20:
+            raise AssertionError(f"restarted at step {sim.state.step}")
+        sim.evolve()
+        restarted = sim.checksums()
+        restart_err = checksums_agree(restarted, sums, TOL_RESTART,
+                                      "restart vs uninterrupted")
+        worst_of = max(((g, q) for g in sums for q in sums[g]
+                        if q not in ("divE", "divB") and sums[g][q]),
+                       key=lambda k: abs(restarted[k[0]][k[1]]
+                                         - sums[k[0]][k[1]])
+                       / abs(sums[k[0]][k[1]]))
+        del sim
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    add_launches({"fused_pic_2d": k2_row, "ragged_expand": k3_row}, launches,
+                 "main_lwfa_diags")
+    emit("main_lwfa_diags", ok=True, n_cell=[nx, nz], steps=DIAGS_STEPS,
+         h5py=has_h5py, alive_at_end=alive, launches=launches,
+         init_s=init_s, plotfiles_read_back_exactly=plotfiles,
+         flush_alone=flush,
+         s_a_step_with_outputs=flush_steps, outputs_due=due_steps,
+         s_a_step_without=idle_steps,
+         mean_s_idle=sum(idle_steps.values()) / max(len(idle_steps), 1),
+         device_waits_idle_steps=waits, main_lwfa_deck_idle=idle_waits,
+         restart={"from_step": 20, "to_step": DIAGS_STEPS,
+                  "max_rel_err": restart_err, "tol": TOL_RESTART,
+                  "worst": "/".join(worst_of)},
+         checksum_jz=sums["lev=0"]["jz"], nvidia_smi=smi)
 
 
 def phase_deck_parity(dev):
@@ -2014,7 +2347,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1c_row = phase_main_lwfa(dev, smi, k2_row, k3_row)
     torch.cuda.empty_cache()
-    k1c_mixed_row = phase_main_lwfa_deck(dev, smi, k3_row)
+    k1c_mixed_row, waits = phase_main_lwfa_deck(dev, smi, k3_row)
+    torch.cuda.empty_cache()
+    phase_main_lwfa_diags(dev, smi, k1c_mixed_row, k3_row, waits["idle"])
     torch.cuda.empty_cache()
     lab_rows = phase_labs(dev)
     print(smi)

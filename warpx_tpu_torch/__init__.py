@@ -12,7 +12,9 @@ Ported so far: the explicit electromagnetic PIC step in 2D XZ and 3D,
 periodic (``core/binned_step.py``, ``core/step.py``) and bounded
 (``core/bounded_step.py``), driven by ``Simulation``, which is built from a
 configuration or from an inputs deck (``Simulation.from_deck``,
-``core/deck.py``; the CLI is ``python -m warpx_tpu_torch``).
+``core/deck.py``; the CLI is ``python -m warpx_tpu_torch``), and the deck's
+outputs: plotfile, openPMD and checkpoint files (``io/``) and reduced
+diagnostics (``diagnostics/reduced.py``), written on the deck's schedule.
 """
 
 from . import constants  # noqa: F401

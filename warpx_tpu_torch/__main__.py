@@ -2,8 +2,10 @@
 
 The counterpart of ``python -m warpx_tpu`` (reference: Source/main.cpp,
 ``warpx.3d inputs param=value``): a deck path followed by ParmParse-style
-overrides.  It runs on the CUDA device unless ``--device cpu`` is given,
-and raises when there is no GPU rather than run on the CPU unasked.
+overrides.  The deck's outputs go under ``--output-dir``; ``--restart``
+resumes from a checkpoint directory that a ``format = checkpoint``
+diagnostic wrote.  It runs on the CUDA device unless ``--device cpu`` is
+given, and raises when there is no GPU rather than run on the CPU unasked.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ def main(argv=None) -> int:
         help='deck overrides, ParmParse style: key=value; quote lists, '
         'e.g. "amr.n_cell=32 32 32"',
     )
-    ap.add_argument("--output-dir", default=None,
-                    help="diagnostics output directory (not ported)")
+    ap.add_argument("--output-dir", default="diags",
+                    help="diagnostics output directory (default: diags)")
     ap.add_argument("--f32", action="store_true",
                     help="run in single precision (default: float64)")
     ap.add_argument("--steps", type=int, default=-1,
@@ -34,27 +36,30 @@ def main(argv=None) -> int:
     ap.add_argument("--checksums", action="store_true",
                     help="print reference-format sum-abs checksums at the end")
     ap.add_argument("--restart", default=None, metavar="CHECKPOINT",
-                    help="resume from a checkpoint directory (not ported)")
+                    help="resume from a checkpoint directory written by a "
+                    "format=checkpoint diagnostic")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where to run (default: cuda; the CPU runs the "
                     "kernels' plain PyTorch versions)")
     args = ap.parse_args(argv)
-    for flag, given in (("--output-dir", args.output_dir),
-                        ("--restart", args.restart)):
-        if given is not None:
-            raise NotImplementedError(
-                f"{flag}: diagnostics and checkpoints (ROADMAP.md Queue A 13)")
 
     import torch
 
     from warpx_tpu_torch.core.simulation import Simulation
+    from warpx_tpu_torch.io.checkpoint import load_checkpoint
+    from warpx_tpu_torch.utils.observability import WarnManager, warn
 
     # the CUDA default is Simulation's own, which raises without a GPU
     device = None if args.device == "cuda" else args.device
     sim = Simulation.from_deck(
         args.deck, overrides=tuple(args.overrides),
-        dtype=torch.float32 if args.f32 else torch.float64, device=device)
+        dtype=torch.float32 if args.f32 else torch.float64, device=device,
+        output_dir=args.output_dir)
     sim.init()
+    if args.restart:
+        sim.state, sim.is_synchronized = load_checkpoint(args.restart,
+                                                         sim.state)
+        print(f"restarted from {args.restart} at step {sim.state.step}")
     t0 = time.perf_counter()
     sim.evolve(args.steps)
     if sim.device.type == "cuda":
@@ -66,7 +71,12 @@ def main(argv=None) -> int:
         print(json.dumps(sim.checksums(), indent=2, sort_keys=True))
     unused = sim.deck.unused_keys()
     if unused:
-        print("unused deck keys: " + ", ".join(unused), file=sys.stderr)
+        warn("Inputs", "unused deck keys: " + ", ".join(unused), "low")
+    # the end-of-run warning summary (WarnManager.H:227)
+    mgr = WarnManager.instance()
+    if not mgr.empty:
+        mgr.print_summary(sys.stderr)
+        mgr.reset()
     return 0
 
 

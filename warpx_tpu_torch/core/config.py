@@ -148,6 +148,8 @@ class SimConfig:
     tile_headroom: float = 2.0
     # precision of the fused kernels (ops/fused_pic.py): f32 | mixed | bf16
     tile_mxu: str = "f32"
+    # the per-step time report (warpx.verbose; utils/observability.py)
+    verbose: bool = False
 
     @property
     def galerkin(self) -> bool:

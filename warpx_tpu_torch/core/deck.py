@@ -6,15 +6,19 @@ periodic or bounded with PML/PEC faces, moving window, Gaussian laser
 antennas, continuous injection, Gaussian beams, constant or parsed density
 and momentum profiles, the tile-binned layout and its ``tpu.*`` keys), with
 the JAX reader's defaults and derived values (reference: Source/WarpX.cpp:466
-ReadParameters; Source/Initialization/PlasmaInjector.cpp).
+ReadParameters; Source/Initialization/PlasmaInjector.cpp), and the deck's
+outputs (``outputs_from_deck``: Full diagnostics in plotfile, openPMD or
+checkpoint format, reduced diagnostics, signal handling) as the JAX
+package's ``Simulation._setup_diagnostics`` reads them.
 
 Nothing is dropped silently.  A deck key that this reader does not read, or
 a value it reads but the port does not run, raises ``NotImplementedError``
 naming the ROADMAP.md item it waits for: running a deck with a feature
 dropped would give wrong physics while reporting success (the rule of
 ``warpx_tpu/core/deck.py::_gate_unimplemented``).  The exceptions are the
-keys of ``NO_PHYSICS``, which change no physics on one device; the CLI lists
-them as unused.
+keys of ``NO_PHYSICS`` and the keys of a declared output that the JAX
+package does not read either (``diag1.file_prefix``), which change no
+physics on one device; the CLI lists them as unused.
 """
 
 from __future__ import annotations
@@ -23,11 +27,12 @@ import dataclasses
 import math
 
 from ..solvers.yee import compute_dt_ckc, compute_dt_yee
+from ..utils.intervals import IntervalsParser
 from ..utils.parser import Deck
 from .config import LaserConfig, SimConfig, SpeciesConfig
 from .grid import Geometry
 
-__all__ = ["NO_PHYSICS", "config_from_deck"]
+__all__ = ["NO_PHYSICS", "config_from_deck", "outputs_from_deck"]
 
 _QE = 1.602176634e-19
 _ME = 9.1093837015e-31
@@ -90,11 +95,10 @@ _SPECIES_TYPE_ALIASES = {
     "tritium": "hydrogen3",
 }
 
-# keys that change no physics on one device: output verbosity, the
-# reference's box decomposition, warning policy, OpenMP scheduling and the
-# multi-device load balancing
+# keys that change no physics on one device: the reference's box
+# decomposition, warning policy, OpenMP scheduling and the multi-device load
+# balancing
 NO_PHYSICS = (
-    "warpx.verbose",
     "amr.max_grid_size", "amr.max_grid_size_x", "amr.max_grid_size_y",
     "amr.max_grid_size_z",
     "amr.blocking_factor", "amr.blocking_factor_x", "amr.blocking_factor_y",
@@ -284,13 +288,11 @@ def _gate_values(deck: Deck) -> None:
 def _item_of_key(deck: Deck, key: str) -> str:
     """The ROADMAP.md item a deck key the reader does not read waits for."""
     head, _, tail = key.partition(".")
-    diag = set(deck.get_strings("diagnostics.diags_names", []))
-    diag |= set(deck.get_strings("warpx.reduced_diags_names", []))
-    if (head == "diagnostics" or head in diag
-            or key == "warpx.reduced_diags_names"
-            or head == "amr" and tail.split("_")[0] in ("plot", "check")
+    if (head == "amr" and tail.split("_")[0] in ("plot", "check")
             or "checkpoint" in key or "restart" in key):
-        return "Queue A 13"
+        # the legacy AMReX output keys and a restart named in the deck,
+        # which neither package reads (the CLI's --restart does)
+        return "Queue A 15"
     if head == "psatd":
         return "Queue A 10"
     if head == "collisions" or head in deck.get_strings(
@@ -319,6 +321,104 @@ def _item_of_key(deck: Deck, key: str) -> str:
             "lasy_file_name", "binary_file_name", "delay"):
         return "Queue A 11.2"
     return "Queue A 11"
+
+
+_FORMATS = ("plotfile", "openpmd", "checkpoint")
+_FIELDS_TO_PLOT = ["Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz"]
+
+
+def _output_species(deck: Deck):
+    return (deck.get_strings("particles.species_names", [])
+            + deck.get_strings("lasers.names", []))
+
+
+def _reduced_params(deck: Deck, nm: str) -> dict:
+    """The parameters of reduced diagnostic ``nm`` (the JAX package's
+    ``Simulation._setup_diagnostics``): multi-token values (ColliderRelevant
+    .species = a b) ride as one space-joined string."""
+    params = {}
+    for key in ("species", "reduction_type", "normalization"):
+        v = deck.get_strings(f"{nm}.{key}", [])
+        if v:
+            params[key] = " ".join(v)
+    for key in ("bin_number", "bin_number_abs", "bin_number_ord"):
+        v = deck.get_int(f"{nm}.{key}", 0)
+        if v:
+            params[key] = v
+    for key in ("bin_min", "bin_max", "bin_min_abs", "bin_max_abs",
+                "bin_min_ord", "bin_max_ord", "x_probe", "y_probe",
+                "z_probe"):
+        v = deck.get_real(f"{nm}.{key}", None)
+        if v is not None:
+            params[key] = v
+    for base in ("histogram_function", "filter_function", "reduced_function",
+                 "histogram_function_abscissa", "histogram_function_ordinate",
+                 "value_function"):
+        found = deck.get_expr_string(nm, base)
+        if found:
+            params[base] = found[0]
+    return params
+
+
+def outputs_from_deck(deck: Deck) -> dict:
+    """The deck's outputs: ``diags`` (Full diagnostics: name, format,
+    cadence, fields, species and particle filters), ``reduced`` (name, kind,
+    cadence, parameters) and the ``break_signals`` / ``checkpoint_signals``
+    of warpx.*; raises ``NotImplementedError`` naming the ROADMAP.md item
+    for an output the port lacks."""
+    from ..diagnostics.reduced import REDUCED_DIAGS
+
+    consts = deck.my_constants
+    diags = []
+    for nm in deck.get_strings("diagnostics.diags_names", []):
+        kind = _lower(deck, f"{nm}.diag_type", "full")
+        if kind != "full":
+            what = ("BackTransformed: the boosted frame's back-transformed "
+                    "diagnostics" if kind == "backtransformed" else kind)
+            _no(f"{nm}.diag_type = {what}", "Queue A 11")
+        fmt = _lower(deck, f"{nm}.format", "plotfile")
+        if fmt not in _FORMATS:
+            raise ValueError(f"{nm}.format = {fmt}: not one of {_FORMATS}")
+        pfilters = {}
+        species = deck.get_strings(f"{nm}.species", []) or None
+        for spn in species or _output_species(deck):
+            f = {}
+            found = deck.get_expr_string(f"{nm}.{spn}", "plot_filter_function")
+            if found:
+                f["filter"] = found[0]
+            stride = deck.get_int(f"{nm}.{spn}.uniform_stride", 0)
+            if stride:
+                f["stride"] = stride
+            frac = deck.get_real(f"{nm}.{spn}.random_fraction", None)
+            if frac is not None:
+                f["fraction"] = frac
+            if f:
+                pfilters[spn] = f
+        diags.append({
+            "name": nm, "format": fmt,
+            "intervals": IntervalsParser(
+                deck.get_strings(f"{nm}.intervals", ["0"]), consts),
+            "fields": deck.get_strings(f"{nm}.fields_to_plot",
+                                       list(_FIELDS_TO_PLOT)),
+            "species": species, "pfilters": pfilters})
+    reduced = []
+    for nm in deck.get_strings("warpx.reduced_diags_names", []):
+        kind = deck.get_string(f"{nm}.type", "")
+        if kind == "ChargeOnEB":
+            _no(f"reduced diagnostic {nm}.type = ChargeOnEB: embedded "
+                "boundaries", "Queue A 11.3")
+        if kind not in REDUCED_DIAGS:
+            raise ValueError(f"{nm}.type = {kind!r}: not a reduced "
+                             "diagnostic kind")
+        reduced.append({
+            "name": nm, "kind": kind,
+            "intervals": IntervalsParser(
+                deck.get_strings(f"{nm}.intervals", ["1"]), consts),
+            "params": _reduced_params(deck, nm)})
+    return {"diags": diags, "reduced": reduced,
+            "break_signals": deck.get_strings("warpx.break_signals", []),
+            "checkpoint_signals": deck.get_strings(
+                "warpx.checkpoint_signals", [])}
 
 
 def config_from_deck(deck: Deck) -> SimConfig:
@@ -431,9 +531,13 @@ def config_from_deck(deck: Deck) -> SimConfig:
         em_solver_medium=_lower(deck, "algo.em_solver_medium", "vacuum"),
         do_dive_cleaning=deck.get_bool("warpx.do_dive_cleaning", False),
         do_divb_cleaning=deck.get_bool("warpx.do_divb_cleaning", False),
+        verbose=deck.get_bool("warpx.verbose", False),
         **_tiling_from_deck(deck, ndim),
     )
-    unread = [k for k in deck.unused_keys() if k not in NO_PHYSICS]
+    outputs = outputs_from_deck(deck)
+    names = {o["name"] for o in outputs["diags"] + outputs["reduced"]}
+    unread = [k for k in deck.unused_keys()
+              if k not in NO_PHYSICS and k.partition(".")[0] not in names]
     if unread:
         raise NotImplementedError(
             "deck keys the port does not read: " + ", ".join(

@@ -11,15 +11,19 @@ per-particle ``pic_step`` for ``tiled_particles="off"``.  A configuration
 with a non-periodic field face, a moving window or a laser runs through
 ``core/bounded_step.py::BoundedStepper`` (``is_bounded``): ``step_binned``
 or ``step_main``, then ``step_window`` after every step.  ``from_deck``
-builds one from an inputs deck (``core/deck.py``).  The simulation
-runs on the CUDA device unless the caller names another device; with no GPU
-it raises rather than run on the CPU unasked.
+builds one from an inputs deck (``core/deck.py``) with the deck's outputs,
+which ``evolve`` writes on their schedule after each step
+(``flush_diagnostics``: plotfile, openPMD, checkpoint and reduced
+diagnostics under ``output_dir``).  The simulation runs on the CUDA device
+unless the caller names another device; with no GPU it raises rather than
+run on the CPU unasked.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict
 
 import numpy as np
@@ -27,7 +31,13 @@ import torch
 
 from ..constants import c as _c
 from ..diagnostics.checksum import compute_checksums
-from ..diagnostics.fields import cell_centered_output
+from ..diagnostics.fields import cell_centered_output, current_origin
+from ..diagnostics.reduced import ReducedDiagWriter, compute_reduced
+from ..io.checkpoint import save_checkpoint
+from ..io.openpmd import compact_columns, host, write_openpmd_iteration
+from ..io.plotfile import write_plotfile
+from ..utils.expression import compile_expression
+from ..utils.observability import SignalFlags, StepTimer
 from ..utils.parser import Deck
 from .binned_step import (binned_pic_step, binned_supported,
                            bounded_binned_supported, make_tile_spec,
@@ -35,7 +45,7 @@ from .binned_step import (binned_pic_step, binned_supported,
 from .bounded_step import (B_TERMS, E_TERMS, BoundedStepper,
                            check_bounded_supported, needs_bounded_step)
 from .config import SimConfig
-from .deck import config_from_deck
+from .deck import config_from_deck, outputs_from_deck
 from .grid import yee_staggering
 from .injection import (columns_to_state, inject_gaussian_beam_host,
                         inject_species, inject_species_host)
@@ -88,6 +98,10 @@ class Simulation:
         self.is_synchronized = True
         self.stepper = None
         self.deck: Deck | None = None
+        self.output_dir = "diags"
+        self.diags: list = []
+        self.reduced: list = []
+        self.signals: SignalFlags | None = None
         if self.is_bounded:
             check_bounded_supported(cfg)
             self.params = None
@@ -98,15 +112,33 @@ class Simulation:
     @classmethod
     def from_deck(cls, deck, overrides=(),
                   dtype: torch.dtype = torch.float32,
-                  device: torch.device | str | None = None) -> "Simulation":
+                  device: torch.device | str | None = None,
+                  output_dir: str = "diags") -> "Simulation":
         """A simulation of the inputs deck ``deck`` (a ``Deck`` or the path
-        of a deck file, with ParmParse ``key=value`` ``overrides``); the
-        deck is kept as ``sim.deck``."""
+        of a deck file, with ParmParse ``key=value`` ``overrides``) that
+        writes the deck's outputs under ``output_dir``; the deck is kept as
+        ``sim.deck``."""
         if not isinstance(deck, Deck):
             deck = Deck.from_file(deck, overrides)
         sim = cls(config_from_deck(deck), dtype=dtype, device=device)
         sim.deck = deck
+        sim._setup_diagnostics(outputs_from_deck(deck), output_dir)
         return sim
+
+    def _setup_diagnostics(self, outputs: dict, output_dir: str):
+        """The output schedule of ``outputs_from_deck`` (reference:
+        MultiDiagnostics / MultiReducedDiags): the reduced diagnostics'
+        writers under ``<output_dir>/reducedfiles``, the signal handlers."""
+        self.output_dir = output_dir
+        self.diags = outputs["diags"]
+        self.reduced = [
+            dict(rd, writer=ReducedDiagWriter(
+                os.path.join(output_dir, "reducedfiles"), rd["name"],
+                rd["kind"]))
+            for rd in outputs["reduced"]]
+        if outputs["break_signals"] or outputs["checkpoint_signals"]:
+            self.signals = SignalFlags(outputs["break_signals"],
+                                       outputs["checkpoint_signals"])
 
     def init(self, seed: int | None = None) -> SimState:
         cfg = self.cfg
@@ -341,7 +373,12 @@ class Simulation:
         start = self.state.step
         stop = (cfg.max_step if numsteps < 0
                 else min(start + numsteps, cfg.max_step))
+        timer = StepTimer(self.device) if cfg.verbose else None
+        signals = self.signals
         for step in range(start, stop):
+            if signals is not None and signals.break_requested:
+                # graceful break on a signal (WarpXEvolve.cpp:457-462)
+                break
             if self.is_synchronized:
                 # push the momenta back half a step (WarpXEvolve.cpp:493-505)
                 self.state = self._half_push(-0.5 * cfg.dt)
@@ -356,6 +393,15 @@ class Simulation:
                 # synchronized (WarpXEvolve.cpp:246)
                 self.state = self.stepper.step_window(
                     self.state, move_j=self.is_synchronized)
+            self.flush_diagnostics(step + 1)
+            if timer is not None:
+                timer.step_done(step + 1, float(self.state.time), cfg.dt)
+            if signals is not None and signals.pop_checkpoint():
+                # checkpoint on a signal (WarpXEvolve.cpp:1248-1259)
+                save_checkpoint(
+                    os.path.join(self.output_dir,
+                                 f"chk_signal{step + 1:06d}"),
+                    self.state, self.is_synchronized)
         return self.state
 
     def _half_push(self, dt_half: float) -> SimState:
@@ -392,6 +438,119 @@ class Simulation:
                 return wrap_positions(sp, geom)
         self.state = self.state.replace(species={
             nm: wrap(sp) for nm, sp in self.state.species.items()})
+
+    # ------------------------------------------------------------- outputs
+    def flush_diagnostics(self, step: int):
+        """Write the outputs due at ``step`` (the step just completed).  A
+        step with nothing due touches no tensor, so it adds no wait for the
+        device."""
+        if not any(o["intervals"].contains(step)
+                   for o in self.reduced + self.diags):
+            return
+        self._normalize_binned()
+        for rd in self.reduced:
+            if rd["intervals"].contains(step):
+                vals = compute_reduced(rd["kind"], self.state, self.cfg,
+                                       self.staggering, params=rd["params"])
+                rd["writer"].write(step, float(self.state.time), vals)
+        for dg in self.diags:
+            if not dg["intervals"].contains(step):
+                continue
+            path = os.path.join(self.output_dir, f"{dg['name']}{step:06d}")
+            if dg["format"] == "checkpoint":
+                save_checkpoint(path, self.state, self.is_synchronized)
+                continue
+            wanted = dg["fields"]
+            fields = {}
+            if wanted != ["none"]:
+                # by name, the order of the JAX package's files
+                fields = dict(sorted(cell_centered_output(
+                    self.state, self.cfg, self.staggering,
+                    names=wanted or None).items()))
+            select = self._particle_select(dg["pfilters"])
+            if dg["format"] == "plotfile":
+                self._flush_plotfile(dg, path, step, fields, select)
+            else:
+                write_openpmd_iteration(
+                    os.path.join(self.output_dir, f"{dg['name']}.h5"), step,
+                    self.state, self.cfg, fields, float(self.state.time),
+                    self.cfg.dt, current_origin(self.state, self.cfg),
+                    species_names=dg["species"], select=select)
+
+    def plotfile_particles(self, species_names=None, select=None):
+        """The particle columns a plotfile holds, per species: the alive
+        (and selected) slots compacted on the device, positions, momenta
+        m*u and weights as host arrays."""
+        ndim = self.cfg.geometry.ndim
+        out = {}
+        for sp_cfg in self.cfg.species:
+            if species_names is not None and sp_cfg.name not in species_names:
+                continue
+            sp = self.state.species[sp_cfg.name]
+            if sp.capacity == 0:
+                continue
+            mask = sp.alive
+            if select and sp_cfg.name in select:
+                mask = mask & select[sp_cfg.name]
+            cols = compact_columns(
+                mask, [*sp.positions(ndim), sp.ux, sp.uy, sp.uz, sp.w])
+            attrs = dict(zip(["x", "y", "z"][:ndim], cols[:ndim]))
+            for c, u in zip("xyz", cols[ndim:ndim + 3]):
+                attrs[f"momentum_{c}"] = sp_cfg.mass * u
+            attrs["weight"] = cols[ndim + 3]
+            out[sp_cfg.name] = attrs
+        return out
+
+    def _flush_plotfile(self, dg, path, step, fields, select):
+        """The AMReX plotfile ``<output_dir>/<diag><step:06d>/``
+        (FlushFormatPlotfile; io/plotfile.py) of the cell-centered
+        ``fields`` and the selected particles, at the window's origin."""
+        geom = self.cfg.geometry
+        origin = [float(o) for o in current_origin(self.state, self.cfg)]
+        prob_hi = [o + hi - lo for o, lo, hi in zip(origin, geom.prob_lo,
+                                                     geom.prob_hi)]
+        # a plotfile holds at least one component
+        level = ({k: host(v) for k, v in fields.items()} if fields
+                 else {"Ex": host(self.state.fields.Ex)})
+        write_plotfile(
+            path, [level], prob_lo=origin, prob_hi=prob_hi,
+            time=float(self.state.time), step=step,
+            particles=self.plotfile_particles(dg["species"], select))
+
+    def _particle_select(self, pfilters):
+        """Per-species output masks on the state's device from a
+        diagnostic's particle filters (reference: Source/Diagnostics/
+        FilterFunctors: a parsed filter of (t,x,y,z,ux,uy,uz), u in units of
+        c; every k-th slot; a random fraction drawn on the host from the
+        seed and the step, as the JAX package draws it)."""
+        if not pfilters:
+            return None
+        geom = self.cfg.geometry
+        act = {1: (2,), 2: (0, 2), 3: (0, 1, 2)}[geom.ndim]
+        rng = np.random.default_rng(self.cfg.seed + int(self.state.step))
+        consts = self.deck.my_constants if self.deck is not None else {}
+        select = {}
+        for spn, f in pfilters.items():
+            sp = self.state.species[spn]
+            n = sp.capacity
+            mask = torch.ones(n, dtype=torch.bool, device=self.device)
+            if "filter" in f:
+                xyz = [torch.zeros_like(sp.w)] * 3
+                for d, a in enumerate(act):
+                    xyz[a] = sp.positions(geom.ndim)[d]
+                u = [getattr(sp, "u" + c) / _c for c in "xyz"]
+                fn = compile_expression(
+                    f["filter"], ("t", "x", "y", "z", "ux", "uy", "uz"),
+                    consts)
+                mask &= fn(float(self.state.time), *xyz, *u) > 0
+            if "stride" in f:
+                mask &= torch.arange(n, device=self.device) % max(
+                    int(f["stride"]), 1) == 0
+            if "fraction" in f:
+                mask &= torch.from_numpy(
+                    rng.random(n) < float(f["fraction"])).to(self.device)
+            select[spn] = mask
+        return select
 
     def field_diagnostics(self) -> Dict[str, torch.Tensor]:
         return cell_centered_output(self.state, self.cfg, self.staggering)

@@ -140,14 +140,20 @@ def _bounded_div(comp, cfg):
     return div_e, div_b
 
 
-def cell_centered_output(state: SimState, cfg: SimConfig,
-                         staggering: Dict) -> Dict[str, torch.Tensor]:
-    """E, B, j, rho, divE, divB and part_per_cell at cell centers."""
+def cell_centered_output(state: SimState, cfg: SimConfig, staggering: Dict,
+                         names=None) -> Dict[str, torch.Tensor]:
+    """E, B, j, rho, divE, divB and part_per_cell at cell centers (those of
+    ``names`` only, when given)."""
     geom = cfg.geometry
     if cfg.field_gathering == "momentum-conserving":
         raise NotImplementedError(
-            "momentum-conserving diagnostics (ROADMAP.md Queue A 13)"
+            "momentum-conserving gathering's output fields "
+            "(ROADMAP.md Queue A 11.4)"
         )
+
+    def want(name):
+        return names is None or name in names
+
     f = state.fields
     layout = DomainLayout.from_config(cfg)
     crops = ({name: layout.phys_slice(flags)
@@ -160,23 +166,31 @@ def cell_centered_output(state: SimState, cfg: SimConfig,
 
     out = {}
     for name in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz"):
-        out[name] = cell_center(comp(name), staggering[name], geom.n_cell)
-    out["rho"] = cell_center(deposit_total_rho(state, cfg),
-                             staggering["rho"], geom.n_cell)
-    bc_lo = cfg.field_bc_lo or ("periodic",) * geom.ndim
-    if all(bc == "periodic" for bc in bc_lo):
-        div_e, div_b = yee.compute_div_e(f, geom), yee.compute_div_b(f, geom)
-    else:
-        div_e, div_b = _bounded_div(comp, cfg)
-    out["divE"] = cell_center(div_e, (1,) * geom.ndim, geom.n_cell)
-    out["divB"] = div_b
-    origin = current_origin(state, cfg)
-    ppc = torch.zeros(geom.n_cell, dtype=f.Ex.dtype, device=f.Ex.device)
-    for sp_cfg in cfg.species:
-        sp = state.species[sp_cfg.name]
-        if sp.capacity:
-            ppc = ppc + count_particles_per_cell(
-                sp.positions(geom.ndim), sp.alive, geom, origin=origin
-            )
-    out["part_per_cell"] = ppc
+        if want(name):
+            out[name] = cell_center(comp(name), staggering[name],
+                                    geom.n_cell)
+    if want("rho"):
+        out["rho"] = cell_center(deposit_total_rho(state, cfg),
+                                 staggering["rho"], geom.n_cell)
+    if want("divE") or want("divB"):
+        bc_lo = cfg.field_bc_lo or ("periodic",) * geom.ndim
+        if all(bc == "periodic" for bc in bc_lo):
+            div_e = yee.compute_div_e(f, geom)
+            div_b = yee.compute_div_b(f, geom)
+        else:
+            div_e, div_b = _bounded_div(comp, cfg)
+        if want("divE"):
+            out["divE"] = cell_center(div_e, (1,) * geom.ndim, geom.n_cell)
+        if want("divB"):
+            out["divB"] = div_b
+    if want("part_per_cell"):
+        origin = current_origin(state, cfg)
+        ppc = torch.zeros(geom.n_cell, dtype=f.Ex.dtype, device=f.Ex.device)
+        for sp_cfg in cfg.species:
+            sp = state.species[sp_cfg.name]
+            if sp.capacity:
+                ppc = ppc + count_particles_per_cell(
+                    sp.positions(geom.ndim), sp.alive, geom, origin=origin
+                )
+        out["part_per_cell"] = ppc
     return out
