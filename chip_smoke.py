@@ -51,10 +51,23 @@ exits non-zero:
                Simulation.from_deck, card against CPU, 12 steps (1e-9); then
                the CLI (python -m warpx_tpu_torch) on the card as a process
                of its own, its checksums against an in-process run;
+  psatd_parity the standard PSATD solver in float64 on the card against
+               the CPU: PsatdSolver.push (3D, 2D) and PsatdPmlSolver.push
+               (F/G splits) on seeded fields to 1e-12 (cuFFT against
+               pocketfft); then the 16^3 periodic deck (K1, psatd_order 16
+               on guard-padded boxes), the 32^2 one (K2, one periodic box,
+               order 3) and the 32 x 64 laser-wakefield deck (K1c, PML with
+               F/G splits, 8 steps), tile-binned: every checksum within
+               1e-9, divE/divB within 1e-9 of their largest value cell by
+               cell, the fused kernel launched once per step;
   main         the 3D main path at 128^3 cells, 2 species, 8.39 M particles,
                float32: init, one warm step, 20 timed steps, 3 profiled
                steps, the closing step; then each kernel at the main path's
                shapes against its plain version, timed beside its bound;
+  main_psatd   uniform-128-psatd: main's plasma and dt with the PSATD
+               solver (psatd_order 16), driven as main is, then one
+               spectral push timed alone (FFT calls, kernel launches,
+               device ms);
   main_mixed   the same path at tile_mxu = 'mixed' (bench.py's default), and
                main_bf16 at 'bf16'; K1 in each mode at its shapes against
                its plain version, timed beside K1 at 'f32';
@@ -90,6 +103,11 @@ exits non-zero:
                final state (ms, bytes written, bytes from the device); then
                a fresh simulation restarted from the checkpoint and run to
                40, its checksums within TOL_RESTART of the run's;
+  main_lwfa_psatd  lwfa2d-2048x8192-psatd: bench.py's deck text with the
+               PSATD solver and Esirkepov deposition at 'mixed' (spectral
+               PML with F/G splits), 38 steps driven as main_lwfa is; then
+               the spectral push with its PML splits timed alone, and K1c at
+               'mixed' at its shapes against its plain version;
   labs         each Hopper lab's main() at the TPU lab's default shapes (L1
                in every mode): kernel against plain version, times, bounds,
                the library's yardstick where there is one; each lab prints
@@ -1717,6 +1735,291 @@ def phase_main_lwfa_deck(dev, smi, k3_row, nx=2048, nz=8192):
             "zshift": zshift, "smax": sim.stepper.smax, **row}, waits
 
 
+# ---- the PSATD spectral solver ---------------------------------------------
+
+C_LIGHT = 299792458.0
+# seeded random fields for the solver pushes: E [V/m], B [T], J [A/m^2], F, G
+PSATD_SCALE = {"E": 1e10, "B": 30.0, "j": 1e12, "F": 1e10, "G": 1e9}
+# LWFA_PSATD_PLAN's 38 steps rebin at steps 0, 16 and 32
+LWFA_PSATD_PLAN = dict(warm=16, timed=8, counted=8, interval=16)
+
+
+def psatd_deck(text):
+    """A laser-wakefield deck with the standard PSATD solver; it names
+    Esirkepov deposition, as PSATD's default (direct) is not ported."""
+    return text.replace("algo.maxwell_solver = yee",
+                        "algo.maxwell_solver = psatd\n"
+                        "algo.current_deposition = esirkepov")
+
+
+def psatd_slice_cfg(ndim):
+    """tests/test_torch_psatd_slice.py's decks: small_cfg's plasma at 16^3,
+    order 1, psatd_order 16 on the guard-padded boxes, or at 32^2, order 3,
+    on one periodic box; 6 steps at dt = 0.999 dx / c."""
+    cfg = small_cfg(ndim)
+    return dataclasses.replace(
+        cfg, em_solver="psatd", psatd_order=16, max_step=6,
+        psatd_periodic_single_box=ndim == 2,
+        particle_shape=1 if ndim == 3 else 3,
+        dt=0.999 * min(cfg.geometry.dx) / C_LIGHT)
+
+
+def psatd_solver_parity(dev):
+    """PsatdSolver.push (3D, 2D) and PsatdPmlSolver.push (2D, F/G splits)
+    on seeded random fields, float64, card (cuFFT) against CPU (pocketfft):
+    the worst error over each output's largest value."""
+    from warpx_tpu_torch.core.grid import Geometry, yee_staggering
+    from warpx_tpu_torch.solvers.psatd import (PsatdPmlSolver, PsatdSolver,
+                                               pml_split_dirs)
+
+    worst = {}
+    for ndim, n_cell in ((3, (16, 16, 32)), (2, (64, 128))):
+        geom = Geometry(ndim=ndim, n_cell=n_cell, prob_lo=(-8e-6,) * ndim,
+                        prob_hi=(8e-6,) * ndim, periodic=(True,) * ndim)
+        stag = yee_staggering(ndim)
+        dt = 0.5 * min(geom.dx) / C_LIGHT
+        rng = np.random.default_rng(ndim)
+        names = ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")
+        data = {nm: rng.normal(size=n_cell) * PSATD_SCALE[nm[0]]
+                for nm in names}
+        comps = ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "F", "G")
+        splits = {(nm, ax): rng.normal(size=n_cell) * PSATD_SCALE[nm[0]]
+                  for nm in comps for ax in pml_split_dirs(nm, True)}
+        outs = {}
+        for device in (dev, "cpu"):
+            kw = dict(dtype=torch.float64, device=device)
+            sol = PsatdSolver(geom, stag, dt, **kw)
+            got = sol.push({nm: torch.from_numpy(a).to(device)
+                            for nm, a in data.items()})
+            outs[str(device)] = {nm: got[nm].cpu() for nm in names[:6]}
+            if ndim == 2:
+                pml = PsatdPmlSolver(geom, stag, dt, dive_cleaning=True,
+                                     divb_cleaning=True, **kw)
+                got = pml.push({k: torch.from_numpy(a).to(device)
+                                for k, a in splits.items()})
+                outs[str(device)].update(
+                    {f"pml:{k[0]}:{k[1]}": v.cpu() for k, v in got.items()})
+        for nm, ref in outs["cpu"].items():
+            err = rel_err(outs[str(dev)][nm], ref)[1]
+            worst[f"{ndim}d:{nm}"] = err
+            if err > 1e-12:
+                raise AssertionError(f"PSATD push {ndim}D {nm}: card against "
+                                     f"CPU {err}")
+    return max(worst.values())
+
+
+def div_agree(got, ref, tol, what):
+    """divE and divB cell by cell: the worst difference over the largest
+    |value|; raises above ``tol``."""
+    out = {}
+    for k in ("divE", "divB"):
+        a, b = got[k].double().cpu(), ref[k].double().cpu()
+        out[k] = rel_err(a, b)[1]
+        if out[k] > tol:
+            raise AssertionError(f"{what} {k}: {out[k]} of its largest value")
+    return out
+
+
+def phase_psatd_parity(dev):
+    """The standard PSATD solver in float64, card against CPU: the solver
+    pushes at 1e-12; then the 16^3 (K1) and 32^2 (K2) periodic decks and
+    the 32 x 64 laser-wakefield deck (K1c: PML with F/G splits, moving
+    window, 8 steps, a rebin at 4) through the tile-binned step, every
+    checksum within 1e-9 and divE/divB within 1e-9 of their largest value
+    cell by cell, the fused kernel launched once per step; and each deck's
+    float32 run on the card against its float64 run (``float32_spread``),
+    the 32 x 64 deck's under Yee beside it."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.utils.parser import Deck
+
+    solver_err = psatd_solver_parity(dev)
+    lwfa = psatd_deck(LWFA_32X64_DECK).replace("max_step = 12",
+                                               "max_step = 8")
+
+    def periodic(ndim):
+        return lambda device, dtype=torch.float64: warpx_tpu_torch.Simulation(
+            psatd_slice_cfg(ndim), dtype=dtype, device=device)
+
+    def bounded(device, dtype=torch.float64):
+        return warpx_tpu_torch.Simulation.from_deck(
+            Deck.from_string(lwfa), dtype=dtype, device=device)
+
+    cases = []
+    for name, make, counter in (("periodic_16^3", periodic(3), "launches"),
+                                ("periodic_32^2", periodic(2), "launches_2d"),
+                                ("lwfa_32x64", bounded, "launches_2d")):
+        sums, divs = {}, {}
+        before = getattr(fp.binned_push_deposit, counter)
+        for device in (dev, "cpu"):
+            sim = make(device)
+            if not sim.binned or sim.cfg.em_solver != "psatd":
+                raise AssertionError(f"{name} did not take the tile-binned "
+                                     "PSATD step")
+            sim.init()
+            sim.evolve()
+            divs[str(device)] = sim.field_diagnostics()
+            sums[str(device)] = sim.checksums()  # raises on overflow etc.
+            if device is dev:
+                aux = sim.state.aux
+                steps = sim.cfg.max_step
+        grew = getattr(fp.binned_push_deposit, counter) - before
+        if grew != steps:
+            raise AssertionError(f"{name}: {grew} fused launches in {steps} "
+                                 "steps")
+        if sim.is_bounded and not aux["window_offset"] > 0:
+            raise AssertionError(f"{name}: the window did not move")
+        worst = checksums_agree(sums[str(dev)], sums["cpu"], 1e-9,
+                                f"{name} card vs CPU")
+        cases.append({"case": name, "steps": steps, "fused_launches": grew,
+                      "max_rel_err": worst,
+                      "div_rel_err": div_agree(divs[str(dev)], divs["cpu"],
+                                               1e-9, name),
+                      "window_offset": int(aux.get("window_offset", 0)),
+                      "float32_spread": float32_spread(make, dev,
+                                                       sums[str(dev)])})
+    # the same spread under Yee, for scale
+    def yee(device, dtype=torch.float64):
+        return warpx_tpu_torch.Simulation.from_deck(
+            Deck.from_string(LWFA_32X64_DECK.replace("max_step = 12",
+                                                     "max_step = 8")),
+            dtype=dtype, device=device)
+
+    ref = yee(dev)
+    ref.init()
+    ref.evolve()
+    emit("psatd_parity", ok=True, tol=1e-9, solver_push_max_rel_err=solver_err,
+         solver_tol=1e-12, cases=cases,
+         lwfa_32x64_yee_float32_spread=float32_spread(yee, dev,
+                                                      ref.checksums()))
+
+
+def float32_spread(make, dev, sums64):
+    """The run of ``make`` in float32 on the card against its float64 run's
+    checksums ``sums64``: the largest relative difference of each field's
+    and each species' checksums (divE/divB left out), reported, not held
+    to a bound."""
+    sim = make(dev, torch.float32)
+    sim.init()
+    sim.evolve()
+    sums = sim.checksums()
+    out = {}
+    for group, ref in sums64.items():
+        out[group] = max(
+            (abs(sums[group][q] - a) / abs(a) for q, a in ref.items()
+             if a and q not in ("divE", "divB")), default=0.0)
+    return out
+
+
+def psatd_push_cost(push):
+    """One spectral push (``push()``): its FFT calls (counted on
+    torch.fft), its device kernels and their device time (torch.profiler),
+    and its time from CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = {"fftn": 0, "ifftn": 0}
+    orig = {nm: getattr(torch.fft, nm) for nm in calls}
+
+    def counted(nm):
+        def fn(*a, **kw):
+            calls[nm] += 1
+            return orig[nm](*a, **kw)
+        return fn
+
+    for nm in calls:
+        setattr(torch.fft, nm, counted(nm))
+    try:
+        push()
+    finally:
+        for nm, fn in orig.items():
+            setattr(torch.fft, nm, fn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        push()
+        torch.cuda.synchronize()
+    launches = fft_launches = 0
+    device_ms = fft_ms = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        launches += evt.count
+        device_ms += us / 1e3
+        if "fft" in evt.key.lower():
+            fft_launches += evt.count
+            fft_ms += us / 1e3
+    return {"fft_calls": calls, "kernel_launches": launches,
+            "fft_kernel_launches": fft_launches, "device_ms": device_ms,
+            "fft_device_ms": fft_ms, "ms": cuda_ms(push, 3)}
+
+
+def phase_main_psatd(dev, smi, k1_row, k3_row, n=128):
+    """uniform-128-psatd: main's plasma and dt with the standard PSATD
+    solver (psatd_order 16, guard-padded boxes of (n + 16)^3), 25 steps
+    through K1 and K3 as main drives them; then one spectral push timed
+    alone on the final state.  Adds this path's launches to the rows of K1
+    and K3."""
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.ops import tiling
+
+    cfg = dataclasses.replace(main_cfg(n), em_solver="psatd", psatd_order=16)
+    sim, launches = run_main_path(
+        dev, smi, "main_psatd", cfg, 2 * 2 * n ** 3, 20,
+        {"fused_pic": (fp.binned_push_deposit, "launches"),
+         "ragged_expand": (tiling.ragged_expand, "launches")})
+    if sim.psatd is None or sim.psatd.n_fft != (n + 16,) * 3:
+        raise AssertionError(f"main_psatd's solver: {sim.psatd}")
+    f = sim.state.fields
+    names = ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")
+    cost = psatd_push_cost(
+        lambda: sim.psatd.push({nm: getattr(f, nm) for nm in names}))
+    emit("main_psatd_push", n_fft=sim.psatd.n_fft, **cost, nvidia_smi=smi)
+    add_launches({"fused_pic": k1_row, "ragged_expand": k3_row}, launches,
+                 "main_psatd")
+
+
+def phase_main_lwfa_psatd(dev, smi, k1c_row, k3_row, nx=2048, nz=8192):
+    """lwfa2d-2048x8192-psatd: bench.py's deck text with the standard PSATD
+    solver and Esirkepov deposition through Simulation.from_deck at 'mixed'
+    (PML on four faces with their F/G splits, the extended box of
+    (nx + 20) x (nz + 20) transformed whole), 38 steps with rebins at 0, 16
+    and 32, driven as main_lwfa is; then the spectral push (with the PML
+    splits) timed alone on the final state, and K2 in moving-window mode at
+    'mixed' at its shapes against its plain version, with the tiles that
+    took its checked path (``k1c_wide_tiles.py`` counts them at this step
+    under Yee too).  Adds this path's launches to the rows of K1c at
+    'mixed' and K3."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.utils.parser import Deck
+
+    steps = lwfa_steps(LWFA_PSATD_PLAN)
+    sim = warpx_tpu_torch.Simulation.from_deck(
+        Deck.from_string(psatd_deck(lwfa_deck_text(nx, nz, steps, "mixed"))),
+        dtype=torch.float32, device=dev)
+    launches, anchors, zshift, waits = run_lwfa_path(
+        dev, smi, "main_lwfa_psatd", sim, LWFA_PSATD_PLAN)
+    st = sim.stepper
+    if st.psatd is None or st.psatd_pml is None or not st.psatd_pml.cleaning:
+        raise AssertionError("main_lwfa_psatd did not run the spectral PML")
+    state = sim.state
+    cost = psatd_push_cost(lambda: st.psatd_push(state.fields,
+                                                 dict(state.aux)))
+    n_splits = sum(k.startswith("pml:") for k in state.aux)
+    row = k2_window_at_main_shapes(sim, anchors, zshift, mxu="mixed")
+    emit("main_lwfa_psatd_push", n_fft=st.psatd.n_fft, pml_splits=n_splits,
+         **cost, fused_pic_moving_window_mixed={
+             k: row[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                                 "wide_tiles", "occupied_tiles")},
+         idle_waits=waits["idle"], nvidia_smi=smi)
+    add_launches({"fused_pic_moving_window_mixed": k1c_row,
+                  "ragged_expand": k3_row},
+                 {"fused_pic_moving_window_mixed": launches["fused_pic_2d"],
+                  "ragged_expand": launches["ragged_expand"]},
+                 "main_lwfa_psatd")
+
+
 # ---- the output path -------------------------------------------------------
 
 # The outputs main_lwfa_diags adds to bench.py's deck: a plotfile at steps 20
@@ -2340,7 +2643,11 @@ def main() -> int:
     phase_slice_parity(dev, "slice2d_parity", 2)
     phase_bounded_parity(dev)
     phase_deck_parity(dev)
+    phase_psatd_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
+    k1_row["launches_by_path"] = {"main": k1_row["launches"]}
+    phase_main_psatd(dev, smi, k1_row, k3_row)
+    torch.cuda.empty_cache()
     k1d_rows = phase_main_mixed(dev, smi, k3_row)
     k2_row = phase_main2d(dev, smi, k3_row)
     k2_row["launches_by_path"] = {"main2d": k2_row["launches"]}
@@ -2350,6 +2657,8 @@ def main() -> int:
     k1c_mixed_row, waits = phase_main_lwfa_deck(dev, smi, k3_row)
     torch.cuda.empty_cache()
     phase_main_lwfa_diags(dev, smi, k1c_mixed_row, k3_row, waits["idle"])
+    torch.cuda.empty_cache()
+    phase_main_lwfa_psatd(dev, smi, k1c_mixed_row, k3_row)
     torch.cuda.empty_cache()
     lab_rows = phase_labs(dev)
     print(smi)

@@ -535,9 +535,11 @@ def test_bounded_binned_gate(jax_lwfa):
         assert not bounded_binned_supported(dataclasses.replace(cfg, **kw))
         assert not j_bounded_binned_supported(
             dataclasses.replace(jcfg, **kw))
-    # PSATD waits for its solver in the port
-    assert not bounded_binned_supported(
+    # the standard PSATD solver rides the tile-binned step, as in JAX
+    assert bounded_binned_supported(
         dataclasses.replace(cfg, em_solver="psatd"))
+    assert j_bounded_binned_supported(
+        dataclasses.replace(jcfg, em_solver="psatd"))
     with pytest.raises(NotImplementedError, match="bounded_binned_supported"):
         warpx_tpu_torch.Simulation(
             dataclasses.replace(cfg, moving_window_dir=0),
@@ -555,7 +557,8 @@ def _with_species(cfg, i, **kw):
 
 
 @pytest.mark.parametrize("change,match", [
-    (lambda c: dataclasses.replace(c, em_solver="psatd"), "Queue A 10"),
+    (lambda c: dataclasses.replace(c, em_solver="psatd",
+                                   psatd_j_in_time="linear"), "Queue A 10.2"),
     (lambda c: dataclasses.replace(c, em_solver="ect"), "Queue A 11"),
     (lambda c: dataclasses.replace(
         c, field_bc_lo=("absorbing_silver_mueller", "pml")), "Queue A 11"),

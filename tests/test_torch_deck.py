@@ -208,8 +208,10 @@ electrons.density = 1.e24
      "geometry.prob_hi = 1.e-6", "Queue A 3-4"),
     ("geometry.dims = RZ", "Queue A 12"),
     ("amr.max_level = 1", "Queue A 12"),
-    ("algo.maxwell_solver = psatd", "Queue A 10"),
-    ("psatd.nox = 8", "Queue A 10"),
+    ("algo.maxwell_solver = psatd\nalgo.current_deposition = esirkepov\n"
+     "psatd.J_in_time = linear", "Queue A 10.2"),
+    ("algo.maxwell_solver = psatd\nalgo.current_deposition = esirkepov\n"
+     "psatd.update_with_rho = 1", "Queue A 10.2"),
     ("warpx.do_electrostatic = labframe", "Queue A 11.3"),
     ("algo.evolve_scheme = theta_implicit_em", "Queue A 11.3"),
     ("collisions.collision_names = c1\nc1.species = electrons electrons",

@@ -3,9 +3,9 @@ hot path.
 
 The counterpart of ``warpx_tpu.core.binned_step``: the explicit step
 (OneStep_nosub, WarpXEvolve.cpp:354-460) restricted to its hot core
-(periodic, Yee/CKC, Boris/Vay/HC push, Esirkepov deposition, no particle
-creation), run through the tile-binned layout (``ops/tiling.py``) and the
-fused kernel (``ops/fused_pic.py``):
+(periodic, Yee/CKC or standard PSATD, Boris/Vay/HC push, Esirkepov
+deposition, no particle creation), run through the tile-binned layout
+(``ops/tiling.py``) and the fused kernel (``ops/fused_pic.py``):
 
   rebin every ``interval`` steps (kernel K3) -> guard-pad the fields ->
   fused gather + push + deposit per pusher group (kernel K1 in 3D, K2 in
@@ -42,17 +42,23 @@ _FOLD_AXES = {3: ((0, 1, 2), (1, 0, 2), (2, 0, 1)),
 
 def binned_supported(cfg: SimConfig) -> bool:
     """Whether the port's tile-binned path covers this configuration (the
-    JAX package's ``binned_supported`` less what is not ported yet:
-    PSATD)."""
+    JAX package's ``binned_supported``)."""
     geom = cfg.geometry
     if cfg.tiled_particles == "off":
         return False
     if geom.ndim not in (2, 3) or not geom.all_periodic:
         return False
-    if cfg.em_solver not in ("yee", "ckc", "none"):
+    if cfg.em_solver not in ("yee", "ckc", "psatd", "none"):
         return False
     if cfg.em_solver_medium != "vacuum":
         return False
+    if cfg.em_solver == "psatd":
+        # rho-free standard PSATD only (current correction and multi-J need
+        # rho deposits the kernels do not make)
+        if (cfg.psatd_current_correction or cfg.psatd_update_with_rho
+                or cfg.psatd_j_in_time != "constant"
+                or any(cfg.psatd_v_galilean)):
+            return False
     if cfg.current_deposition != "esirkepov":
         return False
     if cfg.grid_type != "staggered":
@@ -77,19 +83,26 @@ def bounded_binned_supported(cfg: SimConfig) -> bool:
     """Whether the tile-binned step covers this bounded configuration
     (non-periodic faces, moving window, lasers:
     ``core/bounded_step.py::step_binned``): the JAX package's
-    ``bounded_binned_supported`` less what is not ported yet (PSATD).  Only
-    the gather + push + deposit block moves onto the fused kernels; guard
-    fills, J filter and fold, field advance, PML, particle boundaries and
-    continuous injection are the per-particle step's."""
+    ``bounded_binned_supported``.  Only the gather + push + deposit block
+    moves onto the fused kernels; guard fills, J filter and fold, field
+    advance (FDTD or PSATD), PML, particle boundaries and continuous
+    injection are the per-particle step's."""
     geom = cfg.geometry
     if cfg.tiled_particles == "off":
         return False
     if geom.ndim not in (2, 3) or geom.rz:
         return False
-    if cfg.em_solver not in ("yee", "ckc"):
+    if cfg.em_solver not in ("yee", "ckc", "psatd"):
         return False
     if cfg.em_solver_medium != "vacuum":
         return False
+    if cfg.em_solver == "psatd":
+        if (cfg.psatd_current_correction or cfg.psatd_update_with_rho
+                or cfg.psatd_j_in_time != "constant"
+                or cfg.psatd_time_averaging
+                or cfg.multi_j_n_depositions > 1
+                or any(cfg.psatd_v_galilean) or any(cfg.psatd_v_comoving)):
+            return False
     if cfg.current_deposition != "esirkepov":
         return False
     if cfg.grid_type != "staggered":
@@ -176,9 +189,10 @@ def pusher_groups(state: SimState, spec: TileSpec, params: Dict):
 
 
 def binned_pic_step(state: SimState, cfg: SimConfig, staggering: Dict,
-                    spec: TileSpec, params: Dict) -> SimState:
+                    spec: TileSpec, params: Dict, psatd=None) -> SimState:
     """One fused explicit EM PIC step over the tile-binned layout;
-    ``params`` is ``pusher_params(cfg, ...)`` on the state's device."""
+    ``params`` is ``pusher_params(cfg, ...)`` on the state's device,
+    ``psatd`` the spectral solver under em_solver = psatd."""
     geom = cfg.geometry
     ndim = geom.ndim
     dt = cfg.dt
@@ -236,7 +250,7 @@ def binned_pic_step(state: SimState, cfg: SimConfig, staggering: Dict,
             for i in range(3)
         )
 
-    fields = advance_fields(state.fields, cfg, j_total)
+    fields = advance_fields(state.fields, cfg, j_total, psatd)
     aux = dict(state.aux)
     aux["tile_overflow"] = overflow
     aux["tile_violations"] = violations

@@ -2,13 +2,17 @@
 
 The counterpart of ``warpx_tpu.core.bounded_step`` (there one closure,
 ``make_bounded_kernels``; here the class ``BoundedStepper``) for the explicit
-FDTD case, 2D XZ and 3D:
+FDTD and standard PSATD cases, 2D XZ and 3D:
 
 * per-face field boundaries (periodic | pec | pml) as guard fills on
   ng-padded blocks (WarpX_PEC.cpp mirror rules, ``core/boundaries.py``); a
   component nodal in a bounded dimension stores n+1 values, both wall nodes
   included; PML strips are ordinary array regions (``core/domain.py``) that
   evolve the Berenger split fields ``aux["pml:<comp>:<axis>"]``;
+* under PSATD, the spectral push over the whole extended box (periodic,
+  damped and pml faces): damped zones ramp the fields down with a sin^2
+  profile, PML strips evolve spectral split fields (with F/G splits under
+  ``do_pml_dive_cleaning``) on the same box (``solvers/psatd.py``);
 * deposition guards at non-periodic faces are dropped, periodic ones folded
   (SumBoundary folds only the periodic directions, WarpXComm.cpp:1552);
 * the bilinear filter of J on the padded block (WarpXComm.cpp:1357);
@@ -56,15 +60,17 @@ from ..ops.push import PUSHERS, position_step
 from ..ops.tiling import fold_windows_open, rebin
 from ..solvers import yee
 from ..solvers.filter import bilinear_filter_padded
+from ..solvers.psatd import PsatdPmlSolver, PsatdSolver
 from .binned_step import _FOLD_AXES, pusher_groups, pusher_params
 from .boundaries import fill_guards_pec, is_tangential
 from .config import SimConfig
 from .domain import DomainLayout
+from .grid import Geometry
 from .injection import (PARSED_PROFILES, _AXES3, _bulk_momentum,
                         _regular_unit_positions, profile_values)
 from .laser import update_antenna
 from .state import SimState
-from .step import _add_ext
+from .step import _add_ext, check_psatd
 
 __all__ = ["BoundedStepper", "guard_width", "field_shapes",
            "check_bounded_supported", "needs_bounded_step"]
@@ -72,6 +78,7 @@ __all__ = ["BoundedStepper", "guard_width", "field_shapes",
 _COMP_AXIS = {"x": 0, "y": 1, "z": 2}
 _c2 = _c * _c
 _EB = ("Ex", "Ey", "Ez", "Bx", "By", "Bz")
+_FIELDS = _EB + ("jx", "jy", "jz")
 
 # Yee curl terms: output comp -> [(sign, input comp, diff xyz-axis, up|dn)]
 B_TERMS = {
@@ -117,13 +124,18 @@ def check_bounded_supported(cfg: SimConfig) -> None:
     if ndim not in (2, 3):
         no("1D", "Queue A 3-4")
     if cfg.em_solver == "psatd":
-        no("the PSATD solver with damped or PML faces", "Queue A 10")
-    if cfg.em_solver not in ("yee", "ckc"):
+        check_psatd(cfg)
+        for bc in tuple(cfg.field_bc_lo) + tuple(cfg.field_bc_hi):
+            if bc not in ("periodic", "damped", "pml"):
+                no(f"PSATD with field boundary {bc!r} (the JAX package has "
+                   "periodic, damped and pml)", "Queue A 11")
+    elif cfg.em_solver not in ("yee", "ckc"):
         no(f"em_solver {cfg.em_solver!r}", "Queue A 11")
-    for bc in tuple(cfg.field_bc_lo) + tuple(cfg.field_bc_hi):
-        if bc not in ("periodic", "pec", "pml"):
-            no(f"field boundary {bc!r} (Silver-Mueller, damped, open)",
-               "Queue A 11")
+    else:
+        for bc in tuple(cfg.field_bc_lo) + tuple(cfg.field_bc_hi):
+            if bc not in ("periodic", "pec", "pml"):
+                no(f"field boundary {bc!r} (Silver-Mueller, damped, open)",
+                   "Queue A 11")
     for lo, hi in zip(cfg.field_bc_lo, cfg.field_bc_hi):
         if (lo == "periodic") != (hi == "periodic"):
             no("a dimension periodic on one face only", "Queue A 11")
@@ -254,7 +266,10 @@ class BoundedStepper:
         # --- PML: split-field ownership masks and damping factors
         self.has_pml = layout.has_pml
         kw = dict(dtype=dtype, device=self.device)
-        if self.has_pml:
+        self.psatd = self.psatd_pml = None
+        if cfg.em_solver == "psatd":
+            self._init_psatd(layout)
+        elif self.has_pml:
             self.pml_mask = {
                 nm: torch.as_tensor(layout.in_pml_mask(staggering[nm]), **kw)
                 for nm in _EB}
@@ -294,6 +309,100 @@ class BoundedStepper:
             # every zshift handed to the kernels, for the callers that check
             # the moving-window mode really ran
             self.zshifts_seen = set()
+
+    def _init_psatd(self, layout):
+        """The bounded PSATD solvers over the extended box (interior, damped
+        zones and PML strips; JAX bounded_step.py:174-300): the single-box
+        solver, the sin^2 damping profile over the outer half of each
+        damped zone (damp_field_in_guards + constrain_tilebox_to_guards,
+        WarpXPushFieldsEM_K.H:78-120) and, with PML faces, the split-field
+        solver, its strip masks and its damping factors."""
+        cfg = self.cfg
+        geom = cfg.geometry
+        ndim = self.ndim
+        n_ext = self.n_ext
+        kw = dict(dtype=self.dtype, device=self.device)
+        ext_geom = Geometry(
+            ndim=ndim, n_cell=tuple(n_ext),
+            prob_lo=tuple(self.static_origin),
+            prob_hi=tuple(self.static_origin[d] + n_ext[d] * geom.dx[d]
+                          for d in range(ndim)),
+            periodic=(True,) * ndim)
+        self.psatd = PsatdSolver(
+            ext_geom, self.staggering, cfg.dt, n_order=cfg.psatd_order,
+            single_box=True, dtype=self.dtype, device=self.device)
+        prof_nd = np.ones(tuple(n_ext))
+        ngd = layout.damp_ncell
+        for d in range(ndim):
+            prof = np.ones(n_ext[d])
+            ramp = np.sin(np.pi * np.arange(ngd // 2) / ngd) ** 2
+            if self.bc_lo[d] == "damped":
+                prof[: ngd // 2] = ramp
+            if self.bc_hi[d] == "damped":
+                prof[n_ext[d] - ngd // 2:] = ramp[::-1]
+            shape_d = [1] * ndim
+            shape_d[d] = n_ext[d]
+            prof_nd = prof_nd * prof.reshape(shape_d)
+        self.damp_profile = torch.as_tensor(prof_nd, **kw)
+        if not self.has_pml:
+            return
+        # the spectral PML: split fields over the same box, re-fed from the
+        # regular fields in the interior every step (PML::Exchange)
+        self.psatd_pml = PsatdPmlSolver(
+            ext_geom, self.staggering, cfg.dt, n_order=cfg.psatd_order,
+            dive_cleaning=cfg.do_pml_dive_cleaning,
+            divb_cleaning=cfg.do_pml_divb_cleaning,
+            dtype=self.dtype, device=self.device)
+        self.pml_comps = list(_EB) + (["F", "G"] if self.psatd_pml.cleaning
+                                      else [])
+
+        def strip_mask(flags):
+            """1.0 where the split solver owns the site (PML strips)."""
+            m = np.zeros(tuple(n_ext))
+            for d in range(ndim):
+                idx = np.arange(n_ext[d]) - self.ext_lo[d]
+                top = geom.n_cell[d] if flags[d] == 1 else geom.n_cell[d] - 1
+                outside = np.zeros(n_ext[d], bool)
+                if self.bc_lo[d] == "pml":
+                    outside |= idx < 0
+                if self.bc_hi[d] == "pml":
+                    outside |= idx > top
+                sh = [1] * ndim
+                sh[d] = n_ext[d]
+                m = np.maximum(m, outside.reshape(sh).astype(float))
+            return m
+
+        self.pml_mask_ext = {
+            nm: torch.as_tensor(strip_mask(self.staggering[nm]), **kw)
+            for nm in self.pml_comps}
+        self.pml_own_ext = {nm: m > 0 for nm, m in self.pml_mask_ext.items()}
+        sig = {d: layout.sigma_factors(d, cfg.dt) for d in range(ndim)}
+        self.pml_damp_ext = {}
+        for nm in self.pml_comps:
+            for ax in self.psatd_pml.split_dirs(nm):
+                if ax not in self.axes:
+                    continue  # the y split in 2D is not damped
+                dd = self.axes.index(ax)
+                arr = sig[dd][0 if self.staggering[nm][dd] == 1 else 1]
+                sh = [1] * ndim
+                sh[dd] = n_ext[dd]
+                self.pml_damp_ext[nm, ax] = torch.as_tensor(
+                    arr[: n_ext[dd]].reshape(sh), **kw)
+
+    def pml_split_shapes(self) -> Dict[str, tuple]:
+        """The PML split fields of the state's ``aux``, by key
+        (``pml:<comp>:<dir>``), with their shapes: one per curl term under
+        FDTD, the spectral splits over the extended box under PSATD."""
+        if not self.has_pml:
+            return {}
+        if self.psatd_pml is not None:
+            return {f"pml:{nm}:{ax}": tuple(self.n_ext)
+                    for nm in self.pml_comps
+                    for ax in self.psatd_pml.split_dirs(nm)}
+        return {f"pml:{nm}:{term[2]}": self.shapes[nm]
+                for nm in _EB
+                for term in (E_TERMS if nm[0] == "E" else B_TERMS)[nm]
+                if term[2] in self.axes}
 
     # ------------------------------------------------------------ host scalars
     def origin_of(self, state):
@@ -507,6 +616,11 @@ class BoundedStepper:
                                       jz=j_valid[2])
         aux = dict(state.aux)
         aux.update(aux_updates)
+        if self.psatd is not None:
+            fields = self.psatd_push(fields, aux)
+            return state.replace(fields=fields, species=new_species,
+                                 step=state.step + 1, time=state.time + dt,
+                                 aux=aux)
         jmap = dict(zip(("Ex", "Ey", "Ez"), ("jx", "jy", "jz")))
 
         def advance(fields, out_names, terms_map, in_names, coef, dth,
@@ -563,6 +677,61 @@ class BoundedStepper:
         return state.replace(fields=fields, species=new_species,
                              step=state.step + 1, time=state.time + dt,
                              aux=aux)
+
+    def _crop_to_ext(self, arr):
+        """Drop the extra wall node of a component nodal in a bounded dim."""
+        for d in range(self.ndim):
+            if arr.shape[d] == self.n_ext[d] + 1:
+                arr = arr.narrow(d, 0, self.n_ext[d])
+        return arr
+
+    def _restore_shape(self, arr, comp_name):
+        """Re-append the (damped-to-zero) wall node where the component
+        stores one."""
+        for d in range(self.ndim):
+            if arr.shape[d] == self.shapes[comp_name][d] - 1:
+                zshape = list(arr.shape)
+                zshape[d] = 1
+                arr = torch.cat([arr, arr.new_zeros(zshape)], dim=d)
+        return arr
+
+    def psatd_push(self, fields, aux):
+        """The spectral field advance over the extended box (PushPSATD, then
+        DampFieldsInGuards; JAX bounded_step.py:1151-1230): with PML faces
+        the interior splits are re-fed from the fields at t^n (the first
+        split takes the field, the others zero; PML::Exchange,
+        PML.cpp:1180-1196), the splits advance spectrally, are damped along
+        their own directions (DampPML) and their totals replace the fields
+        in the strips.  Updates the splits in ``aux``; returns the fields."""
+        crop = {nm: self._crop_to_ext(getattr(fields, nm)) for nm in _FIELDS}
+        new_splits = None
+        if self.psatd_pml is not None:
+            splits = {}
+            for nm in self.pml_comps:
+                reg = crop.get(nm)
+                m = self.pml_mask_ext[nm]
+                for i, ax in enumerate(self.psatd_pml.split_dirs(nm)):
+                    cur = aux[f"pml:{nm}:{ax}"]
+                    if i == 0 and reg is not None:
+                        splits[nm, ax] = torch.where(self.pml_own_ext[nm],
+                                                     cur, reg)
+                    else:
+                        splits[nm, ax] = cur * m
+            new_splits = self.psatd_pml.push(splits)
+        out = self.psatd.push(crop)
+        if new_splits is not None:
+            tot = {}
+            for (nm, ax), arr in new_splits.items():
+                dmp = self.pml_damp_ext.get((nm, ax))
+                if dmp is not None:
+                    arr = arr * dmp
+                aux[f"pml:{nm}:{ax}"] = arr
+                tot[nm] = arr if nm not in tot else tot[nm] + arr
+            for nm in _EB:
+                out[nm] = torch.where(self.pml_own_ext[nm], tot[nm], out[nm])
+        return fields.replace(**{
+            nm: self._restore_shape(out[nm] * self.damp_profile, nm)
+            for nm in _EB})
 
     # ----------------------------------------------------------- step_window
     def shift_field(self, arr, num_shift: int):

@@ -2,7 +2,8 @@
 
 A copy of ``warpx_tpu.core.config``'s ``LaserConfig``, ``SpeciesConfig``
 and ``SimConfig``, cut to the fields the ported paths read (2D XZ and 3D
-explicit EM, periodic and bounded with PML/PEC faces, moving window, laser
+explicit EM with the Yee, CKC or standard PSATD solver, periodic and
+bounded with PML/PEC (FDTD) or PML/damped (PSATD) faces, moving window, laser
 antennas, continuous injection and Gaussian beams, constant and parsed
 profiles; per-particle and tile-binned steps).  Fields keep the reference's
 names and defaults, so a configuration built for ``warpx_tpu`` with these
@@ -106,7 +107,7 @@ class SimConfig:
     max_step: int
     dt: float
     particle_shape: int = 1
-    em_solver: str = "yee"  # yee | ckc | none
+    em_solver: str = "yee"  # yee | ckc | psatd | none
     current_deposition: str = "esirkepov"
     field_gathering: str = "energy-conserving"
     grid_type: str = "staggered"
@@ -138,6 +139,30 @@ class SimConfig:
     em_solver_medium: str = "vacuum"
     do_dive_cleaning: bool = False
     do_divb_cleaning: bool = False
+    # split-field cleaning inside the PML (warpx.do_pml_dive_cleaning /
+    # do_pml_divb_cleaning; defaults true for PSATD, WarpX.cpp:848-870)
+    do_pml_dive_cleaning: bool = False
+    do_pml_divb_cleaning: bool = False
+    # PSATD knobs (reference: WarpX.cpp:1409-1520); the families beyond the
+    # standard one wait for ROADMAP.md Queue A 10.2
+    psatd_order: int = 16  # -1 = infinite order (periodic single box)
+    psatd_update_with_rho: bool = False
+    psatd_current_correction: bool = False
+    # averaged Galilean PSATD (psatd.do_time_averaging)
+    psatd_time_averaging: bool = False
+    psatd_periodic_single_box: bool = False
+    # multi-J: J time dependence (reference: psatd.J_in_time, warpx.do_multi_J)
+    psatd_j_in_time: str = "constant"
+    # multi-J sub-depositions per step (warpx.do_multi_J_n_depositions)
+    multi_j_n_depositions: int = 1
+    # psatd.solution_type: second-order | first-order
+    psatd_solution_type: str = "second-order"
+    # psatd.rho_in_time: linear | constant
+    psatd_rho_in_time: str = "linear"
+    # Galilean frame velocity [m/s] (reference: psatd.v_galilean * c)
+    psatd_v_galilean: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    # comoving-PSATD velocity [m/s] (reference: psatd.v_comoving * c)
+    psatd_v_comoving: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     # tile-binned hot path (ops/tiling.py + ops/fused_pic.py); the analog of
     # the reference's binned shared-memory deposition
     # (WarpXParticleContainer.cpp:490-548) at the SortParticlesByBin cadence

@@ -1,8 +1,9 @@
 """Input deck -> ``SimConfig``.
 
 The counterpart of ``warpx_tpu.core.deck.config_from_deck`` for the fields
-the port's ``SimConfig`` holds (2D XZ and 3D explicit electromagnetic runs,
-periodic or bounded with PML/PEC faces, moving window, Gaussian laser
+the port's ``SimConfig`` holds (2D XZ and 3D explicit electromagnetic runs
+with the Yee, CKC or PSATD solver, periodic or bounded with PML/PEC faces
+(PML/damped under PSATD), moving window, Gaussian laser
 antennas, continuous injection, Gaussian beams, constant or parsed density
 and momentum profiles, the tile-binned layout and its ``tpu.*`` keys), with
 the JAX reader's defaults and derived values (reference: Source/WarpX.cpp:466
@@ -31,9 +32,11 @@ from ..utils.intervals import IntervalsParser
 from ..utils.parser import Deck
 from .config import LaserConfig, SimConfig, SpeciesConfig
 from .grid import Geometry
+from .step import check_psatd
 
 __all__ = ["NO_PHYSICS", "config_from_deck", "outputs_from_deck"]
 
+_C = 299792458.0
 _QE = 1.602176634e-19
 _ME = 9.1093837015e-31
 _MU = 1.66053906660e-27  # atomic mass unit (ablastr m_u)
@@ -247,6 +250,70 @@ def _tiling_from_deck(deck: Deck, ndim: int) -> dict:
     return out
 
 
+def _dep_default(solver: str) -> str:
+    """The deposition's default depends on the solver (WarpX.cpp:1614-1621):
+    direct for PSATD, Esirkepov otherwise."""
+    return "direct" if solver == "psatd" else "esirkepov"
+
+
+def _psatd_from_deck(deck: Deck, solver: str, dep: str) -> dict:
+    """The psatd.* keys and the multi-J and PML-cleaning keys of
+    warpx.*, with the JAX reader's defaults (warpx_tpu/core/deck.py:661-713,
+    1013-1047; reference WarpX.cpp:848-870, 1409-1621); velocities in m/s.
+    Read for every solver, as the JAX reader reads them."""
+    order = deck.get_int("psatd.nox", 16)
+    for key in ("psatd.noy", "psatd.noz"):
+        o = deck.get_int(key, order)
+        if o != order:
+            raise NotImplementedError(
+                f"anisotropic PSATD stencil orders ({key}={o} != "
+                f"nox={order})")
+    dive = deck.get_bool("warpx.do_dive_cleaning", False)
+    gamma_boost = deck.get_real("warpx.gamma_boost", 1.0)
+
+    def velocity(kind):
+        # in units of c; the boost frame's default -sqrt(1-1/gamma^2) e_z
+        # (WarpX.cpp:1515-1551)
+        if deck.get_bool(f"psatd.use_default_v_{kind}", False):
+            if gamma_boost <= 1.0:
+                raise ValueError(f"psatd.use_default_v_{kind} = 1 requires "
+                                 "warpx.gamma_boost")
+            return (0.0, 0.0, -math.sqrt(1.0 - 1.0 / gamma_boost ** 2) * _C)
+        return tuple(v * _C for v in deck.get_reals(f"psatd.v_{kind}",
+                                                    (0.0, 0.0, 0.0)))
+
+    v_gal = velocity("galilean")
+    v_com = velocity("comoving")
+    multi_j = deck.get_bool("warpx.do_multi_J", False)
+    return dict(
+        psatd_order=order,
+        psatd_periodic_single_box=deck.get_bool(
+            "psatd.periodic_single_box_fft", False),
+        psatd_current_correction=deck.get_bool(
+            "psatd.current_correction",
+            not (dep in ("esirkepov", "villasenor", "vay") or dive)),
+        # true for Galilean/comoving PSATD (WarpX.cpp:1591-1599), else
+        # do_dive_cleaning
+        psatd_update_with_rho=deck.get_bool(
+            "psatd.update_with_rho",
+            dive or any(v_gal) or any(v_com)),
+        psatd_time_averaging=deck.get_bool("psatd.do_time_averaging", False),
+        psatd_v_galilean=v_gal,
+        psatd_v_comoving=v_com,
+        psatd_j_in_time=_lower(deck, "psatd.J_in_time",
+                               "linear" if multi_j else "constant"),
+        multi_j_n_depositions=deck.get_int(
+            "warpx.do_multi_J_n_depositions", 1),
+        psatd_solution_type=_lower(deck, "psatd.solution_type",
+                                   "second-order").replace("_", "-"),
+        psatd_rho_in_time=_lower(deck, "psatd.rho_in_time", "linear"),
+        do_pml_dive_cleaning=deck.get_bool(
+            "warpx.do_pml_dive_cleaning", solver == "psatd" or dive),
+        do_pml_divb_cleaning=deck.get_bool(
+            "warpx.do_pml_divb_cleaning", solver == "psatd"),
+    )
+
+
 def _gate_values(deck: Deck) -> None:
     """Keys the reader reads whose value selects what the port lacks."""
     dims = _lower(deck, "geometry.dims", "3")
@@ -259,11 +326,9 @@ def _gate_values(deck: Deck) -> None:
     if deck.get_int("amr.max_level", 0) > 0:
         _no("mesh refinement (amr.max_level > 0)", "Queue A 12")
     solver = _lower(deck, "algo.maxwell_solver", "yee")
-    if solver == "psatd":
-        _no("algo.maxwell_solver = psatd", "Queue A 10")
     if solver in ("hybrid", "ect"):
         _no(f"algo.maxwell_solver = {solver}", "Queue A 11.3")
-    if solver not in ("yee", "ckc", "none"):
+    if solver not in ("yee", "ckc", "psatd", "none"):
         _no(f"algo.maxwell_solver = {solver}", "Queue A 11")
     es = _lower(deck, "warpx.do_electrostatic",
                 _lower(deck, "algo.do_electrostatic", "none"))
@@ -274,7 +339,9 @@ def _gate_values(deck: Deck) -> None:
         _no(f"algo.evolve_scheme = {scheme}", "Queue A 11.3")
     if deck.get_real("warpx.gamma_boost", 1.0) > 1.0:
         _no("the Lorentz-boosted frame (warpx.gamma_boost > 1)", "Queue A 11")
-    dep = _lower(deck, "algo.current_deposition", "esirkepov")
+    dep = _lower(deck, "algo.current_deposition", _dep_default(solver))
+    if dep == "vay" and solver == "psatd":
+        _no("algo.current_deposition = vay", "Queue A 10.2")
     if dep != "esirkepov":
         _no(f"algo.current_deposition = {dep}", "Queue A 3")
     for which in ("E", "B"):
@@ -294,7 +361,7 @@ def _item_of_key(deck: Deck, key: str) -> str:
         # which neither package reads (the CLI's --restart does)
         return "Queue A 15"
     if head == "psatd":
-        return "Queue A 10"
+        return "Queue A 10.2"
     if head == "collisions" or head in deck.get_strings(
             "collisions.collision_names", []) or head.startswith("qed"):
         return "Queue A 11.1"
@@ -457,6 +524,8 @@ def config_from_deck(deck: Deck) -> SimConfig:
     em_solver = _lower(deck, "algo.maxwell_solver", "yee")
     if const_dt is not None:
         dt = const_dt
+    elif em_solver == "psatd":
+        dt = cfl * min(geom.dx) / _C
     elif em_solver == "ckc" and grid_type != "collocated":
         dt = compute_dt_ckc(geom, cfl)
     else:
@@ -469,6 +538,7 @@ def config_from_deck(deck: Deck) -> SimConfig:
         n_stop = max(int(math.ceil(stop_time / dt * (1.0 - 1e-12))), 0)
         max_step = min(max_step, n_stop) if max_step > 0 else n_stop
 
+    dep = _lower(deck, "algo.current_deposition", _dep_default(em_solver))
     pusher = _lower(deck, "algo.particle_pusher", "boris")
     species = tuple(
         dataclasses.replace(_species_from_deck(deck, nm, ndim), pusher=pusher)
@@ -501,8 +571,7 @@ def config_from_deck(deck: Deck) -> SimConfig:
         dt=dt,
         particle_shape=deck.get_int("algo.particle_shape", 1),
         em_solver=em_solver,
-        current_deposition=_lower(deck, "algo.current_deposition",
-                                  "esirkepov"),
+        current_deposition=dep,
         field_gathering=_lower(deck, "algo.field_gathering",
                                "energy-conserving"),
         grid_type=grid_type,
@@ -532,8 +601,11 @@ def config_from_deck(deck: Deck) -> SimConfig:
         do_dive_cleaning=deck.get_bool("warpx.do_dive_cleaning", False),
         do_divb_cleaning=deck.get_bool("warpx.do_divb_cleaning", False),
         verbose=deck.get_bool("warpx.verbose", False),
+        **_psatd_from_deck(deck, em_solver, dep),
         **_tiling_from_deck(deck, ndim),
     )
+    if em_solver == "psatd":
+        check_psatd(cfg)
     outputs = outputs_from_deck(deck)
     names = {o["name"] for o in outputs["diags"] + outputs["reduced"]}
     unread = [k for k in deck.unused_keys()

@@ -29,8 +29,8 @@ class DomainLayout:
     bc_lo: Tuple[str, ...]
     bc_hi: Tuple[str, ...]
     pml_ncell: int
-    # damped-BC zone width of the PSATD solver (ROADMAP.md Queue A 10); the
-    # FDTD solvers keep the default
+    # damped-BC zone width (PSATD; reference: the FFT guard region that
+    # DampFieldsInGuards operates on, WarpXPushFieldsEM.cpp:1276)
     damp_ncell: int = 16
 
     @classmethod
@@ -41,6 +41,9 @@ class DomainLayout:
             bc_lo=cfg.field_bc_lo or ("periodic",) * ndim,
             bc_hi=cfg.field_bc_hi or ("periodic",) * ndim,
             pml_ncell=cfg.pml_ncell,
+            damp_ncell=(
+                max(cfg.psatd_order, 16) if cfg.psatd_order > 0 else 16
+            ),
         )
 
     # ------------------------------------------------------------------ sizes

@@ -7,7 +7,9 @@ in the JAX package's order, then the tile-binned layout unless
 ``tiled_particles="off"``), ``evolve`` (with the -dt/2 and +dt/2 momentum
 half-pushes of WarpXEvolve.cpp:222-229, 493-505) and ``checksums``.  On the
 periodic torus the step is the tile-binned ``binned_pic_step``, or the
-per-particle ``pic_step`` for ``tiled_particles="off"``.  A configuration
+per-particle ``pic_step`` for ``tiled_particles="off"``; under
+em_solver = psatd both advance the fields with ``sim.psatd``
+(``solvers/psatd.py``).  A configuration
 with a non-periodic field face, a moving window or a laser runs through
 ``core/bounded_step.py::BoundedStepper`` (``is_bounded``): ``step_binned``
 or ``step_main``, then ``step_window`` after every step.  ``from_deck``
@@ -36,14 +38,15 @@ from ..diagnostics.reduced import ReducedDiagWriter, compute_reduced
 from ..io.checkpoint import save_checkpoint
 from ..io.openpmd import compact_columns, host, write_openpmd_iteration
 from ..io.plotfile import write_plotfile
+from ..solvers.psatd import PsatdSolver
 from ..utils.expression import compile_expression
 from ..utils.observability import SignalFlags, StepTimer
 from ..utils.parser import Deck
 from .binned_step import (binned_pic_step, binned_supported,
                            bounded_binned_supported, make_tile_spec,
                            pusher_params)
-from .bounded_step import (B_TERMS, E_TERMS, BoundedStepper,
-                           check_bounded_supported, needs_bounded_step)
+from .bounded_step import (BoundedStepper, check_bounded_supported,
+                           needs_bounded_step)
 from .config import SimConfig
 from .deck import config_from_deck, outputs_from_deck
 from .grid import yee_staggering
@@ -51,7 +54,7 @@ from .injection import (columns_to_state, inject_gaussian_beam_host,
                         inject_species, inject_species_host)
 from .laser import antenna_particles
 from .state import FieldState, ParticleState, SimState
-from .step import pic_step, push_momenta_half, wrap_positions
+from .step import pic_step, psatd_ported, push_momenta_half, wrap_positions
 
 __all__ = ["Simulation"]
 
@@ -102,10 +105,19 @@ class Simulation:
         self.diags: list = []
         self.reduced: list = []
         self.signals: SignalFlags | None = None
+        # the periodic spectral solver (the bounded one is the stepper's); a
+        # PSATD family that is not ported has none and its step raises
+        self.psatd = None
         if self.is_bounded:
             check_bounded_supported(cfg)
             self.params = None
         else:
+            if cfg.em_solver == "psatd" and psatd_ported(cfg):
+                self.psatd = PsatdSolver(
+                    cfg.geometry, self.staggering, cfg.dt,
+                    n_order=cfg.psatd_order,
+                    single_box=cfg.psatd_periodic_single_box,
+                    dtype=dtype, device=self.device)
             self.params = (pusher_params(cfg, dtype, self.device)
                            if self.binned else None)
 
@@ -264,13 +276,10 @@ class Simulation:
 
         kw = dict(dtype=self.dtype, device=self.device)
         shapes = self.stepper.shapes
-        if self.stepper.has_pml:
-            # Berenger split fields, one part per curl term
-            for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"):
-                for term in (E_TERMS if nm[0] == "E" else B_TERMS)[nm]:
-                    if term[2] in geom.axis_names:
-                        aux[f"pml:{nm}:{term[2]}"] = torch.zeros(shapes[nm],
-                                                                 **kw)
+        # the PML split fields (FDTD: one per curl term; PSATD: the spectral
+        # splits over the extended box)
+        for key, shape in self.stepper.pml_split_shapes().items():
+            aux[key] = torch.zeros(shape, **kw)
         fields = FieldState(**{
             nm: torch.zeros(shapes[nm], **kw)
             for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")})
@@ -360,9 +369,9 @@ class Simulation:
         if self.is_bounded:
             return self.stepper.step(state)
         if not self.binned:
-            return pic_step(state, self.cfg, self.staggering)
+            return pic_step(state, self.cfg, self.staggering, self.psatd)
         return binned_pic_step(state, self.cfg, self.staggering,
-                               self.tile_spec, self.params)
+                               self.tile_spec, self.params, self.psatd)
 
     def evolve(self, numsteps: int = -1) -> SimState:
         """Advance ``numsteps`` steps (or to max_step), with WarpX::Evolve's
@@ -466,7 +475,7 @@ class Simulation:
                 # by name, the order of the JAX package's files
                 fields = dict(sorted(cell_centered_output(
                     self.state, self.cfg, self.staggering,
-                    names=wanted or None).items()))
+                    names=wanted or None, psatd=self.psatd).items()))
             select = self._particle_select(dg["pfilters"])
             if dg["format"] == "plotfile":
                 self._flush_plotfile(dg, path, step, fields, select)
@@ -553,8 +562,10 @@ class Simulation:
         return select
 
     def field_diagnostics(self) -> Dict[str, torch.Tensor]:
-        return cell_centered_output(self.state, self.cfg, self.staggering)
+        return cell_centered_output(self.state, self.cfg, self.staggering,
+                                    psatd=self.psatd)
 
     def checksums(self) -> Dict[str, Dict[str, float]]:
         self._normalize_binned()
-        return compute_checksums(self.state, self.cfg, self.staggering)
+        return compute_checksums(self.state, self.cfg, self.staggering,
+                                 psatd=self.psatd)

@@ -28,9 +28,11 @@ def _abs_sum(t) -> float:
     return float(t.double().abs().sum())
 
 
-def compute_checksums(state: SimState, cfg: SimConfig,
-                      staggering: Dict) -> Dict[str, Dict[str, float]]:
-    fields = cell_centered_output(state, cfg, staggering)
+def compute_checksums(state: SimState, cfg: SimConfig, staggering: Dict,
+                      psatd=None) -> Dict[str, Dict[str, float]]:
+    """Checksums of the state; ``psatd`` (the periodic spectral solver)
+    makes divE spectral, as in the JAX package."""
+    fields = cell_centered_output(state, cfg, staggering, psatd=psatd)
     data = {"lev=0": {name: _abs_sum(arr) for name, arr in fields.items()}}
     ndim = cfg.geometry.ndim
     pos_names = {1: ["x"], 2: ["x", "y"], 3: ["x", "y", "z"]}[ndim]

@@ -8,6 +8,7 @@ averages the two surrounding points along every nodal dimension).  On a
 bounded domain the PML strips are cropped away first, rho is deposited on a
 guard-padded block at the moving window's origin, filtered there and its
 guards folded, and divE/divB are exact differences on the physical region.
+On the periodic domain under PSATD divE is the solver's spectral i k.E.
 """
 
 from __future__ import annotations
@@ -141,9 +142,10 @@ def _bounded_div(comp, cfg):
 
 
 def cell_centered_output(state: SimState, cfg: SimConfig, staggering: Dict,
-                         names=None) -> Dict[str, torch.Tensor]:
+                         names=None, psatd=None) -> Dict[str, torch.Tensor]:
     """E, B, j, rho, divE, divB and part_per_cell at cell centers (those of
-    ``names`` only, when given)."""
+    ``names`` only, when given); ``psatd`` is the periodic spectral solver
+    under em_solver = psatd."""
     geom = cfg.geometry
     if cfg.field_gathering == "momentum-conserving":
         raise NotImplementedError(
@@ -175,7 +177,12 @@ def cell_centered_output(state: SimState, cfg: SimConfig, staggering: Dict,
     if want("divE") or want("divB"):
         bc_lo = cfg.field_bc_lo or ("periodic",) * geom.ndim
         if all(bc == "periodic" for bc in bc_lo):
-            div_e = yee.compute_div_e(f, geom)
+            # spectral i k.E under PSATD (DivEFunctor -> ComputeDivE)
+            if cfg.em_solver == "psatd" and psatd is not None:
+                div_e = psatd.spectral_div_e(
+                    {nm: getattr(f, nm) for nm in ("Ex", "Ey", "Ez")})
+            else:
+                div_e = yee.compute_div_e(f, geom)
             div_b = yee.compute_div_b(f, geom)
         else:
             div_e, div_b = _bounded_div(comp, cfg)
