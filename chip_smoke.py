@@ -60,6 +60,20 @@ exits non-zero:
                F/G splits, 8 steps), tile-binned: every checksum within
                1e-9, divE/divB within 1e-9 of their largest value cell by
                cell, the fused kernel launched once per step;
+  psatd_variants_parity  the rest of PSATD in float64, card against CPU:
+               each new solver push alone (J linear in time, first order
+               with and without F/G cleaning, time-averaged Galilean,
+               comoving, Vay) to 1e-12; every family (Galilean, averaged,
+               current correction, multi-J second and first order, Vay,
+               direct, F/G cleaning, comoving) on the 16^3 and 32^2
+               periodic decks per particle, 3 steps; first-order PSATD
+               with J constant through the tile-binned step (K1, K2, K3);
+               the rho-free time-averaged and comoving decks refused; the
+               32 x 64 laser-wakefield deck with psatd.v_galilean and the
+               moving window (with and without time averaging) and with
+               PSATD's default direct deposition, per particle: checksums
+               within 1e-9, divE/divB within 1e-9 of their largest value
+               cell by cell; the float32 spread of the 32 x 64 decks;
   main         the 3D main path at 128^3 cells, 2 species, 8.39 M particles,
                float32: init, one warm step, 20 timed steps, 3 profiled
                steps, the closing step; then each kernel at the main path's
@@ -68,6 +82,17 @@ exits non-zero:
                solver (psatd_order 16), driven as main is, then one
                spectral push timed alone (FFT calls, kernel launches,
                device ms);
+  main_psatd_galilean  uniform-128-galilean: main's plasma and dt, both
+               species drifting along z at gamma = 10, Galilean PSATD at
+               the drift's velocity with update-with-rho, Esirkepov
+               deposition, per particle, 25 steps (20 timed): ms a step,
+               the device's busy share, peak memory, each deposit's device
+               ms, the field energy after the first step and at the end;
+               then the spectral push timed alone;
+  main_psatd_multij  uniform-128-multij: the same drifting plasma with
+               first-order PSATD, two depositions a step, J and rho
+               constant in time, F/G cleaning, direct deposition, per
+               particle, driven and reported as main_psatd_galilean;
   main_mixed   the same path at tile_mxu = 'mixed' (bench.py's default), and
                main_bf16 at 'bf16'; K1 in each mode at its shapes against
                its plain version, timed beside K1 at 'f32';
@@ -1745,8 +1770,10 @@ LWFA_PSATD_PLAN = dict(warm=16, timed=8, counted=8, interval=16)
 
 
 def psatd_deck(text):
-    """A laser-wakefield deck with the standard PSATD solver; it names
-    Esirkepov deposition, as PSATD's default (direct) is not ported."""
+    """A laser-wakefield deck with the standard PSATD solver and Esirkepov
+    deposition, which the tile-binned step takes (PSATD's default, direct
+    deposition, runs per particle: psatd_variants_parity drives it), as
+    psatd_parity and main_lwfa_psatd have run it since they were added."""
     return text.replace("algo.maxwell_solver = yee",
                         "algo.maxwell_solver = psatd\n"
                         "algo.current_deposition = esirkepov")
@@ -1982,7 +2009,9 @@ def phase_main_psatd(dev, smi, k1_row, k3_row, n=128):
 
 def phase_main_lwfa_psatd(dev, smi, k1c_row, k3_row, nx=2048, nz=8192):
     """lwfa2d-2048x8192-psatd: bench.py's deck text with the standard PSATD
-    solver and Esirkepov deposition through Simulation.from_deck at 'mixed'
+    solver and Esirkepov deposition (named in the deck, so that the run
+    takes the tile-binned step and its numbers stay comparable with the
+    earlier runs of this phase) through Simulation.from_deck at 'mixed'
     (PML on four faces with their F/G splits, the extended box of
     (nx + 20) x (nz + 20) transformed whole), 38 steps with rebins at 0, 16
     and 32, driven as main_lwfa is; then the spectral push (with the PML
@@ -2018,6 +2047,456 @@ def phase_main_lwfa_psatd(dev, smi, k1c_row, k3_row, nx=2048, nz=8192):
                  {"fused_pic_moving_window_mixed": launches["fused_pic_2d"],
                   "ragged_expand": launches["ragged_expand"]},
                  "main_lwfa_psatd")
+
+
+# ---- the rest of PSATD (Galilean, multi-J, rho, averaging, Vay, direct) ----
+
+# family -> the SimConfig fields that select it (as in
+# tests/test_torch_psatd_variants.py)
+PSATD_FAMILIES = {
+    "galilean": dict(psatd_v_galilean=(0.0, 0.0, 0.5 * C_LIGHT),
+                     psatd_update_with_rho=True),
+    "averaged": dict(psatd_v_galilean=(0.0, 0.0, 0.3 * C_LIGHT),
+                     psatd_update_with_rho=True, psatd_time_averaging=True),
+    "current_correction": dict(current_deposition="direct",
+                               psatd_current_correction=True),
+    "multi_j": dict(current_deposition="direct", psatd_j_in_time="linear",
+                    psatd_current_correction=True),
+    "first_order": dict(current_deposition="direct",
+                        psatd_solution_type="first-order",
+                        psatd_j_in_time="linear", multi_j_n_depositions=2,
+                        do_dive_cleaning=True, do_divb_cleaning=True,
+                        psatd_update_with_rho=True),
+    "vay": dict(current_deposition="vay"),
+    "direct": dict(current_deposition="direct"),
+    "cleaning": dict(do_dive_cleaning=True, do_divb_cleaning=True,
+                     psatd_update_with_rho=True),
+    "comoving": dict(current_deposition="direct",
+                     psatd_v_comoving=(0.0, 0.0, 0.4 * C_LIGHT),
+                     psatd_update_with_rho=True),
+}
+# the one family the tile-binned gate admits beyond the standard solver:
+# first-order PSATD with J constant in time (the binned step then runs the
+# solver's second-order push, as the JAX package's does)
+PSATD_BINNED_FAMILY = dict(psatd_solution_type="first-order")
+
+
+def psatd_family_cfg(ndim, family, tiled="off", steps=3):
+    """small_cfg's plasma drifting along z at 0.3 c with ``family``'s PSATD
+    (psatd_order 16 on guard-padded boxes, bilinear filter), 3 steps, per
+    particle unless ``tiled``."""
+    cfg = small_cfg(ndim)
+    species = tuple(dataclasses.replace(sp, uz=0.3) for sp in cfg.species)
+    kw = (PSATD_BINNED_FAMILY if family == "binned"
+          else PSATD_FAMILIES[family])
+    return dataclasses.replace(
+        cfg, species=species, em_solver="psatd", psatd_order=16,
+        max_step=steps, use_filter=True, tiled_particles=tiled,
+        dt=0.999 * min(cfg.geometry.dx) / C_LIGHT, **kw)
+
+
+def family_sums_agree(got, ref, tol, what):
+    """checksums_agree, with G (the div B cleaning scalar, roundoff that
+    two FFT libraries sum in different orders) held at ``tol`` of c times
+    the B checksums, the scale its update i c S/|k| k.B gives it."""
+    g = {grp: v.pop("G") for grp, v in ref.items() if "G" in v}
+    worst = checksums_agree(got, ref, tol, what)
+    for grp, a in g.items():
+        ref[grp]["G"] = a
+        scale = C_LIGHT * sum(ref[grp][k] for k in ("Bx", "By", "Bz"))
+        r = abs(got[grp]["G"] - a) / scale
+        worst = max(worst, r)
+        if r > tol:
+            raise AssertionError(f"{what} checksum {grp}/G: "
+                                 f"{got[grp]['G']!r} vs {a!r}")
+    return worst
+
+
+def psatd_variant_pushes(dev):
+    """Each solver push this slice adds, alone, float64, card (cuFFT)
+    against CPU on seeded fields: the J-linear push (``j_old``, with
+    current correction), PsatdFirstOrder.push_first_order (J and rho
+    linear with F/G cleaning, and J linear without), the time-averaged
+    Galilean push with its rho pair, comoving and Vay; worst error over
+    each output's largest value, held to 1e-12."""
+    from warpx_tpu_torch.core.grid import Geometry, yee_staggering
+    from warpx_tpu_torch.solvers.psatd import PsatdFirstOrder, PsatdSolver
+
+    names = ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")
+    worst = {}
+    for ndim, n_cell in ((3, (16, 16, 32)), (2, (64, 128))):
+        geom = Geometry(ndim=ndim, n_cell=n_cell, prob_lo=(-8e-6,) * ndim,
+                        prob_hi=(8e-6,) * ndim, periodic=(True,) * ndim)
+        stag = yee_staggering(ndim)
+        dt = 0.5 * min(geom.dx) / C_LIGHT
+        rng = np.random.default_rng(10 + ndim)
+        data = {nm: rng.normal(size=n_cell) * PSATD_SCALE[nm[0]]
+                for nm in names + ("F", "G")}
+        src = {k: rng.normal(size=n_cell) * (1e12 if k[0] == "j" else 1e3)
+               for k in ("j0x", "j0y", "j0z", "j1x", "j1y", "j1z", "r0",
+                         "r1")}
+        eb = names[:6]
+        avg = tuple(nm + "_avg" for nm in eb)
+        # case -> (solver, its keywords, the call, the outputs held)
+        cases = {
+            "j_linear": (PsatdSolver, dict(current_correction=True),
+                         "push_j_old", eb + names[6:]),
+            "first_order_clean": (PsatdFirstOrder, dict(
+                div_cleaning=True, update_with_rho=True), "first_clean",
+                eb + ("F", "G")),
+            "first_order": (PsatdFirstOrder, dict(), "first", eb),
+            "averaged_galilean": (PsatdSolver, dict(
+                v_galilean=(0.0, 0.0, 0.6 * C_LIGHT), update_with_rho=True,
+                time_averaging=True), "push_rho", eb + avg),
+            "comoving": (PsatdSolver, dict(
+                v_comoving=(0.0, 0.0, -0.7 * C_LIGHT), update_with_rho=True,
+                current_correction=True), "push_rho", eb + names[6:]),
+            "vay": (PsatdSolver, dict(vay_deposition=True), "push",
+                    eb + names[6:]),
+        }
+        for case, (cls, kw, how, held) in cases.items():
+            outs = {}
+            for device in (dev, "cpu"):
+                def t(a):
+                    return torch.from_numpy(a).to(device)
+
+                sol = cls(geom, stag, dt * (0.5 if cls is PsatdFirstOrder
+                                            else 1.0),
+                          dtype=torch.float64, device=device, **kw)
+                fields = {nm: t(a) for nm, a in data.items()}
+                j0 = tuple(t(src[k]) for k in ("j0x", "j0y", "j0z"))
+                j1 = tuple(t(src[k]) for k in ("j1x", "j1y", "j1z"))
+                rho = (t(src["r0"]), t(src["r1"]))
+                if how == "push_j_old":
+                    out = sol.push(fields, rho, j_old=j0)
+                elif how == "first_clean":
+                    out = sol.push_first_order(fields, j0, j1, *rho)
+                elif how == "first":
+                    out = sol.push_first_order(fields, j0, j1)
+                elif how == "push_rho":
+                    out = sol.push(fields, rho)
+                else:
+                    out = sol.push(fields)
+                outs[str(device)] = {nm: out[nm].cpu() for nm in held}
+            for nm, ref in outs["cpu"].items():
+                err = rel_err(outs[str(dev)][nm], ref)[1]
+                worst[f"{ndim}d:{case}:{nm}"] = err
+                if err > 1e-12:
+                    raise AssertionError(f"{case} push {ndim}D {nm}: card "
+                                         f"against CPU {err}")
+    return max(worst.values()), len(worst)
+
+
+def run_both(make, dev):
+    """``make(device)``'s run on the card and on the CPU, float64: their
+    checksums, divE/divB and the card's simulation."""
+    sums, divs = {}, {}
+    for device in (dev, "cpu"):
+        sim = make(device)
+        sim.init()
+        sim.evolve()
+        divs[str(device)] = sim.field_diagnostics()
+        sums[str(device)] = sim.checksums()
+        if device is dev:
+            card = sim
+    return sums, divs, card
+
+
+def phase_psatd_variants_parity(dev):
+    """The PSATD families of this slice in float64, card against CPU: each
+    new solver push alone at 1e-12 (``psatd_variant_pushes``); every
+    family of PSATD_FAMILIES on the 16^3 and 32^2 periodic decks, per
+    particle, 3 steps; the first-order J-constant decks through the
+    tile-binned step (K1, K2 and K3 launch; their launches are returned by
+    path for the kernels line); the rho-free time-averaged and comoving
+    decks, which both packages refuse to build; the 32 x 64
+    laser-wakefield deck with psatd.v_galilean = 0 0 0.5 and the moving
+    window (and with time averaging), per particle, 8 steps; the same deck
+    as PSATD with no deposition key (direct deposition, current
+    correction), per particle.  Every checksum within 1e-9 (G as in
+    ``family_sums_agree``) and divE/divB within 1e-9 of their largest
+    value cell by cell; the float32 spread of the 32 x 64 decks
+    reported, not bounded."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.ops import tiling
+    from warpx_tpu_torch.utils.parser import Deck
+
+    push_err, n_outputs = psatd_variant_pushes(dev)
+
+    def sim_of(cfg):
+        return lambda device, dtype=torch.float64: warpx_tpu_torch.Simulation(
+            cfg, dtype=dtype, device=device)
+
+    cases = []
+    for ndim in (3, 2):
+        for family in PSATD_FAMILIES:
+            sums, divs, sim = run_both(sim_of(psatd_family_cfg(ndim, family)),
+                                       dev)
+            if sim.binned:
+                raise AssertionError(f"{family} {ndim}D ran binned")
+            cases.append({
+                "case": f"{family}_{ndim}d", "max_rel_err": family_sums_agree(
+                    sums[str(dev)], sums["cpu"], 1e-9, f"{family} {ndim}D"),
+                "div_rel_err": div_agree(divs[str(dev)], divs["cpu"], 1e-9,
+                                         f"{family} {ndim}D")})
+
+    binned_launches = {"fused_pic": 0, "fused_pic_2d": 0,
+                       "ragged_expand": 0}
+    for ndim, counter in ((3, "launches"), (2, "launches_2d")):
+        cfg = psatd_family_cfg(ndim, "binned", tiled="on")
+        k_before = getattr(fp.binned_push_deposit, counter)
+        r_before = tiling.ragged_expand.launches
+        sums, divs, sim = run_both(sim_of(cfg), dev)
+        grew = getattr(fp.binned_push_deposit, counter) - k_before
+        rebins = tiling.ragged_expand.launches - r_before
+        if not sim.binned or grew != cfg.max_step or not rebins:
+            raise AssertionError(f"first-order binned {ndim}D: binned "
+                                 f"{sim.binned}, {grew} fused launches, "
+                                 f"{rebins} rebin launches")
+        binned_launches["fused_pic" if ndim == 3 else "fused_pic_2d"] += grew
+        binned_launches["ragged_expand"] += rebins
+        cases.append({
+            "case": f"first_order_j_constant_binned_{ndim}d",
+            "fused_launches": grew, "rebin_launches": rebins,
+            "max_rel_err": checksums_agree(sums[str(dev)], sums["cpu"], 1e-9,
+                                           f"binned {ndim}D"),
+            "div_rel_err": div_agree(divs[str(dev)], divs["cpu"], 1e-9,
+                                     f"binned {ndim}D")})
+    refused = {}
+    for family, kw in (("averaged", dict(psatd_time_averaging=True)),
+                       ("comoving", dict(
+                           psatd_v_comoving=(0.0, 0.0, 0.4 * C_LIGHT)))):
+        cfg = dataclasses.replace(psatd_family_cfg(2, "binned", tiled="on"),
+                                  psatd_solution_type="second-order", **kw)
+        try:
+            warpx_tpu_torch.Simulation(cfg, dtype=torch.float64, device=dev)
+        except NotImplementedError as e:
+            refused[family] = str(e)
+        else:
+            raise AssertionError(f"rho-free {family} PSATD was built")
+
+    base = LWFA_32X64_DECK.replace("max_step = 12", "max_step = 8").replace(
+        "algo.maxwell_solver = yee", "algo.maxwell_solver = psatd")
+    galilean = base + ("algo.current_deposition = esirkepov\n"
+                       "psatd.v_galilean = 0. 0. 0.5\n")
+    decks = {"lwfa_32x64_galilean": galilean,
+             "lwfa_32x64_galilean_averaged":
+                 galilean + "psatd.do_time_averaging = 1\n",
+             "lwfa_32x64_direct": base}
+    for name, text in decks.items():
+        def make(device, dtype=torch.float64, text=text):
+            return warpx_tpu_torch.Simulation.from_deck(
+                Deck.from_string(text), dtype=dtype, device=device)
+
+        sums, divs, sim = run_both(make, dev)
+        if sim.binned or not sim.is_bounded:
+            raise AssertionError(f"{name} did not take the bounded "
+                                 "per-particle step")
+        if name == "lwfa_32x64_direct" and (
+                sim.cfg.current_deposition != "direct"
+                or not sim.cfg.psatd_current_correction):
+            raise AssertionError(f"{name}: {sim.cfg.current_deposition}")
+        if not sim.state.aux["window_offset"] > 0:
+            raise AssertionError(f"{name}: the window did not move")
+        cases.append({
+            "case": name, "steps": sim.cfg.max_step,
+            "window_offset": int(sim.state.aux["window_offset"]),
+            "max_rel_err": checksums_agree(sums[str(dev)], sums["cpu"], 1e-9,
+                                           name),
+            "div_rel_err": div_agree(divs[str(dev)], divs["cpu"], 1e-9, name),
+            "float32_spread": float32_spread(make, dev, sums[str(dev)])})
+    emit("psatd_variants_parity", ok=True, tol=1e-9,
+         solver_push_max_rel_err=push_err, solver_push_outputs=n_outputs,
+         solver_tol=1e-12, cases=cases, binned_launches=binned_launches,
+         refused_binned=refused)
+    return binned_launches
+
+
+class timed_deposits:
+    """Within the block, every deposit ``core.step`` makes (rho, Esirkepov,
+    direct) records its device time with CUDA events, in call order."""
+
+    NAMES = ("deposit_rho", "deposit_current_esirkepov",
+             "deposit_current_direct")
+
+    def __enter__(self):
+        from warpx_tpu_torch.core import step as step_mod
+
+        self.mod, self.calls, self.orig = step_mod, [], {}
+        for nm in self.NAMES:
+            fn = self.orig[nm] = getattr(step_mod, nm)
+            setattr(step_mod, nm, self._timed(nm, fn))
+        return self
+
+    def _timed(self, nm, fn):
+        def run(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            self.calls.append((nm, ev))
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for nm, fn in self.orig.items():
+            setattr(self.mod, nm, fn)
+
+    def report(self, steps):
+        torch.cuda.synchronize()
+        seq = [(nm, a.elapsed_time(b)) for nm, (a, b) in self.calls]
+        per_fn = {}
+        for nm, ms in seq:
+            per_fn[nm] = per_fn.get(nm, 0.0) + ms / steps
+        return {"ms_per_step": per_fn, "calls_per_step": len(seq) // steps,
+                "ms_each_call_last_step": [
+                    {"fn": nm, "ms": ms} for nm, ms in
+                    seq[len(seq) - len(seq) // steps:]]}
+
+
+def field_energy(fields, geom):
+    """Electromagnetic energy in the box [J]: eps0/2 E^2 + B^2/(2 mu0)."""
+    ep0 = 8.8541878128e-12
+    mu0 = 1.25663706212e-06
+    e2 = sum((getattr(fields, nm).double() ** 2).sum()
+             for nm in ("Ex", "Ey", "Ez"))
+    b2 = sum((getattr(fields, nm).double() ** 2).sum()
+             for nm in ("Bx", "By", "Bz"))
+    return float((0.5 * ep0 * e2 + 0.5 * b2 / mu0) * geom.cell_volume)
+
+
+def drifting_cfg(n=128, steps=25, **psatd):
+    """uniform-128's plasma (main_cfg: n^3 cells, 2 x 2 n^3 particles,
+    order 1, its dt) with both species drifting along z at gamma = 10
+    (u_z = 9.95 c, thermal spread 0.01 c) under PSATD (psatd_order 16),
+    per particle: the drifting-plasma family of WarpX's
+    Examples/Tests/nci_psatd_stability decks on this repo's main box."""
+    cfg = main_cfg(n, steps)
+    species = tuple(dataclasses.replace(sp, uz=9.95) for sp in cfg.species)
+    return dataclasses.replace(cfg, species=species, em_solver="psatd",
+                               psatd_order=16, tiled_particles="auto",
+                               **psatd)
+
+
+def run_per_particle_path(dev, smi, phase, cfg, n_particles, steps):
+    """Drive a per-particle main path through Simulation as run_main_path
+    drives a binned one: init, a warm step, ``steps`` timed steps (CUDA
+    events), PROFILED_STEPS profiled steps (device busy share), one step
+    with its deposits timed one by one, the closing step.  Checks every
+    particle alive, weight conserved and finite fields of the grid's
+    shape; emits the phase's line and its profile.  Returns the
+    simulation."""
+    import warpx_tpu_torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
+    if sim.binned:
+        raise AssertionError(f"{phase} took the tile-binned step")
+    sim.init()
+    sim.evolve(1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    geom = cfg.geometry
+    energy = [(sim.state.step, field_energy(sim.state.fields, geom))]
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    marks[0].record()
+    for mark in marks[1:]:
+        sim.evolve(1)
+        mark.record()
+    marks[-1].synchronize()
+    ms_total = marks[0].elapsed_time(marks[-1])
+    series = [round(a.elapsed_time(b), 3) for a, b in zip(marks, marks[1:])]
+    energy.append((sim.state.step, field_energy(sim.state.fields, geom)))
+    breakdown = profile_steps(sim, PROFILED_STEPS)
+    with timed_deposits() as dep:
+        sim.evolve(1)
+    deposits = dep.report(1)
+    sim.evolve()  # the closing step, with the +dt/2 synchronization
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    energy.append((sim.state.step, field_energy(sim.state.fields, geom)))
+    sums = sim.checksums()
+    for group in sums.values():
+        for q, v in group.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"{phase}: non-finite checksum {q}")
+    alive = sum(int(sp.alive.sum()) for sp in sim.state.species.values())
+    if alive != n_particles:
+        raise AssertionError(f"{phase}: {alive} alive of {n_particles}")
+    for sp_cfg in cfg.species:
+        total_w = sp_cfg.density * geom.cell_volume * np.prod(geom.n_cell)
+        w_rel = abs(sums[sp_cfg.name]["particle_weight"] / total_w - 1)
+        if w_rel > 1e-5:
+            raise AssertionError(f"{sp_cfg.name} weight drifted by {w_rel}")
+    f = sim.state.fields
+    for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz", "F",
+               "G"):
+        a = getattr(f, nm)
+        if a is None:
+            continue
+        if (tuple(a.shape) != tuple(geom.n_cell)
+                or not bool(torch.isfinite(a).all())):
+            raise AssertionError(f"{phase}: field {nm} is not finite at "
+                                 f"{geom.n_cell}")
+    ms_step = ms_total / steps
+    emit(phase, ok=True, n_cell=geom.n_cell, n_particles=n_particles,
+         order=cfg.particle_shape, steps_timed=steps, ms_per_step=ms_step,
+         pushes_per_s=n_particles / (ms_step * 1e-3), init_s=init_s,
+         ms_each_step=series, device_busy_share=breakdown[
+             "device_busy_share"], peak_memory_bytes=peak,
+         deposits=deposits,
+         field_energy_J=[{"step": s, "energy": e} for s, e in energy],
+         checksum_Ex=sums["lev=0"]["Ex"], checksum_jz=sums["lev=0"]["jz"],
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    emit(phase + "_profile", steps=PROFILED_STEPS, **breakdown)
+    return sim
+
+
+def phase_main_psatd_galilean(dev, smi, n=128):
+    """uniform-128-galilean: the drifting plasma (``drifting_cfg``) with
+    Galilean PSATD at v_galilean = beta c e_z (beta = sqrt(1 - 1/gamma^2)),
+    update-with-rho on (rho at t^n and t^{n+1} beside J at t^{n+1/2}, each
+    at its own origin), Esirkepov deposition, per particle (the
+    tile-binned gate refuses rho deposits), 25 steps with the last 20
+    timed; then the spectral push with its rho pair timed alone."""
+    gamma = 10.0
+    beta = (1.0 - 1.0 / gamma ** 2) ** 0.5
+    cfg = drifting_cfg(n, psatd_v_galilean=(0.0, 0.0, beta * C_LIGHT),
+                       psatd_update_with_rho=True)
+    sim = run_per_particle_path(dev, smi, "main_psatd_galilean", cfg,
+                                2 * 2 * n ** 3, 20)
+    f = sim.state.fields
+    names = ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")
+    rho = (torch.zeros_like(f.Ex), torch.zeros_like(f.Ex))
+    cost = psatd_push_cost(lambda: sim.psatd.push(
+        {nm: getattr(f, nm) for nm in names}, rho))
+    emit("main_psatd_galilean_push", n_fft=sim.psatd.n_fft, **cost,
+         nvidia_smi=smi)
+
+
+def phase_main_psatd_multij(dev, smi, n=128):
+    """uniform-128-multij: the drifting plasma with first-order PSATD,
+    two depositions a step, J and rho constant in time, F/G cleaning,
+    direct deposition (the family of WarpX's
+    inputs_test_3d_uniform_plasma_multiJ), per particle, 25 steps with the
+    last 20 timed; then one first-order sub-step push timed alone."""
+    cfg = drifting_cfg(n, current_deposition="direct",
+                       psatd_solution_type="first-order",
+                       multi_j_n_depositions=2, psatd_j_in_time="constant",
+                       psatd_rho_in_time="constant", do_dive_cleaning=True,
+                       do_divb_cleaning=True, psatd_update_with_rho=True)
+    sim = run_per_particle_path(dev, smi, "main_psatd_multij", cfg,
+                                2 * 2 * n ** 3, 20)
+    f = sim.state.fields
+    names = ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz", "F", "G")
+    fmap = {nm: getattr(f, nm) for nm in names}
+    cost = psatd_push_cost(lambda: sim.psatd.push_first_order(
+        fmap, (f.jx, f.jy, f.jz), None, torch.zeros_like(f.Ex), None))
+    emit("main_psatd_multij_push", n_fft=sim.psatd.n_fft,
+         sub_steps=cfg.multi_j_n_depositions, **cost, nvidia_smi=smi)
 
 
 # ---- the output path -------------------------------------------------------
@@ -2644,13 +3123,23 @@ def main() -> int:
     phase_bounded_parity(dev)
     phase_deck_parity(dev)
     phase_psatd_parity(dev)
+    variants = phase_psatd_variants_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
     k1_row["launches_by_path"] = {"main": k1_row["launches"]}
     phase_main_psatd(dev, smi, k1_row, k3_row)
     torch.cuda.empty_cache()
+    phase_main_psatd_galilean(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_psatd_multij(dev, smi)
+    torch.cuda.empty_cache()
     k1d_rows = phase_main_mixed(dev, smi, k3_row)
     k2_row = phase_main2d(dev, smi, k3_row)
     k2_row["launches_by_path"] = {"main2d": k2_row["launches"]}
+    # the tile-binned runs of psatd_variants_parity (not in ``launches``,
+    # which counts the main paths)
+    for row, nm in ((k1_row, "fused_pic"), (k2_row, "fused_pic_2d"),
+                    (k3_row, "ragged_expand")):
+        row["launches_by_path"]["psatd_variants_parity"] = variants[nm]
     torch.cuda.empty_cache()
     k1c_row = phase_main_lwfa(dev, smi, k2_row, k3_row)
     torch.cuda.empty_cache()

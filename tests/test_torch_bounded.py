@@ -558,7 +558,7 @@ def _with_species(cfg, i, **kw):
 
 @pytest.mark.parametrize("change,match", [
     (lambda c: dataclasses.replace(c, em_solver="psatd",
-                                   psatd_j_in_time="linear"), "Queue A 10.2"),
+                                   current_deposition="vay"), "Queue C"),
     (lambda c: dataclasses.replace(c, em_solver="ect"), "Queue A 11"),
     (lambda c: dataclasses.replace(
         c, field_bc_lo=("absorbing_silver_mueller", "pml")), "Queue A 11"),
@@ -571,7 +571,7 @@ def _with_species(cfg, i, **kw):
     (lambda c: dataclasses.replace(c, em_solver_medium="macroscopic"),
      "Queue A 11"),
     (lambda c: dataclasses.replace(c, do_divb_cleaning=True), "Queue A 11"),
-    (lambda c: dataclasses.replace(c, current_deposition="direct"),
+    (lambda c: dataclasses.replace(c, current_deposition="villasenor"),
      "Queue A 3"),
     (lambda c: dataclasses.replace(c, grid_type="collocated"), "Queue A 11"),
     (lambda c: dataclasses.replace(

@@ -3,7 +3,8 @@
 diagnostic ``diag1`` every 10 steps), run by ``python -m warpx_tpu_torch
 ... --device cpu --output-dir D`` and by ``python -m warpx_tpu ...
 --output-dir D`` in process, both with ``algo.current_deposition =
-esirkepov`` (the port has no direct deposition yet, ROADMAP.md Queue A 3).
+esirkepov`` (the deck's own direct deposition runs per particle only; with
+Esirkepov the port's CLI takes the tile-binned path).
 
 The port writes diag1 at steps 10, 20, 30 and 40, the JAX package's
 reader reads the files, and the fields lie within 1e-9 of the JAX CLI's.

@@ -208,10 +208,8 @@ electrons.density = 1.e24
      "geometry.prob_hi = 1.e-6", "Queue A 3-4"),
     ("geometry.dims = RZ", "Queue A 12"),
     ("amr.max_level = 1", "Queue A 12"),
-    ("algo.maxwell_solver = psatd\nalgo.current_deposition = esirkepov\n"
-     "psatd.J_in_time = linear", "Queue A 10.2"),
-    ("algo.maxwell_solver = psatd\nalgo.current_deposition = esirkepov\n"
-     "psatd.update_with_rho = 1", "Queue A 10.2"),
+    ("algo.current_deposition = villasenor", "Queue A 3"),
+    ("algo.maxwell_solver = hybrid", "Queue A 11.3"),
     ("warpx.do_electrostatic = labframe", "Queue A 11.3"),
     ("algo.evolve_scheme = theta_implicit_em", "Queue A 11.3"),
     ("collisions.collision_names = c1\nc1.species = electrons electrons",
@@ -222,7 +220,8 @@ electrons.density = 1.e24
     ("diagnostics.diags_names = diag1\ndiag1.diag_type = BackTransformed",
      "Queue A 11"),
     ("warpx.reduced_diags_names = r1\nr1.type = ChargeOnEB", "Queue A 11.3"),
-    ("algo.current_deposition = direct", "Queue A 3"),
+    ("particles.E_ext_particle_init_style = parse_e_ext_particle_function",
+     "Queue A 11"),
     ("electrons.injection_file = p.h5", "Queue A 11.2"),
 ])
 def test_unported_deck_features_raise(extra, item):

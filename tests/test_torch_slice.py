@@ -217,11 +217,10 @@ def test_state_round_trip_step(jax_runs, jax_runs_2d, ndim):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(current_deposition="direct"), "Queue A 3"),
+    (dict(current_deposition="villasenor"), "Queue A 3"),
     (dict(field_gathering="momentum-conserving"), "Queue A 11"),
     (dict(use_nci_corr=True), "Queue A 11.3"),
-    (dict(em_solver="psatd", psatd_v_galilean=(0.0, 0.0, 1e8)),
-     "Queue A 10.2"),
+    (dict(grid_type="collocated"), "Queue A 11"),
 ])
 def test_pic_step_unported_features_raise(kw, match):
     """What the per-particle step does not cover names its ROADMAP item."""

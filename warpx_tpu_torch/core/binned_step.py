@@ -3,7 +3,7 @@ hot path.
 
 The counterpart of ``warpx_tpu.core.binned_step``: the explicit step
 (OneStep_nosub, WarpXEvolve.cpp:354-460) restricted to its hot core
-(periodic, Yee/CKC or standard PSATD, Boris/Vay/HC push, Esirkepov
+(periodic, Yee/CKC or rho-free PSATD, Boris/Vay/HC push, Esirkepov
 deposition, no particle creation), run through the tile-binned layout
 (``ops/tiling.py``) and the fused kernel (``ops/fused_pic.py``):
 
@@ -250,7 +250,7 @@ def binned_pic_step(state: SimState, cfg: SimConfig, staggering: Dict,
             for i in range(3)
         )
 
-    fields = advance_fields(state.fields, cfg, j_total, psatd)
+    fields = advance_fields(state.fields, cfg, j_total, psatd=psatd)
     aux = dict(state.aux)
     aux["tile_overflow"] = overflow
     aux["tile_violations"] = violations

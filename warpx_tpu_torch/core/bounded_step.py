@@ -2,7 +2,7 @@
 
 The counterpart of ``warpx_tpu.core.bounded_step`` (there one closure,
 ``make_bounded_kernels``; here the class ``BoundedStepper``) for the explicit
-FDTD and standard PSATD cases, 2D XZ and 3D:
+FDTD and PSATD cases, 2D XZ and 3D:
 
 * per-face field boundaries (periodic | pec | pml) as guard fills on
   ng-padded blocks (WarpX_PEC.cpp mirror rules, ``core/boundaries.py``); a
@@ -12,7 +12,11 @@ FDTD and standard PSATD cases, 2D XZ and 3D:
 * under PSATD, the spectral push over the whole extended box (periodic,
   damped and pml faces): damped zones ramp the fields down with a sin^2
   profile, PML strips evolve spectral split fields (with F/G splits under
-  ``do_pml_dive_cleaning``) on the same box (``solvers/psatd.py``);
+  ``do_pml_dive_cleaning``) on the same box (``solvers/psatd.py``); the
+  start- and end-of-step rho of update-with-rho and current correction,
+  the time-averaged gather, and the Galilean drift: every gather and
+  deposit origin moves with v_galilean to its own source time, and so do
+  the physical bounds and the window's shift count;
 * deposition guards at non-periodic faces are dropped, periodic ones folded
   (SumBoundary folds only the periodic directions, WarpXComm.cpp:1552);
 * the bilinear filter of J on the padded block (WarpXComm.cpp:1357);
@@ -53,7 +57,8 @@ import torch
 
 from ..constants import c as _c
 from ..constants import mu0 as _mu0
-from ..ops.deposit import deposit_current_esirkepov
+from ..ops.deposit import (deposit_current_direct, deposit_current_esirkepov,
+                           deposit_rho)
 from ..ops.fused_pic import binned_push_deposit, padded_shape
 from ..ops.gather import gather_eb
 from ..ops.push import PUSHERS, position_step
@@ -70,7 +75,7 @@ from .injection import (PARSED_PROFILES, _AXES3, _bulk_momentum,
                         _regular_unit_positions, profile_values)
 from .laser import update_antenna
 from .state import SimState
-from .step import _add_ext, check_psatd
+from .step import _add_ext, galilean_velocity
 
 __all__ = ["BoundedStepper", "guard_width", "field_shapes",
            "check_bounded_supported", "needs_bounded_step"]
@@ -123,8 +128,10 @@ def check_bounded_supported(cfg: SimConfig) -> None:
 
     if ndim not in (2, 3):
         no("1D", "Queue A 3-4")
+    if any(cfg.psatd_v_galilean) and cfg.em_solver != "psatd":
+        raise NotImplementedError(
+            "psatd.v_galilean without the PSATD solver")
     if cfg.em_solver == "psatd":
-        check_psatd(cfg)
         for bc in tuple(cfg.field_bc_lo) + tuple(cfg.field_bc_hi):
             if bc not in ("periodic", "damped", "pml"):
                 no(f"PSATD with field boundary {bc!r} (the JAX package has "
@@ -146,7 +153,11 @@ def check_bounded_supported(cfg: SimConfig) -> None:
         no("a macroscopic medium", "Queue A 11")
     if cfg.do_dive_cleaning or cfg.do_divb_cleaning:
         no("divergence cleaning", "Queue A 11")
-    if cfg.current_deposition != "esirkepov":
+    if cfg.current_deposition == "vay":
+        # the JAX package's bounded step deposits direct J there and hands
+        # it to a solver that divides it by i k as if it were D
+        no("Vay deposition on the bounded step", "Queue C")
+    if cfg.current_deposition not in ("esirkepov", "direct"):
         no(f"current deposition {cfg.current_deposition!r}", "Queue A 3")
     if cfg.grid_type != "staggered":
         no(f"grid type {cfg.grid_type!r}", "Queue A 11")
@@ -258,10 +269,20 @@ class BoundedStepper:
         self.is_laser = {sp.name: sp.injection_style == "laser"
                          for sp in cfg.species}
         self.laser_cfg = {las.name: las for las in cfg.lasers}
+        # Galilean PSATD: the drift velocity on the active axes (None
+        # without); the window's shift count is its motion relative to
+        # the drifting grid
+        self.v_gal = galilean_velocity(cfg)
+        v_rel = cfg.moving_window_v * _c - (
+            self.v_gal[self.wdir] if self.v_gal is not None
+            and cfg.do_moving_window else 0.0)
         self.max_shift = (
-            int(math.ceil(abs(cfg.moving_window_v * _c) * cfg.dt
-                          / geom.dx[self.wdir])) + 1
+            int(math.ceil(abs(v_rel) * cfg.dt / geom.dx[self.wdir])) + 1
             if cfg.do_moving_window else 0)
+        # start- and end-of-step rho for update-with-rho and current
+        # correction (rho_fp components 0/1, WarpXPushFieldsEM.cpp:1041)
+        self.need_rho = cfg.em_solver == "psatd" and (
+            cfg.psatd_update_with_rho or cfg.psatd_current_correction)
 
         # --- PML: split-field ownership masks and damping factors
         self.has_pml = layout.has_pml
@@ -330,7 +351,12 @@ class BoundedStepper:
             periodic=(True,) * ndim)
         self.psatd = PsatdSolver(
             ext_geom, self.staggering, cfg.dt, n_order=cfg.psatd_order,
-            single_box=True, dtype=self.dtype, device=self.device)
+            update_with_rho=cfg.psatd_update_with_rho,
+            current_correction=cfg.psatd_current_correction,
+            v_galilean=cfg.psatd_v_galilean,
+            v_comoving=cfg.psatd_v_comoving, single_box=True,
+            time_averaging=cfg.psatd_time_averaging,
+            dtype=self.dtype, device=self.device)
         prof_nd = np.ones(tuple(n_ext))
         ngd = layout.damp_ncell
         for d in range(ndim):
@@ -350,6 +376,7 @@ class BoundedStepper:
         # regular fields in the interior every step (PML::Exchange)
         self.psatd_pml = PsatdPmlSolver(
             ext_geom, self.staggering, cfg.dt, n_order=cfg.psatd_order,
+            v_galilean=cfg.psatd_v_galilean,
             dive_cleaning=cfg.do_pml_dive_cleaning,
             divb_cleaning=cfg.do_pml_divb_cleaning,
             dtype=self.dtype, device=self.device)
@@ -414,17 +441,28 @@ class BoundedStepper:
             out[w] = self._f(state.aux["window_lo"] - strip)
         return out
 
+    def gal_origin_at(self, origin, state, frac=0.0):
+        """``origin`` shifted by the Galilean drift at t^n + frac dt (JAX
+        bounded_step.py:167-172), in the state's precision."""
+        if self.v_gal is None:
+            return origin
+        f = self._f
+        t = f(f(state.time) + f(frac * self.cfg.dt))
+        return [f(o + f(v * t)) for o, v in zip(origin, self.v_gal)]
+
+    # the physical bounds drift with the grid under Galilean PSATD
+    # (ShiftGalileanBoundary moves prob_lo/hi)
     def phys_lo_of(self, state):
         out = list(self.cfg.geometry.prob_lo)
         if self.cfg.do_moving_window:
             out[self.wdir] = state.aux["window_lo"]
-        return out
+        return self.gal_origin_at(out, state)
 
     def domain_hi_of(self, state):
         out = list(self.cfg.geometry.prob_hi)
         if self.cfg.do_moving_window:
             out[self.wdir] = state.aux["window_hi"]
-        return out
+        return self.gal_origin_at(out, state)
 
     # --------------------------------------------------------- padded blocks
     def pad_eb(self, arr, comp_name):
@@ -523,8 +561,11 @@ class BoundedStepper:
             upd[name] = arr
         return fields.replace(**upd)
 
-    def _padded_eb(self, fields):
-        return {name: self.pad_eb(getattr(fields, name), name)
+    def _padded_eb(self, fields, use_avg=False):
+        """The guard-padded E/B blocks (of the time-averaged fields with
+        ``use_avg`` where the run carries them)."""
+        suffix = "_avg" if use_avg and fields.Ex_avg is not None else ""
+        return {name: self.pad_eb(getattr(fields, name + suffix), name)
                 for name in _EB}
 
     def _gather(self, pos, farr_pad, origin):
@@ -546,10 +587,22 @@ class BoundedStepper:
 
     def _deposit(self, pos, u, w_eff, q, origin, shape, out=None):
         cfg = self.cfg
+        kw = dict(origin=origin, wrap=False, offset=self.ng, out_shape=shape,
+                  chunk_size=cfg.deposit_chunk_size, out=out)
+        if cfg.current_deposition == "direct":
+            return deposit_current_direct(
+                pos, *u, w_eff, q, cfg.geometry, self.staggering, cfg.dt,
+                cfg.particle_shape, **kw)
         return deposit_current_esirkepov(
             pos, *u, w_eff, q, cfg.geometry, cfg.dt, cfg.particle_shape,
-            origin=origin, wrap=False, offset=self.ng, out_shape=shape,
-            chunk_size=cfg.deposit_chunk_size, out=out)
+            **kw)
+
+    def _deposit_rho(self, pos, w_eff, q, origin, out):
+        cfg = self.cfg
+        return deposit_rho(pos, w_eff, q, cfg.geometry, cfg.particle_shape,
+                           out=out, origin=origin, wrap=False,
+                           offset=self.ng, out_shape=self.big_shape,
+                           chunk_size=cfg.deposit_chunk_size)
 
     def _advance_antenna(self, sp, name, time):
         laser = self.laser_cfg[name]
@@ -558,13 +611,23 @@ class BoundedStepper:
 
     # ------------------------------------------------------------- step_main
     def step_main(self, state: SimState) -> SimState:
-        """The per-particle bounded step: gather on the padded blocks, push,
-        Esirkepov deposit into the ``big_shape`` block, field tail."""
+        """The per-particle bounded step: gather on the padded blocks (of
+        the time-averaged fields under averaged PSATD), push, deposit J
+        (Esirkepov or direct) and, for update-with-rho and current
+        correction, rho at the start and end of the step into the
+        ``big_shape`` block, field tail.  Under Galilean PSATD each origin
+        sits at its own source time: the gather and rho_old at t^n, J at
+        t^{n+1/2}, rho_new at t^{n+1}."""
         cfg = self.cfg
         ndim = self.ndim
-        origin = self.origin_of(state)
-        farr_pad = self._padded_eb(state.fields)
-        j_total = None
+        origin0 = self.origin_of(state)
+        origin = self.gal_origin_at(origin0, state)
+        origin_j = self.gal_origin_at(origin0, state, 0.5)
+        origin_new = self.gal_origin_at(origin0, state, 1.0)
+        farr_pad = self._padded_eb(
+            state.fields,
+            use_avg=cfg.em_solver == "psatd" and cfg.psatd_time_averaging)
+        j_total = rho_old = rho_new = None
         new_species = {}
         for sp_cfg in cfg.species:
             sp = state.species[sp_cfg.name]
@@ -583,18 +646,30 @@ class BoundedStepper:
                 sp_new = sp.replace(ux=ux, uy=uy, uz=uz).with_positions(
                     ndim, position_step(pos, ux, uy, uz, cfg.dt, ndim))
                 q_eff = sp_cfg.charge
+            if self.need_rho:
+                zero = torch.zeros_like(sp.w)
+                rho_old = self._deposit_rho(
+                    sp.positions(ndim), torch.where(sp.alive, sp.w, zero),
+                    q_eff, origin, rho_old)
+                rho_new = self._deposit_rho(
+                    sp_new.positions(ndim),
+                    torch.where(sp_new.alive, sp_new.w, zero), q_eff,
+                    origin_new, rho_new)
             w_eff = torch.where(sp.alive, sp_new.w, torch.zeros_like(sp.w))
             j_total = self._deposit(
                 sp_new.positions(ndim), (sp_new.ux, sp_new.uy, sp_new.uz),
-                w_eff, q_eff, origin, self.big_shape, out=j_total)
+                w_eff, q_eff, origin_j, self.big_shape, out=j_total)
             new_species[sp_cfg.name] = sp_new.with_positions(
                 ndim, self._wrap_periodic(sp_new.positions(ndim)))
-        return self.field_tail(state, new_species, j_total, {})
+        return self.field_tail(state, new_species, j_total, {},
+                               rho_old, rho_new)
 
     # ------------------------------------------------------------ field tail
-    def field_tail(self, state, new_species, j_total, aux_updates):
-        """Filter J on the padded block, fold and crop it, then advance the
-        fields: B half, E full with J, B half.  In the PML strips each
+    def field_tail(self, state, new_species, j_total, aux_updates,
+                   rho_old=None, rho_new=None):
+        """Filter J (and the rho pair) on the padded block, fold and crop
+        it, then advance the fields: B half, E full with J, B half, or the
+        spectral push.  In the PML strips each
         Berenger split field integrates one curl term of the total fields
         (EvolveBPML.cpp, EvolveEPML.cpp) and is damped once per step
         (DampPML); the totals there are the sums of the splits, which makes
@@ -617,7 +692,18 @@ class BoundedStepper:
         aux = dict(state.aux)
         aux.update(aux_updates)
         if self.psatd is not None:
-            fields = self.psatd_push(fields, aux)
+            rho_pair = None
+            if self.need_rho:
+                if rho_old is None:
+                    rho_pair = (torch.zeros(self.shapes["rho"], **kw),) * 2
+                else:
+                    if cfg.use_filter:
+                        npass = cfg.filter_npass_each_dir or (1,) * self.ndim
+                        rho_old = bilinear_filter_padded(rho_old, npass)
+                        rho_new = bilinear_filter_padded(rho_new, npass)
+                    rho_pair = (self.fold_and_crop(rho_old, "rho"),
+                                self.fold_and_crop(rho_new, "rho"))
+            fields = self.psatd_push(fields, aux, rho_pair)
             return state.replace(fields=fields, species=new_species,
                                  step=state.step + 1, time=state.time + dt,
                                  aux=aux)
@@ -695,9 +781,11 @@ class BoundedStepper:
                 arr = torch.cat([arr, arr.new_zeros(zshape)], dim=d)
         return arr
 
-    def psatd_push(self, fields, aux):
+    def psatd_push(self, fields, aux, rho_pair=None):
         """The spectral field advance over the extended box (PushPSATD, then
-        DampFieldsInGuards; JAX bounded_step.py:1151-1230): with PML faces
+        DampFieldsInGuards; JAX bounded_step.py:1151-1230), with the rho
+        pair of update-with-rho and current correction; the time-averaged
+        fields come back undamped, as the JAX package's do.  With PML faces
         the interior splits are re-fed from the fields at t^n (the first
         split takes the field, the others zero; PML::Exchange,
         PML.cpp:1180-1196), the splits advance spectrally, are damped along
@@ -718,7 +806,9 @@ class BoundedStepper:
                     else:
                         splits[nm, ax] = cur * m
             new_splits = self.psatd_pml.push(splits)
-        out = self.psatd.push(crop)
+        if rho_pair is not None:
+            rho_pair = tuple(self._crop_to_ext(r) for r in rho_pair)
+        out = self.psatd.push(crop, rho_pair)
         if new_splits is not None:
             tot = {}
             for (nm, ax), arr in new_splits.items():
@@ -729,9 +819,12 @@ class BoundedStepper:
                 tot[nm] = arr if nm not in tot else tot[nm] + arr
             for nm in _EB:
                 out[nm] = torch.where(self.pml_own_ext[nm], tot[nm], out[nm])
-        return fields.replace(**{
-            nm: self._restore_shape(out[nm] * self.damp_profile, nm)
-            for nm in _EB})
+        upd = {nm: self._restore_shape(out[nm] * self.damp_profile, nm)
+               for nm in _EB}
+        if self.psatd.time_averaging:
+            upd.update({nm + "_avg": self._restore_shape(out[nm + "_avg"], nm)
+                        for nm in _EB})
+        return fields.replace(**upd)
 
     # ----------------------------------------------------------- step_window
     def shift_field(self, arr, num_shift: int):
@@ -860,8 +953,13 @@ class BoundedStepper:
             dz = f(cfg.geometry.dx[wdir])
             window_x = f(aux["window_x"]
                          + f(cfg.moving_window_v * _c * cfg.dt))
-            num_shift = int(np.floor(
-                f(f(window_x - aux["window_lo"]) / dz)))
+            # under Galilean PSATD the count is the window's motion relative
+            # to the drifting grid (WarpXMovingWindow.cpp:171; state.time is
+            # t^{n+1} here)
+            lo_grid = aux["window_lo"]
+            if self.v_gal is not None:
+                lo_grid = f(lo_grid + f(self.v_gal[wdir] * f(state.time)))
+            num_shift = int(np.floor(f(f(window_x - lo_grid) / dz)))
             num_shift = min(max(num_shift, 0), self.max_shift)
             shift_len = f(f(num_shift) * dz)
             aux["window_x"] = window_x
@@ -871,6 +969,8 @@ class BoundedStepper:
 
             fl = state.fields
             names = list(_EB) + (["jx", "jy", "jz"] if move_j else [])
+            if fl.Ex_avg is not None:
+                names += [nm + "_avg" for nm in _EB]
             upd = {nm: self.shift_field(getattr(fl, nm), num_shift)
                    for nm in names}
             for key in aux:
@@ -930,9 +1030,10 @@ class BoundedStepper:
 
     # ------------------------------------------------------------- half push
     def half_push(self, state: SimState, dt_half: float) -> SimState:
-        """Gather on the padded blocks at the current positions and push the
+        """Gather on the padded blocks at the current positions (the
+        instantaneous fields, at the Galilean origin of t^n) and push the
         momenta by ``dt_half`` only."""
-        origin = self.origin_of(state)
+        origin = self.gal_origin_at(self.origin_of(state), state)
         farr_pad = self._padded_eb(state.fields)
         new_species = {}
         for sp_cfg in self.cfg.species:

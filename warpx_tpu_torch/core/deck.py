@@ -32,7 +32,6 @@ from ..utils.intervals import IntervalsParser
 from ..utils.parser import Deck
 from .config import LaserConfig, SimConfig, SpeciesConfig
 from .grid import Geometry
-from .step import check_psatd
 
 __all__ = ["NO_PHYSICS", "config_from_deck", "outputs_from_deck"]
 
@@ -340,16 +339,53 @@ def _gate_values(deck: Deck) -> None:
     if deck.get_real("warpx.gamma_boost", 1.0) > 1.0:
         _no("the Lorentz-boosted frame (warpx.gamma_boost > 1)", "Queue A 11")
     dep = _lower(deck, "algo.current_deposition", _dep_default(solver))
-    if dep == "vay" and solver == "psatd":
-        _no("algo.current_deposition = vay", "Queue A 10.2")
-    if dep != "esirkepov":
+    if dep not in ("esirkepov", "direct", "vay"):
         _no(f"algo.current_deposition = {dep}", "Queue A 3")
+    _psatd_gates(deck)
     for which in ("E", "B"):
         style = _lower(deck, f"particles.{which}_ext_particle_init_style",
                        "none")
         if style not in ("none", "constant"):
             _no(f"particles.{which}_ext_particle_init_style = {style}",
                 "Queue A 11")
+
+
+def _psatd_gates(deck: Deck) -> None:
+    """The PSATD combinations the JAX reader refuses, with its messages
+    (warpx_tpu/core/deck.py:406-455; the reference aborts on them)."""
+    if (any(deck.get_reals("psatd.v_comoving", (0.0, 0.0, 0.0)))
+            or deck.get_bool("psatd.use_default_v_comoving", False)):
+        if _lower(deck, "algo.current_deposition", "esirkepov") in (
+                "esirkepov", "villasenor"):
+            raise NotImplementedError(
+                "charge-conserving current depositions cannot be used with "
+                "the comoving PSATD algorithm (WarpX.cpp:1575)")
+    sol_type = _lower(deck, "psatd.solution_type",
+                      "second-order").replace("_", "-")
+    multi_j = deck.get_bool("warpx.do_multi_J", False)
+    if (_lower(deck, "psatd.rho_in_time", "linear") == "constant"
+            and not (sol_type == "first-order" and multi_j)):
+        raise NotImplementedError(
+            "psatd.rho_in_time=constant not implemented except for "
+            "psatd.solution_type=first-order with warpx.do_multi_J=1 "
+            "(WarpX.cpp:1454)")
+    if (deck.get_int("warpx.do_multi_J_n_depositions", 1) > 1
+            and sol_type != "first-order"):
+        raise NotImplementedError(
+            "warpx.do_multi_J_n_depositions > 1 requires "
+            "psatd.solution_type = first-order")
+    if sol_type == "first-order":
+        faces = (deck.get_strings("boundary.field_lo", [])
+                 + deck.get_strings("boundary.field_hi", []))
+        if any(b.lower() not in ("periodic", "") for b in faces):
+            raise NotImplementedError(
+                "first-order PSATD with non-periodic boundaries")
+        if deck.get_bool("psatd.do_time_averaging", False):
+            raise NotImplementedError(
+                "first-order PSATD with time averaging")
+    if multi_j and _lower(deck, "algo.current_deposition", "") == "vay":
+        raise NotImplementedError(
+            "Vay deposition not implemented with multi-J (WarpX.cpp:1162)")
 
 
 def _item_of_key(deck: Deck, key: str) -> str:
@@ -360,8 +396,6 @@ def _item_of_key(deck: Deck, key: str) -> str:
         # the legacy AMReX output keys and a restart named in the deck,
         # which neither package reads (the CLI's --restart does)
         return "Queue A 15"
-    if head == "psatd":
-        return "Queue A 10.2"
     if head == "collisions" or head in deck.get_strings(
             "collisions.collision_names", []) or head.startswith("qed"):
         return "Queue A 11.1"
@@ -604,8 +638,6 @@ def config_from_deck(deck: Deck) -> SimConfig:
         **_psatd_from_deck(deck, em_solver, dep),
         **_tiling_from_deck(deck, ndim),
     )
-    if em_solver == "psatd":
-        check_psatd(cfg)
     outputs = outputs_from_deck(deck)
     names = {o["name"] for o in outputs["diags"] + outputs["reduced"]}
     unread = [k for k in deck.unused_keys()

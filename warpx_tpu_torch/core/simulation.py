@@ -38,7 +38,7 @@ from ..diagnostics.reduced import ReducedDiagWriter, compute_reduced
 from ..io.checkpoint import save_checkpoint
 from ..io.openpmd import compact_columns, host, write_openpmd_iteration
 from ..io.plotfile import write_plotfile
-from ..solvers.psatd import PsatdSolver
+from ..solvers.psatd import PsatdFirstOrder, PsatdSolver
 from ..utils.expression import compile_expression
 from ..utils.observability import SignalFlags, StepTimer
 from ..utils.parser import Deck
@@ -54,7 +54,7 @@ from .injection import (columns_to_state, inject_gaussian_beam_host,
                         inject_species, inject_species_host)
 from .laser import antenna_particles
 from .state import FieldState, ParticleState, SimState
-from .step import pic_step, psatd_ported, push_momenta_half, wrap_positions
+from .step import pic_step, push_momenta_half, wrap_positions
 
 __all__ = ["Simulation"]
 
@@ -105,21 +105,61 @@ class Simulation:
         self.diags: list = []
         self.reduced: list = []
         self.signals: SignalFlags | None = None
-        # the periodic spectral solver (the bounded one is the stepper's); a
-        # PSATD family that is not ported has none and its step raises
+        # the periodic spectral solver (the bounded one is the stepper's)
         self.psatd = None
         if self.is_bounded:
             check_bounded_supported(cfg)
             self.params = None
         else:
-            if cfg.em_solver == "psatd" and psatd_ported(cfg):
-                self.psatd = PsatdSolver(
-                    cfg.geometry, self.staggering, cfg.dt,
-                    n_order=cfg.psatd_order,
-                    single_box=cfg.psatd_periodic_single_box,
-                    dtype=dtype, device=self.device)
+            if cfg.em_solver == "psatd":
+                self.psatd = self._periodic_psatd()
             self.params = (pusher_params(cfg, dtype, self.device)
                            if self.binned else None)
+
+    def _periodic_psatd(self):
+        """The periodic spectral solver of the JAX package's choice
+        (simulation.py:198-241): first-order PSATD advances by the multi-J
+        sub-step (WarpX.cpp:2750: solver_dt /= do_multi_J_n_depositions),
+        every other family is a ``PsatdSolver``."""
+        cfg = self.cfg
+        kw = dict(n_order=cfg.psatd_order,
+                  update_with_rho=cfg.psatd_update_with_rho,
+                  single_box=cfg.psatd_periodic_single_box,
+                  dtype=self.dtype, device=self.device)
+        if cfg.psatd_solution_type == "first-order":
+            if cfg.do_dive_cleaning != cfg.do_divb_cleaning:
+                raise NotImplementedError(
+                    "first-order PSATD requires do_dive_cleaning == "
+                    "do_divb_cleaning")
+            return PsatdFirstOrder(
+                cfg.geometry, self.staggering,
+                cfg.dt / max(1, cfg.multi_j_n_depositions),
+                j_in_time=cfg.psatd_j_in_time,
+                rho_in_time=cfg.psatd_rho_in_time,
+                div_cleaning=cfg.do_dive_cleaning, **kw)
+        return PsatdSolver(
+            cfg.geometry, self.staggering, cfg.dt,
+            current_correction=cfg.psatd_current_correction,
+            v_galilean=cfg.psatd_v_galilean,
+            v_comoving=cfg.psatd_v_comoving,
+            vay_deposition=cfg.current_deposition == "vay",
+            time_averaging=cfg.psatd_time_averaging, **kw)
+
+    def _with_optional_fields(self, fields: FieldState) -> FieldState:
+        """The cleaning scalars F and G (of the domain's shape: only the
+        periodic torus carries them) and the time-averaged fields, zero at
+        the start as Efield_avg_fp is (JAX simulation.py:792-800,
+        1236-1243)."""
+        cfg = self.cfg
+        upd = {}
+        if cfg.do_dive_cleaning:
+            upd["F"] = torch.zeros_like(fields.Ex)
+        if cfg.do_divb_cleaning:
+            upd["G"] = torch.zeros_like(fields.Ex)
+        if cfg.psatd_time_averaging:
+            for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"):
+                upd[nm + "_avg"] = torch.zeros_like(getattr(fields, nm))
+        return fields.replace(**upd)
 
     @classmethod
     def from_deck(cls, deck, overrides=(),
@@ -170,11 +210,11 @@ class Simulation:
         def zeros():
             return torch.zeros(geom.n_cell, **kw)
 
-        fields = FieldState(
+        fields = self._with_optional_fields(FieldState(
             Ex=zeros(), Ey=zeros(), Ez=zeros(),
             Bx=zeros(), By=zeros(), Bz=zeros(),
             jx=zeros(), jy=zeros(), jz=zeros(),
-        )
+        ))
         self.state = SimState(fields=fields, species=species, step=0,
                               time=0.0, aux=aux)
         self.is_synchronized = True
@@ -280,9 +320,9 @@ class Simulation:
         # splits over the extended box)
         for key, shape in self.stepper.pml_split_shapes().items():
             aux[key] = torch.zeros(shape, **kw)
-        fields = FieldState(**{
+        fields = self._with_optional_fields(FieldState(**{
             nm: torch.zeros(shapes[nm], **kw)
-            for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")})
+            for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")}))
         species = {nm: columns_to_state(cols, self.device)
                    for nm, cols in host.items()}
         self.state = SimState(fields=fields, species=species, step=0,

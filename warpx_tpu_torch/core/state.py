@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 __all__ = ["FieldState", "ParticleState", "SimState", "state_from_numpy",
-           "state_to_numpy", "HOST_AUX", "is_host_aux"]
+           "state_to_numpy", "HOST_AUX", "is_host_aux", "OPTIONAL_FIELDS",
+           "field_names"]
 
 # aux entries kept as host numbers; ``inject_pos:`` prefixes one entry per
 # continuously injected species
@@ -37,6 +38,9 @@ def is_host_aux(key: str) -> bool:
 
 
 _FIELD_NAMES = ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")
+# present only in the configurations that carry them (None otherwise)
+OPTIONAL_FIELDS = ("F", "G", "Ex_avg", "Ey_avg", "Ez_avg", "Bx_avg",
+                   "By_avg", "Bz_avg")
 _PARTICLE_NAMES = ("w", "ux", "uy", "uz", "alive", "x", "y", "z")
 
 
@@ -55,6 +59,18 @@ class FieldState:
     jx: torch.Tensor
     jy: torch.Tensor
     jz: torch.Tensor
+    # the divergence-cleaning scalars (warpx.do_dive_cleaning /
+    # do_divb_cleaning)
+    F: Optional[torch.Tensor] = None
+    G: Optional[torch.Tensor] = None
+    # the time-averaged fields of averaged PSATD (Efield_avg_fp), zero at
+    # the start of a run
+    Ex_avg: Optional[torch.Tensor] = None
+    Ey_avg: Optional[torch.Tensor] = None
+    Ez_avg: Optional[torch.Tensor] = None
+    Bx_avg: Optional[torch.Tensor] = None
+    By_avg: Optional[torch.Tensor] = None
+    Bz_avg: Optional[torch.Tensor] = None
 
     def e(self):
         return (self.Ex, self.Ey, self.Ez)
@@ -123,6 +139,12 @@ class SimState:
         return dataclasses.replace(self, **kw)
 
 
+def field_names(fields: FieldState):
+    """The names of the components ``fields`` holds, in a fixed order."""
+    return _FIELD_NAMES + tuple(nm for nm in OPTIONAL_FIELDS
+                                if getattr(fields, nm) is not None)
+
+
 def _tensor(a, dtype, device):
     a = np.asarray(a)
     if a.dtype == np.bool_:
@@ -144,7 +166,8 @@ def state_from_numpy(data: dict, dtype: torch.dtype,
     """Build a ``SimState`` from the nested numpy dict described in the
     module docstring (absent position arrays stay None)."""
     fields = FieldState(**{
-        nm: _tensor(data["fields"][nm], dtype, device) for nm in _FIELD_NAMES
+        nm: _tensor(a, dtype, device) for nm, a in data["fields"].items()
+        if nm in _FIELD_NAMES + OPTIONAL_FIELDS and a is not None
     })
     species = {}
     for name, sp in data["species"].items():
@@ -169,7 +192,8 @@ def state_to_numpy(state: SimState) -> dict:
         return None if t is None else t.detach().cpu().numpy()
 
     return {
-        "fields": {nm: host(getattr(state.fields, nm)) for nm in _FIELD_NAMES},
+        "fields": {nm: host(getattr(state.fields, nm))
+                   for nm in field_names(state.fields)},
         "species": {
             name: {nm: host(getattr(sp, nm)) for nm in _PARTICLE_NAMES}
             for name, sp in state.species.items()

@@ -163,17 +163,31 @@ def cell_centered_output(state: SimState, cfg: SimConfig, staggering: Dict,
              if layout.has_ext else None)
 
     def comp(name):
-        arr = getattr(f, name)
+        # averaged PSATD: the E/B diagnostics read the time-averaged fields
+        # (Efield_avg_fp)
+        if (cfg.psatd_time_averaging and name[0] in "EB"
+                and getattr(f, name + "_avg", None) is not None):
+            arr = getattr(f, name + "_avg")
+        else:
+            arr = getattr(f, name)
         return arr if crops is None else arr[crops[name]]
 
+    # Vay deposition stores the nodal J that the solver derived from D
+    flags = dict(staggering)
+    if cfg.current_deposition == "vay":
+        flags.update({nm: (1,) * geom.ndim for nm in ("jx", "jy", "jz")})
     out = {}
     for name in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz"):
         if want(name):
-            out[name] = cell_center(comp(name), staggering[name],
-                                    geom.n_cell)
+            out[name] = cell_center(comp(name), flags[name], geom.n_cell)
     if want("rho"):
         out["rho"] = cell_center(deposit_total_rho(state, cfg),
                                  staggering["rho"], geom.n_cell)
+    for name in ("F", "G"):
+        # the divergence-cleaning scalars, where the run carries them
+        if getattr(f, name) is not None and want(name):
+            out[name] = cell_center(comp(name), staggering[name],
+                                    geom.n_cell)
     if want("divE") or want("divB"):
         bc_lo = cfg.field_bc_lo or ("periodic",) * geom.ndim
         if all(bc == "periodic" for bc in bc_lo):

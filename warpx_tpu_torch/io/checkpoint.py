@@ -6,7 +6,8 @@ restored by InitFromCheckpoint, Source/Diagnostics/WarpXIO.cpp:90-330).  A
 checkpoint directory holds ``state.npz``, one array per entry of
 ``state_to_numpy``'s nesting under its path (``fields/Ex``,
 ``species/electrons/x``, ``aux/pml:Ex:z``, ``aux/window_lo``, ``step``,
-``time``), and ``header.json`` with the JAX package's keys (``n_leaves``,
+``time``; ``fields/F``, ``fields/Ex_avg`` and the like where the
+configuration carries them), and ``header.json`` with the JAX package's keys (``n_leaves``,
 ``is_synchronized``, ``step``).  ``load_checkpoint`` restores into a
 template state of the same configuration and refuses an entry whose name,
 shape or dtype differs from the template's.  On the CPU a restarted run
@@ -22,7 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..core.state import SimState, state_from_numpy
+from ..core.state import SimState, field_names, state_from_numpy
 
 __all__ = ["save_checkpoint", "load_checkpoint"]
 
@@ -43,8 +44,7 @@ def _entries(state: SimState):
     own tensors and host numbers as values (nothing moved)."""
     return _flatten({
         "fields": {nm: getattr(state.fields, nm)
-                   for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz",
-                              "jx", "jy", "jz")},
+                   for nm in field_names(state.fields)},
         "species": {name: {nm: getattr(sp, nm)
                            for nm in ("w", "ux", "uy", "uz", "alive",
                                       "x", "y", "z")}

@@ -17,7 +17,12 @@ become (taps, n) tensors and the reference's atomicAdd becomes
   (CurrentDeposition.H:643-900).  The per-particle steps run it; the binned
   steps run it only for laser antennas and small compact species, so it is
   also the port's own slow-path oracle for the fused kernels in
-  ``fused_pic``.
+  ``fused_pic``;
+* ``deposit_current_direct``: J = q w v at the Yee J sites from the
+  position at ``relative_time`` (CurrentDeposition.H:274, PSATD's default
+  and multi-J's sampler);
+* ``deposit_current_vay``: the nodal D arrays of Vay deposition
+  (CurrentDeposition.H:1857-2135) that the PSATD solver turns into J.
 
 ``chunk_size`` bounds the (taps, n) intermediates: the particles are
 deposited that many at a time into the same block.
@@ -30,12 +35,14 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..constants import inv_c2
+from .push import inv_gamma
 from .shapes import esirkepov_weights, shape_weights
 
 __all__ = [
     "deposit_rho",
     "deposit_current_esirkepov",
+    "deposit_current_direct",
+    "deposit_current_vay",
     "count_particles_per_cell",
 ]
 
@@ -160,8 +167,7 @@ def deposit_current_esirkepov(
     body = _esirkepov_2d if geom.ndim == 2 else _esirkepov_3d
     for sl in _chunks(w.shape[0], chunk_size):
         u = (ux[sl], uy[sl], uz[sl])
-        gaminv = 1.0 / torch.sqrt(
-            1.0 + (u[0] * u[0] + u[1] * u[1] + u[2] * u[2]) * inv_c2)
+        gaminv = inv_gamma(*u)
         body([p[sl] for p in positions], tuple(a * gaminv for a in u),
              q * w[sl], geom, dt, order, lo, wrap, offset, j3)
     return j3
@@ -242,3 +248,145 @@ def _esirkepov_2d(positions, vel, wq, geom, dt, order, lo, wrap, offset, j3):
            torch.broadcast_to(iz[None, :], valx.shape)]
     for j, v in zip(j3, (valx, valy, valz)):
         _scatter_add_(j, idx, v)
+
+
+def _blocks(j3, shape, like):
+    return j3 if j3 is not None else tuple(
+        torch.zeros(shape, dtype=like.dtype, device=like.device)
+        for _ in range(3))
+
+
+def deposit_current_direct(
+    positions: Sequence[torch.Tensor],
+    ux, uy, uz, w,
+    q: float,
+    geom,
+    staggering: dict,
+    dt: float,
+    order: int,
+    relative_time: float | None = None,
+    origin=None,
+    wrap: bool = True,
+    offset: int = 0,
+    out_shape=None,
+    chunk_size: int | None = None,
+    out=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Direct deposition of J = q w v onto the staggered Yee J sites from
+    the position x + relative_time * v (``warpx_tpu.ops.deposit.
+    deposit_current_direct``; the default -dt/2 is the midpoint of the step
+    just pushed).  ``out`` is added to in place and returned."""
+    if relative_time is None:
+        relative_time = -0.5 * dt
+    ndim = geom.ndim
+    shape = tuple(out_shape or geom.n_cell)
+    lo = geom.prob_lo if origin is None else origin
+    invvol = 1.0 / geom.cell_volume
+    j3 = _blocks(out, shape, w)
+    for sl in _chunks(w.shape[0], chunk_size):
+        gaminv = inv_gamma(ux[sl], uy[sl], uz[sl])
+        vels = (ux[sl] * gaminv, uy[sl] * gaminv, uz[sl] * gaminv)
+        active_v = {3: vels, 2: (vels[0], vels[2]), 1: (vels[2],)}[ndim]
+        coords = [(positions[d][sl] - lo[d] + relative_time * active_v[d])
+                  / geom.dx[d] for d in range(ndim)]
+        for target, comp, vcomp in zip(j3, ("jx", "jy", "jz"), vels):
+            flags = staggering[comp]
+            idx1, weights = [], []
+            for d in range(ndim):
+                xd = coords[d] - 0.5 if flags[d] == 0 else coords[d]
+                i0, ws = shape_weights(xd, order)
+                idx1.append(_tap_idx(i0, order + 1, shape[d], wrap, offset))
+                weights.append(ws)
+            wqv = q * w[sl] * vcomp * invvol
+            vals, idxs = [], []
+            for taps in itertools.product(*[range(order + 1)] * ndim):
+                val = wqv
+                for d in range(ndim):
+                    val = val * weights[d][taps[d]]
+                vals.append(val)
+                idxs.append([idx1[d][taps[d]] for d in range(ndim)])
+            _scatter_add_(
+                target,
+                [torch.stack([ix[d] for ix in idxs], dim=0)
+                 for d in range(ndim)],
+                torch.stack(vals, dim=0))
+    return j3
+
+
+def deposit_current_vay(
+    positions: Sequence[torch.Tensor],
+    ux, uy, uz, w,
+    q: float,
+    geom,
+    dt: float,
+    order: int,
+    origin=None,
+    wrap: bool = True,
+    offset: int = 0,
+    out_shape=None,
+    chunk_size: int | None = None,
+    out=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Vay deposition (PSATD only; ``warpx_tpu.ops.deposit.
+    deposit_current_vay``): the NODAL D arrays whose k-space division by
+    i k gives the charge-conserving J (the division is
+    ``PsatdSolver.push``'s).  ``positions`` are x^{n+1}; x^n is
+    reconstructed as x^{n+1} - dt v.  2D XZ and 3D."""
+    ndim = geom.ndim
+    if ndim == 1:
+        raise NotImplementedError("Vay deposition not implemented in 1D")
+    shape = tuple(out_shape or geom.n_cell)
+    lo = geom.prob_lo if origin is None else origin
+    invvol = 1.0 / geom.cell_volume
+    taps_n = order + 3
+    d3 = _blocks(out, shape, w)
+    for sl in _chunks(w.shape[0], chunk_size):
+        gaminv = inv_gamma(ux[sl], uy[sl], uz[sl])
+        vel3 = (ux[sl] * gaminv, uy[sl] * gaminv, uz[sl] * gaminv)
+        wq = (q * w[sl]) * invvol
+        f = wq * (1.0 / dt)
+        i0s, SN, SO = [], [], []
+        for d in range(ndim):
+            v_act = vel3[d] if ndim == 3 else vel3[(0, 2)[d]]
+            xn = (positions[d][sl] - lo[d]) / geom.dx[d]
+            xo = xn - v_act * dt / geom.dx[d]
+            i0, s_new, s_old = esirkepov_weights(xn, xo, order)
+            i0s.append(_tap_idx(i0, taps_n, shape[d], wrap, offset))
+            SN.append(torch.stack(s_new, dim=0))
+            SO.append(torch.stack(s_old, dim=0))
+        if ndim == 3:
+            def outer(a, b, c):
+                return (a[:, None, None, :] * b[None, :, None, :]
+                        * c[None, None, :, :])
+
+            SNx, SNy, SNz = SN
+            SOx, SOy, SOz = SO
+            t0 = f * (outer(SNx, SNy, SNz) - outer(SOx, SOy, SOz))
+            t1 = f * (outer(SNx, SNy, SOz) - outer(SOx, SOy, SNz))
+            t2 = f * (outer(SNx, SOy, SNz) - outer(SOx, SNy, SOz))
+            t3 = f * (outer(SOx, SNy, SNz) - outer(SNx, SOy, SOz))
+            vals = ((2 * t0 + t1 + t2 - 2 * t3) / 6.0,
+                    (2 * t0 + t1 - 2 * t2 + t3) / 6.0,
+                    (2 * t0 - 2 * t1 + t2 + t3) / 6.0)
+            ix, iy, iz = i0s
+            idx = [torch.broadcast_to(ix[:, None, None, :], t0.shape),
+                   torch.broadcast_to(iy[None, :, None, :], t0.shape),
+                   torch.broadcast_to(iz[None, None, :, :], t0.shape)]
+        else:
+            # 2D XZ: Dy is the direct deposit of wq*vy on averaged shapes
+            SNx, SNz = SN
+            SOx, SOz = SO
+            t0 = f * (SNx[:, None, :] * SNz[None, :, :]
+                      - SOx[:, None, :] * SOz[None, :, :])
+            t1 = f * (SNx[:, None, :] * SOz[None, :, :]
+                      - SOx[:, None, :] * SNz[None, :, :])
+            vals = (0.5 * (t0 + t1),
+                    (wq * vel3[1] * 0.25)
+                    * ((SNx + SOx)[:, None, :] * (SNz + SOz)[None, :, :]),
+                    0.5 * (t0 - t1))
+            ix, iz = i0s
+            idx = [torch.broadcast_to(ix[:, None, :], t0.shape),
+                   torch.broadcast_to(iz[None, :, :], t0.shape)]
+        for target, v in zip(d3, vals):
+            _scatter_add_(target, idx, v)
+    return d3

@@ -41,8 +41,8 @@ import torch
 from ..constants import c as _c
 from ..constants import ep0 as _ep0
 
-__all__ = ["PsatdSolver", "PsatdPmlSolver", "fornberg_coefficients",
-           "modified_k", "pml_split_dirs"]
+__all__ = ["PsatdSolver", "PsatdFirstOrder", "PsatdPmlSolver",
+           "fornberg_coefficients", "modified_k", "pml_split_dirs"]
 
 _c2 = _c * _c
 _NAMES_E = ("Ex", "Ey", "Ez")
@@ -154,6 +154,8 @@ class PsatdSolver:
         self.geom = geom
         self.staggering = staggering
         self.dt = dt
+        self.n_order = n_order
+        self.collocated_grid = collocated_grid
         self.update_with_rho = update_with_rho
         self.current_correction = current_correction
         self.v_galilean = tuple(v_galilean)
@@ -559,13 +561,17 @@ class PsatdSolver:
         return self._crop(torch.fft.ifftn(D).real).contiguous()
 
     # ------------------------------------------------------------------ push
-    def push(self, fields: Mapping[str, torch.Tensor], rho_pair=None
-             ) -> Dict[str, torch.Tensor]:
+    def push(self, fields: Mapping[str, torch.Tensor], rho_pair=None,
+             j_old=None) -> Dict[str, torch.Tensor]:
         """One PSATD step: E, B <- the analytic k-space advance with J (and
         rho).  ``rho_pair`` = (rho_old, rho_new) nodal arrays for current
-        correction and update-with-rho.  Returns ``fields`` with the new
-        E and B (and F, G, the averaged fields or the corrected J where
-        the family makes them)."""
+        correction and update-with-rho.  ``j_old`` = (jx, jy, jz) at the
+        start of the step makes J linear in time (multi-J,
+        PsatdAlgorithmJLinearInTime.cpp:115-190); ``fields``' J is then J
+        at the end of the step.  Returns ``fields`` with the new E and B
+        (and F, G, the averaged fields or the corrected J where the family
+        makes them; with ``j_old``, E and B only, as the JAX package
+        returns them)."""
         E = [self.forward(fields[nm], nm) for nm in _NAMES_E]
         B = [self.forward(fields[nm], nm) for nm in _NAMES_B]
         if self.vay_deposition:
@@ -580,6 +586,8 @@ class PsatdSolver:
         I = 1j
         out = dict(fields)
 
+        # the J the push returns beside E and B (not with ``j_old``)
+        late_j = {}
         if self.vay_deposition:
             def div_k(D, k):
                 if isinstance(k, float):
@@ -590,8 +598,8 @@ class PsatdSolver:
             J = [div_k(J[0], kx), div_k(J[1], ky), div_k(J[2], kz)]
             # the real-space (nodal) J of the diagnostics
             # (PSATDBackwardTransformJ)
-            out.update({nm: self.backward(Jc, "rho")
-                        for nm, Jc in zip(_NAMES_J, J)})
+            late_j = {nm: self.backward(Jc, "rho")
+                      for nm, Jc in zip(_NAMES_J, J)}
 
         rho_old_k = rho_new_k = None
         if rho_pair is not None:
@@ -616,8 +624,8 @@ class PsatdSolver:
                 J = [self.forward(out[nm], nm) for nm in _NAMES_J]
             else:
                 J = self._cc_corrected_J(J, rho_old_k, rho_new_k, kx, ky, kz)
-                out.update({nm: self.backward(Jc, nm)
-                            for nm, Jc in zip(_NAMES_J, J)})
+                late_j = {nm: self.backward(Jc, nm)
+                          for nm, Jc in zip(_NAMES_J, J)}
 
         k_dot_E = kx * E[0] + ky * E[1] + kz * E[2]
         k_dot_J = kx * J[0] + ky * J[1] + kz * J[2]
@@ -644,6 +652,31 @@ class PsatdSolver:
         else:
             T2, X4 = 1.0, -S_ck / _ep0
         rho_fac = X2 * rho_new - T2 * X3 * rho_old
+
+        if j_old is not None:
+            # J linear in time: J(t) runs from J_old to J_new
+            # (PsatdAlgorithmJLinearInTime.cpp:160-186); X1..X4 standard
+            Jo = [self.forward(a, nm) for a, nm in zip(j_old, _NAMES_J)]
+            dJ = [J[i] - Jo[i] for i in range(3)]
+            new = {
+                "Ex": (C * E[0] + I * _c2 * S_ck * (ky * B[2] - kz * B[1])
+                       + X4 * Jo[0] - I * rho_fac * kx - X1 * dJ[0] / dt),
+                "Ey": (C * E[1] + I * _c2 * S_ck * (kz * B[0] - kx * B[2])
+                       + X4 * Jo[1] - I * rho_fac * ky - X1 * dJ[1] / dt),
+                "Ez": (C * E[2] + I * _c2 * S_ck * (kx * B[1] - ky * B[0])
+                       + X4 * Jo[2] - I * rho_fac * kz - X1 * dJ[2] / dt),
+                "Bx": (C * B[0] - I * S_ck * (ky * E[2] - kz * E[1])
+                       + I * X1 * (ky * Jo[2] - kz * Jo[1])
+                       + I * X2 / _c2 * (ky * dJ[2] - kz * dJ[1])),
+                "By": (C * B[1] - I * S_ck * (kz * E[0] - kx * E[2])
+                       + I * X1 * (kz * Jo[0] - kx * Jo[2])
+                       + I * X2 / _c2 * (kz * dJ[0] - kx * dJ[2])),
+                "Bz": (C * B[2] - I * S_ck * (kx * E[1] - ky * E[0])
+                       + I * X1 * (kx * Jo[1] - ky * Jo[0])
+                       + I * X2 / _c2 * (kx * dJ[1] - ky * dJ[0])),
+            }
+            out.update({nm: self.backward(a, nm) for nm, a in new.items()})
+            return out
 
         Ex = (T2 * C * E[0] + I * _c2 * T2 * S_ck * (ky * B[2] - kz * B[1])
               + X4 * J[0] - I * rho_fac * kx)
@@ -701,6 +734,157 @@ class PsatdSolver:
             }
             for nm, a in avg.items():
                 out[nm + "_avg"] = self.backward(a, nm)
+        out.update(late_j)
+        return out
+
+
+class PsatdFirstOrder(PsatdSolver):
+    """First-order-form PSATD (PsatdAlgorithmFirstOrder.cpp:60-355), the
+    solver of multi-J with psatd.solution_type = first-order: J constant or
+    linear and rho constant or linear in time, with or without the F/G
+    cleaning potentials.  The closed form of the JAX class
+    (``warpx_tpu.solvers.psatd.PsatdFirstOrder``, whose docstring spells it
+    out), with k the modified k, S = sin(w dt), C = cos(w dt):
+
+      E+ = C E + i c S/|k| (k x B) - mu0 c S/|k| Jc0 - mu0 (1-C)/k^2 Jc1
+           + [(1-C) khat(khat.E) + A k(k.Jc0) + Bc k(k.Jc1)]  (no cleaning)
+           + [i c S/|k| k F + i mu0 c^2 (C-1)/k^2 k rho_c0
+              - i c D k rho_c1]                              (cleaning)
+      B+ = C B - i S/(c|k|) (k x E) + i mu0 (1-C)/k^2 (k x Jc0)
+           - i D (k x Jc1) [+ i S/(c|k|) k G]
+      F+ = C F + i S/(c|k|) (k.E) + i mu0 (C-1)/k^2 (k.Jc0) + i D (k.Jc1)
+           - mu0 c S/|k| rho_c0 + mu0 (C-1)/k^2 rho_c1;  G+ = C G + i c S/|k| k.B
+      A = c^2 D, Bc = mu0 (2(1-C) - dt^2 c^2 k^2)/(2 k^4),
+      D = mu0 (|k| S - dt c k^2)/(c k^4)
+
+    and at k = 0: E+ = E - mu0 c^2 (dt Jc0 + dt^2/2 Jc1), F+ likewise with
+    rho, B and G unchanged.  The coefficients are built in numpy float64 and
+    moved once, as the parent's are.  Galilean, comoving, current
+    correction and Vay deposition are not defined for it (the reference
+    aborts)."""
+
+    def __init__(self, *args, j_in_time="linear", rho_in_time="linear",
+                 div_cleaning=False, **kw):
+        super().__init__(*args, **kw)
+        if self.is_galilean or self.is_comoving:
+            raise NotImplementedError(
+                "first-order PSATD with Galilean/comoving velocities")
+        if self.current_correction or self.vay_deposition:
+            raise NotImplementedError(
+                "current correction / Vay deposition not implemented for "
+                "first-order PSATD equations")
+        self.j_in_time = j_in_time
+        self.rho_in_time = rho_in_time
+        self.div_cleaning = div_cleaning
+        geom = self.geom
+        ndim = geom.ndim
+        kmod_full = np.zeros(self.n_fft)
+        for d in range(ndim):
+            k = modified_k(_wavenumbers(self.n_fft[d], geom.dx[d], d),
+                           geom.dx[d], self.n_order, self.collocated_grid)
+            kmod_full = kmod_full + _bcast(k, d, ndim) ** 2
+        knorm = np.sqrt(kmod_full)
+        k2 = knorm * knorm
+        dt = self.dt
+        mu0 = 1.0 / (_ep0 * _c2)
+        om = _c * knorm
+        C = np.cos(om * dt)
+        nz = k2 != 0.0
+        inv_k = np.where(nz, 1.0 / np.where(nz, knorm, 1.0), 0.0)
+        inv_k2 = np.where(nz, 1.0 / np.where(nz, k2, 1.0), 0.0)
+        inv_k4 = inv_k2 * inv_k2
+        D = mu0 * (knorm * np.sin(om * dt) - dt * _c * k2) * inv_k4 / _c
+        t = self._dev.t
+        self._fo_nz = t(nz)
+        self._fo_S_k = t(np.sin(om * dt) * inv_k)
+        self._fo_1mC_k2 = t((1.0 - C) * inv_k2)
+        self._fo_inv_k2 = t(inv_k2)
+        self._fo_D = t(D)
+        self._fo_A = t(_c2 * D)
+        self._fo_Bc = t(mu0 * (2.0 * (1.0 - C) - dt * dt * _c2 * k2) * 0.5
+                        * inv_k4)
+
+    def push_first_order(self, fields: Mapping[str, torch.Tensor], j_c0,
+                         j_c1=None, rho_c0=None, rho_c1=None
+                         ) -> Dict[str, torch.Tensor]:
+        """One sub-step advance of E, B (and F, G with cleaning).
+        ``j_c0``/``j_c1`` are real-space (jx, jy, jz) tuples, ``rho_c0``/
+        ``rho_c1`` real-space scalars; returns ``fields`` with the new
+        components."""
+        E = [self.forward(fields[nm], nm) for nm in _NAMES_E]
+        B = [self.forward(fields[nm], nm) for nm in _NAMES_B]
+        J0 = [self.forward(a, nm) for a, nm in zip(j_c0, _NAMES_J)]
+        J1 = ([self.forward(a, nm) for a, nm in zip(j_c1, _NAMES_J)]
+              if j_c1 is not None else None)
+        R0 = self.forward(rho_c0, "rho") if rho_c0 is not None else None
+        R1 = self.forward(rho_c1, "rho") if rho_c1 is not None else None
+        Fk = self.forward(fields["F"], "F") if self.div_cleaning else None
+        Gk = self.forward(fields["G"], "G") if self.div_cleaning else None
+
+        k3 = self._k3()
+        dt = self.dt
+        I = 1j
+        mu0 = 1.0 / (_ep0 * _c2)
+        C = self._C
+        nz = self._fo_nz
+        S_k = self._fo_S_k
+        one_m_C_k2 = self._fo_1mC_k2
+        inv_k2 = self._fo_inv_k2
+        D, A, Bc = self._fo_D, self._fo_A, self._fo_Bc
+
+        def dot(V):
+            return k3[0] * V[0] + k3[1] * V[1] + k3[2] * V[2]
+
+        def cross(V, i):
+            j, m = ((1, 2), (2, 0), (0, 1))[i]
+            return k3[j] * V[m] - k3[m] * V[j]
+
+        kdE = dot(E)
+        kdB = dot(B)
+        kdJ0 = dot(J0)
+        kdJ1 = dot(J1) if J1 is not None else None
+        out = dict(fields)
+        for i in range(3):
+            k_i = k3[i]
+            e = (C * E[i] + I * _c * S_k * cross(B, i)
+                 - mu0 * _c * S_k * J0[i])
+            b = (C * B[i] - I * S_k / _c * cross(E, i)
+                 + I * mu0 * one_m_C_k2 * cross(J0, i))
+            if self.div_cleaning:
+                e = (e + I * _c * S_k * k_i * Fk
+                     + I * mu0 * _c2 * (C - 1.0) * inv_k2 * k_i * R0)
+                b = b + I * S_k / _c * k_i * Gk
+                if R1 is not None:
+                    e = e - I * _c * D * k_i * R1
+            else:
+                e = e + one_m_C_k2 * k_i * kdE + A * k_i * kdJ0
+            if J1 is not None:
+                e = e - mu0 * one_m_C_k2 * J1[i]
+                b = b - I * D * cross(J1, i)
+                if not self.div_cleaning:
+                    e = e + Bc * k_i * kdJ1
+            # the k = 0 limits (PsatdAlgorithmFirstOrder.cpp:160-171)
+            e0 = E[i] - mu0 * _c2 * dt * J0[i]
+            if J1 is not None:
+                e0 = e0 - 0.5 * mu0 * _c2 * dt * dt * J1[i]
+            out[_NAMES_E[i]] = self.backward(torch.where(nz, e, e0),
+                                             _NAMES_E[i])
+            out[_NAMES_B[i]] = self.backward(torch.where(nz, b, B[i]),
+                                             _NAMES_B[i])
+        if self.div_cleaning:
+            f_new = (C * Fk + I * S_k / _c * kdE
+                     + I * mu0 * (C - 1.0) * inv_k2 * kdJ0
+                     - mu0 * _c * S_k * R0)
+            if kdJ1 is not None:
+                f_new = f_new + I * D * kdJ1
+            if R1 is not None:
+                f_new = f_new + mu0 * (C - 1.0) * inv_k2 * R1
+            f0 = Fk - mu0 * _c2 * dt * R0
+            if R1 is not None:
+                f0 = f0 - 0.5 * mu0 * _c2 * dt * dt * R1
+            g_new = C * Gk + I * _c * S_k * kdB
+            out["F"] = self.backward(torch.where(nz, f_new, f0), "F")
+            out["G"] = self.backward(torch.where(nz, g_new, Gk), "G")
         return out
 
 
