@@ -35,7 +35,11 @@ exits non-zero:
   lab_parity   the four kernels of the Hopper labs (warpx_tpu_torch/tools/:
                lab_fused, lab_widelane, tile_dot, slot_copy) against their
                plain versions at small shapes, every mode and both layouts,
-               each case launched three times (slot_copy exactly);
+               each case launched three times (slot_copy exactly); layout
+               NT of tile_dot also at edge shapes of its plan (K not a
+               multiple of the slice, n not of 64, M = 8 and 40), lab_fused
+               at W 16 and 8 with P a multiple of 64 but not of its chunk,
+               and the refusals;
   slice_parity 8 steps of Simulation at 16^3 in float64 on the card and on
                the CPU: every checksum but divE/divB agrees to 1e-9;
   slice2d_parity  the same for the 2D slice at 32^2;
@@ -2897,11 +2901,21 @@ def lab_err(got, ref):
     return d, (d / s if s else d)
 
 
+# layout NT's edge shapes (batch, m, k, n): K not a multiple of the plan's
+# slice, n not a multiple of 64 (and below it: the mma path), M = 8 and 40
+NT_EDGE_SHAPES = ((2, 8, 1000, 200), (2, 40, 1000, 72), (3, 16, 52, 130),
+                  (5, 16, 264, 16))
+
+
 def phase_lab_parity(dev):
     """Each lab kernel against its plain version at small shapes, every
     mode and both layouts, each case launched three times: L5 exactly (and
     its wrapper refuses rows that are not 16-byte aligned), L3/L4 within
-    TOL_DOT, L2 within TOL_WIDELANE, L1 within TOL_LAB_FUSED."""
+    TOL_DOT (layout NT also at NT_EDGE_SHAPES, its plan's shared memory
+    the kernel's), L2 within TOL_WIDELANE, L1 within TOL_LAB_FUSED at W 16
+    and 8, P a multiple of its chunk and not (and its wrapper refuses P not
+    a multiple of 64)."""
+    from warpx_tpu_torch import build
     from warpx_tpu_torch.tools import bench_dot_shapes as dots
     from warpx_tpu_torch.tools import kernel_lab as l1
     from warpx_tpu_torch.tools import lab_widelane as l2
@@ -2938,11 +2952,23 @@ def phase_lab_parity(dev):
     gen = torch.Generator().manual_seed(4)
     worst = 0.0
     cases = []
+    shapes = ((3, 8, 64, 40), (2, 16, 1152, 256), (2, 40, 256, 64))
+    lib = build.library("tile_dot")
     for layout in ("nn", "nt"):
         for mode in ("f32", "bf16", "3pass"):
             for dtype in (torch.float32, torch.bfloat16):
-                for batch, m, k, n in ((3, 8, 64, 40), (2, 16, 1152, 256),
-                                       (2, 40, 256, 64)):
+                for batch, m, k, n in shapes + (NT_EDGE_SHAPES
+                                                if layout == "nt" else ()):
+                    if layout == "nt":
+                        plan = dots._plan_nt(batch, m, n, k, mode)
+                        smem = lib.tile_dot_nt_smem(
+                            m, n, dots.MODES[mode],
+                            dots.NT_PATHS[plan["path"]], plan["tr"],
+                            plan["tc"], plan["rm"], plan["kw"], plan["wb"])
+                        if smem != plan["smem"]:
+                            raise AssertionError(
+                                f"tile_dot NT plan {plan}: the kernel "
+                                f"stages {smem} bytes")
                     bshape = ((batch, k, n) if layout == "nn" else
                               (batch, n, k))
                     # zero-mean, so that a lower precision shows
@@ -2961,9 +2987,12 @@ def phase_lab_parity(dev):
                                 f"({batch}, {m}, {k}, {n}): {e}")
                     cases.append({"layout": layout, "mode": mode,
                                   "operands": str(dtype), "shape":
-                                  (batch, m, k, n), "rel_err": e})
+                                  (batch, m, k, n), "rel_err": e,
+                                  "path": plan["path"] if layout == "nt"
+                                  else "nn"})
     out["L3_L4"] = {"worst_rel_err": worst, "tol": TOL_DOT,
-                    "cases": len(cases)}
+                    "cases": len(cases), "nt_paths": sorted(
+                        {c["path"] for c in cases if c["path"] != "nn"})}
     # L2: both layouts, both deposit precisions, W 16 and 8
     worst = {}
     for w in (16, 8):
@@ -2980,14 +3009,18 @@ def phase_lab_parity(dev):
                         if e > TOL_WIDELANE:
                             raise AssertionError(f"lab_widelane {key}: {e}")
     out["L2"] = {"worst_rel_err": worst, "tol": TOL_WIDELANE}
-    # L1: every mode, unpacked and packed, W 16 (and W 8 for three modes)
+    # L1: every mode, unpacked and packed, W 16 and 8, P a multiple of the
+    # kernel's chunk (256) and not (320 at W 16: nomxu needs P >= W^2; 192
+    # at W 8)
+    if build.library("lab_fused").lab_fused_chunk() != l1.CHUNK:
+        raise AssertionError("kernel_lab.CHUNK is not lab_fused.cu's")
     worst = {}
-    runs = [(m, 16) for m in l1.MODES] + [(m, 8) for m in
-                                          ("full", "nomxu", "prec_xh")]
-    for mode, w in runs:
+    runs = ([(m, 16, 320) for m in l1.MODES] + [(m, 8, 192) for m in l1.MODES]
+            + [("full", 16, 256), ("nomxu", 8, 256)])
+    for mode, w, p in runs:
         for packed in (False, True):
             name = f"pk_{mode}" if packed else mode
-            wins, parts, _ = l1.inputs(name, nt=3, w=w, p=256, seed=11,
+            wins, parts, _ = l1.inputs(name, nt=3, w=w, p=p, seed=11,
                                        device=dev)
             ref = l1.lab_fused_plain(name, wins, parts, packed)
             spec = l1.mode_spec(name)
@@ -3005,24 +3038,44 @@ def phase_lab_parity(dev):
                                 for x, y in zip(got[1], ref[1])])
                 for kind, x, y in pairs:
                     e = lab_err(x, y)[1]
-                    key = f"W{w}/{name}/{kind}"
+                    key = f"W{w}/P{p}/{name}/{kind}"
                     worst[key] = max(worst.get(key, 0.0), e)
                     tol = (TOL_LAB_FUSED["particles"]
                            if kind == "particles" else tol_j)
                     if e > tol:
                         raise AssertionError(
                             f"lab_fused {key}: {e} > {tol}")
-    out["L1"] = {"worst_rel_err": worst, "tol": TOL_LAB_FUSED}
+    wins, parts, _ = l1.inputs("full", nt=2, w=16, p=200, device=dev)
+    try:
+        l1.lab_fused("full", wins, parts)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("lab_fused took P = 200, not a multiple of 64")
+    out["L1"] = {"worst_rel_err": worst, "tol": TOL_LAB_FUSED,
+                 "p_not_multiple_of_64_refused": True}
     emit("lab_parity", ok=True, launches_per_case=launches, **out)
 
 
-def lab_row(name, source, replaces, case, launches):
-    """A kernels-line row from a lab's principal case."""
+def lab_row(name, source, replaces, case, launches, lib, kernel,
+            blocks_per_sm):
+    """A kernels-line row from a lab's principal case, with the kernel's
+    registers and spill bytes (ptxas's report in library ``lib``'s build
+    log, the entry whose name holds ``kernel``) and resident blocks per
+    SM."""
+    from warpx_tpu_torch import build
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    regs, spills = ptxas_report(build.build_log(lib))
+    entry = [nm for nm in regs if kernel in nm]
+    if len(entry) != 1 or entry[0] not in spills:
+        raise AssertionError(f"no ptxas report for {kernel} in {lib}'s log")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
-            **{k: case[k] for k in keys}, "case": case["lab"]}
+            **{k: case[k] for k in keys}, "case": case["lab"],
+            "registers": regs[entry[0]], "spills": spills[entry[0]],
+            "blocks_per_sm": blocks_per_sm}
 
 
 def phase_labs(dev):
@@ -3065,22 +3118,41 @@ def phase_labs(dev):
     emit("labs", ok=True, seconds=seconds, launches=launches, tol=TOL_LABS,
          reps_scaling_x4={"L4": res["L4"]["reps_scaling_x4"],
                           "L3": res["L3"]["reps_scaling_x4"]})
+    from warpx_tpu_torch import build
+
     full = next(c for c in res["L1"]["cases"] if c["mode"] == "full")
+    c3, c4 = res["L3"]["cases"][0], res["L4"]["cases"][0]
+    p3 = l4._plan_nt(c3["batch"], c3["m"], c3["n"], c3["k"], c3["mode"])
+    lib4 = build.library("tile_dot")
+    bps3 = lib4.tile_dot_nt_blocks_per_sm(
+        c3["m"], c3["n"], 0, l4.MODES[c3["mode"]], l4.NT_PATHS[p3["path"]],
+        p3["tr"], p3["tc"], p3["rm"], p3["kw"], p3["wb"])
+    bps4 = lib4.tile_dot_nn_blocks_per_sm(
+        c4["k"], 0, l4.MODES[c4["mode"]],
+        l4._warps(c4["batch"], c4["m"], c4["n"], c4["k"], c4["mode"]))
+    c5 = res["L5"]["cases"][0]
     return [
         lab_row("lab_fused", "warpx_tpu_torch/csrc/lab_fused.cu",
-                "tools/kernel_lab.py:289", full, launches["L1"]),
+                "tools/kernel_lab.py:289", full, launches["L1"], "lab_fused",
+                f"lab_fused_kernelILi{l1.W}ELi{l1.CHUNK}ELi{l1.WARPS}ELi0ELb0E",
+                l1.resources("full", l1.W)["blocks_per_sm"]),
         lab_row("lab_widelane", "warpx_tpu_torch/csrc/lab_widelane.cu",
                 "tools/lab_widelane.py:158", res["L2"]["cases"][0],
-                launches["L2"]),
+                launches["L2"], "lab_widelane", "lab_widelane_kernel",
+                build.library("lab_widelane").lab_widelane_blocks_per_sm(
+                    res["L2"]["cases"][0]["w"])),
         lab_row("tile_dot_deposit_prec", "warpx_tpu_torch/csrc/tile_dot.cu",
-                "tools/bench_deposit_prec.py:69", res["L3"]["cases"][0],
-                launches["L3"]),
+                "tools/bench_deposit_prec.py:69", c3, launches["L3"],
+                "tile_dot", "tile_dot_nt_fmaIfLi{}ELi{}ELi{}E".format(
+                    p3["tr"], p3["tc"], p3["rm"]), bps3),
         lab_row("tile_dot_shapes", "warpx_tpu_torch/csrc/tile_dot.cu",
-                "tools/bench_dot_shapes.py:40", res["L4"]["cases"][0],
-                launches["L4"]),
+                "tools/bench_dot_shapes.py:40", c4, launches["L4"],
+                "tile_dot", "tile_dot_nn_kernelIfE", bps4),
         lab_row("slot_copy", "warpx_tpu_torch/csrc/slot_copy.cu",
-                "tools/profile_rebin_lwfa.py:338", res["L5"]["cases"][0],
-                launches["L5"]),
+                "tools/profile_rebin_lwfa.py:338", c5, launches["L5"],
+                "slot_copy", "slot_copy_bulk",
+                build.library("slot_copy").slot_copy_blocks_per_sm(
+                    l5.N_ATTR, c5["pmax"])),
     ]
 
 

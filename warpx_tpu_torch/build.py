@@ -70,23 +70,40 @@ SOURCES["ragged_expand"] = ("ragged_expand.cu", (), {
 SOURCES["slot_copy"] = ("slot_copy.cu", (), {
     # (psp, row_len, offsets, counts, out, n_rows, n_tiles, pmax, stream)
     "slot_copy_launch": ([_P, _LL, _P, _P, _P, _I, _I, _I, _P], _I),
+    # (n_rows, pmax) -> resident blocks per SM
+    "slot_copy_blocks_per_sm": ([_I, _I], _I),
     "slot_copy_error_string": ([_I], ctypes.c_char_p),
 })
 SOURCES["tile_dot"] = ("tile_dot.cu", (), {
-    # (a, b, out, batch, m, k, n, layout_nt, in_bf16, mode, reps, warps,
+    # layout NN: (a, b, out, batch, m, k, n, in_bf16, mode, reps, warps,
     #  stream)
-    "tile_dot_launch": ([_P, _P, _P] + [_I] * 9 + [_P], _I),
+    "tile_dot_launch": ([_P, _P, _P] + [_I] * 8 + [_P], _I),
     "tile_dot_smem": ([_I, _I, _I], _LL),
+    # layout NT: (a, b, out, scratch, batch, m, k, n, in_bf16, mode, reps,
+    #  path, tr, tc, rm, kw, wb, kb, stream)
+    "tile_dot_nt_launch": ([_P] * 4 + [_I] * 14 + [_P], _I),
+    # (m, n, mode, path, tr, tc, rm, kw, wb)
+    "tile_dot_nt_smem": ([_I] * 9, _LL),
+    # resident blocks per SM: NN (k, in_bf16, mode, warps); NT (m, n,
+    # in_bf16, mode, path, tr, tc, rm, kw, wb)
+    "tile_dot_nn_blocks_per_sm": ([_I] * 4, _I),
+    "tile_dot_nt_blocks_per_sm": ([_I] * 10, _I),
     "tile_dot_error_string": ([_I], ctypes.c_char_p),
 })
 SOURCES["lab_widelane"] = ("lab_widelane.cu", (), {
     # (const LabWidelaneArgs*, stream)
     "lab_widelane_launch": ([_P, _P], _I),
+    "lab_widelane_blocks_per_sm": ([_I], _I),  # (w)
     "lab_widelane_error_string": ([_I], ctypes.c_char_p),
 })
 SOURCES["lab_fused"] = ("lab_fused.cu", (), {
     # (const LabFusedArgs*, stream)
     "lab_fused_launch": ([_P, _P], _I),
+    # the chunk; (w, kind, gather, deposit) -> shared memory, and resident
+    # blocks per SM
+    "lab_fused_chunk": ([], _I),
+    "lab_fused_smem": ([_I] * 4, _I),
+    "lab_fused_blocks_per_sm": ([_I] * 4, _I),
     "lab_fused_error_string": ([_I], ctypes.c_char_p),
 })
 

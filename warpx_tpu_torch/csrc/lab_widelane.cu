@@ -227,14 +227,31 @@ lab_widelane_kernel(LabWidelaneArgs a) {
 
 }  // namespace
 
+static size_t widelane_smem(int w) {
+  const int w2 = w * w;
+  return sizeof(__nv_bfloat16) *
+             (32 * (w2 + 8) + kChunk * (w2 + 8) + w2 * (kChunk + 8)) +
+         sizeof(float) * 3 * 16 * (kChunk + 4);
+}
+
+// Resident blocks per SM (the occupancy calculator) at window width w.
+extern "C" int lab_widelane_blocks_per_sm(int w) {
+  const size_t smem = widelane_smem(w);
+  int n = 0;
+  if (cudaFuncSetAttribute(lab_widelane_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, lab_widelane_kernel, kThreads, smem) != cudaSuccess) {
+    return -1;
+  }
+  return n;
+}
+
 extern "C" int lab_widelane_launch(const LabWidelaneArgs* args, void* stream) {
   const LabWidelaneArgs& a = *args;
   if (a.nt <= 0) return 0;
-  const int w2 = a.w * a.w;
-  const size_t smem = sizeof(__nv_bfloat16) *
-                          (32 * (w2 + 8) + kChunk * (w2 + 8) +
-                           w2 * (kChunk + 8)) +
-                      sizeof(float) * 3 * 16 * (kChunk + 4);
+  const size_t smem = widelane_smem(a.w);
   cudaError_t e = cudaFuncSetAttribute(
       lab_widelane_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

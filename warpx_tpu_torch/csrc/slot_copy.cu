@@ -177,6 +177,21 @@ extern "C" int slot_copy_launch(const void* psp, long long row_len,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Resident blocks per SM (the occupancy calculator) for n_rows x pmax.
+extern "C" int slot_copy_blocks_per_sm(int n_rows, int pmax) {
+  const size_t smem = sizeof(float) * kStages * n_rows * (pmax + 4);
+  int n = 0;
+  if (cudaFuncSetAttribute(slot_copy_bulk,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, slot_copy_bulk,
+                                                    kThreads, smem) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return n;
+}
+
 extern "C" const char* slot_copy_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -4,8 +4,9 @@ The Hopper counterpart of ``tools/bench_dot_shapes.py`` (the TPU lab's
 Pallas kernel ``make``): for every batch entry, ``reps`` accumulated
 products ``a (m, k) . b (k, n)`` with a float32 accumulator, the same total
 of multiply-adds at M = 8, 16, 64 and 128.  ``tile_dot`` launches
-``csrc/tile_dot.cu`` (L3 uses it too, in layout 'nt'); ``tile_dot_plain`` is
-its plain PyTorch version (``torch.matmul`` in a loop).
+``csrc/tile_dot.cu`` (L3 uses it too, in layout 'nt', where ``_plan_nt``
+splits K over warps and blocks); ``tile_dot_plain`` is its plain PyTorch
+version (``torch.matmul`` in a loop).
 
 Precision, as the TPU computes it (interpret mode on a CPU ignores it):
 
@@ -25,17 +26,25 @@ operands in memory and one with bfloat16 operands.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import build
 from . import _timing
 
 __all__ = ["MODES", "tile_dot", "tile_dot_plain", "dot_flops", "run_case",
-           "main"]
+           "nt_slices", "main"]
 
 MODES = {"f32": 0, "bf16": 1, "3pass": 2}
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SMEM_MAX = 227 * 1024
+# layout NT's kernel paths (csrc/tile_dot.cu::kPath*)
+NT_PATHS = {"fma": 0, "wgmma": 1, "mma": 2}
+# 'fma' lane shapes (TR row groups, TC column groups, RM rows a lane; TK =
+# 32 / (TR TC) lanes split k): the kernel's instantiations
+NT_FMA_SHAPES = ((2, 16, 8), (4, 8, 4), (2, 8, 4), (4, 2, 4))
+WGMMA_N = (8, 16, 32, 64, 128)
 
 # The TPU lab's shapes (bench_dot_shapes.py:84-90) and workload: nt = 8
 # tiles, reps = BASE_MACS // (m k n nt)
@@ -89,6 +98,126 @@ def _warps(batch, m, n, k, mode):
     raise ValueError(f"k = {k} does not fit in shared memory in mode {mode}")
 
 
+def _nt_tile(path, m, tr=4, tc=8, rm=4):
+    """A layout-NT unit's rows (of out) and columns on ``path``."""
+    if path == "fma":
+        return rm * tr, 8 * tc
+    if path == "wgmma":
+        return next((nn for nn in WGMMA_N if nn >= m), WGMMA_N[-1]), 64
+    return 16, 16
+
+
+def _nt_smem(path, tm, tn, kw, wb, mode):
+    """Shared memory of a layout-NT block (csrc/tile_dot.cu::plan_smem):
+    the staged K slices, reused for the warps' partial sums."""
+    kblk = wb * kw
+    parts = 2 if mode == "3pass" else 1
+    if path == "fma":
+        stage = (tm + tn) * kblk * 4
+    elif path == "wgmma":
+        stage = (tm + tn) * kblk * 2 * parts
+    else:
+        stage = 2 * 16 * (kblk + 8) * 2 * parts
+    return max(stage, wb * tm * tn * 4)
+
+
+# Resident warps an SM for the 'fma' kernel at RM rows a lane (ptxas: ~100
+# registers a lane at RM = 4, ~180 at RM = 8; 65536 registers an SM)
+_FMA_RESIDENT_WARPS = {4: 19, 8: 11}
+
+
+def _plan_nt(batch, m, n, k, mode):
+    """The launch plan of ``_search_nt`` (a copy; the search is cached, so
+    that a timed launch does not spend host time planning)."""
+    return dict(_search_nt(batch, m, n, k, mode))
+
+
+@functools.lru_cache(maxsize=None)
+def _search_nt(batch, m, n, k, mode):
+    """Launch plan of layout NT (csrc/tile_dot.cu): out (batch, m, n) cut
+    into units of tm x tn, K into slices of ``kw``; a block of ``wb`` warps
+    (warpgroups on the wgmma path) takes one unit and wb consecutive
+    slices, ``kb`` blocks a unit's K.  Paths: 'fma' for 'f32' (every lane
+    shape of NT_FMA_SHAPES is a candidate), 'wgmma' for 'bf16'/'3pass'
+    where n >= 64, 'mma' below.  The cost of a candidate is the work of the
+    busiest scheduler, four an SM: the most blocks an SM gets, their warps
+    spread over its schedulers, times a warp's instructions a rep (a k
+    costs an 'fma' lane RM x 8 FFMA and its loads; a rep adds its sum),
+    over 0.62 where a scheduler holds fewer than two warps at once (the
+    shares measured on the card by labs_ab.py's plan sweep).  Among the
+    candidates that fit in shared memory it takes, where any reaches 2 x
+    SMS warps, the cheapest (at equal cost the one whose lanes split k
+    the least, then the deepest slices); else the one with the most warps.
+    Raises ValueError for a shape it cannot serve."""
+    if min(batch, m, n, k) <= 0 or mode not in MODES:
+        raise ValueError(f"no NT plan for batch {batch}, m {m}, n {n}, "
+                         f"k {k}, mode {mode!r}")
+    passes = 3 if mode == "3pass" else 1
+    if mode == "f32":
+        path, shapes = "fma", NT_FMA_SHAPES
+        kws, wbs = (12, 16, 24, 32, 48, 64, 96, 128), (1, 2, 4, 8)
+    else:
+        path, shapes = ("wgmma" if n >= 64 else "mma"), ((0, 0, 0),)
+        kws = (16, 32, 48, 64, 96, 128, 192, 256)
+        wbs = (1, 2) if path == "wgmma" else (1, 2, 4, 8)
+    best = None
+    for tr, tc, rm in shapes:
+        tk = 32 // (tr * tc) if path == "fma" else 1
+        tm, tn = _nt_tile(path, m, tr, tc, rm)
+        units = batch * -(-m // tm) * -(-n // tn)
+        for kw in kws:
+            for wb in wbs:
+                smem = _nt_smem(path, tm, tn, kw, wb, mode)
+                if smem > SMEM_MAX or kw % tk:
+                    continue
+                kb = -(-k // (kw * wb))
+                if wb > 1 and (kb - 1) * kw * wb + (wb - 1) * kw >= k:
+                    continue  # a warp of every block would see no k
+                blocks = units * kb
+                bwarps = wb * (4 if path == "wgmma" else 1)
+                warps = blocks * bwarps
+                if path == "fma":
+                    rep = kw // tk * (8 * rm + rm // 4 + 2) + 8 * rm + 10
+                    resident = _FMA_RESIDENT_WARPS[rm] // bwarps
+                elif path == "wgmma":
+                    rep = kw // 16 * passes * (4 + tm // 16) + 20
+                    resident = 16 // bwarps
+                else:
+                    rep = kw // 16 * passes * 10 + 20
+                    resident = 32 // bwarps
+                resident = max(1, min(resident, 32, SMEM_MAX // (smem + 1024)))
+                per_sm = -(-blocks // SMS)
+                held = min(per_sm, resident) * bwarps / 4
+                cost = (-(-per_sm * bwarps // 4) * rep
+                        / (0.62 if held < 2 else 1.0))
+                key = (warps < 2 * SMS, -warps if warps < 2 * SMS else cost,
+                       -tr * tc, -kw)
+                if best is None or key < best[0]:
+                    best = (key, dict(
+                        path=path, tr=tr, tc=tc, rm=rm, tk=tk, kw=kw, wb=wb,
+                        kb=kb, tm=tm, tn=tn, mg=-(-m // tm), ng=-(-n // tn),
+                        units=units, blocks=blocks, warps=warps, smem=smem,
+                        cost=cost))
+    if best is None:
+        raise ValueError(f"no NT plan fits in shared memory: ({batch}, {m},"
+                         f" {n}, {k}) {mode}")
+    return best[1]
+
+
+def nt_slices(plan, k):
+    """The k indices of every slice of ``plan`` in the order the kernel
+    adds their sums: blocks along K, their warps, the warps' TK lane
+    groups (k = tk mod TK inside the warp's slice)."""
+    kw, wb, tk = plan["kw"], plan["wb"], plan["tk"]
+    out = []
+    for kbi in range(plan["kb"]):
+        for w in range(wb):
+            base = kbi * kw * wb + w * kw
+            for t in range(tk):
+                out.append(list(range(base + t, min(base + kw, k), tk)))
+    return out
+
+
 def tile_dot(a, b, reps, mode, layout="nn"):
     """``reps`` accumulated products (see ``tile_dot_plain``): CUDA tensors
     launch ``csrc/tile_dot.cu``, CPU tensors take the plain version.  a is
@@ -108,15 +237,27 @@ def tile_dot(a, b, reps, mode, layout="nn"):
     _timing.check_tensor("a", a, a.dtype, a.device)
     _timing.check_tensor("b", b, a.dtype, a.device,
                          (batch, k, n) if layout == "nn" else (batch, n, k))
-    if k % (4 if mode == "f32" else 16) or (mode != "f32" and n % 8):
-        raise ValueError(f"mode {mode} needs k % {4 if mode == 'f32' else 16}"
-                         " == 0 and n % 8 == 0")
     out = torch.empty((batch, m, n), dtype=torch.float32, device=a.device)
-    err = build.library("tile_dot").tile_dot_launch(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, m, k, n,
-        int(layout == "nt"), int(a.dtype == torch.bfloat16), MODES[mode],
-        reps, _warps(batch, m, n, k, mode),
-        torch.cuda.current_stream(a.device).cuda_stream)
+    lib = build.library("tile_dot")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    in_bf16 = int(a.dtype == torch.bfloat16)
+    if layout == "nt":
+        p = _plan_nt(batch, m, n, k, mode)
+        scratch = (torch.empty((p["kb"], batch, m, n), dtype=torch.float32,
+                               device=a.device) if p["kb"] > 1 else None)
+        err = lib.tile_dot_nt_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), batch, m, k, n,
+            in_bf16, MODES[mode], reps, NT_PATHS[p["path"]], p["tr"],
+            p["tc"], p["rm"], p["kw"], p["wb"], p["kb"], stream)
+    else:
+        if k % (4 if mode == "f32" else 16) or (mode != "f32" and n % 8):
+            raise ValueError(f"mode {mode} in layout nn needs k % "
+                             f"{4 if mode == 'f32' else 16} == 0 and "
+                             "n % 8 == 0")
+        err = lib.tile_dot_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, m, k, n,
+            in_bf16, MODES[mode], reps, _warps(batch, m, n, k, mode), stream)
     _timing.check_launch("tile_dot", "tile_dot_error_string", err, "tile_dot")
     tile_dot.launches += 1
     return out
@@ -125,12 +266,18 @@ def tile_dot(a, b, reps, mode, layout="nn"):
 tile_dot.launches = 0
 
 
-def dot_flops(batch, m, k, n, reps, mode):
+def dot_flops(batch, m, k, n, reps, mode, layout="nn"):
     """(useful, issued) floating-point operations: 2 m k n per product and
-    rep; 'issued' counts the m16 x n8 tiles the kernel computes, padding
-    rows included, and three products a term in '3pass'."""
+    rep; 'issued' counts the tiles the kernel computes, padding included
+    (m16 x n8 in layout 'nn', the plan's units over its slices in 'nt'),
+    and three products a term in '3pass'."""
     useful = 2 * batch * m * k * n * reps
-    issued = 2 * batch * (-(-m // 16) * 16) * k * (-(-n // 8) * 8) * reps
+    if layout == "nt":
+        p = _plan_nt(batch, m, n, k, mode)
+        kpad = p["kb"] * p["wb"] * p["kw"] if p["path"] != "fma" else k
+        issued = 2 * p["units"] * p["tm"] * p["tn"] * kpad * reps
+    else:
+        issued = 2 * batch * (-(-m // 16) * 16) * k * (-(-n // 8) * 8) * reps
     return useful, issued * (3 if mode == "3pass" else 1)
 
 
@@ -154,7 +301,7 @@ def run_case(label, a, b, reps, mode, layout, device, n_time=1):
     lib_dtype = torch.float32 if mode == "f32" else torch.bfloat16
     la, lb = a.to(lib_dtype), bt.to(lib_dtype).contiguous()
     lib_one_ms = _timing.time_ms(lambda: torch.bmm(la, lb), 20, device)
-    useful, issued = dot_flops(batch, m, k, n, reps, mode)
+    useful, issued = dot_flops(batch, m, k, n, reps, mode, layout)
     unit = "fp32" if mode == "f32" else "bf16"
     work = useful * (3 if mode == "3pass" else 1)
     n_bytes = _timing.nbytes(a, b) + batch * m * n * 4

@@ -7,8 +7,8 @@ order-1 band matrices (``band``, ``yz_mat``: byz = ay (x) az, W^2 rows),
 the particles take a Boris-like push, and three current windows are
 deposited as sums over the particles of products of cumulative-sum and
 outer-product bands.  ``lab_fused`` launches ``csrc/lab_fused.cu``, the
-band-matrix formulation on the tensor cores; ``lab_fused_plain`` is its
-plain PyTorch version.
+band-matrix formulation on the tensor cores, in chunks of ``CHUNK``
+particles; ``lab_fused_plain`` is its plain PyTorch version.
 
 Modes, as the TPU lab defines them:
 
@@ -55,6 +55,8 @@ W = int(os.environ.get("LAB_W", 16))
 P = int(os.environ.get("LAB_P", 2048))
 NT = int(os.environ.get("LAB_NT", 512))
 REPS = 10  # timed repetitions
+CHUNK = 128  # particles a chunk of csrc/lab_fused.cu (kChunk)
+WARPS = 16  # warps a block of csrc/lab_fused.cu (kWarps)
 DEFAULT_MODES = ("empty", "full", "pk_empty", "pk_full", "empty")
 MODES = ("empty", "full", "bf16", "split3", "nomxu", "novpu") + tuple(
     f"prec_{g}{d}" for g in "dhx" for d in "dhx")
@@ -239,7 +241,7 @@ class _LabFusedArgs(ctypes.Structure):
                 ("jw", ctypes.c_void_p * 3), ("jw_stride", ctypes.c_longlong)
                 ] + [(nm, ctypes.c_int) for nm in (
                     "nt", "w", "p", "kind", "band_linear", "gather",
-                    "deposit", "stage_bf16")]
+                    "deposit")]
 
 
 def lab_fused(mode, wins, parts, packed=False):
@@ -285,6 +287,7 @@ def lab_fused(mode, wins, parts, packed=False):
         jw_p = [t.data_ptr() for t in jws]
         strides = (w * w2, p, p, w * w2)
     if w not in (8, 16) or p % 64:
+        # the last chunk of CHUNK particles may be half full
         raise ValueError("lab_fused takes W 8 or 16 and P a multiple of 64")
     if spec["kind"] == "nomxu" and p < w2:
         raise ValueError("mode nomxu needs P >= W^2 (the TPU lab slices "
@@ -295,7 +298,7 @@ def lab_fused(mode, wins, parts, packed=False):
         (ctypes.c_void_p * 6)(*pout_p), strides[2],
         (ctypes.c_void_p * 3)(*jw_p), strides[3],
         nt, w, p, _KIND[spec["kind"]], int(spec["band"] == "linear"),
-        _DOT[spec["gather"]], _DOT[spec["deposit"]], int(spec["stage_bf16"]))
+        _DOT[spec["gather"]], _DOT[spec["deposit"]])
     err = build.library("lab_fused").lab_fused_launch(
         ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     _timing.check_launch("lab_fused", "lab_fused_error_string", err,
@@ -305,6 +308,17 @@ def lab_fused(mode, wins, parts, packed=False):
 
 
 lab_fused.launches = 0
+
+
+def resources(mode, w):
+    """The kernel's shared memory (bytes) and resident blocks per SM in
+    ``mode`` at width ``w`` (on the card)."""
+    spec = mode_spec(mode)
+    args = (w, _KIND[spec["kind"]], _DOT[spec["gather"]],
+            _DOT[spec["deposit"]])
+    lib = build.library("lab_fused")
+    return {"smem_bytes": lib.lab_fused_smem(*args),
+            "blocks_per_sm": lib.lab_fused_blocks_per_sm(*args)}
 
 
 def inputs(mode, nt, w, p, seed=0, device="cpu"):
