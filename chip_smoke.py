@@ -2901,20 +2901,27 @@ def lab_err(got, ref):
     return d, (d / s if s else d)
 
 
-# layout NT's edge shapes (batch, m, k, n): K not a multiple of the plan's
-# slice, n not a multiple of 64 (and below it: the mma path), M = 8 and 40
+# the plan's edge shapes (batch, m, k, n), both layouts: K not a multiple
+# of the plan's slice, n not a multiple of 64 (and below it: NT's mma
+# path), M = 8 and 40
 NT_EDGE_SHAPES = ((2, 8, 1000, 200), (2, 40, 1000, 72), (3, 16, 52, 130),
                   (5, 16, 264, 16))
+# layout NN's out = a . b path (m >= 64): m not a multiple of 64 with K not
+# a multiple of the slice, K split over blocks, and N = 128 columns
+NN_EDGE_SHAPES = ((2, 72, 1000, 200), (2, 128, 2048, 256), (8, 64, 256, 2048))
 
 
 def phase_lab_parity(dev):
     """Each lab kernel against its plain version at small shapes, every
     mode and both layouts, each case launched three times: L5 exactly (and
     its wrapper refuses rows that are not 16-byte aligned), L3/L4 within
-    TOL_DOT (layout NT also at NT_EDGE_SHAPES, its plan's shared memory
-    the kernel's), L2 within TOL_WIDELANE, L1 within TOL_LAB_FUSED at W 16
-    and 8, P a multiple of its chunk and not (and its wrapper refuses P not
-    a multiple of 64)."""
+    TOL_DOT (both layouts also at NT_EDGE_SHAPES and at 1, 2 and 4 reps,
+    NN at NN_EDGE_SHAPES; each plan's shared memory the kernel's; plans the
+    planner does not make: NN on out^T at m = 128 and NT on out = a . b^T
+    served, mma in layout NN refused), L2 within
+    TOL_WIDELANE at W 16 and 8, L1 within TOL_LAB_FUSED at W 16 and 8, P a
+    multiple of its chunk and not (and its wrapper refuses P not a multiple
+    of 64)."""
     from warpx_tpu_torch import build
     from warpx_tpu_torch.tools import bench_dot_shapes as dots
     from warpx_tpu_torch.tools import kernel_lab as l1
@@ -2954,51 +2961,92 @@ def phase_lab_parity(dev):
     cases = []
     shapes = ((3, 8, 64, 40), (2, 16, 1152, 256), (2, 40, 256, 64))
     lib = build.library("tile_dot")
-    for layout in ("nn", "nt"):
+    runs = [(layout, shape, 3) for layout in ("nn", "nt")
+            for shape in shapes + NT_EDGE_SHAPES
+            + (NN_EDGE_SHAPES if layout == "nn" else ())]
+    # the wgmma paths' two accumulators: an odd and an even number of reps,
+    # and 1
+    runs += [(layout, (3, 16, 52, 130), reps) for layout in ("nn", "nt")
+             for reps in (1, 2, 4)]
+    for layout, (batch, m, k, n), reps in runs:
         for mode in ("f32", "bf16", "3pass"):
+            plan = dots._plan_nt(batch, m, n, k, mode, layout)
+            smem = lib.tile_dot_smem(
+                m, n, dots.MODES[mode], dots.NT_PATHS[plan["path"]],
+                plan["tr"], plan["tc"], plan["rm"], plan["kw"], plan["wb"])
+            if smem != plan["smem"]:
+                raise AssertionError(f"tile_dot {layout} plan {plan}: the "
+                                     f"kernel stages {smem} bytes")
             for dtype in (torch.float32, torch.bfloat16):
-                for batch, m, k, n in shapes + (NT_EDGE_SHAPES
-                                                if layout == "nt" else ()):
-                    if layout == "nt":
-                        plan = dots._plan_nt(batch, m, n, k, mode)
-                        smem = lib.tile_dot_nt_smem(
-                            m, n, dots.MODES[mode],
-                            dots.NT_PATHS[plan["path"]], plan["tr"],
-                            plan["tc"], plan["rm"], plan["kw"], plan["wb"])
-                        if smem != plan["smem"]:
-                            raise AssertionError(
-                                f"tile_dot NT plan {plan}: the kernel "
-                                f"stages {smem} bytes")
-                    bshape = ((batch, k, n) if layout == "nn" else
-                              (batch, n, k))
-                    # zero-mean, so that a lower precision shows
-                    a = (torch.rand((batch, m, k), generator=gen)
-                         - 0.5).to(dev, dtype)
-                    b = (torch.rand(bshape, generator=gen) - 0.5).to(dev,
-                                                                     dtype)
-                    ref = dots.tile_dot_plain(a, b, 3, mode, layout)
-                    for _ in range(launches):
-                        got = dots.tile_dot(a, b, 3, mode, layout)
-                        e = lab_err(got, ref)[1]
-                        worst = max(worst, e)
-                        if e > TOL_DOT:
-                            raise AssertionError(
-                                f"tile_dot {layout} {mode} {dtype} "
-                                f"({batch}, {m}, {k}, {n}): {e}")
-                    cases.append({"layout": layout, "mode": mode,
-                                  "operands": str(dtype), "shape":
-                                  (batch, m, k, n), "rel_err": e,
-                                  "path": plan["path"] if layout == "nt"
-                                  else "nn"})
+                bshape = (batch, k, n) if layout == "nn" else (batch, n, k)
+                # zero-mean, so that a lower precision shows
+                a = (torch.rand((batch, m, k), generator=gen)
+                     - 0.5).to(dev, dtype)
+                b = (torch.rand(bshape, generator=gen) - 0.5).to(dev, dtype)
+                ref = dots.tile_dot_plain(a, b, reps, mode, layout)
+                for _ in range(launches):
+                    got = dots.tile_dot(a, b, reps, mode, layout)
+                    e = lab_err(got, ref)[1]
+                    worst = max(worst, e)
+                    if e > TOL_DOT:
+                        raise AssertionError(
+                            f"tile_dot {layout} {mode} {dtype} "
+                            f"({batch}, {m}, {k}, {n}) x {reps}: {e}")
+                cases.append({"layout": layout, "mode": mode,
+                              "operands": str(dtype), "shape":
+                              (batch, m, k, n), "reps": reps, "rel_err": e,
+                              "path": plan["path"]})
+    # plans the planner does not make, which the kernels serve: NN on
+    # out^T with N = m = 128, NT on out = a . b^T (m = 72: a padded unit);
+    # and one they refuse: mma in layout NN
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    forced = (("nn", (2, 128, 256, 200), dict(path="wgmma", kw=64, wb=2,
+                                               kb=2, tc=0)),
+              ("nt", (2, 72, 200, 130), dict(path="wgmma_n", kw=64, wb=1,
+                                              kb=4, tc=8)),
+              ("nn", (2, 16, 64, 16), dict(path="mma", kw=64, wb=1, kb=1,
+                                            tc=0)))
+    for layout, (batch, m, k, n), plan in forced:
+        for mode in ("bf16", "3pass"):
+            bshape = (batch, k, n) if layout == "nn" else (batch, n, k)
+            a = (torch.rand((batch, m, k), generator=gen) - 0.5).to(dev)
+            b = (torch.rand(bshape, generator=gen) - 0.5).to(dev)
+            got = torch.full((batch, m, n), float("nan"), device=dev)
+            scratch = torch.empty((plan["kb"], batch, m, n), device=dev)
+            err = lib.tile_dot_launch(
+                int(layout == "nn"), a.data_ptr(), b.data_ptr(),
+                got.data_ptr(), scratch.data_ptr(), batch, m, k, n, 0,
+                dots.MODES[mode], 3, dots.NT_PATHS[plan["path"]], 0,
+                plan["tc"], 0, plan["kw"], plan["wb"], plan["kb"], stream)
+            torch.cuda.synchronize()
+            if plan["path"] == "mma":
+                if err == 0:
+                    raise AssertionError("tile_dot took path mma in layout "
+                                         "NN")
+                continue
+            e = lab_err(got, dots.tile_dot_plain(a, b, 3, mode, layout))[1]
+            worst = max(worst, e)
+            if err or not e <= TOL_DOT:
+                raise AssertionError(f"tile_dot {layout} {mode} forced plan "
+                                     f"{plan} ({batch}, {m}, {k}, {n}): "
+                                     f"error {err}, rel err {e}")
+            cases.append({"layout": layout, "mode": mode, "shape":
+                          (batch, m, k, n), "reps": 3, "rel_err": e,
+                          "path": plan["path"], "forced": True})
     out["L3_L4"] = {"worst_rel_err": worst, "tol": TOL_DOT,
-                    "cases": len(cases), "nt_paths": sorted(
-                        {c["path"] for c in cases if c["path"] != "nn"})}
+                    "nn_mma_refused": True,
+                    "cases": len(cases), "paths": {
+                        lay: sorted({c["path"] for c in cases
+                                     if c["layout"] == lay})
+                        for lay in ("nn", "nt")}}
     # L2: both layouts, both deposit precisions, W 16 and 8
     worst = {}
     for w in (16, 8):
         for mode in ("batched", "wide"):
             for dep in ("bf16", "f32"):
-                fn, args = l2.make(mode, dep, dev, nt=5, w=w, p=256, seed=w)
+                # P = 320 wide: an odd number of the kernel's chunks
+                p = 256 if mode == "batched" else 320
+                fn, args = l2.make(mode, dep, dev, nt=5, w=w, p=p, seed=w)
                 ref = l2.widelane_plain(*args, mode == "batched", dep)
                 for _ in range(launches):
                     got = fn(*args)
@@ -3062,11 +3110,12 @@ def lab_row(name, source, replaces, case, launches, lib, kernel,
     """A kernels-line row from a lab's principal case, with the kernel's
     registers and spill bytes (ptxas's report in library ``lib``'s build
     log, the entry whose name holds ``kernel``) and resident blocks per
-    SM."""
+    SM (and L4's stacked library product, where the case has it)."""
     from warpx_tpu_torch import build
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms") + (("library_stacked_ms",)
+                             if "library_stacked_ms" in case else ())
     regs, spills = ptxas_report(build.build_log(lib))
     entry = [nm for nm in regs if kernel in nm]
     if len(entry) != 1 or entry[0] not in spills:
@@ -3123,13 +3172,16 @@ def phase_labs(dev):
     full = next(c for c in res["L1"]["cases"] if c["mode"] == "full")
     c3, c4 = res["L3"]["cases"][0], res["L4"]["cases"][0]
     p3 = l4._plan_nt(c3["batch"], c3["m"], c3["n"], c3["k"], c3["mode"])
+    p4 = l4._plan_nt(c4["batch"], c4["m"], c4["n"], c4["k"], c4["mode"],
+                     "nn")
     lib4 = build.library("tile_dot")
-    bps3 = lib4.tile_dot_nt_blocks_per_sm(
+    bps3 = lib4.tile_dot_blocks_per_sm(
         c3["m"], c3["n"], 0, l4.MODES[c3["mode"]], l4.NT_PATHS[p3["path"]],
         p3["tr"], p3["tc"], p3["rm"], p3["kw"], p3["wb"])
-    bps4 = lib4.tile_dot_nn_blocks_per_sm(
-        c4["k"], 0, l4.MODES[c4["mode"]],
-        l4._warps(c4["batch"], c4["m"], c4["n"], c4["k"], c4["mode"]))
+    bps4 = lib4.tile_dot_blocks_per_sm(
+        c4["m"], c4["n"], 0, l4.MODES[c4["mode"]], l4.NT_PATHS[p4["path"]],
+        p4["tr"], p4["tc"], p4["rm"], p4["kw"], p4["wb"])
+    c2 = res["L2"]["cases"][0]
     c5 = res["L5"]["cases"][0]
     return [
         lab_row("lab_fused", "warpx_tpu_torch/csrc/lab_fused.cu",
@@ -3137,17 +3189,19 @@ def phase_labs(dev):
                 f"lab_fused_kernelILi{l1.W}ELi{l1.CHUNK}ELi{l1.WARPS}ELi0ELb0E",
                 l1.resources("full", l1.W)["blocks_per_sm"]),
         lab_row("lab_widelane", "warpx_tpu_torch/csrc/lab_widelane.cu",
-                "tools/lab_widelane.py:158", res["L2"]["cases"][0],
-                launches["L2"], "lab_widelane", "lab_widelane_kernel",
+                "tools/lab_widelane.py:158", c2, launches["L2"],
+                "lab_widelane", "lab_widelane_kernelILi{}ELb{}E".format(
+                    c2["w"], int(c2["dep"] == "f32")),
                 build.library("lab_widelane").lab_widelane_blocks_per_sm(
-                    res["L2"]["cases"][0]["w"])),
+                    c2["w"], int(c2["dep"] == "f32"))),
         lab_row("tile_dot_deposit_prec", "warpx_tpu_torch/csrc/tile_dot.cu",
                 "tools/bench_deposit_prec.py:69", c3, launches["L3"],
-                "tile_dot", "tile_dot_nt_fmaIfLi{}ELi{}ELi{}E".format(
+                "tile_dot", "tile_dot_fmaIfLi{}ELi{}ELi{}EE".format(
                     p3["tr"], p3["tc"], p3["rm"]), bps3),
         lab_row("tile_dot_shapes", "warpx_tpu_torch/csrc/tile_dot.cu",
                 "tools/bench_dot_shapes.py:40", c4, launches["L4"],
-                "tile_dot", "tile_dot_nn_kernelIfE", bps4),
+                "tile_dot", "tile_dot_wgmmaIfLi{}EE".format(
+                    p4["tm"] if p4["path"] == "wgmma" else p4["tn"]), bps4),
         lab_row("slot_copy", "warpx_tpu_torch/csrc/slot_copy.cu",
                 "tools/profile_rebin_lwfa.py:338", c5, launches["L5"],
                 "slot_copy", "slot_copy_bulk",

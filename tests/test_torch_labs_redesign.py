@@ -246,18 +246,26 @@ def test_l1_chunked_model_matches_plain(mode, w, p):
 
 
 def test_labs_ab_edits_apply_to_this_source():
-    """Each ablation of labs_ab.py edits csrc/lab_fused.cu at exactly one
-    place (the parent's edits apply to the parent's source, which is not
-    in the repository)."""
+    """Each ablation of labs_ab.py edits its source (csrc/lab_fused.cu,
+    lab_widelane.cu, tile_dot.cu) at exactly one place (the parents' edits
+    apply to the parents' sources, which are not in the repository), and
+    the ablations that break the outputs are timing-only."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("labs_ab",
                                                   REPO / "labs_ab.py")
     ab = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ab)
-    text = (REPO / "warpx_tpu_torch" / "csrc" / "lab_fused.cu").read_text()
-    for name, edits in ab.L1_VARIANTS.items():
-        for old, _ in edits:
-            assert text.count(old) == 1, name
-    assert set(ab.TIMING_ONLY) >= {"nodep", "nomma", "nogather"}
-    assert math.prod(ab.L3_PLANS[0]) > 0
+    csrc = REPO / "warpx_tpu_torch" / "csrc"
+    for stem, variants in (("lab_fused", ab.L1_VARIANTS),
+                           ("lab_widelane", ab.L2_VARIANTS),
+                           ("tile_dot", ab.L4_VARIANTS)):
+        text = (csrc / f"{stem}.cu").read_text()
+        for name, edits in variants.items():
+            for old, _ in edits:
+                assert text.count(old) == 1, name
+    assert set(ab.TIMING_ONLY) >= {"nodep", "nomma", "nogather", "l2_nodep",
+                                   "l2_nogather", "l2_gather_byz_free",
+                                   "l2_dep_byz_free"}
+    assert not set(ab.TIMING_ONLY) & {"l2_new", "l4_new", "l4_wait_per_rep"}
+    assert math.prod(len(v) for v in (ab.L2_VARIANTS, ab.L4_VARIANTS)) > 0

@@ -75,25 +75,20 @@ SOURCES["slot_copy"] = ("slot_copy.cu", (), {
     "slot_copy_error_string": ([_I], ctypes.c_char_p),
 })
 SOURCES["tile_dot"] = ("tile_dot.cu", (), {
-    # layout NN: (a, b, out, batch, m, k, n, in_bf16, mode, reps, warps,
-    #  stream)
-    "tile_dot_launch": ([_P, _P, _P] + [_I] * 8 + [_P], _I),
-    "tile_dot_smem": ([_I, _I, _I], _LL),
-    # layout NT: (a, b, out, scratch, batch, m, k, n, in_bf16, mode, reps,
-    #  path, tr, tc, rm, kw, wb, kb, stream)
-    "tile_dot_nt_launch": ([_P] * 4 + [_I] * 14 + [_P], _I),
-    # (m, n, mode, path, tr, tc, rm, kw, wb)
-    "tile_dot_nt_smem": ([_I] * 9, _LL),
-    # resident blocks per SM: NN (k, in_bf16, mode, warps); NT (m, n,
-    # in_bf16, mode, path, tr, tc, rm, kw, wb)
-    "tile_dot_nn_blocks_per_sm": ([_I] * 4, _I),
-    "tile_dot_nt_blocks_per_sm": ([_I] * 10, _I),
+    # (nn, a, b, out, scratch, batch, m, k, n, in_bf16, mode, reps, path,
+    #  tr, tc, rm, kw, wb, kb, stream): layout NN where nn, else NT
+    "tile_dot_launch": ([_I] + [_P] * 4 + [_I] * 14 + [_P], _I),
+    # either layout: (m, n, mode, path, tr, tc, rm, kw, wb)
+    "tile_dot_smem": ([_I] * 9, _LL),
+    # resident blocks per SM, either layout: (m, n, in_bf16, mode, path,
+    #  tr, tc, rm, kw, wb)
+    "tile_dot_blocks_per_sm": ([_I] * 10, _I),
     "tile_dot_error_string": ([_I], ctypes.c_char_p),
 })
 SOURCES["lab_widelane"] = ("lab_widelane.cu", (), {
     # (const LabWidelaneArgs*, stream)
     "lab_widelane_launch": ([_P, _P], _I),
-    "lab_widelane_blocks_per_sm": ([_I], _I),  # (w)
+    "lab_widelane_blocks_per_sm": ([_I, _I], _I),  # (w, dep_f32)
     "lab_widelane_error_string": ([_I], ctypes.c_char_p),
 })
 SOURCES["lab_fused"] = ("lab_fused.cu", (), {

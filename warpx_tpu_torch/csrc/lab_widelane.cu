@@ -14,25 +14,51 @@
 // the deposit is 'bf16' (DEFAULT: lhs rounded to bfloat16 too) or 'f32'
 // (HIGHEST: lhs in float32 against the bfloat16-valued byz, float32 sums).
 //
-// Bound on the card: operations, ~2*(2+2+1+1)*W*W^2 + 3*2*W*W^2 flops per
+// Bound on the card: operations, 2*(2+2+1+1)*W*W^2 + 3*2*W*W^2 flops per
 // particle and tile on the tensor cores (bfloat16, 989 TFLOP/s) or, for the
-// 'f32' deposit, on FP32 (67 TFLOP/s); the inputs are small and shared by
-// every tile.  Design: one block per tile; the tile's window (2W x W^2) is
-// staged once in shared memory as bfloat16; the particles go by in chunks of
-// 64, for which byz is built once in shared memory in the two layouts the
-// two products read (particle-major for the gather's B operand,
-// q-major for the deposit's), without FMA contraction before its rounding;
-// both products are mma.sync m16n8k16 with float32 accumulators (the 'f32'
-// deposit: FP32 FMA).  Each warp owns one 8-particle column of the gather
-// and a quarter of the window's columns of the three deposit accumulators,
-// which stay in registers over all chunks and are written once.  Rows W..2W
-// of the first two gather groups are computed and not used, as in the lab.
-// The layout of the particle axis changes only the input addresses.
+// 'f32' deposit, 3*2*W*W^2 of them on FP32 (67 TFLOP/s); the inputs are
+// small and shared by every tile.
+//
+// The first design (mma.sync m16n8k16) loaded every fragment lane by lane
+// for each 2048-MAC product, reloaded the window's fragments in all eight
+// warps every chunk, built byz twice a chunk in shared memory (its
+// particle-major copy with a 4-way bank conflict) and took three barriers a
+// chunk: 7.5 % of the bound ('f32': scalar FMA at four shared loads to four
+// FMA, 17 %).
+//
+// This design: one warpgroup a tile, wgmma with A in registers.
+//   - byz never touches shared memory: each lane forms the bfloat16 values
+//     of its own A fragment (__fmul_rn, then one rounding), so a value is
+//     formed by the lane that feeds it to the tensor cores, twice a chunk
+//     in all (once per product's layout).
+//   - Gather: h_g^T (64 particles x mW) = byz^T . win^T, the particles as
+//     wgmma's M.  The window (2W x W^2) is staged once a tile as bfloat16 in
+//     the K-major core-matrix layout and read by descriptor (N = 2W or W);
+//     one A fragment serves the four groups' products of a k16 step.  A
+//     lane's A columns are fixed c bands, so its az values stay in registers
+//     and a step loads one ay value per particle row.  The row sum over
+//     b < W is a reduction over the accumulator's quad of lanes.
+//   - Deposit 'bf16': jw^T (W^2 x W) += byz (q x p) . lhs^T, W^2 / 64 m64
+//     tiles of W^2, N = W, K the chunk's particles; lhs staged once a chunk
+//     as bfloat16 (the B operand); one A fragment serves the three
+//     components.  The accumulators stay in registers over all chunks.
+//   - Deposit 'f32': FP32 FMA on register micro-tiles of 4 q x 8 b per
+//     component a lane, four particles a step from LDS.128 (byz formed and
+//     rounded in registers): 384 FMA to 13 loads.
+//   - The particles go by in chunks of 64, loaded a chunk ahead by cp.async
+//     into a second buffer; two barriers a chunk (the chunk has landed; the
+//     deposit's bfloat16 lhs is staged).
+// Every product lab_flops counts is issued (rows W..2W of groups 0-1 are
+// computed and not used, as in the lab; the three deposit components are
+// computed apart).  The layout of the particle axis changes only the input
+// addresses.
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "wgmma.cuh"
 
 // Must match warpx_tpu_torch/tools/lab_widelane.py::_LabWidelaneArgs.
 struct LabWidelaneArgs {
@@ -47,23 +73,13 @@ struct LabWidelaneArgs {
 
 namespace {
 
-constexpr int kThreads = 256, kWarps = kThreads / 32;
-constexpr int kChunk = 64;  // particles per chunk: 8 n8 tiles of the gather
-constexpr int kMaxDepTiles = 4;  // n8 tiles of W^2 per warp at W = 16
+constexpr int kThreads = 128;  // one warpgroup a tile
+constexpr int kChunk = 64;     // particles a chunk: the gather's M
+// float stride of a staged row: 16-byte aligned for cp.async, and the
+// deposit's float2 loads of 8 rows x 4 lanes hit 32 distinct banks a half
+constexpr int kSf = kChunk + 8;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using wgmma::core_off;
 
 __device__ __forceinline__ long long part_index(int b, int p, int w, int np,
                                                 int batched) {
@@ -71,194 +87,362 @@ __device__ __forceinline__ long long part_index(int b, int p, int w, int np,
                  : static_cast<long long>(b) * np + p;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// Start the copy of chunk p0's rows of ay, az and lhs (W x 64 floats each,
+// contiguous in either layout) into buf[3][W][kSf].
+template <int W>
+__device__ __forceinline__ void load_chunk(const LabWidelaneArgs& a, int p0,
+                                           float* buf) {
+  for (int i = threadIdx.x; i < 3 * W * 16; i += kThreads) {
+    const int arr = i / (W * 16), r = (i / 16) % W, piece = i % 16;
+    const float* src = arr == 0 ? a.ay : arr == 1 ? a.az : a.lhs;
+    cp_async16(buf + (arr * W + r) * kSf + 4 * piece,
+               src + part_index(r, p0 + 4 * piece, W, a.p, a.batched));
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+template <int W>
+constexpr int smem_bytes() {
+  return 2 * (2 * W * W * W + W * kChunk) + 4 * 2 * 3 * W * kSf;
+}
+
+template <int W, bool DEP_F32>
+__global__ void __launch_bounds__(kThreads, 2)
 lab_widelane_kernel(LabWidelaneArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int W = a.w, W2 = a.w * a.w, rows = 2 * a.w;
-  const int sw = W2 + 8;       // bf16 stride of win and byzP rows
-  const int sq = kChunk + 8;   // bf16 stride of byzQ rows
-  const int sf = kChunk + 4;   // float stride of ay, az, lhs rows
-  __nv_bfloat16* win = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* byzp = win + 32 * sw;          // [kChunk][W2]
-  __nv_bfloat16* byzq = byzp + kChunk * sw;     // [W2][kChunk]
-  float* ays = reinterpret_cast<float*>(byzq + W2 * sq);
-  float* azs = ays + 16 * sf;
-  float* lhs = azs + 16 * sf;
-  const int t = blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
+  constexpr int W2 = W * W, RW = 2 * W;
+  constexpr int KS = W2 / 16;  // the gather's k16 steps
+  constexpr int MT = W2 / 64;  // the deposit's m64 tiles of W^2
+  constexpr int BUF = 3 * W * kSf;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* win = reinterpret_cast<__nv_bfloat16*>(smem);  // RW x W2
+  __nv_bfloat16* lb = win + RW * W2;                              // W x 64
+  float* bufs = reinterpret_cast<float*>(lb + W * kChunk);        // 2 x BUF
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int tile = blockIdx.x, nch = a.p / kChunk;
 
-  // the tile's window as bfloat16, rows past 2W zero
-  const float* wt = a.win + static_cast<long long>(t) * rows * W2;
-  for (int i = threadIdx.x; i < 32 * W2; i += kThreads) {
-    const int r = i / W2, q = i % W2;
-    win[r * sw + q] = __float2bfloat16_rn(r < rows ? wt[r * W2 + q] : 0.f);
+  load_chunk<W>(a, 0, bufs);
+  // the tile's window as bfloat16 in the core-matrix layout of 2W rows
+  const float* wt = a.win + static_cast<long long>(tile) * RW * W2;
+  for (int i = tid; i < RW * W2; i += kThreads) {
+    win[core_off(i / W2, i % W2, RW)] = __float2bfloat16_rn(wt[i]);
   }
-  for (int i = threadIdx.x; i < 16 * sf; i += kThreads) {
-    ays[i] = azs[i] = lhs[i] = 0.f;  // rows past W stay zero
+  // the generic proxy's stores, visible to the tensor cores' async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+
+  // the deposit's sums over all chunks: [component][m tile][D fragment]
+  // ('bf16'), [component][4 q x 8 b] ('f32')
+  float jc[3][DEP_F32 ? 1 : MT][DEP_F32 ? 1 : W / 2];
+  float jf[3][DEP_F32 ? 32 : 1];
+#pragma unroll
+  for (int c3 = 0; c3 < 3; ++c3) {
+#pragma unroll
+    for (int i = 0; i < (DEP_F32 ? 1 : MT); ++i)
+#pragma unroll
+      for (int j = 0; j < (DEP_F32 ? 1 : W / 2); ++j) jc[c3][i][j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (DEP_F32 ? 32 : 1); ++i) jf[c3][i] = 0.f;
   }
+  const uint64_t dwin = wgmma::desc(win, RW / 8 * 128, 128);
+  const uint64_t swin = 2 * (RW / 8 * 128) >> 4;  // a k16 step
+  const uint64_t dlb = wgmma::desc(lb, W / 8 * 128, 128);
+  const uint64_t slb = 2 * (W / 8 * 128) >> 4;
+  const int p0 = 16 * warp + g, p1 = p0 + 8;  // the gather's A rows
 
-  const int dep_tiles = W2 / 8 / kWarps;  // n8 tiles of W^2 per warp
-  float jc[3][kMaxDepTiles][4];
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-#pragma unroll
-    for (int j = 0; j < kMaxDepTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) jc[c][j][e] = 0.f;
-
-  const uint32_t* win32 = reinterpret_cast<const uint32_t*>(win);
-  const uint32_t* byzp32 = reinterpret_cast<const uint32_t*>(byzp);
-  const uint32_t* byzq32 = reinterpret_cast<const uint32_t*>(byzq);
-  const int sw32 = sw / 2, sq32 = sq / 2;
-
-  for (int p0 = 0; p0 < a.p; p0 += kChunk) {
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = threadIdx.x; i < W * kChunk; i += kThreads) {
-      const int b = i / kChunk, j = i % kChunk;
-      const long long k = part_index(b, p0 + j, W, a.p, a.batched);
-      ays[b * sf + j] = a.ay[k];
-      azs[b * sf + j] = a.az[k];
-      lhs[b * sf + j] = a.lhs[k];
-    }
+  for (int ci = 0; ci < nch; ++ci) {
+    // chunk ci has landed for every thread, and chunk ci - 1 is done
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
-    for (int i = threadIdx.x; i < W2 * kChunk; i += kThreads) {
-      const int q = i / kChunk, j = i % kChunk;
-      const __nv_bfloat16 v = __float2bfloat16_rn(
-          __fmul_rn(ays[(q / W) * sf + j], azs[(q % W) * sf + j]));
-      byzq[q * sq + j] = v;
-      byzp[j * sw + q] = v;
+    if (ci + 1 < nch) {
+      load_chunk<W>(a, (ci + 1) * kChunk, bufs + ((ci + 1) & 1) * BUF);
     }
-    __syncthreads();
+    const float* ays = bufs + (ci & 1) * BUF;
+    const float* azs = ays + W * kSf;
+    const float* lhs = azs + W * kSf;
+    if constexpr (!DEP_F32) {
+      for (int i = tid; i < W * kChunk; i += kThreads) {
+        const int b = i / kChunk, j = i % kChunk;
+        lb[core_off(b, j, W)] = __float2bfloat16_rn(lhs[b * kSf + j]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
 
-    // gather: warp `warp` owns particles 8*warp .. 8*warp + 7 of the chunk
-    float racc[2] = {0.f, 0.f};
-    for (int grp = 0; grp < 4; ++grp) {
-      const int mw = grp < 2 ? rows : W;
-      float h0[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int mt = 0; mt * 16 < mw; ++mt) {
-        float h[4] = {0.f, 0.f, 0.f, 0.f};
-        const int ra = (mt * 16 + g) * sw32 + tig;
-        const int rb = (warp * 8 + g) * sw32 + tig;
-        for (int k = 0; k < W2; k += 16) {
-          const int kw = k / 2;
-          const uint32_t af[4] = {win32[ra + kw], win32[ra + 8 * sw32 + kw],
-                                  win32[ra + kw + 4],
-                                  win32[ra + 8 * sw32 + kw + 4]};
-          mma_bf16(h, af, byzp32[rb + kw], byzp32[rb + kw + 4]);
-        }
-        if (mt == 0) {
+    // ---- gather: A row p (a particle), columns q = 16 s + 2 t + 8 e (+1)
+    // of step s, i.e. b = (16 s + 8 e) / W and the fixed c = (2 t + 8 e) % W
+    float z[2][2][2];  // az[c (+1)] at [e][particle p0, p1]
 #pragma unroll
-          for (int e = 0; e < 4; ++e) h0[e] = h[e];
+    for (int e = 0; e < 2; ++e) {
+      const int c = (2 * t + 8 * e) % W;
+      z[e][0][0] = azs[c * kSf + p0];
+      z[e][0][1] = azs[(c + 1) * kSf + p0];
+      z[e][1][0] = azs[c * kSf + p1];
+      z[e][1][1] = azs[(c + 1) * kSf + p1];
+    }
+    // two k16 steps a group of eight products, the next group's fragments
+    // formed while this one runs
+    float h0[W], h1[W], h2[W / 2], h3[W / 2];
+    uint32_t fg[2][2][4];
+#pragma unroll
+    for (int s2 = 0; s2 < KS; s2 += 2) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int s = s2 + u;
+        uint32_t(&f)[4] = fg[(s2 / 2) & 1][u];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int b = (16 * s + 8 * e) / W;
+          const float y0 = ays[b * kSf + p0], y1 = ays[b * kSf + p1];
+          f[2 * e] = wgmma::pack_bf16(__fmul_rn(y0, z[e][0][0]),
+                                      __fmul_rn(y0, z[e][0][1]));
+          f[2 * e + 1] = wgmma::pack_bf16(__fmul_rn(y1, z[e][1][0]),
+                                          __fmul_rn(y1, z[e][1][1]));
         }
       }
-      // r[p] = sum over b < W of ay[b, p] * h[b, p]
-      float r[2];
+      wgmma::fence();
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = warp * 8 + 2 * tig + e;
-        r[e] = ays[g * sf + j] * h0[e] + ays[(g + 8) * sf + j] * h0[2 + e];
-        r[e] += __shfl_xor_sync(0xffffffffu, r[e], 4);
-        r[e] += __shfl_xor_sync(0xffffffffu, r[e], 8);
-        r[e] += __shfl_xor_sync(0xffffffffu, r[e], 16);
-        racc[e] = grp == 0 ? r[e] : racc[e] + r[e];
+      for (int u = 0; u < 2; ++u) {
+        const int s = s2 + u;
+        const uint32_t(&f)[4] = fg[(s2 / 2) & 1][u];
+        const uint64_t db = dwin + s * swin;
+        wgmma::RS<RW>::mma(h0, f, db, s != 0);
+        wgmma::RS<RW>::mma(h1, f, db, s != 0);
+        wgmma::RS<W>::mma(h2, f, db, s != 0);
+        wgmma::RS<W>::mma(h3, f, db, s != 0);
       }
+      wgmma::commit();
+      wgmma::wait<1>();
     }
-    if (g == 0) {
-      float* o = a.out + static_cast<long long>(t) * a.p + p0 + warp * 8;
-      o[2 * tig] = racc[0];
-      o[2 * tig + 1] = racc[1];
+    wgmma::wait<0>();
+    wgmma::fence_regs(h0);
+    wgmma::fence_regs(h1);
+    wgmma::fence_regs(h2);
+    wgmma::fence_regs(h3);
+    // r[p] = sum over b < W of ay[b, p] h[p, b]: the lane's columns b =
+    // 8 j + 2 t + e, then its quad's
+    float racc[2];
+#pragma unroll
+    for (int pp = 0; pp < 2; ++pp) {
+      const int p = pp ? p1 : p0;
+      float ya[W / 4];
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          ya[2 * j + e] = ays[(8 * j + 2 * t + e) * kSf + p];
+        }
+      float r[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float y = ya[2 * j + e];
+          const int i = 4 * j + 2 * pp + e;
+          r[0] = fmaf(y, h0[i], r[0]);
+          r[1] = fmaf(y, h1[i], r[1]);
+          r[2] = fmaf(y, h2[i], r[2]);
+          r[3] = fmaf(y, h3[i], r[3]);
+        }
+#pragma unroll
+      for (int gr = 0; gr < 4; ++gr) {
+        r[gr] += __shfl_xor_sync(0xffffffffu, r[gr], 1);
+        r[gr] += __shfl_xor_sync(0xffffffffu, r[gr], 2);
+      }
+      racc[pp] = ((r[0] + r[1]) + r[2]) + r[3];
+    }
+    if (t == 0) {
+      float* o = a.out + static_cast<long long>(tile) * a.p + ci * kChunk;
+      o[p0] = racc[0];
+      o[p1] = racc[1];
     }
 
-    // deposit: jw += lhs . byz^T over the chunk, three components
+    // ---- deposit over the chunk's particles
+    if constexpr (!DEP_F32) {
+      __syncthreads();  // lb staged by every thread
+      // A row q = 64 mt + 16 warp + g + 8 h: b = (64 mt + 16 warp + 8 h) /
+      // W, c = (16 warp + g + 8 h) % W; columns p = 16 ks + 2 t + 8 e (+1)
+      // one group a k16 step: the MT m tiles' fragments, 3 MT products
+      uint32_t fd[2][MT][4];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      asm volatile("" ::: "memory");
-      for (int k = 0; k < kChunk; k += 16) {
-        if (a.dep_f32) {
-          for (int kk = k; kk < k + 16; ++kk) {
-            const float x0 = lhs[g * sf + kk], x1 = lhs[(g + 8) * sf + kk];
+      for (int ks = 0; ks < kChunk / 16; ++ks) {
+        const int pc = 16 * ks + 2 * t;
+        float2 zz[2][2];
 #pragma unroll
-            for (int j = 0; j < kMaxDepTiles; ++j) {
-              if (j >= dep_tiles) break;
-              const int q = (warp * dep_tiles + j) * 8 + 2 * tig;
-              const float y0 = __bfloat162float(byzq[q * sq + kk]);
-              const float y1 = __bfloat162float(byzq[(q + 1) * sq + kk]);
-              jc[c][j][0] = fmaf(x0, y0, jc[c][j][0]);
-              jc[c][j][1] = fmaf(x0, y1, jc[c][j][1]);
-              jc[c][j][2] = fmaf(x1, y0, jc[c][j][2]);
-              jc[c][j][3] = fmaf(x1, y1, jc[c][j][3]);
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = (16 * warp + g + 8 * h) % W;
+            zz[h][e] = *reinterpret_cast<const float2*>(azs + c * kSf + pc +
+                                                        8 * e);
+          }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t(&f)[4] = fd[ks & 1][mt];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int b = (64 * mt + 16 * warp + 8 * h) / W;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float2 y =
+                  *reinterpret_cast<const float2*>(ays + b * kSf + pc + 8 * e);
+              f[2 * e + h] = wgmma::pack_bf16(__fmul_rn(y.x, zz[h][e].x),
+                                              __fmul_rn(y.y, zz[h][e].y));
             }
           }
-        } else {
-          const float* l0 = lhs + g * sf + k + 2 * tig;
-          const float* l1 = lhs + (g + 8) * sf + k + 2 * tig;
-          const uint32_t af[4] = {pack_bf16(l0[0], l0[1]),
-                                  pack_bf16(l1[0], l1[1]),
-                                  pack_bf16(l0[8], l0[9]),
-                                  pack_bf16(l1[8], l1[9])};
+        }
+        wgmma::fence();
+        const uint64_t db = dlb + ks * slb;
 #pragma unroll
-          for (int j = 0; j < kMaxDepTiles; ++j) {
-            if (j >= dep_tiles) break;
-            const int rb =
-                ((warp * dep_tiles + j) * 8 + g) * sq32 + k / 2 + tig;
-            mma_bf16(jc[c][j], af, byzq32[rb], byzq32[rb + 4]);
+        for (int mt = 0; mt < MT; ++mt) {
+          wgmma::RS<W>::mma(jc[0][mt], fd[ks & 1][mt], db, 1);
+          wgmma::RS<W>::mma(jc[1][mt], fd[ks & 1][mt], db, 1);
+          wgmma::RS<W>::mma(jc[2][mt], fd[ks & 1][mt], db, 1);
+        }
+        wgmma::commit();
+        wgmma::wait<1>();
+      }
+      wgmma::wait<0>();
+    } else {
+      // lane (qg, bg): q = 4 qg .. + 3 (one b row of byz, c = c0 .. + 3),
+      // lhs rows 8 bg .. + 7
+      const int qg = tid % (W2 / 4), bg = tid / (W2 / 4);
+      if (bg < W / 8) {
+        const int q0 = 4 * qg, bq = q0 / W, c0 = q0 % W, b0 = 8 * bg;
+        // the components' sums pass an opaque asm: three distinct sums
+#pragma unroll
+        for (int c3 = 0; c3 < 3; ++c3) wgmma::fence_regs(jf[c3]);
+#pragma unroll 1
+        for (int j = 0; j < kChunk; j += 4) {
+          const float4 y = *reinterpret_cast<const float4*>(ays + bq * kSf + j);
+          float4 zv[4], lv[8];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            zv[i] = *reinterpret_cast<const float4*>(azs + (c0 + i) * kSf + j);
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            lv[i] = *reinterpret_cast<const float4*>(lhs + (b0 + i) * kSf + j);
+          }
+#pragma unroll
+          for (int pp = 0; pp < 4; ++pp) {
+            float yz[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              yz[i] = round_bf16(__fmul_rn(lane_of(y, pp), lane_of(zv[i], pp)));
+            }
+            // the components innermost: three FMA in a row share both
+            // factors
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+                for (int c3 = 0; c3 < 3; ++c3) {
+                  jf[c3][8 * i + jj] =
+                      fmaf(yz[i], lane_of(lv[jj], pp), jf[c3][8 * i + jj]);
+                }
           }
         }
       }
     }
   }
 
-  // jw = (jd_0 + jd_1) + jd_2, rows below W
-  float* jt = a.jw + static_cast<long long>(t) * W * W2;
+  // jw = (jd_0 + jd_1) + jd_2
+  float* jt = a.jw + static_cast<long long>(tile) * W * W2;
+  if constexpr (!DEP_F32) {
 #pragma unroll
-  for (int j = 0; j < kMaxDepTiles; ++j) {
-    if (j >= dep_tiles) break;
-    const int q = (warp * dep_tiles + j) * 8 + 2 * tig;
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = g + 8 * (e / 2);
-      if (row < W) {
-        jt[row * W2 + q + (e % 2)] = (jc[0][j][e] + jc[1][j][e]) + jc[2][j][e];
+      for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int q = 64 * mt + 16 * warp + g + 8 * (h >> 1);
+          const int b = 8 * j + 2 * t + (h & 1);
+          const int i = 4 * j + h;
+          jt[b * W2 + q] = (jc[0][mt][i] + jc[1][mt][i]) + jc[2][mt][i];
+        }
+  } else {
+    const int qg = tid % (W2 / 4), bg = tid / (W2 / 4);
+    if (bg < W / 8) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int x = 8 * i + jj;
+          v[i] = (jf[0][x] + jf[1][x]) + jf[2][x];
+        }
+        *reinterpret_cast<float4*>(jt + (8 * bg + jj) * W2 + 4 * qg) =
+            make_float4(v[0], v[1], v[2], v[3]);
       }
     }
   }
 }
 
-}  // namespace
-
-static size_t widelane_smem(int w) {
-  const int w2 = w * w;
-  return sizeof(__nv_bfloat16) *
-             (32 * (w2 + 8) + kChunk * (w2 + 8) + w2 * (kChunk + 8)) +
-         sizeof(float) * 3 * 16 * (kChunk + 4);
-}
-
-// Resident blocks per SM (the occupancy calculator) at window width w.
-extern "C" int lab_widelane_blocks_per_sm(int w) {
-  const size_t smem = widelane_smem(w);
+template <int W, bool F>
+int blocks_per_sm() {
   int n = 0;
-  if (cudaFuncSetAttribute(lab_widelane_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem)) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, lab_widelane_kernel, kThreads, smem) != cudaSuccess) {
+  const auto k = lab_widelane_kernel<W, F>;
+  if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes<W>()) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, kThreads,
+                                                    smem_bytes<W>()) !=
+          cudaSuccess) {
     return -1;
   }
   return n;
 }
 
+template <int W, bool F>
+cudaError_t launch(const LabWidelaneArgs& a, cudaStream_t st) {
+  const auto k = lab_widelane_kernel<W, F>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<W>());
+  if (e != cudaSuccess) return e;
+  k<<<a.nt, kThreads, smem_bytes<W>(), st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Resident blocks per SM (the occupancy calculator) at window width w and
+// deposit 'f32' (dep_f32 = 1) or 'bf16'.
+extern "C" int lab_widelane_blocks_per_sm(int w, int dep_f32) {
+  if (w == 16) return dep_f32 ? blocks_per_sm<16, true>()
+                              : blocks_per_sm<16, false>();
+  if (w == 8) return dep_f32 ? blocks_per_sm<8, true>()
+                             : blocks_per_sm<8, false>();
+  return -1;
+}
+
 extern "C" int lab_widelane_launch(const LabWidelaneArgs* args, void* stream) {
   const LabWidelaneArgs& a = *args;
   if (a.nt <= 0) return 0;
-  const size_t smem = widelane_smem(a.w);
-  cudaError_t e = cudaFuncSetAttribute(
-      lab_widelane_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  lab_widelane_kernel<<<a.nt, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if ((a.w != 8 && a.w != 16) || a.p <= 0 || a.p % kChunk) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (a.w == 16) {
+    e = a.dep_f32 ? launch<16, true>(a, st) : launch<16, false>(a, st);
+  } else {
+    e = a.dep_f32 ? launch<8, true>(a, st) : launch<8, false>(a, st);
+  }
+  return static_cast<int>(e);
 }
 
 extern "C" const char* lab_widelane_error_string(int code) {

@@ -24,31 +24,52 @@
 // shared memory after a compiler barrier, so nothing is hoisted out of the
 // reps loop: the labs measure a deposit whose operands stream.
 //
-// Layout NN (L4), the first design: each warp owns one 16 x 8 mma.sync tile
-// and runs its reps over the whole K; a block of `warps` warps shares the 16
-// rows of a, staged once in shared memory in the mode's format, with a row
-// stride padded so the fragment loads hit 32 distinct banks.  Rows past m
-// (M = 8) are zeros that the mma computes and nobody reads.
+// Both layouts run on one plan (tools/bench_dot_shapes.py::_plan_nt, with
+// a layout) and one set of kernels: the host cuts every batch entry's
+// output into units and K into slices of `kw`; a block of `wb` warps
+// (warpgroups on the wgmma paths) takes one unit and `wb` consecutive
+// slices, staged once in shared memory; `kb` blocks cover a unit's K.  Each
+// warp runs the reps over its own slice.  The layout only changes how b is
+// read as it is staged.  Paths:
+//   fma      'f32': FP32 FMA on register micro-tiles of RM rows x 8 columns
+//            a lane; the operands are staged k-major (a_s[k][row],
+//            b_s[k][col]) so that one LDS.128 feeds 16 or 32 FMA and a
+//            warp's loads of `a` are broadcasts (TR x TC lanes tile the
+//            unit, TK = 32 / (TR TC) lanes interleave the slice's k);
+//   wgmma    'bf16'/'3pass' (the plan's choice in layout NT where n >= 64,
+//            in NN where m < 64): out^T = b^T . a^T, the unit's 64 columns
+//            of b as wgmma's M and m (rounded up to 8, 16, 32, 64 or 128)
+//            as its N;
+//   wgmma_n  'bf16'/'3pass' (the plan's choice in NN where m >= 64): out =
+//            a . b, 64 rows of a as M and 64 or 128 columns of b as N;
+//   mma      'bf16'/'3pass', layout NT only (the plan's choice where n <
+//            64, the 2D deposit's 16 x 16): mma.sync m16n8k16 on a 16 x 16
+//            warp tile, operands staged once.
+// On the wgmma paths both operands are staged once as bfloat16 hi (and lo)
+// in the no-swizzle K-major core-matrix layout (csrc/wgmma.cuh) and read by
+// descriptor; b stored (k, n) (layout NN) is transposed as it is staged.
+// Two accumulators alternate over the reps where wgmma's N is below 128
+// (kTwoAcc): each rep's products are issued before the wait for the
+// previous rep's, whose sum is added meanwhile.
 //
-// Layout NT (L3), redesigned for the H100.  The host's plan
-// (tools/bench_dot_shapes.py::_plan_nt) cuts every batch entry's output
-// into units and K into slices of `kw`: a block of `wb` warps (warpgroups on
-// the wgmma path) takes one unit and `wb` consecutive slices, staged once in
-// shared memory; `kb` blocks cover a unit's K.  Each warp runs the reps over
-// its own slice, so the grid has units x slices warps where the first
-// design had one warp a 16 x 8 tile over the whole K (256 warps, two an
-// SM, at L3's principal shape).  Three paths:
-//   'f32'  FP32 FMA on register micro-tiles of 4 rows x 8 columns a lane;
-//          the operands are staged k-major (a_s[k][row], b_s[k][col]) so
-//          that one LDS.128 feeds 16 or 32 FMA and a warp's loads of `a`
-//          are broadcasts (TR x TC lanes tile the unit, TK = 32 / (TR TC)
-//          lanes interleave the slice's k);
-//   wgmma  'bf16'/'3pass' where n >= 64: out^T = b . a^T, both operands
-//          K-major, bfloat16 hi (and lo) staged once in the no-swizzle
-//          core-matrix layout; a warpgroup issues m64nNk16 (N = m rounded
-//          up to 8, 16, 32, 64 or 128) over its slice;
-//   mma    'bf16'/'3pass' where n < 64 (the 2D deposit's 16 x 16):
-//          mma.sync m16n8k16 on a 16 x 16 warp tile, operands staged once.
+// Layout NT (L3) was redesigned for the H100 first (the plan, split K, the
+// fma and wgmma paths).
+//
+// Layout NN (L4), redesigned after it.  The first design gave each warp one
+// 16 x 8 mma.sync tile over the whole K and reloaded its fragments lane by
+// lane every rep: 768 bytes of shared memory a warp for 2048 multiply-adds,
+// six clocks of the SM's 128-byte port for one of the tensor cores, so it
+// ran at 14 % of its bound (at M = 8 half of each m16 tile was padding, at
+// K = 2048 one 197 KB block an SM).  What bounds it now: at m >= 64 the
+// tensor cores (m64n128k16 reads 6 KB of shared memory for 64 clocks of
+// them); at m = 16 and 8 shared memory, since wgmma's M is 64 and a k16
+// step of m64n16k16 (m64n8k16) reads 2.5 KB (2.25 KB) for 8 (4) clocks of
+// tensor cores, 20 (18) of the port: about 40 % (22 %) of the bound.  What
+// the design does about it: the orientation puts M on the wide side (no
+// padded rows at M = 8), descriptors replace lane-by-lane fragments, split
+// K keeps two or more warpgroups an SM at K = 2048, and below N = 128 two
+// accumulators alternate over the reps (kTwoAcc).
+//
 // The warps' partial sums meet once, after the last rep: in shared memory
 // in warp order, then, where kb > 1, through a scratch buffer that a second
 // kernel adds in block order.  No float atomics: the result is the same
@@ -59,10 +80,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
 constexpr int kModeF32 = 0, kMode3Pass = 2;  // and 1, 'bf16'
-constexpr int kPathFma = 0, kPathWgmma = 1, kPathMma = 2;
+constexpr int kPathFma = 0, kPathWgmma = 1, kPathMma = 2, kPathWgmmaN = 3;
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -98,120 +121,7 @@ __device__ __forceinline__ void stage(float x, int mode, int idx, float* f32,
   }
 }
 
-// ---- layout NN (L4): the first design -------------------------------------
-
-template <typename In>
-__global__ void tile_dot_nn_kernel(const In* __restrict__ a,
-                                   const In* __restrict__ b,
-                                   float* __restrict__ out, int m, int k,
-                                   int n, int mode, int reps, int mg, int ng) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warps = blockDim.x / 32;
-  const int cols = 8 * warps;
-  int bid = blockIdx.x;
-  const int nb = bid % ng;
-  bid /= ng;
-  const int mb = bid % mg;
-  const int e = bid / mg;  // batch entry
-  const int row0 = mb * 16, col0 = nb * cols;
-  // row strides: K + 4 floats, or K + 8 bfloat16 (K/2 + 4 words)
-  const int sf = k + 4, sb = k + 8;
-  float* af = reinterpret_cast<float*>(smem);
-  float* bf = af + 16 * sf;
-  __nv_bfloat16* ah = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* bh = ah + 16 * sb;
-  __nv_bfloat16* al = bh + cols * sb;
-  __nv_bfloat16* bl = al + 16 * sb;
-
-  const In* ae = a + static_cast<long long>(e) * m * k;
-  const In* be = b + static_cast<long long>(e) * n * k;
-  for (int i = threadIdx.x; i < 16 * k; i += blockDim.x) {
-    const int r = i / k, kk = i % k;
-    const float x = (row0 + r < m) ? to_f(ae[(row0 + r) * k + kk]) : 0.f;
-    const int idx = mode == kModeF32 ? r * sf + kk : r * sb + kk;
-    stage(x, mode, idx, af, ah, al);
-  }
-  for (int i = threadIdx.x; i < cols * k; i += blockDim.x) {
-    // b (k, n): column fastest in memory
-    const int kk = i / cols, c = i % cols;
-    const int col = col0 + c;
-    const float x = col < n ? to_f(be[kk * n + col]) : 0.f;
-    const int idx = mode == kModeF32 ? c * sf + kk : c * sb + kk;
-    stage(x, mode, idx, bf, bh, bl);
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int wc = warp * 8;  // the warp's first column in the block
-  if (col0 + wc >= n) return;
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  if (mode == kModeF32) {
-    const float* ar0 = af + g * sf;
-    const float* ar1 = af + (g + 8) * sf;
-    const float* br0 = bf + (wc + 2 * tig) * sf;
-    const float* br1 = bf + (wc + 2 * tig + 1) * sf;
-    for (int rep = 0; rep < reps; ++rep) {
-      asm volatile("" ::: "memory");
-      float p[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int kk = 0; kk < k; kk += 4) {
-        const float4 x0 = *reinterpret_cast<const float4*>(ar0 + kk);
-        const float4 x1 = *reinterpret_cast<const float4*>(ar1 + kk);
-        const float4 y0 = *reinterpret_cast<const float4*>(br0 + kk);
-        const float4 y1 = *reinterpret_cast<const float4*>(br1 + kk);
-        p[0] = fmaf(x0.x, y0.x, p[0]); p[0] = fmaf(x0.y, y0.y, p[0]);
-        p[0] = fmaf(x0.z, y0.z, p[0]); p[0] = fmaf(x0.w, y0.w, p[0]);
-        p[1] = fmaf(x0.x, y1.x, p[1]); p[1] = fmaf(x0.y, y1.y, p[1]);
-        p[1] = fmaf(x0.z, y1.z, p[1]); p[1] = fmaf(x0.w, y1.w, p[1]);
-        p[2] = fmaf(x1.x, y0.x, p[2]); p[2] = fmaf(x1.y, y0.y, p[2]);
-        p[2] = fmaf(x1.z, y0.z, p[2]); p[2] = fmaf(x1.w, y0.w, p[2]);
-        p[3] = fmaf(x1.x, y1.x, p[3]); p[3] = fmaf(x1.y, y1.y, p[3]);
-        p[3] = fmaf(x1.z, y1.z, p[3]); p[3] = fmaf(x1.w, y1.w, p[3]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) c[i] = __fadd_rn(c[i], p[i]);
-    }
-  } else {
-    const uint32_t* ah32 = reinterpret_cast<const uint32_t*>(ah);
-    const uint32_t* bh32 = reinterpret_cast<const uint32_t*>(bh);
-    const uint32_t* al32 = reinterpret_cast<const uint32_t*>(al);
-    const uint32_t* bl32 = reinterpret_cast<const uint32_t*>(bl);
-    const int sw = sb / 2;  // row stride in 32-bit words
-    const int ra = g * sw + tig, rb = (wc + g) * sw + tig;
-    for (int rep = 0; rep < reps; ++rep) {
-      asm volatile("" ::: "memory");
-      float p[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int kk = 0; kk < k; kk += 16) {
-        const int kw = kk / 2;
-        const uint32_t ahi[4] = {ah32[ra + kw], ah32[ra + 8 * sw + kw],
-                                 ah32[ra + kw + 4], ah32[ra + 8 * sw + kw + 4]};
-        const uint32_t b0 = bh32[rb + kw], b1 = bh32[rb + kw + 4];
-        mma_bf16(p, ahi, b0, b1);
-        if (mode == kMode3Pass) {
-          const uint32_t alo[4] = {al32[ra + kw], al32[ra + 8 * sw + kw],
-                                   al32[ra + kw + 4],
-                                   al32[ra + 8 * sw + kw + 4]};
-          mma_bf16(p, ahi, bl32[rb + kw], bl32[rb + kw + 4]);
-          mma_bf16(p, alo, b0, b1);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) c[i] = __fadd_rn(c[i], p[i]);
-    }
-  }
-  float* oe = out + static_cast<long long>(e) * m * n;
-  const int col = col0 + wc + 2 * tig;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + 8 * h;
-    if (row < m) {
-      if (col < n) oe[row * n + col] = c[2 * h];
-      if (col + 1 < n) oe[row * n + col + 1] = c[2 * h + 1];
-    }
-  }
-}
-
-// ---- layout NT (L3): split K, one deterministic reduction -----------------
+// ---- the plan: split K, one deterministic reduction ----------------------
 
 // Must match tools/bench_dot_shapes.py::_plan_nt.
 struct NtPlan {
@@ -220,16 +130,17 @@ struct NtPlan {
   int threads;   // a block's
   int kblk;      // the K a block stages: wb * kw
   int mg, ng;    // units along m and n per batch entry
+  int kn;        // b is stored (k, n) (layout NN), else (n, k)
 };
 
 __host__ __device__ inline int wgmma_n(int m) {
   return m <= 8 ? 8 : m <= 16 ? 16 : m <= 32 ? 32 : m <= 64 ? 64 : 128;
 }
 
-__host__ __device__ inline NtPlan make_plan(int m, int n, int path, int tr,
-                                            int tc, int rm, int kw, int wb,
-                                            int kb) {
-  NtPlan p{path, tr, tc, rm, kw, wb, kb, 0, 0, 0, wb * kw, 0, 0};
+__host__ __device__ inline NtPlan make_plan(int nn, int m, int n, int path,
+                                            int tr, int tc, int rm, int kw,
+                                            int wb, int kb) {
+  NtPlan p{path, tr, tc, rm, kw, wb, kb, 0, 0, 0, wb * kw, 0, 0, nn};
   if (path == kPathFma) {
     p.tm = rm * tr;
     p.tn = 8 * tc;
@@ -237,6 +148,10 @@ __host__ __device__ inline NtPlan make_plan(int m, int n, int path, int tr,
   } else if (path == kPathWgmma) {
     p.tm = wgmma_n(m);
     p.tn = 64;
+    p.threads = 128 * wb;
+  } else if (path == kPathWgmmaN) {
+    p.tm = 64;
+    p.tn = 8 * tc;
     p.threads = 128 * wb;
   } else {
     p.tm = 16;
@@ -255,7 +170,7 @@ __host__ __device__ inline long long plan_smem(const NtPlan& p, int mode) {
   long long stage;
   if (p.path == kPathFma) {
     stage = static_cast<long long>(p.tm + p.tn) * p.kblk * 4;
-  } else if (p.path == kPathWgmma) {
+  } else if (p.path == kPathWgmma || p.path == kPathWgmmaN) {
     stage = static_cast<long long>(p.tm + p.tn) * p.kblk * 2 * parts;
   } else {
     stage = 2LL * 16 * (p.kblk + 8) * 2 * parts;
@@ -312,9 +227,9 @@ __device__ __forceinline__ NtBlock nt_block(const NtPlan& P) {
 // 'f32': FP32 FMA on RM x 8 register micro-tiles.  Lane (tk, ty, tx) owns
 // rows RM ty .. RM ty + RM - 1 and columns 4 tx .. 4 tx + 3, 4 TC + 4 tx ..
 // + 3 of the unit, and the k of its warp's slice with k = tk (mod TK).
-// (`mode` is 'f32': the three NT kernels share one signature.)
+// (`mode` is 'f32': the kernels share one signature.)
 template <typename In, int TR, int TC, int RM>
-__global__ void __launch_bounds__(256) tile_dot_nt_fma(
+__global__ void __launch_bounds__(256) tile_dot_fma(
     const In* __restrict__ a, const In* __restrict__ b,
     float* __restrict__ out, float* __restrict__ scratch, int batch, int m,
     int k, int n, int mode, int reps, NtPlan P) {
@@ -333,10 +248,17 @@ __global__ void __launch_bounds__(256) tile_dot_nt_fma(
                           : 0.f;
   }
   for (int i = threadIdx.x; i < TN * P.kblk; i += blockDim.x) {
-    const int c = i / P.kblk, kk = i % P.kblk, kg = B.k0 + kk;
-    bs[kk * TN + c] = (B.col0 + c < n && kg < k)
-                          ? to_f(be[static_cast<long long>(B.col0 + c) * k + kg])
-                          : 0.f;
+    if (P.kn) {  // n fastest in global memory
+      const int c = i % TN, kk = i / TN, kg = B.k0 + kk;
+      bs[kk * TN + c] = (B.col0 + c < n && kg < k)
+                            ? to_f(be[static_cast<long long>(kg) * n + B.col0 + c])
+                            : 0.f;
+    } else {
+      const int c = i / P.kblk, kk = i % P.kblk, kg = B.k0 + kk;
+      bs[kk * TN + c] = (B.col0 + c < n && kg < k)
+                            ? to_f(be[static_cast<long long>(B.col0 + c) * k + kg])
+                            : 0.f;
+    }
   }
   __syncthreads();
 
@@ -422,228 +344,164 @@ __global__ void __launch_bounds__(256) tile_dot_nt_fma(
            m, n);
 }
 
-// The no-swizzle K-major core-matrix layout of a wgmma operand of R rows:
-// 8 rows x 16 bytes contiguous, row groups 128 bytes apart (SBO), k groups
-// of 8 R / 8 * 128 bytes apart (LBO).
-__device__ __forceinline__ int core_off(int r, int kk, int rows) {
-  return ((kk >> 3) * (rows >> 3) + (r >> 3)) * 64 + (r & 7) * 8 + (kk & 7);
-}
-
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
-}
-
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<8> {
-  static __device__ __forceinline__ void mma(float (&d)[4], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3"
-        "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(da), "l"(db), "r"(scale_d)
-        : "memory");
-  }
-};
-
-template <>
-struct Wgmma<16> {
-  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(da), "l"(db), "r"(scale_d)
-        : "memory");
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d)
-        : "memory");
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d)
-        : "memory");
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d)
-        : "memory");
-  }
-};
-
-
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Stage rows [row0, row0 + rows) of x (count, k) over the block's K as
-// bfloat16 hi (and lo) in the core-matrix layout of `rows` rows.
+// Stage rows [row0, row0 + rows) of an operand of `count` rows over the
+// block's K as bfloat16 hi (and lo) in the core-matrix layout of `rows`
+// rows.  kmaj: x is (count, k), k fastest; else (k, count) (layout NN's b,
+// whose rows are its columns), read along its rows and transposed here.
 template <typename In>
-__device__ __forceinline__ void stage_core(const In* x, int count, int k,
-                                           int row0, int rows, int k0,
+__device__ __forceinline__ void stage_core(const In* x, bool kmaj, int count,
+                                           int k, int row0, int rows, int k0,
                                            int kblk, int mode,
                                            __nv_bfloat16* hi,
                                            __nv_bfloat16* lo) {
   for (int i = threadIdx.x; i < rows * kblk; i += blockDim.x) {
-    const int r = i / kblk, kk = i % kblk, kg = k0 + kk;
-    const float v = (row0 + r < count && kg < k)
-                        ? to_f(x[static_cast<long long>(row0 + r) * k + kg])
-                        : 0.f;
-    stage(v, mode, core_off(r, kk, rows), nullptr, hi, lo);
+    const int r = kmaj ? i / kblk : i % rows;
+    const int kk = kmaj ? i % kblk : i / rows, kg = k0 + kk;
+    float v = 0.f;
+    if (row0 + r < count && kg < k) {
+      v = to_f(kmaj ? x[static_cast<long long>(row0 + r) * k + kg]
+                    : x[static_cast<long long>(kg) * count + row0 + r]);
+    }
+    stage(v, mode, wgmma::core_off(r, kk, rows), nullptr, hi, lo);
   }
 }
 
-// 'bf16'/'3pass' where n >= 64: out^T (64 x N) = b (64 x K) . a^T, one
-// warpgroup a slice of kw.
+template <int N>
+__device__ __forceinline__ void add_rep(float (&c)[N / 2], float (&p)[N / 2]) {
+  wgmma::fence_regs(p);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) c[i] = __fadd_rn(c[i], p[i]);
+}
+
+// One rep's products into p, a fresh sum (scale-d 0 at the first step),
+// committed as one group; THREE: '3pass'.
+template <int N, bool THREE>
+__device__ __forceinline__ void issue_rep(float (&p)[N / 2], uint64_t dxh,
+                                          uint64_t dyh, uint64_t dxl,
+                                          uint64_t dyl, uint64_t sx,
+                                          uint64_t sy, int steps) {
+  wgmma::fence_regs(p);
+  wgmma::fence();
+  for (int s = 0; s < steps; ++s) {
+    wgmma::SS<N>::mma(p, dxh + s * sx, dyh + s * sy, s != 0);
+    if constexpr (THREE) {
+      wgmma::SS<N>::mma(p, dxl + s * sx, dyh + s * sy, 1);
+      wgmma::SS<N>::mma(p, dxh + s * sx, dyl + s * sy, 1);
+    }
+  }
+  wgmma::commit();
+}
+
+// Accumulators a thread alternates over the reps at wgmma's N: two, so
+// that each rep's products are issued before the wait for the previous
+// rep's, whose sum is added meanwhile; one at N = 128, where a second one
+// takes 64 more registers a thread (222 against 156) and so one of the
+// three blocks an SM that L3's M = 128 plan places.  Measured by
+// labs_ab.py on an NVIDIA H100 80GB HBM3 at 700 W: one accumulator costs
+// L4's M = 8 case and L3's N = 16 cases 9-12 %; two cost L3's M = 128
+// cases 30-37 % (and gain L4's m >= 64 cases 3-6 %).
+template <int N>
+constexpr bool kTwoAcc = N < 128;
+
+// The reps, rep r's sum added to c in rep order: with two accumulators in
+// p (r even) or q (r odd), after the wait that leaves only the next rep in
+// flight; with one after each rep's wait.
+template <int N, bool THREE>
+__device__ __forceinline__ void run_reps(float (&c)[N / 2], uint64_t dxh,
+                                         uint64_t dyh, uint64_t dxl,
+                                         uint64_t dyl, uint64_t sx,
+                                         uint64_t sy, int steps, int reps) {
+  float p[N / 2];
+  if constexpr (!kTwoAcc<N>) {
+    for (int r = 0; r < reps; ++r) {
+      asm volatile("" ::: "memory");
+      issue_rep<N, THREE>(p, dxh, dyh, dxl, dyl, sx, sy, steps);
+      wgmma::wait<0>();
+      add_rep<N>(c, p);
+    }
+  } else {
+    float q[N / 2];
+    issue_rep<N, THREE>(p, dxh, dyh, dxl, dyl, sx, sy, steps);
+    int r = 1;
+    for (; r + 1 < reps; r += 2) {
+      asm volatile("" ::: "memory");
+      issue_rep<N, THREE>(q, dxh, dyh, dxl, dyl, sx, sy, steps);
+      wgmma::wait<1>();
+      add_rep<N>(c, p);
+      issue_rep<N, THREE>(p, dxh, dyh, dxl, dyl, sx, sy, steps);
+      wgmma::wait<1>();
+      add_rep<N>(c, q);
+    }
+    if (r < reps) {
+      issue_rep<N, THREE>(q, dxh, dyh, dxl, dyl, sx, sy, steps);
+      wgmma::wait<1>();
+      add_rep<N>(c, p);
+      wgmma::wait<0>();
+      add_rep<N>(c, q);
+    } else {
+      wgmma::wait<0>();
+      add_rep<N>(c, p);
+    }
+  }
+}
+
+// 'bf16'/'3pass' on wgmma: D (64 x N) = X (64 x K) . Y^T, one warpgroup a
+// slice of kw.  Path wgmma: D = out^T, X the unit's 64 columns of b, Y its
+// N rows of a; wgmma_n: D = out, X 64 rows of a, Y N columns of b.
 template <typename In, int N>
-__global__ void __launch_bounds__(256) tile_dot_nt_wgmma(
+__global__ void __launch_bounds__(256) tile_dot_wgmma(
     const In* __restrict__ a, const In* __restrict__ b,
     float* __restrict__ out, float* __restrict__ scratch, int batch, int m,
     int k, int n, int mode, int reps, NtPlan P) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* bh = reinterpret_cast<__nv_bfloat16*>(smem);  // A: b rows
-  __nv_bfloat16* ah = bh + 64 * P.kblk;                        // B: a rows
-  __nv_bfloat16* bl = ah + N * P.kblk;
-  __nv_bfloat16* al = bl + 64 * P.kblk;
+  __nv_bfloat16* xh = reinterpret_cast<__nv_bfloat16*>(smem);  // A: 64 rows
+  __nv_bfloat16* yh = xh + 64 * P.kblk;                        // B: N rows
+  __nv_bfloat16* xl = yh + N * P.kblk;
+  __nv_bfloat16* yl = xl + 64 * P.kblk;
   const NtBlock B = nt_block(P);
-  stage_core(b + static_cast<long long>(B.e) * n * k, n, k, B.col0, 64, B.k0,
-             P.kblk, mode, bh, bl);
-  stage_core(a + static_cast<long long>(B.e) * m * k, m, k, B.row0, N, B.k0,
-             P.kblk, mode, ah, al);
+  const In* ae = a + static_cast<long long>(B.e) * m * k;
+  const In* be = b + static_cast<long long>(B.e) * n * k;
+  const bool tr = P.path == kPathWgmma;  // D = out^T
+  if (tr) {
+    stage_core(be, !P.kn, n, k, B.col0, 64, B.k0, P.kblk, mode, xh, xl);
+    stage_core(ae, true, m, k, B.row0, N, B.k0, P.kblk, mode, yh, yl);
+  } else {
+    stage_core(ae, true, m, k, B.row0, 64, B.k0, P.kblk, mode, xh, xl);
+    stage_core(be, !P.kn, n, k, B.col0, N, B.k0, P.kblk, mode, yh, yl);
+  }
   // the generic proxy's stores, visible to the tensor cores' async proxy
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  const int lbo_a = 64 / 8 * 128, lbo_b = N / 8 * 128;
+  const int lbo_x = 64 / 8 * 128, lbo_y = N / 8 * 128;
   const int kbeg = wg * P.kw;
-  int kend = kbeg + P.kw;
-  if (kend > k - B.k0) kend = k - B.k0;
-  const int steps = kend > kbeg ? (kend - kbeg + 15) / 16 : 0;
+  // Every warpgroup runs its whole slice, zeros past K included (the
+  // staging wrote them): the steps and every branch around the products
+  // then come from the kernel's arguments alone, which ptxas needs to keep
+  // the wgmma instructions in flight (else it serializes them, remark
+  // C7520, as it does where the steps depend on the thread).
+  const int steps = P.kw / 16;
   // a k16 step moves both descriptors by two k groups
-  const uint64_t da_h = wgmma_desc(bh + core_off(0, kbeg, 64), lbo_a, 128);
-  const uint64_t db_h = wgmma_desc(ah + core_off(0, kbeg, N), lbo_b, 128);
-  const uint64_t da_l = wgmma_desc(bl + core_off(0, kbeg, 64), lbo_a, 128);
-  const uint64_t db_l = wgmma_desc(al + core_off(0, kbeg, N), lbo_b, 128);
-  const uint64_t sa = 2 * lbo_a >> 4, sb = 2 * lbo_b >> 4;
-  float c[N / 2], p[N / 2];
+  using wgmma::core_off;
+  const uint64_t dxh = wgmma::desc(xh + core_off(0, kbeg, 64), lbo_x, 128);
+  const uint64_t dyh = wgmma::desc(yh + core_off(0, kbeg, N), lbo_y, 128);
+  const uint64_t dxl = wgmma::desc(xl + core_off(0, kbeg, 64), lbo_x, 128);
+  const uint64_t dyl = wgmma::desc(yl + core_off(0, kbeg, N), lbo_y, 128);
+  const uint64_t sx = 2 * lbo_x >> 4, sy = 2 * lbo_y >> 4;
+  float c[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) c[i] = 0.f;
-  for (int rep = 0; rep < reps; ++rep) {
-    asm volatile("" ::: "memory");
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) p[i] = 0.f;
-    fence_regs(p);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-    for (int s = 0; s < steps; ++s) {
-      Wgmma<N>::mma(p, da_h + s * sa, db_h + s * sb, 1);
-      if (mode == kMode3Pass) {
-        Wgmma<N>::mma(p, da_l + s * sa, db_h + s * sb, 1);  // a_hi . b_lo
-        Wgmma<N>::mma(p, da_h + s * sa, db_l + s * sb, 1);  // a_lo . b_hi
-      }
+  if (reps > 0) {
+    if (mode == kMode3Pass) {
+      run_reps<N, true>(c, dxh, dyh, dxl, dyl, sx, sy, steps, reps);
+    } else {
+      run_reps<N, false>(c, dxh, dyh, dxl, dyl, sx, sy, steps, reps);
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_regs(p);
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) c[i] = __fadd_rn(c[i], p[i]);
   }
   __syncthreads();  // the operands are dead: the partials reuse them
-  // c[4 j + h]: out^T row 16 w + g + 8 (h >> 1), column 8 j + 2 t + (h & 1)
+  // c[4 j + h]: D row 16 w + g + 8 (h >> 1), column 8 j + 2 t + (h & 1);
+  // the partials red[wg] as the unit's tm x tn
   float* red = reinterpret_cast<float*>(smem) + wg * N * 64;
   const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -651,8 +509,8 @@ __global__ void __launch_bounds__(256) tile_dot_nt_wgmma(
   for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 4; ++h) {
-      const int nr = 16 * w + g + 8 * (h >> 1), mc = 8 * j + 2 * t + (h & 1);
-      red[mc * 64 + nr] = c[4 * j + h];
+      const int dr = 16 * w + g + 8 * (h >> 1), dc = 8 * j + 2 * t + (h & 1);
+      red[tr ? dc * 64 + dr : dr * N + dc] = c[4 * j + h];
     }
   __syncthreads();
   nt_store(reinterpret_cast<float*>(smem), P,
@@ -664,7 +522,7 @@ __global__ void __launch_bounds__(256) tile_dot_nt_wgmma(
 // one warp a slice of kw; rows of kblk + 8 bfloat16 (conflict-free
 // fragment loads where kblk is a multiple of 64).
 template <typename In>
-__global__ void __launch_bounds__(256) tile_dot_nt_mma(
+__global__ void __launch_bounds__(256) tile_dot_mma(
     const In* __restrict__ a, const In* __restrict__ b,
     float* __restrict__ out, float* __restrict__ scratch, int batch, int m,
     int k, int n, int mode, int reps, NtPlan P) {
@@ -747,7 +605,7 @@ __global__ void __launch_bounds__(256) tile_dot_nt_mma(
 }
 
 // out[i] = the kb blocks' partials added in block order.
-__global__ void tile_dot_nt_reduce(const float* __restrict__ scratch,
+__global__ void tile_dot_reduce(const float* __restrict__ scratch,
                                    float* __restrict__ out, int kb,
                                    long long total) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
@@ -770,46 +628,49 @@ cudaError_t launch(K kernel, int blocks, int threads, long long smem,
   return cudaGetLastError();
 }
 
-// f(kernel) for the plan's kernel (the three share one signature).
+// f(kernel) for the plan's kernel (they share one signature).
 template <typename In, typename F>
-cudaError_t nt_dispatch(const NtPlan& P, F&& f) {
+cudaError_t dispatch(const NtPlan& P, F&& f) {
   if (P.path == kPathFma) {
     if (P.rm == 8 && P.tr == 2 && P.tc == 16) {
-      return f(tile_dot_nt_fma<In, 2, 16, 8>);
+      return f(tile_dot_fma<In, 2, 16, 8>);
     }
     if (P.rm == 4 && P.tr == 4 && P.tc == 8) {
-      return f(tile_dot_nt_fma<In, 4, 8, 4>);
+      return f(tile_dot_fma<In, 4, 8, 4>);
     }
     if (P.rm == 4 && P.tr == 2 && P.tc == 8) {
-      return f(tile_dot_nt_fma<In, 2, 8, 4>);
+      return f(tile_dot_fma<In, 2, 8, 4>);
     }
     if (P.rm == 4 && P.tr == 4 && P.tc == 2) {
-      return f(tile_dot_nt_fma<In, 4, 2, 4>);
+      return f(tile_dot_fma<In, 4, 2, 4>);
     }
     return cudaErrorInvalidValue;
   }
-  if (P.path == kPathMma) return f(tile_dot_nt_mma<In>);
-  switch (P.tm) {
+  if (P.path == kPathMma) return f(tile_dot_mma<In>);
+  // wgmma's N: the unit's rows of out (wgmma) or its columns (wgmma_n)
+  switch (P.path == kPathWgmma ? P.tm : P.tn) {
     case 8:
-      return f(tile_dot_nt_wgmma<In, 8>);
+      return f(tile_dot_wgmma<In, 8>);
     case 16:
-      return f(tile_dot_nt_wgmma<In, 16>);
+      return f(tile_dot_wgmma<In, 16>);
     case 32:
-      return f(tile_dot_nt_wgmma<In, 32>);
+      return f(tile_dot_wgmma<In, 32>);
     case 64:
-      return f(tile_dot_nt_wgmma<In, 64>);
+      return f(tile_dot_wgmma<In, 64>);
+    case 128:
+      return f(tile_dot_wgmma<In, 128>);
     default:
-      return f(tile_dot_nt_wgmma<In, 128>);
+      return cudaErrorInvalidValue;
   }
 }
 
 template <typename In>
-cudaError_t launch_nt(const In* a, const In* b, float* out, float* scratch,
-                      int batch, int m, int k, int n, int mode, int reps,
-                      const NtPlan& P, cudaStream_t st) {
+cudaError_t launch_plan(const In* a, const In* b, float* out, float* scratch,
+                        int batch, int m, int k, int n, int mode, int reps,
+                        const NtPlan& P, cudaStream_t st) {
   const long long smem = plan_smem(P, mode);
   const int blocks = batch * P.mg * P.ng * P.kb;
-  return nt_dispatch<In>(P, [&](auto kernel) {
+  return dispatch<In>(P, [&](auto kernel) {
     return launch(kernel, blocks, P.threads, smem, st, a, b, out, scratch,
                   batch, m, k, n, mode, reps, P);
   });
@@ -830,107 +691,65 @@ int occupancy(K kernel, int threads, long long smem) {
 
 }  // namespace
 
-// ---- layout NN ----
-
-// Shared memory a block of `warps` warps needs for depth k in `mode`.
-extern "C" long long tile_dot_smem(int k, int mode, int warps) {
-  const long long rows = 16 + 8LL * warps;
-  if (mode == kModeF32) return rows * (k + 4) * 4;
-  return rows * (k + 8) * 2 * (mode == kMode3Pass ? 2 : 1);
-}
-
-extern "C" int tile_dot_launch(const void* a, const void* b, void* out,
-                               int batch, int m, int k, int n, int in_bf16,
-                               int mode, int reps, int warps, void* stream) {
-  if (batch <= 0 || m <= 0 || n <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int mg = (m + 15) / 16, ng = (n + 8 * warps - 1) / (8 * warps);
-  const int blocks = batch * mg * ng;
-  const long long smem = tile_dot_smem(k, mode, warps);
-  cudaError_t e;
-  if (in_bf16) {
-    e = launch(tile_dot_nn_kernel<__nv_bfloat16>, blocks, 32 * warps, smem,
-               st, static_cast<const __nv_bfloat16*>(a),
-               static_cast<const __nv_bfloat16*>(b), static_cast<float*>(out),
-               m, k, n, mode, reps, mg, ng);
-  } else {
-    e = launch(tile_dot_nn_kernel<float>, blocks, 32 * warps, smem, st,
-               static_cast<const float*>(a), static_cast<const float*>(b),
-               static_cast<float*>(out), m, k, n, mode, reps, mg, ng);
-  }
-  return static_cast<int>(e);
-}
-
-// ---- layout NT ----
-
-// Resident blocks per SM (the occupancy calculator) of layout NN's kernel.
-extern "C" int tile_dot_nn_blocks_per_sm(int k, int in_bf16, int mode,
-                                         int warps) {
-  const long long smem = tile_dot_smem(k, mode, warps);
-  return in_bf16 ? occupancy(tile_dot_nn_kernel<__nv_bfloat16>, 32 * warps,
-                             smem)
-                 : occupancy(tile_dot_nn_kernel<float>, 32 * warps, smem);
-}
-
-// Resident blocks per SM of the plan (path, tr, tc, rm, kw, wb)'s kernel.
-extern "C" int tile_dot_nt_blocks_per_sm(int m, int n, int in_bf16, int mode,
-                                         int path, int tr, int tc, int rm,
-                                         int kw, int wb) {
-  const NtPlan P = make_plan(m, n, path, tr, tc, rm, kw, wb, 1);
+// Resident blocks per SM (the occupancy calculator) of the kernel of the
+// plan (path, tr, tc, rm, kw, wb), which serves either layout.
+extern "C" int tile_dot_blocks_per_sm(int m, int n, int in_bf16, int mode,
+                                      int path, int tr, int tc, int rm,
+                                      int kw, int wb) {
+  const NtPlan P = make_plan(0, m, n, path, tr, tc, rm, kw, wb, 1);
   const long long smem = plan_smem(P, mode);
   int blocks = -1;
   auto f = [&](auto kernel) {
     blocks = occupancy(kernel, P.threads, smem);
     return cudaSuccess;
   };
-  if (in_bf16) {
-    nt_dispatch<__nv_bfloat16>(P, f);
-  } else {
-    nt_dispatch<float>(P, f);
-  }
+  in_bf16 ? dispatch<__nv_bfloat16>(P, f) : dispatch<float>(P, f);
   return blocks;
 }
 
 // Shared memory of a block of the plan (path, tr, tc, rm, kw, wb) in
-// `mode`.
-extern "C" long long tile_dot_nt_smem(int m, int n, int mode, int path,
-                                      int tr, int tc, int rm, int kw,
-                                      int wb) {
-  return plan_smem(make_plan(m, n, path, tr, tc, rm, kw, wb, 1), mode);
+// `mode`, either layout.
+extern "C" long long tile_dot_smem(int m, int n, int mode, int path, int tr,
+                                   int tc, int rm, int kw, int wb) {
+  return plan_smem(make_plan(0, m, n, path, tr, tc, rm, kw, wb, 1), mode);
 }
 
-// scratch: kb x batch x m x n floats where kb > 1 (else unused).
-extern "C" int tile_dot_nt_launch(const void* a, const void* b, void* out,
-                                  void* scratch, int batch, int m, int k,
-                                  int n, int in_bf16, int mode, int reps,
-                                  int path, int tr, int tc, int rm, int kw,
-                                  int wb, int kb, void* stream) {
+// nn: a (batch, m, k) . b (batch, k, n) (layout NN), else a . b^T with b
+// (batch, n, k) (layout NT).  scratch: kb x batch x m x n floats where kb >
+// 1 (else unused).
+extern "C" int tile_dot_launch(int nn, const void* a, const void* b,
+                               void* out, void* scratch, int batch, int m,
+                               int k, int n, int in_bf16, int mode, int reps,
+                               int path, int tr, int tc, int rm, int kw,
+                               int wb, int kb, void* stream) {
   if (batch <= 0 || m <= 0 || n <= 0) return 0;
-  const NtPlan P = make_plan(m, n, path, tr, tc, rm, kw, wb, kb);
-  // the plan covers K, and a lane's first k lies inside its block's slices
+  const NtPlan P = make_plan(nn, m, n, path, tr, tc, rm, kw, wb, kb);
+  // the plan covers K, and a lane's first k lies inside its block's slices;
+  // mma serves layout NT only
   const bool fits = kw > 0 && wb > 0 && kb > 0 &&
                     static_cast<long long>(kb) * P.kblk >= k &&
                     P.threads <= 256 && (path == kPathFma) == (mode == kModeF32) &&
                     (path == kPathFma || kw % 16 == 0) &&
-                    (path != kPathFma || kw >= 32 / (tr * tc));
+                    (path != kPathFma || kw >= 32 / (tr * tc)) &&
+                    !(nn && path == kPathMma);
   if (!fits || (kb > 1 && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   float* s = static_cast<float*>(scratch);
-  cudaError_t e =
-      in_bf16 ? launch_nt(static_cast<const __nv_bfloat16*>(a),
-                          static_cast<const __nv_bfloat16*>(b), o, s, batch, m,
-                          k, n, mode, reps, P, st)
-              : launch_nt(static_cast<const float*>(a),
-                          static_cast<const float*>(b), o, s, batch, m, k, n,
-                          mode, reps, P, st);
+  const auto* ab = static_cast<const __nv_bfloat16*>(a);
+  const auto* bb = static_cast<const __nv_bfloat16*>(b);
+  const auto* af = static_cast<const float*>(a);
+  const auto* bf = static_cast<const float*>(b);
+  const cudaError_t e =
+      in_bf16 ? launch_plan(ab, bb, o, s, batch, m, k, n, mode, reps, P, st)
+              : launch_plan(af, bf, o, s, batch, m, k, n, mode, reps, P, st);
   if (e != cudaSuccess || kb == 1) return static_cast<int>(e);
   const long long total = static_cast<long long>(batch) * m * n;
   const long long want = (total + 255) / 256;
   const int grid = static_cast<int>(want < 1056 ? want : 1056);
-  tile_dot_nt_reduce<<<grid, 256, 0, st>>>(s, o, kb, total);
+  tile_dot_reduce<<<grid, 256, 0, st>>>(s, o, kb, total);
   return static_cast<int>(cudaGetLastError());
 }
 
