@@ -78,6 +78,15 @@ exits non-zero:
                PSATD's default direct deposition, per particle: checksums
                within 1e-9, divE/divB within 1e-9 of their largest value
                cell by cell; the float32 spread of the 32 x 64 decks;
+  boosted_parity  the boosted frame, back-transformed diagnostics and
+               divergence cleaning in float64, card against CPU: the 32 x 64
+               laser-wakefield deck at gamma_boost = 10, tile-binned (K1c)
+               and per particle; that deck with a BackTransformed
+               diagnostic (rows and filled masks); the 16^3 periodic plasma
+               under Yee with both cleanings from divergent fields; the
+               32 x 64 deck with both cleanings under Yee and PSATD with
+               PML faces: checksums, sum |F| and sum |G| within 1e-9, and
+               each case's float32 spread;
   main         the 3D main path at 128^3 cells, 2 species, 8.39 M particles,
                float32: init, one warm step, 20 timed steps, 3 profiled
                steps, the closing step; then each kernel at the main path's
@@ -137,6 +146,22 @@ exits non-zero:
                PML with F/G splits), 38 steps driven as main_lwfa is; then
                the spectral push with its PML splits timed alone, and K1c at
                'mixed' at its shapes against its plain version;
+  main_lwfa_boosted  lwfa2d-2048x8192-boosted: bench.py's deck at 'mixed',
+               translated +36 um along z, with gamma_boost = 10 and a
+               4-snapshot BackTransformed diagnostic whose planes cross the
+               plasma, tile-binned through K1c and K3 at the default tile
+               headroom, driven as main_lwfa is; the fullest tile after
+               each rebin, every filled row holding data and matching an
+               independent float64 back-transform of the slices, the slab's
+               rho against the whole grid's, one row's work timed alone,
+               the host's waits on quiet steps against main_lwfa_deck's,
+               K1c at its shapes;
+  main_lwfa_boosted_galilean  bench.py's deck (untranslated) at
+               gamma_boost = 10 under Galilean PSATD
+               (psatd.use_default_v_galilean), per particle, 10 steps:
+               ms a step, busy share, the deposits' and the push's ms;
+  main_divclean  uniform-128 with both cleanings under Yee, per particle:
+               ms a step, the rho pair's ms, max |F|, |G| (G at roundoff);
   labs         each Hopper lab's main() at the TPU lab's default shapes (L1
                in every mode): kernel against plain version, times, bounds,
                the library's yardstick where there is one; each lab prints
@@ -156,6 +181,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1546,7 +1572,7 @@ def lwfa_steps(plan):
             + PROFILED_STEPS + 2)
 
 
-def run_lwfa_path(dev, smi, phase, sim, plan):
+def run_lwfa_path(dev, smi, phase, sim, plan, boosted=False):
     """Drive the bounded laser-wakefield path ``sim`` (built, not yet
     initialised): init, ``warm`` steps (two rebins, the window moving),
     ``timed`` steps with an event after each, ``counted`` steps with the
@@ -1559,7 +1585,11 @@ def run_lwfa_path(dev, smi, phase, sim, plan):
     phase's line and its profile.  Returns (launches, anchors, zshift,
     waits): the tiling anchor and the window's slide the next step would
     give K2, and the counted steps' waits for the device (``idle``: the set
-    of counts of the steps that neither rebin nor inject)."""
+    of counts of the steps that neither rebin nor inject).  ``boosted``: a
+    Lorentz-boosted run, whose window slides a fraction of a cell a step
+    (zshift takes a few values) and whose plasma streams away from the
+    window's lower edge: the alive electrons are the initial ones and the
+    rows injected at the top row's density."""
     from warpx_tpu_torch.ops import fused_pic as fp
     from warpx_tpu_torch.ops import tiling
 
@@ -1582,6 +1612,9 @@ def run_lwfa_path(dev, smi, phase, sim, plan):
     sim.init()
     spec, stepper = sim.tile_spec, sim.stepper
     n0 = {nm: int(sp.alive.sum()) for nm, sp in sim.state.species.items()}
+    el0 = sim.state.species["electrons"]
+    # the electrons of one cell row along z (the window's top row)
+    row0 = int((el0.alive & (el0.z >= geom.prob_hi[1] - geom.dx[1])).sum())
     host_init_s = time.perf_counter() - t0
     sim.evolve(plan["warm"])  # two rebins, the window moving
     torch.cuda.synchronize()
@@ -1620,7 +1653,7 @@ def run_lwfa_path(dev, smi, phase, sim, plan):
     peak_steps = torch.cuda.max_memory_allocated()
     zshifts = sorted(stepper.zshifts_seen)
     if not (zshifts[0] == 0 and zshifts[-1] < stepper.smax
-            and len(zshifts) >= plan["interval"] - 1):
+            and len(zshifts) >= (2 if boosted else plan["interval"] - 1)):
         raise AssertionError(f"zshift took {zshifts} of [0, {stepper.smax})")
     stepped = sim.state
     sums = sim.checksums()  # raises on tile overflow or violations
@@ -1645,6 +1678,16 @@ def run_lwfa_path(dev, smi, phase, sim, plan):
     rows_in = round(float(aux["inject_pos:electrons"] - geom.prob_hi[1])
                     / geom.dx[1])
     expected = n0["electrons"] + (rows_in - offset) * per_row
+    if boosted:
+        # the plasma streams down at -beta c, away from the window's lower
+        # edge: no row is absorbed.  The injection front rides down with
+        # it and jumps to the window's top at each injection: the jumps are
+        # the rows injected
+        beta = (1.0 - 1.0 / cfg.gamma_boost ** 2) ** 0.5
+        per_row = row0
+        rows_in = (float(aux["inject_pos:electrons"]) - geom.prob_hi[1]
+                   + beta * C_LIGHT * float(sim.state.time)) / geom.dx[1]
+        expected = n0["electrons"] + rows_in * per_row
     if abs(alive["electrons"] - expected) > per_row:
         raise AssertionError(f"{alive['electrons']} electrons alive, "
                              f"{expected} explained by {offset} rows "
@@ -2503,6 +2546,577 @@ def phase_main_psatd_multij(dev, smi, n=128):
          sub_steps=cfg.multi_j_n_depositions, **cost, nvidia_smi=smi)
 
 
+# ---- the boosted frame, back-transformed diagnostics, divergence cleaning --
+
+GAMMA_BOOST = 10.0
+BOOST_KEYS = ("warpx.gamma_boost = 10.\nwarpx.boost_direction = z\n")
+CLEAN_KEYS = "warpx.do_dive_cleaning = 1\nwarpx.do_divb_cleaning = 1\n"
+# tests/test_torch_btd.py's deck: the 32 x 64 deck's lab window moved to
+# z in [-10, 24] um, four snapshots 2 ps apart (the JAX package's lab
+# snapshot domain starts at prob_lo_boost / gamma: on the deck's own window
+# positive lab times fill no row for hundreds of steps)
+BTD_32X64 = ("diagnostics.diags_names = btd1\n"
+             "btd1.diag_type = BackTransformed\n"
+             "btd1.num_snapshots_lab = 4\n"
+             "btd1.dt_snapshots_lab = 2.e-12\n")
+
+
+def btd_32x64_deck():
+    return (LWFA_32X64_DECK.replace("max_step = 12", "max_step = 8")
+            .replace("geometry.prob_lo = -15.e-6 -28.e-6",
+                     "geometry.prob_lo = -15.e-6 -10.e-6")
+            .replace("geometry.prob_hi =  15.e-6   6.e-6",
+                     "geometry.prob_hi =  15.e-6  24.e-6")
+            .replace("laser1.position = 0. 0. -10.e-6",
+                     "laser1.position = 0. 0. 20.e-6")
+            + BOOST_KEYS + BTD_32X64)
+
+
+def seed_divergent(sim):
+    """B0 sin(2 pi x / Lx) in Bx at its nodes along x and E0 sin(2 pi x /
+    Lx) in Ex at its cell centers (tests/test_torch_divclean.py's seed):
+    both divergent, so that F and G grow."""
+    geom = sim.cfg.geometry
+    lx = geom.prob_hi[0] - geom.prob_lo[0]
+    f = sim.state.fields
+    upd = {}
+    for nm, amp, off in (("Bx", 1e-1, 0.0), ("Ex", 1e9, 0.5)):
+        x = (np.arange(geom.n_cell[0]) + off) * geom.dx[0]
+        a = torch.as_tensor(amp * np.sin(2 * np.pi * x / lx),
+                            dtype=f.Ex.dtype, device=f.Ex.device)
+        shape = [1] * geom.ndim
+        shape[0] = geom.n_cell[0]
+        upd[nm] = a.reshape(shape).expand(getattr(f, nm).shape).contiguous()
+    sim.state = sim.state.replace(fields=f.replace(**upd))
+
+
+def fg_sums(sim):
+    """The cleaning scalars' checksums: sum |F| and sum |G|."""
+    f = sim.state.fields
+    return {nm: float(getattr(f, nm).double().abs().sum())
+            for nm in ("F", "G") if getattr(f, nm) is not None}
+
+
+def phase_boosted_parity(dev):
+    """The boosted frame, back-transformed diagnostics and divergence
+    cleaning in float64, card against CPU at 1e-9: the 32 x 64
+    laser-wakefield deck at gamma_boost = 10, tile-binned (K1c, launched
+    once a step) and per particle, 8 steps; that deck with a
+    BackTransformed diagnostic (``btd_32x64_deck``): the snapshot rows and
+    ``filled`` masks; the 16^3 periodic plasma under Yee with both
+    cleanings from divergent fields, per particle; the 32 x 64 deck with
+    both cleanings under Yee with PML faces and under PSATD with PML faces,
+    per particle: every checksum and sum |F|, sum |G|.  Each case's float32
+    run on the card against its float64 run is reported
+    (``float32_spread``)."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.utils.parser import Deck
+
+    lwfa8 = LWFA_32X64_DECK.replace("max_step = 12", "max_step = 8")
+    out_dir = tempfile.mkdtemp(prefix="boosted_parity_")
+
+    def deck(text):
+        def make(device, dtype=torch.float64):
+            return warpx_tpu_torch.Simulation.from_deck(
+                Deck.from_string(text), dtype=dtype, device=device,
+                output_dir=out_dir)
+        return make
+
+    def run(make, device, dtype, seed):
+        sim = make(device, dtype)
+        sim.init()
+        if seed:
+            seed_divergent(sim)
+        sim.evolve()
+        sums = sim.checksums()
+        sums["lev=0"].update(fg_sums(sim))
+        return sim, sums
+
+    def periodic_clean(device, dtype=torch.float64):
+        cfg = dataclasses.replace(small_cfg(3), tiled_particles="off",
+                                  do_dive_cleaning=True,
+                                  do_divb_cleaning=True, max_step=6)
+        return warpx_tpu_torch.Simulation(cfg, dtype=dtype, device=device)
+
+    cases = [
+        ("boosted_binned", deck(lwfa8 + BOOST_KEYS), True),
+        ("boosted_per_particle",
+         deck(lwfa8 + BOOST_KEYS + "tpu.tiled_particles = off\n"), False),
+        ("boosted_btd", deck(btd_32x64_deck()
+                             + "tpu.tiled_particles = off\n"), False),
+        ("periodic_16^3_yee_clean", periodic_clean, False),
+        ("lwfa_32x64_yee_pml_clean", deck(lwfa8 + CLEAN_KEYS), False),
+        ("lwfa_32x64_psatd_pml_clean",
+         deck(psatd_deck(lwfa8) + CLEAN_KEYS), False),
+    ]
+    out = []
+    for name, make, binned in cases:
+        sums, btds = {}, {}
+        before = fp.binned_push_deposit.launches_2d
+        seed = "periodic" in name
+        for device in (dev, "cpu"):
+            sim, sums[str(device)] = run(make, device, torch.float64, seed)
+            if sim.binned != binned:
+                raise AssertionError(f"{name}: binned {sim.binned}")
+            btds[str(device)] = sim.btd
+            steps = sim.cfg.max_step
+        grew = fp.binned_push_deposit.launches_2d - before
+        if grew != (steps if binned else 0):
+            raise AssertionError(f"{name}: {grew} K2 launches in {steps} "
+                                 "steps")
+        case = {"case": name, "steps": steps, "fused_launches": grew,
+                "max_rel_err": checksums_agree(sums[str(dev)], sums["cpu"],
+                                               1e-9, name)}
+        if btds["cpu"]:
+            (got,), (ref,) = btds[str(dev)], btds["cpu"]
+            worst = 0.0
+            for i in range(ref.num):
+                if not np.array_equal(got.filled[i], ref.filled[i]):
+                    raise AssertionError(f"{name}: snapshot {i}'s rows")
+                a, b = got.data(i), ref.data(i)
+                err = float(np.abs(a - b).max() / max(np.abs(b).max(),
+                                                      1e-300))
+                worst = max(worst, err)
+                if err > 1e-9:
+                    raise AssertionError(f"{name}: snapshot {i} {err}")
+            case.update(btd_rows=[int(f.sum()) for f in ref.filled],
+                        btd_max_rel_err=worst)
+            if not sum(case["btd_rows"]):
+                raise AssertionError(f"{name}: no row filled")
+        if "clean" in name and not sums["cpu"]["lev=0"].get("G"):
+            raise AssertionError(f"{name}: G stayed zero")
+        # the float32 run on the card against the float64 one (reported)
+        _, s32 = run(make, dev, torch.float32, seed)
+        case["float32_spread"] = {
+            group: max((abs(s32[group][q] - a) / abs(a)
+                        for q, a in ref.items()
+                        if a and q not in ("divE", "divB")), default=0.0)
+            for group, ref in sums[str(dev)].items()}
+        out.append(case)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit("boosted_parity", ok=True, tol=1e-9, cases=out)
+
+
+# lwfa2d-2048x8192-boosted's deck: bench.py's, translated by +36 um along z
+# (window, plasma edge, beam and antenna).  The JAX package's lab snapshot
+# domain starts at prob_lo_boost / gamma + c t_lab, about twice the lab
+# window's lower edge below it: on bench.py's own window the only lab times
+# that fill rows put their planes in the vacuum below the plasma.
+LWFA_BOOSTED_SHIFT = (
+    ("geometry.prob_lo = -30.e-6 -56.e-6",
+     "geometry.prob_lo = -30.e-6 -20.e-6"),
+    ("geometry.prob_hi =  30.e-6  12.e-6",
+     "geometry.prob_hi =  30.e-6  48.e-6"),
+    ("electrons.zmin = -56.e-6", "electrons.zmin = -20.e-6"),
+    ("beam.z_m = -28.e-6", "beam.z_m = 8.e-6"),
+    ("laser1.position = 0. 0. 9.e-6", "laser1.position = 0. 0. 45.e-6"))
+
+
+def lwfa_boosted_deck_text(nx, nz, steps):
+    """``lwfa_deck_text`` at 'mixed', translated by LWFA_BOOSTED_SHIFT, with
+    warpx.gamma_boost = 10 along z."""
+    text = lwfa_deck_text(nx, nz, steps, "mixed")
+    for old, new in LWFA_BOOSTED_SHIFT:
+        if old not in text:
+            raise AssertionError(f"bench.py's deck has no {old!r}")
+        text = text.replace(old, new)
+    return text + BOOST_KEYS
+
+
+def btd_snapshot_times(cfg, steps):
+    """Lab times for a 4-snapshot BackTransformed diagnostic of the boosted
+    configuration ``cfg`` over ``steps`` steps: the JAX package's snapshot
+    at t_lab fills row k_lab = floor((z_lab - zmin_lab) / dz_lab) while its
+    plane z_boost lies in the window, with zmin_lab = prob_lo_boost / gamma
+    + v_w c t_lab.  Both conditions bound t_lab linearly at each boosted
+    time t; taken at t = 0 and at the last step (the window's lower edge at
+    its highest) they give the band [lo, hi) of lab times that keep the
+    plane in the window and its row in [0, nz_lab) through the run.
+    Returns (d, band): snapshot i at t_lab = i d, 3 d halfway from 0 to the
+    band's top (the band must hold 0)."""
+    geom = cfg.geometry
+    g, c = cfg.gamma_boost, C_LIGHT
+    b = (1.0 - 1.0 / g ** 2) ** 0.5
+    vw = cfg.moving_window_v
+    lo, hi = geom.prob_lo[1], geom.prob_hi[1]
+    dz_lab = c * cfg.dt / (b * g)
+    nz_lab = int(np.floor((hi - lo) * g * (1.0 - b * vw) / dz_lab))
+    span = steps * cfg.dt * c
+    lows, highs = [], []
+    for t in (0.0, steps * cfg.dt):
+        # z_boost = (t_lab / g - t) c / b in [lo + span, hi)
+        lows.append((lo + span + c * t / b) * g * b / c)
+        highs.append((hi + c * t / b) * g * b / c)
+        # k_lab dz_lab = t_lab c (1/b - v_w) - c t / (g b) - lo / g
+        slope = c * (1.0 / b - vw)
+        lows.append((c * t / (g * b) + lo / g) / slope)
+        highs.append((nz_lab * dz_lab + c * t / (g * b) + lo / g) / slope)
+    band = (max(lows), min(highs))
+    if not band[0] <= 0.0 < band[1]:
+        raise AssertionError(f"lab times {band} fill rows: 0 is not among "
+                             "them")
+    return band[1] / 6, band
+
+
+class recorded_slices:
+    """Within the block, every slice ``BTDSnapshots.update`` takes is kept
+    with the step, time and window edge it was taken at (for
+    ``btd_independent_check``)."""
+
+    def __enter__(self):
+        from warpx_tpu_torch.diagnostics import btd as btd_mod
+
+        self.mod, self.calls = btd_mod, []
+        self.orig = btd_mod.cell_centered_slice
+
+        def rec(state, cfg, stag, names, k, *a, **kw):
+            raw = self.orig(state, cfg, stag, names, k, *a, **kw)
+            self.calls.append((state.step, float(state.time),
+                               float(state.aux["window_lo"]), k, raw))
+            return raw
+        btd_mod.cell_centered_slice = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.cell_centered_slice = self.orig
+
+
+def host_back_transform(raw, g, b):
+    """JAX btd.py:115-140's formulas in float64 on the host, from the raw
+    cell-centered values ``raw`` (name -> float64 array): (the lab-frame
+    fields, each field's scale: its terms' magnitudes, since the lab jz
+    and rho of a streaming plasma cancel to a small remainder)."""
+    c = C_LIGHT
+    r = {nm: np.asarray(v, np.float64) for nm, v in raw.items()}
+    a = {nm: np.abs(v) for nm, v in r.items()}
+    ref = {"Ex": g * (r["Ex"] + b * c * r["By"]),
+           "By": g * (r["By"] + b / c * r["Ex"]),
+           "Ey": g * (r["Ey"] - b * c * r["Bx"]),
+           "Bx": g * (r["Bx"] - b / c * r["Ey"]),
+           "Ez": r["Ez"], "Bz": r["Bz"], "jx": r["jx"], "jy": r["jy"],
+           "jz": g * (r["jz"] + b * c * r["rho"]),
+           "rho": g * (r["rho"] + b / c * r["jz"])}
+    size = {"Ex": g * (a["Ex"] + b * c * a["By"]),
+            "By": g * (a["By"] + b / c * a["Ex"]),
+            "Ey": g * (a["Ey"] + b * c * a["Bx"]),
+            "Bx": g * (a["Bx"] + b / c * a["Ey"]),
+            "Ez": a["Ez"], "Bz": a["Bz"], "jx": a["jx"], "jy": a["jy"],
+            "jz": g * (a["jz"] + b * c * a["rho"]),
+            "rho": g * (a["rho"] + b / c * a["jz"])}
+    return ref, size
+
+
+def row_err(row, raw, btd):
+    """The worst error of a stored row (fields, transverse...) against
+    ``host_back_transform`` of its raw slice, over each field's scale."""
+    ref, size = host_back_transform(raw, btd.gamma, btd.beta)
+    worst = 0.0
+    for fi, nm in enumerate(btd.fields):
+        scale = max(float(size[nm].max()), 1e-300)
+        worst = max(worst, float(np.abs(row[fi] - ref[nm]).max()) / scale)
+    return worst
+
+
+def btd_independent_check(btd, calls, dz):
+    """Every filled row of ``btd`` against an independent back-transform:
+    for each recorded slice (step, time, window edge, k_boost, raw), the
+    plane and lab row recomputed on the host in float64, and the row that
+    the first slice of a lab cell gives from JAX btd.py:115-140's formulas
+    in float64 on the host from the raw cell-centered values.  Returns the
+    worst error over each field's scale (``row_err``) and the rows
+    checked."""
+    g, b, c = btd.gamma, btd.beta, C_LIGHT
+    worst, checked = 0.0, 0
+    for i in range(btd.num):
+        ks, rows = btd.rows(i)
+        if not ks:
+            continue
+        stored = dict(zip(ks, rows.double().cpu().numpy()))
+        seen = {}
+        for step, t, z_lo, k_boost, raw in calls:
+            zb = (btd.t_lab[i] / g - t) * c / b
+            zl = (btd.t_lab[i] - t / g) * c / b
+            k_lab = int(np.floor((zl - btd.zmin_lab[i]) / btd.dz_lab))
+            kb = int(np.floor((zb - z_lo) / dz))
+            if (kb == k_boost and 0 <= k_lab < btd.nz_lab
+                    and k_lab not in seen):
+                seen[k_lab] = {nm: v.double().cpu().numpy()
+                               for nm, v in raw.items()}
+        if set(seen) != set(stored):
+            raise AssertionError(f"snapshot {i}: rows {sorted(stored)} "
+                                 f"against {sorted(seen)}")
+        for k_lab, r in seen.items():
+            worst = max(worst, row_err(stored[k_lab], r, btd))
+            checked += 1
+    return worst, checked
+
+
+TOL_BTD_ROW = 1e-5
+
+
+class recorded_occupancy:
+    """Within the block, the fullest tile's live particles after each rebin
+    of the bounded step (device counts, read after the block)."""
+
+    def __enter__(self):
+        from warpx_tpu_torch.core import bounded_step
+
+        self.mod, self.orig, self.peaks = bounded_step, bounded_step.rebin, []
+
+        def rec(sp, geom, spec, **kw):
+            new, ovf = self.orig(sp, geom, spec, **kw)
+            self.peaks.append(new.alive.reshape(spec.n_tiles, spec.p_max)
+                              .sum(dim=1).max())
+            return new, ovf
+        bounded_step.rebin = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.rebin = self.orig
+
+
+def phase_main_lwfa_boosted(dev, smi, k1c_row, k3_row, lab_idle,
+                            nx=2048, nz=8192):
+    """lwfa2d-2048x8192-boosted: ``lwfa_boosted_deck_text`` (bench.py's deck
+    at 'mixed', translated along z, gamma_boost = 10) with one
+    BackTransformed diagnostic of 4 snapshots with JAX's default fields
+    (rho included), their lab times from ``btd_snapshot_times``;
+    tile-binned through K1c and K3 at the default tile headroom, driven as
+    main_lwfa is (86 steps), with the fullest tile after each rebin
+    recorded.  Every filled row holds data (each plane crosses the plasma)
+    and matches an independent back-transform (``btd_independent_check``);
+    the slab's rho at each plane on the final state against the whole-grid
+    deposit; the BTD's work for one row timed alone; the host's waits on
+    quiet steps against main_lwfa_deck's (``lab_idle``); K1c at 'mixed' at
+    its shapes.  Adds this path's launches to the rows of K1c at 'mixed'
+    and K3."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.diagnostics import btd as btd_mod
+    from warpx_tpu_torch.diagnostics.fields import (cell_centered_output,
+                                                    cell_centered_slice)
+    from warpx_tpu_torch.utils.parser import Deck
+
+    steps = lwfa_steps(LWFA_PLAN)
+    text = lwfa_boosted_deck_text(nx, nz, steps)
+    probe = warpx_tpu_torch.Simulation.from_deck(
+        Deck.from_string(text), dtype=torch.float32, device=dev)
+    d, band = btd_snapshot_times(probe.cfg, steps)
+    del probe
+    out_dir = tempfile.mkdtemp(prefix="btd_main_")
+    text += ("diagnostics.diags_names = btd1\n"
+             "btd1.diag_type = BackTransformed\n"
+             "btd1.num_snapshots_lab = 4\n"
+             f"btd1.dt_snapshots_lab = {d!r}\n")
+    sim = warpx_tpu_torch.Simulation.from_deck(
+        Deck.from_string(text), dtype=torch.float32, device=dev,
+        output_dir=out_dir)
+    (btd,) = sim.btd
+    if sim.cfg.gamma_boost != GAMMA_BOOST or not sim.binned:
+        raise AssertionError("main_lwfa_boosted: not a boosted binned run")
+    with recorded_slices() as rec, recorded_occupancy() as occ:
+        launches, anchors, zshift, waits = run_lwfa_path(
+            dev, smi, "main_lwfa_boosted", sim, LWFA_PLAN, boosted=True)
+    btd.check_overflow()
+    spec = sim.tile_spec
+    peaks = [int(p) for p in occ.peaks]
+    # a tile of the initial plasma: its particles per cell times its cells
+    ppc = next(s for s in sim.cfg.species if s.name == "electrons")
+    uniform = (int(np.prod(ppc.num_particles_per_cell_each_dim))
+               * int(np.prod(sim.cfg.tile_size[-2:])))
+    rows = [int(f.sum()) for f in btd.filled]
+    with_data = [int((r.abs().amax(dim=tuple(range(1, r.ndim))) > 0).sum())
+                 if r is not None else 0
+                 for r in (btd.rows(i)[1] for i in range(btd.num))]
+    if min(rows) == 0 or max(rows) > steps or with_data != rows:
+        raise AssertionError(f"main_lwfa_boosted: BTD rows {rows}, of them "
+                             f"{with_data} with data")
+    worst, checked = btd_independent_check(btd, rec.calls,
+                                           sim.cfg.geometry.dx[1])
+    if checked != sum(rows) or worst > TOL_BTD_ROW:
+        raise AssertionError(f"BTD rows against the independent transform: "
+                             f"{worst} over {checked} of {sum(rows)} rows")
+    # the slab's rho at each snapshot's plane on the final state against
+    # the whole-grid deposit
+    state = sim.state
+    whole = cell_centered_output(state, sim.cfg, sim.staggering,
+                                 names=["rho"])["rho"]
+    t = float(state.time)
+    slab_err, ov = {}, []
+    for i in range(btd.num):
+        zb, _ = btd.plane(i, t)
+        k = int(np.floor((zb - float(state.aux["window_lo"]))
+                         / sim.cfg.geometry.dx[1]))
+        if 0 <= k < sim.cfg.geometry.n_cell[1]:
+            for injected in (False, True):
+                got = cell_centered_slice(
+                    state, sim.cfg, sim.staggering, ["rho"], k, ov,
+                    btd.slab_plan(sim, k, injected))["rho"]
+                slab_err[f"{i}:{'room' if injected else 'slots'}"] = \
+                    rel_err(got, whole[..., k])[1]
+    if (len(slab_err) != 2 * btd.num or max(slab_err.values()) > 1e-5
+            or any(int(o) for o in ov)):
+        raise AssertionError(f"slab rho against the whole grid: {slab_err}")
+    k_row = max(0, int(np.floor((btd.plane(3, t)[0]
+                                 - float(state.aux["window_lo"]))
+                                / sim.cfg.geometry.dx[1])))
+    plans = {"slots": btd.slab_plan(sim, k_row, False),
+             "room": btd.slab_plan(sim, k_row, True)}
+
+    def one_row(plan):
+        raw = cell_centered_slice(state, sim.cfg, sim.staggering,
+                                  btd._inputs, k_row, [], plan)
+        lab = btd_mod.back_transform(raw, btd.gamma, btd.beta)
+        return torch.stack([lab[f] for f in btd.fields])
+
+    row_ms = {how: cuda_ms(lambda: one_row(plan), 5)
+              for how, plan in plans.items()}
+    whole_ms = cuda_ms(lambda: cell_centered_output(
+        state, sim.cfg, sim.staggering, names=["rho"]), 2)
+    k1c = k2_window_at_main_shapes(sim, anchors, zshift, mxu="mixed")
+    lab_max = max(lab_idle) if lab_idle else 0
+    emit("main_lwfa_boosted_btd", snapshots=btd.num,
+         dt_snapshots_lab=d, t_lab=btd.t_lab, t_lab_band_filling=band,
+         nz_lab=btd.nz_lab, dz_lab=btd.dz_lab, rows_filled=rows,
+         rows_checked=checked, row_max_rel_err=worst, row_tol=TOL_BTD_ROW,
+         rows_with_data=with_data, slab_rho_rel_err=slab_err,
+         ms_per_row=row_ms, rows_per_step=sum(rows) / steps,
+         slab_slots={how: {nm: (a.numel() if how == "slots" else a)
+                           for nm, (_, a) in plan.items()}
+                     for how, plan in plans.items()},
+         ms_whole_grid_rho=whole_ms,
+         tile_occupancy={"peak_after_each_rebin": peaks,
+                         "uniform_plasma": uniform, "p_max": spec.p_max,
+                         "tile_headroom": sim.cfg.tile_headroom},
+         idle_waits=waits["idle"], lab_idle_waits=lab_idle,
+         quiet_step_waits_vs_lab=(max(waits["idle"]) if waits["idle"]
+                                  else 0) - lab_max,
+         fused_pic_moving_window_mixed={
+             k: k1c[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "max_abs_err", "wide_tiles",
+                                 "occupied_tiles")},
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    add_launches({"fused_pic_moving_window_mixed": k1c_row,
+                  "ragged_expand": k3_row},
+                 {"fused_pic_moving_window_mixed": launches["fused_pic_2d"],
+                  "ragged_expand": launches["ragged_expand"]},
+                 "main_lwfa_boosted")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+class timed_bounded_deposits(timed_deposits):
+    """``timed_deposits`` for the bounded step's own deposit calls."""
+
+    NAMES = ("deposit_rho", "deposit_current_esirkepov",
+             "deposit_current_direct")
+
+    def __enter__(self):
+        from warpx_tpu_torch.core import bounded_step
+
+        self.mod, self.calls, self.orig = bounded_step, [], {}
+        for nm in self.NAMES:
+            fn = self.orig[nm] = getattr(bounded_step, nm)
+            setattr(bounded_step, nm, self._timed(nm, fn))
+        return self
+
+
+def phase_main_lwfa_boosted_galilean(dev, smi, nx=2048, nz=8192, steps=10):
+    """lwfa2d-2048x8192-boosted-galilean (BASELINE.json configuration 4's
+    physics in 2D): bench.py's deck with gamma_boost = 10 under PSATD with
+    psatd.use_default_v_galilean = 1 (the grid drifting at -beta c e_z,
+    update-with-rho on, PSATD's default direct deposition), per particle
+    (the tile-binned gate refuses Galilean PSATD), ``steps`` steps: the
+    last ``steps`` - 4 timed with CUDA events, 2 profiled (device busy
+    share), one with its deposits and the push timed; finite fields, the
+    window moved."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.utils.parser import Deck
+
+    text = (lwfa_deck_text(nx, nz, steps, "mixed") + BOOST_KEYS).replace(
+        "algo.maxwell_solver = yee",
+        "algo.maxwell_solver = psatd\npsatd.use_default_v_galilean = 1"
+    ).replace("tpu.tiled_particles = on", "tpu.tiled_particles = off")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = warpx_tpu_torch.Simulation.from_deck(
+        Deck.from_string(text), dtype=torch.float32, device=dev)
+    cfg = sim.cfg
+    if sim.binned or not any(cfg.psatd_v_galilean) or not (
+            cfg.psatd_update_with_rho and cfg.current_deposition == "direct"):
+        raise AssertionError("main_lwfa_boosted_galilean's configuration")
+    sim.init()
+    sim.evolve(1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    timed = steps - 4
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    marks[0].record()
+    for mark in marks[1:]:
+        sim.evolve(1)
+        mark.record()
+    marks[-1].synchronize()
+    ms_step = marks[0].elapsed_time(marks[-1]) / timed
+    breakdown = profile_steps(sim, 1, top=20)
+    with timed_bounded_deposits() as dep:
+        sim.evolve(1)
+    deposits = dep.report(1)
+    st = sim.stepper
+    state = sim.state
+    kw = dict(dtype=state.fields.Ex.dtype, device=state.fields.Ex.device)
+    rho = (torch.zeros(st.shapes["rho"], **kw),) * 2
+    push_ms = cuda_ms(lambda: st.psatd_push(state.fields, dict(state.aux),
+                                            rho), 2)
+    sim.evolve()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if sim.state.step != steps:
+        raise AssertionError(f"ended at step {sim.state.step}")
+    f = sim.state.fields
+    for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz"):
+        if not bool(torch.isfinite(getattr(f, nm)).all()):
+            raise AssertionError(f"main_lwfa_boosted_galilean: {nm}")
+    if not float(sim.state.aux["window_x"]) > cfg.geometry.prob_lo[1]:
+        raise AssertionError("the window did not move")
+    el = sum(int(sp.alive.sum()) for sp in sim.state.species.values())
+    emit("main_lwfa_boosted_galilean", ok=True, n_cell=cfg.geometry.n_cell,
+         steps=steps, steps_timed=timed, ms_per_step=ms_step,
+         pushes_per_s=el / (ms_step * 1e-3), alive=el,
+         v_galilean=cfg.psatd_v_galilean, init_s=init_s,
+         device_busy_share=breakdown["device_busy_share"],
+         device_ms_per_step=breakdown["device_ms_per_step"],
+         deposits=deposits, psatd_push_ms=push_ms, peak_memory_bytes=peak,
+         window_offset=int(sim.state.aux["window_offset"]),
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    emit("main_lwfa_boosted_galilean_profile", steps=1, **breakdown)
+
+
+def phase_main_divclean(dev, smi, n=128, steps=10):
+    """uniform-128-divclean: main's plasma and dt (main_cfg) with
+    do_dive_cleaning and do_divb_cleaning under Yee, per particle (the
+    tile-binned gate refuses cleaning), ``steps`` timed steps: ms a step,
+    the rho pair's device ms, max |F| and max |G|; G must stay at
+    roundoff, because Yee keeps the discrete div B at zero."""
+    cfg = dataclasses.replace(main_cfg(n, steps + PROFILED_STEPS + 3),
+                              tiled_particles="off", do_dive_cleaning=True,
+                              do_divb_cleaning=True)
+    sim = run_per_particle_path(dev, smi, "main_divclean", cfg,
+                                2 * 2 * n ** 3, steps)
+    f = sim.state.fields
+    f_max = float(f.F.abs().max())
+    g_max = float(f.G.abs().max())
+    b_max = max(float(getattr(f, nm).abs().max())
+                for nm in ("Bx", "By", "Bz"))
+    # G from a div B of float32 roundoff: c^2 dt eps |B| / dx a step
+    g_scale = (C_LIGHT ** 2 * cfg.dt * b_max / min(cfg.geometry.dx)
+               * cfg.max_step)
+    if not (f_max > 0 and g_max <= 1e-4 * g_scale):
+        raise AssertionError(f"main_divclean: max|F| {f_max}, max|G| "
+                             f"{g_max} against {g_scale}")
+    emit("main_divclean_fg", max_abs_F=f_max, max_abs_G=g_max,
+         max_abs_B=b_max, G_roundoff_scale=g_scale,
+         G_over_scale=g_max / g_scale, nvidia_smi=smi)
+
+
 # ---- the output path -------------------------------------------------------
 
 # The outputs main_lwfa_diags adds to bench.py's deck: a plotfile at steps 20
@@ -3250,6 +3864,7 @@ def main() -> int:
     phase_deck_parity(dev)
     phase_psatd_parity(dev)
     variants = phase_psatd_variants_parity(dev)
+    phase_boosted_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
     k1_row["launches_by_path"] = {"main": k1_row["launches"]}
     phase_main_psatd(dev, smi, k1_row, k3_row)
@@ -3274,6 +3889,12 @@ def main() -> int:
     phase_main_lwfa_diags(dev, smi, k1c_mixed_row, k3_row, waits["idle"])
     torch.cuda.empty_cache()
     phase_main_lwfa_psatd(dev, smi, k1c_mixed_row, k3_row)
+    torch.cuda.empty_cache()
+    phase_main_lwfa_boosted(dev, smi, k1c_mixed_row, k3_row, waits["idle"])
+    torch.cuda.empty_cache()
+    phase_main_lwfa_boosted_galilean(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_divclean(dev, smi)
     torch.cuda.empty_cache()
     lab_rows = phase_labs(dev)
     print(smi)

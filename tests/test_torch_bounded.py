@@ -570,14 +570,16 @@ def _with_species(cfg, i, **kw):
         c, particle_bc_lo=("thermal", "absorbing")), "Queue A 11"),
     (lambda c: dataclasses.replace(c, em_solver_medium="macroscopic"),
      "Queue A 11"),
-    (lambda c: dataclasses.replace(c, do_divb_cleaning=True), "Queue A 11"),
+    (lambda c: dataclasses.replace(c, field_bc_lo=("open", "pml")),
+     "Queue A 11"),
     (lambda c: dataclasses.replace(c, current_deposition="villasenor"),
      "Queue A 3"),
     (lambda c: dataclasses.replace(c, grid_type="collocated"), "Queue A 11"),
     (lambda c: dataclasses.replace(
         c, field_gathering="momentum-conserving"), "Queue A 11"),
     (lambda c: dataclasses.replace(c, use_nci_corr=True), "Queue A 11.3"),
-    (lambda c: dataclasses.replace(c, gamma_boost=10.0), "Queue A 11"),
+    (lambda c: dataclasses.replace(c, lasers=(dataclasses.replace(
+        c.lasers[0], do_continuous_injection=True),)), "Queue A 11"),
     (lambda c: dataclasses.replace(c, lasers=(dataclasses.replace(
         c.lasers[0], profile="from_file"),)), "Queue A 11"),
     (lambda c: _with_species(c, 1, do_not_deposit=True), "Queue A 11"),

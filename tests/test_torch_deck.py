@@ -216,8 +216,8 @@ electrons.density = 1.e24
      "Queue A 11.1"),
     ("electrons.do_field_ionization = 1", "Queue A 11.1"),
     ("electrons.do_classical_radiation_reaction = 1", "Queue A 2"),
-    ("warpx.gamma_boost = 10.", "Queue A 11"),
-    ("diagnostics.diags_names = diag1\ndiag1.diag_type = BackTransformed",
+    ("electrons.zinject_plane = 0.", "Queue A 11.4"),
+    ("diagnostics.diags_names = diag1\ndiag1.diag_type = TimeAveraged",
      "Queue A 11"),
     ("warpx.reduced_diags_names = r1\nr1.type = ChargeOnEB", "Queue A 11.3"),
     ("particles.E_ext_particle_init_style = parse_e_ext_particle_function",

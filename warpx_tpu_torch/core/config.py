@@ -2,10 +2,11 @@
 
 A copy of ``warpx_tpu.core.config``'s ``LaserConfig``, ``SpeciesConfig``
 and ``SimConfig``, cut to the fields the ported paths read (2D XZ and 3D
-explicit EM with the Yee, CKC or standard PSATD solver, periodic and
-bounded with PML/PEC (FDTD) or PML/damped (PSATD) faces, moving window, laser
-antennas, continuous injection and Gaussian beams, constant and parsed
-profiles; per-particle and tile-binned steps).  Fields keep the reference's
+explicit EM with the Yee, CKC or PSATD solver, periodic and bounded with
+PML/PEC (FDTD) or PML/damped (PSATD) faces, moving window, laser antennas,
+continuous injection and Gaussian beams, constant and parsed profiles,
+divergence cleaning, the Lorentz-boosted frame; per-particle and tile-binned
+steps).  Fields keep the reference's
 names and defaults, so a configuration built for ``warpx_tpu`` with these
 fields builds here with the same keyword arguments.  Features whose fields are absent come with later
 items of ROADMAP.md's Queue A.
@@ -131,8 +132,11 @@ class SimConfig:
     moving_window_v: float = 1.0  # units of c
     lasers: Tuple[LaserConfig, ...] = ()
     pml_ncell: int = 10
-    # Lorentz-boosted frame; only the lab frame (1.0) is ported
+    # Lorentz-boosted frame (warpx.gamma_boost / boost_direction; the
+    # deck's geometry is given in lab coordinates and converted at parse
+    # time)
     gamma_boost: float = 1.0
+    boost_direction: str = "z"
     # constant external fields applied to particles during gather
     e_ext_particle: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     b_ext_particle: Tuple[float, float, float] = (0.0, 0.0, 0.0)
@@ -143,6 +147,9 @@ class SimConfig:
     # do_pml_divb_cleaning; defaults true for PSATD, WarpX.cpp:848-870)
     do_pml_dive_cleaning: bool = False
     do_pml_divb_cleaning: bool = False
+    # the projection div(B) cleaner at initialization
+    # (warpx.do_divb_cleaning_external, ProjectionDivCleaner)
+    do_divb_cleaning_external: bool = False
     # PSATD knobs (reference: WarpX.cpp:1409-1520)
     psatd_order: int = 16  # -1 = infinite order (periodic single box)
     psatd_update_with_rho: bool = False

@@ -5,12 +5,15 @@ the port's ``SimConfig`` holds (2D XZ and 3D explicit electromagnetic runs
 with the Yee, CKC or PSATD solver, periodic or bounded with PML/PEC faces
 (PML/damped under PSATD), moving window, Gaussian laser
 antennas, continuous injection, Gaussian beams, constant or parsed density
-and momentum profiles, the tile-binned layout and its ``tpu.*`` keys), with
+and momentum profiles, divergence cleaning, the Lorentz-boosted frame (the
+geometry along the boost axis and the antenna converted from the lab's
+coordinates), the tile-binned layout and its ``tpu.*`` keys), with
 the JAX reader's defaults and derived values (reference: Source/WarpX.cpp:466
 ReadParameters; Source/Initialization/PlasmaInjector.cpp), and the deck's
 outputs (``outputs_from_deck``: Full diagnostics in plotfile, openPMD or
-checkpoint format, reduced diagnostics, signal handling) as the JAX
-package's ``Simulation._setup_diagnostics`` reads them.
+checkpoint format, BackTransformed diagnostics, reduced diagnostics, signal
+handling) as the JAX package's ``Simulation._setup_diagnostics`` reads
+them.
 
 Nothing is dropped silently.  A deck key that this reader does not read, or
 a value it reads but the port does not run, raises ``NotImplementedError``
@@ -32,6 +35,7 @@ from ..utils.intervals import IntervalsParser
 from ..utils.parser import Deck
 from .config import LaserConfig, SimConfig, SpeciesConfig
 from .grid import Geometry
+from .laser import boost_laser_position
 
 __all__ = ["NO_PHYSICS", "config_from_deck", "outputs_from_deck"]
 
@@ -277,7 +281,8 @@ def _psatd_from_deck(deck: Deck, solver: str, dep: str) -> dict:
             if gamma_boost <= 1.0:
                 raise ValueError(f"psatd.use_default_v_{kind} = 1 requires "
                                  "warpx.gamma_boost")
-            return (0.0, 0.0, -math.sqrt(1.0 - 1.0 / gamma_boost ** 2) * _C)
+            return (0.0, 0.0,
+                    -math.sqrt(1.0 - 1.0 / (gamma_boost * gamma_boost)) * _C)
         return tuple(v * _C for v in deck.get_reals(f"psatd.v_{kind}",
                                                     (0.0, 0.0, 0.0)))
 
@@ -337,7 +342,12 @@ def _gate_values(deck: Deck) -> None:
     if scheme != "explicit":
         _no(f"algo.evolve_scheme = {scheme}", "Queue A 11.3")
     if deck.get_real("warpx.gamma_boost", 1.0) > 1.0:
-        _no("the Lorentz-boosted frame (warpx.gamma_boost > 1)", "Queue A 11")
+        # the JAX reader's refusals in a boosted frame
+        # (warpx_tpu/core/deck.py:393-400)
+        if deck.get_strings("fluids.species_names", []):
+            _no("fluid species in a boosted frame", "Queue A 11.3")
+        if deck.get_strings("lattice.elements", []):
+            _no("accelerator lattice in a boosted frame", "Queue A 11.4")
     dep = _lower(deck, "algo.current_deposition", _dep_default(solver))
     if dep not in ("esirkepov", "direct", "vay"):
         _no(f"algo.current_deposition = {dep}", "Queue A 3")
@@ -413,6 +423,8 @@ def _item_of_key(deck: Deck, key: str) -> str:
         if ("ionization" in tail or "qed" in tail or tail == "physical_element"
                 or tail.startswith("resampling") or tail == "do_resampling"):
             return "Queue A 11.1"
+        if tail in ("zinject_plane", "rigid_advance"):
+            return "Queue A 11.4"
         if "flux" in tail or tail in ("injection_file", "single_particle_pos",
                                       "single_particle_u",
                                       "single_particle_weight") or (
@@ -461,22 +473,47 @@ def _reduced_params(deck: Deck, nm: str) -> dict:
     return params
 
 
+_BTD_FIELDS = _FIELDS_TO_PLOT + ["rho"]
+
+
+def _btd_from_deck(deck: Deck, nm: str) -> dict:
+    """A BackTransformed diagnostic as the JAX package's
+    ``Simulation._setup_diagnostics`` reads it (simulation.py:317-345): the
+    lab-frame snapshot period ``dt_snapshots_lab`` (or ``dz_snapshots_lab``
+    over the window's speed), the number of snapshots (``num_snapshots_lab``,
+    else ``num_snapshots``, else 8) and the fields."""
+    dt_lab = deck.get_real(f"{nm}.dt_snapshots_lab", None)
+    if dt_lab is None:
+        dzs = deck.get_real(f"{nm}.dz_snapshots_lab", 0.0)
+        dt_lab = dzs / (deck.get_real("warpx.moving_window_v", 1.0) * _C
+                        or 1.0)
+    num = deck.get_int(f"{nm}.num_snapshots_lab", 0)
+    if num <= 0:
+        num = deck.get_int(f"{nm}.num_snapshots", 0) or 8
+    return {"name": nm, "num_snapshots": num, "dt_snapshots_lab": dt_lab,
+            "fields": deck.get_strings(f"{nm}.fields_to_plot",
+                                       list(_BTD_FIELDS))}
+
+
 def outputs_from_deck(deck: Deck) -> dict:
     """The deck's outputs: ``diags`` (Full diagnostics: name, format,
-    cadence, fields, species and particle filters), ``reduced`` (name, kind,
-    cadence, parameters) and the ``break_signals`` / ``checkpoint_signals``
-    of warpx.*; raises ``NotImplementedError`` naming the ROADMAP.md item
-    for an output the port lacks."""
+    cadence, fields, species and particle filters), ``btd``
+    (BackTransformed diagnostics: name, snapshot count and lab period,
+    fields), ``reduced`` (name, kind, cadence, parameters) and the
+    ``break_signals`` / ``checkpoint_signals`` of warpx.*; raises
+    ``NotImplementedError`` naming the ROADMAP.md item for an output the
+    port lacks."""
     from ..diagnostics.reduced import REDUCED_DIAGS
 
     consts = deck.my_constants
-    diags = []
+    diags, btd = [], []
     for nm in deck.get_strings("diagnostics.diags_names", []):
         kind = _lower(deck, f"{nm}.diag_type", "full")
+        if kind == "backtransformed":
+            btd.append(_btd_from_deck(deck, nm))
+            continue
         if kind != "full":
-            what = ("BackTransformed: the boosted frame's back-transformed "
-                    "diagnostics" if kind == "backtransformed" else kind)
-            _no(f"{nm}.diag_type = {what}", "Queue A 11")
+            _no(f"{nm}.diag_type = {kind}", "Queue A 11")
         fmt = _lower(deck, f"{nm}.format", "plotfile")
         if fmt not in _FORMATS:
             raise ValueError(f"{nm}.format = {fmt}: not one of {_FORMATS}")
@@ -516,7 +553,7 @@ def outputs_from_deck(deck: Deck) -> dict:
             "intervals": IntervalsParser(
                 deck.get_strings(f"{nm}.intervals", ["1"]), consts),
             "params": _reduced_params(deck, nm)})
-    return {"diags": diags, "reduced": reduced,
+    return {"diags": diags, "btd": btd, "reduced": reduced,
             "break_signals": deck.get_strings("warpx.break_signals", []),
             "checkpoint_signals": deck.get_strings(
                 "warpx.checkpoint_signals", [])}
@@ -534,7 +571,24 @@ def config_from_deck(deck: Deck) -> SimConfig:
     if len(n_cell) != ndim:
         raise ValueError(f"amr.n_cell has {len(n_cell)} entries for "
                          f"geometry.dims = {ndim}")
+    # boosted frame: the deck's geometry is in lab coordinates; convert the
+    # boost axis with the moving window's contraction
+    # (ConvertLabParamsToBoost, WarpXUtil.cpp:180-263)
     gamma_boost = deck.get_real("warpx.gamma_boost", 1.0)
+    boost_dir = _lower(deck, "warpx.boost_direction", "z")
+    if gamma_boost > 1.0:
+        beta_boost = math.sqrt(1.0 - 1.0 / (gamma_boost * gamma_boost))
+        d = {2: ["x", "z"], 3: ["x", "y", "z"]}[ndim].index(boost_dir)
+        beta_window = beta_boost
+        if deck.get_bool("warpx.do_moving_window", False) and (
+                deck.get_string("warpx.moving_window_dir", "z").lower()
+                == boost_dir):
+            beta_window = deck.get_real("warpx.moving_window_v", 1.0)
+        factor = 1.0 / (gamma_boost * (1.0 - beta_boost * beta_window))
+        prob_lo = tuple(v * factor if i == d else v
+                        for i, v in enumerate(prob_lo))
+        prob_hi = tuple(v * factor if i == d else v
+                        for i, v in enumerate(prob_hi))
 
     field_lo = [b.lower() for b in deck.get_strings(
         "boundary.field_lo", ["periodic"] * ndim)]
@@ -593,6 +647,13 @@ def config_from_deck(deck: Deck) -> SimConfig:
             deck.get_string("warpx.moving_window_dir", "z").lower())
     lasers = tuple(_laser_from_deck(deck, nm)
                    for nm in deck.get_strings("lasers.names", []))
+    if gamma_boost > 1.0:
+        # the antenna plane at Z0_lab / gamma along its normal
+        lasers = tuple(
+            dataclasses.replace(las, position=pos, z0_lab=z0)
+            for las, (pos, z0) in (
+                (las, boost_laser_position(las, gamma_boost))
+                for las in lasers))
     # each antenna is a species of its own, after the deck's species
     laser_species = tuple(
         SpeciesConfig(name=las.name, charge=1.0, mass=0.0,
@@ -629,17 +690,21 @@ def config_from_deck(deck: Deck) -> SimConfig:
         pml_ncell=deck.get_int("pml_ncell",
                                deck.get_int("warpx.pml_ncell", 10)),
         gamma_boost=gamma_boost,
+        boost_direction=boost_dir,
         e_ext_particle=ext["E"],
         b_ext_particle=ext["B"],
         em_solver_medium=_lower(deck, "algo.em_solver_medium", "vacuum"),
         do_dive_cleaning=deck.get_bool("warpx.do_dive_cleaning", False),
         do_divb_cleaning=deck.get_bool("warpx.do_divb_cleaning", False),
+        do_divb_cleaning_external=deck.get_bool(
+            "warpx.do_divb_cleaning_external", False),
         verbose=deck.get_bool("warpx.verbose", False),
         **_psatd_from_deck(deck, em_solver, dep),
         **_tiling_from_deck(deck, ndim),
     )
     outputs = outputs_from_deck(deck)
-    names = {o["name"] for o in outputs["diags"] + outputs["reduced"]}
+    names = {o["name"] for o in (outputs["diags"] + outputs["btd"]
+                                 + outputs["reduced"])}
     unread = [k for k in deck.unused_keys()
               if k not in NO_PHYSICS and k.partition(".")[0] not in names]
     if unread:

@@ -1,8 +1,8 @@
 """Laser antenna: profile evaluation and antenna-particle update.
 
-The counterpart of ``warpx_tpu.core.laser`` for the Gaussian profile in the
-lab frame: the antenna's layout is made on the host in numpy, its update
-runs on tensors.
+The counterpart of ``warpx_tpu.core.laser`` for the Gaussian profile, in the
+lab frame and in a Lorentz-boosted one: the antenna's layout is made on the
+host in numpy, its update runs on tensors.
 
 The reference injects lasers through an antenna of macro-particles on a plane
 whose prescribed oscillation deposits the source current
@@ -33,6 +33,7 @@ __all__ = [
     "update_antenna",
     "antenna_unit_vectors",
     "polarization_p_x",
+    "boost_laser_position",
 ]
 
 
@@ -124,6 +125,19 @@ def fill_amplitude(laser: LaserConfig, ndim: int, Xp, Yp, t):
     stcfactor = complex(prefactor) * torch.exp(-stc_exponent)
     exp_argument = -(Xp * Xp + Yp * Yp) * complex(inv_cw2)
     return (stcfactor * torch.exp(exp_argument)).real
+
+
+def boost_laser_position(laser: LaserConfig, gamma_boost: float):
+    """The antenna plane's position in the boosted frame
+    (LaserParticleContainer.cpp:183-196): Z0_boost = Z0_lab / gamma along
+    the propagation normal.  Returns (position3, Z0_lab)."""
+    nvec = np.array(laser.direction, float)
+    nvec = nvec / np.linalg.norm(nvec)
+    pos = np.array(laser.position, float)
+    z0_lab = float(nvec @ pos)
+    if gamma_boost > 1.0:
+        pos = pos + (z0_lab / gamma_boost - z0_lab) * nvec
+    return tuple(pos), z0_lab
 
 
 def antenna_particles(
@@ -235,12 +249,17 @@ def update_antenna(
     mobility: float,
     t,
     dt: float,
+    gamma_boost: float = 1.0,
+    z0_lab: float = 0.0,
 ) -> ParticleState:
     """Prescribed antenna motion for one step (update_laser_particle).
 
     Sets u from the profile amplitude at the host time ``t`` and advances
     the positions by v*dt; the caller then runs the ordinary current
-    deposition over these particles.
+    deposition over these particles.  In a boosted frame the antenna
+    oscillates at the lab time of its plane and recedes at -beta_boost c
+    along the normal (LaserParticleContainer.cpp:574-580, 908-911); the
+    caller divides the mobility by gamma_boost.
     """
     ndim = geom.ndim
     nvec, u_X, u_Y = antenna_unit_vectors(laser, ndim)
@@ -265,6 +284,10 @@ def update_antenna(
             + u_Y[1] * (pos[1] - laser.position[1])
             + u_Y[2] * (pos[2] - laser.position[2])
         )
+    beta_boost = 0.0
+    if gamma_boost > 1.0:
+        beta_boost = math.sqrt(1.0 - 1.0 / gamma_boost**2)
+        t = t / gamma_boost + beta_boost * z0_lab / constants.c
     amplitude = fill_amplitude(laser, ndim, Xp, Yp, t)
     sign_charge = torch.where(sp.w > 0, -1.0, 1.0).to(sp.w.dtype)
     v_over_c = sign_charge * mobility * amplitude
@@ -273,7 +296,11 @@ def update_antenna(
     vx = constants.c * v_over_c * float(p_X[0])
     vy = constants.c * v_over_c * float(p_X[1])
     vz = constants.c * v_over_c * float(p_X[2])
-    gamma = 1.0 / torch.sqrt(1.0 - v_over_c * v_over_c)
+    if gamma_boost > 1.0:
+        vx = vx - beta_boost * constants.c * float(nvec[0])
+        vy = vy - beta_boost * constants.c * float(nvec[1])
+        vz = vz - beta_boost * constants.c * float(nvec[2])
+    gamma = gamma_boost / torch.sqrt(1.0 - v_over_c * v_over_c)
     if ndim == 2:
         new_pos = [pos[0] + vx * dt, pos[1] + vz * dt]
     else:

@@ -16,7 +16,8 @@ or ``step_main``, then ``step_window`` after every step.  ``from_deck``
 builds one from an inputs deck (``core/deck.py``) with the deck's outputs,
 which ``evolve`` writes on their schedule after each step
 (``flush_diagnostics``: plotfile, openPMD, checkpoint and reduced
-diagnostics under ``output_dir``).  The simulation runs on the CUDA device
+diagnostics under ``output_dir``), then the back-transformed diagnostics of
+a boosted run take their rows (``self.btd``, ``diagnostics/btd.py``).  The simulation runs on the CUDA device
 unless the caller names another device; with no GPU it raises rather than
 run on the CPU unasked.
 """
@@ -32,12 +33,14 @@ import numpy as np
 import torch
 
 from ..constants import c as _c
+from ..diagnostics.btd import BTDSnapshots
 from ..diagnostics.checksum import compute_checksums
 from ..diagnostics.fields import cell_centered_output, current_origin
 from ..diagnostics.reduced import ReducedDiagWriter, compute_reduced
 from ..io.checkpoint import save_checkpoint
 from ..io.openpmd import compact_columns, host, write_openpmd_iteration
 from ..io.plotfile import write_plotfile
+from ..solvers.div_cleaner import project_div_b
 from ..solvers.psatd import PsatdFirstOrder, PsatdSolver
 from ..utils.expression import compile_expression
 from ..utils.observability import SignalFlags, StepTimer
@@ -84,6 +87,10 @@ class Simulation:
         if cfg.geometry.ndim not in (2, 3):
             raise NotImplementedError("1D (ROADMAP.md Queue A 3-4)")
         self.is_bounded = needs_bounded_step(cfg)
+        if cfg.do_divb_cleaning_external and self.is_bounded:
+            # the JAX package's refusal (simulation.py:803-812)
+            raise NotImplementedError(
+                "warpx.do_divb_cleaning_external on bounded/RZ domains")
         supported = (bounded_binned_supported if self.is_bounded
                      else binned_supported)(cfg)
         if cfg.tiled_particles == "on" and not supported:
@@ -103,6 +110,7 @@ class Simulation:
         self.deck: Deck | None = None
         self.output_dir = "diags"
         self.diags: list = []
+        self.btd: list = []
         self.reduced: list = []
         self.signals: SignalFlags | None = None
         # the periodic spectral solver (the bounded one is the stepper's)
@@ -145,17 +153,20 @@ class Simulation:
             vay_deposition=cfg.current_deposition == "vay",
             time_averaging=cfg.psatd_time_averaging, **kw)
 
-    def _with_optional_fields(self, fields: FieldState) -> FieldState:
-        """The cleaning scalars F and G (of the domain's shape: only the
-        periodic torus carries them) and the time-averaged fields, zero at
-        the start as Efield_avg_fp is (JAX simulation.py:792-800,
-        1236-1243)."""
+    def _with_optional_fields(self, fields: FieldState,
+                              shapes=None) -> FieldState:
+        """The cleaning scalars F and G (of the domain's shape, or of
+        ``shapes`` on a bounded domain: F nodal, G cell-centered) and the
+        time-averaged fields, zero at the start as Efield_avg_fp is (JAX
+        simulation.py:792-800, 1236-1243)."""
         cfg = self.cfg
         upd = {}
-        if cfg.do_dive_cleaning:
-            upd["F"] = torch.zeros_like(fields.Ex)
-        if cfg.do_divb_cleaning:
-            upd["G"] = torch.zeros_like(fields.Ex)
+        kw = dict(dtype=fields.Ex.dtype, device=fields.Ex.device)
+        for nm, on in (("F", cfg.do_dive_cleaning),
+                       ("G", cfg.do_divb_cleaning)):
+            if on:
+                upd[nm] = (torch.zeros_like(fields.Ex) if shapes is None
+                           else torch.zeros(shapes[nm], **kw))
         if cfg.psatd_time_averaging:
             for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"):
                 upd[nm + "_avg"] = torch.zeros_like(getattr(fields, nm))
@@ -179,10 +190,15 @@ class Simulation:
 
     def _setup_diagnostics(self, outputs: dict, output_dir: str):
         """The output schedule of ``outputs_from_deck`` (reference:
-        MultiDiagnostics / MultiReducedDiags): the reduced diagnostics'
-        writers under ``<output_dir>/reducedfiles``, the signal handlers."""
+        MultiDiagnostics / MultiReducedDiags): the back-transformed
+        snapshots, the reduced diagnostics' writers under
+        ``<output_dir>/reducedfiles``, the signal handlers."""
         self.output_dir = output_dir
         self.diags = outputs["diags"]
+        self.btd = [BTDSnapshots(b["name"], self.cfg, b["num_snapshots"],
+                                 b["dt_snapshots_lab"], b["fields"],
+                                 output_dir)
+                    for b in outputs.get("btd", [])]
         self.reduced = [
             dict(rd, writer=ReducedDiagWriter(
                 os.path.join(output_dir, "reducedfiles"), rd["name"],
@@ -200,7 +216,8 @@ class Simulation:
             return self._init_bounded(rng)
         kw = dict(dtype=self.dtype, device=self.device)
         species = {
-            sp_cfg.name: inject_species(sp_cfg, geom, rng, **kw)
+            sp_cfg.name: inject_species(sp_cfg, geom, rng,
+                                        gamma_boost=cfg.gamma_boost, **kw)
             for sp_cfg in cfg.species
         }
         aux = {}
@@ -215,6 +232,10 @@ class Simulation:
             Bx=zeros(), By=zeros(), Bz=zeros(),
             jx=zeros(), jy=zeros(), jz=zeros(),
         ))
+        if cfg.do_divb_cleaning_external:
+            # the projection div(B) cleaner on the initial B
+            # (ProjectionDivCleaner, WarpXInitData.cpp:589-591)
+            fields = project_div_b(fields, geom)
         self.state = SimState(fields=fields, species=species, step=0,
                               time=0.0, aux=aux)
         self.is_synchronized = True
@@ -272,7 +293,8 @@ class Simulation:
                              if las.name == sp_cfg.name)
                 cols, _, _ = antenna_particles(laser, geom, ft)
             elif sp_cfg.injection_style == "gaussian_beam":
-                cols = inject_gaussian_beam_host(sp_cfg, geom, rng, ft)
+                cols = inject_gaussian_beam_host(sp_cfg, geom, rng, ft,
+                                                 cfg.gamma_boost)
             else:
                 capacity = None
                 if sp_cfg.do_continuous_injection and cfg.do_moving_window:
@@ -284,11 +306,13 @@ class Simulation:
                     travel_cells = math.ceil(
                         cfg.moving_window_v * _c * cfg.dt * cfg.max_step
                         / geom.dx[wdir]) + 4
-                    first = inject_species_host(sp_cfg, geom, rng, ft)
+                    first = inject_species_host(sp_cfg, geom, rng, ft,
+                                                gamma_boost=cfg.gamma_boost)
                     capacity = (int(first["alive"].sum())
                                 + travel_cells * cross * ppc_tot)
                     del first
-                cols = inject_species_host(sp_cfg, geom, rng, ft, capacity)
+                cols = inject_species_host(sp_cfg, geom, rng, ft, capacity,
+                                           cfg.gamma_boost)
             host[sp_cfg.name] = cols
             if sp_cfg.do_continuous_injection and cfg.do_moving_window:
                 aux[f"inject_pos:{sp_cfg.name}"] = ft.type(
@@ -322,7 +346,8 @@ class Simulation:
             aux[key] = torch.zeros(shape, **kw)
         fields = self._with_optional_fields(FieldState(**{
             nm: torch.zeros(shapes[nm], **kw)
-            for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")}))
+            for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")}),
+            shapes)
         species = {nm: columns_to_state(cols, self.device)
                    for nm, cols in host.items()}
         self.state = SimState(fields=fields, species=species, step=0,
@@ -443,6 +468,8 @@ class Simulation:
                 self.state = self.stepper.step_window(
                     self.state, move_j=self.is_synchronized)
             self.flush_diagnostics(step + 1)
+            for btd in self.btd:
+                btd.update(self)
             if timer is not None:
                 timer.step_done(step + 1, float(self.state.time), cfg.dt)
             if signals is not None and signals.pop_checkpoint():

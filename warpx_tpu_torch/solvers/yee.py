@@ -8,6 +8,11 @@ domain the guard-cell exchange is ``torch.roll``.
 
 dB/dt = -curl E   (upward differences)
 dE/dt = c^2 (curl B - mu0 J)   (downward differences)
+
+With hyperbolic divergence cleaning the scalars F (nodal) and G
+(cell-centered) advance with ``evolve_f`` / ``evolve_g`` and feed back
+through ``add_grad_f`` / ``add_grad_g`` (EvolveF.cpp, EvolveG.cpp,
+EvolveE.cpp:218-240, EvolveB.cpp:192-209), on the staggered grid only.
 """
 
 from __future__ import annotations
@@ -15,12 +20,14 @@ from __future__ import annotations
 import torch
 
 from ..constants import c as _c
+from ..constants import ep0 as _ep0
 from ..constants import mu0 as _mu0
 from ..core.state import FieldState
 
 __all__ = [
     "evolve_b", "evolve_e", "compute_dt_yee", "compute_dt_ckc",
-    "compute_div_e", "compute_div_b",
+    "compute_div_e", "compute_div_b", "evolve_f", "evolve_g", "add_grad_f",
+    "add_grad_g",
 ]
 
 _c2 = _c * _c
@@ -193,3 +200,67 @@ def compute_div_b(fields: FieldState, geom) -> torch.Tensor:
         _up(fields.Bx, 0, idx) + _up(fields.By, 1, idy)
         + _up(fields.Bz, 2, idz)
     )
+
+
+def _staggered(algo: str):
+    if algo == "nodal":
+        raise NotImplementedError(
+            "divergence cleaning on a collocated grid (ROADMAP.md Queue A "
+            "11.4)")
+
+
+def _div(fields: FieldState, names, geom, diff):
+    inv = [1.0 / d for d in geom.dx]
+    comps = [getattr(fields, nm) for nm in names]
+    if geom.ndim == 2:
+        return diff(comps[0], 0, inv[0]) + diff(comps[2], 1, inv[1])
+    return (diff(comps[0], 0, inv[0]) + diff(comps[1], 1, inv[1])
+            + diff(comps[2], 2, inv[2]))
+
+
+def evolve_f(F, fields: FieldState, rho, geom, dt: float,
+             algo: str = "yee"):
+    """div E cleaning scalar: F += dt (div E - rho/eps0) (EvolveF.cpp:
+    119-126; F is nodal on the staggered grid)."""
+    _need_2d_3d(geom)
+    _staggered(algo)
+    div = _div(fields, ("Ex", "Ey", "Ez"), geom, _down)
+    return F + dt * (div - rho / _ep0)
+
+
+def evolve_g(G, fields: FieldState, geom, dt: float, algo: str = "yee"):
+    """div B cleaning scalar: G += c^2 dt div B (EvolveG.cpp:108-112; G is
+    cell-centered on the staggered grid)."""
+    _need_2d_3d(geom)
+    _staggered(algo)
+    return G + _c2 * dt * _div(fields, ("Bx", "By", "Bz"), geom, _up)
+
+
+def add_grad_f(fields: FieldState, F, geom, dt: float,
+               algo: str = "yee") -> FieldState:
+    """The charge-conservation correction E += c^2 dt grad F
+    (EvolveE.cpp:218-240)."""
+    _need_2d_3d(geom)
+    _staggered(algo)
+    inv = [1.0 / d for d in geom.dx]
+    k = _c2 * dt
+    if geom.ndim == 2:
+        return fields.replace(Ex=fields.Ex + k * _up(F, 0, inv[0]),
+                              Ez=fields.Ez + k * _up(F, 1, inv[1]))
+    return fields.replace(Ex=fields.Ex + k * _up(F, 0, inv[0]),
+                          Ey=fields.Ey + k * _up(F, 1, inv[1]),
+                          Ez=fields.Ez + k * _up(F, 2, inv[2]))
+
+
+def add_grad_g(fields: FieldState, G, geom, dt: float,
+               algo: str = "yee") -> FieldState:
+    """The div B correction B += dt grad G (EvolveB.cpp:192-209)."""
+    _need_2d_3d(geom)
+    _staggered(algo)
+    inv = [1.0 / d for d in geom.dx]
+    if geom.ndim == 2:
+        return fields.replace(Bx=fields.Bx + dt * _down(G, 0, inv[0]),
+                              Bz=fields.Bz + dt * _down(G, 1, inv[1]))
+    return fields.replace(Bx=fields.Bx + dt * _down(G, 0, inv[0]),
+                          By=fields.By + dt * _down(G, 1, inv[1]),
+                          Bz=fields.Bz + dt * _down(G, 2, inv[2]))
