@@ -162,6 +162,35 @@ exits non-zero:
                ms a step, busy share, the deposits' and the push's ms;
   main_divclean  uniform-128 with both cleanings under Yee, per particle:
                ms a step, the rho pair's ms, max |F|, |G| (G at roundoff);
+  stochastic_parity  (after boosted_parity) field ionization (the 32 x 64
+               deck with a nitrogen dopant), quantum synchrotron and
+               Breit-Wheeler with photon species (16^2), Schwinger (16^3),
+               radiation reaction with photons (16^2) and both thinnings
+               per particle and tile-binned (16^3; K1, K3) in float64, card
+               against CPU on the numbers of one CPU generator
+               (``CpuDraws``): fields, species and attributes within 1e-12
+               (thinnings 1e-9), checksums 1e-9; float32 spreads reported;
+  main_lwfa_ionization  bench.py's LWFA deck at 2048 x 8192 with a
+               nitrogen dopant at N5+ around the antenna, per particle, 20
+               timed steps: each step's events against an independent
+               float64 host ADK evaluation on the card's gathered fields
+               (5 sigma over the run), products placed and dropped, ions by
+               level, the ionization operator's device ms;
+  main_qed     a 128^3 QED box (2.5 nm cells): four quantum-synchrotron
+               leptons, four Breit-Wheeler photon species, a
+               radiation-reaction species, 1 per cell each: photon and
+               pair yields after the second step within 5 sigma of the
+               analytic rates, electrons equal to positrons, the
+               radiation-reaction momenta against a float64 host pusher;
+  main_schwinger  128^3 under the reference's Schwinger case-2 field held
+               (no Maxwell solver), a 16-cell slab producing: each step's
+               pair weight against dV dt rate, electron and positron
+               weights equal;
+  main_resampling  uniform-128 (ions at 8 a cell) with leveling every 5
+               steps and velocity coincidence every 10, tile-binned (K1,
+               K3), 25 steps: each pass's count against its expectation,
+               the electrons' weight within 5 sigma, each cell's weight and
+               momentum conserved by the merge, K1 before and after;
   labs         each Hopper lab's main() at the TPU lab's default shapes (L1
                in every mode): kernel against plain version, times, bounds,
                the library's yardstick where there is one; each lab prints
@@ -216,8 +245,15 @@ TOL_J_WINDOW = 4e-4
 TOL_J_BF16 = 4e-3
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line for ``phase``, with the seconds since the script
+    started (``elapsed_s``: where the script's time goes)."""
+    print(json.dumps({"phase": phase, **kw,
+                      "elapsed_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -3824,7 +3860,1300 @@ def phase_labs(dev):
     ]
 
 
+
+# ---- the stochastic operators: ionization, QED, resampling -----------------
+#
+# Copies of the decks tests/test_torch_draws_util.py, test_torch_qed.py,
+# test_torch_radiation_reaction.py and test_torch_resampling.py run (this
+# script imports neither JAX nor the tests; test_torch_deck.py holds the
+# copies equal).
+
+ION_2D_DECK = """
+max_step = 6
+amr.n_cell = 16 16
+geometry.dims = 2
+geometry.prob_lo = -8.e-6 -8.e-6
+geometry.prob_hi =  8.e-6  8.e-6
+particles.species_names = electrons ions eprod
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = 1 1
+electrons.profile = constant
+electrons.density = 1.e24
+ions.species_type = nitrogen
+ions.injection_style = NUniformPerCell
+ions.num_particles_per_cell_each_dim = 2 2
+ions.profile = constant
+ions.density = 1.e22
+ions.do_field_ionization = 1
+ions.physical_element = N
+ions.ionization_initial_level = 2
+ions.ionization_product_species = eprod
+eprod.species_type = electron
+eprod.injection_style = none
+"""
+
+
+def lwfa_nitrogen_deck(base, steps=8, level=2):
+    """The laser-wakefield deck ``base`` with a nitrogen dopant around the
+    32 x 64 deck's antenna (initial level ``level``, electrons into
+    ``electrons_n``), the laser's peak 6 fs into the run, per particle."""
+    return base.replace("max_step = 12", f"max_step = {steps}").replace(
+        "particles.species_names = electrons beam",
+        "particles.species_names = electrons beam nitrogen electrons_n",
+    ).replace("laser1.profile_t_peak = 30.e-15",
+              "laser1.profile_t_peak = 6.e-15") + f"""
+nitrogen.species_type = nitrogen
+nitrogen.injection_style = NUniformPerCell
+nitrogen.num_particles_per_cell_each_dim = 2 2
+nitrogen.xmin = -10.e-6
+nitrogen.xmax = 10.e-6
+nitrogen.zmin = -13.e-6
+nitrogen.zmax = -7.e-6
+nitrogen.profile = constant
+nitrogen.density = 2.e21
+nitrogen.do_field_ionization = 1
+nitrogen.physical_element = N
+nitrogen.ionization_initial_level = {level}
+nitrogen.ionization_product_species = electrons_n
+electrons_n.species_type = electron
+electrons_n.injection_style = none
+tpu.tiled_particles = off
+"""
+
+
+QED_FIELDS = """
+particles.E_ext_particle_init_style = constant
+particles.B_ext_particle_init_style = constant
+particles.E_external_particle = -2433321316961438.0 973328526784575.0 1459992790176863.0
+particles.B_external_particle = 2857142.85714286 4285714.28571428 8571428.57142857
+"""
+# the same fields (tests/test_qed.py E_f, B_f) for the host evaluations
+E_F = np.array([-2433321316961438.0, 973328526784575.0, 1459992790176863.0])
+B_F = np.array([2857142.85714286, 4285714.28571428, 8571428.57142857])
+
+
+def qed_deck(ppc=2, steps=3, n=16, u_lep=100.0, u_phot=1000.0, dt=5e-17):
+    """A periodic 2D box under the QED decks' fields: ``ele1`` emits
+    photons into ``phot1``; photons ``g1`` make pairs into ``bwe`` (which
+    itself emits into ``phot1``) and ``bwp``."""
+    return f"""
+max_step = {steps}
+amr.n_cell = {n} {n}
+geometry.dims = 2
+geometry.prob_lo = -8.e-6 -8.e-6
+geometry.prob_hi =  8.e-6  8.e-6
+warpx.const_dt = {dt}
+particles.species_names = ele1 phot1 g1 bwe bwp
+ele1.species_type = electron
+ele1.injection_style = NUniformPerCell
+ele1.num_particles_per_cell_each_dim = {ppc} {ppc}
+ele1.profile = constant
+ele1.density = 1.e2
+ele1.momentum_distribution_type = constant
+ele1.uy = {u_lep}
+ele1.do_qed_quantum_sync = 1
+ele1.qed_quantum_sync_phot_product_species = phot1
+phot1.species_type = photon
+phot1.injection_style = none
+g1.species_type = photon
+g1.injection_style = NUniformPerCell
+g1.num_particles_per_cell_each_dim = {ppc} {ppc}
+g1.profile = constant
+g1.density = 1.e2
+g1.momentum_distribution_type = constant
+g1.uz = {u_phot}
+g1.do_qed_breit_wheeler = 1
+g1.qed_breit_wheeler_ele_product_species = bwe
+g1.qed_breit_wheeler_pos_product_species = bwp
+bwe.species_type = electron
+bwe.injection_style = none
+bwe.do_qed_quantum_sync = 1
+bwe.qed_quantum_sync_phot_product_species = phot1
+bwp.species_type = positron
+bwp.injection_style = none
+""" + QED_FIELDS
+
+
+def schwinger_deck(threshold=25.0, steps=2):
+    """An 8^3 periodic box with Schwinger pair creation into ``es`` and
+    ``ps`` (its field is written after init)."""
+    return f"""
+max_step = {steps}
+amr.n_cell = 8 8 8
+geometry.dims = 3
+geometry.prob_lo = -4.e-7 -4.e-7 -4.e-7
+geometry.prob_hi =  4.e-7  4.e-7  4.e-7
+warpx.use_filter = 0
+warpx.do_qed_schwinger = 1
+qed_schwinger.ele_product_species = es
+qed_schwinger.pos_product_species = ps
+qed_schwinger.threshold_poisson_gaussian = {threshold}
+qed_schwinger.zmin = -2.e-7
+qed_schwinger.zmax = 2.e-7
+particles.species_names = es ps
+es.species_type = electron
+es.injection_style = none
+ps.species_type = positron
+ps.injection_style = none
+"""
+
+
+RR_PERIODIC_DECK = """
+max_step = 5
+amr.n_cell = 16 16
+geometry.dims = 2
+geometry.prob_lo = -8.e-6 -8.e-6
+geometry.prob_hi =  8.e-6  8.e-6
+warpx.const_dt = 2.e-17
+particles.species_names = electrons photons
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = 2 2
+electrons.profile = constant
+electrons.density = 1.e20
+electrons.momentum_distribution_type = gaussian
+electrons.ux_th = 300.
+electrons.uy_th = 300.
+electrons.uz_th = 300.
+electrons.do_classical_radiation_reaction = 1
+photons.species_type = photon
+photons.injection_style = NUniformPerCell
+photons.num_particles_per_cell_each_dim = 1 1
+photons.profile = constant
+photons.density = 1.e20
+photons.momentum_distribution_type = gaussian
+photons.ux_th = 1000.
+photons.uy_th = 1000.
+photons.uz_th = 1000.
+""" + QED_FIELDS
+
+RESAMPLE_3D_DECK = """
+max_step = 6
+amr.n_cell = 8 8 8
+geometry.dims = 3
+geometry.prob_lo = -4.e-6 -4.e-6 -4.e-6
+geometry.prob_hi =  4.e-6  4.e-6  4.e-6
+warpx.sort_intervals = 4
+particles.species_names = electrons ions
+electrons.species_type = electron
+electrons.injection_style = NRandomPerCell
+electrons.num_particles_per_cell = 8
+electrons.profile = constant
+electrons.density = 1.e24
+electrons.momentum_distribution_type = gaussian
+electrons.ux_th = 0.01
+electrons.uy_th = 0.01
+electrons.uz_th = 0.01
+electrons.do_resampling = 1
+electrons.resampling_trigger_intervals = 2::2
+ions.species_type = proton
+ions.injection_style = NUniformPerCell
+ions.num_particles_per_cell_each_dim = 2 2 2
+ions.profile = constant
+ions.density = 1.e24
+ions.momentum_distribution_type = gaussian
+ions.ux_th = 0.001
+ions.uy_th = 0.001
+ions.uz_th = 0.001
+ions.do_resampling = 1
+ions.resampling_algorithm = velocity_coincidence_thinning
+ions.resampling_algorithm_delta_ur = 1e7
+ions.resampling_algorithm_n_theta = 2
+ions.resampling_algorithm_n_phi = 2
+ions.resampling_trigger_intervals = 3::3
+"""
+
+
+def grown(text, old, new):
+    """``text`` with ``old`` replaced by ``new``; raises if ``old`` is
+    absent (a deck that silently kept its old size would pass as bigger)."""
+    if old not in text:
+        raise AssertionError(f"{old!r} is not in the deck")
+    return text.replace(old, new)
+
+
+class CpuDraws:
+    """A draw source whose numbers come from ``Draws(seed, "cpu")``
+    (``warpx_tpu_torch/utils/draws.py``) and are copied to ``device``: two
+    runs that ask for the same draws in the same order get the same numbers
+    on the card and on the CPU."""
+
+    def __init__(self, seed, device):
+        from warpx_tpu_torch.utils.draws import Draws
+
+        self.device = torch.device(device)
+        self.cpu = Draws(seed, "cpu")
+
+    def split(self, n):
+        return (self,) * n
+
+    def uniform(self, shape, dtype):
+        return self.cpu.uniform(shape, dtype).to(self.device)
+
+    def normal(self, shape, dtype):
+        return self.cpu.normal(shape, dtype).to(self.device)
+
+    def poisson(self, lam):
+        return self.cpu.poisson(lam.cpu()).to(lam.device)
+
+    def exponential(self, shape, dtype):
+        return self.cpu.exponential(shape, dtype).to(self.device)
+
+
+def stochastic_run(text, device, dtype, hook=None, steps=None):
+    """The deck through Simulation.from_deck on ``device`` with a
+    ``CpuDraws`` source from the configuration's seed; ``hook(sim)`` after
+    init."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.utils.parser import Deck
+
+    sim = warpx_tpu_torch.Simulation.from_deck(Deck.from_string(text),
+                                               dtype=dtype, device=device)
+    sim.draws = CpuDraws(sim.cfg.seed, device)
+    sim.init()
+    if hook is not None:
+        hook(sim)
+    sim.evolve(-1 if steps is None else steps)
+    return sim
+
+
+def write_fields(arrs):
+    """A hook writing the numpy arrays ``arrs`` (by component) into the
+    fields after init, in the state's precision and on its device."""
+    def hook(sim):
+        f = sim.state.fields
+        sim.state = sim.state.replace(fields=f.replace(**{
+            k: torch.as_tensor(v, dtype=f.Ex.dtype, device=f.Ex.device)
+            for k, v in arrs.items()}))
+    return hook
+
+
+def states_agree(got, ref, tol, what):
+    """Two runs slot by slot (fields, and every species with its runtime
+    attributes: alive masks and integer attributes exactly, the rest within
+    ``tol`` of the largest magnitude); returns the worst relative error."""
+    worst = 0.0
+
+    def close(a, b, name):
+        nonlocal worst
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        err = float((a - b).abs().max()) if b.numel() else 0.0
+        rel = err / scale if scale else err
+        worst = max(worst, rel)
+        if not rel <= tol:  # NaN fails too
+            raise AssertionError(f"{what}: {name} differs by {rel} of its "
+                                 f"largest value (tolerance {tol})")
+
+    for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz"):
+        close(getattr(got.state.fields, nm), getattr(ref.state.fields, nm),
+              nm)
+    for name, sp in ref.state.species.items():
+        g = got.state.species[name]
+        if not torch.equal(g.alive.cpu(), sp.alive.cpu()):
+            raise AssertionError(f"{what}: {name} alive masks differ")
+        for k in ("w", "ux", "uy", "uz", "x", "y", "z"):
+            if getattr(sp, k) is not None:
+                close(getattr(g, k), getattr(sp, k), f"{name}.{k}")
+        for k, v in sp.extra.items():
+            if v.dtype == torch.int32:
+                if not torch.equal(g.extra[k].cpu(), v.cpu()):
+                    raise AssertionError(f"{what}: {name}.{k} differs")
+            else:
+                close(g.extra[k], v, f"{name}.{k}")
+    return worst
+
+
+def stochastic_cases():
+    """(name, deck text, hook maker, binned) of stochastic_parity."""
+    rng = np.random.default_rng(6)
+    n = 16
+    ripple = 1 + 0.2 * rng.random((n, n, n))
+    # the field held (no Maxwell solver): with Yee, the pairs' current
+    # drives the fields past float32's range, and the float32 spread means
+    # nothing
+    schwinger = grown(grown(grown(grown(
+        schwinger_deck(), "warpx.use_filter = 0",
+        "warpx.use_filter = 0\nalgo.maxwell_solver = none"),
+        "amr.n_cell = 8 8 8", f"amr.n_cell = {n} {n} {n}"),
+                            "geometry.prob_lo = -4.e-7 -4.e-7 -4.e-7",
+                            "geometry.prob_lo = -8.e-7 -8.e-7 -8.e-7"),
+                      "geometry.prob_hi =  4.e-7  4.e-7  4.e-7",
+                      "geometry.prob_hi =  8.e-7  8.e-7  8.e-7")
+    resample16 = grown(grown(grown(
+        RESAMPLE_3D_DECK, "amr.n_cell = 8 8 8", "amr.n_cell = 16 16 16"),
+        "geometry.prob_lo = -4.e-6 -4.e-6 -4.e-6",
+        "geometry.prob_lo = -8.e-6 -8.e-6 -8.e-6"),
+        "geometry.prob_hi =  4.e-6  4.e-6  4.e-6",
+        "geometry.prob_hi =  8.e-6  8.e-6  8.e-6")
+    return [
+        ("ionization_lwfa_32x64", lwfa_nitrogen_deck(LWFA_32X64_DECK), None,
+         False),
+        ("qed_16x16", qed_deck(ppc=2, steps=3), None, False),
+        ("schwinger_16^3", schwinger,
+         {"Ez": 2.5e20 * ripple, "By": np.full((n, n, n), 833910140000.0)},
+         False),
+        ("rr_photons_16x16", RR_PERIODIC_DECK, None, False),
+        ("resampling_16^3", resample16 + "tpu.tiled_particles = off\n", None,
+         False),
+        ("resampling_16^3_binned", resample16 + "tpu.tiled_particles = on\n",
+         None, True),
+    ]
+
+
+def phase_stochastic_parity(dev):
+    """Field ionization, QED (quantum synchrotron and Breit-Wheeler with
+    photon products, Schwinger), radiation reaction with photons, and both
+    thinnings per particle and tile-binned (K1, K3), in float64 on the card
+    against the CPU on the same numbers (``CpuDraws``): fields, species and
+    their attributes within 1e-12 of their largest values (1e-9 for the
+    thinnings, whose group sums and binned J sum in another order),
+    checksums within 1e-9;
+    then each case in float32 on the card, its checksums' spread against
+    float64 reported."""
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.ops import tiling
+
+    out = {}
+    for name, text, fields, binned in stochastic_cases():
+        hook = write_fields(fields) if fields is not None else None
+        k1_0, k3_0 = fp.binned_push_deposit.launches, tiling.ragged_expand.launches
+        card = stochastic_run(text, dev, torch.float64, hook)
+        k1_n = fp.binned_push_deposit.launches - k1_0
+        k3_n = tiling.ragged_expand.launches - k3_0
+        cpu = stochastic_run(text, "cpu", torch.float64, hook)
+        if card.binned != binned or (binned and not (k1_n and k3_n)):
+            raise AssertionError(f"stochastic_parity {name}: binned "
+                                 f"{card.binned}, K1 {k1_n}, K3 {k3_n}")
+        # the thinnings sum each group's weight, energy and momentum with
+        # index_add_, whose order differs between the card's atomics and
+        # the CPU, and the merge's perpendicular speed sqrt(v^2 - u^2)
+        # cancels: that roundoff reaches ~1e-10, as a binned J's sum order
+        # does
+        tol = 1e-9 if binned or name.startswith("resampling") else 1e-12
+        worst = states_agree(card, cpu, tol, f"stochastic_parity {name}")
+        sums64 = card.checksums()
+        worst_sum = checksums_agree(sums64, cpu.checksums(), 1e-9,
+                                    f"stochastic_parity {name}")
+        f32 = stochastic_run(text, dev, torch.float32, hook)
+        s32 = f32.checksums()
+        spread = {g: max((abs(s32[g][q] - a) / abs(a)
+                          for q, a in ref.items()
+                          if a and q not in ("divE", "divB")), default=0.0)
+                  for g, ref in sums64.items()}
+        counts = {nm: int(sp.alive.sum())
+                  for nm, sp in card.state.species.items()}
+        out[name] = {"tol": tol, "max_rel_err": worst,
+                     "checksum_max_rel_err": worst_sum, "alive": counts,
+                     "binned": binned, "k1_launches": k1_n,
+                     "k3_launches": k3_n, "float32_spread": spread}
+    emit("stochastic_parity", ok=True, cases=out)
+
+
+# ---- independent host evaluations (float64, numpy) -------------------------
+
+ALPHA = 0.007297352573748943
+R_E = 2.817940326204929e-15
+HBAR = 6.62607015e-34 / (2 * np.pi)
+# NIST ionization energies of nitrogen [eV]
+N_ENERGIES = (14.53413, 29.60125, 47.4453, 77.4735, 97.8901, 552.06732,
+              667.046116)
+
+
+def adk_host(level, u, e6, dt, energies=N_ENERGIES):
+    """The ADK probability per ion in float64 on the host (Chen, JCP 236
+    (2013) eq. 2 with WarpX's prefactors; Ionization.H:95-150): ``u`` is
+    (3, n) proper velocity [m/s], ``e6`` (6, n) the fields at the ions.
+    Returns (p, the JAX package's float32 w dtau of the same inputs)."""
+    import math
+
+    energies = np.asarray(energies)
+    a3 = ALPHA**3
+    wa = a3 * C_LIGHT / R_E
+    Ea = M_E * C_LIGHT**2 / Q_E * a3 * ALPHA / R_E
+    UH = 13.59843449
+    l_eff = math.sqrt(UH / energies[0]) - 1.0
+    n_eff = np.arange(1, len(energies) + 1) * np.sqrt(UH / energies)
+    C2 = np.array([2.0 ** (2 * n) / (n * math.gamma(n + l_eff + 1.0)
+                                     * math.gamma(n - l_eff))
+                   for n in n_eff])
+    pre = (dt * wa * C2 * (energies / (2.0 * UH))
+           * (2.0 * (energies / UH) ** 1.5 * Ea) ** (2.0 * n_eff - 1.0))
+    expp = -2.0 / 3.0 * (energies / UH) ** 1.5 * Ea
+    pw = -(2.0 * n_eff - 1.0)
+    ux, uy, uz = u
+    ex, ey, ez, bx, by, bz = e6
+    ga = np.sqrt(1.0 + (ux * ux + uy * uy + uz * uz) / C_LIGHT**2)
+    udote = (ux * ex + uy * ey + uz * ez) / C_LIGHT
+    E = np.sqrt(np.maximum(-udote * udote + (ga * ex + uy * bz - uz * by)**2
+                           + (ga * ey + uz * bx - ux * bz)**2
+                           + (ga * ez + ux * by - uy * bx)**2, 0.0))
+    lev = np.clip(level, 0, len(energies) - 1)
+    Es = np.where(E > 0, E, 1.0)
+    with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+        w = np.where(E > 0, pre[lev] * Es**pw[lev] * np.exp(expp[lev] / Es)
+                     / ga, 0.0)
+        f = np.float32
+        w32 = np.where(E > 0, f(1) / ga.astype(f) * pre[lev].astype(f)
+                       * Es.astype(f) ** pw[lev].astype(f)
+                       * np.exp(expp[lev].astype(f) / Es.astype(f)), f(0))
+    p = np.where(level < len(energies), 1.0 - np.exp(-w), 0.0)
+    return p, w32
+
+
+class timed_fn:
+    """Within the block, every call of ``module.name`` records its device
+    time with CUDA events."""
+
+    def __init__(self, module, name):
+        self.mod, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.mod, self.name)
+
+        def run(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            self.calls.append(ev)
+            return out
+        setattr(self.mod, self.name, run)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.calls]
+
+
+LWFA_ION_STEPS = 20
+
+
+def lwfa_ionization_deck(nx, nz, steps):
+    """bench.py's laser-wakefield deck (2 x 2 per cell) with a nitrogen
+    dopant at level 5 (1 % of the electron density, x in [-20, 20] um, z in
+    [6, 12] um around the antenna at 9 um, 2 x 2 per cell) ionizing into
+    ``electrons_n``, per particle (the bounded tile-binned gate refuses an
+    ionizable species, as the JAX package's does), the laser's peak 1 fs
+    into the run so that the antenna drives 99.6 % of e_max or more over
+    the run's 0.5 fs (at the deck's 30 fs it would drive 1.8 %)."""
+    text = grown(grown(grown(
+        lwfa_deck_text(nx, nz, steps, "f32"),
+        "tpu.tiled_particles = on", "tpu.tiled_particles = auto"),
+        "particles.species_names = electrons beam",
+        "particles.species_names = electrons beam nitrogen electrons_n"),
+        "laser1.profile_t_peak = 30.e-15", "laser1.profile_t_peak = 1.e-15")
+    return text + """
+nitrogen.species_type = nitrogen
+nitrogen.injection_style = NUniformPerCell
+nitrogen.num_particles_per_cell_each_dim = 2 2
+nitrogen.xmin = -20.e-6
+nitrogen.xmax = 20.e-6
+nitrogen.zmin = 6.e-6
+nitrogen.zmax = 12.e-6
+nitrogen.profile = constant
+nitrogen.density = 2.e21
+nitrogen.do_field_ionization = 1
+nitrogen.physical_element = N
+nitrogen.ionization_initial_level = 5
+nitrogen.ionization_product_species = electrons_n
+electrons_n.species_type = electron
+electrons_n.injection_style = none
+"""
+
+
+def phase_main_lwfa_ionization(dev, smi, nx=2048, nz=8192,
+                               steps=LWFA_ION_STEPS):
+    """Ionization injection at full width (``lwfa_ionization_deck``),
+    float32: init, a warm step, ``steps`` steps each timed with CUDA events
+    and preceded by an independent float64 host evaluation of the ADK
+    probability (``adk_host``) on the fields the card gathers at the ions,
+    then PROFILED_STEPS profiled steps.  Checks the events of each step
+    (the rise of the ions' summed level) against sum p within 5 sigma over
+    the run, products placed plus dropped equal to the events, finite
+    fields and no ion's level past 7.  Reports ms a step, the ionization
+    operator's device ms, busy share, peak memory, ions by level, events,
+    placed and dropped products, and whether the JAX package's float32 form
+    stays finite at this dt."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.core import bounded_step
+    from warpx_tpu_torch.ops.gather import gather_eb
+    from warpx_tpu_torch.utils.parser import Deck
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = warpx_tpu_torch.Simulation.from_deck(
+        Deck.from_string(lwfa_ionization_deck(nx, nz, steps + 1
+                                              + PROFILED_STEPS + 1)),
+        dtype=torch.float32, device=dev)
+    if not sim.is_bounded or sim.binned:
+        raise AssertionError("main_lwfa_ionization did not take the "
+                             "per-particle bounded step")
+    sim.init()
+    n_ions = int(sim.state.species["nitrogen"].alive.sum())
+    cap_n = sim.state.species["electrons_n"].capacity
+    sim.evolve(1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    st = sim.stepper
+    cfg = sim.cfg
+
+    def ion_fields(state):
+        ion = state.species["nitrogen"]
+        farr = st._padded_eb(state.fields)
+        e6 = gather_eb(ion.positions(2), farr, st.staggering, cfg.geometry,
+                       cfg.particle_shape, cfg.galerkin,
+                       origin=st.gal_origin_at(st.origin_of(state), state),
+                       wrap=False, offset=st.ng)
+        return ion, e6
+
+    per_step, ms_steps = [], []
+    sum_p = var_p = 0.0
+    nonfinite_jax = 0
+    with timed_fn(bounded_step, "ionization_substep") as op:
+        for _ in range(steps):
+            ion, e6 = ion_fields(sim.state)
+            alive = ion.alive.cpu().numpy()
+            lev0 = ion.extra["ionizationLevel"].cpu().numpy()
+            u = np.stack([getattr(ion, c).double().cpu().numpy()[alive]
+                          for c in ("ux", "uy", "uz")])
+            e6h = np.stack([a.double().cpu().numpy()[alive] for a in e6])
+            p, w32 = adk_host(lev0[alive], u, e6h, cfg.dt)
+            nonfinite_jax += int((~np.isfinite(w32)).sum())
+            n_prod0 = int(sim.state.species["electrons_n"].alive.sum())
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            sim.evolve(1)
+            b.record()
+            b.synchronize()
+            ms_steps.append(a.elapsed_time(b))
+            ion1 = sim.state.species["nitrogen"]
+            events = int(ion1.extra["ionizationLevel"].sum()) - int(
+                lev0.sum())
+            placed = int(sim.state.species["electrons_n"].alive.sum()) \
+                - n_prod0
+            per_step.append({"events": events, "sum_p": float(p.sum()),
+                             "placed": placed, "dropped": events - placed,
+                             "ions_in_field_gt_1e12": int(
+                                 (np.abs(e6h[:3]).max(0) > 1e12).sum())})
+            sum_p += float(p.sum())
+            var_p += float((p * (1 - p)).sum())
+        op_ms = op.ms()
+    breakdown = profile_steps(sim, PROFILED_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    total = sum(s["events"] for s in per_step)
+    sigma = max(var_p, 1.0) ** 0.5
+    if not abs(total - sum_p) <= 5 * sigma:
+        raise AssertionError(f"main_lwfa_ionization: {total} events against "
+                             f"sum p = {sum_p} (sigma {sigma})")
+    if total <= 0:
+        raise AssertionError("main_lwfa_ionization: no ionization event")
+    if any(s["dropped"] < 0 for s in per_step):
+        raise AssertionError("main_lwfa_ionization: more products than "
+                             "events")
+    lev = sim.state.species["nitrogen"].extra["ionizationLevel"]
+    alive = sim.state.species["nitrogen"].alive
+    by_level = torch.bincount(lev[alive].long(), minlength=8).tolist()
+    if len(by_level) > 8 or int(alive.sum()) != n_ions:
+        raise AssertionError(f"main_lwfa_ionization: levels {by_level}, "
+                             f"{int(alive.sum())} ions of {n_ions}")
+    for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz"):
+        if not bool(torch.isfinite(getattr(sim.state.fields, nm)).all()):
+            raise AssertionError(f"main_lwfa_ionization: {nm} not finite")
+    from warpx_tpu_torch.ops.ionization import adk_coefficients
+
+    pre = adk_coefficients("N", cfg.dt)[0]
+    emit("main_lwfa_ionization", ok=True, n_cell=cfg.geometry.n_cell,
+         dt=cfg.dt, laser_t_peak=1e-15, n_ions=n_ions,
+         product_capacity=cap_n,
+         n_electrons=int(sim.state.species["electrons"].alive.sum()),
+         steps_timed=steps, ms_per_step=sum(ms_steps) / steps,
+         ms_each_step=[round(m, 3) for m in ms_steps],
+         ionization_ms_per_step=sum(op_ms) / len(op_ms),
+         init_s=init_s, device_busy_share=breakdown["device_busy_share"],
+         peak_memory_bytes=peak, ions_by_level=by_level,
+         events_total=total, sum_p=sum_p, sigma=sigma, per_step=per_step,
+         placed_total=sum(s["placed"] for s in per_step),
+         dropped_total=sum(s["dropped"] for s in per_step),
+         jax_form_float32={"largest_prefactor": float(pre.max()),
+                           "float32_max": float(np.finfo(np.float32).max),
+                           "nonfinite_rates": nonfinite_jax},
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    emit("main_lwfa_ionization_profile", steps=PROFILED_STEPS, **breakdown)
+
+
+def boris_host(u, dt, sign, rr):
+    """One Boris push of a lepton (charge ``sign`` q_e) in E_F, B_F in
+    float64 on the host, with the classical radiation-reaction force at the
+    time-centered momentum when ``rr`` (Tamburini et al., NJP 12 123005;
+    UpdateMomentumBorisWithRadiationReaction.H)."""
+    q = sign * Q_E
+    econst = 0.5 * q * dt / M_E
+    um = u + econst * E_F
+    inv_g = 1 / np.sqrt(1 + um @ um / C_LIGHT**2)
+    t = econst * inv_g * B_F
+    s = 2 * t / (1 + t @ t)
+    up = um + np.cross(um, t)
+    un = um + np.cross(up, s) + econst * E_F
+    if not rr:
+        return un
+    uc = 0.5 * (un + u)
+    gam = np.sqrt(1 + uc @ uc / C_LIGHT**2)
+    v = uc / gam
+    bn = v / C_LIGHT
+    fl = E_F + np.cross(v, B_F)
+    bdote = bn @ E_F
+    coeff = gam * gam * (fl @ fl - bdote * bdote)
+    qmc = q / (M_E * C_LIGHT)
+    rrc = (2.0 / 3.0) * R_E * qmc * qmc
+    fr = rrc * (C_LIGHT * np.cross(fl, B_F) + bdote * E_F - coeff * bn)
+    return un + fr * dt
+
+
+def qs_G_host(chi):
+    """G(chi) = int_0^1 S(chi, xi)/xi dxi by adaptive quadrature (the
+    reference's analysis_quantum_sync.py; tests/test_qed.py)."""
+    import scipy.integrate as integ
+    import scipy.special as spe
+
+    def inner(y):
+        return integ.quad(
+            lambda x: np.exp(-y * (1 + 4 * x**2 / 3) * np.sqrt(1 + x * x / 3))
+            * (9 + 36 * x**2 + 16 * x**4)
+            / (3 + 4 * x**2) / np.sqrt(1 + x**2 / 3), 0, np.inf)[0] \
+            / np.sqrt(3)
+
+    def S(xi):
+        if xi in (0.0, 1.0):
+            return 0.0
+        Y = (2 / 3) * xi / (chi * (1 - xi))
+        return np.sqrt(3) / 2 / np.pi * xi * (
+            inner(Y) + xi**2 * spe.kv(2 / 3, Y) / (1 - xi))
+
+    return integ.quad(lambda xi: S(xi) / xi if xi > 0 else 0.0, 0, 1,
+                      limit=200)[0]
+
+
+def bw_T_host(chi):
+    """T(chi) of Breit-Wheeler by adaptive quadrature
+    (analysis_breit_wheeler_core.py; tests/test_qed.py)."""
+    import scipy.integrate as integ
+    import scipy.special as spe
+
+    def bw_inner(x):
+        return integ.quad(lambda s: np.sqrt(s) * spe.kv(1 / 3, 2 / 3
+                                                        * s**1.5),
+                          x, np.inf)[0]
+
+    def F(ce):
+        if ce <= 0 or chi <= ce:
+            return 0.0
+        X = (chi / (ce * (chi - ce))) ** (2 / 3)
+        return bw_inner(X) - (2.0 - chi * X**1.5) * spe.kv(
+            2 / 3, 2 / 3 * X**1.5)
+
+    return integ.quad(F, 0, chi, limit=200)[0] / (np.pi * np.sqrt(3)
+                                                  * chi**2)
+
+
+def chi_host(u, photon):
+    """chi of a lepton (proper velocity ``u``) or a photon (``u`` = p/m_e)
+    in E_F, B_F (QedChiFunctions.H)."""
+    E_s = M_E**2 * C_LIGHT**3 / (Q_E * HBAR)
+    if photon:
+        pn = np.linalg.norm(u)
+        v = C_LIGHT * u / pn
+        scale = pn / C_LIGHT
+    else:
+        scale = np.sqrt(1.0 + u @ u / C_LIGHT**2)
+        v = u / scale
+    f = E_F + np.cross(v, B_F)
+    vde = v @ E_F / C_LIGHT
+    return scale * np.sqrt(f @ f - vde * vde) / E_s
+
+
+# tests/test_qed.py's momenta (units of m_e c) and the leptons' charges
+QS_MOMENTA = ((10.0, 0, 0), (0, 100.0, 0), (0, 0, 1000.0),
+              (5773.502691896,) * 3)
+QS_SIGNS = (-1, -1, 1, 1)
+BW_MOMENTA = ((2000.0, 0, 0), (0, 5000.0, 0), (0, 0, 10000.0),
+              (57735.02691896,) * 3)
+# the radiation-reaction electrons start at 10 m_e c along z; the external
+# E field adds ~7 m_e c a step at the QED box's dt, and the reaction force
+# changes the momentum by ~1e-3 of itself a step (at 1000 m_e c the
+# explicit force exceeds the momentum within a few steps)
+RR_MOMENTUM = (0.0, 0.0, 10.0)
+QED_STEPS = 4
+
+
+def qed_box_deck(n=128, steps=QED_STEPS):
+    """uniform-128's grid as a QED box: n^3 cells of 2.5 nm (0.32 um at
+    n = 128; dt 4.81e-18 s), periodic, float32 per particle, under the
+    reference QED decks' fields.  The cell sets dt: at this dt the QED
+    tables' interpolation (0.1-0.6 % off the quadrature rates) stays under
+    2 sigma of the yields of 2.1 M parents; at 4x the cell it reaches 3.4
+    sigma for the 10 m_e c leptons.  Four leptons at
+    tests/test_qed.py's quantum-synchrotron momenta emitting into photon
+    species ``qsp1``..``qsp4``, four photon species at its Breit-Wheeler
+    momenta converting into ``bwe1``/``bwp1``..``bwe4``/``bwp4``, and
+    electrons ``rr`` with classical radiation reaction; one particle per
+    cell each at 1e10 m^-3, where the self-fields are ~1e-12 V/m against the
+    external 2.4e15."""
+    half = n * 1.25e-9
+    lines = [f"max_step = {steps}", f"amr.n_cell = {n} {n} {n}",
+             "geometry.dims = 3",
+             f"geometry.prob_lo = {-half!r} {-half!r} {-half!r}",
+             f"geometry.prob_hi = {half!r} {half!r} {half!r}",
+             "algo.particle_shape = 1"]
+    names = []
+    for i, (u, sgn) in enumerate(zip(QS_MOMENTA, QS_SIGNS), 1):
+        kind = "electron" if sgn < 0 else "positron"
+        names += [f"qs{i}", f"qsp{i}"]
+        lines += [f"qs{i}.species_type = {kind}",
+                  f"qs{i}.do_qed_quantum_sync = 1",
+                  f"qs{i}.qed_quantum_sync_phot_product_species = qsp{i}",
+                  f"qsp{i}.species_type = photon",
+                  f"qsp{i}.injection_style = none"]
+        lines += _uniform_lines(f"qs{i}", u)
+    for i, u in enumerate(BW_MOMENTA, 1):
+        names += [f"bw{i}", f"bwe{i}", f"bwp{i}"]
+        lines += [f"bw{i}.species_type = photon",
+                  f"bw{i}.do_qed_breit_wheeler = 1",
+                  f"bw{i}.qed_breit_wheeler_ele_product_species = bwe{i}",
+                  f"bw{i}.qed_breit_wheeler_pos_product_species = bwp{i}",
+                  f"bwe{i}.species_type = electron",
+                  f"bwe{i}.injection_style = none",
+                  f"bwp{i}.species_type = positron",
+                  f"bwp{i}.injection_style = none"]
+        lines += _uniform_lines(f"bw{i}", u)
+    names.append("rr")
+    lines += ["rr.species_type = electron",
+              "rr.do_classical_radiation_reaction = 1"]
+    lines += _uniform_lines("rr", RR_MOMENTUM)
+    lines.insert(0, "particles.species_names = " + " ".join(names))
+    return "\n".join(lines) + "\n" + QED_FIELDS
+
+
+def _uniform_lines(name, u):
+    return [f"{name}.injection_style = NUniformPerCell",
+            f"{name}.num_particles_per_cell_each_dim = 1 1 1",
+            f"{name}.profile = constant", f"{name}.density = 1.e10",
+            f"{name}.momentum_distribution_type = constant",
+            f"{name}.ux = {u[0]!r}", f"{name}.uy = {u[1]!r}",
+            f"{name}.uz = {u[2]!r}"]
+
+
+def phase_main_qed(dev, smi, n=128, steps=QED_STEPS):
+    """The QED box (``qed_box_deck``) at n^3, float32, per particle: init,
+    two steps, the yields checked, then the remaining steps with each QED
+    pass timed (the first pass, which builds the host tables, is reported
+    apart and left out of ``qed_ms_per_step``).  Checks each photon species' count and each pair species'
+    count after the second step (the first step's push lowers the optical
+    depths, the second step's events emit) within 5 sigma of the analytic
+    N0 (1 - exp(-dN/dt dt)) (tests/test_qed.py:121-131, 154-166: chi at the
+    Boris-pushed momentum for the leptons, at the initial one for the
+    photons); electrons equal to positrons pair species by pair species;
+    the radiation-reaction species' momenta against a float64 host
+    evaluation of the pusher at 1e-5; finite fields."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.ops import qed as qed_mod
+    from warpx_tpu_torch.utils.parser import Deck
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = warpx_tpu_torch.Simulation.from_deck(
+        Deck.from_string(qed_box_deck(n, steps + 2)), dtype=torch.float32,
+        device=dev)
+    if sim.binned:
+        raise AssertionError("main_qed took the tile-binned step")
+    sim.init()
+    init_s = time.perf_counter() - t0
+    dt = sim.cfg.dt
+    n0 = n ** 3
+    with timed_fn(qed_mod, "qed_update") as op:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        sim.evolve(2)
+        b.record()
+        b.synchronize()
+        ms_first = a.elapsed_time(b) / 2
+        sp = sim.state.species
+        yields = {}
+        for i, (u, sgn) in enumerate(zip(QS_MOMENTA, QS_SIGNS), 1):
+            p0 = np.array(u) * C_LIGHT
+            pb = boris_host(boris_host(p0, -0.5 * dt, sgn, False), dt, sgn,
+                            False)
+            gam = np.sqrt(1 + pb @ pb / C_LIGHT**2)
+            rate = ((2 / 3) * ALPHA * M_E * C_LIGHT**2 / HBAR
+                    * qs_G_host(chi_host(pb, False)) / gam)
+            yields[f"qsp{i}"] = (int(sp[f"qsp{i}"].alive.sum()), rate)
+        for i, u in enumerate(BW_MOMENTA, 1):
+            p0 = np.array(u) * C_LIGHT
+            chi = chi_host(p0, True)
+            rate = (ALPHA * M_E * C_LIGHT**2 / HBAR * bw_T_host(chi) * chi
+                    / (np.linalg.norm(p0) / C_LIGHT))
+            ne = int(sp[f"bwe{i}"].alive.sum())
+            if ne != int(sp[f"bwp{i}"].alive.sum()):
+                raise AssertionError(f"main_qed: bwe{i} and bwp{i} differ")
+            yields[f"bwe{i}"] = (ne, rate)
+        checks = {}
+        for nm, (got, rate) in yields.items():
+            exp_n = n0 * (1 - np.exp(-rate * dt))
+            sig = max(exp_n * np.exp(-rate * dt), 1.0) ** 0.5
+            checks[nm] = {"count": got, "expected": exp_n, "sigma": sig,
+                          "z": (got - exp_n) / sig}
+            if not abs(got - exp_n) <= 5 * sig:
+                raise AssertionError(f"main_qed: {nm} {got} against "
+                                     f"{exp_n} (sigma {sig})")
+        # the radiation-reaction species against the host pusher
+        u = np.array(RR_MOMENTUM) * C_LIGHT
+        u = boris_host(u, -0.5 * dt, -1, True)
+        for _ in range(2):
+            u = boris_host(u, dt, -1, True)
+        rr = sp["rr"]
+        got = torch.stack([rr.ux[:4096], rr.uy[:4096], rr.uz[:4096]],
+                          1).double().cpu().numpy()
+        rr_err = float(np.abs(got - u).max() / np.abs(u).max())
+        plain = boris_host(boris_host(boris_host(
+            np.array(RR_MOMENTUM) * C_LIGHT, -0.5 * dt, -1, False), dt, -1,
+            False), dt, -1, False)
+        rr_effect = float(np.abs(u - plain).max() / np.abs(u).max())
+        if not rr_err <= 1e-5:
+            raise AssertionError(f"main_qed: the radiation-reaction species "
+                                 f"is {rr_err} off the host pusher")
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(steps - 1)]
+        marks[0].record()
+        for mark in marks[1:]:
+            sim.evolve(1)
+            mark.record()
+        marks[-1].synchronize()
+        ms_steps = [marks[i].elapsed_time(marks[i + 1])
+                    for i in range(len(marks) - 1)]
+        op_ms = op.ms()
+    breakdown = profile_steps(sim, 1)
+    for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz"):
+        if not bool(torch.isfinite(getattr(sim.state.fields, nm)).all()):
+            raise AssertionError(f"main_qed: {nm} not finite")
+    emit("main_qed", ok=True, n_cell=sim.cfg.geometry.n_cell, dt=dt,
+         n_per_species=n0, n_species=len(sim.cfg.species),
+         slots=sum(s.capacity for s in sim.state.species.values()),
+         init_s=init_s, ms_per_step_first_two=ms_first,
+         ms_per_step=sum(ms_steps) / len(ms_steps),
+         ms_each_step=[round(m, 3) for m in ms_steps],
+         qed_ms_first_call=op_ms[0],
+         qed_ms_per_step=sum(op_ms[1:]) / len(op_ms[1:]),
+         qed_ms_each=op_ms,
+         yields=checks, rr_max_rel_err=rr_err, rr_tol=1e-5,
+         rr_effect_rel=rr_effect,
+         device_busy_share=breakdown["device_busy_share"],
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    emit("main_qed_profile", steps=1, **breakdown)
+
+
+# tests/test_qed.py's Schwinger case 2 (the Gaussian regime)
+SCHWINGER_FIELD = (1.0e18, 0.0, 0.0, 1679288857.0516706, 525665014.1557486,
+                   1836353079.9561853)
+SCHWINGER_STEPS = 4
+# the bias the card's float32 Schwinger rate may carry, as a share of the
+# expectation: every step read 2.54-2.57e-7 below it on an H100 (PERF.md
+# section 6, PR 14)
+SCHWINGER_BIAS = 1e-6
+
+
+def schwinger_box_deck(n=128, steps=SCHWINGER_STEPS, slab=16):
+    """A 1 um periodic box at n^3 cells with Schwinger pair creation into
+    ``es``/``ps``, its field held (algo.maxwell_solver = none) at the
+    uniform value written after init, the activation region a slab of
+    ``slab`` cells along z between cell faces (no cell center on its
+    edge): (steps + 1) n^2 slab producing cells stay under the product
+    budget min(n^3 max_step, 2,000,000)."""
+    half = 0.5e-6
+    dz = 2 * half / n
+    return f"""
+max_step = {steps + 1}
+amr.n_cell = {n} {n} {n}
+geometry.dims = 3
+geometry.prob_lo = {-half!r} {-half!r} {-half!r}
+geometry.prob_hi = {half!r} {half!r} {half!r}
+algo.maxwell_solver = none
+warpx.use_filter = 0
+warpx.do_qed_schwinger = 1
+qed_schwinger.ele_product_species = es
+qed_schwinger.pos_product_species = ps
+qed_schwinger.zmin = {-slab / 2 * dz!r}
+qed_schwinger.zmax = {slab / 2 * dz!r}
+particles.species_names = es ps
+es.species_type = electron
+es.injection_style = none
+ps.species_type = positron
+ps.injection_style = none
+"""
+
+
+def schwinger_rate_host(fields):
+    """Pairs per unit volume and time from the field invariants
+    (analysis_schwinger.py:calculate_rate; tests/test_qed.py:188-212)."""
+    Ex, Ey, Ez, Bx, By, Bz = fields
+    E_s = M_E**2 * C_LIGHT**3 / (Q_E * HBAR)
+    E2 = Ex**2 + Ey**2 + Ez**2
+    H2 = C_LIGHT**2 * (Bx**2 + By**2 + Bz**2)
+    F = (E2 - H2) / 2
+    G = C_LIGHT * (Ex * Bx + Ey * By + Ez * Bz)
+    eps = np.sqrt(np.sqrt(F**2 + G**2) + F) / E_s
+    eta = np.sqrt(np.sqrt(F**2 + G**2) - F) / E_s
+    pref = Q_E**2 * E_s**2 / 4 / np.pi**2 / C_LIGHT / HBAR**2
+    if eta == 0.0:
+        return pref * eps**2 / np.pi * np.exp(-np.pi / eps)
+    return (pref * eps * eta / np.tanh(np.pi * eta / eps)
+            * np.exp(-np.pi / eps))
+
+
+def phase_main_schwinger(dev, smi, n=128, steps=SCHWINGER_STEPS):
+    """Schwinger pair creation at 128^3 (``schwinger_box_deck``), float32:
+    the reference's case-2 field written after init, then ``steps`` + 1
+    steps, each timed with CUDA events.  Checks, step by step: the new pair
+    weight within 5 sigma of n_slab dV dt rate plus SCHWINGER_BIAS of it
+    (Gaussian regime: the variance of a cell's count is its mean; the
+    card's float32 rate errs alike in every cell); the Gaussian draws, by
+    the spread of the new cells' pair weights, whose variance must equal
+    their mean (plus float32's rounding of the weights) within 5 of its own
+    standard errors; electron weights equal to positron weights.  Then
+    every pair placed while under the budget.  Reports ms a step and the
+    Schwinger operator's device ms."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.ops import qed as qed_mod
+    from warpx_tpu_torch.utils.parser import Deck
+
+    sim = warpx_tpu_torch.Simulation.from_deck(
+        Deck.from_string(schwinger_box_deck(n, steps)), dtype=torch.float32,
+        device=dev)
+    sim.init()
+    write_fields({nm: np.full((n,) * 3, v) for nm, v in
+                  zip(("Ex", "Ey", "Ez", "Bx", "By", "Bz"),
+                      SCHWINGER_FIELD)})(sim)
+    geom = sim.cfg.geometry
+    dV = float(np.prod(geom.dx))
+    dt = sim.cfg.dt
+    zc = geom.prob_lo[2] + (np.arange(n) + 0.5) * geom.dx[2]
+    lo, hi = sim.cfg.qed_schwinger_bounds_lo[2], \
+        sim.cfg.qed_schwinger_bounds_hi[2]
+    n_slab = int(((zc >= lo) & (zc <= hi)).sum()) * n * n
+    per_cell = dV * dt * schwinger_rate_host(SCHWINGER_FIELD)
+    expected = n_slab * per_cell
+    sigma = (n_slab * per_cell) ** 0.5
+    budget = sim.state.species["es"].capacity
+    rows, ms_steps = [], []
+    w_prev = 0.0
+    was_alive = sim.state.species["es"].alive.clone()
+    with timed_fn(qed_mod, "schwinger_update") as op:
+        for k in range(steps + 1):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            sim.evolve(1)
+            b.record()
+            b.synchronize()
+            ms_steps.append(a.elapsed_time(b))
+            es, ps = sim.state.species["es"], sim.state.species["ps"]
+            we = es.w[es.alive].double()
+            wp = ps.w[ps.alive].double()
+            if not torch.equal(torch.sort(we).values, torch.sort(wp).values):
+                raise AssertionError("main_schwinger: electron and positron "
+                                     "weights differ")
+            w_new = float(we.sum()) - w_prev
+            w_prev = float(we.sum())
+            # this step's cells: their spread is the draws' (every cell
+            # sees the same field, so the float32 rate's bias cancels out
+            # of it); the weights are float32, whose rounding (uniform
+            # within an ulp of ~5e5 at ~6e12) adds ulp^2/12 to the variance
+            fresh = es.alive & ~was_alive
+            was_alive = es.alive.clone()
+            w32 = es.w[fresh].cpu().numpy()
+            wc = w32.astype(np.float64)
+            n_c = wc.size
+            mean_c = float(wc.mean())
+            var_c = float(((wc - mean_c) ** 2).sum() / (n_c - 1))
+            var_exp = mean_c + float(np.mean(
+                np.spacing(w32).astype(np.float64) ** 2)) / 12
+            var_z = (var_c - var_exp) / (var_exp * (2.0 / (n_c - 1)) ** 0.5)
+            rows.append({"step": k + 1, "pairs_weight": w_new,
+                         "rel_err": (w_new - expected) / expected,
+                         "cells": n_c, "cell_variance": var_c,
+                         "cell_variance_expected": var_exp,
+                         "cell_variance_z": var_z,
+                         "alive": int(es.alive.sum())})
+            # every producing cell sees the same field, so the card's
+            # float32 rate (exp and the invariants, a few ulps) errs alike
+            # in all of them: 5 sigma (8e-10 of the expectation) is below
+            # that bias, which the bound adds as SCHWINGER_BIAS of the
+            # expectation
+            if not abs(w_new - expected) <= (5 * sigma
+                                             + SCHWINGER_BIAS * expected):
+                raise AssertionError(f"main_schwinger: step {k + 1} made "
+                                     f"{w_new} pairs against {expected} "
+                                     f"(sigma {sigma})")
+            if not abs(var_z) <= 5.0:
+                raise AssertionError(f"main_schwinger: step {k + 1}'s cells "
+                                     f"vary by {var_c} against {var_exp} "
+                                     f"({var_z} standard errors)")
+        op_ms = op.ms()
+    if rows[-1]["alive"] != n_slab * (steps + 1):
+        raise AssertionError(f"main_schwinger: {rows[-1]['alive']} pairs "
+                             f"placed of {n_slab * (steps + 1)}")
+    emit("main_schwinger", ok=True, n_cell=geom.n_cell, dt=dt,
+         field=SCHWINGER_FIELD, producing_cells_per_step=n_slab,
+         product_budget=budget, expected_per_step=expected, sigma=sigma,
+         bias_bound=SCHWINGER_BIAS,
+         per_step=rows, ms_per_step=sum(ms_steps[1:]) / steps,
+         ms_each_step=[round(m, 3) for m in ms_steps],
+         schwinger_ms_each=op_ms,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+
+
+RESAMPLING_STEPS = 25
+# the ions' velocity-coincidence bins: one bin of |u| (delta_ur 1 c, past
+# any thermal ion at 0.01 c), 2 in azimuth x 2 in polar angle, so that a
+# cell's 8 ions spread over 4 direction bins and a bin of 3 or more merges
+VCT_BINS = dict(delta_ur=1.0, n_theta=2, n_phi=2)
+
+
+def resampling_cfg(n=128, steps=RESAMPLING_STEPS):
+    """uniform-128 (main_cfg, tile-binned through K1 and K3) with leveling
+    thinning on the electrons every 5 steps (target ratio 1.5) and
+    velocity-coincidence thinning on the ions every 10 (``VCT_BINS``).  The
+    ions have 2 x 2 x 2 per cell instead of main_cfg's 2 x 1 x 1: a group
+    merges only with more than two particles in one cell and bin, which two
+    per cell never reach."""
+    cfg = main_cfg(n, steps)
+    el, ions = cfg.species
+    el = dataclasses.replace(el, do_resampling=True,
+                             resampling_trigger_intervals=("5::5",),
+                             resampling_target_ratio=1.5)
+    ions = dataclasses.replace(
+        ions, num_particles_per_cell_each_dim=(2, 2, 2), do_resampling=True,
+        resampling_algorithm="velocity_coincidence_thinning",
+        resampling_trigger_intervals=("10::10",),
+        resampling_delta_ur=VCT_BINS["delta_ur"] * C_LIGHT,
+        resampling_n_theta=VCT_BINS["n_theta"],
+        resampling_n_phi=VCT_BINS["n_phi"])
+    return dataclasses.replace(cfg, species=(el, ions))
+
+
+def _cells(sp, geom):
+    idx = torch.zeros(sp.capacity, dtype=torch.int64, device=sp.w.device)
+    for d, p in enumerate(sp.positions(geom.ndim)):
+        i = torch.clamp(torch.floor((p - geom.prob_lo[d]) / geom.dx[d])
+                        .long(), 0, geom.n_cell[d] - 1)
+        idx = idx * geom.n_cell[d] + i
+    return idx
+
+
+def leveling_expectation(sp, geom, ratio):
+    """(expected survivors, their variance, the variance of the surviving
+    weight) of one leveling pass on ``sp``, from its cells' level weights,
+    in float64."""
+    n = int(np.prod(geom.n_cell))
+    cell = _cells(sp, geom)
+    w = torch.where(sp.alive, sp.w, torch.zeros_like(sp.w)).double()
+    a = sp.alive.double()
+    wsum = torch.zeros(n, dtype=torch.float64, device=w.device) \
+        .index_add_(0, cell, w)
+    cnt = torch.zeros(n, dtype=torch.float64, device=w.device) \
+        .index_add_(0, cell, a)
+    level = ratio * (wsum / cnt.clamp(min=1.0))[cell]
+    below = sp.alive & (w < level)
+    p = torch.where(below, w / level, a)
+    return (float(p.sum()), float((p * (1 - p)).sum()),
+            float(torch.where(below, w * (level - w),
+                              torch.zeros_like(w)).sum()))
+
+
+def cell_sums(sp, geom):
+    """Per cell: the weight and the three weighted momenta (float64)."""
+    n = int(np.prod(geom.n_cell))
+    cell = _cells(sp, geom)
+    w = torch.where(sp.alive, sp.w, torch.zeros_like(sp.w)).double()
+    out = [torch.zeros(n, dtype=torch.float64, device=w.device)
+           .index_add_(0, cell, v)
+           for v in (w, w * sp.ux.double(), w * sp.uy.double(),
+                     w * sp.uz.double())]
+    return out
+
+
+def k1_launch_ms(sim):
+    """K1's device ms on the state ``sim`` holds (one launch per pusher
+    group, the step's inputs); these launches are not the main path's, so
+    the launch counter is put back."""
+    from warpx_tpu_torch.core.binned_step import pusher_groups
+    from warpx_tpu_torch.ops import fused_pic as fp
+
+    cfg, spec, state = sim.cfg, sim.tile_spec, sim.state
+    f = state.fields
+    fields6 = fp.pad_fields((f.Ex, f.Ey, f.Ez, f.Bx, f.By, f.Bz), spec)
+    groups = list(pusher_groups(state, spec, sim.params))
+    kw = dict(spec=spec, geom=cfg.geometry, order=cfg.particle_shape,
+              galerkin=cfg.galerkin, dt=cfg.dt,
+              stag_items=stag_items(spec.ndim), mxu=cfg.tile_mxu)
+
+    def run():
+        for pname, _, params, parts, counts in groups:
+            fp.binned_push_deposit(params, fields6, parts, counts=counts,
+                                   pusher_name=pname, **kw)
+    n0 = fp.binned_push_deposit.launches
+    ms = cuda_ms(run, 5)
+    fp.binned_push_deposit.launches = n0
+    return ms
+
+
+def phase_main_resampling(dev, smi, k1_row, k3_row, n=128,
+                          steps=RESAMPLING_STEPS):
+    """uniform-128 with both resampling triggers (``resampling_cfg``),
+    tile-binned through K1 and K3, float32, ``steps`` steps with the launch
+    counters zeroed before and read after.  Around every pass: the leveling
+    pass keeps a count within 5 sigma of the expectation from the cells'
+    level weights, and the electrons' total weight stays within 5 sigma of
+    its initial value (its expectation is conserved); the velocity
+    coincidence conserves the ions' weight and momentum to float32
+    roundoff in total and cell by cell; zero tile overflow and violations
+    at the end.  Reports ms a step (over all steps, the passes' checks and
+    K1 timings included, and the median of the steps without a pass), each
+    pass's device ms alone, K1's ms on the state before and after each pass
+    (the thinned slots are dead but stay in their tiles until the next
+    rebin) and each pass's counts.  Adds this path's K1 and K3
+    launches to their rows."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.ops import tiling
+
+    cfg = resampling_cfg(n, steps)
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
+    if not sim.binned:
+        raise AssertionError("main_resampling did not take the tile-binned "
+                             "step")
+    geom = cfg.geometry
+    sim.init()
+    el0 = sim.state.species["electrons"]
+    w0 = float(el0.w[el0.alive].double().sum())
+    var_w = [0.0]
+    counters = {"fused_pic": (fp.binned_push_deposit, "launches"),
+                "ragged_expand": (tiling.ragged_expand, "launches")}
+    for obj, attr in counters.values():
+        _counter(obj, attr, 0)
+    passes, ms_steps = [], []
+    orig = sim.resample
+
+    def resample(timestep):
+        fires = {nm: sim._resampling_triggers[nm].contains(timestep)
+                 for nm in ("electrons", "ions")}
+        if not any(fires.values()):
+            return orig(timestep)
+        before = sim.state.species
+        rec = {"step": timestep, "k1_ms_before": k1_launch_ms(sim)}
+        if fires["electrons"]:
+            exp_n, var_n, var_pass = leveling_expectation(
+                before["electrons"], geom, 1.5)
+        if fires["ions"]:
+            cs0 = cell_sums(before["ions"], geom)
+            n_i0 = int(before["ions"].alive.sum())
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        orig(timestep)
+        b.record()
+        b.synchronize()
+        rec["pass_ms"] = a.elapsed_time(b)
+        after = sim.state.species
+        if fires["electrons"]:
+            el = after["electrons"]
+            n_after = int(el.alive.sum())
+            var_w[0] += var_pass
+            w_now = float(el.w[el.alive].double().sum())
+            rec["electrons"] = {
+                "before": int(before["electrons"].alive.sum()),
+                "after": n_after, "expected": exp_n,
+                "sigma": var_n ** 0.5, "weight": w_now,
+                "weight_sigma": var_w[0] ** 0.5}
+            if not abs(n_after - exp_n) <= 5 * var_n ** 0.5:
+                raise AssertionError(f"main_resampling: {n_after} electrons "
+                                     f"kept against {exp_n}")
+            if not abs(w_now - w0) <= 5 * var_w[0] ** 0.5 + 1e-5 * w0:
+                raise AssertionError(f"main_resampling: electron weight "
+                                     f"{w_now} against {w0}")
+        if fires["ions"]:
+            cs1 = cell_sums(after["ions"], geom)
+            n_i1 = int(after["ions"].alive.sum())
+            scale = cell_sums(dataclasses.replace(
+                before["ions"], ux=before["ions"].ux.abs(),
+                uy=before["ions"].uy.abs(), uz=before["ions"].uz.abs()),
+                geom)
+            cell_err = max(float(((a - b).abs() / s.clamp(min=1e-300))
+                                 .max()) for a, b, s in zip(cs1, cs0, scale))
+            tot_err = max(abs(float(a.sum() - b.sum())) / float(s.sum())
+                          for a, b, s in zip(cs1, cs0, scale))
+            rec["ions"] = {"before": n_i0, "after": n_i1,
+                           "merged_share": 1 - n_i1 / n_i0,
+                           "cell_max_rel_err": cell_err,
+                           "total_rel_err": tot_err}
+            finite = all(bool(torch.isfinite(getattr(after["ions"], k))
+                              .all()) for k in ("ux", "uy", "uz", "x", "y",
+                                                "z"))
+            if not (cell_err <= 1e-5 and n_i1 < n_i0 and finite):
+                raise AssertionError(f"main_resampling: velocity coincidence "
+                                     f"{rec['ions']}")
+        rec["k1_ms_after"] = k1_launch_ms(sim)
+        passes.append(rec)
+
+    sim.resample = resample
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        sim.evolve(1)
+        b.record()
+        b.synchronize()
+        ms_steps.append(a.elapsed_time(b))
+    sim.resample = orig
+    launches = {nm: _counter(obj, attr)
+                for nm, (obj, attr) in counters.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"main_resampling: a kernel never ran: "
+                             f"{launches}")
+    if len(passes) != steps // 5:
+        raise AssertionError(f"main_resampling: {len(passes)} passes")
+    sums = sim.checksums()  # raises on tile overflow or violations
+    for group in sums.values():
+        for q, v in group.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"main_resampling: non-finite {q}")
+    add_launches({"fused_pic": k1_row, "ragged_expand": k3_row}, launches,
+                 "main_resampling")
+    quiet = [m for k, m in enumerate(ms_steps[1:], 2) if k % 5]
+    emit("main_resampling", ok=True, n_cell=geom.n_cell,
+         slots={nm: s.capacity for nm, s in sim.state.species.items()},
+         vct_bins=VCT_BINS, steps=steps,
+         ms_per_step=sum(ms_steps) / steps,
+         ms_per_quiet_step=float(np.median(quiet)),
+         ms_each_step=[round(m, 3) for m in ms_steps], passes=passes,
+         electron_weight={"initial": w0,
+                          "final": sums["electrons"]["particle_weight"],
+                          "sigma": var_w[0] ** 0.5},
+         alive_end={nm: int(s.alive.sum())
+                    for nm, s in sim.state.species.items()},
+         launches=launches, tile_overflow=0, tile_violations=0,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+
+
 def main() -> int:
+    """Every phase in order."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3865,6 +5194,7 @@ def main() -> int:
     phase_psatd_parity(dev)
     variants = phase_psatd_variants_parity(dev)
     phase_boosted_parity(dev)
+    phase_stochastic_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
     k1_row["launches_by_path"] = {"main": k1_row["launches"]}
     phase_main_psatd(dev, smi, k1_row, k3_row)
@@ -3895,6 +5225,14 @@ def main() -> int:
     phase_main_lwfa_boosted_galilean(dev, smi)
     torch.cuda.empty_cache()
     phase_main_divclean(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_lwfa_ionization(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_qed(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_schwinger(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_resampling(dev, smi, k1_row, k3_row)
     torch.cuda.empty_cache()
     lab_rows = phase_labs(dev)
     print(smi)

@@ -583,8 +583,8 @@ def _with_species(cfg, i, **kw):
     (lambda c: dataclasses.replace(c, lasers=(dataclasses.replace(
         c.lasers[0], profile="from_file"),)), "Queue A 11"),
     (lambda c: _with_species(c, 1, do_not_deposit=True), "Queue A 11"),
-    (lambda c: _with_species(c, 1, species_type="photon", mass=0.0),
-     "Queue A 11"),
+    (lambda c: _with_species(c, 1, do_qed_quantum_sync=True,
+                             qed_product="electrons"), "Queue C"),
     (lambda c: _with_species(c, 0, momentum_distribution="gaussian",
                              ux_th=0.01), "Queue A 11"),
     (lambda c: _with_species(c, 0, profile="predefined"), "Queue A 11"),

@@ -36,6 +36,10 @@ from warpx_tpu_torch.utils.parser import Deck
 
 from .test_binned_bounded import _LWFA_2D, _PEC_3D
 from .test_torch_bounded_util import assert_checksums, port_config
+from .test_torch_draws_util import (ION_2D, lwfa_nitrogen_deck, qed_deck,
+                                    schwinger_deck)
+from .test_torch_radiation_reaction import RR_PERIODIC
+from .test_torch_resampling import RESAMPLE_3D
 
 # one intra-op thread: the test runner's workers share the machine's
 # cores, and more threads each oversubscribe them
@@ -94,6 +98,14 @@ ACCEPTED = {
     "bench_lwfa": _BENCH._LWFA_2D_DECK.format(
         max_step=20, nx=32, nz=128, ppcx=1, ppcz=1, interval=4, mxu="mixed"),
     "parsed_2d": PARSED_2D,
+    # field ionization, QED with photon species, Schwinger, radiation
+    # reaction and both resampling algorithms (the stochastic operators)
+    "ionization_2d": ION_2D,
+    "lwfa_nitrogen": lwfa_nitrogen_deck(_LWFA_2D),
+    "qed_2d": qed_deck(),
+    "schwinger_3d": schwinger_deck(3.0),
+    "rr_photons_2d": RR_PERIODIC,
+    "resampling_3d": RESAMPLE_3D,
 }
 
 _TEXT = """
@@ -214,8 +226,8 @@ electrons.density = 1.e24
     ("algo.evolve_scheme = theta_implicit_em", "Queue A 11.3"),
     ("collisions.collision_names = c1\nc1.species = electrons electrons",
      "Queue A 11.1"),
-    ("electrons.do_field_ionization = 1", "Queue A 11.1"),
-    ("electrons.do_classical_radiation_reaction = 1", "Queue A 2"),
+    ("lasers.names = laser1\nlaser1.delay = 1.e-15", "Queue A 11.2"),
+    ("electrons.rigid_advance = 0", "Queue A 11.4"),
     ("electrons.zinject_plane = 0.", "Queue A 11.4"),
     ("diagnostics.diags_names = diag1\ndiag1.diag_type = TimeAveraged",
      "Queue A 11"),
@@ -325,3 +337,15 @@ def test_chip_smoke_deck_copies():
     imports neither bench.py nor the tests): they must stay equal."""
     assert _SMOKE.LWFA_2D_DECK == _BENCH._LWFA_2D_DECK
     assert _SMOKE.LWFA_32X64_DECK == _LWFA_2D
+
+
+def test_chip_smoke_stochastic_deck_copies():
+    """The decks of chip_smoke.py's stochastic_parity are the tests' (its
+    own copies: it imports neither JAX nor the tests)."""
+    assert _SMOKE.ION_2D_DECK == ION_2D
+    assert (_SMOKE.lwfa_nitrogen_deck(_SMOKE.LWFA_32X64_DECK)
+            == lwfa_nitrogen_deck(_LWFA_2D))
+    assert _SMOKE.qed_deck() == qed_deck()
+    assert _SMOKE.schwinger_deck(3.0) == schwinger_deck(3.0)
+    assert _SMOKE.RR_PERIODIC_DECK == RR_PERIODIC
+    assert _SMOKE.RESAMPLE_3D_DECK == RESAMPLE_3D

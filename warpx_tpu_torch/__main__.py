@@ -57,8 +57,8 @@ def main(argv=None) -> int:
         output_dir=args.output_dir)
     sim.init()
     if args.restart:
-        sim.state, sim.is_synchronized = load_checkpoint(args.restart,
-                                                         sim.state)
+        sim.state, sim.is_synchronized = load_checkpoint(
+            args.restart, sim.state, sim.draws)
         print(f"restarted from {args.restart} at step {sim.state.step}")
     t0 = time.perf_counter()
     sim.evolve(args.steps)

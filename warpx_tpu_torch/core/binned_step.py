@@ -71,9 +71,17 @@ def binned_supported(cfg: SimConfig) -> bool:
         return False
     if any(n % t for n, t in zip(geom.n_cell, cfg.tile_size[-geom.ndim:])):
         return False
+    # the JAX package's periodic gate passes QED species and Schwinger,
+    # but its binned step runs neither: here they go per particle, where
+    # both packages run them (ROADMAP.md Queue C); resampling runs on the
+    # binned layout after the step
+    if cfg.do_qed_schwinger:
+        return False
     for sp in cfg.species:
         if (sp.do_not_push or sp.do_not_deposit or sp.do_not_gather
                 or sp.species_type == "photon" or sp.mass == 0.0
+                or sp.do_field_ionization or sp.do_qed_quantum_sync
+                or sp.do_qed_breit_wheeler
                 or sp.pusher not in ("boris", "vay", "higuera")):
             return False
     return True
@@ -122,6 +130,8 @@ def bounded_binned_supported(cfg: SimConfig) -> bool:
             continue  # the antenna deposits on the per-particle path
         if (sp.do_not_push or sp.do_not_deposit or sp.do_not_gather
                 or sp.species_type == "photon" or sp.mass == 0.0
+                or sp.do_field_ionization or sp.do_resampling
+                or sp.do_qed_quantum_sync or sp.do_qed_breit_wheeler
                 or sp.pusher not in ("boris", "vay", "higuera")):
             return False
     return True

@@ -34,7 +34,11 @@ FDTD and PSATD cases, 2D XZ and 3D:
   its mobility divided by gamma, the injected plasma at its lab position
   (the ballistic correction at the boosted time) with boosted weights and
   momenta, and the injection front at the relativistic composition of the
-  plasma's and the frame's speeds.
+  plasma's and the frame's speeds;
+* field ionization before the push (``ops/ionization.py``), photon species
+  streaming at c, the radiation-reaction pusher.  The JAX package's bounded
+  step runs no QED event and no Schwinger pair creation: a configuration
+  that asks for them raises (ROADMAP.md Queue C).
 
 ``step_main`` is the per-particle step and the oracle of ``step_binned``,
 the tile-binned step: there the gather + push + deposit of the plasma runs
@@ -71,7 +75,7 @@ from ..ops.deposit import (deposit_current_direct, deposit_current_esirkepov,
                            deposit_rho)
 from ..ops.fused_pic import binned_push_deposit, padded_shape
 from ..ops.gather import gather_eb
-from ..ops.push import PUSHERS, position_step
+from ..ops.push import PUSHERS, photon_position_step, position_step
 from ..ops.tiling import fold_windows_open, rebin
 from ..solvers import yee
 from ..solvers.filter import bilinear_filter_padded
@@ -85,7 +89,7 @@ from .injection import (PARSED_PROFILES, _AXES3, _bulk_momentum,
                         _regular_unit_positions, profile_values)
 from .laser import update_antenna
 from .state import SimState
-from .step import _add_ext, galilean_velocity
+from .step import _add_ext, galilean_velocity, ionization_substep
 
 __all__ = ["BoundedStepper", "guard_width", "field_shapes",
            "check_bounded_supported", "needs_bounded_step"]
@@ -182,6 +186,9 @@ def check_bounded_supported(cfg: SimConfig) -> None:
         no("momentum-conserving gathering", "Queue A 11")
     if cfg.use_nci_corr:
         no("the Godfrey NCI corrector", "Queue A 11.3")
+    if cfg.do_qed_schwinger:
+        no("Schwinger pair creation on the bounded step (the JAX package's "
+           "bounded step skips it)", "Queue C")
     if cfg.do_moving_window and not 0 <= cfg.moving_window_dir < ndim:
         raise ValueError("moving_window_dir must be an active-axis index")
     laser_names = {las.name for las in cfg.lasers}
@@ -198,8 +205,14 @@ def check_bounded_supported(cfg: SimConfig) -> None:
             continue
         if sp.do_not_push or sp.do_not_gather or sp.do_not_deposit:
             no(f"do_not_push/gather/deposit of {sp.name!r}", "Queue A 11")
-        if sp.species_type == "photon" or sp.mass == 0.0:
-            no(f"massless species {sp.name!r}", "Queue A 11")
+        if sp.mass == 0.0 and sp.species_type != "photon":
+            no(f"massless species {sp.name!r} that is not a photon",
+               "Queue A 11")
+        if sp.do_qed_quantum_sync or sp.do_qed_breit_wheeler:
+            # the JAX package's bounded step runs no QED event and no
+            # optical-depth evolution: it would drop them silently
+            no(f"QED events of {sp.name!r} on the bounded step (the JAX "
+               "package's bounded step skips them)", "Queue C")
         if sp.pusher not in PUSHERS:
             no(f"pusher {sp.pusher!r}", "Queue A 11")
         if sp.do_continuous_injection:
@@ -659,14 +672,15 @@ class BoundedStepper:
                               z0_lab=laser.z0_lab)
 
     # ------------------------------------------------------------- step_main
-    def step_main(self, state: SimState) -> SimState:
-        """The per-particle bounded step: gather on the padded blocks (of
-        the time-averaged fields under averaged PSATD), push, deposit J
-        (Esirkepov or direct) and, for update-with-rho and current
-        correction, rho at the start and end of the step into the
-        ``big_shape`` block, field tail.  Under Galilean PSATD each origin
-        sits at its own source time: the gather and rho_old at t^n, J at
-        t^{n+1/2}, rho_new at t^{n+1}."""
+    def step_main(self, state: SimState, draws=None) -> SimState:
+        """The per-particle bounded step: field ionization on the numbers of
+        ``draws`` (a ``utils.draws`` source), gather on the padded blocks (of
+        the time-averaged fields under averaged PSATD), push (photons
+        stream at c), deposit J (Esirkepov or direct) and, for
+        update-with-rho and current correction, rho at the start and end of
+        the step into the ``big_shape`` block, field tail.  Under Galilean
+        PSATD each origin sits at its own source time: the gather and
+        rho_old at t^n, J at t^{n+1/2}, rho_new at t^{n+1}."""
         cfg = self.cfg
         ndim = self.ndim
         origin0 = self.origin_of(state)
@@ -676,6 +690,19 @@ class BoundedStepper:
         farr_pad = self._padded_eb(
             state.fields,
             use_avg=cfg.em_solver == "psatd" and cfg.psatd_time_averaging)
+        if any(s.do_field_ionization for s in cfg.species):
+            if draws is None:
+                raise ValueError("field ionization draws random numbers: "
+                                 "pass step_main a utils.draws source")
+            # the fields at t^n without the external particle fields, as
+            # the JAX package gathers them for doFieldIonization
+            state = ionization_substep(
+                state, cfg,
+                lambda pos: gather_eb(
+                    pos, farr_pad, self.staggering, cfg.geometry,
+                    cfg.particle_shape, cfg.galerkin, origin=origin,
+                    wrap=False, offset=self.ng),
+                draws)
         j_total = rho_old = rho_new = None
         new_species = {}
         for sp_cfg in cfg.species:
@@ -686,6 +713,14 @@ class BoundedStepper:
             if self.is_laser[sp_cfg.name]:
                 sp_new = self._advance_antenna(sp, sp_cfg.name, state.time)
                 q_eff = 1.0
+            elif sp_cfg.species_type == "photon":
+                # massless: streaming at c along u (PhotonParticleContainer
+                # ::PushPX); no charge, so no deposit
+                new_species[sp_cfg.name] = sp.with_positions(
+                    ndim, self._wrap_periodic(photon_position_step(
+                        sp.positions(ndim), sp.ux, sp.uy, sp.uz, cfg.dt,
+                        ndim)))
+                continue
             else:
                 pos = sp.positions(ndim)
                 e6 = self._gather(pos, farr_pad, origin)
@@ -1135,7 +1170,8 @@ class BoundedStepper:
         new_species = {}
         for sp_cfg in self.cfg.species:
             sp = state.species[sp_cfg.name]
-            if sp.capacity == 0 or self.is_laser[sp_cfg.name]:
+            if (sp.capacity == 0 or self.is_laser[sp_cfg.name]
+                    or sp_cfg.species_type == "photon"):
                 new_species[sp_cfg.name] = sp
                 continue
             pos = sp.positions(self.ndim)
@@ -1305,6 +1341,6 @@ class BoundedStepper:
         aux_updates["tile_violations"] = violations
         return self.field_tail(state, new_species, j_total, aux_updates)
 
-    def step(self, state: SimState) -> SimState:
-        return (self.step_main(state) if self.spec is None
+    def step(self, state: SimState, draws=None) -> SimState:
+        return (self.step_main(state, draws) if self.spec is None
                 else self.step_binned(state))

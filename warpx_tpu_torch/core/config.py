@@ -5,7 +5,9 @@ and ``SimConfig``, cut to the fields the ported paths read (2D XZ and 3D
 explicit EM with the Yee, CKC or PSATD solver, periodic and bounded with
 PML/PEC (FDTD) or PML/damped (PSATD) faces, moving window, laser antennas,
 continuous injection and Gaussian beams, constant and parsed profiles,
-divergence cleaning, the Lorentz-boosted frame; per-particle and tile-binned
+divergence cleaning, the Lorentz-boosted frame, field ionization, QED
+(quantum synchrotron, Breit-Wheeler, Schwinger) with photon species,
+classical radiation reaction, resampling; per-particle and tile-binned
 steps).  Fields keep the reference's
 names and defaults, so a configuration built for ``warpx_tpu`` with these
 fields builds here with the same keyword arguments.  Features whose fields are absent come with later
@@ -79,8 +81,15 @@ class SpeciesConfig:
     do_not_push: bool = False
     do_not_gather: bool = False
     do_not_deposit: bool = False
-    pusher: str = "boris"  # boris | vay | higuera
+    pusher: str = "boris"  # boris | vay | higuera | boris_rr
     do_continuous_injection: bool = False
+    # QED processes (reference: <species>.do_qed_quantum_sync /
+    # do_qed_breit_wheeler and product-species keys)
+    do_qed_quantum_sync: bool = False
+    qed_product: str = ""  # quantum_sync_phot_product_species
+    do_qed_breit_wheeler: bool = False
+    qed_bw_ele_product: str = ""
+    qed_bw_pos_product: str = ""
     # gaussian beam injection
     x_rms: float = 0.0
     y_rms: float = 0.0
@@ -94,8 +103,25 @@ class SpeciesConfig:
     species_type: str = ""
     # the deck's my_constants, which the parsed profiles may name
     user_constants: Tuple[Tuple[str, float], ...] = ()
+    # resampling (reference: Resampling.cpp / ResamplingTrigger.cpp)
+    do_resampling: bool = False
+    resampling_algorithm: str = "leveling_thinning"
+    resampling_trigger_intervals: Tuple[str, ...] = ("0",)
+    resampling_trigger_max_avg_ppc: float = float("inf")
+    resampling_target_ratio: float = 1.5
+    resampling_min_ppc: int = 1
+    resampling_velocity_grid_type: str = "spherical"
+    resampling_delta_ur: float = 0.0
+    resampling_n_theta: int = 1
+    resampling_n_phi: int = 1
+    resampling_delta_u: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     # extra particle capacity headroom factor for continuous injection
     capacity_factor: float = 1.0
+    # ADK field ionization (reference: PhysicalParticleContainer ionization)
+    do_field_ionization: bool = False
+    physical_element: str = ""
+    ionization_initial_level: int = 0
+    ionization_product_species: str = ""
 
     @property
     def qm(self) -> float:
@@ -181,6 +207,18 @@ class SimConfig:
     tile_mxu: str = "f32"
     # the per-step time report (warpx.verbose; utils/observability.py)
     verbose: bool = False
+    # Schwinger pair production (reference: warpx.do_qed_schwinger +
+    # qed_schwinger.* keys, MultiParticleContainer::doQEDSchwinger)
+    do_qed_schwinger: bool = False
+    qed_schwinger_ele: str = ""
+    qed_schwinger_pos: str = ""
+    qed_schwinger_y_size: float = 0.0  # 2D transverse size
+    qed_schwinger_threshold: float = 25.0  # Poisson->Gaussian crossover
+    # activation region (qed_schwinger.{x,y,z}{min,max}), +-inf if unset
+    qed_schwinger_bounds_lo: Tuple[float, float, float] = (
+        float("-inf"),) * 3
+    qed_schwinger_bounds_hi: Tuple[float, float, float] = (
+        float("inf"),) * 3
 
     @property
     def galerkin(self) -> bool:

@@ -7,7 +7,9 @@ with the Yee, CKC or PSATD solver, periodic or bounded with PML/PEC faces
 antennas, continuous injection, Gaussian beams, constant or parsed density
 and momentum profiles, divergence cleaning, the Lorentz-boosted frame (the
 geometry along the boost axis and the antenna converted from the lab's
-coordinates), the tile-binned layout and its ``tpu.*`` keys), with
+coordinates), field ionization, QED (quantum synchrotron, Breit-Wheeler,
+Schwinger) with photon species, classical radiation reaction, resampling,
+the tile-binned layout and its ``tpu.*`` keys), with
 the JAX reader's defaults and derived values (reference: Source/WarpX.cpp:466
 ReadParameters; Source/Initialization/PlasmaInjector.cpp), and the deck's
 outputs (``outputs_from_deck``: Full diagnostics in plotfile, openPMD or
@@ -134,6 +136,9 @@ def _species_from_deck(deck: Deck, name: str, ndim: int) -> SpeciesConfig:
     def g(k, default=None):
         return deck.get_real(f"{name}.{k}", default)
 
+    def gs(k, default=""):
+        return deck.get_string(f"{name}.{k}", default) or ""
+
     style = _lower(deck, f"{name}.injection_style", "none").replace('"', "")
     species_type = _lower(deck, f"{name}.species_type", "")
     species_type = _SPECIES_TYPE_ALIASES.get(species_type, species_type)
@@ -187,6 +192,40 @@ def _species_from_deck(deck: Deck, name: str, ndim: int) -> SpeciesConfig:
         x_m=g("x_m", 0.0), y_m=g("y_m", 0.0), z_m=g("z_m", 0.0),
         npart=deck.get_int(f"{name}.npart", 0),
         q_tot=g("q_tot", 0.0),
+        # field ionization, QED and resampling as the JAX reader reads them
+        # (warpx_tpu/core/deck.py:183-252)
+        do_field_ionization=bool(
+            deck.get_int(f"{name}.do_field_ionization", 0)),
+        physical_element=gs("physical_element"),
+        ionization_initial_level=deck.get_int(
+            f"{name}.ionization_initial_level", 0),
+        ionization_product_species=gs("ionization_product_species"),
+        do_qed_quantum_sync=deck.get_bool(f"{name}.do_qed_quantum_sync",
+                                          False),
+        qed_product=gs("qed_quantum_sync_phot_product_species"),
+        do_qed_breit_wheeler=deck.get_bool(f"{name}.do_qed_breit_wheeler",
+                                           False),
+        qed_bw_ele_product=gs("qed_breit_wheeler_ele_product_species"),
+        qed_bw_pos_product=gs("qed_breit_wheeler_pos_product_species"),
+        do_resampling=bool(deck.get_int(f"{name}.do_resampling", 0)),
+        resampling_algorithm=(gs("resampling_algorithm")
+                              or "leveling_thinning").lower(),
+        resampling_trigger_intervals=tuple(deck.get_strings(
+            f"{name}.resampling_trigger_intervals", ["0"])),
+        resampling_trigger_max_avg_ppc=g("resampling_trigger_max_avg_ppc",
+                                         math.inf),
+        resampling_target_ratio=g("resampling_algorithm_target_ratio", 1.5),
+        resampling_min_ppc=deck.get_int(f"{name}.resampling_min_ppc", 1),
+        resampling_velocity_grid_type=(
+            gs("resampling_algorithm_velocity_grid_type")
+            or "spherical").lower(),
+        resampling_delta_ur=g("resampling_algorithm_delta_ur", 0.0),
+        resampling_n_theta=deck.get_int(
+            f"{name}.resampling_algorithm_n_theta", 1),
+        resampling_n_phi=deck.get_int(f"{name}.resampling_algorithm_n_phi",
+                                      1),
+        resampling_delta_u=tuple(deck.get_reals(
+            f"{name}.resampling_algorithm_delta_u", (0.0, 0.0, 0.0))),
     )
 
 
@@ -407,7 +446,7 @@ def _item_of_key(deck: Deck, key: str) -> str:
         # which neither package reads (the CLI's --restart does)
         return "Queue A 15"
     if head == "collisions" or head in deck.get_strings(
-            "collisions.collision_names", []) or head.startswith("qed"):
+            "collisions.collision_names", []):
         return "Queue A 11.1"
     if head in ("fluids", "hybrid_pic_model", "macroscopic", "eb2",
                 "implicit_evolve", "picard", "newton", "gmres") or (
@@ -418,11 +457,6 @@ def _item_of_key(deck: Deck, key: str) -> str:
                                  "n_rz_azimuthal_modes"):
         return "Queue A 12"
     if head in deck.get_strings("particles.species_names", []):
-        if tail == "do_classical_radiation_reaction":
-            return "Queue A 2"
-        if ("ionization" in tail or "qed" in tail or tail == "physical_element"
-                or tail.startswith("resampling") or tail == "do_resampling"):
-            return "Queue A 11.1"
         if tail in ("zinject_plane", "rigid_advance"):
             return "Queue A 11.4"
         if "flux" in tail or tail in ("injection_file", "single_particle_pos",
@@ -628,8 +662,14 @@ def config_from_deck(deck: Deck) -> SimConfig:
 
     dep = _lower(deck, "algo.current_deposition", _dep_default(em_solver))
     pusher = _lower(deck, "algo.particle_pusher", "boris")
+    # per-species classical radiation reaction upgrades Boris to the
+    # Tamburini pusher (PhysicalParticleContainer.cpp:325; the JAX reader,
+    # warpx_tpu/core/deck.py:718-730)
     species = tuple(
-        dataclasses.replace(_species_from_deck(deck, nm, ndim), pusher=pusher)
+        dataclasses.replace(
+            _species_from_deck(deck, nm, ndim),
+            pusher="boris_rr" if pusher == "boris" and deck.get_bool(
+                f"{nm}.do_classical_radiation_reaction", False) else pusher)
         for nm in deck.get_strings("particles.species_names", []))
     ext = {}
     for which in ("E", "B"):
@@ -699,6 +739,20 @@ def config_from_deck(deck: Deck) -> SimConfig:
         do_divb_cleaning_external=deck.get_bool(
             "warpx.do_divb_cleaning_external", False),
         verbose=deck.get_bool("warpx.verbose", False),
+        do_qed_schwinger=deck.get_bool("warpx.do_qed_schwinger", False),
+        qed_schwinger_ele=deck.get_string(
+            "qed_schwinger.ele_product_species", "") or "",
+        qed_schwinger_pos=deck.get_string(
+            "qed_schwinger.pos_product_species", "") or "",
+        qed_schwinger_y_size=deck.get_real("qed_schwinger.y_size", 0.0),
+        qed_schwinger_threshold=deck.get_real(
+            "qed_schwinger.threshold_poisson_gaussian", 25.0),
+        qed_schwinger_bounds_lo=tuple(
+            deck.get_real(f"qed_schwinger.{ax}min", float("-inf"))
+            for ax in "xyz"),
+        qed_schwinger_bounds_hi=tuple(
+            deck.get_real(f"qed_schwinger.{ax}max", float("inf"))
+            for ax in "xyz"),
         **_psatd_from_deck(deck, em_solver, dep),
         **_tiling_from_deck(deck, ndim),
     )

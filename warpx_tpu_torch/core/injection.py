@@ -57,9 +57,13 @@ def _np_dtype(dtype: torch.dtype):
 
 def columns_to_state(cols: dict, device) -> ParticleState:
     """A ``ParticleState`` on ``device`` from numpy columns keyed by its
-    field names."""
-    return ParticleState(**{k: torch.from_numpy(np.ascontiguousarray(v))
-                            .to(device) for k, v in cols.items()})
+    field names (the runtime attributes as a dict under ``"extra"``)."""
+    def dev(v):
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+
+    return ParticleState(
+        **{k: dev(v) for k, v in cols.items() if k != "extra"},
+        extra={k: dev(v) for k, v in cols.get("extra", {}).items()})
 
 
 def _bulk_momentum(sp: SpeciesConfig) -> np.ndarray:
@@ -107,6 +111,16 @@ def inject_species_host(
     position of each boosted-frame particle at t_lab = 0, and the weights
     and uz are boosted (AddPlasma:1243-1246)."""
     ndim = geom.ndim
+    names = ("x", "z") if ndim == 2 else ("x", "y", "z")
+    if sp.injection_style == "none":
+        # an empty container of ``capacity`` slots (the products of
+        # ionization and QED land there), positions at 0 as in the JAX
+        # package
+        cap = capacity or 0
+        cols = {k: np.zeros(cap, np_dtype)
+                for k in ("w", "ux", "uy", "uz") + names}
+        cols["alive"] = np.zeros(cap, dtype=bool)
+        return cols
     if sp.injection_style not in ("nuniformpercell", "nrandompercell"):
         raise NotImplementedError(
             f"injection style {sp.injection_style!r} (ROADMAP.md Queue A 11)"
@@ -219,7 +233,6 @@ def inject_species_host(
     alive[:count] = True
     cols = dict(w=_pad(w), ux=_pad(ux), uy=_pad(uy), uz=_pad(uz),
                 alive=alive)
-    names = ("x", "z") if ndim == 2 else ("x", "y", "z")
     for d, nm in enumerate(names):
         center = 0.5 * (geom.prob_lo[d] + geom.prob_hi[d])
         cols[nm] = _pad(pos[:, d], fill=center)

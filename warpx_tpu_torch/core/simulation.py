@@ -17,7 +17,10 @@ builds one from an inputs deck (``core/deck.py``) with the deck's outputs,
 which ``evolve`` writes on their schedule after each step
 (``flush_diagnostics``: plotfile, openPMD, checkpoint and reduced
 diagnostics under ``output_dir``), then the back-transformed diagnostics of
-a boosted run take their rows (``self.btd``, ``diagnostics/btd.py``).  The simulation runs on the CUDA device
+a boosted run take their rows (``self.btd``, ``diagnostics/btd.py``).  After
+each step ``resample`` thins the species whose trigger fires.  The random
+numbers of ionization, QED, Schwinger and resampling come from
+``self.draws`` (``utils/draws.py``).  The simulation runs on the CUDA device
 unless the caller names another device; with no GPU it raises rather than
 run on the CPU unasked.
 """
@@ -42,7 +45,9 @@ from ..io.openpmd import compact_columns, host, write_openpmd_iteration
 from ..io.plotfile import write_plotfile
 from ..solvers.div_cleaner import project_div_b
 from ..solvers.psatd import PsatdFirstOrder, PsatdSolver
+from ..utils.draws import Draws
 from ..utils.expression import compile_expression
+from ..utils.intervals import IntervalsParser
 from ..utils.observability import SignalFlags, StepTimer
 from ..utils.parser import Deck
 from .binned_step import (binned_pic_step, binned_supported,
@@ -54,10 +59,10 @@ from .config import SimConfig
 from .deck import config_from_deck, outputs_from_deck
 from .grid import yee_staggering
 from .injection import (columns_to_state, inject_gaussian_beam_host,
-                        inject_species, inject_species_host)
+                        inject_species_host)
 from .laser import antenna_particles
 from .state import FieldState, ParticleState, SimState
-from .step import pic_step, push_momenta_half, wrap_positions
+from .step import has_stochastic, pic_step, push_momenta_half, wrap_positions
 
 __all__ = ["Simulation"]
 
@@ -113,6 +118,14 @@ class Simulation:
         self.btd: list = []
         self.reduced: list = []
         self.signals: SignalFlags | None = None
+        # the random numbers of ionization, QED, Schwinger and resampling
+        # (utils/draws.py): one generator on the device, seeded from the
+        # configuration; None where nothing draws
+        self.draws = (Draws(cfg.seed, self.device) if has_stochastic(cfg)
+                      else None)
+        self._resampling_triggers = {
+            s.name: IntervalsParser(list(s.resampling_trigger_intervals))
+            for s in cfg.species if s.do_resampling}
         # the periodic spectral solver (the bounded one is the stepper's)
         self.psatd = None
         if self.is_bounded:
@@ -208,6 +221,70 @@ class Simulation:
             self.signals = SignalFlags(outputs["break_signals"],
                                        outputs["checkpoint_signals"])
 
+    def _product_capacities(self) -> Dict[str, int]:
+        """The slots a species gets for the particles that ionization, QED
+        and Schwinger pair creation put into it (JAX simulation.py:816-858):
+        an ionizable species' product gets room for every ion fully
+        stripped, a QED product one slot per parent, a Schwinger product
+        min(n_cells max_step, 2,000,000).  The parents are counted from an
+        injection with a fresh generator, as the JAX package counts them."""
+        cfg = self.cfg
+        geom = cfg.geometry
+        ft = torch.empty((), dtype=self.dtype).numpy().dtype
+        caps: Dict[str, int] = {}
+
+        def count(sp_cfg):
+            if sp_cfg.injection_style not in ("nuniformpercell",
+                                              "nrandompercell"):
+                return 0  # the JAX package's empty container
+            return inject_species_host(sp_cfg, geom, np.random.default_rng(
+                cfg.seed), ft)["w"].shape[0]
+
+        for sp_cfg in cfg.species:
+            if sp_cfg.do_field_ionization:
+                from ..ops.ionization import IONIZATION_ENERGIES
+
+                z_max = len(IONIZATION_ENERGIES[sp_cfg.physical_element])
+                nm = sp_cfg.ionization_product_species
+                caps[nm] = caps.get(nm, 0) + count(sp_cfg) * max(
+                    z_max - sp_cfg.ionization_initial_level, 0)
+        for sp_cfg in cfg.species:
+            srcs = []
+            if sp_cfg.do_qed_quantum_sync and sp_cfg.qed_product:
+                srcs = [sp_cfg.qed_product]
+            if sp_cfg.do_qed_breit_wheeler:
+                srcs = [sp_cfg.qed_bw_ele_product, sp_cfg.qed_bw_pos_product]
+            if srcs:
+                n = count(sp_cfg)
+                for nm in srcs:
+                    if nm and nm != sp_cfg.name:
+                        caps[nm] = caps.get(nm, 0) + n
+        if cfg.do_qed_schwinger:
+            budget = min(math.prod(geom.n_cell) * max(cfg.max_step, 1),
+                         2_000_000)
+            for nm in (cfg.qed_schwinger_ele, cfg.qed_schwinger_pos):
+                if nm:
+                    caps[nm] = caps.get(nm, 0) + budget
+        return caps
+
+    def _with_extras(self, sp_cfg, cols: dict) -> dict:
+        """The species' runtime attributes at the start of the run (JAX
+        simulation.py:956-973): the ions' initial level, and exponentially
+        distributed QED optical depths from ``default_rng(seed + 17)``,
+        created anew for every species as the JAX package does."""
+        cap = cols["w"].shape[0]
+        ft = cols["w"].dtype
+        extra = {}
+        if sp_cfg.do_field_ionization:
+            extra["ionizationLevel"] = np.full(
+                cap, sp_cfg.ionization_initial_level, np.int32)
+        qed_rng = np.random.default_rng(self.cfg.seed + 17)
+        if sp_cfg.do_qed_quantum_sync:
+            extra["opticalDepthQSR"] = qed_rng.exponential(size=cap).astype(ft)
+        if sp_cfg.do_qed_breit_wheeler:
+            extra["opticalDepthBW"] = qed_rng.exponential(size=cap).astype(ft)
+        return dict(cols, extra=extra) if extra else cols
+
     def init(self, seed: int | None = None) -> SimState:
         cfg = self.cfg
         geom = cfg.geometry
@@ -215,9 +292,13 @@ class Simulation:
         if self.is_bounded:
             return self._init_bounded(rng)
         kw = dict(dtype=self.dtype, device=self.device)
+        ft = torch.empty((), dtype=self.dtype).numpy().dtype
+        caps = self._product_capacities()
         species = {
-            sp_cfg.name: inject_species(sp_cfg, geom, rng,
-                                        gamma_boost=cfg.gamma_boost, **kw)
+            sp_cfg.name: columns_to_state(self._with_extras(
+                sp_cfg, inject_species_host(
+                    sp_cfg, geom, rng, ft, caps.get(sp_cfg.name),
+                    cfg.gamma_boost)), self.device)
             for sp_cfg in cfg.species
         }
         aux = {}
@@ -287,6 +368,7 @@ class Simulation:
         ft = torch.empty((), dtype=self.dtype).numpy().dtype
         wdir = cfg.moving_window_dir
         host, aux = {}, {}
+        caps = self._product_capacities()
         for sp_cfg in cfg.species:
             if sp_cfg.injection_style == "laser":
                 laser = next(las for las in cfg.lasers
@@ -296,7 +378,7 @@ class Simulation:
                 cols = inject_gaussian_beam_host(sp_cfg, geom, rng, ft,
                                                  cfg.gamma_boost)
             else:
-                capacity = None
+                capacity = caps.get(sp_cfg.name)
                 if sp_cfg.do_continuous_injection and cfg.do_moving_window:
                     # room for what the window uncovers over the whole run
                     ppc = sp_cfg.num_particles_per_cell_each_dim
@@ -313,7 +395,7 @@ class Simulation:
                     del first
                 cols = inject_species_host(sp_cfg, geom, rng, ft, capacity,
                                            cfg.gamma_boost)
-            host[sp_cfg.name] = cols
+            host[sp_cfg.name] = self._with_extras(sp_cfg, cols)
             if sp_cfg.do_continuous_injection and cfg.do_moving_window:
                 aux[f"inject_pos:{sp_cfg.name}"] = ft.type(
                     geom.prob_hi[wdir] if cfg.moving_window_v > 0
@@ -432,9 +514,10 @@ class Simulation:
         without the window's move and the particle boundaries that follow
         it in ``evolve``)."""
         if self.is_bounded:
-            return self.stepper.step(state)
+            return self.stepper.step(state, self.draws)
         if not self.binned:
-            return pic_step(state, self.cfg, self.staggering, self.psatd)
+            return pic_step(state, self.cfg, self.staggering, self.psatd,
+                            self.draws)
         return binned_pic_step(state, self.cfg, self.staggering,
                                self.tile_spec, self.params, self.psatd)
 
@@ -458,6 +541,7 @@ class Simulation:
                 self.state = self._half_push(-0.5 * cfg.dt)
                 self.is_synchronized = False
             self.state = self.step(self.state)
+            self.resample(step + 1)
             if step == cfg.max_step - 1:
                 # synchronize: forward half push with the new fields
                 self.state = self._half_push(0.5 * cfg.dt)
@@ -477,8 +561,47 @@ class Simulation:
                 save_checkpoint(
                     os.path.join(self.output_dir,
                                  f"chk_signal{step + 1:06d}"),
-                    self.state, self.is_synchronized)
+                    self.state, self.is_synchronized, self.draws)
         return self.state
+
+    def resample(self, timestep: int) -> None:
+        """Resample each species whose trigger fires after step
+        ``timestep`` (doResampling(istep + 1), WarpXEvolve.cpp:212;
+        ResamplingTrigger: an interval of
+        ``resampling_trigger_intervals``, or an average of alive particles
+        per cell above ``resampling_trigger_max_avg_ppc``, which waits for
+        the device to count them), on the numbers of ``self.draws``."""
+        from ..ops.resampling import (leveling_thinning,
+                                      velocity_coincidence_thinning)
+
+        cfg = self.cfg
+        n_cells = float(math.prod(cfg.geometry.n_cell))
+        for sp_cfg in cfg.species:
+            if not sp_cfg.do_resampling:
+                continue
+            sp = self.state.species[sp_cfg.name]
+            fire = self._resampling_triggers[sp_cfg.name].contains(timestep)
+            if not fire and math.isfinite(
+                    sp_cfg.resampling_trigger_max_avg_ppc):
+                fire = (float(sp.alive.sum()) / n_cells
+                        > sp_cfg.resampling_trigger_max_avg_ppc)
+            if not fire:
+                continue
+            if sp_cfg.resampling_algorithm == "velocity_coincidence_thinning":
+                sp = velocity_coincidence_thinning(
+                    sp, cfg.geometry, self.draws,
+                    grid_type=sp_cfg.resampling_velocity_grid_type,
+                    delta_ur=sp_cfg.resampling_delta_ur,
+                    n_theta=sp_cfg.resampling_n_theta,
+                    n_phi=sp_cfg.resampling_n_phi,
+                    delta_u=sp_cfg.resampling_delta_u,
+                    min_ppc=sp_cfg.resampling_min_ppc)
+            else:
+                sp = leveling_thinning(
+                    sp, cfg.geometry, self.draws,
+                    target_ratio=sp_cfg.resampling_target_ratio)
+            self.state = self.state.replace(
+                species={**self.state.species, sp_cfg.name: sp})
 
     def _half_push(self, dt_half: float) -> SimState:
         if self.is_bounded:
@@ -534,7 +657,8 @@ class Simulation:
                 continue
             path = os.path.join(self.output_dir, f"{dg['name']}{step:06d}")
             if dg["format"] == "checkpoint":
-                save_checkpoint(path, self.state, self.is_synchronized)
+                save_checkpoint(path, self.state, self.is_synchronized,
+                                self.draws)
                 continue
             wanted = dg["fields"]
             fields = {}
@@ -569,11 +693,14 @@ class Simulation:
             if select and sp_cfg.name in select:
                 mask = mask & select[sp_cfg.name]
             cols = compact_columns(
-                mask, [*sp.positions(ndim), sp.ux, sp.uy, sp.uz, sp.w])
+                mask, [*sp.positions(ndim), sp.ux, sp.uy, sp.uz, sp.w,
+                       *sp.extra.values()])
             attrs = dict(zip(["x", "y", "z"][:ndim], cols[:ndim]))
             for c, u in zip("xyz", cols[ndim:ndim + 3]):
                 attrs[f"momentum_{c}"] = sp_cfg.mass * u
             attrs["weight"] = cols[ndim + 3]
+            # the runtime attributes as extra real components
+            attrs.update(zip(sp.extra, cols[ndim + 4:]))
             out[sp_cfg.name] = attrs
         return out
 

@@ -6,7 +6,9 @@ through ``.replace``; nothing updates a state in place.
 
 ``state_from_numpy`` / ``state_to_numpy`` carry a state across frameworks as
 a nested dict of numpy arrays (``{"fields": {...}, "species": {name:
-{...}}, "step", "time", "aux"}``).  The tests use them to start the port
+{...}}, "step", "time", "aux"}``); a species' runtime attributes ride in its
+dict under ``"extra"`` (``{"ionizationLevel": ..., ...}``; absent when it
+has none).  The tests use them to start the port
 from a ``warpx_tpu`` state and to compare the two.  In ``aux`` the moving
 window's scalars (``HOST_AUX``, ``inject_pos:<species>``) are host numbers
 in the state's precision, because the step branches on them and hands them
@@ -99,6 +101,10 @@ class ParticleState:
     x: Optional[torch.Tensor] = None
     y: Optional[torch.Tensor] = None
     z: Optional[torch.Tensor] = None
+    # runtime attributes, one value per slot: ionizationLevel (int32),
+    # opticalDepthQSR and opticalDepthBW (the reference's runtime
+    # components, e.g. PhysicalParticleContainer::InitIonizationModule)
+    extra: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     @property
     def capacity(self) -> int:
@@ -171,10 +177,11 @@ def state_from_numpy(data: dict, dtype: torch.dtype,
     })
     species = {}
     for name, sp in data["species"].items():
-        species[name] = ParticleState(**{
-            nm: _tensor(sp[nm], dtype, device)
-            for nm in _PARTICLE_NAMES if sp.get(nm) is not None
-        })
+        species[name] = ParticleState(
+            **{nm: _tensor(sp[nm], dtype, device)
+               for nm in _PARTICLE_NAMES if sp.get(nm) is not None},
+            extra={k: _tensor(a, dtype, device)
+                   for k, a in (sp.get("extra") or {}).items()})
     return SimState(
         fields=fields,
         species=species,
@@ -195,7 +202,9 @@ def state_to_numpy(state: SimState) -> dict:
         "fields": {nm: host(getattr(state.fields, nm))
                    for nm in field_names(state.fields)},
         "species": {
-            name: {nm: host(getattr(sp, nm)) for nm in _PARTICLE_NAMES}
+            name: {**{nm: host(getattr(sp, nm)) for nm in _PARTICLE_NAMES},
+                   **({"extra": {k: host(v) for k, v in sp.extra.items()}}
+                      if sp.extra else {})}
             for name, sp in state.species.items()
         },
         "step": state.step,

@@ -49,6 +49,8 @@ def compute_checksums(state: SimState, cfg: SimConfig, staggering: Dict,
                 sp_cfg.mass * arr[alive].double()
             )
         entry["particle_weight"] = _abs_sum(sp.w[alive])
+        for aname, arr in sp.extra.items():
+            entry[f"particle_{aname}"] = _abs_sum(arr[alive].double())
         data[sp_cfg.name] = entry
     return data
 

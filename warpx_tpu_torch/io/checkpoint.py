@@ -7,7 +7,10 @@ checkpoint directory holds ``state.npz``, one array per entry of
 ``state_to_numpy``'s nesting under its path (``fields/Ex``,
 ``species/electrons/x``, ``aux/pml:Ex:z``, ``aux/window_lo``, ``step``,
 ``time``; ``fields/F``, ``fields/Ex_avg`` and the like where the
-configuration carries them), and ``header.json`` with the JAX package's keys (``n_leaves``,
+configuration carries them; ``species/<name>/extra/<attribute>`` for the
+runtime attributes; ``rng`` for the state of the simulation's draw source,
+``utils/draws.py``, where it has one, as the JAX package keeps its key in
+the state), and ``header.json`` with the JAX package's keys (``n_leaves``,
 ``is_synchronized``, ``step``).  ``load_checkpoint`` restores into a
 template state of the same configuration and refuses an entry whose name,
 shape or dtype differs from the template's.  On the CPU a restarted run
@@ -39,20 +42,25 @@ def _flatten(tree, prefix=""):
     return out
 
 
-def _entries(state: SimState):
+def _entries(state: SimState, draws=None):
     """``state_to_numpy``'s nesting, flat (``fields/Ex``), with the state's
-    own tensors and host numbers as values (nothing moved)."""
-    return _flatten({
+    own tensors and host numbers as values (nothing moved), and the draw
+    source's state under ``rng``."""
+    out = _flatten({
         "fields": {nm: getattr(state.fields, nm)
                    for nm in field_names(state.fields)},
-        "species": {name: {nm: getattr(sp, nm)
-                           for nm in ("w", "ux", "uy", "uz", "alive",
-                                      "x", "y", "z")}
+        "species": {name: {**{nm: getattr(sp, nm)
+                              for nm in ("w", "ux", "uy", "uz", "alive",
+                                         "x", "y", "z")},
+                           "extra": dict(sp.extra)}
                     for name, sp in state.species.items()},
         "step": state.step,
         "time": state.time,
         "aux": dict(state.aux),
     })
+    if draws is not None:
+        out["rng"] = draws.get_state()
+    return out
 
 
 def _layout(val):
@@ -74,12 +82,14 @@ def _nest(flat):
     return tree
 
 
-def save_checkpoint(path: str, state: SimState, is_synchronized: bool):
-    """Write ``state`` (one transfer to the host a tensor) under ``path``."""
+def save_checkpoint(path: str, state: SimState, is_synchronized: bool,
+                    draws=None):
+    """Write ``state`` (one transfer to the host a tensor) and the state of
+    the draw source ``draws`` under ``path``."""
     os.makedirs(path, exist_ok=True)
     arrays = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
                   else np.asarray(v))
-              for k, v in _entries(state).items()}
+              for k, v in _entries(state, draws).items()}
     np.savez(os.path.join(path, "state.npz"), **arrays)
     meta = {
         "n_leaves": len(arrays),
@@ -90,12 +100,15 @@ def save_checkpoint(path: str, state: SimState, is_synchronized: bool):
         json.dump(meta, fh)
 
 
-def load_checkpoint(path: str, template: SimState) -> Tuple[SimState, bool]:
+def load_checkpoint(path: str, template: SimState,
+                    draws=None) -> Tuple[SimState, bool]:
     """The state saved under ``path``, on the template's device and in its
-    precision, and whether it was synchronized."""
+    precision, and whether it was synchronized; ``draws`` (the draw source
+    of the simulation that saved it, where it had one) continues the saved
+    stream."""
     with open(os.path.join(path, "header.json")) as fh:
         meta = json.load(fh)
-    want = {k: _layout(v) for k, v in _entries(template).items()}
+    want = {k: _layout(v) for k, v in _entries(template, draws).items()}
     with np.load(os.path.join(path, "state.npz")) as data:
         flat = {k: data[k] for k in data.files}
     if meta["n_leaves"] != len(flat) or set(flat) != set(want):
@@ -108,6 +121,8 @@ def load_checkpoint(path: str, template: SimState) -> Tuple[SimState, bool]:
             raise ValueError(
                 f"checkpoint {path}: {key} is {got.dtype}{list(got.shape)}, "
                 f"the configuration has {dtype}{list(shape)}")
+    if draws is not None:
+        draws.set_state(torch.from_numpy(flat.pop("rng")))
     f = template.fields.Ex
     return (state_from_numpy(_nest(flat), dtype=f.dtype, device=f.device),
             bool(meta["is_synchronized"]))

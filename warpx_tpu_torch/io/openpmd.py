@@ -146,8 +146,10 @@ def write_openpmd_iteration(
             grp = parts.require_group(sp_cfg.name)
             grp.attrs["charge"] = sp_cfg.charge
             grp.attrs["mass"] = sp_cfg.mass
+            names_x = list(sp.extra)
             packed = compact_columns(
-                mask, [*sp.positions(ndim), sp.ux, sp.uy, sp.uz, sp.w])
+                mask, [*sp.positions(ndim), sp.ux, sp.uy, sp.uz, sp.w,
+                       *(sp.extra[k] for k in names_x)])
             pos = grp.require_group("position")
             pos.attrs["unitDimension"] = np.asarray(
                 (1.0, 0, 0, 0, 0, 0, 0), dtype=np.float64
@@ -173,6 +175,14 @@ def write_openpmd_iteration(
                 del w["value"]
             ds = w.create_dataset("value", data=packed[ndim + 3])
             ds.attrs["unitSI"] = 1.0
+            # runtime attributes (ionizationLevel, optical depths), one
+            # scalar record each, as the JAX package writes them
+            for aname, data in zip(names_x, packed[ndim + 4:]):
+                g = grp.require_group(aname)
+                if "value" in g:
+                    del g["value"]
+                ds = g.create_dataset("value", data=data)
+                ds.attrs["unitSI"] = 1.0
 
 
 # --------------------------------------------------------------- readers

@@ -5,9 +5,13 @@ u = gamma*v [m/s], as in the reference:
   Boris:        Source/Particles/Pusher/UpdateMomentumBoris.H:16-53
   Vay:          Source/Particles/Pusher/UpdateMomentumVay.H:20
   Higuera-Cary: Source/Particles/Pusher/UpdateMomentumHigueraCary.H:22
+  Boris with classical radiation reaction:
+    Source/Particles/Pusher/UpdateMomentumBorisWithRadiationReaction.H
   Position:     Source/Particles/Pusher/UpdatePosition.H:25
-The CUDA kernel in ``csrc/fused_pic.cu`` repeats these formulas line for
-line; keep the two in step.
+  Photons:      PhotonParticleContainer::PushPX
+The CUDA kernel in ``csrc/fused_pic.cu`` repeats the Boris, Vay,
+Higuera-Cary and position formulas line for line; keep them in step (the
+tile-binned gates keep radiation reaction and photons per particle).
 """
 
 from __future__ import annotations
@@ -22,8 +26,10 @@ __all__ = [
     "push_momentum_boris",
     "push_momentum_vay",
     "push_momentum_higuera_cary",
+    "push_momentum_boris_rr",
     "inv_gamma",
     "position_step",
+    "photon_position_step",
     "PUSHERS",
 ]
 
@@ -119,10 +125,44 @@ def push_momentum_higuera_cary(ux, uy, uz, Ex, Ey, Ez, Bx, By, Bz, q, m, dt):
     return ux_new, uy_new, uz_new
 
 
+def push_momentum_boris_rr(ux, uy, uz, Ex, Ey, Ez, Bx, By, Bz, q, m, dt):
+    """Boris push with classical (Landau-Lifshitz) radiation reaction
+    (Tamburini et al., NJP 12 123005): the Boris push, then the
+    radiation-reaction force at the time-centered momentum."""
+    ux_n0, uy_n0, uz_n0 = ux, uy, uz
+    ux, uy, uz = push_momentum_boris(ux, uy, uz, Ex, Ey, Ez, Bx, By, Bz,
+                                     q, m, dt)
+    uxn = 0.5 * (ux + ux_n0)
+    uyn = 0.5 * (uy + uy_n0)
+    uzn = 0.5 * (uz + uz_n0)
+    gam = torch.sqrt(1.0 + (uxn * uxn + uyn * uyn + uzn * uzn) * _inv_c2)
+    inv_g = 1.0 / gam
+    vx, vy, vz = uxn * inv_g, uyn * inv_g, uzn * inv_g
+    bx_n = vx / constants.c
+    by_n = vy / constants.c
+    bz_n = vz / constants.c
+    flx = Ex + vy * Bz - vz * By
+    fly = Ey + vz * Bx - vx * Bz
+    flz = Ez + vx * By - vy * Bx
+    fl2 = flx * flx + fly * fly + flz * flz
+    bdotE = bx_n * Ex + by_n * Ey + bz_n * Ez
+    coeff = gam * gam * (fl2 - bdotE * bdotE)
+    q_over_mc = q / (m * constants.c)
+    rr = (2.0 / 3.0) * constants.r_e * q_over_mc * q_over_mc
+    frx = rr * (constants.c * (fly * Bz - flz * By) + bdotE * Ex
+                - coeff * bx_n)
+    fry = rr * (constants.c * (flz * Bx - flx * Bz) + bdotE * Ey
+                - coeff * by_n)
+    frz = rr * (constants.c * (flx * By - fly * Bx) + bdotE * Ez
+                - coeff * bz_n)
+    return ux + frx * dt, uy + fry * dt, uz + frz * dt
+
+
 PUSHERS = {
     "boris": push_momentum_boris,
     "vay": push_momentum_vay,
     "higuera": push_momentum_higuera_cary,
+    "boris_rr": push_momentum_boris_rr,
 }
 
 
@@ -132,3 +172,19 @@ def position_step(pos, ux, uy, uz, dt, ndim):
     invg = inv_gamma(ux, uy, uz)
     vel = {1: (uz,), 2: (ux, uz), 3: (ux, uy, uz)}[ndim]
     return tuple(p + v * invg * dt for p, v in zip(pos, vel))
+
+
+def photon_position_step(pos, ux, uy, uz, dt, ndim):
+    """Photon free streaming x += dt * c * u/|u| on the active axes
+    (massless: the speed is c along u)."""
+    umag = torch.sqrt(ux * ux + uy * uy + uz * uz)
+    # a photon without momentum (a dead slot) stays where it is; the JAX
+    # package's c / max(|u|, 1e-300) overflows to inf (c / 1e-300 is past
+    # float64's largest number) and makes such a slot's position NaN
+    # (ROADMAP.md Queue C)
+    inv = torch.where(umag > 0.0,
+                      constants.c / torch.where(umag > 0.0, umag,
+                                                torch.ones_like(umag)),
+                      torch.zeros_like(umag))
+    vel = {1: (uz,), 2: (ux, uz), 3: (ux, uy, uz)}[ndim]
+    return tuple(p + v * inv * dt for p, v in zip(pos, vel))

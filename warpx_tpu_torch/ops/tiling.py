@@ -275,6 +275,12 @@ def rebin(sp, geom, spec: TileSpec, origin=None, wrap_dims=None):
     slots; callers treat overflow > 0 as a hard error.
     """
     ndim = spec.ndim
+    if sp.extra:
+        # the tile-binned gates keep species with runtime attributes
+        # (ionizable ions, QED species) on the per-particle step
+        raise NotImplementedError(
+            f"rebinning runtime attributes {sorted(sp.extra)}: species "
+            "with them run per particle")
     payload_sorted, offsets, counts, fill = rebin_inputs(
         sp, geom, spec, origin=origin, wrap_dims=wrap_dims)
     overflow = torch.clamp(counts - spec.p_max, min=0).sum(dtype=torch.int32)
