@@ -171,7 +171,7 @@ exits non-zero:
                (``CpuDraws``): fields, species and attributes within 1e-12
                (thinnings 1e-9), checksums 1e-9; float32 spreads reported;
   main_lwfa_ionization  bench.py's LWFA deck at 2048 x 8192 with a
-               nitrogen dopant at N5+ around the antenna, per particle, 20
+               nitrogen dopant at N5+ around the antenna, per particle, 10
                timed steps: each step's events against an independent
                float64 host ADK evaluation on the card's gathered fields
                (5 sigma over the run), products placed and dropped, ions by
@@ -191,6 +191,28 @@ exits non-zero:
                K3), 25 steps: each pass's count against its expectation,
                the electrons' weight within 5 sigma, each cell's weight and
                momentum conserved by the merge, K1 before and after;
+  collision_parity  (after stochastic_parity) every collision of a 16^3
+               deck (intra and inter Coulomb, D-T, D-D and p-B11 fusion)
+               and a 32^2 deck (DSMC, MCC with ionization, stopping) alone
+               on its initial state, float64, card against CPU on one CPU
+               generator's numbers (1e-12), the (cell, random) order
+               identical; three steps of both decks and of the bounded
+               32 x 64 laser-wakefield deck with MCC and stopping (1e-9);
+               float32 spreads reported;
+  main_coulomb uniform-128-coulomb (33.5 M slots, Yee, per particle, intra
+               e-e, i-i and inter e-i Coulomb): each collision alone
+               conserves momentum and energy, 10 timed steps with each
+               collision's device ms, the drift difference falls, float32
+               changes the momenta float64 changes (at 32^3);
+  main_fusion  fusion-128 (D-T at 4 a cell, p-B11 at 1 a cell, products):
+               10 steps, the events against the float64 sum of the pairs'
+               probabilities (5 sigma), momentum, energy and weight per
+               event, no product dropped; 3 clean timed steps;
+  main_mcc_dsmc  mcc-dsmc-128 (electrons on helium with MCC scattering and
+               ionization, He+ and He with DSMC elastic and charge
+               exchange, He+ stopping): scatterings and ionizations within
+               5 sigma, stopping against its closed form, charge exchange a
+               swap; 3 clean timed steps;
   labs         each Hopper lab's main() at the TPU lab's default shapes (L1
                in every mode): kernel against plain version, times, bounds,
                the library's yardstick where there is one; each lab prints
@@ -207,8 +229,10 @@ this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import pathlib
 import shutil
 import subprocess
@@ -4088,8 +4112,11 @@ class CpuDraws:
     def split(self, n):
         return (self,) * n
 
-    def uniform(self, shape, dtype):
-        return self.cpu.uniform(shape, dtype).to(self.device)
+    def fold_in(self, i):
+        return self
+
+    def uniform(self, shape, dtype, lo=0.0, hi=1.0):
+        return self.cpu.uniform(shape, dtype, lo, hi).to(self.device)
 
     def normal(self, shape, dtype):
         return self.cpu.normal(shape, dtype).to(self.device)
@@ -4331,7 +4358,10 @@ class timed_fn:
         return [a.elapsed_time(b) for a, b in self.calls]
 
 
-LWFA_ION_STEPS = 20
+# 10 steps, for margin under the script's 1200 s limit (each step costs
+# ~2 s on the card and ~2.7 s of host ADK evaluation); on an H100 they
+# saw 9,664 events against a sum of probabilities of 9,622.8
+LWFA_ION_STEPS = 10
 
 
 def lwfa_ionization_deck(nx, nz, steps):
@@ -5152,6 +5182,1031 @@ def phase_main_resampling(dev, smi, k1_row, k3_row, n=128,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi)
 
 
+# ---- binary collisions ------------------------------------------------------
+
+
+class CastDraws(CpuDraws):
+    """``CpuDraws`` whose numbers are drawn in float64 and rounded to the
+    dtype asked for: a float32 and a float64 run on the same numbers."""
+
+    def uniform(self, shape, dtype, lo=0.0, hi=1.0):
+        return self.cpu.uniform(shape, torch.float64, lo, hi).to(
+            device=self.device, dtype=dtype)
+
+    def normal(self, shape, dtype):
+        return self.cpu.normal(shape, torch.float64).to(device=self.device,
+                                                        dtype=dtype)
+
+
+def inv_v_table(sigma0, e_ref, e_lo=0.2, e_hi=5000.0, de=0.2,
+                zero_first=False):
+    """(energies [eV], sigmas [m^2]) with sigma = sigma0 sqrt(e_ref / E) on
+    a uniform grid (tests/test_mcc.py::_inv_v_xsec): nu = n sigma v is
+    constant, so the null-collision probability is exact; ``zero_first``
+    makes it 0 at and below the first energy (an ionization threshold)."""
+    es = np.arange(e_lo, e_hi + de / 2, de)
+    sg = sigma0 * np.sqrt(e_ref / es)
+    if zero_first:
+        sg[0] = 0.0
+    return es, sg
+
+
+def write_collision_tables(d):
+    """The cross-section files the collision decks name, in ``d``: MCC
+    elastic, excitation (19.8 eV) and ionization (24.6 eV) tables of
+    ``inv_v_table``, and three two-segment DSMC tables."""
+    for name, e_lo, zero in (("el", 0.2, False), ("ex", 19.8, False),
+                             ("iz", 24.6, True)):
+        es, sg = inv_v_table(2e-20, 100.0, e_lo=e_lo, zero_first=zero)
+        np.savetxt(pathlib.Path(d) / f"{name}.dat", np.column_stack([es, sg]))
+    for name, s in (("d_el", 4e-19), ("d_back", 2e-19), ("d_cx", 3e-19)):
+        np.savetxt(pathlib.Path(d) / f"{name}.dat",
+                   np.array([[0.0, s], [1.0, s], [1e4, 0.5 * s]]))
+
+
+def collide16_deck(steps=3, n=16):
+    """An n^3 box (no field solve) with every pairwise kind: intra e-e and
+    inter e-p Coulomb, D-T fusion into alpha and neutron, intra-species
+    D-D into he3 and neutron, p-B11 into alphas."""
+    sp = ""
+    for nm, st, ppc, dens, th, frozen in (
+            ("electrons", "electron", 4, 1e24, 0.01, False),
+            ("protons", "proton", 2, 1e24, 0.0005, False),
+            ("deut", "hydrogen2", 4, 1e26, 0.0023, True),
+            ("trit", "hydrogen3", 2, 1e26, 0.0019, True),
+            ("prot", "hydrogen1", 2, 1e26, 0.02, True),
+            ("boron", "boron11", 2, 1e26, 0.001, True)):
+        sp += f"""
+{nm}.species_type = {st}
+{nm}.injection_style = NRandomPerCell
+{nm}.num_particles_per_cell = {ppc}
+{nm}.profile = constant
+{nm}.density = {dens}
+{nm}.momentum_distribution_type = gaussian
+{nm}.ux_th = {th}
+{nm}.uy_th = {th}
+{nm}.uz_th = {th}
+"""
+        if frozen:
+            sp += f"{nm}.do_not_push = 1\n{nm}.do_not_deposit = 1\n"
+    for nm, st in (("alpha", "helium4"), ("neutron", "neutron"),
+                   ("he3", "helium3"), ("alpha_pb", "helium4")):
+        sp += f"""
+{nm}.species_type = {st}
+{nm}.injection_style = none
+{nm}.do_not_push = 1
+{nm}.do_not_deposit = 1
+"""
+    return f"""
+max_step = {steps}
+amr.n_cell = {n} {n} {n}
+geometry.dims = 3
+geometry.prob_lo = 0. 0. 0.
+geometry.prob_hi = {n * 1e-6} {n * 1e-6} {n * 1e-6}
+warpx.const_dt = 1.e-12
+algo.maxwell_solver = none
+warpx.use_filter = 0
+particles.species_names = electrons protons deut trit prot boron alpha neutron he3 alpha_pb
+collisions.collision_names = c_ee c_ep dt dd pb
+c_ee.species = electrons electrons
+c_ep.species = electrons protons
+dt.type = nuclearfusion
+dt.species = deut trit
+dt.product_species = alpha neutron
+dt.fusion_multiplier = 1.e7
+dd.type = nuclearfusion
+dd.species = deut deut
+dd.product_species = he3 neutron
+dd.fusion_multiplier = 1.e9
+pb.type = nuclearfusion
+pb.species = prot boron
+pb.product_species = alpha_pb
+pb.fusion_multiplier = 1.e10
+""" + sp
+
+
+def mcc32_deck(steps=4):
+    """32 x 32 periodic, no field solve: electrons with MCC elastic,
+    excitation and ionization on helium (products into 'hep'), 'hep' ions
+    and 'he' neutrals with DSMC elastic, back and charge exchange, stopping
+    of the electrons on an electron background and of 'hep' on an ion
+    background (a copy of tests/test_torch_dsmc_mcc.py::periodic_deck)."""
+    return f"""
+max_step = {steps}
+amr.n_cell = 32 32
+geometry.dims = 2
+geometry.prob_lo = 0. 0.
+geometry.prob_hi = 3.2e-5 3.2e-5
+warpx.const_dt = 2.e-12
+algo.maxwell_solver = none
+warpx.use_filter = 0
+particles.species_names = electrons hep he
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = 2 2
+electrons.profile = constant
+electrons.density = 1.e18
+electrons.momentum_distribution_type = gaussian
+electrons.ux_th = 0.03
+electrons.uy_th = 0.03
+electrons.uz_th = 0.03
+electrons.do_not_deposit = 1
+hep.species_type = helium
+hep.charge = q_e
+hep.injection_style = NUniformPerCell
+hep.num_particles_per_cell_each_dim = 2 2
+hep.profile = constant
+hep.density = 1.e18
+hep.momentum_distribution_type = gaussian
+hep.ux_th = 0.0003
+hep.uy_th = 0.0003
+hep.uz_th = 0.0003
+hep.uz_m = 0.0002
+hep.do_not_deposit = 1
+he.species_type = helium
+he.charge = 0.
+he.injection_style = NUniformPerCell
+he.num_particles_per_cell_each_dim = 1 2
+he.profile = constant
+he.density = 1.e22
+he.momentum_distribution_type = gaussian
+he.ux_th = 0.00001
+he.uy_th = 0.00001
+he.uz_th = 0.00001
+he.do_not_deposit = 1
+collisions.collision_names = dsmc1 mcc1 stop_e stop_i
+dsmc1.type = dsmc
+dsmc1.species = hep he
+dsmc1.scattering_processes = elastic back charge_exchange
+dsmc1.elastic_cross_section = d_el.dat
+dsmc1.back_cross_section = d_back.dat
+dsmc1.charge_exchange_cross_section = d_cx.dat
+mcc1.type = background_mcc
+mcc1.species = electrons
+mcc1.background_density = 1.e22
+mcc1.background_temperature = 300.
+mcc1.ionization_species = hep
+mcc1.scattering_processes = elastic excitation1 ionization
+mcc1.elastic_cross_section = el.dat
+mcc1.excitation1_cross_section = ex.dat
+mcc1.excitation1_energy = 19.8
+mcc1.ionization_cross_section = iz.dat
+mcc1.ionization_energy = 24.6
+stop_e.type = background_stopping
+stop_e.species = electrons
+stop_e.background_type = electrons
+stop_e.background_density = 1.e22
+stop_e.background_temperature = 5.e4
+stop_i.type = background_stopping
+stop_i.species = hep
+stop_i.background_type = ions
+stop_i.background_mass = 6.6464731e-27
+stop_i.background_charge_state = 1.
+stop_i.background_density(x,y,z,t) = 1.e24*(1+x/3.2e-5)
+stop_i.background_temperature = 1.e4
+"""
+
+
+def lwfa_mcc_deck(steps=8):
+    """The 32 x 64 laser-wakefield deck with its electrons on a helium
+    background (MCC elastic and ionization into 'hep') and stopping of the
+    electrons and of 'hep' (a copy of
+    tests/test_torch_dsmc_mcc.py::lwfa_mcc_deck)."""
+    return LWFA_32X64_DECK.replace(
+        "max_step = 12", f"max_step = {steps}").replace(
+        "particles.species_names = electrons beam",
+        "particles.species_names = electrons beam hep") + """
+hep.species_type = helium
+hep.charge = q_e
+hep.injection_style = none
+collisions.collision_names = mcc1 stop_e stop_i
+mcc1.type = background_mcc
+mcc1.species = electrons
+mcc1.background_density = 1.e25
+mcc1.background_temperature = 300.
+mcc1.ionization_species = hep
+mcc1.scattering_processes = elastic ionization
+mcc1.elastic_cross_section = el.dat
+mcc1.ionization_cross_section = iz.dat
+mcc1.ionization_energy = 24.6
+stop_e.type = background_stopping
+stop_e.species = electrons
+stop_e.background_density = 1.e24
+stop_e.background_temperature = 5.e4
+stop_i.type = background_stopping
+stop_i.species = hep
+stop_i.background_type = ions
+stop_i.background_mass = 6.6464731e-27
+stop_i.background_charge_state = 1.
+stop_i.background_density = 1.e24
+stop_i.background_temperature = 1.e4
+"""
+
+
+def deck_sim(text, tables, device, dtype):
+    """The deck written beside the collision tables (``tables``) and built
+    through Simulation.from_deck from that file, so that its relative table
+    paths resolve against the deck's directory."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.utils.parser import Deck
+
+    path = pathlib.Path(tables) / "inputs"
+    path.write_text(text)
+    return warpx_tpu_torch.Simulation.from_deck(Deck.from_file(str(path)),
+                                                dtype=dtype, device=device)
+
+
+def collision_run(text, tables, device, dtype, steps=None):
+    """The deck through Simulation.from_deck on ``device`` on the numbers
+    of one CPU generator (``CpuDraws``); ``steps`` steps."""
+    sim = deck_sim(text, tables, device, dtype)
+    sim.draws = CpuDraws(sim.cfg.seed, device)
+    sim.init()
+    sim.evolve(-1 if steps is None else steps)
+    return sim
+
+
+def species_agree(got, ref, tol, what):
+    """Two states' species slot by slot (alive masks exactly, the rest
+    within ``tol`` of the largest magnitude); the worst relative error."""
+    worst = 0.0
+    for name, sp in ref.species.items():
+        g = got.species[name]
+        if not torch.equal(g.alive.cpu(), sp.alive.cpu()):
+            raise AssertionError(f"{what}: {name} alive masks differ")
+        for k in ("w", "ux", "uy", "uz", "x", "y", "z"):
+            a = getattr(sp, k)
+            if a is None or not a.numel():
+                continue
+            b = getattr(g, k).detach().double().cpu()
+            a = a.detach().double().cpu()
+            scale = float(a.abs().max())
+            rel = float((b - a).abs().max()) / scale if scale else 0.0
+            worst = max(worst, rel)
+            if not rel <= tol:
+                raise AssertionError(f"{what}: {name}.{k} differs by {rel} "
+                                     f"(tolerance {tol})")
+    return worst
+
+
+def phase_collision_parity(dev):
+    """Every collision kind in float64, card against CPU on the numbers of
+    one CPU generator: each collision of the 16^3 and 32^2 decks alone on
+    their initial states (species within 1e-12 of their largest values),
+    the (cell, random) order of the 16^3 electrons identical; then three
+    steps of each deck (16^3 pairwise kinds, 32^2 DSMC, MCC and stopping,
+    the bounded 32 x 64 laser-wakefield deck with MCC and stopping):
+    species and fields within 1e-9, checksums within 1e-9; then each deck
+    in float32 on the card, its checksums' spread against float64."""
+    from warpx_tpu_torch.core.state import state_from_numpy, state_to_numpy
+    from warpx_tpu_torch.core.step import collisions_substep
+    from warpx_tpu_torch.ops.collisions import cell_of, sort_by_cell
+
+    tables = tempfile.mkdtemp()
+    try:
+        write_collision_tables(tables)
+        decks = {"pairwise_16^3": collide16_deck(),
+                 "dsmc_mcc_stopping_32^2": mcc32_deck(steps=3),
+                 "lwfa_mcc_stopping_32x64": lwfa_mcc_deck(steps=3)}
+        ops = {}
+        for name in ("pairwise_16^3", "dsmc_mcc_stopping_32^2"):
+            sim = deck_sim(decks[name], tables, "cpu", torch.float64)
+            state0 = sim.init()
+            cfg = sim.cfg
+            for col in cfg.collisions:
+                one = dataclasses.replace(cfg, collisions=(col,))
+                ref = collisions_substep(state0, one, CpuDraws(cfg.seed,
+                                                               "cpu"))
+                card_state = state_from_numpy(state_to_numpy(state0),
+                                              torch.float64, dev)
+                got = collisions_substep(card_state, one,
+                                         CpuDraws(cfg.seed, dev))
+                ops[col.name] = species_agree(got, ref, 1e-12,
+                                              f"collision_parity {col.name}")
+            if name == "pairwise_16^3":
+                el = state0.species["electrons"]
+                nct = math.prod(cfg.geometry.n_cell)
+                r = torch.rand(el.capacity, dtype=torch.float64,
+                               generator=torch.Generator().manual_seed(3))
+                o_cpu = sort_by_cell(cell_of(el, cfg.geometry, nct), r)
+                card_el = state_from_numpy(state_to_numpy(state0),
+                                           torch.float64, dev).species[
+                    "electrons"]
+                o_card = sort_by_cell(cell_of(card_el, cfg.geometry, nct),
+                                      r.to(dev))
+                if not torch.equal(o_card.cpu(), o_cpu):
+                    raise AssertionError("collision_parity: the card's "
+                                         "(cell, random) order differs")
+        runs = {}
+        for name, text in decks.items():
+            card = collision_run(text, tables, dev, torch.float64)
+            cpu = collision_run(text, tables, "cpu", torch.float64)
+            worst = states_agree(card, cpu, 1e-9,
+                                 f"collision_parity {name}")
+            s64 = card.checksums()
+            worst_sum = checksums_agree(s64, cpu.checksums(), 1e-9,
+                                        f"collision_parity {name}")
+            s32 = collision_run(text, tables, dev, torch.float32).checksums()
+            spread = {g: max((abs(s32[g][q] - a) / abs(a)
+                              for q, a in ref.items()
+                              if a and q not in ("divE", "divB")),
+                             default=0.0)
+                      for g, ref in s64.items()}
+            runs[name] = {"steps": card.state.step, "bounded":
+                          card.is_bounded, "max_rel_err": worst,
+                          "checksum_max_rel_err": worst_sum,
+                          "alive": {nm: int(sp.alive.sum()) for nm, sp in
+                                    card.state.species.items()},
+                          "float32_spread": spread}
+    finally:
+        shutil.rmtree(tables, ignore_errors=True)
+    emit("collision_parity", ok=True, operators_max_rel_err=ops,
+         operator_tol=1e-12, run_tol=1e-9, runs=runs)
+
+
+# uniform-128-coulomb's plasma: density [m^-3], thermal spreads and the
+# electrons' drift (u / c)
+COULOMB_N = 1e24
+COULOMB_TH_E = 0.0044
+COULOMB_TH_P = 0.000033
+COULOMB_DRIFT = 0.001
+
+
+def coulomb_deck(n=128, steps=10):
+    """uniform-128-coulomb: electrons (10 eV) drifting at 1e-3 c through
+    protons (1 eV), 1e24 m^-3 each, 2 x 2 x 2 per cell, 10.4 um cells
+    (dt 2.0e-14 s), Yee, per particle, intra e-e and i-i and inter e-i
+    Coulomb every step (the physics of WarpX's Examples/Tests/collision
+    e-i relaxation deck).  Neither species deposits: the drift's current
+    would drive a plasma oscillation (omega_p dt 1.1) that swings the
+    drift faster than the collisions relax it, so the fields stay zero and
+    the drift's fall is the collisions' (``coulomb_drift_ratio``: nu_ei dt
+    ~ 0.0075)."""
+    lo = -n * 5.2e-6
+    sp = ""
+    for nm, st, th, drift in (("electrons", "electron", COULOMB_TH_E,
+                               COULOMB_DRIFT),
+                              ("protons", "proton", COULOMB_TH_P, 0.0)):
+        sp += f"""
+{nm}.species_type = {st}
+{nm}.injection_style = NUniformPerCell
+{nm}.num_particles_per_cell_each_dim = 2 2 2
+{nm}.profile = constant
+{nm}.density = {COULOMB_N:.0e}
+{nm}.momentum_distribution_type = gaussian
+{nm}.ux_th = {th}
+{nm}.uy_th = {th}
+{nm}.uz_th = {th}
+{nm}.uz_m = {drift}
+{nm}.do_not_deposit = 1
+"""
+    return f"""
+max_step = {steps}
+amr.n_cell = {n} {n} {n}
+geometry.dims = 3
+geometry.prob_lo = {lo} {lo} {lo}
+geometry.prob_hi = {-lo} {-lo} {-lo}
+algo.maxwell_solver = yee
+algo.current_deposition = esirkepov
+algo.particle_shape = 1
+warpx.use_filter = 0
+particles.species_names = electrons protons
+collisions.collision_names = c_ee c_ii c_ei
+c_ee.species = electrons electrons
+c_ii.species = protons protons
+c_ei.species = electrons protons
+""" + sp
+
+
+def momentum_energy(state, cfg, names):
+    """(Sum w m u per axis, Sum w m |u| per axis, Sum w m c^2 (gamma - 1))
+    over the alive slots of the species ``names``, in float64 on the
+    device."""
+    p = torch.zeros(3, dtype=torch.float64, device=state.fields.Ex.device)
+    pa = torch.zeros_like(p)
+    e = torch.zeros((), dtype=torch.float64, device=p.device)
+    for s in cfg.species:
+        if s.name not in names:
+            continue
+        sp = state.species[s.name]
+        w = torch.where(sp.alive, sp.w, 0.0).double()
+        u = torch.stack([sp.ux, sp.uy, sp.uz]).double()
+        p += s.mass * (w * u).sum(1)
+        pa += s.mass * (w * u.abs()).sum(1)
+        u2 = (u * u).sum(0) / C_LIGHT ** 2
+        e += s.mass * C_LIGHT ** 2 * (w * u2 / (1 + torch.sqrt(1 + u2))).sum()
+    return p.cpu().numpy(), pa.cpu().numpy(), float(e)
+
+
+def drift_difference(state):
+    """<uz_e> - <uz_p> over the alive slots, in units of c."""
+    out = []
+    for nm in ("electrons", "protons"):
+        sp = state.species[nm]
+        out.append(float(sp.uz[sp.alive].double().mean()) / C_LIGHT)
+    return out[0] - out[1]
+
+
+def coulomb_drift_ratio(dt, steps):
+    """The drift difference's expected ratio after ``steps`` e-i
+    collisions of ``dt``: exp(-nu (1 + m_e / m_p) steps dt) with the
+    Braginskii / NRL rate of a slowly drifting Maxwellian on cold ions,
+    nu = 4 sqrt(2 pi) n e^4 lnL / (3 (4 pi ep0)^2 sqrt(m_e) T_e^1.5), and
+    lnL the port's own Coulomb logarithm (``ops/collisions.py``: bmax the
+    two species' Debye length or the atomic spacing, bmin the larger of
+    hbar / 2p and b0 / 2, at least 2, sigma capped at 1 / (n rmin))
+    averaged with the Lorentz gas's weight 2x exp(-x^2), x = v / (sqrt 2
+    v_th).  It leaves out the drift's own size (u / v_th 0.23) and the
+    8-particle cells' temperature estimate."""
+    ep0, n = 8.8541878128e-12, COULOMB_N
+    Te = M_E * (COULOMB_TH_E * C_LIGHT) ** 2
+    Tp = M_P * (COULOMB_TH_P * C_LIGHT) ** 2
+    lmd = (n * Q_E ** 2 / ep0 * (1 / Te + 1 / Tp)) ** -0.5
+    rmin = (4 * math.pi / 3 * n) ** (-1 / 3)
+    mu = M_E * M_P / (M_E + M_P)
+    x = np.linspace(1e-6, 6.0, 200001)
+    v = math.sqrt(2) * COULOMB_TH_E * C_LIGHT * x
+    b0 = Q_E ** 2 / (2 * math.pi * ep0 * mu * v ** 2)
+    bmin = np.maximum(HBAR / (2 * mu * v), 0.5 * b0)
+    lnL = np.maximum(0.5 * np.log1p((max(lmd, rmin) / bmin) ** 2), 2.0)
+    lnL = np.minimum(lnL, 1 / (n * rmin) / (math.pi * b0 ** 2))
+    w = 2 * x * np.exp(-x * x)
+    lnL_eff = float(np.sum(0.5 * (w[1:] * lnL[1:] + w[:-1] * lnL[:-1])
+                           * np.diff(x)))
+    nu = (4 * math.sqrt(2 * math.pi) * n * Q_E ** 4 * lnL_eff
+          / (3 * (4 * math.pi * ep0) ** 2 * math.sqrt(M_E) * Te ** 1.5))
+    return math.exp(-nu * (1 + M_E / M_P) * steps * dt), lnL_eff
+
+
+# each collision alone, equal weights, float32, against the colliding
+# species' Sum w m |u| and kinetic energy (H100 readings: see PERF.md)
+TOL_COLLIDE_MOMENTUM = 1e-8
+TOL_COLLIDE_ENERGY = 1e-6
+# the drift's fall, 1 - ratio, within this share of coulomb_drift_ratio's
+COULOMB_FALL_BAND = 0.25
+
+
+def phase_main_coulomb(dev, smi, n=128, steps=10, n_share=32):
+    """uniform-128-coulomb (``coulomb_deck``), float32, per particle:
+    each collision alone on the initial state conserves Sum w m u (per
+    axis, against the colliding species' Sum w m |u|) to
+    TOL_COLLIDE_MOMENTUM and their kinetic energy to TOL_COLLIDE_ENERGY
+    (equal weights: float32 roundoff of the scaled update); ``steps``
+    steps timed with each collision's device ms; the drift difference's
+    fall lies within COULOMB_FALL_BAND of ``coulomb_drift_ratio``'s; then
+    at ``n_share``^3 the share
+    of the electrons' momenta that one intra collision changes in float32
+    is at least 0.9 of float64's on the same draws (the JAX package's
+    float32 form changes none)."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.core.step import collisions_substep
+    from warpx_tpu_torch.ops import collisions as col_mod
+    from warpx_tpu_torch.utils.parser import Deck
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # one step past ``steps`` for the profiled step (and no closing
+    # half-push inside the timed ones)
+    sim = warpx_tpu_torch.Simulation.from_deck(
+        Deck.from_string(coulomb_deck(n, steps + 1)), dtype=torch.float32,
+        device=dev)
+    if sim.binned:
+        raise AssertionError("main_coulomb took the tile-binned step")
+    sim.init()
+    init_s = time.perf_counter() - t0
+    cfg = sim.cfg
+    state0 = sim.state
+    conserve = {}
+    for col in cfg.collisions:
+        one = dataclasses.replace(cfg, collisions=(col,))
+        after = collisions_substep(state0, one, CpuDraws(cfg.seed, dev))
+        p0, pa0, e0 = momentum_energy(state0, cfg, col.species)
+        p1, _, e1 = momentum_energy(after, cfg, col.species)
+        changed = float(sum(
+            (getattr(after.species[s], k) != getattr(state0.species[s], k))
+            .double().mean() for s in set(col.species)
+            for k in ("ux",))) / len(set(col.species))
+        rec = {"momentum_rel": float(np.abs(p1 - p0).max() / pa0.max()),
+               "energy_rel": abs(e1 - e0) / e0, "changed_share": changed}
+        conserve[col.name] = rec
+        if not (rec["momentum_rel"] <= TOL_COLLIDE_MOMENTUM
+                and rec["energy_rel"] <= TOL_COLLIDE_ENERGY
+                and changed > 0.2):
+            raise AssertionError(f"main_coulomb: {col.name} {rec}")
+    del after
+    vd0 = drift_difference(state0)
+    with timed_fn(col_mod, "intra_species_coulomb") as intra, \
+            timed_fn(col_mod, "inter_species_coulomb") as inter:
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(steps + 1)]
+        marks[0].record()
+        for mark in marks[1:]:
+            sim.evolve(1)
+            mark.record()
+        marks[-1].synchronize()
+        ms_steps = [marks[i].elapsed_time(marks[i + 1])
+                    for i in range(steps)]
+        intra_ms, inter_ms = intra.ms(), inter.ms()
+    vd1 = drift_difference(sim.state)
+    expect, lnL_eff = coulomb_drift_ratio(cfg.dt, steps)
+    fall, fall_expect = 1 - vd1 / vd0, 1 - expect
+    if not abs(fall - fall_expect) <= COULOMB_FALL_BAND * fall_expect:
+        raise AssertionError(f"main_coulomb: the drift difference went "
+                             f"from {vd0} to {vd1}, a fall of {fall} "
+                             f"against {fall_expect}")
+    for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"):
+        if not bool(torch.isfinite(getattr(sim.state.fields, nm)).all()):
+            raise AssertionError(f"main_coulomb: {nm} not finite")
+    breakdown = profile_steps(sim, 1)
+    peak = torch.cuda.max_memory_allocated()
+    slots = sum(s.capacity for s in sim.state.species.values())
+    del sim, state0
+    torch.cuda.empty_cache()
+
+    # float32 against float64 on the same draws at n_share^3
+    small = warpx_tpu_torch.Simulation.from_deck(
+        Deck.from_string(coulomb_deck(n_share, 1)), dtype=torch.float64,
+        device=dev)
+    st64 = small.init()
+    el64 = st64.species["electrons"]
+    el32 = el64.replace(**{k: getattr(el64, k).float() for k in (
+        "w", "ux", "uy", "uz", "x", "y", "z")})
+    share = {}
+    for nm, el in (("float64", el64), ("float32", el32)):
+        out = col_mod.intra_species_coulomb(
+            el, -Q_E, M_E, small.cfg.geometry, small.cfg.dt,
+            CastDraws(small.cfg.seed, dev))
+        share[nm] = float(((out.ux != el.ux) & el.alive).double().sum()
+                          / el.alive.double().sum())
+    if not share["float32"] >= 0.9 * share["float64"] > 0:
+        raise AssertionError(f"main_coulomb: float32 changed {share}")
+    emit("main_coulomb", ok=True, n_cell=(n, n, n), slots=slots,
+         dt=cfg.dt, steps=steps, init_s=init_s,
+         ms_per_step=sum(ms_steps) / steps,
+         ms_each_step=[round(m, 3) for m in ms_steps],
+         intra_ms_each=[round(m, 3) for m in intra_ms],
+         inter_ms_each=[round(m, 3) for m in inter_ms],
+         intra_ms_per_call=sum(intra_ms) / len(intra_ms),
+         inter_ms_per_call=sum(inter_ms) / len(inter_ms),
+         conservation=conserve, momentum_tol=TOL_COLLIDE_MOMENTUM,
+         energy_tol=TOL_COLLIDE_ENERGY,
+         drift_difference={"start": vd0, "end": vd1, "ratio": vd1 / vd0,
+                           "expected_ratio": expect, "lnL_eff": lnL_eff,
+                           "fall_band": COULOMB_FALL_BAND},
+         changed_share_at=n_share, changed_share=share,
+         device_busy_share=breakdown["device_busy_share"],
+         peak_memory_bytes=peak,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    emit("main_coulomb_profile", steps=1, **breakdown)
+
+
+FUSION_Q = {"dt": 17.5893e6 * Q_E, "protonboron": (5.55610759e6
+                                                    + 3.12600414e6) * Q_E}
+TOL_FUSION_EVENT = 1e-5
+
+
+def fusion_deck(n=128, steps=10):
+    """fusion-128: deuterium and tritium at 10 keV, 1e26 m^-3, 4 a cell
+    each (NRandomPerCell), multiplier 60 (~5e3 D-T events a step), and
+    protons at ~560 keV against boron-11 at 1 a cell each, multiplier
+    100 (~3e4 events a step), alphas as products; every pair's
+    probability under the 0.02 threshold; no field solve and frozen
+    reactants, as tests/test_fusion.py configures its boxes; dt 1 ns."""
+    sp = ""
+    for nm, st, ppc, th, uz in (("deut", "hydrogen2", 4, 0.0023, 0.0),
+                                ("trit", "hydrogen3", 4, 0.0019, 0.0),
+                                ("prot", "hydrogen1", 1, 0.001, 0.036),
+                                ("boron", "boron11", 1, 0.0003, 0.0)):
+        sp += f"""
+{nm}.species_type = {st}
+{nm}.injection_style = NRandomPerCell
+{nm}.num_particles_per_cell = {ppc}
+{nm}.profile = constant
+{nm}.density = 1.e26
+{nm}.momentum_distribution_type = gaussian
+{nm}.ux_th = {th}
+{nm}.uy_th = {th}
+{nm}.uz_th = {th}
+{nm}.uz_m = {uz}
+{nm}.do_not_push = 1
+{nm}.do_not_deposit = 1
+"""
+    for nm, st in (("alpha", "helium4"), ("neutron", "neutron"),
+                   ("alpha_pb", "helium4")):
+        sp += f"""
+{nm}.species_type = {st}
+{nm}.injection_style = none
+{nm}.do_not_push = 1
+{nm}.do_not_deposit = 1
+"""
+    return f"""
+max_step = {steps}
+amr.n_cell = {n} {n} {n}
+geometry.dims = 3
+geometry.prob_lo = 0. 0. 0.
+geometry.prob_hi = {n * 1e-6} {n * 1e-6} {n * 1e-6}
+warpx.const_dt = 1.e-9
+algo.maxwell_solver = none
+warpx.use_filter = 0
+particles.species_names = deut trit prot boron alpha neutron alpha_pb
+collisions.collision_names = dt pb
+dt.type = nuclearfusion
+dt.species = deut trit
+dt.product_species = alpha neutron
+dt.fusion_multiplier = 60.
+pb.type = nuclearfusion
+pb.species = prot boron
+pb.product_species = alpha_pb
+pb.fusion_multiplier = 100.
+""" + sp
+
+
+CLEAN_STEPS = 3
+
+
+def clean_steps(sim, *fns):
+    """CLEAN_STEPS steps timed with CUDA events, with the device ms of
+    each call of ``fns`` (module, name, module, name, ...); returns (ms a
+    step, ms of each call of the first function, or a dict by name when
+    there are several)."""
+    with contextlib.ExitStack() as stack:
+        timers = [stack.enter_context(timed_fn(m, nm))
+                  for m, nm in zip(fns[::2], fns[1::2])]
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(CLEAN_STEPS + 1)]
+        marks[0].record()
+        for mark in marks[1:]:
+            sim.evolve(1)
+            mark.record()
+        marks[-1].synchronize()
+        ms = [marks[i].elapsed_time(marks[i + 1])
+              for i in range(CLEAN_STEPS)]
+        calls = {nm: t.ms() for nm, t in zip(fns[1::2], timers)}
+    return ms, (calls[fns[1]] if len(calls) == 1 else calls)
+
+
+def kinetic(m, u):
+    """Kinetic energy m c^2 (gamma - 1) of proper velocities ``u`` (3, N),
+    float64."""
+    u2 = (u * u).sum(0) / C_LIGHT ** 2
+    return m * C_LIGHT ** 2 * u2 / (1 + np.sqrt(1 + u2))
+
+
+def phase_main_fusion(dev, smi, n=128, steps=10):
+    """fusion-128 (``fusion_deck``), float32: ``steps`` steps with every
+    call of the event kernel recorded.  Each step: the events against the
+    sum of the pairs' probabilities evaluated in float64 on the same pairs
+    (5 sigma over the run); every event's products against its reactants
+    (momentum to TOL_FUSION_EVENT of the products' momentum, kinetic energy
+    gained to TOL_FUSION_EVENT of the released energy); the reactants'
+    weight lost against the products' weight (D-T: equal; p-B11: 2/3);
+    every event placed (no product dropped).  Then CLEAN_STEPS steps
+    without the checks: ms a step and each fusion's device ms."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.ops import fusion as fus
+    from warpx_tpu_torch.utils.parser import Deck
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = warpx_tpu_torch.Simulation.from_deck(
+        Deck.from_string(fusion_deck(n, steps + CLEAN_STEPS + 1)),
+        dtype=torch.float32, device=dev)
+    sim.init()
+    init_s = time.perf_counter() - t0
+    cfg = sim.cfg
+    by = {s.name: s for s in cfg.species}
+    dV = cfg.geometry.cell_volume
+    calls = []
+    orig = fus.fusion_event_weight
+
+    def record(key, u1, m1, w1, u2, m2, w2, kind, dt, dV_, fm, mr, thr,
+               tgt):
+        fuse, w_r = orig(key, u1, m1, w1, u2, m2, w2, kind, dt, dV_, fm, mr,
+                         thr, tgt)
+        # the float64 expectation on the same pairs
+        d = [tuple(x.double() for x in u) for u in (u1, u2)]
+        E, v, l2c = fus.collision_parameters(d[0], d[1], m1, m2)
+        sig = (fus.proton_boron_cross_section(E) if kind == "protonboron"
+               else fus.bosch_hale_cross_section(E, kind, m1, m2))
+        p_est = (sig * v * (fm * dt / dV_) * mr.double() * l2c
+                 * torch.maximum(w1, w2).double())
+        if float(p_est.max()) > thr:
+            raise AssertionError("main_fusion: a pair crossed the "
+                                 "probability threshold")
+        prob = -torch.expm1(-p_est)
+        sel = fuse.nonzero().squeeze(1)
+        calls.append({"kind": kind, "events": int(fuse.sum()),
+                      "sum_prob": float(prob.sum()),
+                      "var": float((prob * (1 - prob)).sum()),
+                      "u1": torch.stack(u1)[:, sel].double().cpu().numpy(),
+                      "u2": torch.stack(u2)[:, sel].double().cpu().numpy(),
+                      "w_r": w_r[sel].double().cpu().numpy(),
+                      "m": (m1, m2)})
+        return fuse, w_r
+
+    names = ("deut", "trit", "prot", "boron", "alpha", "neutron",
+             "alpha_pb")
+    checks = {"dt": [], "protonboron": []}
+    fus.fusion_event_weight = record
+    try:
+        for _ in range(steps):
+            before = {nm: (int(sim.state.species[nm].alive.sum()),
+                           sim.state.species[nm].w.double().sum().item())
+                      for nm in names}
+            ncall = len(calls)
+            sim.evolve(1)
+            sp = sim.state.species
+            for rec in calls[ncall:]:
+                kind = rec["kind"]
+                E = rec["events"]
+                prods = (("alpha", "neutron") if kind == "dt"
+                         else ("alpha_pb",))
+                reac = ("deut", "trit") if kind == "dt" else ("prot",
+                                                              "boron")
+                per_event = 2 if kind == "dt" else 6
+                made = {p: int(sp[p].alive.sum()) - before[p][0]
+                        for p in prods}
+                if any(v != per_event * E for v in made.values()):
+                    raise AssertionError(f"main_fusion: {kind} made "
+                                         f"{made} for {E} events")
+                # per event: the first block of each product species
+                blocks = []
+                for p in prods:
+                    n0 = before[p][0]
+                    s = sp[p]
+                    u = torch.stack([s.ux, s.uy, s.uz])[
+                        :, n0:n0 + per_event * E].double().cpu().numpy()
+                    blocks += [u[:, k * E:(k + 1) * E]
+                               for k in range(0, per_event, 2)]
+                m1, m2 = rec["m"]
+                mp = [by[p].mass for p in prods for _ in
+                      range(per_event // 2)] if kind == "dt" else [
+                    by["alpha_pb"].mass] * 3
+                p_in = m1 * rec["u1"] + m2 * rec["u2"]
+                p_out = sum(m * u for m, u in zip(mp, blocks))
+                p_scale = max(np.abs(m * u).max() for m, u in
+                              zip(mp, blocks)) if E else 1.0
+                k_in = kinetic(m1, rec["u1"]) + kinetic(m2, rec["u2"])
+                k_out = sum(kinetic(m, u) for m, u in zip(mp, blocks))
+                q = FUSION_Q[kind]
+                mom_err = float(np.abs(p_out - p_in).max() / p_scale) \
+                    if E else 0.0
+                en_err = float(np.abs(k_out - k_in - q).max() / q) \
+                    if E else 0.0
+                lost = sum(before[r][1] - sp[r].w.double().sum().item()
+                           for r in reac)
+                gained = sum(sp[p].w.double().sum().item() - before[p][1]
+                             for p in prods)
+                ratio = 1.0 if kind == "dt" else 2.0 / 3.0
+                w_err = abs(lost - ratio * gained) / max(abs(lost), 1e-30)
+                checks[kind].append({"events": E,
+                                     "sum_prob": rec["sum_prob"],
+                                     "momentum_rel": mom_err,
+                                     "energy_rel": en_err,
+                                     "weight_rel": w_err})
+                if not (mom_err <= TOL_FUSION_EVENT
+                        and en_err <= TOL_FUSION_EVENT
+                        and w_err <= TOL_FUSION_EVENT):
+                    raise AssertionError(f"main_fusion: {kind} "
+                                         f"{checks[kind][-1]}")
+    finally:
+        fus.fusion_event_weight = orig
+    ms_steps, op_ms = clean_steps(sim, fus, "fusion_collision_update")
+    yields = {}
+    for kind in ("dt", "protonboron"):
+        recs = [c for c in calls if c["kind"] == kind]
+        got = sum(c["events"] for c in recs)
+        exp_n = sum(c["sum_prob"] for c in recs)
+        sig = max(sum(c["var"] for c in recs), 1.0) ** 0.5
+        yields[kind] = {"events": got, "expected": exp_n, "sigma": sig,
+                        "z": (got - exp_n) / sig}
+        if not (abs(got - exp_n) <= 5 * sig and got > 0):
+            raise AssertionError(f"main_fusion: {kind} {yields[kind]}")
+    breakdown = profile_steps(sim, 1)
+    emit("main_fusion", ok=True, n_cell=(n, n, n),
+         slots={nm: s.capacity for nm, s in sim.state.species.items()},
+         steps=steps, init_s=init_s, timed_steps=CLEAN_STEPS,
+         ms_per_step=sum(ms_steps) / len(ms_steps),
+         ms_each_step=[round(m, 3) for m in ms_steps],
+         fusion_ms_each=[round(m, 3) for m in op_ms], yields=yields,
+         worst={k: {q: max(c[q] for c in v) for q in
+                    ("momentum_rel", "energy_rel", "weight_rel")}
+                for k, v in checks.items()},
+         event_tol=TOL_FUSION_EVENT,
+         device_busy_share=breakdown["device_busy_share"],
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    emit("main_fusion_profile", steps=1, **breakdown)
+
+
+def mcc128_deck(n=128, steps=10):
+    """mcc-dsmc-128: a 1 um-cell box (no field solve): electrons (~700
+    eV, 4 a cell) on a 1e22 m^-3 helium background with MCC elastic
+    scattering and ionization into He+ ('hep'); He+ and He ('he') at 4 a
+    cell each with DSMC elastic and charge exchange; He+ stopping on a
+    background of electrons (1e24 m^-3, 5e4 K); the tables of
+    ``write_collision_tables``."""
+    sp = ""
+    for nm, st, q, th, dens in (
+            ("electrons", "electron", "", 0.03, 1e20),
+            ("hep", "helium", "hep.charge = q_e\n", 0.0003, 1e20),
+            ("he", "helium", "he.charge = 0.\n", 0.00001, 1e22)):
+        sp += f"""
+{nm}.species_type = {st}
+{q}{nm}.injection_style = NUniformPerCell
+{nm}.num_particles_per_cell_each_dim = 2 2 1
+{nm}.profile = constant
+{nm}.density = {dens}
+{nm}.momentum_distribution_type = gaussian
+{nm}.ux_th = {th}
+{nm}.uy_th = {th}
+{nm}.uz_th = {th}
+{nm}.do_not_deposit = 1
+"""
+    return f"""
+max_step = {steps}
+amr.n_cell = {n} {n} {n}
+geometry.dims = 3
+geometry.prob_lo = 0. 0. 0.
+geometry.prob_hi = {n * 1e-6} {n * 1e-6} {n * 1e-6}
+warpx.const_dt = 2.e-12
+algo.maxwell_solver = none
+warpx.use_filter = 0
+particles.species_names = electrons hep he
+collisions.collision_names = dsmc1 mcc1 stop_i
+dsmc1.type = dsmc
+dsmc1.species = hep he
+dsmc1.scattering_processes = elastic charge_exchange
+dsmc1.elastic_cross_section = d_el.dat
+dsmc1.charge_exchange_cross_section = d_cx.dat
+mcc1.type = background_mcc
+mcc1.species = electrons
+mcc1.background_density = 1.e22
+mcc1.background_temperature = 300.
+mcc1.ionization_species = hep
+mcc1.scattering_processes = elastic ionization
+mcc1.elastic_cross_section = el.dat
+mcc1.ionization_cross_section = iz.dat
+mcc1.ionization_energy = 24.6
+stop_i.type = background_stopping
+stop_i.species = hep
+stop_i.background_type = electrons
+stop_i.background_density = 1.e24
+stop_i.background_temperature = 5.e4
+""" + sp
+
+
+EPS0 = 8.8541878128e-12
+K_B = 1.380649e-23
+
+
+def stopping_scale_host(q, m, n_b, T_K, M_bg, dt):
+    """exp(-alpha dt) of a species slowing on an electron background, the
+    NRL low-velocity rate of BackgroundStopping.cpp:141-147 evaluated on
+    the host in float64 from its SI form."""
+    T = K_B * T_K
+    vth = np.sqrt(3 * T / M_bg)
+    wp = np.sqrt(n_b * Q_E ** 2 / (EPS0 * M_bg))
+    ll = np.log(12 * np.pi / abs(q / Q_E) * n_b * (vth / wp) ** 3)
+    alpha = (np.sqrt(2) * n_b * q ** 2 * Q_E ** 2 * np.sqrt(M_bg) * ll
+             / (12 * np.pi ** 1.5 * EPS0 ** 2 * m * T ** 1.5))
+    return float(np.exp(-alpha * dt))
+
+
+def phase_main_mcc_dsmc(dev, smi, n=128, steps=10):
+    """mcc-dsmc-128 (``mcc128_deck``), float32, ``steps`` steps, each MCC
+    and ionization pass and the stopping recorded: the scattered electrons
+    and the ionizations of the run within 5 sigma of N p_coll and of the
+    sum of the ionization probabilities (float64, on the same electrons);
+    He+ scaled by the host's closed form of the stopping to 1e-5; every
+    ionization placed.  After the run one DSMC collision with charge
+    exchange alone (its cross section x 1000) swaps momenta: each changed
+    He+ momentum is an old He momentum and the reverse.  Then CLEAN_STEPS
+    steps without the checks: ms a step and each operator's device ms."""
+    from warpx_tpu_torch.core.step import collisions_substep
+    from warpx_tpu_torch.ops import dsmc as dsmc_mod
+    from warpx_tpu_torch.ops import mcc as mcc_mod
+    from warpx_tpu_torch.ops import stopping as stop_mod
+
+    tables = tempfile.mkdtemp()
+    try:
+        write_collision_tables(tables)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sim = deck_sim(mcc128_deck(n, steps + CLEAN_STEPS + 1), tables, dev,
+                       torch.float32)
+        sim.init()
+        init_s = time.perf_counter() - t0
+        cfg = sim.cfg
+        col_i = next(c for c in cfg.collisions if c.kind == "background_mcc")
+        stats = {"scatter": [0, 0.0, 0.0], "ionize": [0, 0.0, 0.0]}
+        stop_err = [0.0]
+        orig = (mcc_mod.apply_mcc_scattering, mcc_mod.apply_mcc_ionization,
+                stop_mod.apply_background_stopping)
+
+        def scatter(key, sp, *a, **kw):
+            out = orig[0](key, sp, *a, **kw)
+            moved = int((out.ux != sp.ux).sum())
+            nal = float(sp.alive.sum())
+            p = kw["p_coll"]
+            s = stats["scatter"]
+            s[0] += moved
+            s[1] += nal * p
+            s[2] += nal * p * (1 - p)
+            return out
+
+        def ionize(key, sp_e, sp_ion, *a, **kw):
+            out = orig[1](key, sp_e, sp_ion, *a, **kw)
+            u = torch.stack([sp_e.ux, sp_e.uy, sp_e.uz]).double() / C_LIGHT
+            u2 = (u * u).sum(0)
+            e_ev = u2 / (1 + torch.sqrt(1 + u2)) * M_E * C_LIGHT ** 2 / Q_E
+            proc = kw["proc"]
+            sig = mcc_mod._sigma_at(e_ev, proc.energies, proc.sigmas)
+            nu = 1e22 * sig * torch.sqrt(u2) * C_LIGHT / kw["nu_max_ioniz"]
+            p = kw["p_coll_ioniz"] * torch.clamp(nu, max=1.0) * sp_e.alive
+            made = int(out[1].alive.sum() - sp_ion.alive.sum())
+            if made != int(out[0].alive.sum() - sp_e.alive.sum()):
+                raise AssertionError("main_mcc_dsmc: secondaries and ions "
+                                     "differ")
+            s = stats["ionize"]
+            s[0] += made
+            s[1] += float(p.sum())
+            s[2] += float((p * (1 - p)).sum())
+            return out
+
+        def stopping(sp, *a, **kw):
+            out = orig[2](sp, *a, **kw)
+            ref = stopping_scale_host(kw["q"], kw["m"], 1e24, 5e4,
+                                      kw["M_bg"], kw["dt"])
+            keep = sp.alive & (sp.ux != 0)
+            got = (out.ux[keep].double() / sp.ux[keep].double())
+            stop_err[0] = max(stop_err[0],
+                              float((got / ref - 1).abs().max()))
+            return out
+
+        mcc_mod.apply_mcc_scattering = scatter
+        mcc_mod.apply_mcc_ionization = ionize
+        stop_mod.apply_background_stopping = stopping
+        try:
+            sim.evolve(steps)
+        finally:
+            (mcc_mod.apply_mcc_scattering, mcc_mod.apply_mcc_ionization,
+             stop_mod.apply_background_stopping) = orig
+        ms_steps, op_ms = clean_steps(
+            sim, mcc_mod, "mcc_collision_update", dsmc_mod,
+            "dsmc_collision_update", stop_mod, "stopping_collision_update")
+        checks = {}
+        for nm, (got, exp_n, var) in stats.items():
+            sig = max(var, 1.0) ** 0.5
+            checks[nm] = {"events": got, "expected": exp_n, "sigma": sig,
+                          "z": (got - exp_n) / sig}
+            if not (abs(got - exp_n) <= 5 * sig and got > 0):
+                raise AssertionError(f"main_mcc_dsmc: {nm} {checks[nm]}")
+        if not stop_err[0] <= 1e-5:
+            raise AssertionError(f"main_mcc_dsmc: stopping {stop_err[0]} "
+                                 "off its closed form")
+        # charge exchange alone: a swap of momenta
+        col_d = next(c for c in cfg.collisions if c.kind == "dsmc")
+        # (its cross section x 1000, so that most pairs exchange)
+        cx = dataclasses.replace(col_d, processes=tuple(
+            dataclasses.replace(p, sigmas=tuple(1e3 * v for v in p.sigmas))
+            for p in col_d.processes if p.kind == "charge_exchange"))
+        st = sim.state
+        after = collisions_substep(st, dataclasses.replace(
+            cfg, collisions=(cx,)), sim.draws)
+        swaps = {}
+        for a, b in (("hep", "he"), ("he", "hep")):
+            old, new = st.species[a], after.species[a]
+            ch = (new.ux != old.ux) & old.alive
+            vals = new.ux[ch]
+            pool = st.species[b].ux[st.species[b].alive]
+            hits = torch.isin(vals, pool)
+            swaps[a] = {"changed": int(ch.sum()),
+                        "partner_values": int(hits.sum())}
+            if not (int(ch.sum()) > 0 and bool(hits.all())):
+                raise AssertionError(f"main_mcc_dsmc: charge exchange "
+                                     f"{swaps}")
+        del after
+        breakdown = profile_steps(sim, 1)
+        emit("main_mcc_dsmc", ok=True, n_cell=(n, n, n),
+             slots={nm: s.capacity for nm, s in sim.state.species.items()},
+             alive_end={nm: int(s.alive.sum())
+                        for nm, s in sim.state.species.items()},
+             steps=steps, init_s=init_s, timed_steps=CLEAN_STEPS,
+             ms_per_step=sum(ms_steps) / len(ms_steps),
+             ms_each_step=[round(m, 3) for m in ms_steps],
+             op_ms_per_call={k: sum(v) / len(v) for k, v in op_ms.items()},
+             events=checks, stopping_max_rel_err=stop_err[0],
+             charge_exchange=swaps, mcc_ionization_species=col_i.
+             ionization_species,
+             device_busy_share=breakdown["device_busy_share"],
+             peak_memory_bytes=torch.cuda.max_memory_allocated(),
+             device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+        emit("main_mcc_dsmc_profile", steps=1, **breakdown)
+    finally:
+        shutil.rmtree(tables, ignore_errors=True)
+
+
 def main() -> int:
     """Every phase in order."""
     if not torch.cuda.is_available():
@@ -5195,6 +6250,7 @@ def main() -> int:
     variants = phase_psatd_variants_parity(dev)
     phase_boosted_parity(dev)
     phase_stochastic_parity(dev)
+    phase_collision_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
     k1_row["launches_by_path"] = {"main": k1_row["launches"]}
     phase_main_psatd(dev, smi, k1_row, k3_row)
@@ -5233,6 +6289,12 @@ def main() -> int:
     phase_main_schwinger(dev, smi)
     torch.cuda.empty_cache()
     phase_main_resampling(dev, smi, k1_row, k3_row)
+    torch.cuda.empty_cache()
+    phase_main_coulomb(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_fusion(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_mcc_dsmc(dev, smi)
     torch.cuda.empty_cache()
     lab_rows = phase_labs(dev)
     print(smi)

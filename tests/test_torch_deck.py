@@ -224,8 +224,13 @@ electrons.density = 1.e24
     ("algo.maxwell_solver = hybrid", "Queue A 11.3"),
     ("warpx.do_electrostatic = labframe", "Queue A 11.3"),
     ("algo.evolve_scheme = theta_implicit_em", "Queue A 11.3"),
-    ("collisions.collision_names = c1\nc1.species = electrons electrons",
-     "Queue A 11.1"),
+    # collisions run since Queue A 11.1; a collision key neither reader
+    # reads still raises, naming the item (the case keeps its id)
+    pytest.param(
+        "collisions.collision_names = c1\nc1.species = electrons electrons\n"
+        "c1.frobnicate = 1", "Queue A 11.1",
+        id="collisions.collision_names = c1\nc1.species = electrons "
+           "electrons-Queue A 11.1"),
     ("lasers.names = laser1\nlaser1.delay = 1.e-15", "Queue A 11.2"),
     ("electrons.rigid_advance = 0", "Queue A 11.4"),
     ("electrons.zinject_plane = 0.", "Queue A 11.4"),

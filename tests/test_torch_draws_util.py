@@ -1,5 +1,6 @@
 """Helpers shared by the tests of the port's stochastic operators
-(``tests/test_torch_{ionization,qed,radiation_reaction,resampling}.py``): a
+(``tests/test_torch_{ionization,qed,radiation_reaction,resampling,coulomb,
+fusion,dsmc_mcc}.py``): a
 draw source that follows the JAX package's key chain, so that the port runs
 on the very numbers ``jax.random`` gave the JAX package, and the runs of a
 deck through both packages."""
@@ -32,9 +33,18 @@ class _Leaf:
         return torch.from_numpy(np.asarray(a).copy()).to(
             device=self.device, dtype=dtype)
 
-    def uniform(self, shape, dtype):
+    def split(self, n):
+        """``jax.random.split(key, n)``, every subkey handed back."""
+        return tuple(_Leaf(k, self.device)
+                     for k in jax.random.split(self.key, n))
+
+    def fold_in(self, i):
+        return _Leaf(jax.random.fold_in(self.key, i), self.device)
+
+    def uniform(self, shape, dtype, lo=0.0, hi=1.0):
         return self._t(jax.random.uniform(self.key, tuple(shape),
-                                          dtype=_JDTYPE[dtype]), dtype)
+                                          dtype=_JDTYPE[dtype], minval=lo,
+                                          maxval=hi), dtype)
 
     def normal(self, shape, dtype):
         return self._t(jax.random.normal(self.key, tuple(shape),

@@ -77,6 +77,10 @@ def binned_supported(cfg: SimConfig) -> bool:
     # binned layout after the step
     if cfg.do_qed_schwinger:
         return False
+    # the JAX package's binned gates refuse every collision
+    # (``binned_step.py:70``): collision decks run per particle
+    if cfg.collisions:
+        return False
     for sp in cfg.species:
         if (sp.do_not_push or sp.do_not_deposit or sp.do_not_gather
                 or sp.species_type == "photon" or sp.mass == 0.0
@@ -122,6 +126,8 @@ def bounded_binned_supported(cfg: SimConfig) -> bool:
     if cfg.do_dive_cleaning or cfg.do_divb_cleaning:
         return False
     if cfg.do_moving_window and cfg.moving_window_dir != geom.ndim - 1:
+        return False
+    if cfg.collisions:  # the JAX package's ``binned_step.py:127``
         return False
     if any(n % t for n, t in zip(geom.n_cell, cfg.tile_size[-geom.ndim:])):
         return False

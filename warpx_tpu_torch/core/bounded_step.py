@@ -89,7 +89,8 @@ from .injection import (PARSED_PROFILES, _AXES3, _bulk_momentum,
                         _regular_unit_positions, profile_values)
 from .laser import update_antenna
 from .state import SimState
-from .step import _add_ext, galilean_velocity, ionization_substep
+from .step import (_add_ext, collisions_substep, galilean_velocity,
+                   ionization_substep)
 
 __all__ = ["BoundedStepper", "guard_width", "field_shapes",
            "check_bounded_supported", "needs_bounded_step"]
@@ -189,6 +190,12 @@ def check_bounded_supported(cfg: SimConfig) -> None:
     if cfg.do_qed_schwinger:
         no("Schwinger pair creation on the bounded step (the JAX package's "
            "bounded step skips it)", "Queue C")
+    for col in cfg.collisions:
+        if col.kind not in ("background_mcc", "background_stopping"):
+            # the JAX package's bounded step runs only MCC and stopping
+            # and would drop these silently
+            no(f"{col.kind} collision {col.name!r} on the bounded step (the "
+               "JAX package's bounded step skips it)", "Queue C")
     if cfg.do_moving_window and not 0 <= cfg.moving_window_dir < ndim:
         raise ValueError("moving_window_dir must be an active-axis index")
     laser_names = {las.name for las in cfg.lasers}
@@ -673,8 +680,9 @@ class BoundedStepper:
 
     # ------------------------------------------------------------- step_main
     def step_main(self, state: SimState, draws=None) -> SimState:
-        """The per-particle bounded step: field ionization on the numbers of
-        ``draws`` (a ``utils.draws`` source), gather on the padded blocks (of
+        """The per-particle bounded step: background MCC and stopping
+        collisions and field ionization on the numbers of ``draws`` (a
+        ``utils.draws`` source), gather on the padded blocks (of
         the time-averaged fields under averaged PSATD), push (photons
         stream at c), deposit J (Esirkepov or direct) and, for
         update-with-rho and current correction, rho at the start and end of
@@ -690,6 +698,14 @@ class BoundedStepper:
         farr_pad = self._padded_eb(
             state.fields,
             use_avg=cfg.em_solver == "psatd" and cfg.psatd_time_averaging)
+        if any(c.kind == "background_mcc" for c in cfg.collisions) and (
+                draws is None):
+            raise ValueError("MCC collisions draw random numbers: pass "
+                             "step_main a utils.draws source")
+        # MCC and stopping (the kinds ``check_bounded_supported`` lets
+        # through) before ionization, as the JAX package's bounded step runs
+        # them (``bounded_step.py:838-847``)
+        state = collisions_substep(state, cfg, draws)
         if any(s.do_field_ionization for s in cfg.species):
             if draws is None:
                 raise ValueError("field ionization draws random numbers: "

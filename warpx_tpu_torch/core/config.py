@@ -7,11 +7,12 @@ PML/PEC (FDTD) or PML/damped (PSATD) faces, moving window, laser antennas,
 continuous injection and Gaussian beams, constant and parsed profiles,
 divergence cleaning, the Lorentz-boosted frame, field ionization, QED
 (quantum synchrotron, Breit-Wheeler, Schwinger) with photon species,
-classical radiation reaction, resampling; per-particle and tile-binned
-steps).  Fields keep the reference's
-names and defaults, so a configuration built for ``warpx_tpu`` with these
-fields builds here with the same keyword arguments.  Features whose fields are absent come with later
-items of ROADMAP.md's Queue A.
+classical radiation reaction, resampling, binary collisions (pairwise
+Coulomb, nuclear fusion, DSMC, background MCC and stopping); per-particle
+and tile-binned steps).  Fields keep the reference's names and defaults,
+so a configuration built for ``warpx_tpu`` with these fields builds here
+with the same keyword arguments.  Features whose fields are absent come
+with later items of ROADMAP.md's Queue A.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from typing import Optional, Tuple
 
 from .grid import Geometry
 
-__all__ = ["LaserConfig", "SpeciesConfig", "SimConfig"]
+__all__ = ["LaserConfig", "SpeciesConfig", "MCCProcessConfig",
+           "CollisionConfig", "SimConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +131,48 @@ class SpeciesConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MCCProcessConfig:
+    """One scattering process of a background MCC or DSMC collision
+    (reference: ScatteringProcess.H): a cross-section table on its energy
+    grid (eV; uniform for MCC) in m^2, clamped to its end values outside
+    the grid."""
+
+    kind: str  # elastic | back | charge_exchange | excitation | ionization
+    energy_penalty: float = 0.0  # eV
+    energies: Tuple[float, ...] = ()
+    sigmas: Tuple[float, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class CollisionConfig:
+    """One binary-collision pairing (reference: CollisionHandler.H)."""
+
+    name: str
+    species: Tuple[str, str]
+    # pairwisecoulomb | nuclearfusion | dsmc | background_mcc |
+    # background_stopping
+    kind: str = "pairwisecoulomb"
+    coulomb_log: float = -1.0  # <= 0: computed per pair
+    ndt: int = 1
+    # background MCC (reference: BackgroundMCCCollision.H)
+    background_density: str = ""  # expression f(x, y, z, t), m^-3
+    background_temperature: str = ""  # expression f(x, y, z, t), K
+    background_mass: float = -1.0  # kg; -1: the species' or product's mass
+    max_background_density: float = 0.0
+    ionization_species: str = ""
+    processes: Tuple[MCCProcessConfig, ...] = ()
+    # background stopping (reference: BackgroundStopping.H)
+    background_type: str = "electrons"  # electrons | ions
+    background_charge_state: float = 0.0
+    # nuclear fusion (reference: NuclearFusionFunc.H:61-79)
+    product_species: Tuple[str, ...] = ()
+    fusion_kind: str = ""  # protonboron | dt | ddp | ddn | dhe
+    fusion_multiplier: float = 1.0
+    fusion_probability_threshold: float = 0.02
+    fusion_probability_target_value: float = 0.002
+
+
+@dataclasses.dataclass(frozen=True)
 class SimConfig:
     geometry: Geometry
     max_step: int
@@ -219,6 +263,11 @@ class SimConfig:
         float("-inf"),) * 3
     qed_schwinger_bounds_hi: Tuple[float, float, float] = (
         float("inf"),) * 3
+    # binary collisions, in the deck's order (collisions.collision_names)
+    collisions: Tuple[CollisionConfig, ...] = ()
+    # the deck's my_constants, which the collisions' background
+    # expressions may name
+    user_constants: Tuple[Tuple[str, float], ...] = ()
 
     @property
     def galerkin(self) -> bool:

@@ -9,6 +9,8 @@ and momentum profiles, divergence cleaning, the Lorentz-boosted frame (the
 geometry along the boost axis and the antenna converted from the lab's
 coordinates), field ionization, QED (quantum synchrotron, Breit-Wheeler,
 Schwinger) with photon species, classical radiation reaction, resampling,
+binary collisions (pairwise Coulomb, nuclear fusion, DSMC, background MCC
+and stopping; cross-section tables read relative to the deck's directory),
 the tile-binned layout and its ``tpu.*`` keys), with
 the JAX reader's defaults and derived values (reference: Source/WarpX.cpp:466
 ReadParameters; Source/Initialization/PlasmaInjector.cpp), and the deck's
@@ -31,11 +33,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 from ..solvers.yee import compute_dt_ckc, compute_dt_yee
 from ..utils.intervals import IntervalsParser
 from ..utils.parser import Deck
-from .config import LaserConfig, SimConfig, SpeciesConfig
+from .config import (CollisionConfig, LaserConfig, MCCProcessConfig,
+                     SimConfig, SpeciesConfig)
 from .grid import Geometry
 from .laser import boost_laser_position
 
@@ -355,6 +359,142 @@ def _psatd_from_deck(deck: Deck, solver: str, dep: str) -> dict:
         do_pml_divb_cleaning=deck.get_bool(
             "warpx.do_pml_divb_cleaning", solver == "psatd"),
     )
+
+
+_COLLISION_KINDS = ("pairwisecoulomb", "background_mcc",
+                    "background_stopping", "nuclearfusion", "dsmc")
+
+
+def _table_path(deck: Deck, path: str) -> str:
+    """A cross-section file path, relative ones against the deck's
+    directory."""
+    if deck.base_dir is not None and not os.path.isabs(path):
+        path = os.path.normpath(str(deck.base_dir / path))
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"cross-section table {path} (WarpX's come from the warpx-data "
+            "repository, which is not part of this one)")
+    return path
+
+
+def _background_expr(deck: Deck, nm: str, what: str) -> str:
+    """A background density or temperature: a number, or the
+    ``(x,y,z,t)`` expression."""
+    val = deck.get_real(f"{nm}.{what}", None)
+    if val is not None:
+        return str(val)
+    return deck.get_string(f"{nm}.{what}(x,y,z,t)", "") or ""
+
+
+def _mcc_from_deck(deck: Deck, nm: str) -> dict:
+    """background_mcc keys -> CollisionConfig fields (the JAX reader's
+    ``_mcc_from_deck``; BackgroundMCCCollision.cpp's constructor)."""
+    from ..ops.mcc import load_cross_section
+
+    dens = deck.get_real(f"{nm}.background_density", None)
+    max_dens = deck.get_real(f"{nm}.max_background_density", 0.0)
+    if max_dens == 0.0 and dens is not None:
+        max_dens = dens
+    procs = []
+    for tok in deck.get_strings(f"{nm}.scattering_processes", []):
+        path = deck.get_string(f"{tok}.cross_section", None) or \
+            deck.get_string(f"{nm}.{tok}_cross_section", None)
+        if path is None:
+            raise ValueError(f"{nm}: no cross section for process {tok}")
+        e_arr, s_arr = load_cross_section(_table_path(deck, path))
+        base = "excitation" if tok.startswith("excitation") else (
+            "ionization" if tok.startswith("ionization") else tok)
+        procs.append(MCCProcessConfig(
+            kind=base, energy_penalty=deck.get_real(f"{nm}.{tok}_energy",
+                                                    0.0),
+            energies=tuple(e_arr.tolist()), sigmas=tuple(s_arr.tolist())))
+    return dict(
+        background_density=_background_expr(deck, nm, "background_density"),
+        background_temperature=_background_expr(deck, nm,
+                                                 "background_temperature"),
+        background_mass=deck.get_real(f"{nm}.background_mass", -1.0),
+        max_background_density=max_dens,
+        ionization_species=deck.get_string(f"{nm}.ionization_species", "")
+        or "",
+        processes=tuple(procs))
+
+
+def _fusion_kind(deck: Deck, nm: str, pair) -> str:
+    """The fusion type from the reactants' species types
+    (BinaryCollisionUtils::get_nuclear_fusion_type)."""
+    def stype(sp):
+        t = _lower(deck, f"{sp}.species_type", "")
+        return _SPECIES_TYPE_ALIASES.get(t, t)
+
+    tset = {stype(sp) for sp in pair[:2]}
+    if tset == {"hydrogen1", "boron11"}:
+        return "protonboron"
+    if tset == {"hydrogen2", "hydrogen3"}:
+        return "dt"
+    if tset == {"hydrogen2"}:
+        prods = {stype(p) for p in deck.get_strings(
+            f"{nm}.product_species", [])}
+        return "ddp" if "hydrogen3" in prods else "ddn"
+    if tset == {"hydrogen2", "helium3"}:
+        return "dhe"
+    raise NotImplementedError(f"nuclear fusion between species types {tset}")
+
+
+def _collisions_from_deck(deck: Deck):
+    """``collisions.collision_names`` -> CollisionConfig, in the deck's
+    order (the JAX reader, ``deck.py:755-845``)."""
+    from ..ops.dsmc import load_cross_section
+
+    out = []
+    for nm in deck.get_strings("collisions.collision_names", []):
+        pair = deck.get_strings(f"{nm}.species", [])
+        kind = _lower(deck, f"{nm}.type", "pairwisecoulomb")
+        if kind not in _COLLISION_KINDS:
+            raise NotImplementedError(f"deck: collision type {kind!r}")
+        kw = {}
+        if kind == "background_mcc":
+            kw = _mcc_from_deck(deck, nm)
+        elif kind == "dsmc":
+            procs = []
+            for proc in deck.get_strings(f"{nm}.scattering_processes", []):
+                en, sg = load_cross_section(_table_path(
+                    deck, deck.get_string(f"{nm}.{proc}_cross_section", "")
+                    or ""))
+                procs.append(MCCProcessConfig(kind=proc, energies=tuple(en),
+                                              sigmas=tuple(sg)))
+            kw = dict(processes=tuple(procs))
+        elif kind == "nuclearfusion":
+            kw = dict(
+                product_species=tuple(deck.get_strings(
+                    f"{nm}.product_species", [])),
+                fusion_kind=_fusion_kind(deck, nm, pair),
+                fusion_multiplier=deck.get_real(f"{nm}.fusion_multiplier",
+                                                1.0),
+                fusion_probability_threshold=deck.get_real(
+                    f"{nm}.fusion_probability_threshold", 0.02),
+                fusion_probability_target_value=deck.get_real(
+                    f"{nm}.fusion_probability_target_value", 0.002))
+        elif kind == "background_stopping":
+            kw = dict(
+                background_density=_background_expr(deck, nm,
+                                                    "background_density"),
+                background_temperature=_background_expr(
+                    deck, nm, "background_temperature"),
+                background_mass=deck.get_real(f"{nm}.background_mass",
+                                              -1.0),
+                background_type=_lower(deck, f"{nm}.background_type",
+                                       "electrons"),
+                background_charge_state=deck.get_real(
+                    f"{nm}.background_charge_state", 0.0))
+        out.append(CollisionConfig(
+            name=nm,
+            species=(tuple(pair[:2]) if len(pair) >= 2
+                     else (pair[0], pair[0])),
+            kind=kind,
+            coulomb_log=deck.get_real(f"{nm}.CoulombLog", -1.0),
+            ndt=deck.get_int(f"{nm}.ndt", 1),
+            **kw))
+    return tuple(out)
 
 
 def _gate_values(deck: Deck) -> None:
@@ -753,6 +893,8 @@ def config_from_deck(deck: Deck) -> SimConfig:
         qed_schwinger_bounds_hi=tuple(
             deck.get_real(f"qed_schwinger.{ax}max", float("inf"))
             for ax in "xyz"),
+        collisions=_collisions_from_deck(deck),
+        user_constants=tuple(sorted(deck.my_constants.items())),
         **_psatd_from_deck(deck, em_solver, dep),
         **_tiling_from_deck(deck, ndim),
     )

@@ -19,10 +19,10 @@ which ``evolve`` writes on their schedule after each step
 diagnostics under ``output_dir``), then the back-transformed diagnostics of
 a boosted run take their rows (``self.btd``, ``diagnostics/btd.py``).  After
 each step ``resample`` thins the species whose trigger fires.  The random
-numbers of ionization, QED, Schwinger and resampling come from
-``self.draws`` (``utils/draws.py``).  The simulation runs on the CUDA device
-unless the caller names another device; with no GPU it raises rather than
-run on the CPU unasked.
+numbers of the collisions, ionization, QED, Schwinger and resampling come
+from ``self.draws`` (``utils/draws.py``).  The simulation runs on the CUDA
+device unless the caller names another device; with no GPU it raises
+rather than run on the CPU unasked.
 """
 
 from __future__ import annotations
@@ -118,9 +118,9 @@ class Simulation:
         self.btd: list = []
         self.reduced: list = []
         self.signals: SignalFlags | None = None
-        # the random numbers of ionization, QED, Schwinger and resampling
-        # (utils/draws.py): one generator on the device, seeded from the
-        # configuration; None where nothing draws
+        # the random numbers of collisions, ionization, QED, Schwinger and
+        # resampling (utils/draws.py): one generator on the device, seeded
+        # from the configuration; None where nothing draws
         self.draws = (Draws(cfg.seed, self.device) if has_stochastic(cfg)
                       else None)
         self._resampling_triggers = {
@@ -222,11 +222,14 @@ class Simulation:
                                        outputs["checkpoint_signals"])
 
     def _product_capacities(self) -> Dict[str, int]:
-        """The slots a species gets for the particles that ionization, QED
-        and Schwinger pair creation put into it (JAX simulation.py:816-858):
-        an ionizable species' product gets room for every ion fully
-        stripped, a QED product one slot per parent, a Schwinger product
-        min(n_cells max_step, 2,000,000).  The parents are counted from an
+        """The slots a species gets for the particles that ionization, QED,
+        Schwinger pair creation, fusion and MCC impact ionization put into
+        it (JAX simulation.py:816-884): an ionizable species' product gets
+        room for every ion fully stripped, a QED product one slot per
+        parent, a Schwinger product min(n_cells max_step, 2,000,000), a
+        fusion product max(per_prod n / 4, 65536) (per_prod 6 for p-B11,
+        else 4; n the first reactant's count), an MCC ionization product
+        max(2 n, 16).  The parents are counted from an
         injection with a fresh generator, as the JAX package counts them."""
         cfg = self.cfg
         geom = cfg.geometry
@@ -265,7 +268,31 @@ class Simulation:
             for nm in (cfg.qed_schwinger_ele, cfg.qed_schwinger_pos):
                 if nm:
                     caps[nm] = caps.get(nm, 0) + budget
+        by_name = {s.name: s for s in cfg.species}
+        for col in cfg.collisions:
+            if col.kind == "nuclearfusion":
+                # a fraction of the first reactant's slots: the yield of a
+                # step is small, and an event past the last slot is dropped
+                per_prod = 6 if col.fusion_kind == "protonboron" else 4
+                n = count(by_name[col.species[0]])
+                for nm in col.product_species:
+                    caps[nm] = caps.get(nm, 0) + max(per_prod * n // 4,
+                                                     65536)
+            if col.kind == "background_mcc" and col.ionization_species:
+                nm = col.ionization_species
+                caps[nm] = caps.get(nm, 0) + max(
+                    2 * count(by_name[col.species[0]]), 16)
         return caps
+
+    def _mcc_grown(self, sp_cfg):
+        """A species that MCC impact ionization grows gets twice its
+        initial slots (its capacity_factor 2.0, as the JAX package sets it,
+        simulation.py:884-887)."""
+        if sp_cfg.capacity_factor <= 1.0 and any(
+                c.kind == "background_mcc" and c.ionization_species
+                and c.species[0] == sp_cfg.name for c in self.cfg.collisions):
+            return dataclasses.replace(sp_cfg, capacity_factor=2.0)
+        return sp_cfg
 
     def _with_extras(self, sp_cfg, cols: dict) -> dict:
         """The species' runtime attributes at the start of the run (JAX
@@ -297,8 +324,8 @@ class Simulation:
         species = {
             sp_cfg.name: columns_to_state(self._with_extras(
                 sp_cfg, inject_species_host(
-                    sp_cfg, geom, rng, ft, caps.get(sp_cfg.name),
-                    cfg.gamma_boost)), self.device)
+                    self._mcc_grown(sp_cfg), geom, rng, ft,
+                    caps.get(sp_cfg.name), cfg.gamma_boost)), self.device)
             for sp_cfg in cfg.species
         }
         aux = {}
@@ -393,7 +420,8 @@ class Simulation:
                     capacity = (int(first["alive"].sum())
                                 + travel_cells * cross * ppc_tot)
                     del first
-                cols = inject_species_host(sp_cfg, geom, rng, ft, capacity,
+                cols = inject_species_host(self._mcc_grown(sp_cfg), geom,
+                                           rng, ft, capacity,
                                            cfg.gamma_boost)
             host[sp_cfg.name] = self._with_extras(sp_cfg, cols)
             if sp_cfg.do_continuous_injection and cfg.do_moving_window:

@@ -11,10 +11,13 @@ restart continues the stream.
 An operator asks for its numbers in the pattern the JAX package draws them:
 ``split(n)`` stands where JAX writes ``key, k1..kn = jax.random.split(key,
 n + 1)`` and returns ``n`` sources, each of which gives the draws JAX takes
-from one subkey, of the same shapes and in the same order.  ``Draws`` hands
-back itself ``n`` times, so its numbers are simply the generator's next
-ones; a source that replays JAX's key chain (the tests have one) hands back
-one source per subkey and so gives the port the very numbers JAX used.
+from one subkey, of the same shapes and in the same order; a source so
+returned splits again where JAX splits a subkey (``k1, k2 =
+jax.random.split(k)``: ``k.split(2)``), and ``fold_in(i)`` stands where JAX
+writes ``jax.random.fold_in(k, i)``.  ``Draws`` hands back itself for
+every split and fold, so its numbers are simply the generator's next ones;
+a source that replays JAX's key chain (the tests have one) hands back one
+source per subkey and so gives the port the very numbers JAX used.
 
 The same seed gives another stream on a CUDA device than on the CPU: the
 two generators are different algorithms.
@@ -39,10 +42,15 @@ class Draws:
     def split(self, n: int):
         return (self,) * n
 
-    def uniform(self, shape, dtype: torch.dtype) -> torch.Tensor:
-        """Draws in [0, 1)."""
-        return torch.rand(shape, generator=self.generator, dtype=dtype,
-                          device=self.device)
+    def fold_in(self, i: int):
+        return self
+
+    def uniform(self, shape, dtype: torch.dtype, lo: float = 0.0,
+                hi: float = 1.0) -> torch.Tensor:
+        """Draws in [lo, hi) (``jax.random.uniform``'s minval, maxval)."""
+        r = torch.rand(shape, generator=self.generator, dtype=dtype,
+                       device=self.device)
+        return r if (lo, hi) == (0.0, 1.0) else lo + (hi - lo) * r
 
     def normal(self, shape, dtype: torch.dtype) -> torch.Tensor:
         return torch.randn(shape, generator=self.generator, dtype=dtype,
