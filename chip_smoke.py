@@ -213,6 +213,33 @@ exits non-zero:
                exchange, He+ stopping): scatterings and ionizations within
                5 sigma, stopping against its closed form, charge exchange a
                swap; 3 clean timed steps;
+  injection_parity  (after collision_parity) Queue A 11.2 and 11.5 in
+               float64, card against CPU: every injection style and
+               momentum distribution but the openPMD file (16^3), constant
+               and parsed external grid fields (16^3, and 32^2 with PEC
+               walls), order-4 shapes (16^3, 32^2, the bounded 32 x 64
+               laser-wakefield deck), all per particle, and the 16^3 flux
+               deck on one CPU generator's numbers: the initial particles
+               identical, 3 steps within 1e-9; lasy_amplitude of a
+               cartesian and a thetaMode envelope built from arrays, card
+               against CPU; then the plane emission on the card's own
+               generator held statistically (count and weights exact, the
+               flight within a step, the normal momentum's mean and
+               variance and the tangential ones within 5 standard errors);
+  main_flux    flux-128: uniform-128's plasma loaded Maxwell-Boltzmann under
+               Bz = 1 T set on the grid, protons emitted from a plane
+               (32,768 a step), per particle, 10 timed steps: ms a step,
+               the injector's device ms, busy share, the protons alive
+               exactly as emitted, none dropped, no fused launch;
+  main_lwfa_lasy  lwfa2d-2048x8192-lasy: main_lwfa_deck's deck with the
+               laser read from a lasy envelope of its own Gaussian (handed
+               to the loader's cache: the card has no h5py), 20 steps
+               through K1c and K3: every step's antenna amplitudes against
+               the Gaussian's, K1c's device ms, the rebins, zero overflow;
+  main_shape4  uniform2d-2048-order4: main2d's plasma at particle_shape
+               = 4, per particle, 4 steps: ms a step, the deposits' and the
+               gathers' device ms, the order-4 Esirkepov deposit's
+               continuity residual in float64 (at roundoff);
   labs         each Hopper lab's main() at the TPU lab's default shapes (L1
                in every mode): kernel against plain version, times, bounds,
                the library's yardstick where there is one; each lab prints
@@ -6207,6 +6234,728 @@ def phase_main_mcc_dsmc(dev, smi, n=128, steps=10):
         shutil.rmtree(tables, ignore_errors=True)
 
 
+# ---- injection, initial conditions, external fields, quartic shapes -------
+
+# every injection style and momentum distribution of Queue A 11.2 but the
+# openPMD file (no h5py on the card): one particle, a list, Maxwell-
+# Boltzmann with a drift along -y, Maxwell-Juttner with a drift along z,
+# the uniform cuboid, the parsed Gaussian, a parsed temperature and a
+# parsed drift (tests/test_torch_injection_styles.py)
+INJECTION_SPECIES = """
+particles.species_names = single multi mb mj un gp tp bp
+single.species_type = electron
+single.injection_style = SingleParticle
+single.single_particle_pos = 1.e-6 -2.e-6 3.e-6
+single.single_particle_u = 0.1 -0.2 0.5
+single.single_particle_weight = 1.e10
+multi.species_type = positron
+multi.injection_style = MultipleParticles
+multi.multiple_particles_pos_x = -3.e-6 1.e-6 4.e-6
+multi.multiple_particles_pos_y = 0. 2.e-6 -1.e-6
+multi.multiple_particles_pos_z = 5.e-6 -5.e-6 0.
+multi.multiple_particles_ux = 0.3 0. -0.1
+multi.multiple_particles_uy = 0. 0.2 0.
+multi.multiple_particles_uz = 0.1 0.1 0.7
+multi.multiple_particles_weight = 1.e9 2.e9 3.e9
+mb.species_type = electron
+mb.injection_style = NRandomPerCell
+mb.num_particles_per_cell = 2
+mb.profile = constant
+mb.density = 1.e24
+mb.momentum_distribution_type = maxwell_boltzmann
+mb.theta = 1.e-3
+mb.beta = 0.2
+mb.bulk_vel_dir = -y
+mj.species_type = electron
+mj.injection_style = NUniformPerCell
+mj.num_particles_per_cell_each_dim = 1 1 1
+mj.profile = constant
+mj.density = 1.e24
+mj.momentum_distribution_type = maxwell_juttner
+mj.theta = 0.5
+mj.beta = 0.3
+mj.bulk_vel_dir = z
+un.species_type = proton
+un.injection_style = NUniformPerCell
+un.num_particles_per_cell_each_dim = 1 1 1
+un.profile = constant
+un.density = 1.e24
+un.momentum_distribution_type = uniform
+un.ux_min = -0.002
+un.ux_max = 0.003
+un.uz_min = 0.01
+un.uz_max = 0.011
+gp.species_type = electron
+gp.injection_style = NUniformPerCell
+gp.num_particles_per_cell_each_dim = 1 1 1
+gp.profile = constant
+gp.density = 1.e24
+gp.momentum_distribution_type = gaussian_parse_momentum_function
+gp.momentum_function_ux_m(x,y,z) = "1.e3*z"
+gp.momentum_function_ux_th(x,y,z) = "0.01 + 1.e3*abs(x)"
+gp.momentum_function_uz_th(x,y,z) = "0.02"
+tp.species_type = electron
+tp.injection_style = NUniformPerCell
+tp.num_particles_per_cell_each_dim = 1 1 1
+tp.profile = constant
+tp.density = 1.e24
+tp.momentum_distribution_type = maxwell_juttner
+tp.theta_distribution_type = parser
+tp.theta_function(x,y,z) = "0.2 + heaviside(x,0)"
+bp.species_type = electron
+bp.injection_style = NUniformPerCell
+bp.num_particles_per_cell_each_dim = 1 1 1
+bp.profile = constant
+bp.density = 1.e24
+bp.momentum_distribution_type = maxwell_boltzmann
+bp.theta = 1.e-4
+bp.beta_distribution_type = parser
+bp.beta_function(x,y,z) = "-0.2 + 0.4 * heaviside(z,0)"
+bp.bulk_vel_dir = -y
+"""
+
+THERMAL_SPECIES = """
+particles.species_names = electrons
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = 1 1 1
+electrons.profile = constant
+electrons.density = 1.e24
+electrons.momentum_distribution_type = gaussian
+electrons.ux_th = 0.05
+electrons.uy_th = 0.05
+electrons.uz_th = 0.05
+"""
+
+# the initial grid fields of tests/test_torch_ext_grid.py
+EXT_GRID = {
+    "constant": """
+warpx.E_ext_grid_init_style = constant
+warpx.E_external_grid = 1.e9 -2.e9 3.e9
+warpx.B_ext_grid_init_style = constant
+warpx.B_external_grid = 0.5 0. 1.
+""",
+    "parse": """
+my_constants.k = 3.e5
+warpx.E_ext_grid_init_style = parse_E_ext_grid_function
+warpx.Ex_external_grid_function(x,y,z) = "1.e9 * sin(k * z)"
+warpx.Ey_external_grid_function(x,y,z) = "2.e9 * cos(k * x) * (1 + y / 1.e-5)"
+warpx.Ez_external_grid_function(x,y,z) = "1.e8 * x * 1.e5"
+warpx.B_ext_grid_init_style = parse_B_ext_grid_function
+warpx.Bx_external_grid_function(x,y,z) = "0.2 * z * 1.e5"
+warpx.By_external_grid_function(x,y,z) = "0.3 + 0.1 * sin(k * x)"
+warpx.Bz_external_grid_function(x,y,z) = "1."
+""",
+}
+
+# protons emitted along +z from z = -7 um (u_m = 2 u_th: the second
+# rejection scheme) into Maxwell-Boltzmann electrons under Bz = 1 T
+# (tests/test_torch_flux_injection.py)
+FLUX_16_DECK = """
+max_step = 3
+amr.n_cell = 16 16 16
+geometry.dims = 3
+geometry.prob_lo = -8.e-6 -8.e-6 -8.e-6
+geometry.prob_hi =  8.e-6  8.e-6  8.e-6
+warpx.B_ext_grid_init_style = constant
+warpx.B_external_grid = 0. 0. 1.
+particles.species_names = electrons protons
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = 1 1 1
+electrons.profile = constant
+electrons.density = 1.e24
+electrons.momentum_distribution_type = maxwell_boltzmann
+electrons.theta = 1.e-4
+protons.species_type = proton
+protons.injection_style = NFluxPerCell
+protons.num_particles_per_cell = 2
+protons.surface_flux_pos = -7.e-6
+protons.flux_normal_axis = z
+protons.flux_direction = 1
+protons.flux = 3.e30
+protons.momentum_distribution_type = gaussianflux
+protons.uz_m = 0.01
+protons.ux_th = 0.005
+protons.uy_th = 0.005
+protons.uz_th = 0.005
+"""
+
+
+def box_deck(ndim, n, steps, body, bounded=False):
+    """A 16 um box (periodic, or with PEC walls and reflecting particles
+    along its last axis) of n^ndim cells, per particle, ``steps`` steps,
+    and ``body``'s keys."""
+    axes = ndim - 1
+    faces = " ".join(["periodic"] * axes + ["pec" if bounded else "periodic"])
+    parts = " ".join(["periodic"] * axes
+                     + ["reflecting" if bounded else "periodic"])
+    return (f"max_step = {steps}\namr.n_cell = {' '.join([str(n)] * ndim)}\n"
+            f"geometry.dims = {ndim}\n"
+            f"geometry.prob_lo = {' '.join(['-8.e-6'] * ndim)}\n"
+            f"geometry.prob_hi = {' '.join(['8.e-6'] * ndim)}\n"
+            f"boundary.field_lo = {faces}\nboundary.field_hi = {faces}\n"
+            f"boundary.particle_lo = {parts}\n"
+            f"boundary.particle_hi = {parts}\nwarpx.cfl = 0.9\n"
+            "tpu.tiled_particles = off\n" + body)
+
+
+def injection_parity_decks():
+    """name -> deck text of injection_parity's card-against-CPU runs."""
+    decks = {"styles_16^3": box_deck(3, 16, 3, INJECTION_SPECIES)}
+    for style, keys in EXT_GRID.items():
+        decks[f"ext_{style}_16^3"] = box_deck(3, 16, 3,
+                                              keys + THERMAL_SPECIES)
+        decks[f"ext_{style}_32^2_pec"] = box_deck(2, 32, 3,
+                                                  keys + THERMAL_SPECIES,
+                                                  bounded=True)
+    order4 = "algo.particle_shape = 4\n" + THERMAL_SPECIES
+    decks["order4_16^3"] = box_deck(3, 16, 3, order4)
+    decks["order4_32^2"] = box_deck(2, 32, 3, order4)
+    decks["order4_lwfa_32x64"] = LWFA_32X64_DECK.replace(
+        "algo.particle_shape = 3", "algo.particle_shape = 4").replace(
+        "max_step = 12", "max_step = 4") + "tpu.tiled_particles = off\n"
+    decks["flux_16^3"] = FLUX_16_DECK
+    return decks
+
+
+LASY_E_MAX = 1.0e12
+LASY_WAVELENGTH = 1.0e-6
+LASY_WAIST = 5.0e-6
+LASY_TAU = 15.0e-15
+LASY_T_PEAK = 60.0e-15
+
+
+def lasy_test_data(cartesian):
+    """The Gaussian envelope of tests/test_laser_from_file.py (_gauss_env,
+    f_dist = 0) on its grids, as a ``LasyData`` built from arrays."""
+    from warpx_tpu_torch.core.laser_file import LasyData
+
+    omega0 = 2.0 * math.pi * C_LIGHT / LASY_WAVELENGTH
+    t = np.linspace(0.0, 120e-15, 241)
+
+    def env(x2):
+        return (LASY_E_MAX * np.exp(-((t[:, None] - LASY_T_PEAK) ** 2)
+                                    / LASY_TAU ** 2 - x2 / LASY_WAIST ** 2)
+                * np.exp(1j * omega0 * LASY_T_PEAK))
+
+    if cartesian:
+        y = np.linspace(-3 * LASY_WAIST, 3 * LASY_WAIST, 41)
+        x = np.linspace(-4 * LASY_WAIST, 4 * LASY_WAIST, 81)
+        data = env((x[None, None, :] ** 2
+                    + y[None, :, None] ** 2).reshape(1, -1))
+        return LasyData(cartesian=True, t_min=0.0, t_max=120e-15,
+                        data=data.reshape(241, 41, 81), x_min=x[0],
+                        x_max=x[-1], y_min=y[0], y_max=y[-1])
+    r = np.linspace(0.0, 4 * LASY_WAIST, 61)
+    return LasyData(cartesian=False, t_min=0.0, t_max=120e-15,
+                    data=env(r[None, :] ** 2)[None], r_min=0.0, r_max=r[-1])
+
+
+def lasy_parity(dev):
+    """``lasy_amplitude`` of the cartesian and the thetaMode envelopes on
+    the card against the CPU (1e-12 of e_max) and against the Gaussian
+    profile (2e-2 of e_max, tests/test_laser_from_file.py's bound)."""
+    from warpx_tpu_torch.core.config import LaserConfig
+    from warpx_tpu_torch.core.laser import fill_amplitude
+    from warpx_tpu_torch.core.laser_file import lasy_amplitude
+
+    kw = dict(name="lasy", e_max=LASY_E_MAX, wavelength=LASY_WAVELENGTH,
+              profile_waist=LASY_WAIST, profile_duration=LASY_TAU,
+              profile_t_peak=LASY_T_PEAK, polarization=(1.0, 0.0, 0.0))
+    lf = LaserConfig(profile="from_file", **kw)
+    lg = LaserConfig(profile="gaussian", **kw)
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.uniform(-3 * LASY_WAIST, 3 * LASY_WAIST, 4096))
+    Y = torch.from_numpy(rng.uniform(-2.5 * LASY_WAIST, 2.5 * LASY_WAIST,
+                                     4096))
+    out = {}
+    for geom in ("cartesian", "thetaMode"):
+        ld = lasy_test_data(geom == "cartesian")
+        card_err = gauss_err = 0.0
+        for t in (20e-15, 55e-15, 60e-15, 90e-15):
+            cpu = lasy_amplitude(ld, lf, X, Y, t)
+            card = lasy_amplitude(ld, lf, X.to(dev), Y.to(dev), t).cpu()
+            card_err = max(card_err, float((card - cpu).abs().max())
+                           / LASY_E_MAX)
+            ref = fill_amplitude(lg, 3, X, Y, t)
+            gauss_err = max(gauss_err, float((card - ref).abs().max())
+                            / LASY_E_MAX)
+        if not (card_err <= TOL[torch.float64] and gauss_err < 2e-2):
+            raise AssertionError(f"injection_parity: lasy {geom} differs by "
+                                 f"{card_err} (CPU), {gauss_err} (Gaussian)")
+        out[geom] = {"card_vs_cpu": card_err, "vs_gaussian": gauss_err}
+    return out
+
+
+def gaussianflux_moments(u_m, u_th):
+    """(mean, variance, fourth central moment) of u G(u - u_m), u >= 0, by
+    quadrature (tests/test_flux_injection.py's form)."""
+    trap = getattr(np, "trapezoid", None) or np.trapz
+    uu = np.linspace(0.0, abs(u_m) + 12 * u_th, 200_001)
+    pdf = uu * np.exp(-((uu - abs(u_m)) ** 2) / (2 * u_th ** 2))
+    pdf /= trap(pdf, uu)
+    mean = trap(uu * pdf, uu)
+    var = trap((uu - mean) ** 2 * pdf, uu)
+    m4 = trap((uu - mean) ** 4 * pdf, uu)
+    return mean, var, m4
+
+
+FLUX_SIGMAS = 5.0
+
+
+def flux_statistics(dev):
+    """One emission of 2^20 particles on the card's own generator
+    (``utils/draws.py``; its stream differs from the CPU's) for u_m = 0
+    (the first rejection scheme) and u_m = 2 u_th (the second), float64:
+    the count exact, the weights flux * area / ppc * dt exactly, every
+    particle within one step's flight of the plane, the normal momentum's
+    mean and variance within FLUX_SIGMAS standard errors of the
+    gaussianflux distribution's, the tangential ones of their Gaussians'."""
+    from warpx_tpu_torch.core.config import SpeciesConfig
+    from warpx_tpu_torch.core.flux_injection import make_flux_injector
+    from warpx_tpu_torch.core.grid import Geometry
+    from warpx_tpu_torch.core.injection import inject_species
+    from warpx_tpu_torch.utils.draws import Draws
+
+    geom = Geometry(ndim=3, n_cell=(512, 512, 8), prob_lo=(0.0,) * 3,
+                    prob_hi=(51.2e-6, 51.2e-6, 8e-7), periodic=(True,) * 3)
+    dt = 1e-16
+    out = {}
+    for seed, (scheme, (u_m, u_th)) in enumerate((
+            ("first", (0.0, 0.01)), ("second", (0.02, 0.01)))):
+        sp = SpeciesConfig(name="p", charge=Q_E, mass=M_P,
+                           injection_style="nfluxpercell",
+                           num_particles_per_cell=4, surface_flux_pos=2e-7,
+                           flux_normal_axis="z", flux_direction=1,
+                           flux=6e30, ux=0.003, uy=-0.002, uz=u_m,
+                           ux_th=0.02, uy_th=0.05, uz_th=u_th)
+        npart = 4 * 512 * 512
+        empty = inject_species(sp, geom, None, dtype=torch.float64,
+                               device=dev, capacity=npart)
+        inject = make_flux_injector(sp, geom, dt, torch.float64, dev)
+        got = inject(empty, 0.0, Draws(17 + seed, dev))
+        n = int(got.alive.sum())
+        w_exp = torch.full((1,), sp.flux, dtype=torch.float64,
+                           device=dev) * (geom.dx[0] * geom.dx[1] / 4 * dt)
+        weights_exact = bool((got.w == w_exp).all())
+        un, ut = got.uz / C_LIGHT, (got.ux / C_LIGHT, got.uy / C_LIGHT)
+        gam = torch.sqrt(1 + (got.ux ** 2 + got.uy ** 2 + got.uz ** 2)
+                         / C_LIGHT ** 2)
+        # the flight along the normal: 0 <= z - plane <= v_z dt (with
+        # float64 roundoff of z)
+        dz = got.z - sp.surface_flux_pos
+        flight_ok = bool(((dz >= -1e-21)
+                          & (dz <= got.uz / gam * dt * (1 + 1e-12) + 1e-21))
+                         .all())
+        mean, var, m4 = gaussianflux_moments(u_m, u_th)
+        z = {"normal_mean": (float(un.mean()) - mean) / math.sqrt(var / n),
+             "normal_var": (float(un.var()) - var)
+             / math.sqrt((m4 - var ** 2) / n)}
+        for nm, u, mu, s in (("ux", ut[0], sp.ux, sp.ux_th),
+                             ("uy", ut[1], sp.uy, sp.uy_th)):
+            z[f"{nm}_mean"] = (float(u.mean()) - mu) / (s / math.sqrt(n))
+            z[f"{nm}_var"] = (float(u.var()) - s * s) / (
+                s * s * math.sqrt(2.0 / n))
+        if not (n == npart and weights_exact and flight_ok
+                and all(abs(v) <= FLUX_SIGMAS for v in z.values())):
+            raise AssertionError(f"injection_parity: flux {scheme} scheme: "
+                                 f"{n} of {npart}, weights {weights_exact}, "
+                                 f"flight {flight_ok}, z {z}")
+        out[scheme] = {"u_m": u_m, "u_th": u_th, "n": n, "z": z,
+                       "weights_exact": weights_exact,
+                       "within_one_flight": flight_ok}
+    return out
+
+
+def phase_injection_parity(dev):
+    """Queue A 11.2 and 11.5 in float64, card against CPU: every injection
+    style and momentum distribution (16^3), constant and parsed external
+    grid fields (periodic 16^3, PEC-walled 32^2), order-4 shapes (16^3,
+    32^2, the bounded 32 x 64 laser-wakefield deck), all per particle, and
+    the 16^3 flux deck on the numbers of one CPU generator (``CpuDraws``):
+    3 steps (4 on the laser-wakefield deck), species and fields within
+    1e-9, checksums within 1e-9, the initial particles identical (both
+    inject on the host from the seed); ``lasy_amplitude`` card against CPU;
+    then the plane emission on the card's own generator, held
+    statistically (``flux_statistics``)."""
+    runs = {}
+    for name, text in injection_parity_decks().items():
+        card = stochastic_run(text, dev, torch.float64, steps=0)
+        cpu = stochastic_run(text, "cpu", torch.float64, steps=0)
+        init_err = states_agree(card, cpu, 0.0, f"injection_parity {name} "
+                                "init")
+        card.evolve()
+        cpu.evolve()
+        if card.binned or card.state.step != card.cfg.max_step:
+            raise AssertionError(f"injection_parity {name}: binned "
+                                 f"{card.binned}, step {card.state.step}")
+        worst = states_agree(card, cpu, 1e-9, f"injection_parity {name}")
+        worst_sum = checksums_agree(card.checksums(), cpu.checksums(), 1e-9,
+                                    f"injection_parity {name}")
+        runs[name] = {"steps": card.state.step, "bounded": card.is_bounded,
+                      "order": card.cfg.particle_shape,
+                      "init_max_rel_err": init_err, "max_rel_err": worst,
+                      "checksum_max_rel_err": worst_sum,
+                      "alive": {nm: int(sp.alive.sum()) for nm, sp in
+                                card.state.species.items()}}
+    emit("injection_parity", ok=True, run_tol=1e-9, runs=runs,
+         lasy=lasy_parity(dev), flux_statistics=flux_statistics(dev),
+         flux_sigmas=FLUX_SIGMAS)
+
+
+FLUX_STEPS = 10
+
+
+def flux_cfg(n=128, steps=FLUX_STEPS):
+    """flux-128: uniform-128's plasma (``main_cfg``) loaded
+    Maxwell-Boltzmann at its thermal spread (theta = 0.01^2), Bz = 1 T on
+    the grid (warpx.B_ext_grid_init_style = constant), and protons emitted
+    along +z from the plane one cell above prob_lo: 2 a surface cell a
+    step (32,768 at n = 128), a flux of n_e 0.01 c, u_m 0.01, u_th 0.005;
+    per particle (the binned gates send a flux species there, as the JAX
+    package's bounded gate does); a warm step, ``steps`` timed steps and a
+    profiled one."""
+    from warpx_tpu_torch.core.config import SpeciesConfig
+
+    cfg = main_cfg(n, steps + 2)
+    plasma = tuple(dataclasses.replace(
+        sp, momentum_distribution="maxwell_boltzmann", theta=0.01 ** 2)
+        for sp in cfg.species)
+    geom = cfg.geometry
+    protons = SpeciesConfig(
+        name="protons", charge=Q_E, mass=M_P, species_type="proton",
+        injection_style="nfluxpercell", num_particles_per_cell=2,
+        surface_flux_pos=geom.prob_lo[2] + geom.dx[2], flux_normal_axis="z",
+        flux_direction=1, flux=plasma[0].density * 0.01 * C_LIGHT,
+        momentum_distribution="gaussianflux", uz=0.01, ux_th=0.005,
+        uy_th=0.005, uz_th=0.005)
+    return dataclasses.replace(cfg, species=plasma + (protons,),
+                               b_ext_grid=("constant", (0.0, 0.0, 1.0)),
+                               tiled_particles="auto")
+
+
+def phase_main_flux(dev, smi, n=128, steps=FLUX_STEPS):
+    """flux-128 (``flux_cfg``), float32, per particle: a warm step,
+    ``steps`` steps timed with CUDA events and the injector's device ms
+    (``timed_fn``), one profiled step (busy share); the protons alive
+    exactly 32,768 a step (none dropped), their weights flux * area / ppc
+    * dt, the plasma all alive, Bz held, finite fields; no fused launch
+    (K1 stays at 0: the path is per particle, as in the JAX package)."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.core.flux_injection import _per_step_count
+    from warpx_tpu_torch.ops import fused_pic as fp
+
+    cfg = flux_cfg(n, steps)
+    geom = cfg.geometry
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
+    if sim.binned:
+        raise AssertionError("main_flux took the tile-binned step")
+    fp.binned_push_deposit.launches = 0
+    sim.init()
+    bz0 = float(sim.state.fields.Bz.double().mean())
+    sim.evolve(1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    with timed_fn(sim, "_do_flux_injection") as inj:
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(steps + 1)]
+        marks[0].record()
+        for mark in marks[1:]:
+            sim.evolve(1)
+            mark.record()
+        marks[-1].synchronize()
+        ms_steps = [marks[i].elapsed_time(marks[i + 1])
+                    for i in range(steps)]
+        inj_ms = inj.ms()
+    breakdown = profile_steps(sim, 1)
+    peak = torch.cuda.max_memory_allocated()
+    k1 = fp.binned_push_deposit.launches
+    sp_cfg = cfg.species[-1]
+    per_step, _ = _per_step_count(sp_cfg, geom)
+    pr = sim.state.species["protons"]
+    emitted = per_step * sim.state.step
+    alive = int(pr.alive.sum())
+    w_fac = geom.dx[0] * geom.dx[1] / sp_cfg.num_particles_per_cell * cfg.dt
+    w_exp = torch.full((1,), sp_cfg.flux, dtype=torch.float32,
+                       device=dev) * w_fac
+    w_live = pr.w[pr.alive]
+    weights_exact = bool((w_live == w_exp).all())
+    w_rel = abs(float(w_exp) / (sp_cfg.flux * w_fac) - 1)
+    plasma = {s.name: int(sim.state.species[s.name].alive.sum())
+              for s in cfg.species[:-1]}
+    finite = all(bool(torch.isfinite(getattr(sim.state.fields, nm)).all())
+                 for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy",
+                            "jz"))
+    bz1 = float(sim.state.fields.Bz.double().mean())
+    if not (alive == emitted and weights_exact and w_rel < 2 ** -22
+            and all(v == n ** 3 * 2 for v in plasma.values()) and finite
+            and k1 == 0 and abs(bz1 - 1.0) < 1e-3 and bz0 == 1.0):
+        raise AssertionError(
+            f"main_flux: {alive} protons of {emitted}, weights exact "
+            f"{weights_exact} ({w_rel}), plasma {plasma}, finite {finite}, "
+            f"K1 {k1}, Bz {bz0} -> {bz1}")
+    ms_step = sum(ms_steps) / steps
+    n_mean = sum(plasma.values()) + alive
+    emit("main_flux", ok=True, n_cell=geom.n_cell, path="per_particle",
+         fused_launches=k1, steps_timed=steps, ms_per_step=ms_step,
+         ms_each_step=[round(m, 3) for m in ms_steps],
+         pushes_per_s=n_mean / (ms_step * 1e-3),
+         injector_ms_each=[round(m, 4) for m in inj_ms],
+         injector_ms_per_step=sum(inj_ms) / len(inj_ms),
+         emitted_per_step=per_step, protons_alive=alive,
+         protons_expected=emitted, dropped=emitted - alive,
+         capacity=pr.capacity, weights_exact=weights_exact,
+         weight_rel_to_float64=w_rel, plasma_alive=plasma,
+         mean_bz={"start": bz0, "end": bz1}, init_s=init_s,
+         device_busy_share=breakdown["device_busy_share"],
+         peak_memory_bytes=peak, device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi)
+    emit("main_flux_profile", steps=1, **breakdown)
+
+
+LWFA_LASY_PLAN = dict(warm=4, timed=8, counted=2, interval=16)
+LASY_TOL = 2e-2  # of e_max: tests/test_laser_from_file.py's bound
+LASY_TOL_PEAK = 1e-3  # of the largest Gaussian amplitude the run met
+
+
+def lwfa_lasy_data(laser, geom, t_max=60e-15, dt_env=0.05e-15,
+                   dx_env=0.05e-6):
+    """A lasy envelope of the deck's own Gaussian laser (its focal
+    distance, Gouy phase and all) at the antenna plane: conj(G) e^{i omega
+    t} of the port's complex Gaussian field G (``core/laser.py::
+    gaussian_field``), so that Re(envelope e^{-i omega t}) is the
+    Gaussian's amplitude, on a grid of (t, y, x) with two rows along y
+    (the 2D field does not depend on it)."""
+    from warpx_tpu_torch.core.laser import gaussian_field
+    from warpx_tpu_torch.core.laser_file import LasyData
+
+    omega = 2.0 * math.pi * C_LIGHT / laser.wavelength
+    x = np.arange(geom.prob_lo[0] - 1e-6, geom.prob_hi[0] + 1e-6 + dx_env / 2,
+                  dx_env)
+    t = np.arange(0.0, t_max + dt_env / 2, dt_env)
+    X = torch.from_numpy(x)
+    rows = np.stack([(torch.conj(gaussian_field(laser, 2, X,
+                                                torch.zeros_like(X), ti))
+                      * np.exp(1j * omega * ti)).numpy() for ti in t])
+    data = np.repeat(rows[:, None, :], 2, axis=1)
+    return LasyData(cartesian=True, t_min=0.0, t_max=float(t[-1]), data=data,
+                    x_min=float(x[0]), x_max=float(x[-1]), y_min=-0.5e-6,
+                    y_max=0.5e-6)
+
+
+def write_lasy(path, ld):
+    """``ld`` as a lasy file (the layout of tests/test_laser_from_file.py's
+    writer)."""
+    import h5py
+
+    nt, ny, nx = ld.data.shape
+    with h5py.File(path, "w") as fh:
+        ds = fh.create_group("data/0/meshes").create_dataset(
+            "laserEnvelope", data=ld.data)
+        ds.attrs["geometry"] = np.bytes_("cartesian")
+        ds.attrs["gridSpacing"] = np.array([
+            (ld.t_max - ld.t_min) / (nt - 1), (ld.y_max - ld.y_min) / (ny - 1),
+            (ld.x_max - ld.x_min) / (nx - 1)])
+        ds.attrs["gridGlobalOffset"] = np.array([ld.t_min, ld.y_min,
+                                                 ld.x_min])
+        ds.attrs["position"] = np.zeros(3)
+
+
+def phase_main_lwfa_lasy(dev, smi, k1c_row, k3_row, nx=2048, nz=8192):
+    """lwfa2d-2048x8192-lasy: main_lwfa_deck's deck at 'mixed' with
+    ``laser1.profile = from_file``, its lasy envelope sampled from the
+    deck's own Gaussian laser (``lwfa_lasy_data``); written to a file and
+    read where h5py is installed, else handed to the loader's cache
+    (``core/laser_file.py::_CACHE``: the card has no h5py); 20 steps
+    through K1c and K3 driven as main_lwfa is (``run_lwfa_path``), every
+    step's antenna amplitudes held against the Gaussian profile's at the
+    same positions and time (LASY_TOL of e_max, LASY_TOL_PEAK of the
+    largest amplitude), K1c's device ms a launch; adds this path's
+    launches to K1c's ('mixed') and K3's rows."""
+    import importlib.util
+
+    import warpx_tpu_torch
+    from warpx_tpu_torch.core import bounded_step as bs_mod
+    from warpx_tpu_torch.core import laser as laser_mod
+    from warpx_tpu_torch.core import laser_file
+    from warpx_tpu_torch.core.deck import config_from_deck
+    from warpx_tpu_torch.utils.parser import Deck
+
+    steps = lwfa_steps(LWFA_LASY_PLAN)
+    gauss_text = lwfa_deck_text(nx, nz, steps, "mixed")
+    gauss = config_from_deck(Deck.from_string(gauss_text))
+    t0 = time.perf_counter()
+    ld = lwfa_lasy_data(gauss.lasers[0], gauss.geometry)
+    build_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp()
+    path = str(pathlib.Path(tmp) / "lwfa_gaussian_lasy.h5")
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    if have_h5py:
+        write_lasy(path, ld)
+    else:
+        laser_file._CACHE[path] = ld
+    text = gauss_text.replace(
+        "laser1.profile = Gaussian",
+        f"laser1.profile = from_file\nlaser1.lasy_file_name = {path}")
+    records = []
+    orig = laser_mod.fill_amplitude
+
+    def recorded(laser, ndim, Xp, Yp, t):
+        amp = orig(laser, ndim, Xp, Yp, t)
+        records.append((Xp.detach().clone(), float(t), amp.detach().clone()))
+        return amp
+
+    try:
+        sim = warpx_tpu_torch.Simulation.from_deck(
+            Deck.from_string(text), dtype=torch.float32, device=dev)
+        if sim.cfg.lasers[0].profile != "from_file" or dataclasses.replace(
+                sim.cfg, lasers=gauss.lasers) != gauss:
+            raise AssertionError("main_lwfa_lasy: the deck differs from "
+                                 "main_lwfa_deck's but for the laser")
+        laser_mod.fill_amplitude = recorded
+        with timed_fn(bs_mod, "binned_push_deposit") as k1c_t, \
+                timed_fn(bs_mod, "rebin") as rebin_t:
+            launches, _, _, _ = run_lwfa_path(dev, smi, "main_lwfa_lasy",
+                                              sim, LWFA_LASY_PLAN)
+            k1c_ms, rebin_ms = k1c_t.ms(), rebin_t.ms()
+    finally:
+        laser_mod.fill_amplitude = orig
+        laser_file._CACHE.pop(path, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(records) != steps:
+        raise AssertionError(f"main_lwfa_lasy: {len(records)} antenna "
+                             f"updates in {steps} steps")
+    err = peak = 0.0
+    for Xp, t, amp in records:
+        X64 = Xp.double()
+        ref = orig(gauss.lasers[0], 2, X64, torch.zeros_like(X64), t)
+        err = max(err, float((amp.double() - ref).abs().max()))
+        peak = max(peak, float(ref.abs().max()))
+    e_max = gauss.lasers[0].e_max
+    if not (err <= LASY_TOL * e_max and err <= LASY_TOL_PEAK * peak
+            and peak > 0):
+        raise AssertionError(f"main_lwfa_lasy: the antenna's amplitude is "
+                             f"{err} off the Gaussian's (e_max {e_max}, "
+                             f"largest amplitude {peak})")
+    emit("main_lwfa_lasy_antenna", ok=True, steps=steps, h5py=have_h5py,
+         lasy_source="file" if have_h5py else "in_memory",
+         envelope_shape=list(ld.data.shape), envelope_build_s=build_s,
+         amplitude_max_abs_err=err, amplitude_err_of_e_max=err / e_max,
+         amplitude_err_of_peak=err / peak, largest_amplitude=peak,
+         tol_of_e_max=LASY_TOL, tol_of_peak=LASY_TOL_PEAK,
+         fused_pic_moving_window_mixed_ms_each=[round(m, 3)
+                                                for m in k1c_ms],
+         fused_pic_moving_window_mixed_ms=sum(k1c_ms) / len(k1c_ms),
+         rebins=len(rebin_ms), rebin_ms_each=[round(m, 3) for m in rebin_ms],
+         ragged_expand_launches=launches["ragged_expand"],
+         fused_pic_2d_launches=launches["fused_pic_2d"], nvidia_smi=smi)
+    add_launches({"fused_pic_moving_window_mixed": k1c_row,
+                  "ragged_expand": k3_row},
+                 {"fused_pic_moving_window_mixed": launches["fused_pic_2d"],
+                  "ragged_expand": launches["ragged_expand"]},
+                 "main_lwfa_lasy")
+
+
+SHAPE4_STEPS = 4
+
+
+def phase_main_shape4(dev, smi, n=2048, steps=SHAPE4_STEPS):
+    """uniform2d-2048-order4: main2d's plasma (2048^2, 2 x 2 a cell each,
+    33.5 M particles) at particle_shape = 4, float32, per particle (both
+    packages' binned gates refuse order 4): a warm step, ``steps`` - 2
+    steps timed with CUDA events and each deposit's and gather's device ms,
+    then the last step; the Esirkepov continuity residual of the order-4
+    deposit on the last step's particles in float64 on the card,
+    ((rho(x) - rho(x - v dt)) / dt + div J, over the largest |div J|; its
+    7-wide window, at roundoff); finite fields, every particle alive, the
+    weight conserved."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.core import step as step_mod
+    from warpx_tpu_torch.ops.deposit import (deposit_current_esirkepov,
+                                             deposit_rho)
+    from warpx_tpu_torch.ops.push import inv_gamma
+
+    cfg = dataclasses.replace(main2d_cfg(n, steps), particle_shape=4,
+                              tiled_particles="auto")
+    geom = cfg.geometry
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
+    if sim.binned:
+        raise AssertionError("main_shape4 took the tile-binned step")
+    sim.init()
+    sim.evolve(1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    timed = steps - 2
+    with timed_deposits() as dep, timed_fn(step_mod, "gather_eb") as gat:
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(timed + 1)]
+        marks[0].record()
+        for mark in marks[1:]:
+            sim.evolve(1)
+            mark.record()
+        marks[-1].synchronize()
+        ms_steps = [marks[i].elapsed_time(marks[i + 1])
+                    for i in range(timed)]
+        deposits = dep.report(timed)
+        gather_ms = gat.ms()
+    sim.evolve()
+    torch.cuda.synchronize()
+    peak_mem = torch.cuda.max_memory_allocated()
+    # the continuity of the order-4 deposit, float64, on the last step's
+    # particles
+    j64 = [torch.zeros(geom.n_cell, dtype=torch.float64, device=dev)
+           for _ in range(3)]
+    rho_new = torch.zeros(geom.n_cell, dtype=torch.float64, device=dev)
+    rho_old = torch.zeros_like(rho_new)
+    for sp_cfg in cfg.species:
+        sp = sim.state.species[sp_cfg.name]
+        pos = [p.double() for p in sp.positions(2)]
+        u = [a.double() for a in (sp.ux, sp.uy, sp.uz)]
+        w = torch.where(sp.alive, sp.w.double(), 0.0)
+        deposit_current_esirkepov(pos, *u, w, sp_cfg.charge, geom, cfg.dt, 4,
+                                  chunk_size=cfg.deposit_chunk_size, out=j64)
+        g = inv_gamma(*u)
+        old = [pos[0] - cfg.dt * u[0] * g, pos[1] - cfg.dt * u[2] * g]
+        rho_new = deposit_rho(pos, w, sp_cfg.charge, geom, 4, out=rho_new,
+                              chunk_size=cfg.deposit_chunk_size)
+        rho_old = deposit_rho(old, w, sp_cfg.charge, geom, 4, out=rho_old,
+                              chunk_size=cfg.deposit_chunk_size)
+    dx, dz = geom.dx
+    div = ((j64[0] - torch.roll(j64[0], 1, 0)) / dx
+           + (j64[2] - torch.roll(j64[2], 1, 1)) / dz)
+    resid = float(((rho_new - rho_old) / cfg.dt + div).abs().max()
+                  / div.abs().max())
+    del j64, rho_new, rho_old, div
+    sums = sim.checksums()
+    alive = sum(int(sp.alive.sum()) for sp in sim.state.species.values())
+    finite = all(bool(torch.isfinite(getattr(sim.state.fields, nm)).all())
+                 for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy",
+                            "jz"))
+    total_w = cfg.species[0].density * geom.cell_volume * n * n
+    w_rel = max(abs(sums[s.name]["particle_weight"] / total_w - 1)
+                for s in cfg.species)
+    if not (resid <= 1e-9 and finite and alive == 2 * 4 * n * n
+            and w_rel <= 1e-5):
+        raise AssertionError(f"main_shape4: residual {resid}, finite "
+                             f"{finite}, {alive} alive, weight {w_rel}")
+    ms_step = sum(ms_steps) / timed
+    emit("main_shape4", ok=True, n_cell=geom.n_cell, order=4,
+         path="per_particle", n_particles=alive, steps=sim.state.step,
+         steps_timed=timed, ms_per_step=ms_step,
+         ms_each_step=[round(m, 3) for m in ms_steps],
+         pushes_per_s=alive / (ms_step * 1e-3), deposits=deposits,
+         gather_ms_per_step=sum(gather_ms) / timed, gather_calls=len(
+             gather_ms), continuity_residual=resid, continuity_tol=1e-9,
+         weight_rel=w_rel, init_s=init_s, peak_memory_bytes=peak_mem,
+         checksum_jz=sums["lev=0"]["jz"], device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi)
+
+
 def main() -> int:
     """Every phase in order."""
     if not torch.cuda.is_available():
@@ -6251,6 +7000,7 @@ def main() -> int:
     phase_boosted_parity(dev)
     phase_stochastic_parity(dev)
     phase_collision_parity(dev)
+    phase_injection_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
     k1_row["launches_by_path"] = {"main": k1_row["launches"]}
     phase_main_psatd(dev, smi, k1_row, k3_row)
@@ -6295,6 +7045,12 @@ def main() -> int:
     phase_main_fusion(dev, smi)
     torch.cuda.empty_cache()
     phase_main_mcc_dsmc(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_flux(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_lwfa_lasy(dev, smi, k1c_mixed_row, k3_row)
+    torch.cuda.empty_cache()
+    phase_main_shape4(dev, smi)
     torch.cuda.empty_cache()
     lab_rows = phase_labs(dev)
     print(smi)

@@ -231,15 +231,32 @@ electrons.density = 1.e24
         "c1.frobnicate = 1", "Queue A 11.1",
         id="collisions.collision_names = c1\nc1.species = electrons "
            "electrons-Queue A 11.1"),
-    ("lasers.names = laser1\nlaser1.delay = 1.e-15", "Queue A 11.2"),
+    # lasy lasers (and their delay) run since Queue A 11.2; a binary laser
+    # file neither reader reads (the case keeps its id)
+    pytest.param("lasers.names = laser1\nlaser1.binary_file_name = a.bin",
+                 "Queue C",
+                 id="lasers.names = laser1\nlaser1.delay = 1.e-15-"
+                    "Queue A 11.2"),
     ("electrons.rigid_advance = 0", "Queue A 11.4"),
     ("electrons.zinject_plane = 0.", "Queue A 11.4"),
-    ("diagnostics.diags_names = diag1\ndiag1.diag_type = TimeAveraged",
-     "Queue A 11"),
+    # the JAX package writes it as a Full diagnostic (the case keeps its id)
+    pytest.param(
+        "diagnostics.diags_names = diag1\ndiag1.diag_type = TimeAveraged",
+        "Queue C",
+        id="diagnostics.diags_names = diag1\ndiag1.diag_type = "
+           "TimeAveraged-Queue A 11"),
     ("warpx.reduced_diags_names = r1\nr1.type = ChargeOnEB", "Queue A 11.3"),
-    ("particles.E_ext_particle_init_style = parse_e_ext_particle_function",
-     "Queue A 11"),
-    ("electrons.injection_file = p.h5", "Queue A 11.2"),
+    # the JAX package runs it with no external field (the case keeps its id)
+    pytest.param(
+        "particles.E_ext_particle_init_style = parse_e_ext_particle_function",
+        "Queue C",
+        id="particles.E_ext_particle_init_style = "
+           "parse_e_ext_particle_function-Queue A 11"),
+    # openPMD files are read since Queue A 11.2, for the external_file
+    # style; neither reader reads the key beside another style (the case
+    # keeps its id)
+    pytest.param("electrons.injection_file = p.h5", "Queue C",
+                 id="electrons.injection_file = p.h5-Queue A 11.2"),
 ])
 def test_unported_deck_features_raise(extra, item):
     """Nothing is dropped silently: each feature the port lacks raises

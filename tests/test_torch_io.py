@@ -318,8 +318,12 @@ def test_checkpoint_of_another_configuration_is_refused(lwfa, tmp_path):
 @pytest.mark.parametrize("extra,item", [
     ("amr.plot_int = 10", "Queue A 15"),
     ("amr.restart = chk000010", "Queue A 15"),
-    ("diagnostics.diags_names = d\nd.diag_type = BoundaryScraping",
-     "Queue A 11"),
+    # the scraped particles' buffer waits for Queue A 11.4 (the case keeps
+    # its id)
+    pytest.param("diagnostics.diags_names = d\nd.diag_type = BoundaryScraping",
+                 r"Queue A 11\.4",
+                 id="diagnostics.diags_names = d\nd.diag_type = "
+                    "BoundaryScraping-Queue A 11"),
 ])
 def test_outputs_the_port_lacks_raise(extra, item):
     from warpx_tpu_torch.core.deck import config_from_deck

@@ -236,21 +236,39 @@ def test_inject_species_bit_identical(case, dtype):
 
 
 def test_unported_injection_raises():
-    _, g = geoms()
+    """A species the injection does not place (a Gaussian beam comes from
+    ``inject_gaussian_beam``) gets the JAX package's empty container; a
+    predefined profile the deck reader did not turn into a parsed one is
+    refused, as the JAX package refuses it (ROADMAP.md Queue C); a parsed
+    profile needs its function; an unknown style raises."""
+    jg, g = geoms()
     sp = SpeciesConfig(name="e", charge=-1.0, mass=1.0,
                        injection_style="gaussian_beam")
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
-        injection.inject_species(sp, g, np.random.default_rng(0),
-                                 dtype=torch.float64, device="cpu")
-    # parsed profiles are ported (tests/test_torch_deck.py); a predefined
-    # one is not
+    got = injection.inject_species(sp, g, np.random.default_rng(0),
+                                   dtype=torch.float64, device="cpu",
+                                   capacity=5)
+    ref = j_injection.inject_species(
+        JSpeciesConfig(**dataclasses.asdict(sp)), jg, np.float64,
+        np.random.default_rng(0), capacity=5)
+    for k in ("x", "y", "z", "ux", "uy", "uz", "w", "alive"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      np.asarray(getattr(ref, k)), err_msg=k)
     sp = dataclasses.replace(sp, injection_style="nrandompercell",
                              num_particles_per_cell=1, profile="predefined")
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
+    with pytest.raises(NotImplementedError,
+                       match="JAX package refuses it too.*Queue C"):
         injection.inject_species(sp, g, np.random.default_rng(0),
                                  dtype=torch.float64, device="cpu")
+    with pytest.raises(NotImplementedError, match="predefined"):
+        j_injection.inject_species(
+            JSpeciesConfig(**dataclasses.asdict(sp)), jg, np.float64,
+            np.random.default_rng(0))
     sp = dataclasses.replace(sp, profile="parse_density_function")
     with pytest.raises(ValueError, match="density_function"):
+        injection.inject_species(sp, g, np.random.default_rng(0),
+                                 dtype=torch.float64, device="cpu")
+    sp = dataclasses.replace(sp, injection_style="nuniformpercel")
+    with pytest.raises(ValueError, match="unknown injection style"):
         injection.inject_species(sp, g, np.random.default_rng(0),
                                  dtype=torch.float64, device="cpu")
 

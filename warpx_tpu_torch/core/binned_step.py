@@ -82,10 +82,15 @@ def binned_supported(cfg: SimConfig) -> bool:
     if cfg.collisions:
         return False
     for sp in cfg.species:
+        # a plane-emitting species goes per particle as on the JAX
+        # package's bounded gate (``binned_step.py:144``): its new
+        # particles would land in free slots of tiles they are not in
+        # (the JAX package's periodic gate passes it; ROADMAP.md Queue C)
         if (sp.do_not_push or sp.do_not_deposit or sp.do_not_gather
                 or sp.species_type == "photon" or sp.mass == 0.0
                 or sp.do_field_ionization or sp.do_qed_quantum_sync
                 or sp.do_qed_breit_wheeler
+                or sp.injection_style == "nfluxpercell"
                 or sp.pusher not in ("boris", "vay", "higuera")):
             return False
     return True
@@ -138,6 +143,7 @@ def bounded_binned_supported(cfg: SimConfig) -> bool:
                 or sp.species_type == "photon" or sp.mass == 0.0
                 or sp.do_field_ionization or sp.do_resampling
                 or sp.do_qed_quantum_sync or sp.do_qed_breit_wheeler
+                or sp.injection_style == "nfluxpercell"
                 or sp.pusher not in ("boris", "vay", "higuera")):
             return False
     return True

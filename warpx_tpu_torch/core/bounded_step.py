@@ -159,22 +159,22 @@ def check_bounded_supported(cfg: SimConfig) -> None:
         for bc in tuple(cfg.field_bc_lo) + tuple(cfg.field_bc_hi):
             if bc not in ("periodic", "damped", "pml"):
                 no(f"PSATD with field boundary {bc!r} (the JAX package has "
-                   "periodic, damped and pml)", "Queue A 11")
+                   "periodic, damped and pml)", "Queue A 11.4")
     elif cfg.em_solver not in ("yee", "ckc"):
-        no(f"em_solver {cfg.em_solver!r}", "Queue A 11")
+        no(f"em_solver {cfg.em_solver!r}", "Queue A 11.3")
     else:
         for bc in tuple(cfg.field_bc_lo) + tuple(cfg.field_bc_hi):
             if bc not in ("periodic", "pec", "pml"):
                 no(f"field boundary {bc!r} (Silver-Mueller, damped, open)",
-                   "Queue A 11")
+                   "Queue A 11.4")
     for lo, hi in zip(cfg.field_bc_lo, cfg.field_bc_hi):
         if (lo == "periodic") != (hi == "periodic"):
-            no("a dimension periodic on one face only", "Queue A 11")
+            no("a dimension periodic on one face only", "Queue A 11.4")
     for bc in tuple(cfg.particle_bc_lo) + tuple(cfg.particle_bc_hi):
         if bc not in ("periodic", "absorbing", "reflecting"):
-            no(f"particle boundary {bc!r} (thermal walls)", "Queue A 11")
+            no(f"particle boundary {bc!r} (thermal walls)", "Queue A 11.4")
     if cfg.em_solver_medium != "vacuum":
-        no("a macroscopic medium", "Queue A 11")
+        no("a macroscopic medium", "Queue A 11.3")
     if cfg.current_deposition == "vay":
         # the JAX package's bounded step deposits direct J there and hands
         # it to a solver that divides it by i k as if it were D
@@ -182,9 +182,9 @@ def check_bounded_supported(cfg: SimConfig) -> None:
     if cfg.current_deposition not in ("esirkepov", "direct"):
         no(f"current deposition {cfg.current_deposition!r}", "Queue A 3")
     if cfg.grid_type != "staggered":
-        no(f"grid type {cfg.grid_type!r}", "Queue A 11")
+        no(f"grid type {cfg.grid_type!r}", "Queue A 11.4")
     if cfg.field_gathering == "momentum-conserving":
-        no("momentum-conserving gathering", "Queue A 11")
+        no("momentum-conserving gathering", "Queue A 11.4")
     if cfg.use_nci_corr:
         no("the Godfrey NCI corrector", "Queue A 11.3")
     if cfg.do_qed_schwinger:
@@ -200,10 +200,10 @@ def check_bounded_supported(cfg: SimConfig) -> None:
         raise ValueError("moving_window_dir must be an active-axis index")
     laser_names = {las.name for las in cfg.lasers}
     for las in cfg.lasers:
-        if las.profile != "gaussian":
-            no(f"laser profile {las.profile!r}", "Queue A 11")
+        if las.profile not in ("gaussian", "from_file"):
+            no(f"laser profile {las.profile!r}", "Queue A 11.4")
         if las.do_continuous_injection:
-            no("continuous injection of a laser antenna", "Queue A 11")
+            no("continuous injection of a laser antenna", "Queue A 11.4")
     for sp in cfg.species:
         if sp.injection_style == "laser":
             if sp.name not in laser_names:
@@ -211,29 +211,30 @@ def check_bounded_supported(cfg: SimConfig) -> None:
                                  "LaserConfig")
             continue
         if sp.do_not_push or sp.do_not_gather or sp.do_not_deposit:
-            no(f"do_not_push/gather/deposit of {sp.name!r}", "Queue A 11")
+            no(f"do_not_push/gather/deposit of {sp.name!r}", "Queue A 11.4")
         if sp.mass == 0.0 and sp.species_type != "photon":
-            no(f"massless species {sp.name!r} that is not a photon",
-               "Queue A 11")
+            no(f"massless species {sp.name!r} that is not a photon (the JAX "
+               "package's pusher divides by its mass)", "Queue C")
         if sp.do_qed_quantum_sync or sp.do_qed_breit_wheeler:
             # the JAX package's bounded step runs no QED event and no
             # optical-depth evolution: it would drop them silently
             no(f"QED events of {sp.name!r} on the bounded step (the JAX "
                "package's bounded step skips them)", "Queue C")
         if sp.pusher not in PUSHERS:
-            no(f"pusher {sp.pusher!r}", "Queue A 11")
+            no(f"pusher {sp.pusher!r} (the JAX package has none of that "
+               "name either)", "Queue C")
         if sp.do_continuous_injection:
             if sp.injection_style != "nuniformpercell":
                 no("continuous injection other than NUniformPerCell",
-                   "Queue A 11")
+                   "Queue A 11.4")
             if sp.profile != "constant" and sp.profile not in PARSED_PROFILES:
                 no(f"continuous injection with the {sp.profile!r} profile",
-                   "Queue A 11")
+                   "Queue A 11.4")
             if sp.momentum_distribution not in ("at_rest", "none", "constant",
                                                 "parse_momentum_function"):
                 no("continuous injection with momentum distribution "
                    f"{sp.momentum_distribution!r} (the JAX package draws it "
-                   "from jax.random)", "Queue A 11")
+                   "from jax.random)", "Queue A 11.4")
 
 
 def _slice(ndim, d, a, b):

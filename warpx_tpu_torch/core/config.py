@@ -3,8 +3,11 @@
 A copy of ``warpx_tpu.core.config``'s ``LaserConfig``, ``SpeciesConfig``
 and ``SimConfig``, cut to the fields the ported paths read (2D XZ and 3D
 explicit EM with the Yee, CKC or PSATD solver, periodic and bounded with
-PML/PEC (FDTD) or PML/damped (PSATD) faces, moving window, laser antennas,
-continuous injection and Gaussian beams, constant and parsed profiles,
+PML/PEC (FDTD) or PML/damped (PSATD) faces, moving window, Gaussian and lasy
+laser antennas, continuous injection, Gaussian beams, single, multiple and
+openPMD-file particles, NFluxPerCell plane injection, constant and parsed
+profiles, thermal (Maxwell-Boltzmann, Maxwell-Juttner), uniform and parsed
+Gaussian momenta, initial external grid fields, shape orders 1-4,
 divergence cleaning, the Lorentz-boosted frame, field ionization, QED
 (quantum synchrotron, Breit-Wheeler, Schwinger) with photon species,
 classical radiation reaction, resampling, binary collisions (pairwise
@@ -50,6 +53,9 @@ class LaserConfig:
     do_continuous_injection: bool = False
     # lab-frame plane coordinate along the normal (boosted runs)
     z0_lab: float = 0.0
+    # profile = from_file (lasy): LaserProfileFromFile.cpp
+    lasy_file_name: str = ""
+    delay: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +63,8 @@ class SpeciesConfig:
     name: str
     charge: float
     mass: float
-    # nuniformpercell | nrandompercell | gaussian_beam | laser | none
+    # nuniformpercell | nrandompercell | singleparticle | multipleparticles
+    # | external_file | nfluxpercell | gaussian_beam | laser | none
     injection_style: str = "none"
     num_particles_per_cell_each_dim: Tuple[int, ...] = ()
     num_particles_per_cell: int = 0
@@ -65,10 +72,46 @@ class SpeciesConfig:
     density: float = 0.0
     # parse_density_function: n(x, y, z) in m^-3 (utils/expression.py)
     density_expr: Optional[str] = None
-    # at_rest | constant | gaussian | parse_momentum_function
+    # at_rest | constant | gaussian | maxwell_boltzmann | maxwell_juttner |
+    # uniform | parse_momentum_function | gaussian_parse_momentum_function
     momentum_distribution: str = "at_rest"
-    # parse_momentum_function: (ux, uy, uz)(x, y, z) in units of c
+    # parse_momentum_function: (ux, uy, uz)(x, y, z) in units of c; the
+    # means of gaussian_parse_momentum_function
     momentum_exprs: Optional[Tuple[str, str, str]] = None
+    # gaussian_parse_momentum_function: the spreads (x, y, z)
+    momentum_th_exprs: Optional[Tuple[str, str, str]] = None
+    # maxwell_boltzmann / maxwell_juttner (theta = kT/mc^2, the drift
+    # beta_bulk along bulk_vel_dir, "-z" for negative)
+    theta: float = 0.0
+    beta_bulk: float = 0.0
+    bulk_vel_dir: str = "x"
+    # parsed theta(x, y, z) and beta(x, y, z) (<sp>.theta_distribution_type
+    # = parser, beta_distribution_type = parser)
+    theta_expr: Optional[str] = None
+    beta_expr: Optional[str] = None
+    # uniform: the cuboid [u_min, u_max] in u-space (units of c)
+    u_min: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    u_max: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    # singleparticle: position (m), u (units of c) and weight
+    single_particle_pos: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    single_particle_u: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    single_particle_weight: float = 0.0
+    # multipleparticles: the columns (x, y, z, ux, uy, uz, w)
+    multiple_particles: Tuple[Tuple[float, ...], ...] = ()
+    # external_file: the openPMD file of one species and the shift of its z
+    injection_file: Optional[str] = None
+    z_shift: float = 0.0
+    # nfluxpercell (PlasmaInjector flux keys; AddPlasmaFlux): the plane's
+    # position along its normal axis, the emission direction (+1, -1), the
+    # flux (m^-2 s^-1) or its expression f(x, y, z, t), and the times
+    # between which it emits (-1: no limit)
+    surface_flux_pos: float = 0.0
+    flux_normal_axis: str = "z"
+    flux_direction: int = 1
+    flux: float = 0.0
+    flux_expr: str = ""
+    flux_tmin: float = -1.0
+    flux_tmax: float = -1.0
     # constant momentum (units of gamma*beta, multiplied by c at injection)
     ux: float = 0.0
     uy: float = 0.0
@@ -207,6 +250,11 @@ class SimConfig:
     # time)
     gamma_boost: float = 1.0
     boost_direction: str = "z"
+    # initial grid fields (warpx.E/B_ext_grid_init_style): None,
+    # ("constant", (vx, vy, vz)), ("parse", (fx, fy, fz)) or ("file",
+    # (path,))
+    e_ext_grid: Optional[Tuple] = None
+    b_ext_grid: Optional[Tuple] = None
     # constant external fields applied to particles during gather
     e_ext_particle: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     b_ext_particle: Tuple[float, float, float] = (0.0, 0.0, 0.0)

@@ -3,9 +3,12 @@
 The counterpart of ``warpx_tpu.core.deck.config_from_deck`` for the fields
 the port's ``SimConfig`` holds (2D XZ and 3D explicit electromagnetic runs
 with the Yee, CKC or PSATD solver, periodic or bounded with PML/PEC faces
-(PML/damped under PSATD), moving window, Gaussian laser
-antennas, continuous injection, Gaussian beams, constant or parsed density
-and momentum profiles, divergence cleaning, the Lorentz-boosted frame (the
+(PML/damped under PSATD), moving window, Gaussian and lasy laser
+antennas, continuous injection, Gaussian beams, single, multiple and
+openPMD-file particles, NFluxPerCell plane emission, constant, parsed or
+parabolic-channel density, constant, Gaussian, thermal, uniform and parsed
+momenta, initial external grid fields, shape orders 1-4, divergence
+cleaning, the Lorentz-boosted frame (the
 geometry along the boost axis and the antenna converted from the lab's
 coordinates), field ionization, QED (quantum synchrotron, Breit-Wheeler,
 Schwinger) with photon species, classical radiation reaction, resampling,
@@ -136,6 +139,28 @@ def _lower(deck: Deck, key: str, default: str) -> str:
     return (deck.get_string(key, default) or default).strip('"').lower()
 
 
+def _predefined_profile(deck: Deck, name: str, profile: str):
+    """A predefined density profile as the JAX reader reads it
+    (warpx_tpu/core/deck.py:44-64): the parabolic channel
+    (InjectorDensity.H:74-107) becomes the equivalent parsed expression;
+    any other stays ``predefined``, which the injection refuses."""
+    pname = _lower(deck, f"{name}.predefined_profile_name", "")
+    params = deck.get_reals(f"{name}.predefined_profile_params", [])
+    if not (pname == "parabolic_channel" and len(params) >= 6):
+        return profile, None
+    zs, ru, pl, rd, rc, n0 = params[:6]
+    kp = _QE / _C * math.sqrt(n0 / (_ME * 8.8541878128e-12))
+    inv = 4.0 / (kp * kp * rc ** 4)
+    lon = (
+        f"(0.5*(1-cos(pi*((z-({zs}))/({ru}))))"
+        f"*(((z-({zs}))>=0)&((z-({zs}))<({ru})))"
+        f" + (((z-({zs}))>=({ru}))&((z-({zs}))<({ru + pl})))"
+        f" + 0.5*(1+cos(pi*((z-({zs}))-({ru + pl}))/({rd})))"
+        f"*(((z-({zs}))>=({ru + pl}))&((z-({zs}))<({ru + pl + rd}))))"
+    )
+    return "parse_density_function", f"({n0})*(1+({inv})*(x*x+y*y))*{lon}"
+
+
 def _species_from_deck(deck: Deck, name: str, ndim: int) -> SpeciesConfig:
     def g(k, default=None):
         return deck.get_real(f"{name}.{k}", default)
@@ -153,22 +178,60 @@ def _species_from_deck(deck: Deck, name: str, ndim: int) -> SpeciesConfig:
         found = deck.get_expr_string(name, "density_function")
         if found:
             density_expr = found[0]
+    if profile == "predefined":
+        profile, density_expr = _predefined_profile(deck, name, profile)
     mom = _lower(deck, f"{name}.momentum_distribution_type", "at_rest")
-    momentum_exprs = None
+    momentum_exprs = momentum_th_exprs = None
     if mom == "parse_momentum_function":
         momentum_exprs = tuple(
             (deck.get_expr_string(name, f"momentum_function_{comp}")
              or ("0",))[0]
             for comp in ("ux", "uy", "uz"))
+    elif mom == "gaussian_parse_momentum_function":
+        # per-position means and spreads (InjectorMomentumGaussianParser)
+        momentum_exprs, momentum_th_exprs = (tuple(
+            (deck.get_expr_string(name, f"momentum_function_{comp}_{k}")
+             or ("0",))[0]
+            for comp in ("ux", "uy", "uz")) for k in ("m", "th"))
+
+    def parsed(what):
+        # a parsed temperature or drift (<what>_distribution_type = parser)
+        if _lower(deck, f"{name}.{what}_distribution_type",
+                  "constant") != "parser":
+            return None
+        found = deck.get_expr_string(name, f"{what}_function")
+        return found[0] if found else None
+
     inf = math.inf
     full_lo = (g("xmin", -inf), g("ymin", -inf), g("zmin", -inf))
     full_hi = (g("xmax", inf), g("ymax", inf), g("zmax", inf))
     axes = _AXES3[ndim]
+    charge = g("charge", type_q if type_q is not None else 0.0)
+    mass = g("mass", type_m if type_m is not None else 0.0)
+    injection_file = None
+    if style == "external_file":
+        # PlasmaInjector::setupExternalFile: the charge and mass come from
+        # the file's records unless the deck gives them (<species>.charge,
+        # .mass or species_type), which takes precedence
+        injection_file = gs("injection_file").strip('"')
+        if not injection_file:
+            raise ValueError(f"{name}.injection_file is required")
+        from ..io.openpmd import read_openpmd_particles
+
+        meta = read_openpmd_particles(injection_file)
+        if type_q is None and g("charge", None) is None \
+                and meta["charge"] is not None:
+            charge = meta["charge"]
+        if type_m is None and g("mass", None) is None \
+                and meta["mass"] is not None:
+            mass = meta["mass"]
     return SpeciesConfig(
         name=name,
-        charge=g("charge", type_q if type_q is not None else 0.0),
-        mass=g("mass", type_m if type_m is not None else 0.0),
+        charge=charge,
+        mass=mass,
         injection_style=style,
+        injection_file=injection_file,
+        z_shift=g("z_shift", 0.0),
         num_particles_per_cell_each_dim=tuple(
             deck.get_ints(f"{name}.num_particles_per_cell_each_dim", ())),
         num_particles_per_cell=deck.get_int(
@@ -182,7 +245,34 @@ def _species_from_deck(deck: Deck, name: str, ndim: int) -> SpeciesConfig:
         uy=g("uy_m", g("uy", 0.0)),
         uz=g("uz_m", g("uz", 0.0)),
         ux_th=g("ux_th", 0.0), uy_th=g("uy_th", 0.0), uz_th=g("uz_th", 0.0),
+        theta=g("theta", 0.0),
+        beta_bulk=g("beta", 0.0),
+        bulk_vel_dir=(gs("bulk_vel_dir") or "x").lower(),
+        theta_expr=parsed("theta"),
+        beta_expr=parsed("beta"),
+        u_min=(g("ux_min", 0.0), g("uy_min", 0.0), g("uz_min", 0.0)),
+        u_max=(g("ux_max", 0.0), g("uy_max", 0.0), g("uz_max", 0.0)),
         momentum_exprs=momentum_exprs,
+        momentum_th_exprs=momentum_th_exprs,
+        single_particle_pos=tuple(deck.get_reals(
+            f"{name}.single_particle_pos", (0.0, 0.0, 0.0))),
+        single_particle_u=tuple(deck.get_reals(
+            f"{name}.single_particle_u", (0.0, 0.0, 0.0))),
+        single_particle_weight=g("single_particle_weight", 0.0),
+        multiple_particles=tuple(
+            tuple(deck.get_reals(f"{name}.multiple_particles_{c}", ()))
+            for c in ("pos_x", "pos_y", "pos_z", "ux", "uy", "uz", "weight")
+        ) if style == "multipleparticles" else (),
+        surface_flux_pos=g("surface_flux_pos", 0.0),
+        flux_normal_axis=(gs("flux_normal_axis") or "z").lower(),
+        flux_direction=deck.get_int(f"{name}.flux_direction", 1),
+        flux=g("flux", 0.0),
+        flux_expr=(
+            (deck.get_expr_string(name, "flux_function") or ("",))[0]
+            if (gs("flux_profile") or "").lower().startswith("parse")
+            else ""),
+        flux_tmin=g("flux_tmin", -1.0),
+        flux_tmax=g("flux_tmax", -1.0),
         bounds_lo=tuple(full_lo[a] for a in axes),
         bounds_hi=tuple(full_hi[a] for a in axes),
         do_not_push=bool(deck.get_int(f"{name}.do_not_push", 0)),
@@ -262,7 +352,32 @@ def _laser_from_deck(deck: Deck, name: str) -> LaserConfig:
         theta_stc=g("theta_stc", 0.0),
         do_continuous_injection=bool(
             deck.get_int(f"{name}.do_continuous_injection", 0)),
+        lasy_file_name=(deck.get_string(f"{name}.lasy_file_name", "")
+                        or "").strip('"'),
+        delay=g("delay", 0.0),
     )
+
+
+def _ext_grid(deck: Deck, which: str):
+    """warpx.<E|B>_ext_grid_init_style as the JAX reader reads it
+    (warpx_tpu/core/deck.py:850-874; reference WarpXInitData.cpp
+    InitLevelData, ReadExternalFieldFromFile): ("constant", (x, y, z)),
+    ("parse", (fx, fy, fz)), ("file", (path,)) or None."""
+    style = _lower(deck, f"warpx.{which}_ext_grid_init_style", "")
+    if style == "constant":
+        return ("constant", tuple(deck.get_reals(
+            f"warpx.{which}_external_grid", (0.0,) * 3)))
+    if style.startswith("parse"):
+        return ("parse", tuple(
+            (deck.get_expr_string("warpx", f"{which}{c}_external_grid_function")
+             or ("0",))[0] for c in "xyz"))
+    if style == "read_from_file":
+        path = (deck.get_string("warpx.read_fields_from_path", "")
+                or "").strip('"')
+        if not path:
+            raise ValueError("warpx.read_fields_from_path is required")
+        return ("file", (path,))
+    return None
 
 
 def _tiling_from_deck(deck: Deck, ndim: int) -> dict:
@@ -512,7 +627,7 @@ def _gate_values(deck: Deck) -> None:
     if solver in ("hybrid", "ect"):
         _no(f"algo.maxwell_solver = {solver}", "Queue A 11.3")
     if solver not in ("yee", "ckc", "psatd", "none"):
-        _no(f"algo.maxwell_solver = {solver}", "Queue A 11")
+        _no(f"algo.maxwell_solver = {solver}", "Queue A 11.3")
     es = _lower(deck, "warpx.do_electrostatic",
                 _lower(deck, "algo.do_electrostatic", "none"))
     if es != "none":
@@ -535,8 +650,36 @@ def _gate_values(deck: Deck) -> None:
         style = _lower(deck, f"particles.{which}_ext_particle_init_style",
                        "none")
         if style not in ("none", "constant"):
-            _no(f"particles.{which}_ext_particle_init_style = {style}",
-                "Queue A 11")
+            # the JAX reader reads only "constant" and runs any other
+            # style with no external field (warpx_tpu/core/deck.py:738-743)
+            _no(f"particles.{which}_ext_particle_init_style = {style} (the "
+                "JAX package runs it with no external field)", "Queue C")
+    _laser_gates(deck)
+
+
+def _laser_gates(deck: Deck) -> None:
+    """The laser profiles the JAX reader refuses, with its messages
+    (warpx_tpu/core/deck.py:464-481): from_file reads lasy files only, and
+    the file must exist (or be loaded already: ``core/laser_file.py``
+    keeps each file it read); every profile but Gaussian and from_file is
+    refused."""
+    from .laser_file import is_loaded
+
+    for nm in deck.get_strings("lasers.names", []):
+        prof = _lower(deck, f"{nm}.profile", "gaussian")
+        if prof == "from_file":
+            fp = (deck.get_string(f"{nm}.lasy_file_name", "")
+                  or "").strip('"')
+            if not fp:
+                raise NotImplementedError(
+                    f"laser profile from binary_file_name ({nm}): only the "
+                    "lasy (openPMD) format is implemented, as in the JAX "
+                    "package (ROADMAP.md Queue C)")
+            if not (is_loaded(fp) or os.path.exists(fp)):
+                raise FileNotFoundError(f"{nm}.lasy_file_name: {fp}")
+        elif prof != "gaussian":
+            # reference: LaserProfilesImpl/LaserProfileParseField.cpp
+            _no(f"laser profile {prof!r} ({nm}.profile)", "Queue A 11.4")
 
 
 def _psatd_gates(deck: Deck) -> None:
@@ -577,9 +720,19 @@ def _psatd_gates(deck: Deck) -> None:
             "Vay deposition not implemented with multi-J (WarpX.cpp:1162)")
 
 
+# keys the JAX reader reads that no other item of ROADMAP.md names
+_ITEM_11_6 = ("addRealAttributes", "addIntegerAttributes",
+              "do_backward_propagation", "start_moving_window_step",
+              "end_moving_window_step")
+
+
 def _item_of_key(deck: Deck, key: str) -> str:
-    """The ROADMAP.md item a deck key the reader does not read waits for."""
+    """The ROADMAP.md item a deck key the reader does not read waits for;
+    a key that neither package reads names Queue C (the JAX package lists
+    it as unused and runs without it; the port refuses it, so that a
+    misspelt key drops nothing silently)."""
     head, _, tail = key.partition(".")
+    species = deck.get_strings("particles.species_names", [])
     if (head == "amr" and tail.split("_")[0] in ("plot", "check")
             or "checkpoint" in key or "restart" in key):
         # the legacy AMReX output keys and a restart named in the deck,
@@ -590,24 +743,27 @@ def _item_of_key(deck: Deck, key: str) -> str:
         return "Queue A 11.1"
     if head in ("fluids", "hybrid_pic_model", "macroscopic", "eb2",
                 "implicit_evolve", "picard", "newton", "gmres") or (
-            tail.startswith("eb_") or "quantum_xi" in tail):
+            tail.startswith(("eb_", "potential_", "poisson_"))
+            or "quantum_xi" in tail or tail == "use_hybrid_QED"
+            or head in deck.get_strings("fluids.species_names", [])):
         return "Queue A 11.3"
     if head == "amr" or tail in ("do_subcycling", "fine_tag_lo",
                                  "fine_tag_hi", "refine_plasma",
-                                 "n_rz_azimuthal_modes"):
+                                 "n_rz_azimuthal_modes",
+                                 "n_current_deposition_buffer",
+                                 "n_field_gather_buffer") or (
+            head in species and tail == "random_theta"):
         return "Queue A 12"
-    if head in deck.get_strings("particles.species_names", []):
-        if tail in ("zinject_plane", "rigid_advance"):
-            return "Queue A 11.4"
-        if "flux" in tail or tail in ("injection_file", "single_particle_pos",
-                                      "single_particle_u",
-                                      "single_particle_weight") or (
-                tail.startswith("multiple_particles")):
-            return "Queue A 11.2"
-    if head in deck.get_strings("lasers.names", []) and tail in (
-            "lasy_file_name", "binary_file_name", "delay"):
-        return "Queue A 11.2"
-    return "Queue A 11"
+    if (tail in ("zinject_plane", "rigid_advance", "rigid_injected_species")
+            or tail.startswith(("save_particles_at_", "field_centering_no"))
+            or head == "lattice"
+            or head in deck.get_strings("lattice.elements", [])
+            or (head == "boundary" and tail.endswith(".u_th"))):
+        return "Queue A 11.4"
+    if tail in _ITEM_11_6 or (head in species
+                              and tail.startswith("attribute.")):
+        return "Queue A 11.6"
+    return "Queue C"
 
 
 _FORMATS = ("plotfile", "openpmd", "checkpoint")
@@ -686,8 +842,14 @@ def outputs_from_deck(deck: Deck) -> dict:
         if kind == "backtransformed":
             btd.append(_btd_from_deck(deck, nm))
             continue
+        if kind == "boundaryscraping":
+            _no(f"{nm}.diag_type = {kind}: the scraped particles' buffer",
+                "Queue A 11.4")
         if kind != "full":
-            _no(f"{nm}.diag_type = {kind}", "Queue A 11")
+            # the JAX package writes any other type as a Full diagnostic
+            # of the instantaneous fields (simulation.py:318-370)
+            _no(f"{nm}.diag_type = {kind} (the JAX package writes it as a "
+                "Full diagnostic)", "Queue C")
         fmt = _lower(deck, f"{nm}.format", "plotfile")
         if fmt not in _FORMATS:
             raise ValueError(f"{nm}.format = {fmt}: not one of {_FORMATS}")
@@ -873,6 +1035,8 @@ def config_from_deck(deck: Deck) -> SimConfig:
         boost_direction=boost_dir,
         e_ext_particle=ext["E"],
         b_ext_particle=ext["B"],
+        e_ext_grid=_ext_grid(deck, "E"),
+        b_ext_grid=_ext_grid(deck, "B"),
         em_solver_medium=_lower(deck, "algo.em_solver_medium", "vacuum"),
         do_dive_cleaning=deck.get_bool("warpx.do_dive_cleaning", False),
         do_divb_cleaning=deck.get_bool("warpx.do_divb_cleaning", False),

@@ -1,7 +1,8 @@
 """Laser antenna: profile evaluation and antenna-particle update.
 
-The counterpart of ``warpx_tpu.core.laser`` for the Gaussian profile, in the
-lab frame and in a Lorentz-boosted one: the antenna's layout is made on the
+The counterpart of ``warpx_tpu.core.laser`` for the Gaussian profile and
+the lasy file (``profile = from_file``, ``core/laser_file.py``), in the lab
+frame and in a Lorentz-boosted one: the antenna's layout is made on the
 host in numpy, its update runs on tensors.
 
 The reference injects lasers through an antenna of macro-particles on a plane
@@ -28,6 +29,7 @@ from .state import ParticleState
 
 __all__ = [
     "gaussian_amplitude",
+    "gaussian_field",
     "fill_amplitude",
     "antenna_particles",
     "update_antenna",
@@ -94,12 +96,24 @@ def gaussian_amplitude(laser: LaserConfig, Xp, Yp, t):
 
 def fill_amplitude(laser: LaserConfig, ndim: int, Xp, Yp, t):
     """Amplitude at the antenna particles' plane coordinates ``Xp``, ``Yp``
-    (tensors) at the host time ``t``; the factors that depend on ``t`` alone
-    are host complex numbers."""
+    (tensors) at the host time ``t``: the Gaussian profile's, or the lasy
+    file's at t_env = t + t_min - delay (LaserProfileFromFile.cpp)."""
+    if laser.profile == "from_file":
+        from .laser_file import lasy_amplitude, load_lasy
+
+        ld = load_lasy(laser.lasy_file_name)
+        return lasy_amplitude(ld, laser, Xp, Yp,
+                              float(t) + ld.t_min - laser.delay)
     if laser.profile != "gaussian":
         raise NotImplementedError(
-            f"laser profile {laser.profile!r} (ROADMAP.md Queue A 11)"
-        )
+            f"laser profile {laser.profile!r} (ROADMAP.md Queue A 11.4)")
+    return gaussian_field(laser, ndim, Xp, Yp, t).real
+
+
+def gaussian_field(laser: LaserConfig, ndim: int, Xp, Yp, t):
+    """The Gaussian profile's complex field, whose real part is the
+    amplitude (GaussianLaserProfile::fill_amplitude); the factors that
+    depend on ``t`` alone are host complex numbers."""
     t = float(t)
     k0, inv_tau2, osc, diffract, inv_cw2, stretch = gaussian_amplitude(
         laser, Xp, Yp, t)
@@ -124,7 +138,7 @@ def fill_amplitude(laser: LaserConfig, ndim: int, Xp, Yp, t):
     )
     stcfactor = complex(prefactor) * torch.exp(-stc_exponent)
     exp_argument = -(Xp * Xp + Yp * Yp) * complex(inv_cw2)
-    return (stcfactor * torch.exp(exp_argument)).real
+    return stcfactor * torch.exp(exp_argument)
 
 
 def boost_laser_position(laser: LaserConfig, gamma_boost: float):

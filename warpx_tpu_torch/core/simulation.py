@@ -18,9 +18,13 @@ which ``evolve`` writes on their schedule after each step
 (``flush_diagnostics``: plotfile, openPMD, checkpoint and reduced
 diagnostics under ``output_dir``), then the back-transformed diagnostics of
 a boosted run take their rows (``self.btd``, ``diagnostics/btd.py``).  After
-each step ``resample`` thins the species whose trigger fires.  The random
-numbers of the collisions, ionization, QED, Schwinger and resampling come
-from ``self.draws`` (``utils/draws.py``).  The simulation runs on the CUDA
+each step the NFluxPerCell species emit from their planes
+(``core/flux_injection.py``), then ``resample`` thins the species whose
+trigger fires.  ``init`` lays the initial external grid fields
+(``warpx.E/B_ext_grid_init_style``: constant, parsed or read from an
+openPMD file).  The random numbers of the collisions, ionization, QED,
+Schwinger, plane emission and resampling come from ``self.draws``
+(``utils/draws.py``).  The simulation runs on the CUDA
 device unless the caller names another device; with no GPU it raises
 rather than run on the CPU unasked.
 """
@@ -28,6 +32,7 @@ rather than run on the CPU unasked.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import os
 from typing import Dict
@@ -57,6 +62,8 @@ from .bounded_step import (BoundedStepper, check_bounded_supported,
                            needs_bounded_step)
 from .config import SimConfig
 from .deck import config_from_deck, outputs_from_deck
+from .domain import DomainLayout
+from .flux_injection import flux_capacity, make_flux_injector
 from .grid import yee_staggering
 from .injection import (columns_to_state, inject_gaussian_beam_host,
                         inject_species_host)
@@ -65,6 +72,58 @@ from .state import FieldState, ParticleState, SimState
 from .step import has_stochastic, pic_step, push_momenta_half, wrap_positions
 
 __all__ = ["Simulation"]
+
+# the slots of a plane-emitting species: a whole run's emission, at most
+# this many (the JAX package's simulation.py:900-910)
+FLUX_CAPACITY_MAX = 5_000_000
+
+
+def _staggered_points(shape, flags, geom, origin):
+    """The (ndim) meshgrid of a component's positions: node ``i`` of an
+    axis at origin + i dx where the component is nodal (flag 1), at
+    origin + (i + 1/2) dx where it is cell-centered."""
+    return np.meshgrid(*[
+        origin[d] + (np.arange(shape[d]) + (0.0 if flags[d] == 1 else 0.5))
+        * geom.dx[d] for d in range(geom.ndim)], indexing="ij")
+
+
+def _interp_file_field(mesh, shape, flags, geom, origin) -> np.ndarray:
+    """Multilinear interpolation of an openPMD mesh component onto the
+    staggered grid positions (WarpX::ReadExternalFieldFromFile,
+    WarpXInitData.cpp:1503-1672: the file's data lives on the node lattice
+    offset + i * spacing; each point interpolates in its enclosing file
+    cell), in float64 on the host."""
+    data = np.asarray(mesh["data"], np.float64)
+    if data.ndim == geom.ndim + 1:
+        # thetaMode layout (m-components, r, z): mode 0's real part
+        data = data[0]
+    if data.ndim != geom.ndim:
+        raise ValueError(f"external field file has rank {data.ndim}, "
+                         f"expected {geom.ndim}")
+    spacing = np.asarray(mesh["spacing"], np.float64)
+    offset = np.asarray(mesh["offset"], np.float64)
+    pts = _staggered_points(shape, flags, geom, origin)
+    # the fractional file index along each axis, clipped to the file
+    idx_f = [np.clip((p - offset[d]) / spacing[d], 0.0, data.shape[d] - 1.0)
+             for d, p in enumerate(pts)]
+    i0 = [np.minimum(np.floor(f).astype(np.int64), data.shape[d] - 2)
+          if data.shape[d] > 1 else np.zeros_like(f, np.int64)
+          for d, f in enumerate(idx_f)]
+    frac = [f - i for f, i in zip(idx_f, i0)]
+    out = np.zeros(shape, np.float64)
+    for corner in itertools.product((0, 1), repeat=geom.ndim):
+        w = np.ones(shape, np.float64)
+        idx = []
+        for d, c in enumerate(corner):
+            if data.shape[d] > 1:
+                w = w * (frac[d] if c else (1.0 - frac[d]))
+                idx.append(np.minimum(i0[d] + c, data.shape[d] - 1))
+            else:
+                if c:
+                    w = w * 0.0
+                idx.append(i0[d])
+        out += w * data[tuple(idx)]
+    return out
 
 
 def _default_device() -> torch.device:
@@ -123,6 +182,7 @@ class Simulation:
         # from the configuration; None where nothing draws
         self.draws = (Draws(cfg.seed, self.device) if has_stochastic(cfg)
                       else None)
+        self._flux_injectors = {}
         self._resampling_triggers = {
             s.name: IntervalsParser(list(s.resampling_trigger_intervals))
             for s in cfg.species if s.do_resampling}
@@ -312,6 +372,79 @@ class Simulation:
             extra["opticalDepthBW"] = qed_rng.exponential(size=cap).astype(ft)
         return dict(cols, extra=extra) if extra else cols
 
+    def _capacity(self, sp_cfg, caps) -> int | None:
+        """The slots of a species whose size the injection does not
+        decide: a plane-emitting species' whole run of emission (at most
+        FLUX_CAPACITY_MAX), a product species' ``caps`` entry."""
+        if sp_cfg.injection_style == "nfluxpercell":
+            return min(flux_capacity(sp_cfg, self.cfg.geometry,
+                                     self.cfg.max_step), FLUX_CAPACITY_MAX)
+        return caps.get(sp_cfg.name)
+
+    def _init_external_grid(self, fields: FieldState, shapes,
+                            origin) -> FieldState:
+        """The initial E and B grid fields (WarpXInitData.cpp
+        InitLevelData, ReadExternalFieldFromFile; JAX simulation.py:652-705):
+        a constant, the deck's expressions at each component's staggered
+        positions (array index 0 at ``origin``: prob_lo, or the padded
+        block's corner on a bounded domain), or the file's mesh
+        interpolated there; expressions and files are evaluated in float64
+        on the host, then moved to the device."""
+        cfg = self.cfg
+        geom = cfg.geometry
+        axes = {2: (0, 2), 3: (0, 1, 2)}[geom.ndim]
+        upd = {}
+        for spec, comps in ((cfg.e_ext_grid, ("Ex", "Ey", "Ez")),
+                            (cfg.b_ext_grid, ("Bx", "By", "Bz"))):
+            if spec is None:
+                continue
+            style, vals = spec
+            for ci, comp in enumerate(comps):
+                shape = tuple(shapes[comp])
+                flags = self.staggering[comp]
+                if style == "constant":
+                    upd[comp] = torch.full(shape, vals[ci], dtype=self.dtype,
+                                           device=self.device)
+                    continue
+                if style == "file":
+                    from ..io.openpmd import read_openpmd_mesh
+
+                    val = torch.from_numpy(_interp_file_field(
+                        read_openpmd_mesh(vals[0], comps[0][0], "xyz"[ci]),
+                        shape, flags, geom, origin))
+                else:
+                    xyz = [torch.zeros(shape, dtype=torch.float64)] * 3
+                    for a, pts in zip(axes, _staggered_points(
+                            shape, flags, geom, origin)):
+                        xyz[a] = torch.from_numpy(pts)
+                    fn = compile_expression(vals[ci], ("x", "y", "z"),
+                                            dict(cfg.user_constants))
+                    val = torch.broadcast_to(torch.as_tensor(
+                        fn(*xyz), dtype=torch.float64), shape)
+                upd[comp] = val.to(device=self.device,
+                                   dtype=self.dtype).contiguous()
+        return fields.replace(**upd)
+
+    def _do_flux_injection(self) -> None:
+        """Each NFluxPerCell species emits one step's particles from its
+        plane, at the time the step started (ContinuousFluxInjection in
+        PhysicalParticleContainer::Evolve; JAX simulation.py:1421-1445),
+        each on one source split from ``self.draws``."""
+        cfg = self.cfg
+        for sp_cfg in cfg.species:
+            if sp_cfg.injection_style != "nfluxpercell":
+                continue
+            inject = self._flux_injectors.get(sp_cfg.name)
+            if inject is None:
+                inject = self._flux_injectors[sp_cfg.name] = \
+                    make_flux_injector(sp_cfg, cfg.geometry, cfg.dt,
+                                       self.dtype, self.device)
+            (sub,) = self.draws.split(1)
+            sp = inject(self.state.species[sp_cfg.name],
+                        self.state.time - cfg.dt, sub)
+            self.state = self.state.replace(
+                species={**self.state.species, sp_cfg.name: sp})
+
     def init(self, seed: int | None = None) -> SimState:
         cfg = self.cfg
         geom = cfg.geometry
@@ -321,13 +454,17 @@ class Simulation:
         kw = dict(dtype=self.dtype, device=self.device)
         ft = torch.empty((), dtype=self.dtype).numpy().dtype
         caps = self._product_capacities()
-        species = {
-            sp_cfg.name: columns_to_state(self._with_extras(
-                sp_cfg, inject_species_host(
+        species = {}
+        for sp_cfg in cfg.species:
+            if sp_cfg.injection_style == "gaussian_beam":
+                cols = inject_gaussian_beam_host(sp_cfg, geom, rng, ft,
+                                                 cfg.gamma_boost)
+            else:
+                cols = inject_species_host(
                     self._mcc_grown(sp_cfg), geom, rng, ft,
-                    caps.get(sp_cfg.name), cfg.gamma_boost)), self.device)
-            for sp_cfg in cfg.species
-        }
+                    self._capacity(sp_cfg, caps), cfg.gamma_boost)
+            species[sp_cfg.name] = columns_to_state(
+                self._with_extras(sp_cfg, cols), self.device)
         aux = {}
         if self.binned:
             species, aux = self._tile_layout(species)
@@ -340,6 +477,9 @@ class Simulation:
             Bx=zeros(), By=zeros(), Bz=zeros(),
             jx=zeros(), jy=zeros(), jz=zeros(),
         ))
+        fields = self._init_external_grid(
+            fields, {nm: geom.n_cell for nm in ("Ex", "Ey", "Ez", "Bx", "By",
+                                               "Bz")}, geom.prob_lo)
         if cfg.do_divb_cleaning_external:
             # the projection div(B) cleaner on the initial B
             # (ProjectionDivCleaner, WarpXInitData.cpp:589-591)
@@ -405,7 +545,7 @@ class Simulation:
                 cols = inject_gaussian_beam_host(sp_cfg, geom, rng, ft,
                                                  cfg.gamma_boost)
             else:
-                capacity = caps.get(sp_cfg.name)
+                capacity = self._capacity(sp_cfg, caps)
                 if sp_cfg.do_continuous_injection and cfg.do_moving_window:
                     # room for what the window uncovers over the whole run
                     ppc = sp_cfg.num_particles_per_cell_each_dim
@@ -458,6 +598,8 @@ class Simulation:
             nm: torch.zeros(shapes[nm], **kw)
             for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")}),
             shapes)
+        fields = self._init_external_grid(
+            fields, shapes, DomainLayout.from_config(cfg).static_origin())
         species = {nm: columns_to_state(cols, self.device)
                    for nm, cols in host.items()}
         self.state = SimState(fields=fields, species=species, step=0,
@@ -569,6 +711,7 @@ class Simulation:
                 self.state = self._half_push(-0.5 * cfg.dt)
                 self.is_synchronized = False
             self.state = self.step(self.state)
+            self._do_flux_injection()
             self.resample(step + 1)
             if step == cfg.max_step - 1:
                 # synchronize: forward half push with the new fields

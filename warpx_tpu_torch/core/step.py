@@ -100,7 +100,7 @@ def push_momenta_half(
     geom = cfg.geometry
     if cfg.field_gathering == "momentum-conserving":
         raise NotImplementedError(
-            "momentum-conserving gathering (ROADMAP.md Queue A 11)"
+            "momentum-conserving gathering (ROADMAP.md Queue A 11.4)"
         )
     farr = _field_dict(state.fields, use_avg=cfg.psatd_time_averaging)
     new_species = {}
@@ -126,9 +126,9 @@ def push_momenta_half(
 def _check_pic_step(cfg: SimConfig):
     """Refuse what ``pic_step`` does not cover yet, naming where it waits."""
     if not cfg.geometry.all_periodic:
-        raise NotImplementedError(
-            "non-periodic boundaries: the bounded step (ROADMAP.md Queue A 9)"
-        )
+        raise ValueError(
+            "a bounded configuration was handed to pic_step, the periodic "
+            "step: Simulation runs it through core/bounded_step.py")
     if cfg.current_deposition not in ("esirkepov", "direct", "vay"):
         raise NotImplementedError(
             f"current deposition {cfg.current_deposition!r} "
@@ -140,11 +140,11 @@ def _check_pic_step(cfg: SimConfig):
             "Vay deposition requires the PSATD solver")
     if cfg.grid_type != "staggered":
         raise NotImplementedError(
-            f"grid type {cfg.grid_type!r} (ROADMAP.md Queue A 11)"
+            f"grid type {cfg.grid_type!r} (ROADMAP.md Queue A 11.4)"
         )
     if cfg.field_gathering == "momentum-conserving":
         raise NotImplementedError(
-            "momentum-conserving gathering (ROADMAP.md Queue A 11)"
+            "momentum-conserving gathering (ROADMAP.md Queue A 11.4)"
         )
     if cfg.use_nci_corr:
         raise NotImplementedError(
@@ -152,18 +152,22 @@ def _check_pic_step(cfg: SimConfig):
         )
     for sp_cfg in cfg.species:
         if sp_cfg.mass == 0.0 and sp_cfg.species_type != "photon":
+            # the JAX package divides by the zero mass in its pusher
+            # (ZeroDivisionError in push_momentum_boris)
             raise NotImplementedError(
                 f"massless species {sp_cfg.name!r} that is not a photon "
-                "(ROADMAP.md Queue A 11)"
-            )
+                "(the JAX package's pusher divides by its mass; ROADMAP.md "
+                "Queue C)")
 
 
 def has_stochastic(cfg: SimConfig) -> bool:
-    """Whether the step or the resampling after it draws random numbers
-    (every collision kind but background stopping draws)."""
+    """Whether the step, the plane emission or the resampling after it
+    draws random numbers (every collision kind but background stopping
+    draws)."""
     return cfg.do_qed_schwinger or any(
         s.do_field_ionization or s.do_qed_quantum_sync
-        or s.do_qed_breit_wheeler or s.do_resampling for s in cfg.species
+        or s.do_qed_breit_wheeler or s.do_resampling
+        or s.injection_style == "nfluxpercell" for s in cfg.species
     ) or any(c.kind != "background_stopping" for c in cfg.collisions)
 
 
@@ -266,7 +270,7 @@ def pic_step(state: SimState, cfg: SimConfig, staggering: Dict,
     (``psatd``, a ``solvers.psatd.PsatdSolver``, or a ``PsatdFirstOrder``
     built with the multi-J sub-step, under em_solver = psatd).  Fluids of
     the JAX package's ``pic_step`` have no configuration fields here yet
-    (ROADMAP.md Queue A 11)."""
+    (ROADMAP.md Queue A 11.3)."""
     _check_pic_step(cfg)
     if draws is None and has_stochastic(cfg):
         raise ValueError("this configuration draws random numbers: pass "
@@ -527,11 +531,11 @@ def advance_fields(fields: FieldState, cfg: SimConfig, j_total,
     filtered rho pair and, for multi-J, J at the start of the step."""
     if cfg.em_solver_medium != "vacuum":
         raise NotImplementedError(
-            "macroscopic medium (ROADMAP.md Queue A 11)"
+            "macroscopic medium (ROADMAP.md Queue A 11.3)"
         )
     if cfg.em_solver not in ("yee", "ckc", "psatd", "none"):
         raise NotImplementedError(
-            f"em_solver {cfg.em_solver!r} (ROADMAP.md Queue A 11)"
+            f"em_solver {cfg.em_solver!r} (ROADMAP.md Queue A 11.3)"
         )
     geom = cfg.geometry
     dt = cfg.dt

@@ -105,7 +105,7 @@ def _yee_gather_flag(ndim, galerkin, stag_items):
     if any(tuple(stag[c]) != yee[c] for c in _COMPS):
         raise NotImplementedError(
             f"the {ndim}D fused kernel gathers on the Yee staggering only "
-            "(ROADMAP.md Queue A 11)")
+            "(ROADMAP.md Queue A 11.4)")
     return int(bool(galerkin))
 
 
@@ -397,8 +397,9 @@ def _kernel_args(params, fields6, parts, counts, *, spec, geom, order,
         raise ValueError(f"shape order {order} outside 1-3")
     if pusher_name not in _PUSHER_IDS:
         raise NotImplementedError(
-            f"pusher {pusher_name!r} in the fused kernel (ROADMAP.md Queue A 11)"
-        )
+            f"pusher {pusher_name!r} in the fused kernel (the binned gates "
+            "keep it per particle, as the JAX package's do; ROADMAP.md "
+            "Queue C)")
     nt, P, W = spec.n_tiles, spec.p_max, spec.w
     rows = parts[0].shape[0]
     ns = rows // nt

@@ -1,4 +1,4 @@
-"""Particle shape factors (centered B-spline weights), orders 0-3.
+"""Particle shape factors (centered B-spline weights), orders 0-4.
 
 The counterpart of ``warpx_tpu.ops.shapes`` (reference: ShapeFactors.H:27-155):
 the weight of grid point ``i`` for a particle at grid coordinate ``x`` is
@@ -16,7 +16,7 @@ __all__ = ["start_index", "spline", "shape_weights", "esirkepov_weights"]
 def start_index(x: torch.Tensor, order: int) -> torch.Tensor:
     """Leftmost grid index touched by an order-``order`` shape at x
     (ShapeFactors.H:36-77): order 0: floor(x+1/2); 1: floor(x);
-    2: floor(x+1/2)-1; 3: floor(x)-1."""
+    2: floor(x+1/2)-1; 3: floor(x)-1; 4: floor(x+1/2)-2."""
     base = torch.floor(x + 0.5) if order % 2 == 0 else torch.floor(x)
     return base.to(torch.int32) - order // 2
 
@@ -41,9 +41,15 @@ def spline(xi: torch.Tensor, order: int) -> torch.Tensor:
         # rounded quotient the CPU and the fused kernels compute
         outer = (2.0 - t) ** 3 / (zero + 6.0)
         return torch.where(t <= 1.0, inner, torch.where(t < 2.0, outer, zero))
-    raise NotImplementedError(
-        f"shape order {order} (orders 1-3 are ported; ROADMAP.md Queue A 11)"
-    )
+    if order == 4:
+        t2 = t * t
+        inner = (115.0 / 192.0) + t2 * (-0.625 + 0.25 * t2)
+        mid = (55.0 + 20.0 * t - 120.0 * t2 + 80.0 * t2 * t
+               - 16.0 * t2 * t2) / (zero + 96.0)
+        outer = (2.5 - t) ** 4 / (zero + 24.0)
+        return torch.where(t <= 0.5, inner, torch.where(
+            t <= 1.5, mid, torch.where(t < 2.5, outer, zero)))
+    raise ValueError(f"Unsupported shape order {order}")
 
 
 def shape_weights(x: torch.Tensor, order: int):
