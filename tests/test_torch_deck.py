@@ -221,8 +221,14 @@ electrons.density = 1.e24
     ("geometry.dims = RZ", "Queue A 12"),
     ("amr.max_level = 1", "Queue A 12"),
     ("algo.current_deposition = villasenor", "Queue A 3"),
-    ("algo.maxwell_solver = hybrid", "Queue A 11.3"),
-    ("warpx.do_electrostatic = labframe", "Queue A 11.3"),
+    # the hybrid solver and the electrostatic solvers run since Queue A
+    # 11.3's first half (tests/test_torch_hybrid.py,
+    # test_torch_electrostatic.py); ECT and hybrid QED still wait (the
+    # cases keep their ids)
+    pytest.param("algo.maxwell_solver = ect", "Queue A 11.3",
+                 id="algo.maxwell_solver = hybrid-Queue A 11.3"),
+    pytest.param("warpx.use_hybrid_QED = 1", "Queue A 11.3",
+                 id="warpx.do_electrostatic = labframe-Queue A 11.3"),
     ("algo.evolve_scheme = theta_implicit_em", "Queue A 11.3"),
     # collisions run since Queue A 11.1; a collision key neither reader
     # reads still raises, naming the item (the case keeps its id)

@@ -219,7 +219,10 @@ def test_state_round_trip_step(jax_runs, jax_runs_2d, ndim):
 @pytest.mark.parametrize("kw,match", [
     (dict(current_deposition="villasenor"), "Queue A 3"),
     (dict(field_gathering="momentum-conserving"), "Queue A 11"),
-    (dict(use_nci_corr=True), "Queue A 11.3"),
+    # the NCI corrector runs since Queue A 11.3's first half
+    # (tests/test_torch_nci.py); ECT still waits (the case keeps its id)
+    pytest.param(dict(em_solver="ect"), "Queue A 11.3",
+                 id="kw2-Queue A 11.3"),
     (dict(grid_type="collocated"), "Queue A 11"),
 ])
 def test_pic_step_unported_features_raise(kw, match):

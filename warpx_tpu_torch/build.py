@@ -3,29 +3,35 @@
 Each ``.cu`` source under ``csrc/`` has a plain C interface (``.cuh`` files
 are headers the sources share).  It is compiled with
 ``nvcc`` for ``sm_90a`` into its own shared library under ``_build/`` (one
-``nvcc`` per source, started together by ``build_all``) and loaded with
-``ctypes``.  A library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and a stale one is never loaded.  Nothing is
-built when this module is imported: the kernels' wrappers ask for their
-library at their first launch on a CUDA tensor.
+``nvcc`` per source, started together by ``start_all`` or ``build_all``)
+and loaded with ``ctypes``.  A library's file name carries a hash of its
+source and flags, so an edited source is rebuilt and a stale one is never
+loaded.  Nothing is built when this module is imported: the kernels'
+wrappers ask for their library at their first launch on a CUDA tensor.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
+import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "library", "cuda_error"]
+__all__ = ["SOURCES", "start_all", "build_all", "library", "cuda_error"]
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
+# library name -> (the thread waiting for its nvcc, {"rc", "seconds"}, log,
+# the nvcc process)
+_BUILDS = {}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -125,42 +131,77 @@ def _lib_path(name: str) -> Path:
     return _BUILD / f"lib{name}-{digest[:12]}.so"
 
 
-def _start(name: str):
-    """Start nvcc for ``name`` unless its library exists; returns the
-    process (or None) and the paths it writes."""
+def _start(name: str, nice: int = 0):
+    """Start nvcc for ``name`` unless its library exists or its build is
+    under way; a thread waits for it, moves the library into place and
+    records its seconds.  ``nice``: the compiler's priority increment."""
     out = _lib_path(name)
-    if out.exists():
-        return None, out, None
+    if out.exists() or name in _BUILDS:
+        return
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = _BUILD / f"{name}.log"
     cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
            str(_CSRC / SOURCES[name][0])]
+    t0 = time.perf_counter()
     with open(log, "w") as fh:
-        proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
-    return proc, out, (tmp, log)
+        # a session of its own, so that stop_all reaches nvcc's children
+        proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    if nice:
+        os.setpriority(os.PRIO_PROCESS, proc.pid, nice)
+    done = {}
+
+    def wait():
+        done["rc"] = proc.wait()
+        done["seconds"] = time.perf_counter() - t0
+        if done["rc"] == 0:
+            os.replace(tmp, out)
+
+    thread = threading.Thread(target=wait, daemon=True)
+    thread.start()
+    _BUILDS[name] = (thread, done, log, proc)
+
+
+def start_all(names=None, nice: int = 0) -> None:
+    """Start compiling every library in ``names`` (default: all), one nvcc
+    each, all at once, and return at once; ``build_all`` or a library's
+    first use waits for them, and the builds still running when the
+    process exits are stopped."""
+    for nm in (SOURCES if names is None else names):
+        _start(nm, nice)
+
+
+@atexit.register
+def stop_all() -> None:
+    """Stop every nvcc still running, with the processes it started."""
+    for _, _, _, proc in _BUILDS.values():
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGTERM)
+            except ProcessLookupError:
+                pass
 
 
 def build_all(names=None) -> dict:
-    """Compile every library in ``names`` (default: all) in parallel.
-    Returns {name: seconds} (0 for a library already built); raises with
-    the compiler's output if one fails."""
+    """Compile every library in ``names`` (default: all) in parallel, or
+    wait for the builds ``start_all`` began.  Returns {name: seconds from
+    the start of its nvcc to its end} (0 for a library built before this
+    process); raises with the compiler's output if one fails."""
     names = list(SOURCES if names is None else names)
-    t0 = time.perf_counter()
-    started = {nm: _start(nm) for nm in names}
+    start_all(names)
     secs = {}
     failures = []
-    for nm, (proc, out, paths) in started.items():
-        if proc is None:
+    for nm in names:
+        if nm not in _BUILDS:
             secs[nm] = 0.0
             continue
-        rc = proc.wait()
-        tmp, log = paths
-        secs[nm] = time.perf_counter() - t0
-        if rc != 0:
-            failures.append(f"{nm}: nvcc exit {rc}\n{log.read_text()}")
-            continue
-        os.replace(tmp, out)
+        thread, done, log, _ = _BUILDS[nm]
+        thread.join()
+        secs[nm] = done["seconds"]
+        if done["rc"] != 0:
+            failures.append(f"{nm}: nvcc exit {done['rc']}\n"
+                            f"{log.read_text()}")
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return secs

@@ -35,6 +35,13 @@ FDTD and PSATD cases, 2D XZ and 3D:
   (the ballistic correction at the boosted time) with boosted weights and
   momenta, and the injection front at the relativistic composition of the
   plasma's and the frame's speeds;
+* the electrostatic solve (``solve_es``; every electrostatic run takes
+  this step, an all-periodic one too): the step pushes the particles and
+  deposits nothing, and after the window's move the Poisson solve per
+  group (lab frame, relativistic per species, magnetostatic, the open-box
+  IGF; Dirichlet wall potentials f(t)) replaces E and B and stores phi;
+* the Godfrey NCI corrector on the padded gather blocks (per particle and
+  ahead of the fused kernels' frame);
 * field ionization before the push (``ops/ionization.py``), photon species
   streaming at c, the radiation-reaction pusher.  The JAX package's bounded
   step runs no QED event and no Schwinger pair creation: a configuration
@@ -89,8 +96,8 @@ from .injection import (PARSED_PROFILES, _AXES3, _bulk_momentum,
                         _regular_unit_positions, profile_values)
 from .laser import update_antenna
 from .state import SimState
-from .step import (_add_ext, collisions_substep, galilean_velocity,
-                   ionization_substep)
+from .step import (_add_ext, _apply_nci, collisions_substep,
+                   galilean_velocity, ionization_substep)
 
 __all__ = ["BoundedStepper", "guard_width", "field_shapes",
            "check_bounded_supported", "needs_bounded_step"]
@@ -136,10 +143,13 @@ def field_shapes(cfg, staggering) -> Dict[str, tuple]:
 
 def needs_bounded_step(cfg: SimConfig) -> bool:
     """Whether ``cfg`` runs through the bounded step: a non-periodic field
-    face, a moving window or a laser."""
+    face, a moving window, a laser, or an electrostatic solve (on an
+    all-periodic box too, as the JAX package's
+    ``Simulation._needs_bounded_kernels`` routes it)."""
     nonperiodic = any(bc != "periodic"
                       for bc in (cfg.field_bc_lo + cfg.field_bc_hi))
-    return nonperiodic or cfg.do_moving_window or bool(cfg.lasers)
+    return (nonperiodic or cfg.do_moving_window or bool(cfg.lasers)
+            or cfg.electrostatic != "none")
 
 
 def check_bounded_supported(cfg: SimConfig) -> None:
@@ -155,15 +165,43 @@ def check_bounded_supported(cfg: SimConfig) -> None:
     if any(cfg.psatd_v_galilean) and cfg.em_solver != "psatd":
         raise NotImplementedError(
             "psatd.v_galilean without the PSATD solver")
-    if cfg.em_solver == "psatd":
+    faces = (tuple(cfg.field_bc_lo or ("periodic",) * ndim)
+             + tuple(cfg.field_bc_hi or ("periodic",) * ndim))
+    if cfg.electrostatic != "none":
+        # the field solver does not run: the Poisson solve replaces it
+        if cfg.electrostatic not in ("labframe", "relativistic",
+                                     "labframe-electromagnetostatic"):
+            raise ValueError(f"electrostatic solver {cfg.electrostatic!r}")
+        all_open = all(b == "open" for b in faces)
+        # the JAX package's two errors (bounded_step.py:1955-1963)
+        if cfg.poisson_solver == "fft" and not (all_open and ndim == 3):
+            raise NotImplementedError(
+                "poisson_solver=fft requires 3D open boundaries")
+        if all_open and cfg.poisson_solver != "fft":
+            raise NotImplementedError(
+                "open field boundaries need warpx.poisson_solver = fft")
+        for bc in faces:
+            if bc not in ("periodic", "pec", "open"):
+                no(f"the electrostatic solve with field boundary {bc!r} "
+                   "(the JAX package's Poisson solve covers periodic, "
+                   "Dirichlet and open faces)", "Queue C")
+        if cfg.do_moving_window or cfg.lasers:
+            no("the electrostatic solve with a moving window or a laser "
+               "antenna (the JAX package neither deposits the antenna nor "
+               "shifts phi)", "Queue C")
+    elif cfg.em_solver == "psatd":
         for bc in tuple(cfg.field_bc_lo) + tuple(cfg.field_bc_hi):
             if bc not in ("periodic", "damped", "pml"):
                 no(f"PSATD with field boundary {bc!r} (the JAX package has "
                    "periodic, damped and pml)", "Queue A 11.4")
+    elif cfg.em_solver in ("hybrid", "none"):
+        no(f"em_solver {cfg.em_solver!r} on the bounded step (the JAX "
+           "package's bounded step advances the fields by Yee there)",
+           "Queue C")
     elif cfg.em_solver not in ("yee", "ckc"):
         no(f"em_solver {cfg.em_solver!r}", "Queue A 11.3")
     else:
-        for bc in tuple(cfg.field_bc_lo) + tuple(cfg.field_bc_hi):
+        for bc in faces:
             if bc not in ("periodic", "pec", "pml"):
                 no(f"field boundary {bc!r} (Silver-Mueller, damped, open)",
                    "Queue A 11.4")
@@ -174,7 +212,9 @@ def check_bounded_supported(cfg: SimConfig) -> None:
         if bc not in ("periodic", "absorbing", "reflecting"):
             no(f"particle boundary {bc!r} (thermal walls)", "Queue A 11.4")
     if cfg.em_solver_medium != "vacuum":
-        no("a macroscopic medium", "Queue A 11.3")
+        # the JAX package refuses it off the periodic torus
+        # (simulation.py:146-150)
+        no("a macroscopic medium on the bounded step", "Queue C")
     if cfg.current_deposition == "vay":
         # the JAX package's bounded step deposits direct J there and hands
         # it to a solver that divides it by i k as if it were D
@@ -185,8 +225,6 @@ def check_bounded_supported(cfg: SimConfig) -> None:
         no(f"grid type {cfg.grid_type!r}", "Queue A 11.4")
     if cfg.field_gathering == "momentum-conserving":
         no("momentum-conserving gathering", "Queue A 11.4")
-    if cfg.use_nci_corr:
-        no("the Godfrey NCI corrector", "Queue A 11.3")
     if cfg.do_qed_schwinger:
         no("Schwinger pair creation on the bounded step (the JAX package's "
            "bounded step skips it)", "Queue C")
@@ -241,6 +279,19 @@ def _slice(ndim, d, a, b):
     idx = [slice(None)] * ndim
     idx[d] = slice(a, b)
     return tuple(idx)
+
+
+def _union_mask(axes, **kw):
+    """1.0 where any axis's boolean vector in ``axes`` is set at the site's
+    index along it, else 0.0, over their outer product, made on the
+    tensors' device."""
+    mask = torch.zeros((), **kw)
+    for d, outside in enumerate(axes):
+        shape = [1] * len(axes)
+        shape[d] = outside.shape[0]
+        mask = torch.maximum(mask, torch.as_tensor(
+            outside, device=kw.get("device")).reshape(shape).to(mask.dtype))
+    return mask
 
 
 def _overlap(start, n_src, n_dst):
@@ -318,9 +369,10 @@ class BoundedStepper:
         # start- and end-of-step rho for EvolveF, update-with-rho and
         # current correction (rho_fp components 0/1,
         # WarpXPushFieldsEM.cpp:1041)
-        self.need_rho = cfg.do_dive_cleaning or (
+        self.is_es = cfg.electrostatic != "none"
+        self.need_rho = not self.is_es and (cfg.do_dive_cleaning or (
             cfg.em_solver == "psatd" and (cfg.psatd_update_with_rho
-                                          or cfg.psatd_current_correction))
+                                          or cfg.psatd_current_correction)))
         # the cleaning scalars the fields carry
         self.clean = tuple(nm for nm, on in (("F", cfg.do_dive_cleaning),
                                              ("G", cfg.do_divb_cleaning))
@@ -332,12 +384,14 @@ class BoundedStepper:
         # --- PML: split-field ownership masks and damping factors
         self.has_pml = layout.has_pml
         kw = dict(dtype=dtype, device=self.device)
+        if self.is_es:
+            self._init_es()
         self.psatd = self.psatd_pml = None
         if cfg.em_solver == "psatd":
             self._init_psatd(layout)
         elif self.has_pml:
             self.pml_mask = {
-                nm: torch.as_tensor(layout.in_pml_mask(staggering[nm]), **kw)
+                nm: _union_mask(layout.pml_axes(staggering[nm]), **kw)
                 for nm in _EB + self.clean}
             self.pml_owned = {nm: m > 0 for nm, m in self.pml_mask.items()}
             self._damp = {}
@@ -375,6 +429,142 @@ class BoundedStepper:
             # every zshift handed to the kernels, for the callers that check
             # the moving-window mode really ran
             self.zshifts_seen = set()
+
+    def _init_es(self):
+        """The electrostatic solve's groups (JAX bounded_step.py:1940-2015):
+        lab frame and magnetostatic solve every species at once;
+        relativistic solves each species in its mean rest frame, beta from
+        its configured momentum (constant and gaussian distributions only,
+        as the JAX package takes it; zero for any other).  A group holds
+        its species, beta (xyz and active axes) and its backend: a
+        ``PoissonSolver`` scaled by (1 - beta_d^2), or under
+        ``poisson_solver = fft`` the integrated Green function on the
+        gamma-stretched cell.  The magnetostatic solve has a solver of its
+        own; the wall potentials are compiled f(t)."""
+        from ..solvers.electrostatic import PoissonSolver, igf_greens_hat
+        from ..utils.expression import compile_expression
+
+        cfg = self.cfg
+        geom = cfg.geometry
+        ndim = self.ndim
+        self.es_periodic = tuple(bc == "periodic" for bc in self.bc_lo)
+        self.es_igf = cfg.poisson_solver == "fft"
+        kw = dict(dtype=self.dtype, device=self.device)
+        sp_es = [s for s in cfg.species if not s.do_not_deposit]
+        relativistic = cfg.electrostatic == "relativistic"
+        self.es_ms_solver = (
+            PoissonSolver(geom, self.es_periodic, **kw)
+            if cfg.electrostatic == "labframe-electromagnetostatic"
+            else None)
+        self.es_groups = []
+        for grp in ([[s] for s in sp_es] if relativistic else [sp_es]):
+            beta3 = np.zeros(3)
+            if relativistic and grp[0].momentum_distribution in (
+                    "constant", "gaussian"):
+                u = np.array([grp[0].ux, grp[0].uy, grp[0].uz], float)
+                beta3 = u / math.sqrt(1.0 + float(u @ u))
+            beta_act = tuple(float(beta3[a]) for a in _AXES3[ndim])
+            if self.es_igf:
+                cell = tuple(geom.dx[d] / math.sqrt(1.0 - beta_act[d] ** 2)
+                             for d in range(ndim))
+                backend = igf_greens_hat(self.shapes["rho"], cell,
+                                         self.dtype, self.device)
+            else:
+                backend = PoissonSolver(
+                    geom, self.es_periodic,
+                    beta2=tuple(b * b for b in beta_act), **kw)
+            self.es_groups.append(([s.name for s in grp],
+                                   tuple(float(b) for b in beta3), beta_act,
+                                   backend))
+        self.es_potentials = None
+        if cfg.boundary_potentials:
+            consts = dict(cfg.user_constants or ())
+            self.es_potentials = [
+                tuple(compile_expression(e, ("t",), consts) if e else None
+                      for e in pair)
+                for pair in cfg.boundary_potentials]
+
+    def wall_potential(self, time):
+        """The inhomogeneous Dirichlet values at ``time`` on the wall layers
+        of the bounded dims (PoissonBoundaryHandler; f(t) evaluated in
+        float64 on the host), or None without wall potentials."""
+        if self.es_potentials is None:
+            return None
+        phi_b = torch.zeros(self.shapes["rho"], dtype=self.dtype,
+                            device=self.device)
+        for d, (f_lo, f_hi) in enumerate(self.es_potentials):
+            if self.es_periodic[d]:
+                continue
+            for fn, i in ((f_lo, 0), (f_hi, phi_b.shape[d] - 1)):
+                if fn is not None:
+                    phi_b.select(d, i).fill_(float(fn(float(time))))
+        return phi_b
+
+    def solve_es(self, state: SimState) -> SimState:
+        """ComputeSpaceChargeField (WarpXSolveFieldsES.cpp:16; JAX
+        bounded_step.py:2017-2112): rho of each group
+        (``diagnostics/fields.py::deposit_total_rho``), one Poisson solve
+        per group with the wall potential in the first only, E = -(1 -
+        beta beta^T) grad(phi) and B = -(beta x grad(phi))/c summed over
+        the groups; under labframe-electromagnetostatic nabla^2 A = -mu0 J
+        of the nodal J (weights w u/gamma), B += curl A.  E and B are
+        replaced, phi stored."""
+        from ..diagnostics.fields import deposit_total_rho
+        from ..solvers.electrostatic import (phi_to_b, phi_to_e_beta,
+                                             solve_open_igf,
+                                             vector_potential_b)
+
+        cfg = self.cfg
+        geom = cfg.geometry
+        ndim = self.ndim
+        periodic = self.es_periodic
+        names = ("Ex", "Ez") if ndim == 2 else ("Ex", "Ey", "Ez")
+        kw = dict(dtype=self.dtype, device=self.device)
+        upd = {nm: torch.zeros(self.shapes[nm], **kw) for nm in _EB}
+        phi_b = self.wall_potential(state.time)
+        phi_tot = None
+        for gi, (grp, beta3, beta_act, backend) in enumerate(self.es_groups):
+            rho = deposit_total_rho(state, cfg, only=grp)
+            if self.es_igf:
+                phi = solve_open_igf(rho, backend)
+            else:
+                phi = backend.solve(rho, phi_b if gi == 0 else None)
+            phi_tot = phi if phi_tot is None else phi_tot + phi
+            for nm, e in zip(names, phi_to_e_beta(phi, geom, periodic,
+                                                  beta_act)):
+                upd[nm] = upd[nm] + e
+            if any(b != 0.0 for b in beta3):
+                for i, b in phi_to_b(phi, geom, periodic, beta3).items():
+                    if b is not None:
+                        upd["B" + "xyz"[i]] = upd["B" + "xyz"[i]] + b
+        if self.es_ms_solver is not None:
+            # nabla^2 A = -mu0 J on the nodes (ComputeMagnetostaticField);
+            # solve() inverts L x / ep0, so it is handed mu0 ep0 J
+            mu0_ep0 = 1.0 / (_c * _c * _ep0) * _ep0
+            wrap = all(periodic)
+            A3 = {}
+            for i, uc in enumerate(("ux", "uy", "uz")):
+                Jn = torch.zeros(self.shapes["rho"], **kw)
+                for sp_cfg in cfg.species:
+                    sp = state.species[sp_cfg.name]
+                    if sp.capacity == 0 or sp_cfg.do_not_deposit:
+                        continue
+                    gam = torch.sqrt(1.0 + (sp.ux ** 2 + sp.uy ** 2
+                                            + sp.uz ** 2) / (_c * _c))
+                    w_eff = torch.where(sp.alive, sp.w * getattr(sp, uc)
+                                        / gam, torch.zeros_like(sp.w))
+                    Jn = deposit_rho(
+                        sp.positions(ndim), w_eff, sp_cfg.charge, geom,
+                        cfg.particle_shape, out=Jn, wrap=wrap,
+                        out_shape=None if wrap else self.shapes["rho"],
+                        chunk_size=cfg.deposit_chunk_size)
+                A3[i] = self.es_ms_solver.solve(Jn * mu0_ep0)
+            for i, b in vector_potential_b(A3, geom, periodic).items():
+                if b is not None:
+                    upd["B" + "xyz"[i]] = upd["B" + "xyz"[i]] + b
+        if phi_tot is not None:
+            upd["phi"] = phi_tot
+        return state.replace(fields=state.fields.replace(**upd))
 
     def _init_psatd(self, layout):
         """The bounded PSATD solvers over the extended box (interior, damped
@@ -430,9 +620,10 @@ class BoundedStepper:
         self.pml_comps = list(_EB) + (["F", "G"] if self.psatd_pml.cleaning
                                       else [])
 
-        def strip_mask(flags):
-            """1.0 where the split solver owns the site (PML strips)."""
-            m = np.zeros(tuple(n_ext))
+        def strip_axes(flags):
+            """By axis, where the split solver owns the site (PML
+            strips)."""
+            axes = []
             for d in range(ndim):
                 idx = np.arange(n_ext[d]) - self.ext_lo[d]
                 top = geom.n_cell[d] if flags[d] == 1 else geom.n_cell[d] - 1
@@ -441,13 +632,11 @@ class BoundedStepper:
                     outside |= idx < 0
                 if self.bc_hi[d] == "pml":
                     outside |= idx > top
-                sh = [1] * ndim
-                sh[d] = n_ext[d]
-                m = np.maximum(m, outside.reshape(sh).astype(float))
-            return m
+                axes.append(outside)
+            return axes
 
         self.pml_mask_ext = {
-            nm: torch.as_tensor(strip_mask(self.staggering[nm]), **kw)
+            nm: _union_mask(strip_axes(self.staggering[nm]), **kw)
             for nm in self.pml_comps}
         self.pml_own_ext = {nm: m > 0 for nm, m in self.pml_mask_ext.items()}
         sig = {d: layout.sigma_factors(d, cfg.dt) for d in range(ndim)}
@@ -699,6 +888,8 @@ class BoundedStepper:
         farr_pad = self._padded_eb(
             state.fields,
             use_avg=cfg.em_solver == "psatd" and cfg.psatd_time_averaging)
+        if cfg.use_nci_corr:
+            farr_pad = _apply_nci(farr_pad, cfg)
         if any(c.kind == "background_mcc" for c in cfg.collisions) and (
                 draws is None):
             raise ValueError("MCC collisions draw random numbers: pass "
@@ -756,12 +947,20 @@ class BoundedStepper:
                     sp_new.positions(ndim),
                     torch.where(sp_new.alive, sp_new.w, zero), q_eff,
                     origin_new, rho_new)
-            w_eff = torch.where(sp.alive, sp_new.w, torch.zeros_like(sp.w))
-            j_total = self._deposit(
-                sp_new.positions(ndim), (sp_new.ux, sp_new.uy, sp_new.uz),
-                w_eff, q_eff, origin_j, self.big_shape, out=j_total)
+            if not self.is_es:
+                w_eff = torch.where(sp.alive, sp_new.w,
+                                    torch.zeros_like(sp.w))
+                j_total = self._deposit(
+                    sp_new.positions(ndim),
+                    (sp_new.ux, sp_new.uy, sp_new.uz), w_eff, q_eff,
+                    origin_j, self.big_shape, out=j_total)
             new_species[sp_cfg.name] = sp_new.with_positions(
                 ndim, self._wrap_periodic(sp_new.positions(ndim)))
+        if self.is_es:
+            # no deposit and no field advance: the Poisson solve follows
+            # the particle boundaries (WarpXEvolve.cpp:269-283)
+            return state.replace(species=new_species, step=state.step + 1,
+                                 time=state.time + cfg.dt)
         return self.field_tail(state, new_species, j_total, {},
                                rho_old, rho_new)
 
@@ -1279,8 +1478,11 @@ class BoundedStepper:
                 overflow = overflow + ovf
         state_b = state.replace(species=species)
 
-        # --- guard-padded fields -> kernel frame
+        # --- guard-padded fields (through the NCI corrector) -> kernel
+        # frame
         farr_pad = self._padded_eb(state.fields)
+        if cfg.use_nci_corr:
+            farr_pad = _apply_nci(farr_pad, cfg)
         fields6 = self.to_kernel_frame(farr_pad)
 
         # --- fused gather + push + deposit: one launch per pusher

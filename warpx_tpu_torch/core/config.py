@@ -11,8 +11,9 @@ Gaussian momenta, initial external grid fields, shape orders 1-4,
 divergence cleaning, the Lorentz-boosted frame, field ionization, QED
 (quantum synchrotron, Breit-Wheeler, Schwinger) with photon species,
 classical radiation reaction, resampling, binary collisions (pairwise
-Coulomb, nuclear fusion, DSMC, background MCC and stopping); per-particle
-and tile-binned steps).  Fields keep the reference's names and defaults,
+Coulomb, nuclear fusion, DSMC, background MCC and stopping), the
+electrostatic solvers, the Ohm's-law hybrid solver, the macroscopic medium
+and the Godfrey NCI corrector; per-particle and tile-binned steps).  Fields keep the reference's names and defaults,
 so a configuration built for ``warpx_tpu`` with these fields builds here
 with the same keyword arguments.  Features whose fields are absent come
 with later items of ROADMAP.md's Queue A.
@@ -221,7 +222,7 @@ class SimConfig:
     max_step: int
     dt: float
     particle_shape: int = 1
-    em_solver: str = "yee"  # yee | ckc | psatd | none
+    em_solver: str = "yee"  # yee | ckc | psatd | hybrid | none
     current_deposition: str = "esirkepov"
     field_gathering: str = "energy-conserving"
     grid_type: str = "staggered"
@@ -258,7 +259,26 @@ class SimConfig:
     # constant external fields applied to particles during gather
     e_ext_particle: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     b_ext_particle: Tuple[float, float, float] = (0.0, 0.0, 0.0)
-    em_solver_medium: str = "vacuum"
+    # macroscopic Maxwell medium (algo.em_solver_medium,
+    # MacroscopicProperties.cpp; sigma, epsilon and mu constant or parsed
+    # f(x, y, z); None takes the vacuum's value)
+    em_solver_medium: str = "vacuum"  # vacuum | macroscopic
+    macroscopic_sigma_method: str = "backwardeuler"  # | laxwendroff
+    macro_sigma: float | None = None
+    macro_sigma_function: str = ""
+    macro_epsilon: float | None = None
+    macro_epsilon_function: str = ""
+    macro_mu: float | None = None
+    macro_mu_function: str = ""
+    # the electrostatic solver (ElectrostaticSolverAlgo): none | labframe |
+    # relativistic | labframe-electromagnetostatic
+    electrostatic: str = "none"
+    # warpx.poisson_solver: multigrid (here the direct transform solve) |
+    # fft (the open-boundary integrated Green function, 3D all-open box)
+    poisson_solver: str = "multigrid"
+    # Dirichlet wall potentials per active dim, ((lo, hi), ...) as f(t)
+    # strings, "" where unset (boundary.potential_lo_x etc.)
+    boundary_potentials: Tuple = ()
     do_dive_cleaning: bool = False
     do_divb_cleaning: bool = False
     # split-field cleaning inside the PML (warpx.do_pml_dive_cleaning /
@@ -314,8 +334,19 @@ class SimConfig:
     # binary collisions, in the deck's order (collisions.collision_names)
     collisions: Tuple[CollisionConfig, ...] = ()
     # the deck's my_constants, which the collisions' background
-    # expressions may name
+    # expressions, the medium's and the wall potentials' may name
     user_constants: Tuple[Tuple[str, float], ...] = ()
+    # hybrid-PIC (Ohm's law) model (hybrid_pic_model.*,
+    # HybridPICModel.H:152-180); elec_temp in eV
+    hybrid_substeps: int = 10
+    hybrid_elec_temp: float = 0.0
+    hybrid_n0_ref: float = 1.0
+    hybrid_gamma: float = 5.0 / 3.0
+    hybrid_n_floor: float = 1.0
+    hybrid_eta: str = "0"  # plasma_resistivity(rho, J), Ohm m
+    hybrid_eta_h: float = 0.0  # hyper-resistivity
+    hybrid_resistivity_has_J: bool = False
+    hybrid_j_ext: Tuple[str, str, str] = ("", "", "")
 
     @property
     def galerkin(self) -> bool:

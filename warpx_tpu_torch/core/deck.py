@@ -14,7 +14,9 @@ coordinates), field ionization, QED (quantum synchrotron, Breit-Wheeler,
 Schwinger) with photon species, classical radiation reaction, resampling,
 binary collisions (pairwise Coulomb, nuclear fusion, DSMC, background MCC
 and stopping; cross-section tables read relative to the deck's directory),
-the tile-binned layout and its ``tpu.*`` keys), with
+the electrostatic solvers with wall potentials, the Ohm's-law hybrid
+solver, the macroscopic medium, the Godfrey NCI corrector, the tile-binned
+layout and its ``tpu.*`` keys), with
 the JAX reader's defaults and derived values (reference: Source/WarpX.cpp:466
 ReadParameters; Source/Initialization/PlasmaInjector.cpp), and the deck's
 outputs (``outputs_from_deck``: Full diagnostics in plotfile, openPMD or
@@ -411,10 +413,78 @@ def _tiling_from_deck(deck: Deck, ndim: int) -> dict:
     return out
 
 
-def _dep_default(solver: str) -> str:
+# warpx.do_electrostatic values and the solver each runs (the JAX reader's
+# es_map, warpx_tpu/core/deck.py:594-597)
+_ES_SOLVERS = {
+    "none": "none", "labframe": "labframe", "relativistic": "relativistic",
+    "labframe-electromagnetostatic": "labframe-electromagnetostatic",
+    "labframe-effective-potential": "labframe"}
+
+
+def _es_solver(deck: Deck) -> str:
+    return _lower(deck, "warpx.do_electrostatic",
+                  _lower(deck, "algo.do_electrostatic", "none"))
+
+
+def _dep_default(solver: str, es: str = "none") -> str:
     """The deposition's default depends on the solver (WarpX.cpp:1614-1621):
-    direct for PSATD, Esirkepov otherwise."""
-    return "direct" if solver == "psatd" else "esirkepov"
+    direct for PSATD, hybrid and electrostatic runs, Esirkepov
+    otherwise."""
+    return ("direct" if solver in ("psatd", "hybrid") or es != "none"
+            else "esirkepov")
+
+
+def _macroscopic_from_deck(deck: Deck) -> dict:
+    """algo.em_solver_medium = macroscopic: macroscopic.{sigma, epsilon,
+    mu} constant or as ``*_function(x,y,z)`` and
+    algo.macroscopic_sigma_method (MacroscopicProperties::ReadParameters;
+    the JAX reader, warpx_tpu/core/deck.py:899-930)."""
+    if _lower(deck, "algo.em_solver_medium", "vacuum") != "macroscopic":
+        return {}
+
+    def prop(nm):
+        found = deck.get_expr_string("macroscopic", f"{nm}_function")
+        return (deck.get_real(f"macroscopic.{nm}", None),
+                found[0] if found else "")
+
+    (s_v, s_f), (e_v, e_f), (m_v, m_f) = (prop(nm) for nm in
+                                          ("sigma", "epsilon", "mu"))
+    return dict(
+        em_solver_medium="macroscopic",
+        macroscopic_sigma_method=_lower(
+            deck, "algo.macroscopic_sigma_method", "backwardeuler"
+        ).replace("_", "").replace("-", ""),
+        macro_sigma=s_v, macro_sigma_function=s_f,
+        macro_epsilon=e_v, macro_epsilon_function=e_f,
+        macro_mu=m_v, macro_mu_function=m_f)
+
+
+def _hybrid_from_deck(deck: Deck, em_solver: str) -> dict:
+    """The hybrid_pic_model.* keys (HybridPICModel::ReadParameters; the
+    JAX reader's ``_hybrid_from_deck``, warpx_tpu/core/deck.py:1223-1260):
+    elec_temp is required, in eV."""
+    if em_solver != "hybrid":
+        return {}
+    p = "hybrid_pic_model"
+    elec_temp = deck.get_real(f"{p}.elec_temp", None)
+    if elec_temp is None:
+        raise ValueError("hybrid_pic_model.elec_temp must be specified when "
+                         "using the hybrid solver")
+    eta = (deck.get_string(f"{p}.plasma_resistivity(rho,J)", None)
+           or str(deck.get_real(f"{p}.plasma_resistivity", 0.0)))
+    return dict(
+        hybrid_substeps=deck.get_int(f"{p}.substeps", 10),
+        hybrid_elec_temp=elec_temp,
+        hybrid_n0_ref=deck.get_real(f"{p}.n0_ref", 1.0),
+        hybrid_gamma=deck.get_real(f"{p}.gamma", 5.0 / 3.0),
+        hybrid_n_floor=deck.get_real(f"{p}.n_floor", 1.0),
+        hybrid_eta=eta,
+        hybrid_eta_h=deck.get_real(f"{p}.plasma_hyper_resistivity", 0.0),
+        hybrid_resistivity_has_J="J" in eta,
+        hybrid_j_ext=tuple(
+            deck.get_string(f"{p}.J{ax}_external_grid_function(x,y,z,t)", "")
+            or deck.get_string(f"{p}.J{ax}_external_function(x,y,z,t)", "")
+            or "" for ax in "xyz"))
 
 
 def _psatd_from_deck(deck: Deck, solver: str, dep: str) -> dict:
@@ -624,14 +694,26 @@ def _gate_values(deck: Deck) -> None:
     if deck.get_int("amr.max_level", 0) > 0:
         _no("mesh refinement (amr.max_level > 0)", "Queue A 12")
     solver = _lower(deck, "algo.maxwell_solver", "yee")
-    if solver in ("hybrid", "ect"):
+    if solver not in ("yee", "ckc", "psatd", "hybrid", "none"):
         _no(f"algo.maxwell_solver = {solver}", "Queue A 11.3")
-    if solver not in ("yee", "ckc", "psatd", "none"):
-        _no(f"algo.maxwell_solver = {solver}", "Queue A 11.3")
-    es = _lower(deck, "warpx.do_electrostatic",
-                _lower(deck, "algo.do_electrostatic", "none"))
-    if es != "none":
-        _no(f"the electrostatic solver {es!r}", "Queue A 11.3")
+    es = _es_solver(deck)
+    if es not in _ES_SOLVERS:
+        raise NotImplementedError(f"electrostatic solver {es!r}")
+    medium = _lower(deck, "algo.em_solver_medium", "vacuum")
+    if medium not in ("vacuum", "macroscopic"):
+        raise NotImplementedError(f"em_solver_medium = {medium}")
+    if medium == "macroscopic" and _lower(
+            deck, "warpx.grid_type", "staggered") == "collocated":
+        # the JAX reader's refusal (warpx_tpu/core/deck.py:904-909)
+        raise NotImplementedError(
+            "macroscopic medium on collocated grids (reference "
+            "MacroscopicEvolveE.cpp:95 also forbids this)")
+    if (deck.get_bool("warpx.use_hybrid_QED", False)
+            or deck.contains("warpx.quantum_xi")):
+        # the JAX package runs hybrid QED with PSATD on a collocated grid
+        # only (warpx_tpu/core/deck.py:456-463)
+        _no("hybrid QED (warpx.use_hybrid_QED, warpx.quantum_xi), which "
+            "runs on the collocated grids of Queue A 11.4", "Queue A 11.3")
     scheme = _lower(deck, "algo.evolve_scheme", "explicit")
     if scheme != "explicit":
         _no(f"algo.evolve_scheme = {scheme}", "Queue A 11.3")
@@ -642,7 +724,8 @@ def _gate_values(deck: Deck) -> None:
             _no("fluid species in a boosted frame", "Queue A 11.3")
         if deck.get_strings("lattice.elements", []):
             _no("accelerator lattice in a boosted frame", "Queue A 11.4")
-    dep = _lower(deck, "algo.current_deposition", _dep_default(solver))
+    dep = _lower(deck, "algo.current_deposition",
+                 _dep_default(solver, es))
     if dep not in ("esirkepov", "direct", "vay"):
         _no(f"algo.current_deposition = {dep}", "Queue A 3")
     _psatd_gates(deck)
@@ -741,10 +824,9 @@ def _item_of_key(deck: Deck, key: str) -> str:
     if head == "collisions" or head in deck.get_strings(
             "collisions.collision_names", []):
         return "Queue A 11.1"
-    if head in ("fluids", "hybrid_pic_model", "macroscopic", "eb2",
-                "implicit_evolve", "picard", "newton", "gmres") or (
-            tail.startswith(("eb_", "potential_", "poisson_"))
-            or "quantum_xi" in tail or tail == "use_hybrid_QED"
+    if head in ("fluids", "eb2", "implicit_evolve", "picard", "newton",
+                "gmres") or (
+            tail.startswith("eb_")
             or head in deck.get_strings("fluids.species_names", [])):
         return "Queue A 11.3"
     if head == "amr" or tail in ("do_subcycling", "fine_tag_lo",
@@ -946,6 +1028,17 @@ def config_from_deck(deck: Deck) -> SimConfig:
     cfl = deck.get_real("warpx.cfl", 0.999)
     const_dt = deck.get_real("warpx.const_dt", None)
     em_solver = _lower(deck, "algo.maxwell_solver", "yee")
+    es_solver = _ES_SOLVERS[_es_solver(deck)]
+    if es_solver != "none":
+        # the Poisson solve replaces the field solver
+        em_solver = "none"
+    # Dirichlet wall potentials f(t) per active dim (PoissonBoundaryHandler)
+    boundary_potentials = tuple(
+        (deck.get_string(f"boundary.potential_lo_{nm}", "") or "",
+         deck.get_string(f"boundary.potential_hi_{nm}", "") or "")
+        for nm in {2: ("x", "z"), 3: ("x", "y", "z")}[ndim])
+    if not any(lo or hi for lo, hi in boundary_potentials):
+        boundary_potentials = ()
     if const_dt is not None:
         dt = const_dt
     elif em_solver == "psatd":
@@ -962,7 +1055,8 @@ def config_from_deck(deck: Deck) -> SimConfig:
         n_stop = max(int(math.ceil(stop_time / dt * (1.0 - 1e-12))), 0)
         max_step = min(max_step, n_stop) if max_step > 0 else n_stop
 
-    dep = _lower(deck, "algo.current_deposition", _dep_default(em_solver))
+    dep = _lower(deck, "algo.current_deposition",
+                 _dep_default(em_solver, es_solver))
     pusher = _lower(deck, "algo.particle_pusher", "boris")
     # per-species classical radiation reaction upgrades Boris to the
     # Tamburini pusher (PhysicalParticleContainer.cpp:325; the JAX reader,
@@ -1037,7 +1131,9 @@ def config_from_deck(deck: Deck) -> SimConfig:
         b_ext_particle=ext["B"],
         e_ext_grid=_ext_grid(deck, "E"),
         b_ext_grid=_ext_grid(deck, "B"),
-        em_solver_medium=_lower(deck, "algo.em_solver_medium", "vacuum"),
+        electrostatic=es_solver,
+        poisson_solver=_lower(deck, "warpx.poisson_solver", "multigrid"),
+        boundary_potentials=boundary_potentials,
         do_dive_cleaning=deck.get_bool("warpx.do_dive_cleaning", False),
         do_divb_cleaning=deck.get_bool("warpx.do_divb_cleaning", False),
         do_divb_cleaning_external=deck.get_bool(
@@ -1061,6 +1157,8 @@ def config_from_deck(deck: Deck) -> SimConfig:
         user_constants=tuple(sorted(deck.my_constants.items())),
         **_psatd_from_deck(deck, em_solver, dep),
         **_tiling_from_deck(deck, ndim),
+        **_macroscopic_from_deck(deck),
+        **_hybrid_from_deck(deck, em_solver),
     )
     outputs = outputs_from_deck(deck)
     names = {o["name"] for o in (outputs["diags"] + outputs["btd"]

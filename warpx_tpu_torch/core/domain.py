@@ -163,8 +163,20 @@ class DomainLayout:
         DOMAIN point (incl. the wall node of nodal comps) is interior-owned.
         """
         ndim = self.geom.ndim
+        mask = np.zeros(self.comp_shape(flags))
+        for d, outside in enumerate(self.pml_axes(flags)):
+            bshape = [1] * ndim
+            bshape[d] = outside.shape[0]
+            mask = np.maximum(mask, outside.reshape(bshape).astype(float))
+        return mask
+
+    def pml_axes(self, flags) -> list:
+        """``in_pml_mask`` by axis: for each axis, whether each index along
+        it lies outside the domain's owned sites (the mask is their union
+        over the axes)."""
+        ndim = self.geom.ndim
         shape = self.comp_shape(flags)
-        mask = np.zeros(shape)
+        axes = []
         for d in range(ndim):
             n = self.geom.n_cell[d]
             elo = self.ext_lo(d)
@@ -180,7 +192,5 @@ class DomainLayout:
                 outside &= idx >= 0
             if not self.ext_hi(d):
                 outside &= idx <= n
-            bshape = [1] * ndim
-            bshape[d] = shape[d]
-            mask = np.maximum(mask, outside.reshape(bshape).astype(float))
-        return mask
+            axes.append(outside)
+        return axes

@@ -60,15 +60,52 @@ def _np_dtype(dtype: torch.dtype):
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
-def columns_to_state(cols: dict, device) -> ParticleState:
+def columns_to_state(cols: dict, device, capacity: int | None = None,
+                     fills: dict | None = None) -> ParticleState:
     """A ``ParticleState`` on ``device`` from numpy columns keyed by its
-    field names (the runtime attributes as a dict under ``"extra"``)."""
-    def dev(v):
-        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    field names (the runtime attributes as a dict under ``"extra"``).  With
+    ``capacity``, columns shorter than it are padded on ``device`` with
+    their ``fills`` value (default 0, False), so that only the rows given
+    cross from the host."""
+    fills = fills or {}
+
+    def dev(k, v):
+        t = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        if capacity is None or t.shape[0] == capacity:
+            return t
+        out = torch.full((capacity,), fills.get(k, 0), dtype=t.dtype,
+                         device=device)
+        out[:t.shape[0]] = t
+        return out
 
     return ParticleState(
-        **{k: dev(v) for k, v in cols.items() if k != "extra"},
-        extra={k: dev(v) for k, v in cols.get("extra", {}).items()})
+        **{k: dev(k, v) for k, v in cols.items() if k != "extra"},
+        extra={k: dev(k, v) for k, v in cols.get("extra", {}).items()})
+
+
+def position_fills(geom: Geometry) -> dict:
+    """The value of each position column in a dead slot: the domain's
+    center (the other columns hold 0 there)."""
+    return {nm: 0.5 * (geom.prob_lo[d] + geom.prob_hi[d])
+            for d, nm in enumerate(_NAMES[geom.ndim])}
+
+
+def _pad_columns(cols: dict, count: int, cap: int, geom: Geometry) -> dict:
+    """Columns of ``cap`` slots holding the first ``count`` rows of
+    ``cols`` (alive first), the rest dead at ``position_fills``."""
+    fills = position_fills(geom)
+    out = {}
+    for k, a in cols.items():
+        if k == "alive":
+            out[k] = np.zeros(cap, dtype=bool)
+            out[k][:count] = True
+            continue
+        if a.shape[0] == cap == count:
+            out[k] = a
+            continue
+        out[k] = np.full(cap, fills.get(k, 0.0), dtype=a.dtype)
+        out[k][:count] = a[:count]
+    return out
 
 
 def _bulk_momentum(sp: SpeciesConfig) -> np.ndarray:
@@ -338,34 +375,80 @@ def inject_species_host(
         unit = _regular_unit_positions(sp.num_particles_per_cell_each_dim, ndim)
     else:
         unit = rng.random((sp.num_particles_per_cell, 3))
-    ppc_tot = unit.shape[0]
 
-    # --- cell grid
+    if sp.profile == "constant" and not _momenta_use_positions(sp):
+        cols = _constant_density_rows(sp, geom, unit, rng, np_dtype,
+                                      gamma_boost)
+    else:
+        cols = _rows(sp, geom, unit, rng, np_dtype, gamma_boost)
+    count = cols["w"].shape[0]
+    if gamma_boost > 1.0:
+        # to the boosted frame (AddPlasma:1243-1246):
+        # w *= gamma (1 - beta betaz_lab); uz' = gamma (uz - beta gamma_lab)
+        beta_boost = float(np.sqrt(1.0 - 1.0 / gamma_boost**2))
+        ux, uy, uz, w = (cols[k] for k in ("ux", "uy", "uz", "w"))
+        gamma_lab = np.sqrt(1.0 + ux * ux + uy * uy + uz * uz)
+        betaz_lab = uz / gamma_lab
+        cols["w"] = (w * gamma_boost
+                     * (1.0 - beta_boost * betaz_lab)).astype(np_dtype)
+        cols["uz"] = gamma_boost * (uz - beta_boost * gamma_lab)
+    for k in ("ux", "uy", "uz"):
+        cols[k] = (cols[k] * constants.c).astype(np_dtype)
+
+    # --- alive first, padded to capacity
+    if capacity is None and sp.capacity_factor > 1.0:
+        capacity = int(np.ceil(count * sp.capacity_factor))
+    cap = capacity or count
+    if cap < count:
+        raise ValueError(f"capacity {cap} < injected count {count}")
+    cols = dict(w=cols["w"], ux=cols["ux"], uy=cols["uy"], uz=cols["uz"],
+                alive=None, **{nm: cols[nm] for nm in names})
+    return _pad_columns(cols, count, cap, geom)
+
+
+def _momenta_use_positions(sp: SpeciesConfig) -> bool:
+    return (sp.momentum_distribution in ("gaussian_parse_momentum_function",
+                                         "parse_momentum_function")
+            or bool(sp.theta_expr) or bool(sp.beta_expr))
+
+
+def _boost_ballistic(z, sp: SpeciesConfig, gamma_boost: float):
+    """The lab z at t_lab = 0 of boosted-frame coordinates ``z`` (the
+    ballistic correction, PhysicalParticleContainer.cpp
+    applyBallisticCorrection at t = 0), in ``z``'s type."""
+    beta_boost = float(np.sqrt(1.0 - 1.0 / gamma_boost**2))
+    ub = _bulk_momentum(sp)
+    betaz_bulk = ub[2] / np.sqrt(1.0 + ub @ ub)
+    lab = np.empty_like(z)
+    lab[...] = gamma_boost * z * (1.0 - beta_boost * betaz_bulk)
+    return lab
+
+
+def _rows(sp, geom, unit, rng, np_dtype, gamma_boost) -> dict:
+    """The kept rows (positions by name, w, and ux, uy, uz in units of c)
+    of every cell's ``unit`` offsets: the profiles and bounds at the lab
+    position of each particle at t_lab = 0 (AddPlasma:1021), the momenta
+    drawn for every candidate in the JAX package's order."""
+    ndim = geom.ndim
+    ppc_tot = unit.shape[0]
     mesh_axes = [
         geom.prob_lo[d] + np.arange(geom.n_cell[d]) * geom.dx[d]
         for d in range(ndim)
     ]
     cell_lo = np.meshgrid(*mesh_axes, indexing="ij")
     cell_lo = np.stack([m.reshape(-1) for m in cell_lo], axis=-1)
-    unit_active = unit[:, {3: [0, 1, 2], 2: [0, 2], 1: [2]}[ndim]]
+    unit_active = unit[:, list(_AXES3[ndim])]
     dx = np.array(geom.dx)
     pos = cell_lo[:, None, :] + unit_active[None, :, :] * dx[None, None, :]
     pos = pos.reshape(-1, ndim).astype(np_dtype)
     scale_vec = np.full(pos.shape[0], geom.cell_volume / ppc_tot, np_dtype)
 
-    # boosted frame: the profiles and bounds are the lab's at t_lab = 0;
-    # the ballistic correction maps z to z0_lab
-    # (PhysicalParticleContainer.cpp applyBallisticCorrection at t = 0)
     lab = pos
     if gamma_boost > 1.0:
-        beta_boost = float(np.sqrt(1.0 - 1.0 / gamma_boost**2))
-        ub = _bulk_momentum(sp)
-        betaz_bulk = ub[2] / np.sqrt(1.0 + ub @ ub)
         lab = pos.copy()
-        lab[:, -1] = gamma_boost * lab[:, -1] * (1.0 - beta_boost * betaz_bulk)
+        lab[:, -1] = _boost_ballistic(pos[:, -1], sp, gamma_boost)
 
-    # --- injection bounds (PhysicalParticleContainer xmin..zmax; in lab
-    # coordinates when boosted, AddPlasma:1021)
+    # --- injection bounds (PhysicalParticleContainer xmin..zmax)
     mask = np.ones(pos.shape[0], dtype=bool)
     if sp.bounds_lo:
         for d in range(ndim):
@@ -380,42 +463,62 @@ def inject_species_host(
     w = np.where(mask, dens * scale_vec, 0.0).astype(np_dtype)
     mask &= w > 0
 
-    # --- momentum (units of gamma*beta; stored as u = c * value, m/s)
-    n = pos.shape[0]
-    ux, uy, uz = _momenta(sp, rng, n, lab, ndim, np_dtype)
-    if gamma_boost > 1.0:
-        # to the boosted frame (AddPlasma:1243-1246):
-        # w *= gamma (1 - beta betaz_lab); uz' = gamma (uz - beta gamma_lab)
-        beta_boost = float(np.sqrt(1.0 - 1.0 / gamma_boost**2))
-        gamma_lab = np.sqrt(1.0 + ux * ux + uy * uy + uz * uz)
-        betaz_lab = uz / gamma_lab
-        w = (w * gamma_boost * (1.0 - beta_boost * betaz_lab)).astype(np_dtype)
-        uz = gamma_boost * (uz - beta_boost * gamma_lab)
-    ux = (ux * constants.c).astype(np_dtype)
-    uy = (uy * constants.c).astype(np_dtype)
-    uz = (uz * constants.c).astype(np_dtype)
-
-    # --- compact to alive-first layout, pad to capacity
+    u = _momenta(sp, rng, pos.shape[0], lab, ndim, np_dtype)
     keep = np.nonzero(mask)[0]
-    count = keep.size
-    if capacity is None and sp.capacity_factor > 1.0:
-        capacity = int(np.ceil(count * sp.capacity_factor))
-    cap = capacity or count
-    if cap < count:
-        raise ValueError(f"capacity {cap} < injected count {count}")
+    cols = {nm: pos[keep, d] for d, nm in enumerate(_NAMES[ndim])}
+    cols.update(w=w[keep], ux=u[0][keep], uy=u[1][keep], uz=u[2][keep])
+    return cols
 
-    def _pad(a, fill=0.0):
-        out = np.full(cap, fill, dtype=a.dtype)
-        out[:count] = a[keep]
-        return out
 
-    alive = np.zeros(cap, dtype=bool)
-    alive[:count] = True
-    cols = dict(w=_pad(w), ux=_pad(ux), uy=_pad(uy), uz=_pad(uz),
-                alive=alive)
-    for d, nm in enumerate(names):
-        center = 0.5 * (geom.prob_lo[d] + geom.prob_hi[d])
-        cols[nm] = _pad(pos[:, d], fill=center)
+def _constant_density_rows(sp, geom, unit, rng, np_dtype,
+                           gamma_boost) -> dict:
+    """``_rows`` of a constant density whose momenta do not depend on the
+    position, computed at the kept rows only: a coordinate, and the bound
+    on it, depend on one axis's cell index and the offset alone, so each
+    axis is an (n_cell, offsets) table, the same numbers ``_rows`` makes,
+    and every candidate shares one weight."""
+    ndim = geom.ndim
+    ppc_tot = unit.shape[0]
+    unit_active = unit[:, list(_AXES3[ndim])]
+    table = [((geom.prob_lo[d] + np.arange(geom.n_cell[d]) * geom.dx[d])
+              [:, None] + unit_active[None, :, d] * geom.dx[d])
+             .astype(np_dtype) for d in range(ndim)]
+    lab = list(table)
+    if gamma_boost > 1.0:
+        lab[-1] = _boost_ballistic(table[-1], sp, gamma_boost)
+    shape = (*geom.n_cell[:ndim], ppc_tot)
+
+    def spread(t, d):
+        """``t`` (n_cell[d], offsets) broadcast over the candidates."""
+        idx = [None] * ndim + [slice(None)]
+        idx[d] = slice(None)
+        return np.broadcast_to(t[tuple(idx)], shape)
+
+    mask = np.ones(shape, dtype=bool)
+    if sp.bounds_lo:
+        for d in range(ndim):
+            mask &= spread((lab[d] >= sp.bounds_lo[d])
+                           & (lab[d] <= sp.bounds_hi[d]), d)
+    w = (np.full(1, sp.density, dtype=np_dtype)
+         * np.full(1, geom.cell_volume / ppc_tot, np_dtype))
+    w = np.where(True, w, 0.0).astype(np_dtype)
+    if not w[0] > 0:
+        mask[...] = False
+    count = int(np.count_nonzero(mask))
+    cols = {nm: spread(table[d], d)[mask]
+            for d, nm in enumerate(_NAMES[ndim])}
+    cols["w"] = np.full(count, w[0], dtype=np_dtype)
+    dist = sp.momentum_distribution
+    if dist in ("at_rest", "none"):
+        u = tuple(np.zeros(count, dtype=np_dtype) for _ in range(3))
+    elif dist == "constant":
+        u = tuple(np.full(count, v, dtype=np_dtype)
+                  for v in (sp.ux, sp.uy, sp.uz))
+    else:
+        flat = mask.reshape(-1)
+        u = tuple(a[flat] for a in _momenta(sp, rng, mask.size, None, ndim,
+                                              np_dtype))
+    cols.update(ux=u[0], uy=u[1], uz=u[2])
     return cols
 
 

@@ -24,9 +24,12 @@ trigger fires.  ``init`` lays the initial external grid fields
 (``warpx.E/B_ext_grid_init_style``: constant, parsed or read from an
 openPMD file).  The random numbers of the collisions, ionization, QED,
 Schwinger, plane emission and resampling come from ``self.draws``
-(``utils/draws.py``).  The simulation runs on the CUDA
-device unless the caller names another device; with no GPU it raises
-rather than run on the CPU unasked.
+(``utils/draws.py``).  An electrostatic run solves for its fields at the
+end of ``init`` and after every step (``stepper.solve_es``); a hybrid-PIC
+run deposits rho and J into its temporaries at the end of ``init``; a
+macroscopic medium (``self.medium``) is built for the periodic step.  The
+simulation runs on the CUDA device unless the caller names another
+device; with no GPU it raises rather than run on the CPU unasked.
 """
 
 from __future__ import annotations
@@ -66,7 +69,7 @@ from .domain import DomainLayout
 from .flux_injection import flux_capacity, make_flux_injector
 from .grid import yee_staggering
 from .injection import (columns_to_state, inject_gaussian_beam_host,
-                        inject_species_host)
+                        inject_species_host, position_fills)
 from .laser import antenna_particles
 from .state import FieldState, ParticleState, SimState
 from .step import has_stochastic, pic_step, push_momenta_half, wrap_positions
@@ -188,12 +191,20 @@ class Simulation:
             for s in cfg.species if s.do_resampling}
         # the periodic spectral solver (the bounded one is the stepper's)
         self.psatd = None
+        # the macroscopic medium of the periodic step (JAX
+        # simulation.py:244-249)
+        self.medium = None
         if self.is_bounded:
             check_bounded_supported(cfg)
             self.params = None
         else:
             if cfg.em_solver == "psatd":
                 self.psatd = self._periodic_psatd()
+            if cfg.em_solver_medium == "macroscopic":
+                from ..solvers.macroscopic import MacroscopicMedium
+
+                self.medium = MacroscopicMedium.create(
+                    cfg, self.staggering, dtype=dtype, device=self.device)
             self.params = (pusher_params(cfg, dtype, self.device)
                            if self.binned else None)
 
@@ -354,12 +365,13 @@ class Simulation:
             return dataclasses.replace(sp_cfg, capacity_factor=2.0)
         return sp_cfg
 
-    def _with_extras(self, sp_cfg, cols: dict) -> dict:
+    def _with_extras(self, sp_cfg, cols: dict, capacity=None) -> dict:
         """The species' runtime attributes at the start of the run (JAX
         simulation.py:956-973): the ions' initial level, and exponentially
         distributed QED optical depths from ``default_rng(seed + 17)``,
-        created anew for every species as the JAX package does."""
-        cap = cols["w"].shape[0]
+        created anew for every species as the JAX package does; for
+        ``capacity`` slots (default: the columns' length)."""
+        cap = capacity or cols["w"].shape[0]
         ft = cols["w"].dtype
         extra = {}
         if sp_cfg.do_field_ionization:
@@ -450,7 +462,58 @@ class Simulation:
         geom = cfg.geometry
         rng = np.random.default_rng(seed if seed is not None else cfg.seed)
         if self.is_bounded:
-            return self._init_bounded(rng)
+            self._init_bounded(rng)
+        else:
+            self._init_periodic(rng)
+        if self.stepper is not None and self.stepper.is_es:
+            # the initial space-charge field (WarpXInitData.cpp:598)
+            self.state = self.stepper.solve_es(self.state)
+        if cfg.em_solver == "hybrid":
+            # rho^0 and J^0 into the hybrid temporaries
+            # (HybridPICDepositInitialRhoAndJ)
+            self.state = self.state.replace(
+                fields=self._hybrid_initial_deposit(self.state))
+        return self.state
+
+    def _hybrid_initial_deposit(self, state) -> FieldState:
+        """The fields with ``hrho`` and ``hjx/y/z`` of the t = 0 deposit
+        (WarpXPushFieldsHybridPIC.cpp:194; JAX simulation.py:1304-1335):
+        rho and the direct J at relative time 0 of every depositing
+        species, filtered under use_filter.  The JAX package exports
+        ``hybrid_initial_e`` but never calls it, and neither does this
+        (ROADMAP.md Queue C)."""
+        from ..ops.deposit import deposit_current_direct, deposit_rho
+        from ..solvers.filter import bilinear_filter
+
+        cfg = self.cfg
+        geom = cfg.geometry
+        kw = dict(dtype=self.dtype, device=self.device)
+        rho0 = torch.zeros(geom.n_cell, **kw)
+        j3 = [torch.zeros(geom.n_cell, **kw) for _ in range(3)]
+        for sp_cfg in cfg.species:
+            sp = state.species[sp_cfg.name]
+            if sp.capacity == 0 or sp_cfg.do_not_deposit:
+                continue
+            w_eff = torch.where(sp.alive, sp.w, torch.zeros_like(sp.w))
+            pos = sp.positions(geom.ndim)
+            rho0 = deposit_rho(pos, w_eff, sp_cfg.charge, geom,
+                               cfg.particle_shape, out=rho0,
+                               chunk_size=cfg.deposit_chunk_size)
+            jj = deposit_current_direct(
+                pos, sp.ux, sp.uy, sp.uz, w_eff, sp_cfg.charge, geom,
+                self.staggering, cfg.dt, cfg.particle_shape,
+                relative_time=0.0, chunk_size=cfg.deposit_chunk_size)
+            j3 = [a + b for a, b in zip(j3, jj)]
+        if cfg.use_filter:
+            npass = cfg.filter_npass_each_dir or (1,) * geom.ndim
+            rho0 = bilinear_filter(rho0, npass)
+            j3 = [bilinear_filter(a, npass) for a in j3]
+        return state.fields.replace(hrho=rho0, hjx=j3[0], hjy=j3[1],
+                                    hjz=j3[2])
+
+    def _init_periodic(self, rng) -> SimState:
+        cfg = self.cfg
+        geom = cfg.geometry
         kw = dict(dtype=self.dtype, device=self.device)
         ft = torch.empty((), dtype=self.dtype).numpy().dtype
         caps = self._product_capacities()
@@ -534,7 +597,7 @@ class Simulation:
         ndim = geom.ndim
         ft = torch.empty((), dtype=self.dtype).numpy().dtype
         wdir = cfg.moving_window_dir
-        host, aux = {}, {}
+        host, aux, pads = {}, {}, {}
         caps = self._product_capacities()
         for sp_cfg in cfg.species:
             if sp_cfg.injection_style == "laser":
@@ -546,6 +609,7 @@ class Simulation:
                                                  cfg.gamma_boost)
             else:
                 capacity = self._capacity(sp_cfg, caps)
+                cols = None
                 if sp_cfg.do_continuous_injection and cfg.do_moving_window:
                     # room for what the window uncovers over the whole run
                     ppc = sp_cfg.num_particles_per_cell_each_dim
@@ -555,15 +619,25 @@ class Simulation:
                     travel_cells = math.ceil(
                         cfg.moving_window_v * _c * cfg.dt * cfg.max_step
                         / geom.dx[wdir]) + 4
+                    drawn = rng.bit_generator.state
                     first = inject_species_host(sp_cfg, geom, rng, ft,
                                                 gamma_boost=cfg.gamma_boost)
-                    capacity = (int(first["alive"].sum())
-                                + travel_cells * cross * ppc_tot)
+                    count = int(first["alive"].sum())
+                    capacity = count + travel_cells * cross * ppc_tot
+                    if (rng.bit_generator.state == drawn
+                            and first["w"].shape[0] == count
+                            and self._mcc_grown(sp_cfg) is sp_cfg):
+                        # the injection drew nothing: the second would
+                        # give the same rows; they cross as they are and
+                        # are padded to capacity on the device
+                        cols, pads[sp_cfg.name] = first, capacity
                     del first
-                cols = inject_species_host(self._mcc_grown(sp_cfg), geom,
-                                           rng, ft, capacity,
-                                           cfg.gamma_boost)
-            host[sp_cfg.name] = self._with_extras(sp_cfg, cols)
+                if cols is None:
+                    cols = inject_species_host(self._mcc_grown(sp_cfg), geom,
+                                               rng, ft, capacity,
+                                               cfg.gamma_boost)
+            host[sp_cfg.name] = self._with_extras(sp_cfg, cols,
+                                                  pads.get(sp_cfg.name))
             if sp_cfg.do_continuous_injection and cfg.do_moving_window:
                 aux[f"inject_pos:{sp_cfg.name}"] = ft.type(
                     geom.prob_hi[wdir] if cfg.moving_window_v > 0
@@ -600,8 +674,12 @@ class Simulation:
             shapes)
         fields = self._init_external_grid(
             fields, shapes, DomainLayout.from_config(cfg).static_origin())
-        species = {nm: columns_to_state(cols, self.device)
-                   for nm, cols in host.items()}
+        relaid = {s.name for s in cfg.species if self.binned
+                  and s.injection_style != "laser" and s.name not in slow}
+        species = {nm: columns_to_state(
+            cols, self.device,
+            self.tile_spec.capacity if nm in relaid else pads.get(nm),
+            position_fills(geom)) for nm, cols in host.items()}
         self.state = SimState(fields=fields, species=species, step=0,
                               time=0.0, aux=aux)
         self.is_synchronized = True
@@ -615,7 +693,9 @@ class Simulation:
         concentrate) and from the per-cell bound of an injected plasma, not
         from the mean.  A species with a small static population keeps its
         compact layout and rides the per-particle path inside the binned
-        step.  Returns (columns, the names of those species)."""
+        step.  Returns (columns, the names of those species); a relaid
+        species' columns may stop short of the tile capacity, the rest
+        being dead slots."""
         cfg = self.cfg
         geom = cfg.geometry
         ndim = geom.ndim
@@ -633,15 +713,21 @@ class Simulation:
                 continue
             cols = host[sp_cfg.name]
             alive = cols["alive"]
-            if alive.any():
-                max_alive = max(max_alive, int(alive.sum()))
-                idx = np.zeros(int(alive.sum()), np.int64)
+            n_alive = int(alive.sum())
+            if n_alive:
+                max_alive = max(max_alive, n_alive)
+                prefix = bool(alive[:n_alive].all())
+                idx = np.zeros(n_alive, np.int64)
                 for d in range(ndim):
-                    p = cols[names[d]][alive]
-                    cell = np.clip(
-                        np.floor((p - geom.prob_lo[d]) / geom.dx[d])
-                        .astype(np.int64) // tile[d], 0, ntpd[d] - 1)
-                    idx = idx * ntpd[d] + cell
+                    p = (cols[names[d]][:n_alive] if prefix
+                         else cols[names[d]][alive])
+                    t = p - geom.prob_lo[d]
+                    t /= geom.dx[d]
+                    cell = np.floor(t, out=t).astype(np.int64)
+                    cell //= tile[d]
+                    np.clip(cell, 0, ntpd[d] - 1, out=cell)
+                    idx *= ntpd[d]
+                    idx += cell
                 max_tile = max(max_tile,
                                int(np.bincount(idx, minlength=n_tiles).max()))
             ppc = sp_cfg.num_particles_per_cell_each_dim
@@ -663,6 +749,10 @@ class Simulation:
             if n_alive > cap:
                 raise ValueError(f"{n_alive} live particles exceed the tile "
                                  f"capacity {cap}; raise tile_headroom")
+            if alive[:n_alive].all():
+                # alive first already: the first ``cap`` rows, padded to
+                # ``cap`` on the device (columns_to_state)
+                return {k: a[:cap] for k, a in cols.items()}
             take = np.argsort(~alive, kind="stable")[:cap]
             out = {}
             for k, a in cols.items():
@@ -687,7 +777,7 @@ class Simulation:
             return self.stepper.step(state, self.draws)
         if not self.binned:
             return pic_step(state, self.cfg, self.staggering, self.psatd,
-                            self.draws)
+                            self.draws, medium=self.medium)
         return binned_pic_step(state, self.cfg, self.staggering,
                                self.tile_spec, self.params, self.psatd)
 
@@ -722,6 +812,10 @@ class Simulation:
                 # synchronized (WarpXEvolve.cpp:246)
                 self.state = self.stepper.step_window(
                     self.state, move_j=self.is_synchronized)
+                if self.stepper.is_es:
+                    # the electrostatic solve at the end of the PIC loop
+                    # (WarpXEvolve.cpp:269-283)
+                    self.state = self.stepper.solve_es(self.state)
             self.flush_diagnostics(step + 1)
             for btd in self.btd:
                 btd.update(self)

@@ -41,8 +41,8 @@ def is_host_aux(key: str) -> bool:
 
 _FIELD_NAMES = ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")
 # present only in the configurations that carry them (None otherwise)
-OPTIONAL_FIELDS = ("F", "G", "Ex_avg", "Ey_avg", "Ez_avg", "Bx_avg",
-                   "By_avg", "Bz_avg")
+OPTIONAL_FIELDS = ("F", "G", "phi", "Ex_avg", "Ey_avg", "Ez_avg", "Bx_avg",
+                   "By_avg", "Bz_avg", "hrho", "hjx", "hjy", "hjz")
 _PARTICLE_NAMES = ("w", "ux", "uy", "uz", "alive", "x", "y", "z")
 
 
@@ -65,6 +65,9 @@ class FieldState:
     # do_divb_cleaning)
     F: Optional[torch.Tensor] = None
     G: Optional[torch.Tensor] = None
+    # the nodal potential of the last Poisson solve (electrostatic runs;
+    # the reference's phi_fp, diagnostic "phi")
+    phi: Optional[torch.Tensor] = None
     # the time-averaged fields of averaged PSATD (Efield_avg_fp), zero at
     # the start of a run
     Ex_avg: Optional[torch.Tensor] = None
@@ -73,6 +76,12 @@ class FieldState:
     Bx_avg: Optional[torch.Tensor] = None
     By_avg: Optional[torch.Tensor] = None
     Bz_avg: Optional[torch.Tensor] = None
+    # hybrid-PIC: rho^n and the ion current J_i^{n-1/2} carried from one
+    # step to the next (hybrid_rho_fp_temp, hybrid_current_fp_temp)
+    hrho: Optional[torch.Tensor] = None
+    hjx: Optional[torch.Tensor] = None
+    hjy: Optional[torch.Tensor] = None
+    hjz: Optional[torch.Tensor] = None
 
     def e(self):
         return (self.Ex, self.Ey, self.Ez)

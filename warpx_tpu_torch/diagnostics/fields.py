@@ -25,7 +25,8 @@ import torch
 from ..core.config import SimConfig
 from ..core.domain import DomainLayout
 from ..core.state import SimState
-from ..ops.deposit import count_particles_per_cell, deposit_rho
+from ..ops.deposit import (count_particles_per_cell, deposit_current_direct,
+                           deposit_current_esirkepov, deposit_rho)
 from ..solvers import yee
 from ..solvers.filter import bilinear_filter, bilinear_filter_padded
 
@@ -97,7 +98,7 @@ def slab_reach(cfg: SimConfig) -> int:
 
 
 def deposit_total_rho(state: SimState, cfg: SimConfig,
-                      slab=None) -> torch.Tensor:
+                      slab=None, only=None) -> torch.Tensor:
     """Nodal charge density summed over species (lasers included) at the
     current positions (RhoFunctor -> GetChargeDensity, then
     ApplyFilterandSumBoundaryRho: filter with guards, fold the periodic
@@ -109,7 +110,9 @@ def deposit_total_rho(state: SimState, cfg: SimConfig,
     elsewhere), ``("room", cap)`` those whose cell along the last axis lies
     in [k_lo, k_hi], selected by ``_slab_select`` into ``cap`` places, each
     species' device count of the selected particles without a place
-    appended to ``overflow`` (a list).  The other species deposit whole."""
+    appended to ``overflow`` (a list).  The other species deposit whole.
+    ``only`` (species names) keeps the others out, as a relativistic
+    electrostatic solve deposits one species at a time."""
     geom = cfg.geometry
     ndim = geom.ndim
     f = state.fields.Ex
@@ -128,6 +131,8 @@ def deposit_total_rho(state: SimState, cfg: SimConfig,
     for sp_cfg in cfg.species:
         sp = state.species[sp_cfg.name]
         if sp.capacity == 0 or sp_cfg.do_not_deposit:
+            continue
+        if only is not None and sp_cfg.name not in only:
             continue
         pos = sp.positions(ndim)
         how, arg = (None, None) if slab is None else slab[2].get(
@@ -276,6 +281,42 @@ def cell_centered_slice(state: SimState, cfg: SimConfig, staggering: Dict,
     return out
 
 
+def _es_current(state: SimState, cfg: SimConfig, staggering: Dict):
+    """J of an electrostatic run, which deposits none in its step: the
+    output deposits it afresh at relative time 0 on the periodic grid's
+    shape (JFunctor.cpp:41-49 deposit_current = true; JAX
+    diagnostics/fields.py:331-360).  Esirkepov takes the positions half a
+    step ahead, which is where its -dt/2 default puts x^n."""
+    from ..ops.push import inv_gamma
+
+    geom = cfg.geometry
+    ndim = geom.ndim
+    f = state.fields.Ex
+    j3 = [torch.zeros(geom.n_cell, dtype=f.dtype, device=f.device)
+          for _ in range(3)]
+    for sp_cfg in cfg.species:
+        sp = state.species[sp_cfg.name]
+        if sp_cfg.do_not_deposit or sp.capacity == 0:
+            continue
+        w_eff = torch.where(sp.alive, sp.w, torch.zeros_like(sp.w))
+        pos = sp.positions(ndim)
+        if cfg.current_deposition == "esirkepov":
+            g = inv_gamma(sp.ux, sp.uy, sp.uz)
+            vel = {2: (sp.ux, sp.uz), 3: (sp.ux, sp.uy, sp.uz)}[ndim]
+            pos = [p + (0.5 * cfg.dt) * (v * g) for p, v in zip(pos, vel)]
+            deposit_current_esirkepov(pos, sp.ux, sp.uy, sp.uz, w_eff,
+                                      sp_cfg.charge, geom, cfg.dt,
+                                      cfg.particle_shape, out=j3,
+                                      chunk_size=cfg.deposit_chunk_size)
+        else:
+            deposit_current_direct(pos, sp.ux, sp.uy, sp.uz, w_eff,
+                                   sp_cfg.charge, geom, staggering, cfg.dt,
+                                   cfg.particle_shape, relative_time=0.0,
+                                   out=j3,
+                                   chunk_size=cfg.deposit_chunk_size)
+    return dict(zip(("jx", "jy", "jz"), j3))
+
+
 def cell_centered_output(state: SimState, cfg: SimConfig, staggering: Dict,
                          names=None, psatd=None) -> Dict[str, torch.Tensor]:
     """E, B, j, rho, divE, divB and part_per_cell at cell centers (those of
@@ -294,12 +335,20 @@ def cell_centered_output(state: SimState, cfg: SimConfig, staggering: Dict,
     f = state.fields
     comp, flags = _components(state, cfg, staggering)
     out = {}
+    j_now = (_es_current(state, cfg, staggering)
+             if cfg.electrostatic != "none"
+             and any(want(nm) for nm in ("jx", "jy", "jz")) else {})
     for name in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz"):
         if want(name):
-            out[name] = cell_center(comp(name), flags[name], geom.n_cell)
+            out[name] = cell_center(j_now[name] if name in j_now
+                                    else comp(name), flags[name],
+                                    geom.n_cell)
     if want("rho"):
         out["rho"] = cell_center(deposit_total_rho(state, cfg),
                                  staggering["rho"], geom.n_cell)
+    if f.phi is not None and want("phi"):
+        # the nodal potential of the last Poisson solve (diagnostic "phi")
+        out["phi"] = cell_center(f.phi, (1,) * geom.ndim, geom.n_cell)
     for name in ("F", "G"):
         # the divergence-cleaning scalars, where the run carries them
         if getattr(f, name) is not None and want(name):
