@@ -282,6 +282,33 @@ non-zero:
   nci_drift    tests/test_nci.py's drifting plasma, 600 steps in float32
                with and without the corrector, replayed from a CUDA graph
                of the per-particle step: the energy ratio above 30;
+  fieldsolver2_parity  (after es_parity) Queue A 11.3's second half in
+               float64, card against CPU: theta-implicit Picard at 16^3,
+               semi-implicit at 32^2, Newton-GMRES at 16^2, a 3D cold-fluid
+               Langmuir deck, the 2D ECT rotated cube, a bounded 3D Yee
+               plasma streaming into an eb2 sphere, ChargeOnEB on its
+               state: checksums and the fluid state within 1e-9, the
+               nonlinear iteration counts equal;
+  main_implicit  uniform-128-implicit: main's plasma (8.39 M) theta-
+               implicit at theta = 1/2, Picard to 1e-12, float64, dt at half
+               the Courant limit, 3 steps: energy drift at most 1e-10,
+               Picard iterations, ms a step, peak memory, busy share;
+  main_implicit_jfnk  uniform2d-256-jfnk: 256^2, 4 particles a cell,
+               Newton (1e-12) with GMRES (restart 30), float64, 2 steps:
+               energy drift at most 1e-10, Newton and GMRES iterations,
+               one JVP's ms against one right-hand side's;
+  main_fluid   fluid-128-langmuir: a cold electron fluid at 128^3,
+               float32, u_x = u0 sin(k x) over two plasma periods: sum N
+               to 1e-5, the frequency within 1 % of omega_pe, ms a step;
+  main_ect     the reference's rotated-cube TM mode under ECT at 64^3
+               (theta = pi/6) and 32^2 (pi/8), ~1.125 periods: By and Bz
+               against the analytic mode (1e-2 in 3D, 1e-1 in 2D); the
+               same under Yee on the same staircase, the cut-cell
+               geometry's host time, ms a step;
+  main_eb      uniform-128-eb: main's plasma in a PEC box with an eb2
+               sphere, Yee, 5 steps: after every step no alive particle
+               inside the body and the covered E edges and B faces
+               bitwise at their initial values; ChargeOnEB, ms a step;
   labs         each Hopper lab's main() at the TPU lab's default shapes (L1
                in every mode): kernel against plain version, times, bounds,
                the library's yardstick where there is one; each lab prints
@@ -7904,6 +7931,711 @@ def phase_nci_drift(dev, smi, steps=NCI_DRIFT_STEPS):
          nvidia_smi=smi)
 
 
+# ---- Queue A 11.3, second half: implicit solvers, fluids, embedded
+# boundaries ----------------------------------------------------------------
+
+def implicit_deck(dims, n, steps, scheme="theta_implicit_em", extra="",
+                  ppc=1):
+    """A periodic box of 16 um per axis with electrons and protons of
+    parsed (sinusoidal) momenta, no filter, cfl 0.5, under an implicit
+    scheme: the CPU tests' deck at ``n`` cells an axis."""
+    span = 8e-6
+    return f"""
+max_step = {steps}
+amr.n_cell = {f"{n} " * dims}
+geometry.dims = {dims}
+geometry.prob_lo = {f"{-span!r} " * dims}
+geometry.prob_hi = {f"{span!r} " * dims}
+warpx.use_filter = 0
+warpx.cfl = 0.5
+algo.evolve_scheme = {scheme}
+picard.relative_tolerance = 1.e-11
+picard.max_iterations = 60
+my_constants.pi = 3.141592653589793
+particles.species_names = electrons ions
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = {f"{ppc} " * dims}
+electrons.profile = constant
+electrons.density = 2.e19
+electrons.momentum_distribution_type = parse_momentum_function
+electrons.momentum_function_ux(x,y,z) = "0.2*sin(2*pi*x/16.e-6)"
+electrons.momentum_function_uy(x,y,z) = "0.1*cos(2*pi*z/16.e-6)"
+electrons.momentum_function_uz(x,y,z) = "0.15*sin(2*pi*z/16.e-6)"
+ions.species_type = proton
+ions.injection_style = NUniformPerCell
+ions.num_particles_per_cell_each_dim = {f"{ppc} " * dims}
+ions.profile = constant
+ions.density = 2.e19
+ions.momentum_distribution_type = parse_momentum_function
+ions.momentum_function_ux(x,y,z) = "-0.004*cos(2*pi*x/16.e-6)"
+ions.momentum_function_uy(x,y,z) = "0.002"
+ions.momentum_function_uz(x,y,z) = "0.003*cos(2*pi*z/16.e-6)+0.001"
+{extra}
+"""
+
+
+NEWTON_KEYS = """
+implicit_evolve.nonlinear_solver = newton
+implicit_evolve.max_particle_iterations = 3
+newton.relative_tolerance = 1.e-12
+gmres.relative_tolerance = 1.e-10
+gmres.restart_length = 12
+gmres.max_iterations = 48
+"""
+
+
+def fluid_langmuir_deck(dims, n, steps):
+    """A cold-fluid Langmuir wave (density and velocity perturbed along x)
+    on a periodic box of 20 um per axis, Esirkepov, no filter."""
+    return f"""
+max_step = {steps}
+amr.n_cell = {f"{n} " * dims}
+geometry.dims = {dims}
+geometry.prob_lo = {"-10.e-6 " * dims}
+geometry.prob_hi = {"10.e-6 " * dims}
+warpx.cfl = 0.8
+warpx.use_filter = 0
+my_constants.pi = 3.141592653589793
+my_constants.k0 = 2*pi/20.e-6
+fluids.species_names = electrons
+electrons.charge = -q_e
+electrons.mass = m_e
+electrons.profile = parse_density_function
+electrons.density_function(x,y,z) = "2.e24*(1 + 0.01*cos(k0*x))"
+electrons.momentum_distribution_type = parse_momentum_function
+electrons.momentum_function_ux(x,y,z) = "0.01*sin(k0*x)"
+electrons.momentum_function_uy(x,y,z) = "0.002*cos(k0*z)"
+electrons.momentum_function_uz(x,y,z) = "0.005*sin(k0*z)"
+"""
+
+
+# the reference's rotated-cube TM eigenmodes
+# (Examples/Tests/embedded_boundary_rotated_cube; the JAX package's
+# tests/test_ect.py:64-131): a PEC cube of side 1 (2D: 1.06) turned by
+# theta inside a [-0.8, 0.8] box, the mode laid on the grid at t = 0
+ECT_CUBE = {
+    3: ("yy=y*cos(-theta)-z*sin(-theta); zz=y*sin(-theta)+z*cos(-theta); "
+        "max(max(max(x-0.5,-(x+0.5)),max(yy-0.5,-(yy+0.5))),"
+        "max(zz-0.5,-(zz+0.5)))"),
+    2: ("xx = x*cos(-theta) + z*sin(-theta); zz = -x*sin(-theta) + "
+        "z*cos(-theta); max(max(xx-0.53,-(xx+0.53)), "
+        "max(zz-0.53,-(zz+0.53)))"),
+}
+ECT_THETA = {3: math.pi / 6, 2: math.pi / 8}
+ECT_B = {
+    3: ("0",
+        "-2/h2*mu0*(pi)*(pi)*sin(pi*(y*cos(-theta)-z*sin(-theta)-0.5))"
+        "*cos(pi*(y*sin(-theta)+z*cos(-theta)-0.5))*cos(theta)"
+        " - mu0*cos(pi*(y*cos(-theta)-z*sin(-theta)-0.5))"
+        "*sin(pi*(y*sin(-theta)+z*cos(-theta)-0.5))*sin(theta)",
+        "-2/h2*mu0*(pi)*(pi)*sin(pi*(y*cos(-theta)-z*sin(-theta)-0.5))"
+        "*cos(pi*(y*sin(-theta)+z*cos(-theta)-0.5))*sin(theta)"
+        " + mu0*cos(pi*(y*cos(-theta)-z*sin(-theta)-0.5))"
+        "*sin(pi*(y*sin(-theta)+z*cos(-theta)-0.5))*cos(theta)"),
+    2: ("0",
+        "mu0*cos(pi/1.06*(-x*sin(-theta)+z*cos(-theta)-0.53))",
+        "0"),
+}
+
+
+def ect_cube_deck(ndim, n, steps, solver="ect"):
+    """The rotated-cube deck at n cells an axis (cfl 1, PEC walls)."""
+    bx, by, bz = ECT_B[ndim]
+    return f"""
+max_step = {steps}
+amr.n_cell = {f"{n} " * ndim}
+geometry.dims = {ndim}
+geometry.prob_lo = {"-0.8 " * ndim}
+geometry.prob_hi = {"0.8 " * ndim}
+warpx.cfl = 1
+warpx.use_filter = 0
+boundary.field_lo = {"pec " * ndim}
+boundary.field_hi = {"pec " * ndim}
+algo.maxwell_solver = {solver}
+my_constants.theta = {ECT_THETA[ndim]!r}
+my_constants.h2 = {2 * math.pi ** 2!r}
+warpx.eb_implicit_function = "{ECT_CUBE[ndim]}"
+warpx.B_ext_grid_init_style = parse_B_ext_grid_function
+warpx.Bx_external_grid_function(x,y,z) = "{bx}"
+warpx.By_external_grid_function(x,y,z) = "{by}"
+warpx.Bz_external_grid_function(x,y,z) = "{bz}"
+"""
+
+
+def ect_steps(ndim):
+    """The steps to ~1.125 periods of the mode at cfl 1 (3D at 64^3:
+    omega = sqrt(2) pi c; 2D at 32^2: omega = pi c / 1.06)."""
+    if ndim == 3:
+        dt = 1.0 / (C_LIGHT * math.sqrt(3.0) / 0.025)
+        omega = math.sqrt(2.0) * math.pi * C_LIGHT
+    else:
+        dt = 1.0 / (C_LIGHT * math.sqrt(2.0) / 0.05)
+        omega = math.pi * C_LIGHT / 1.06
+    return int(round(1.125 * 2 * math.pi / omega / dt))
+
+
+def ect_mode_errors(fields, t, ndim, n):
+    """The relative l2 errors of By (and Bz in 3D) against the analytic
+    mode on the uncovered faces (analysis_fields_2d.py / _3d.py as the
+    JAX package's tests/test_ect.py writes them)."""
+    mu0 = 1.25663706212e-06
+    dx = 1.6 / n
+    theta = ECT_THETA[ndim]
+    if ndim == 2:
+        by = fields.By.double().cpu().numpy()[:n, :n]
+        x = np.arange(n) * dx - 0.8
+        X, Z = np.meshgrid(x, x, indexing="ij")
+        zr = -X * np.sin(-theta) + Z * np.cos(-theta)
+        th = (mu0 * np.cos(np.pi / 1.06 * (zr - 0.53))
+              * np.cos(np.pi / 1.06 * C_LIGHT * t) * (by != 0))
+        return {"By": float(np.sqrt(np.sum((by - th) ** 2)
+                                    / np.sum(th ** 2)))}
+    h2 = 2 * np.pi ** 2
+    ct = np.cos(np.sqrt(2) * np.pi * C_LIGHT * t)
+
+    def theory(shifts):
+        x0 = (np.arange(n) + shifts[0]) * dx - 0.8
+        y0 = (np.arange(n) + shifts[1]) * dx - 0.8
+        z0 = (np.arange(n) + shifts[2]) * dx - 0.8
+        _, Y0, Z0 = np.meshgrid(x0, y0, z0, indexing="ij")
+        y = Y0 * np.cos(-theta) - Z0 * np.sin(-theta)
+        z = Y0 * np.sin(-theta) + Z0 * np.cos(-theta)
+        b_y = (-2 / h2 * mu0 * np.pi * np.pi * np.sin(np.pi * (y - 0.5))
+               * np.cos(np.pi * (z - 0.5)) * ct)
+        b_z = mu0 * np.cos(np.pi * (y - 0.5)) * np.sin(np.pi * (z - 0.5)) * ct
+        return b_y, b_z
+
+    out = {}
+    by = fields.By.double().cpu().numpy()[:, :n, :n]
+    t_y, t_z = theory([0.5, 0.0, 0.5])
+    th = (t_y * np.cos(theta) - t_z * np.sin(theta)) * (by != 0)
+    out["By"] = float(np.sqrt(np.sum((by - th) ** 2) / np.sum(th ** 2)))
+    bz = fields.Bz.double().cpu().numpy()[:, :n, :n]
+    t_y, t_z = theory([0.5, 0.5, 0.0])
+    th = (t_y * np.sin(theta) + t_z * np.cos(theta)) * (bz != 0)
+    out["Bz"] = float(np.sqrt(np.sum((bz - th) ** 2) / np.sum(th ** 2)))
+    return out
+
+
+EB_SPHERE = """
+eb2.geom_type = sphere
+eb2.sphere_center = {cx!r} 0. {cz!r}
+eb2.sphere_radius = {r!r}
+eb2.sphere_has_fluid_inside = 0
+"""
+
+
+def eb_plasma_deck(n, steps, span, ppc=1, filt=1):
+    """A PEC box of 2 span per axis holding a plasma that streams into an
+    eb2 sphere (reflecting x and z walls, absorbing y), Yee."""
+    return f"""
+max_step = {steps}
+amr.n_cell = {n} {n} {n}
+geometry.dims = 3
+geometry.prob_lo = {-span!r} {-span!r} {-span!r}
+geometry.prob_hi = {span!r} {span!r} {span!r}
+warpx.cfl = 0.9
+warpx.use_filter = {filt}
+boundary.field_lo = pec pec pec
+boundary.field_hi = pec pec pec
+boundary.particle_lo = reflecting absorbing reflecting
+boundary.particle_hi = reflecting absorbing reflecting
+{EB_SPHERE.format(cx=span / 8, cz=-span / 8, r=span / 2)}
+particles.species_names = electrons
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = {ppc} {ppc} {ppc}
+electrons.profile = constant
+electrons.density = 1.e25
+electrons.momentum_distribution_type = parse_momentum_function
+electrons.momentum_function_ux(x,y,z) = "0.3*(1 - 2*(x > {span / 8!r}))"
+electrons.momentum_function_uy(x,y,z) = "0.1"
+electrons.momentum_function_uz(x,y,z) = "0.3*(1 - 2*(z > {-span / 8!r}))"
+"""
+
+
+def fieldsolver2_cases():
+    """(name, deck text, steps)."""
+    return [
+        ("theta_picard_3d", implicit_deck(3, 16, 3), 3),
+        ("semi_implicit_2d", implicit_deck(2, 32, 3, "semi_implicit_em"), 3),
+        ("newton_gmres_2d", implicit_deck(2, 16, 2, extra=NEWTON_KEYS), 2),
+        ("fluid_langmuir_3d", fluid_langmuir_deck(3, 16, 5), 5),
+        ("ect_rotated_cube_2d", ect_cube_deck(2, 32, 10), 10),
+        ("eb_sphere_3d", eb_plasma_deck(16, 4, 8e-6), 4),
+    ]
+
+
+def phase_fieldsolver2_parity(dev):
+    """fieldsolver2_parity: Queue A 11.3's second half in float64, card
+    against CPU: theta-implicit Picard at 16^3 (3 steps), semi-implicit at
+    32^2 (3), Newton-GMRES at 16^2 (2), a 3D cold-fluid Langmuir deck at
+    16^3 (5), the 2D ECT rotated cube at 32^2 (10), a bounded 3D Yee plasma
+    streaming into an eb2 sphere at 16^3 (4), then ChargeOnEB on that
+    state: every checksum within 1e-9 of its group's scale, the fluid
+    state within 1e-9, the Picard and Newton iteration counts equal,
+    ChargeOnEB within 1e-9."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.diagnostics.reduced import compute_reduced
+    from warpx_tpu_torch.utils.parser import Deck
+
+    cases = {}
+    for name, text, steps in fieldsolver2_cases():
+        sims = {}
+        for device in (dev, "cpu"):
+            t0 = time.perf_counter()
+            sim = warpx_tpu_torch.Simulation.from_deck(
+                Deck.from_string(text), dtype=torch.float64, device=device)
+            sim.init()
+            sim.evolve()
+            if str(device) != "cpu":
+                torch.cuda.synchronize()
+            sims[str(device)] = (sim, time.perf_counter() - t0)
+        (card, card_s), (cpu, cpu_s) = sims[str(dev)], sims["cpu"]
+        if card.state.step != steps:
+            raise AssertionError(f"fieldsolver2_parity {name}: "
+                                 f"{card.state.step} steps")
+        case = {"card_s": card_s, "cpu_s": cpu_s}
+        for k, ref in cpu.state.aux.items():
+            if k.startswith("fluid_"):
+                err = rel_err(card.state.aux[k].cpu(), ref)[1]
+                case[k] = err
+                if err > 1e-9:
+                    raise AssertionError(f"fieldsolver2_parity {name}: {k} "
+                                         f"differs by {err}")
+        if card.implicit is not None:
+            got, ref = card.implicit.history, cpu.implicit.history
+            if got != ref:
+                raise AssertionError(f"fieldsolver2_parity {name}: "
+                                     f"iterations {got} on the card, {ref} "
+                                     "on the CPU")
+            case["iterations"] = got
+        if name == "eb_sphere_3d":
+            q = [compute_reduced("ChargeOnEB", s.state, s.cfg, s.staggering,
+                                 {})["Charge (C)"] for s in (card, cpu)]
+            err = abs(q[0] - q[1]) / abs(q[1])
+            if not q[1] or err > 1e-9:
+                raise AssertionError(f"fieldsolver2_parity ChargeOnEB: {q}")
+            case["charge_on_eb_C"] = q[0]
+            case["charge_on_eb_rel_err"] = err
+        case["max_rel_err"] = grouped_agree(
+            card.checksums(), cpu.checksums(), 1e-9,
+            f"fieldsolver2_parity {name}")
+        cases[name] = case
+    emit("fieldsolver2_parity", ok=True, tol=1e-9, cases=cases)
+
+
+def total_energy(sim):
+    """Field plus particle energy (J) of ``sim``'s state, from the
+    reduced diagnostics FieldEnergy and ParticleEnergy."""
+    from warpx_tpu_torch.diagnostics.reduced import compute_reduced
+
+    fe = compute_reduced("FieldEnergy", sim.state, sim.cfg, sim.staggering)
+    pe = compute_reduced("ParticleEnergy", sim.state, sim.cfg,
+                         sim.staggering)
+    return fe["total_lev0(J)"] + pe["total(J)"]
+
+
+IMPLICIT_CFL = 0.5
+TOL_IMPLICIT_DRIFT = 1e-10
+
+
+def implicit_main_cfg(n=128, steps=3):
+    """uniform-128-implicit: main_cfg's plasma (electrons and ions of the
+    electron's mass, 2 a cell each, 8.39 M at n = 128, thermal 0.01 c) under
+    the theta-implicit scheme at theta = 1/2 with Picard to 1e-12, dt at
+    half the Courant limit (at the limit Picard stalls: the field part of
+    its contraction is about (theta c dt k)^2), no filter, per particle."""
+    from warpx_tpu_torch.solvers.yee import compute_dt_yee
+
+    cfg = main_cfg(n, steps)
+    return dataclasses.replace(
+        cfg, dt=compute_dt_yee(cfg.geometry, IMPLICIT_CFL),
+        evolve_scheme="theta_implicit_em", implicit_theta=0.5,
+        picard_rtol=1e-12, picard_max_iterations=100,
+        tiled_particles="off", use_filter=False)
+
+
+def drive_implicit(sim, steps):
+    """Init, then ``steps`` steps each timed by CUDA events, with the total
+    energy before and after each step; then one right-hand-side
+    evaluation (a Picard iteration's work: B, the particles' iterations,
+    J, E) at the final state under the profiler (a whole step is ~100,000
+    kernels, whose trace takes a minute to read back).  Returns (init_s,
+    each step's ms, energies, the RHS's (device ms, launches, wall ms))."""
+    t0 = time.perf_counter()
+    sim.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    energies = [total_energy(sim)]
+    series = []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        sim.evolve(1)
+        b.record()
+        b.synchronize()
+        series.append(a.elapsed_time(b))
+        energies.append(total_energy(sim))
+    rhs, _ = implicit_rhs(sim)
+    return init_s, series, energies, profile_call(rhs)
+
+
+def implicit_rhs(sim):
+    """(rhs(*e3), e3): the implicit step's right-hand side at ``sim``'s
+    state, the particles starting from their momenta and positions."""
+    imp, state = sim.implicit, sim.state
+    ndim = sim.cfg.geometry.ndim
+    f = state.fields
+    e3, b3 = (f.Ex, f.Ey, f.Ez), (f.Bx, f.By, f.Bz)
+    ub = {nm: (sp.ux, sp.uy, sp.uz) for nm, sp in state.species.items()}
+    xh = {nm: tuple(sp.positions(ndim)) for nm, sp in state.species.items()}
+
+    def rhs(*e):
+        return imp._compute_rhs(e or e3, state, b3, ub, xh)[0]
+
+    return rhs, e3
+
+
+def phase_main_implicit(dev, smi, n=128, steps=3):
+    """uniform-128-implicit (``implicit_main_cfg``), float64, 3 steps (the
+    last profiled): ms a step, the Picard iterations of each step, peak
+    memory, busy share; the total energy's drift at most
+    TOL_IMPLICIT_DRIFT relative, the fields finite, every particle kept."""
+    import warpx_tpu_torch
+
+    cfg = implicit_main_cfg(n, steps)
+    torch.cuda.reset_peak_memory_stats()
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float64, device=dev)
+    if sim.implicit is None or sim.binned:
+        raise AssertionError("main_implicit: not the implicit step")
+    n0 = 2 * 2 * n ** 3
+    init_s, series, energies, (rhs_dev, rhs_n, rhs_wall) = drive_implicit(
+        sim, steps)
+    drift = max(abs(e - energies[0]) for e in energies) / abs(energies[0])
+    f = sim.state.fields
+    finite = all(bool(torch.isfinite(getattr(f, nm)).all())
+                 for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"))
+    alive = sum(int(sp.alive.sum()) for sp in sim.state.species.values())
+    iters = [h["iterations"] for h in sim.implicit.history]
+    if not (drift <= TOL_IMPLICIT_DRIFT and finite and alive == n0
+            and max(iters) < cfg.picard_max_iterations):
+        raise AssertionError(f"main_implicit: drift {drift}, finite "
+                             f"{finite}, {alive} alive of {n0}, Picard "
+                             f"iterations {iters}")
+    emit("main_implicit", ok=True, n_cell=cfg.geometry.n_cell,
+         n_particles=n0, steps=sim.state.step, dtype="float64",
+         dt=cfg.dt, cfl=IMPLICIT_CFL, theta=0.5,
+         picard_rtol=cfg.picard_rtol, picard_iterations=iters,
+         ms_per_step=sum(series) / len(series), ms_each_step=series,
+         ms_per_picard_iteration=sum(series) / sum(iters),
+         init_s=init_s, energy_J=energies, energy_drift=drift,
+         energy_drift_tol=TOL_IMPLICIT_DRIFT,
+         rhs_device_ms=rhs_dev, rhs_launches=rhs_n, rhs_wall_ms=rhs_wall,
+         device_busy_share=rhs_dev / rhs_wall,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         nvidia_smi=smi)
+    del sim
+
+
+def jfnk_cfg(n=256, steps=2):
+    """uniform2d-256-jfnk: main2d's plasma kind (electrons and ions of the
+    electron's mass, thermal 0.01 c) at 256^2 with 4 particles a cell
+    ((2, 1) a species), order 1, theta-implicit at theta = 1/2 with Newton
+    (to 1e-12, at most 6 iterations) and GMRES (restart 30, to 1e-8, at
+    most 2 restarts), 3 particle iterations (the energy drift is at
+    roundoff with 3 as with 8, and a JVP costs about three times less),
+    dt at half the Courant limit, no filter."""
+    from warpx_tpu_torch.solvers.yee import compute_dt_yee
+
+    cfg = plasma_cfg(2, n, (2, 1), 1, 0.01, "ions", steps)
+    return dataclasses.replace(
+        cfg, dt=compute_dt_yee(cfg.geometry, IMPLICIT_CFL),
+        tiled_particles="off",
+        evolve_scheme="theta_implicit_em", implicit_theta=0.5,
+        implicit_nonlinear="newton", implicit_max_particle_iterations=3,
+        newton_rtol=1e-12, newton_max_iterations=6, gmres_restart=30,
+        gmres_rtol=1e-8, gmres_max_iterations=60, use_filter=False)
+
+
+def phase_main_implicit_jfnk(dev, smi, n=256, steps=2):
+    """uniform2d-256-jfnk (``jfnk_cfg``), float64, 2 steps (the last
+    profiled): the Newton iterations, GMRES restarts and Arnoldi steps
+    (Jacobian-vector products) of each step, ms a step, one JVP's and one
+    right-hand side's ms alone; the total energy's drift at most
+    TOL_IMPLICIT_DRIFT relative, the fields finite."""
+    import warpx_tpu_torch
+
+    cfg = jfnk_cfg(n, steps)
+    torch.cuda.reset_peak_memory_stats()
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float64, device=dev)
+    if sim.implicit is None:
+        raise AssertionError("main_implicit_jfnk: not the implicit step")
+    init_s, series, energies, (rhs_dev, _, rhs_wall) = drive_implicit(
+        sim, steps)
+    drift = max(abs(e - energies[0]) for e in energies) / abs(energies[0])
+    f = sim.state.fields
+    finite = all(bool(torch.isfinite(getattr(f, nm)).all())
+                 for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"))
+    if not (drift <= TOL_IMPLICIT_DRIFT and finite):
+        raise AssertionError(f"main_implicit_jfnk: drift {drift}, finite "
+                             f"{finite}, {sim.implicit.history}")
+    # one right-hand side and one Jacobian-vector product alone, at the
+    # final state
+    imp = sim.implicit
+    rhs, e3 = implicit_rhs(sim)
+    v3 = tuple(torch.ones_like(a) for a in e3)
+    rhs_ms = cuda_ms(lambda: rhs(*e3), 3)
+    jvp_ms = cuda_ms(lambda: torch.func.jvp(rhs, e3, v3), 3)
+    emit("main_implicit_jfnk", ok=True, n_cell=cfg.geometry.n_cell,
+         n_particles=4 * n * n, steps=sim.state.step, dtype="float64",
+         newton=imp.history, gmres_restart=cfg.gmres_restart,
+         particle_iterations=cfg.implicit_max_particle_iterations,
+         ms_per_step=sum(series) / len(series), ms_each_step=series,
+         init_s=init_s, rhs_ms=rhs_ms, jvp_ms=jvp_ms,
+         jvp_over_rhs=jvp_ms / rhs_ms, energy_J=energies,
+         energy_drift=drift, energy_drift_tol=TOL_IMPLICIT_DRIFT,
+         device_busy_share=rhs_dev / rhs_wall,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         nvidia_smi=smi)
+    del sim
+
+
+FLUID_OMEGA_DT = 0.1
+FLUID_PERIODS = 2.0
+TOL_FLUID_SUM = 1e-5
+TOL_FLUID_OMEGA = 1e-2
+
+
+def fluid_main_cfg(n=128):
+    """fluid-128-langmuir: a cold electron fluid on main_cfg's 40 um box
+    at 128^3, dt at 0.999 of the Courant limit, the density for omega_pe
+    dt = FLUID_OMEGA_DT, u_x = u0 sin(k x) with k = 2 pi / 40 um and u0 =
+    1e-3 c, over FLUID_PERIODS plasma periods (and one step more), no
+    filter.  Returns (cfg, omega_pe)."""
+    from warpx_tpu_torch.core.config import SimConfig, SpeciesConfig
+    from warpx_tpu_torch.core.grid import Geometry
+    from warpx_tpu_torch.solvers.yee import compute_dt_yee
+
+    lx = 40e-6
+    geom = Geometry(ndim=3, n_cell=(n,) * 3, prob_lo=(-lx / 2,) * 3,
+                    prob_hi=(lx / 2,) * 3, periodic=(True,) * 3)
+    dt = compute_dt_yee(geom, 0.999)
+    omega = FLUID_OMEGA_DT / dt
+    density = omega ** 2 * EP0 * M_E / Q_E ** 2
+    steps = int(math.ceil(FLUID_PERIODS * 2 * math.pi / FLUID_OMEGA_DT)) + 1
+    fluid = SpeciesConfig(
+        name="electrons", charge=-Q_E, mass=M_E, profile="constant",
+        density=density, momentum_distribution="parse_momentum_function",
+        momentum_exprs=(f"1.e-3*sin(2*pi*x/{lx!r})", "0", "0"),
+        user_constants=(("pi", math.pi),))
+    return SimConfig(geometry=geom, max_step=steps, dt=dt, fluids=(fluid,),
+                     use_filter=False, tiled_particles="off"), omega
+
+
+def phase_main_fluid(dev, smi, n=128):
+    """fluid-128-langmuir (``fluid_main_cfg``), float32: after every step
+    the x-Fourier amplitude of Ex (sum Ex sin(k x)) and sum N (float64);
+    the wave's frequency from the amplitude's zero crossings (linear
+    interpolation) within TOL_FLUID_OMEGA of omega_pe, sum N within
+    TOL_FLUID_SUM of its start; ms a step."""
+    import warpx_tpu_torch
+
+    cfg, omega = fluid_main_cfg(n)
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    sim.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    geom = cfg.geometry
+    xc = torch.as_tensor(geom.cell_centers(0), device=dev)
+    sin_kx = torch.sin(2 * math.pi * (xc - geom.prob_lo[0])
+                       / (geom.prob_hi[0] - geom.prob_lo[0]))
+    key = "fluid_N:electrons"
+    amps, sums = [], []
+
+    def sample():
+        ex = sim.state.fields.Ex.double().sum(dim=(1, 2))
+        amps.append((ex * sin_kx).sum())
+        sums.append(sim.state.aux[key].double().sum())
+
+    sample()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(cfg.max_step):
+        sim.evolve(1)
+        sample()
+    b.record()
+    b.synchronize()
+    ms_step = a.elapsed_time(b) / cfg.max_step
+    amp = torch.stack(amps).cpu().numpy()
+    total = torch.stack(sums).cpu().numpy()
+    sum_err = float(np.abs(total - total[0]).max() / total[0])
+    t = np.arange(len(amp)) * cfg.dt
+    crossings = [t[i] - amp[i] * (t[i + 1] - t[i]) / (amp[i + 1] - amp[i])
+                 for i in range(1, len(amp) - 1)
+                 if amp[i] != 0 and amp[i] * amp[i + 1] < 0]
+    omega_meas = (math.pi * (len(crossings) - 1)
+                  / (crossings[-1] - crossings[0])
+                  if len(crossings) >= 3 else float("nan"))
+    omega_err = abs(omega_meas / omega - 1.0)
+    finite = bool(torch.isfinite(sim.state.fields.Ex).all())
+    if not (sum_err <= TOL_FLUID_SUM and omega_err <= TOL_FLUID_OMEGA
+            and finite):
+        raise AssertionError(f"main_fluid: sum N drift {sum_err}, omega "
+                             f"{omega_meas} against {omega} "
+                             f"({len(crossings)} crossings), finite "
+                             f"{finite}")
+    emit("main_fluid", ok=True, n_cell=geom.n_cell, steps=sim.state.step,
+         dtype="float32", density_m3=cfg.fluids[0].density,
+         omega_pe=omega, omega_measured=omega_meas, omega_rel_err=omega_err,
+         omega_tol=TOL_FLUID_OMEGA, periods=FLUID_PERIODS,
+         zero_crossings=len(crossings), sum_n_drift=sum_err,
+         sum_n_tol=TOL_FLUID_SUM, ms_per_step=ms_step, init_s=init_s,
+         nvidia_smi=smi)
+    del sim
+
+
+TOL_ECT_MODE = {3: 1e-2, 2: 1e-1}
+ECT_N = {3: 64, 2: 32}
+
+
+def phase_main_ect(dev, smi):
+    """The reference's rotated-cube TM eigenmode under ECT in 3D at 64^3
+    (theta = pi/6) and 2D at 32^2 (theta = pi/8), float64, ~1.125 periods
+    from the mode laid through the external grid fields: the relative l2
+    error of By and Bz (3D) or By (2D) against the analytic pattern below
+    TOL_ECT_MODE (the reference's analyses); reported without a gate: the
+    same with algo.maxwell_solver = yee on the same staircase boundary,
+    the host time of the cut-cell geometry, ms a step."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.solvers import ect
+    from warpx_tpu_torch.utils.parser import Deck
+
+    out = {}
+    for ndim in (3, 2):
+        n, steps = ECT_N[ndim], ect_steps(ndim)
+        res = {"n_cell": n, "steps": steps}
+        for solver in ("ect", "yee"):
+            ect._GEO_CACHE.clear()
+            sim = warpx_tpu_torch.Simulation.from_deck(
+                Deck.from_string(ect_cube_deck(ndim, n, steps, solver)),
+                dtype=torch.float64, device=dev)
+            t0 = time.perf_counter()
+            sim.init()
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            sim.evolve()
+            b.record()
+            b.synchronize()
+            errs = ect_mode_errors(sim.state.fields, float(sim.state.time),
+                                   ndim, n)
+            res[solver] = {"errors": errs, "init_s": init_s,
+                           "ms_per_step": a.elapsed_time(b) / steps}
+            if solver == "ect":
+                if sim.stepper.ect_evolve_b is None:
+                    raise AssertionError("main_ect: not the ECT update")
+                t0 = time.perf_counter()
+                ect._GEO_CACHE.clear()
+                ect.cached_ect_geometry(
+                    sim.cfg.eb_implicit_function,
+                    tuple(sim.cfg.user_constants), sim.cfg.geometry,
+                    tuple(sim.cfg.geometry.prob_lo))
+                res["geometry_host_s"] = time.perf_counter() - t0
+                bad = {k: v for k, v in errs.items()
+                       if not v < TOL_ECT_MODE[ndim]}
+                if bad:
+                    raise AssertionError(f"main_ect {ndim}D: mode errors "
+                                         f"{bad} above {TOL_ECT_MODE[ndim]}")
+            del sim
+        out[f"{ndim}d"] = res
+    emit("main_ect", ok=True, tol=TOL_ECT_MODE, nvidia_smi=smi, **out)
+
+
+EB_MAIN_STEPS = 5
+
+
+def eb_main_cfg(n=128, steps=EB_MAIN_STEPS):
+    """uniform-128-eb: main_cfg's plasma (8.39 M particles) in a PEC box
+    of its 40 um with an eb2 sphere of radius 10 um off center, reflecting
+    walls, Yee, per particle."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.utils.parser import Deck
+
+    cfg = main_cfg(n, steps)
+    eb = warpx_tpu_torch.core.deck._eb2_implicit_function(Deck.from_string(
+        "geometry.dims = 3\n" + EB_SPHERE.format(cx=2.5e-6, cz=-2.5e-6,
+                                                 r=10e-6)))
+    return dataclasses.replace(
+        cfg, geometry=dataclasses.replace(cfg.geometry,
+                                          periodic=(False,) * 3),
+        field_bc_lo=("pec",) * 3, field_bc_hi=("pec",) * 3,
+        particle_bc_lo=("reflecting",) * 3,
+        particle_bc_hi=("reflecting",) * 3,
+        eb_implicit_function=eb, tiled_particles="off")
+
+
+def phase_main_eb(dev, smi, n=128, steps=EB_MAIN_STEPS):
+    """uniform-128-eb (``eb_main_cfg``), float32, 5 steps; after every
+    step: no alive particle inside the body, every covered E edge and B
+    face bitwise equal to its initial value, the fields finite; ChargeOnEB
+    at the end and ms a step."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.diagnostics.reduced import compute_reduced
+
+    cfg = eb_main_cfg(n, steps)
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    sim.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if not sim.is_bounded or sim.binned or sim.stepper.eb_mask is None:
+        raise AssertionError("main_eb: not the bounded step with an EB")
+    masks = sim.stepper.eb_mask
+    frozen0 = {nm: getattr(sim.state.fields, nm)[~m].clone()
+               for nm, m in masks.items()}
+    n_inside0 = sum(int((sim.stepper.inside_eb(sp.positions(3))
+                         & sp.alive).sum())
+                    for sp in sim.state.species.values())
+    series, removed = [], []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        sim.evolve(1)
+        b.record()
+        b.synchronize()
+        series.append(a.elapsed_time(b))
+        f = sim.state.fields
+        inside = sum(int((sim.stepper.inside_eb(sp.positions(3))
+                          & sp.alive).sum())
+                     for sp in sim.state.species.values())
+        frozen = all(torch.equal(getattr(f, nm)[~m], frozen0[nm])
+                     for nm, m in masks.items())
+        finite = all(bool(torch.isfinite(getattr(f, nm)).all())
+                     for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"))
+        removed.append(sum(int(sp.alive.sum())
+                           for sp in sim.state.species.values()))
+        if inside or not frozen or not finite:
+            raise AssertionError(f"main_eb step {sim.state.step}: {inside} "
+                                 f"alive inside, covered frozen {frozen}, "
+                                 f"finite {finite}")
+    q = compute_reduced("ChargeOnEB", sim.state, cfg, sim.staggering, {})
+    emit("main_eb", ok=True, n_cell=cfg.geometry.n_cell,
+         n_particles=2 * 2 * n ** 3, steps=sim.state.step, dtype="float32",
+         inside_at_init=n_inside0, alive_each_step=removed,
+         covered={nm: int((~m).sum()) for nm, m in masks.items()},
+         charge_on_eb_C=q["Charge (C)"], ms_per_step=sum(series) / steps,
+         ms_each_step=series, init_s=init_s, nvidia_smi=smi)
+    del sim
+
+
 def main() -> int:
     """Every phase in order."""
     if not torch.cuda.is_available():
@@ -7960,6 +8692,7 @@ def main() -> int:
     phase_collision_parity(dev)
     phase_injection_parity(dev)
     phase_es_parity(dev)
+    phase_fieldsolver2_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
     k1_row["launches_by_path"] = {"main": k1_row["launches"]}
     phase_main_psatd(dev, smi, k1_row, k3_row)
@@ -8013,6 +8746,16 @@ def main() -> int:
     phase_main_lwfa_boosted_nci(dev, smi, k1c_mixed_row, k3_row, boosted_ms)
     torch.cuda.empty_cache()
     phase_nci_drift(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_implicit(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_implicit_jfnk(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_fluid(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_ect(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_eb(dev, smi)
     torch.cuda.empty_cache()
     lab_rows = phase_labs(dev)
     print(smi)

@@ -144,14 +144,16 @@ def test_boosted_lwfa_matches_jax(jax_boosted, tiled):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ("fluids.species_names = f1\n", "Queue A 11.3"),
+    pytest.param("fluids.species_names = f1\n", "Queue C",
+                 id="fluids.species_names = f1\n-Queue A 11.3"),
     ("lattice.elements = q1\n", "Queue A 11.4"),
     ("electrons.zinject_plane = 0.\n", "Queue A 11.4"),
     ("particles.use_fdtd_nci_corr = 1\n", "Queue A 11.3"),
 ])
 def test_boosted_refusals_name_their_items(extra, item):
     """Fluids and the lattice in a boosted frame keep the JAX package's
-    refusals; rigid injection is still unported.  The NCI corrector runs
+    refusals (fluids name Queue C since Queue A 11.3's second half ported
+    them; the case keeps its id); rigid injection is still unported.  The NCI corrector runs
     since Queue A 11.3's first half: its case (which keeps its id) runs
     the boosted deck through it for two steps."""
     text = DECK + extra

@@ -567,8 +567,10 @@ def _case(change, match, old_id):
 @pytest.mark.parametrize("change,match", [
     (lambda c: dataclasses.replace(c, em_solver="psatd",
                                    current_deposition="vay"), "Queue C"),
+    # ECT runs since Queue A 11.3's second half (tests/test_torch_ect.py);
+    # without an embedded boundary the JAX package runs plain Yee for it
     _case(lambda c: dataclasses.replace(c, em_solver="ect"),
-          r"Queue A 11\.3", "Queue A 11_0"),
+          "Queue C", "Queue A 11_0"),
     _case(lambda c: dataclasses.replace(
         c, field_bc_lo=("absorbing_silver_mueller", "pml")),
         r"Queue A 11\.4", "Queue A 11_1"),

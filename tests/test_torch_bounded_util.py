@@ -59,7 +59,7 @@ def port_config(obj, cls=tconfig.SimConfig, **replace):
             continue
         if f.name == "geometry":
             v = Geometry(**dataclasses.asdict(v))
-        elif f.name == "species":
+        elif f.name in ("species", "fluids"):
             v = tuple(port_config(s, tconfig.SpeciesConfig) for s in v)
         elif f.name == "lasers":
             v = tuple(port_config(s, tconfig.LaserConfig) for s in v)

@@ -223,13 +223,20 @@ electrons.density = 1.e24
     ("algo.current_deposition = villasenor", "Queue A 3"),
     # the hybrid solver and the electrostatic solvers run since Queue A
     # 11.3's first half (tests/test_torch_hybrid.py,
-    # test_torch_electrostatic.py); ECT and hybrid QED still wait (the
-    # cases keep their ids)
-    pytest.param("algo.maxwell_solver = ect", "Queue A 11.3",
+    # test_torch_electrostatic.py), ECT, the implicit schemes and the
+    # embedded boundary since its second half (tests/test_torch_ect.py,
+    # test_torch_implicit.py); an embedded boundary under PSATD keeps the
+    # JAX reader's refusal, hybrid QED still waits and the scraping buffer
+    # of the embedded boundary too (the cases keep their ids)
+    pytest.param("algo.maxwell_solver = psatd\n"
+                 'warpx.eb_implicit_function = "x"', "Queue C",
                  id="algo.maxwell_solver = hybrid-Queue A 11.3"),
     pytest.param("warpx.use_hybrid_QED = 1", "Queue A 11.3",
                  id="warpx.do_electrostatic = labframe-Queue A 11.3"),
-    ("algo.evolve_scheme = theta_implicit_em", "Queue A 11.3"),
+    pytest.param("algo.evolve_scheme = theta_implicit_em\n"
+                 'warpx.eb_implicit_function = "x"\n'
+                 "electrons.save_particles_at_eb = 1", "Queue A 11.4",
+                 id="algo.evolve_scheme = theta_implicit_em-Queue A 11.3"),
     # collisions run since Queue A 11.1; a collision key neither reader
     # reads still raises, naming the item (the case keeps its id)
     pytest.param(
@@ -251,7 +258,13 @@ electrons.density = 1.e24
         "Queue C",
         id="diagnostics.diags_names = diag1\ndiag1.diag_type = "
            "TimeAveraged-Queue A 11"),
-    ("warpx.reduced_diags_names = r1\nr1.type = ChargeOnEB", "Queue A 11.3"),
+    # ChargeOnEB runs since Queue A 11.3's second half
+    # (tests/test_torch_ect.py); its weighting function is read by neither
+    # reader (the case keeps its id)
+    pytest.param("warpx.reduced_diags_names = r1\nr1.type = ChargeOnEB\n"
+                 "r1.weighting_function(x,y,z) = 1.", "Queue C",
+                 id="warpx.reduced_diags_names = r1\nr1.type = ChargeOnEB-"
+                    "Queue A 11.3"),
     # the JAX package runs it with no external field (the case keeps its id)
     pytest.param(
         "particles.E_ext_particle_init_style = parse_e_ext_particle_function",

@@ -460,9 +460,11 @@ def test_cli_runs_an_injection_deck(tmp_path, capsys, kind):
     ("boundary.single.u_th = 0.1", "Queue A 11.4"),
     ("single.save_particles_at_zlo = 1", "Queue A 11.4"),
     ("single.random_theta = 0", "Queue A 12"),
-    # warpx.poisson_solver is read since Queue A 11.3's first half; the
-    # embedded boundary still waits (the case keeps its id)
-    pytest.param("warpx.eb_implicit_function = x", "Queue A 11.3",
+    # warpx.poisson_solver is read since Queue A 11.3's first half, the
+    # embedded boundary since its second half; its scraping buffer still
+    # waits (the case keeps its id)
+    pytest.param("warpx.eb_implicit_function = x\n"
+                 "single.save_particles_at_eb = 1", "Queue A 11.4",
                  id="warpx.poisson_solver = fft-Queue A 11.3"),
     ("warpx.do_pml_j_damping = 1", "Queue C"),
     ("single.frobnicate = 1", "Queue C"),

@@ -156,7 +156,8 @@ def test_the_port_has_the_jax_kinds():
     assert list(REDUCED_DIAGS) == list(J_REDUCED)
     ported = {kind for _, kind, _ in CASES} | {"FieldMaximum",
                                                 "FieldMomentum"}
-    assert ported == set(J_REDUCED) - {"ChargeOnEB"}
+    # ChargeOnEB is held to the JAX package in tests/test_torch_ect.py
+    assert ported | {"ChargeOnEB"} == set(J_REDUCED)
 
 
 @pytest.mark.parametrize("case", sorted(CASES, key=str),
@@ -216,8 +217,14 @@ def test_field_maximum_and_momentum_bounded(states):
 
 
 def test_charge_on_eb_raises():
+    """ChargeOnEB runs since Queue A 11.3's second half
+    (tests/test_torch_ect.py); without an embedded boundary it raises as
+    the JAX package's does."""
     jsim = JSimulation(_two_beam_cfg())
     cfg = port_config(jsim.cfg)
-    with pytest.raises(NotImplementedError,
-                       match=r"ChargeOnEB.*ROADMAP\.md Queue A 11\.3\)"):
+    with pytest.raises(ValueError,
+                       match="ChargeOnEB requires an embedded boundary"):
+        J_REDUCED["ChargeOnEB"](None, jsim.cfg, {}, {})
+    with pytest.raises(ValueError,
+                       match="ChargeOnEB requires an embedded boundary"):
         compute_reduced("ChargeOnEB", None, cfg, {}, params={})

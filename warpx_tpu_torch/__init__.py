@@ -14,7 +14,10 @@ periodic (``core/binned_step.py``, ``core/step.py``) and bounded
 configuration or from an inputs deck (``Simulation.from_deck``,
 ``core/deck.py``; the CLI is ``python -m warpx_tpu_torch``), and the deck's
 outputs: plotfile, openPMD and checkpoint files (``io/``) and reduced
-diagnostics (``diagnostics/reduced.py``), written on the deck's schedule.
+diagnostics (``diagnostics/reduced.py``), written on the deck's schedule;
+with the field models of ``solvers/`` (PSATD, electrostatic, hybrid,
+macroscopic, the implicit schemes, ECT), cold fluids and embedded
+boundaries.
 """
 
 from . import constants  # noqa: F401

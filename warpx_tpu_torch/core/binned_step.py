@@ -52,6 +52,13 @@ def binned_supported(cfg: SimConfig) -> bool:
         return False
     if cfg.em_solver_medium != "vacuum":
         return False
+    # implicit schemes and embedded boundaries have steps of their own;
+    # fluids run in the per-particle step (the JAX package's periodic gate
+    # passes them, and its binned step has no fluid code: ROADMAP.md
+    # Queue C)
+    if (cfg.evolve_scheme != "explicit" or cfg.fluids
+            or cfg.eb_implicit_function):
+        return False
     if cfg.em_solver == "psatd":
         # rho-free standard PSATD only (current correction and multi-J need
         # rho deposits the kernels do not make)
@@ -112,6 +119,10 @@ def bounded_binned_supported(cfg: SimConfig) -> bool:
     if cfg.em_solver not in ("yee", "ckc", "psatd"):
         return False
     if cfg.em_solver_medium != "vacuum":
+        return False
+    # the JAX package's gate refuses embedded boundaries
+    # (binned_step.py:129) and implicit schemes
+    if cfg.eb_implicit_function or cfg.evolve_scheme != "explicit":
         return False
     if cfg.em_solver == "psatd":
         if (cfg.psatd_current_correction or cfg.psatd_update_with_rho

@@ -42,6 +42,10 @@ FDTD and PSATD cases, 2D XZ and 3D:
   IGF; Dirichlet wall potentials f(t)) replaces E and B and stores phi;
 * the Godfrey NCI corrector on the padded gather blocks (per particle and
   ahead of the fused kernels' frame);
+* an embedded boundary (``warpx.eb_implicit_function``, ``eb2.*``; per
+  particle): the covered E edges and B faces frozen (staircase), or the
+  ECT solver's cut-cell faces (``solvers/ect.py``), and the particles
+  inside the body removed with the particle boundaries;
 * field ionization before the push (``ops/ionization.py``), photon species
   streaming at c, the radiation-reaction pusher.  The JAX package's bounded
   step runs no QED event and no Schwinger pair creation: a configuration
@@ -198,13 +202,48 @@ def check_bounded_supported(cfg: SimConfig) -> None:
         no(f"em_solver {cfg.em_solver!r} on the bounded step (the JAX "
            "package's bounded step advances the fields by Yee there)",
            "Queue C")
-    elif cfg.em_solver not in ("yee", "ckc"):
-        no(f"em_solver {cfg.em_solver!r}", "Queue A 11.3")
+    elif cfg.em_solver not in ("yee", "ckc", "ect"):
+        raise NotImplementedError(f"maxwell solver {cfg.em_solver}")
     else:
         for bc in faces:
             if bc not in ("periodic", "pec", "pml"):
                 no(f"field boundary {bc!r} (Silver-Mueller, damped, open)",
                    "Queue A 11.4")
+    if cfg.em_solver == "ect" and not cfg.eb_implicit_function:
+        no("the ECT solver without an embedded boundary (the JAX "
+           "package's bounded step runs plain Yee curls then)", "Queue C")
+    if cfg.eb_implicit_function:
+        # the JAX package's refusals (bounded_step.py:420-425, :459-466)
+        if cfg.em_solver == "psatd":
+            raise NotImplementedError(
+                "embedded boundaries with PSATD (the JAX package refuses "
+                "them too; ROADMAP.md Queue C)")
+        if cfg.do_moving_window:
+            raise NotImplementedError(
+                "embedded boundaries with a moving window (the JAX "
+                "package refuses them too; ROADMAP.md Queue C)")
+    if cfg.em_solver == "ect":
+        for bc in faces:
+            if bc == "periodic":
+                # the JAX package's ECT arrays hold n + 1 nodes on every
+                # axis, one more than a periodic axis' fields
+                no("the ECT solver on a periodic axis (the JAX package's "
+                   "cut-cell arrays do not fit the fields there)", "Queue C")
+            if bc != "pec":
+                raise NotImplementedError(
+                    f"ECT with {bc} boundaries (the JAX package refuses "
+                    "them too; ROADMAP.md Queue C)")
+        if cfg.do_dive_cleaning or cfg.do_divb_cleaning:
+            raise NotImplementedError(
+                "ECT with F/G div cleaning (the JAX package refuses it "
+                "too; ROADMAP.md Queue C)")
+    if cfg.fluids:
+        no("fluid species on the bounded step (the JAX package's bounded "
+           "step has no fluid code)", "Queue C")
+    if cfg.evolve_scheme != "explicit":
+        # the JAX package's refusal (simulation.py:115-118)
+        raise NotImplementedError(
+            "implicit schemes support periodic EM domains only")
     for lo, hi in zip(cfg.field_bc_lo, cfg.field_bc_hi):
         if (lo == "periodic") != (hi == "periodic"):
             no("a dimension periodic on one face only", "Queue A 11.4")
@@ -406,6 +445,9 @@ class BoundedStepper:
                     self._damp[nm, d] = torch.as_tensor(
                         v.reshape(shape), **kw)
 
+        # --- embedded boundary
+        self._init_eb()
+
         # --- tile-binned step
         if tile_spec is not None:
             spec = tile_spec
@@ -429,6 +471,69 @@ class BoundedStepper:
             # every zshift handed to the kernels, for the callers that check
             # the moving-window mode really ran
             self.zshifts_seen = set()
+
+    def _init_eb(self):
+        """The embedded boundary (JAX bounded_step.py:413-481): the
+        implicit function sampled at each component's staggered points
+        gives the staircase masks (``eb_mask``: evolve where phi <= 0,
+        covered components frozen, EvolveE.cpp "lx <= 0" and the face-area
+        branch of EvolveB.cpp).  Under ECT the E masks are the cut edges'
+        lengths > 0, the conformally updated B faces (all three in 3D, By in
+        2D) lose their masks, and ``ect_evolve_b`` advances them
+        (``solvers/ect.py``).  ``eb_phi`` gives the function at particle
+        positions for the removal of particles inside the body."""
+        from ..utils.expression import compile_expression
+
+        cfg = self.cfg
+        self.eb_mask = None
+        self.eb_phi = None
+        self.ect_evolve_b = None
+        if not cfg.eb_implicit_function:
+            return
+        geom = cfg.geometry
+        ndim = self.ndim
+        fn = compile_expression(cfg.eb_implicit_function, ("x", "y", "z"),
+                                dict(cfg.user_constants or ()))
+
+        def phi_at(coords):
+            xyz = [torch.zeros((), dtype=coords[0].dtype,
+                               device=coords[0].device)] * 3
+            for d in range(ndim):
+                xyz[_AXES3[ndim][d]] = coords[d]
+            return torch.as_tensor(fn(*xyz))
+
+        self.eb_phi = phi_at
+        mask = {}
+        for nm in _EB:
+            coords = [torch.from_numpy(
+                self.static_origin[d]
+                + (np.arange(self.shapes[nm][d])
+                   + (0.0 if self.staggering[nm][d] == 1 else 0.5))
+                * geom.dx[d]) for d in range(ndim)]
+            mesh = torch.meshgrid(*coords, indexing="ij")
+            mask[nm] = (phi_at(list(mesh)) <= 0.0).to(self.device)
+        if cfg.em_solver == "ect":
+            from ..solvers.ect import cached_ect_geometry, make_ect_evolve_b
+
+            geo = cached_ect_geometry(
+                cfg.eb_implicit_function, tuple(cfg.user_constants or ()),
+                geom, tuple(geom.prob_lo))
+            for nm in ("Ex", "Ey", "Ez"):
+                mask[nm] = torch.as_tensor(geo["edges"][nm] > 0.0,
+                                           device=self.device)
+            for nm in (("Bx", "By", "Bz") if ndim == 3 else ("By",)):
+                mask.pop(nm)
+            self.ect_evolve_b = make_ect_evolve_b(geo, self.dtype,
+                                                  self.device)
+        self.eb_mask = mask
+
+    def inside_eb(self, pos):
+        """True where a particle at ``pos`` (active axes) lies inside the
+        body (phi > 0), False everywhere without an embedded boundary."""
+        if self.eb_phi is None:
+            return torch.zeros(pos[0].shape, dtype=torch.bool,
+                               device=pos[0].device)
+        return self.eb_phi(list(pos)) > 0.0
 
     def _init_es(self):
         """The electrostatic solve's groups (JAX bounded_step.py:1940-2015):
@@ -1039,8 +1144,25 @@ class BoundedStepper:
                         aux[key] = split
                         tot = split if tot is None else tot + split
                     reg = torch.where(self.pml_owned[nm], tot, reg)
+                if self.eb_mask is not None and nm in self.eb_mask:
+                    # covered components stay frozen (staircase EB)
+                    reg = torch.where(self.eb_mask[nm], reg,
+                                      getattr(fields, nm))
                 upd[nm] = reg
             return fields.replace(**upd)
+
+        def advance_b(fields, dth):
+            """The Faraday half step: the ECT cut-cell faces where the
+            solver is ECT (EvolveBCartesianECT; in 2D XZ only By, Bx and Bz
+            keeping the staircase), the curls otherwise."""
+            if self.ect_evolve_b is None:
+                return advance(fields, b_comps, 1.0, dth)
+            B3 = self.ect_evolve_b(fields.Ex, fields.Ey, fields.Ez,
+                                   (fields.Bx, fields.By, fields.Bz), dth)
+            if self.ndim == 2:
+                f2 = advance(fields, ("Bx", "Bz"), 1.0, dth)
+                return fields.replace(Bx=f2.Bx, By=B3[1], Bz=f2.Bz)
+            return fields.replace(Bx=B3[0], By=B3[1], Bz=B3[2])
 
         # F,G half -> B half (+grad G) -> E (+grad F) -> F,G half -> B half
         # (WarpXEvolve.cpp:416-437)
@@ -1051,14 +1173,14 @@ class BoundedStepper:
                              source=-rho_pair[0] / _ep0)
         if divb:
             fields = advance(fields, ("G",), _c2, 0.5 * dt)
-        fields = advance(fields, b_comps, 1.0, 0.5 * dt)
+        fields = advance_b(fields, 0.5 * dt)
         fields = advance(fields, e_comps, _c2, dt, with_j=True)
         if dive:
             fields = advance(fields, ("F",), 1.0, 0.5 * dt,
                              source=-rho_pair[1] / _ep0)
         if divb:
             fields = advance(fields, ("G",), _c2, 0.5 * dt)
-        fields = advance(fields, b_comps, 1.0, 0.5 * dt)
+        fields = advance_b(fields, 0.5 * dt)
 
         if self.has_pml:
             # DampPML: damp each split along its own direction, refresh the
@@ -1360,6 +1482,10 @@ class BoundedStepper:
                     alive = alive & (pos[d] >= origin[d])
                 if self.pbc_hi[d] == "absorbing":
                     alive = alive & (pos[d] <= hi[d])
+            if self.eb_phi is not None:
+                # remove the particles inside the body
+                # (EmbeddedBoundary/ParticleScraper.H)
+                alive = alive & ~self.inside_eb(pos)
             u = {"x": sp.ux, "y": sp.uy, "z": sp.uz}
             for d in range(ndim):
                 ax = self.axes[d]

@@ -12,8 +12,10 @@ divergence cleaning, the Lorentz-boosted frame, field ionization, QED
 (quantum synchrotron, Breit-Wheeler, Schwinger) with photon species,
 classical radiation reaction, resampling, binary collisions (pairwise
 Coulomb, nuclear fusion, DSMC, background MCC and stopping), the
-electrostatic solvers, the Ohm's-law hybrid solver, the macroscopic medium
-and the Godfrey NCI corrector; per-particle and tile-binned steps).  Fields keep the reference's names and defaults,
+electrostatic solvers, the Ohm's-law hybrid solver, the macroscopic medium,
+the Godfrey NCI corrector, the theta- and semi-implicit schemes with the
+Picard and Newton-GMRES solvers, cold fluid species, and embedded
+boundaries with the ECT solver; per-particle and tile-binned steps).  Fields keep the reference's names and defaults,
 so a configuration built for ``warpx_tpu`` with these fields builds here
 with the same keyword arguments.  Features whose fields are absent come
 with later items of ROADMAP.md's Queue A.
@@ -222,7 +224,7 @@ class SimConfig:
     max_step: int
     dt: float
     particle_shape: int = 1
-    em_solver: str = "yee"  # yee | ckc | psatd | hybrid | none
+    em_solver: str = "yee"  # yee | ckc | psatd | hybrid | ect | none
     current_deposition: str = "esirkepov"
     field_gathering: str = "energy-conserving"
     grid_type: str = "staggered"
@@ -245,7 +247,15 @@ class SimConfig:
     moving_window_dir: int = -1  # active-axis index
     moving_window_v: float = 1.0  # units of c
     lasers: Tuple[LaserConfig, ...] = ()
+    # cold relativistic fluid species (reference: fluids.species_names,
+    # WarpXFluidContainer), on the SpeciesConfig profile fields
+    fluids: Tuple[SpeciesConfig, ...] = ()
     pml_ncell: int = 10
+    # embedded boundary: the implicit function f(x, y, z), > 0 covered
+    # (warpx.eb_implicit_function or the eb2.* builders); covered edges of
+    # E and faces of B stay frozen (staircase), or the ECT solver's cut
+    # cells under em_solver = ect
+    eb_implicit_function: str = ""
     # Lorentz-boosted frame (warpx.gamma_boost / boost_direction; the
     # deck's geometry is given in lab coordinates and converted at parse
     # time)
@@ -347,6 +357,25 @@ class SimConfig:
     hybrid_eta_h: float = 0.0  # hyper-resistivity
     hybrid_resistivity_has_J: bool = False
     hybrid_j_ext: Tuple[str, str, str] = ("", "", "")
+    # implicit evolve schemes (algo.evolve_scheme; ImplicitSolvers/):
+    # explicit | theta_implicit_em | semi_implicit_em, with the Picard or
+    # the Newton (Jacobian-free GMRES) nonlinear solver
+    evolve_scheme: str = "explicit"
+    implicit_theta: float = 0.5
+    implicit_nonlinear: str = "picard"  # picard | newton
+    picard_max_iterations: int = 100
+    picard_rtol: float = 1.0e-6
+    picard_atol: float = 0.0
+    implicit_max_particle_iterations: int = 1
+    # Newton-Krylov (NewtonSolver.H:118-136; the Jacobian-vector product
+    # is exact, by forward-mode differentiation)
+    newton_max_iterations: int = 100
+    newton_rtol: float = 1.0e-6
+    newton_atol: float = 0.0
+    gmres_max_iterations: int = 1000
+    gmres_restart: int = 30
+    gmres_rtol: float = 1.0e-4
+    gmres_atol: float = 0.0
 
     @property
     def galerkin(self) -> bool:

@@ -15,8 +15,11 @@ Schwinger) with photon species, classical radiation reaction, resampling,
 binary collisions (pairwise Coulomb, nuclear fusion, DSMC, background MCC
 and stopping; cross-section tables read relative to the deck's directory),
 the electrostatic solvers with wall potentials, the Ohm's-law hybrid
-solver, the macroscopic medium, the Godfrey NCI corrector, the tile-binned
-layout and its ``tpu.*`` keys), with
+solver, the macroscopic medium, the Godfrey NCI corrector, the theta- and
+semi-implicit schemes with their Picard and Newton-GMRES keys, cold fluid
+species, embedded boundaries (``warpx.eb_implicit_function`` and the
+``eb2.*`` builders) with the ECT solver, the tile-binned layout and its
+``tpu.*`` keys), with
 the JAX reader's defaults and derived values (reference: Source/WarpX.cpp:466
 ReadParameters; Source/Initialization/PlasmaInjector.cpp), and the deck's
 outputs (``outputs_from_deck``: Full diagnostics in plotfile, openPMD or
@@ -682,6 +685,101 @@ def _collisions_from_deck(deck: Deck):
     return tuple(out)
 
 
+def _eb_function(deck: Deck) -> str:
+    return (deck.get_string("warpx.eb_implicit_function", "")
+            or "").strip('"')
+
+
+def _eb2_implicit_function(deck: Deck) -> str:
+    """The ``eb2.*`` geometry builders as an implicit function (the JAX
+    reader's ``_eb2_implicit_function``, deck.py:1351-1415; AMReX's
+    convention: > 0 covered; ``*_has_fluid_inside`` picks the side).  The
+    reference ignores ``eb2.*`` when ``warpx.eb_implicit_function`` is set
+    (WarpXInitEB.cpp:103-114)."""
+    if _eb_function(deck):
+        return ""
+    geom_type = (deck.get_string("eb2.geom_type", "") or "").strip(
+        '"').lower()
+    if not geom_type:
+        return ""
+    ndim = deck.get_int("geometry.dims", 3)
+    axes = ("x", "y", "z")[:ndim] if ndim != 2 else ("x", "z")
+    if geom_type == "box":
+        lo = deck.get_reals("eb2.box_lo")
+        hi = deck.get_reals("eb2.box_hi")
+        fluid_inside = deck.get_bool("eb2.box_has_fluid_inside", True)
+        terms = [f"max({ax}-({h!r}),({l!r})-{ax})"
+                 for ax, l, h in zip(axes, lo, hi)]
+        expr = terms[0]
+        for t in terms[1:]:
+            expr = f"max({expr},{t})"
+    elif geom_type in ("sphere", "cylinder"):
+        center = deck.get_reals(f"eb2.{geom_type}_center", [0.0] * 3)
+        radius = deck.get_real(f"eb2.{geom_type}_radius")
+        fluid_inside = deck.get_bool(f"eb2.{geom_type}_has_fluid_inside",
+                                     True)
+        if geom_type == "cylinder":
+            cyl_dir = deck.get_int("eb2.cylinder_direction", -1)
+            if cyl_dir < 0 or cyl_dir >= ndim:
+                raise ValueError(
+                    "eb2.cylinder_direction is required and must be in "
+                    f"[0, {ndim}) (got {cyl_dir})")
+            # each transverse axis with its own center component (AMReX
+            # CylinderIF skips the entry along the axis)
+            pairs = [(ax, center[d]) for d, ax in enumerate(axes)
+                     if d != cyl_dir]
+        else:
+            pairs = list(zip(axes, center))
+        r2 = "+".join(f"({ax}-({c!r}))**2" for ax, c in pairs)
+        expr = f"sqrt({r2})-({radius!r})"
+        if geom_type == "cylinder":
+            height = deck.get_real("eb2.cylinder_height", -1.0)
+            if height is not None and height >= 0.0:
+                # a finite cylinder: the infinite one cut by a slab
+                ax_axis, c_axis = axes[cyl_dir], center[cyl_dir]
+                expr = (f"max({expr},"
+                        f"abs({ax_axis}-({c_axis!r}))-({height / 2.0!r}))")
+    else:
+        raise NotImplementedError(
+            f"EB geometry from eb2.geom_type={geom_type}")
+    return expr if fluid_inside else f"-({expr})"
+
+
+def _implicit_from_deck(deck: Deck) -> dict:
+    """algo.evolve_scheme with the implicit_evolve.*, picard.*, newton.*
+    and gmres.* keys (the JAX reader's ``_implicit_from_deck``,
+    deck.py:1418-1455; ImplicitSolver.H:116-136, PicardSolver.H:118-127)."""
+    scheme = _lower(deck, "algo.evolve_scheme", "explicit")
+    if scheme == "explicit":
+        return {}
+    nl = _lower(deck, "implicit_evolve.nonlinear_solver", "picard").strip('"')
+    out = {
+        "evolve_scheme": scheme,
+        "implicit_theta": deck.get_real("implicit_evolve.theta", 0.5),
+        "implicit_nonlinear": nl,
+        "picard_max_iterations": deck.get_int("picard.max_iterations", 100),
+        "picard_rtol": deck.get_real("picard.relative_tolerance", 1.0e-6),
+        "picard_atol": deck.get_real("picard.absolute_tolerance", 0.0),
+    }
+    if nl == "picard":
+        # the reference fixes one particle iteration under Picard
+        # (ImplicitSolver.H:127)
+        out["implicit_max_particle_iterations"] = 1
+    else:
+        out["implicit_max_particle_iterations"] = deck.get_int(
+            "implicit_evolve.max_particle_iterations", 21)
+        out.update(
+            newton_max_iterations=deck.get_int("newton.max_iterations", 100),
+            newton_rtol=deck.get_real("newton.relative_tolerance", 1.0e-6),
+            newton_atol=deck.get_real("newton.absolute_tolerance", 0.0),
+            gmres_max_iterations=deck.get_int("gmres.max_iterations", 1000),
+            gmres_restart=deck.get_int("gmres.restart_length", 30),
+            gmres_rtol=deck.get_real("gmres.relative_tolerance", 1.0e-4),
+            gmres_atol=deck.get_real("gmres.absolute_tolerance", 0.0),
+        )
+    return out
+
+
 def _gate_values(deck: Deck) -> None:
     """Keys the reader reads whose value selects what the port lacks."""
     dims = _lower(deck, "geometry.dims", "3")
@@ -694,8 +792,18 @@ def _gate_values(deck: Deck) -> None:
     if deck.get_int("amr.max_level", 0) > 0:
         _no("mesh refinement (amr.max_level > 0)", "Queue A 12")
     solver = _lower(deck, "algo.maxwell_solver", "yee")
-    if solver not in ("yee", "ckc", "psatd", "hybrid", "none"):
-        _no(f"algo.maxwell_solver = {solver}", "Queue A 11.3")
+    if solver not in ("yee", "ckc", "psatd", "hybrid", "ect", "none"):
+        # the JAX reader's refusal (warpx_tpu/core/deck.py:601)
+        raise NotImplementedError(f"maxwell solver {solver}")
+    if _eb2_implicit_function(deck) or _eb_function(deck):
+        # the JAX reader's embedded-boundary refusals (deck.py:355-370)
+        if solver == "psatd":
+            _no("embedded boundaries with the psatd solver (spectral EB; "
+                "the JAX package refuses it too)", "Queue C")
+        if deck.get_expr_string("warpx", "eb_potential"):
+            _no("warpx.eb_potential (Dirichlet phi on the embedded "
+                "boundary in the Poisson solve; the JAX package refuses it "
+                "too)", "Queue C")
     es = _es_solver(deck)
     if es not in _ES_SOLVERS:
         raise NotImplementedError(f"electrostatic solver {es!r}")
@@ -715,13 +823,20 @@ def _gate_values(deck: Deck) -> None:
         _no("hybrid QED (warpx.use_hybrid_QED, warpx.quantum_xi), which "
             "runs on the collocated grids of Queue A 11.4", "Queue A 11.3")
     scheme = _lower(deck, "algo.evolve_scheme", "explicit")
+    if scheme not in ("explicit", "theta_implicit_em", "semi_implicit_em"):
+        # the JAX reader's refusals (warpx_tpu/core/deck.py:306-316)
+        raise NotImplementedError(f"algo.evolve_scheme = {scheme}")
     if scheme != "explicit":
-        _no(f"algo.evolve_scheme = {scheme}", "Queue A 11.3")
+        nl = _lower(deck, "implicit_evolve.nonlinear_solver",
+                    "picard").strip('"')
+        if nl not in ("picard", "newton"):
+            raise NotImplementedError(f"implicit nonlinear solver {nl}")
     if deck.get_real("warpx.gamma_boost", 1.0) > 1.0:
         # the JAX reader's refusals in a boosted frame
         # (warpx_tpu/core/deck.py:393-400)
         if deck.get_strings("fluids.species_names", []):
-            _no("fluid species in a boosted frame", "Queue A 11.3")
+            _no("fluid species in a boosted frame (the JAX reader refuses "
+                "them)", "Queue C")
         if deck.get_strings("lattice.elements", []):
             _no("accelerator lattice in a boosted frame", "Queue A 11.4")
     dep = _lower(deck, "algo.current_deposition",
@@ -824,11 +939,6 @@ def _item_of_key(deck: Deck, key: str) -> str:
     if head == "collisions" or head in deck.get_strings(
             "collisions.collision_names", []):
         return "Queue A 11.1"
-    if head in ("fluids", "eb2", "implicit_evolve", "picard", "newton",
-                "gmres") or (
-            tail.startswith("eb_")
-            or head in deck.get_strings("fluids.species_names", [])):
-        return "Queue A 11.3"
     if head == "amr" or tail in ("do_subcycling", "fine_tag_lo",
                                  "fine_tag_hi", "refine_plasma",
                                  "n_rz_azimuthal_modes",
@@ -960,12 +1070,15 @@ def outputs_from_deck(deck: Deck) -> dict:
     reduced = []
     for nm in deck.get_strings("warpx.reduced_diags_names", []):
         kind = deck.get_string(f"{nm}.type", "")
-        if kind == "ChargeOnEB":
-            _no(f"reduced diagnostic {nm}.type = ChargeOnEB: embedded "
-                "boundaries", "Queue A 11.3")
         if kind not in REDUCED_DIAGS:
             raise ValueError(f"{nm}.type = {kind!r}: not a reduced "
                              "diagnostic kind")
+        if kind == "ChargeOnEB" and deck.get_expr_string(
+                nm, "weighting_function"):
+            # the JAX package's diagnostic takes a weighting function but
+            # its reader never passes the deck's
+            _no(f"{nm}.weighting_function (the JAX package reads no "
+                "ChargeOnEB weighting from the deck)", "Queue C")
         reduced.append({
             "name": nm, "kind": kind,
             "intervals": IntervalsParser(
@@ -1154,7 +1267,12 @@ def config_from_deck(deck: Deck) -> SimConfig:
             deck.get_real(f"qed_schwinger.{ax}max", float("inf"))
             for ax in "xyz"),
         collisions=_collisions_from_deck(deck),
+        fluids=tuple(_species_from_deck(deck, nm, ndim)
+                     for nm in deck.get_strings("fluids.species_names", [])),
+        eb_implicit_function=(_eb_function(deck)
+                              or _eb2_implicit_function(deck)),
         user_constants=tuple(sorted(deck.my_constants.items())),
+        **_implicit_from_deck(deck),
         **_psatd_from_deck(deck, em_solver, dep),
         **_tiling_from_deck(deck, ndim),
         **_macroscopic_from_deck(deck),

@@ -27,7 +27,11 @@ Schwinger, plane emission and resampling come from ``self.draws``
 (``utils/draws.py``).  An electrostatic run solves for its fields at the
 end of ``init`` and after every step (``stepper.solve_es``); a hybrid-PIC
 run deposits rho and J into its temporaries at the end of ``init``; a
-macroscopic medium (``self.medium``) is built for the periodic step.  The
+macroscopic medium (``self.medium``) is built for the periodic step.  An
+implicit scheme steps through ``self.implicit`` (``solvers/implicit.py``)
+with no leapfrog half-pushes; cold fluids start from ``init`` into the
+state's ``aux``; under ECT the initial grid fields are zero on the covered
+edges and faces.  The
 simulation runs on the CUDA device unless the caller names another
 device; with no GPU it raises rather than run on the CPU unasked.
 """
@@ -170,6 +174,16 @@ class Simulation:
         # configuration, the per-particle step elsewhere
         self.binned = supported
         self.staggering = yee_staggering(cfg.geometry.ndim)
+        # the theta- and semi-implicit schemes (JAX simulation.py:176-195):
+        # periodic only, particles kept at integer times (no leapfrog
+        # half-pushes around the step loop)
+        # (check_bounded_supported refuses them off the periodic torus)
+        self.implicit = None
+        if cfg.evolve_scheme != "explicit" and not self.is_bounded:
+            from ..solvers.implicit import ImplicitStepper
+
+            self.implicit = ImplicitStepper(cfg, self.staggering, dtype,
+                                            self.device)
         self.state: SimState | None = None
         self.tile_spec = None
         self.is_synchronized = True
@@ -435,6 +449,24 @@ class Simulation:
                         fn(*xyz), dtype=torch.float64), shape)
                 upd[comp] = val.to(device=self.device,
                                    dtype=self.dtype).contiguous()
+        if cfg.eb_implicit_function and cfg.em_solver == "ect" and upd:
+            # the reference's parser fill skips covered edges and faces,
+            # which stay 0 (WarpXInitData.cpp:1131-1180; JAX
+            # simulation.py:711-735)
+            from ..solvers.ect import cached_ect_geometry
+
+            geo = cached_ect_geometry(
+                cfg.eb_implicit_function, tuple(cfg.user_constants or ()),
+                geom, tuple(geom.prob_lo))
+            for comp in upd:
+                d = "xyz".index(comp[1])
+                keep = (geo["edges"][comp] if comp[0] == "E"
+                        else geo["S"].get(d))
+                if keep is not None:
+                    upd[comp] = torch.where(
+                        torch.as_tensor(keep > 0.0, device=self.device),
+                        upd[comp], torch.zeros((), dtype=self.dtype,
+                                               device=self.device))
         return fields.replace(**upd)
 
     def _do_flux_injection(self) -> None:
@@ -473,6 +505,16 @@ class Simulation:
             # (HybridPICDepositInitialRhoAndJ)
             self.state = self.state.replace(
                 fields=self._hybrid_initial_deposit(self.state))
+        if cfg.fluids:
+            # the cold fluids' nodal state lives in aux
+            # (WarpXFluidContainer; JAX simulation.py:1269-1279)
+            from ..solvers.fluids import fluid_keys, init_fluid
+
+            aux = dict(self.state.aux)
+            for fl in cfg.fluids:
+                Nf, NU3 = init_fluid(fl, geom, self.dtype, self.device)
+                aux.update(zip(fluid_keys(fl.name), (Nf,) + NU3))
+            self.state = self.state.replace(aux=aux)
         return self.state
 
     def _hybrid_initial_deposit(self, state) -> FieldState:
@@ -775,6 +817,8 @@ class Simulation:
         it in ``evolve``)."""
         if self.is_bounded:
             return self.stepper.step(state, self.draws)
+        if self.implicit is not None:
+            return self.implicit(state)
         if not self.binned:
             return pic_step(state, self.cfg, self.staggering, self.psatd,
                             self.draws, medium=self.medium)
@@ -792,18 +836,19 @@ class Simulation:
                 else min(start + numsteps, cfg.max_step))
         timer = StepTimer(self.device) if cfg.verbose else None
         signals = self.signals
+        leapfrog = self.implicit is None
         for step in range(start, stop):
             if signals is not None and signals.break_requested:
                 # graceful break on a signal (WarpXEvolve.cpp:457-462)
                 break
-            if self.is_synchronized:
+            if self.is_synchronized and leapfrog:
                 # push the momenta back half a step (WarpXEvolve.cpp:493-505)
                 self.state = self._half_push(-0.5 * cfg.dt)
                 self.is_synchronized = False
             self.state = self.step(self.state)
             self._do_flux_injection()
             self.resample(step + 1)
-            if step == cfg.max_step - 1:
+            if step == cfg.max_step - 1 and leapfrog:
                 # synchronize: forward half push with the new fields
                 self.state = self._half_push(0.5 * cfg.dt)
                 self.is_synchronized = True

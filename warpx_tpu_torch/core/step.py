@@ -146,6 +146,20 @@ def _check_pic_step(cfg: SimConfig):
         raise NotImplementedError(
             "momentum-conserving gathering (ROADMAP.md Queue A 11.4)"
         )
+    if cfg.em_solver == "ect" or cfg.eb_implicit_function:
+        # the JAX package's periodic step has no embedded boundary and
+        # runs plain Yee curls for "ect": it would drop both silently
+        raise NotImplementedError(
+            "an embedded boundary or the ECT solver on the periodic step "
+            "(the JAX package's periodic step drops them; give the box a "
+            "pec face: ROADMAP.md Queue C)")
+    if cfg.fluids and cfg.em_solver == "psatd" and (
+            cfg.psatd_solution_type == "first-order"):
+        # the JAX package's refusal (core/step.py:670-672)
+        raise NotImplementedError("fluid species with multi-J PSATD")
+    if cfg.evolve_scheme != "explicit":
+        raise ValueError("an implicit configuration was handed to pic_step: "
+                         "Simulation runs it through solvers/implicit.py")
     for sp_cfg in cfg.species:
         if sp_cfg.mass == 0.0 and sp_cfg.species_type != "photon":
             # the JAX package divides by the zero mass in its pusher
@@ -291,9 +305,9 @@ def pic_step(state: SimState, cfg: SimConfig, staggering: Dict,
     hybrid advance under em_solver = hybrid, with the rho pair; the E
     update of ``medium``, a ``solvers.macroscopic.MacroscopicMedium``, in a
     macroscopic medium).  The gather reads the fields through the Godfrey
-    NCI corrector under use_nci_corr.  Fluids of the JAX package's
-    ``pic_step`` have no configuration fields here yet (ROADMAP.md Queue A
-    11.3)."""
+    NCI corrector under use_nci_corr.  The cold fluid species deposit
+    their rho^n, push and advect on the fields at t^n, then deposit rho^{n+1}
+    and J (``solvers/fluids.py``; WarpXFluidContainer::Evolve's order)."""
     _check_pic_step(cfg)
     if draws is None and has_stochastic(cfg):
         raise ValueError("this configuration draws random numbers: pass "
@@ -448,6 +462,27 @@ def pic_step(state: SimState, cfg: SimConfig, staggering: Dict,
             geom, shift=shift_new,
         )
 
+    aux = state.aux
+    if cfg.fluids:
+        from ..solvers.fluids import (fluid_current, fluid_evolve,
+                                      fluid_keys, fluid_rho)
+
+        aux = dict(aux)
+        for fl in cfg.fluids:
+            keys = fluid_keys(fl.name)
+            Nf, NU3 = state.aux[keys[0]], tuple(state.aux[k]
+                                                for k in keys[1:])
+            if need_rho and not fl.do_not_deposit:
+                rho_old = rho_old + fluid_rho(Nf, fl.charge)
+            Nf, NU3 = fluid_evolve(Nf, NU3, state.fields, geom, staggering,
+                                   fl, dt)
+            if need_rho and not fl.do_not_deposit:
+                rho_new = rho_new + fluid_rho(Nf, fl.charge)
+            if not fl.do_not_deposit:
+                j_total = _sum3(j_total, fluid_current(
+                    Nf, NU3, geom, staggering, fl.charge))
+            aux.update(zip(keys, (Nf,) + tuple(NU3)))
+
     if first_order:
         fields = _first_order_multi_j(state.fields, cfg, staggering, psatd,
                                       mj_parts)
@@ -465,6 +500,7 @@ def pic_step(state: SimState, cfg: SimConfig, staggering: Dict,
         species=new_species,
         step=state.step + 1,
         time=state.time + dt,
+        aux=aux,
     )
 
 
@@ -563,8 +599,11 @@ def advance_fields(fields: FieldState, cfg: SimConfig, j_total,
     if cfg.em_solver_medium == "macroscopic" and medium is None:
         raise ValueError("a macroscopic medium needs its MacroscopicMedium")
     if cfg.em_solver not in ("yee", "ckc", "psatd", "hybrid", "none"):
+        # ECT runs on the bounded step's cut cells
+        # (core/bounded_step.py::BoundedStepper.advance_b)
         raise NotImplementedError(
-            f"em_solver {cfg.em_solver!r} (ROADMAP.md Queue A 11.3)"
+            f"em_solver {cfg.em_solver!r} on the periodic field advance (the "
+            "JAX package runs plain Yee curls for it; ROADMAP.md Queue C)"
         )
     geom = cfg.geometry
     dt = cfg.dt

@@ -153,7 +153,17 @@ def deposit_total_rho(state: SimState, cfg: SimConfig,
                           cfg.particle_shape, out=rho,
                           chunk_size=cfg.deposit_chunk_size, **kw)
     if all_periodic:
-        return bilinear_filter(rho, npass) if cfg.use_filter else rho
+        if cfg.use_filter:
+            rho = bilinear_filter(rho, npass)
+        if cfg.fluids and only is None:
+            # the cold fluids' nodal q N, unfiltered (JAX fields.py:104-136)
+            from ..solvers.fluids import fluid_rho
+
+            for fl in cfg.fluids:
+                if not fl.do_not_deposit:
+                    rho = rho + fluid_rho(state.aux[f"fluid_N:{fl.name}"],
+                                          fl.charge)
+        return rho
     if cfg.use_filter:
         rho = bilinear_filter_padded(rho, npass)
     # fold the guards: periodic wrap-add, or the PEC image fold with sign -1

@@ -147,6 +147,8 @@ def deposit_current_esirkepov(
     out_shape=None,
     chunk_size: int | None = None,
     out=None,
+    positions_old=None,
+    gaminv_override=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Charge-conserving current deposition of ``warpx_tpu.ops.deposit.
     _esirkepov_body`` at the default relative time -dt/2 (2D XZ and 3D).
@@ -154,7 +156,10 @@ def deposit_current_esirkepov(
     ``positions`` are the already-pushed x^{n+1}; the old position is
     reconstructed as x^{n+1} - dt*v (CurrentDeposition.H:725-738), and the
     deposited J is the Yee-staggered J^{n+1/2}.  ``out`` (three blocks of
-    the deposit's shape) is added to in place and returned.
+    the deposit's shape) is added to in place and returned.  The implicit
+    schemes pass x^n as ``positions_old`` and 2/(gamma^n + gamma^{n+1}) as
+    ``gaminv_override`` with u = u^{n+1/2}
+    (doChargeConservingDepositionShapeNImplicit, CurrentDeposition.H:934).
     """
     if geom.ndim not in (2, 3):
         raise NotImplementedError(
@@ -167,13 +172,17 @@ def deposit_current_esirkepov(
     body = _esirkepov_2d if geom.ndim == 2 else _esirkepov_3d
     for sl in _chunks(w.shape[0], chunk_size):
         u = (ux[sl], uy[sl], uz[sl])
-        gaminv = inv_gamma(*u)
+        gaminv = (inv_gamma(*u) if gaminv_override is None
+                  else gaminv_override[sl])
+        old = (None if positions_old is None
+               else [p[sl] for p in positions_old])
         body([p[sl] for p in positions], tuple(a * gaminv for a in u),
-             q * w[sl], geom, dt, order, lo, wrap, offset, j3)
+             q * w[sl], geom, dt, order, lo, wrap, offset, j3, old)
     return j3
 
 
-def _esirkepov_3d(positions, vel, wq, geom, dt, order, lo, wrap, offset, j3):
+def _esirkepov_3d(positions, vel, wq, geom, dt, order, lo, wrap, offset, j3,
+                  positions_old=None):
     shape = j3[0].shape
     taps = order + 3
     dxs = geom.dx
@@ -185,7 +194,8 @@ def _esirkepov_3d(positions, vel, wq, geom, dt, order, lo, wrap, offset, j3):
     i0s, SN, SO = [], [], []
     for d in range(3):
         xn = (positions[d] - lo[d]) / dxs[d]
-        xo = xn - dt / dxs[d] * vel[d]
+        xo = (xn - dt / dxs[d] * vel[d] if positions_old is None
+              else (positions_old[d] - lo[d]) / dxs[d])
         i0, s_new, s_old = esirkepov_weights(xn, xo, order)
         i0s.append(i0)
         SN.append(torch.stack(s_new, dim=0))
@@ -214,7 +224,8 @@ def _esirkepov_3d(positions, vel, wq, geom, dt, order, lo, wrap, offset, j3):
         _scatter_add_(j, idx, v)
 
 
-def _esirkepov_2d(positions, vel, wq, geom, dt, order, lo, wrap, offset, j3):
+def _esirkepov_2d(positions, vel, wq, geom, dt, order, lo, wrap, offset, j3,
+                  positions_old=None):
     """The 2D branch (CurrentDeposition.H, WARPX_DIM_XZ): the in-plane
     components are running sums weighted by the half-sum of the other axis'
     old and new shapes; the out-of-plane Jy is wq*vy times the 1/3-1/6 mix."""
@@ -224,8 +235,12 @@ def _esirkepov_2d(positions, vel, wq, geom, dt, order, lo, wrap, offset, j3):
     invvol = 1.0 / (dx * dz)
     xn = (positions[0] - lo[0]) / dx
     zn = (positions[1] - lo[1]) / dz
-    xo = xn - dt / dx * vx
-    zo = zn - dt / dz * vz
+    if positions_old is None:
+        xo = xn - dt / dx * vx
+        zo = zn - dt / dz * vz
+    else:
+        xo = (positions_old[0] - lo[0]) / dx
+        zo = (positions_old[1] - lo[1]) / dz
     taps = order + 3
     i0x, snx, sox = esirkepov_weights(xn, xo, order)
     i0z, snz, soz = esirkepov_weights(zn, zo, order)

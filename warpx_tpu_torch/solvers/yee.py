@@ -137,7 +137,9 @@ def evolve_b(fields: FieldState, geom, dt: float,
             return _up(F, axis, inv[axis])
     else:
         raise NotImplementedError(
-            f"field solver {algo!r} (ROADMAP.md Queue A 11.3)"
+            f"field solver {algo!r} on the periodic curls (the JAX package "
+            "runs plain Yee for it; ECT runs on the bounded step's cut "
+            "cells; ROADMAP.md Queue C)"
         )
     if geom.ndim == 2:  # axes (x, z); d/dy = 0
         Bx = fields.Bx + dt * up(Ey, 1)
@@ -156,7 +158,9 @@ def evolve_e(fields: FieldState, geom, dt: float,
     _need_2d_3d(geom)
     if algo not in ("yee", "ckc"):
         raise NotImplementedError(
-            f"field solver {algo!r} (ROADMAP.md Queue A 11.3)"
+            f"field solver {algo!r} on the periodic curls (the JAX package "
+            "runs plain Yee for it; ECT runs on the bounded step's cut "
+            "cells; ROADMAP.md Queue C)"
         )
     Bx, By, Bz = fields.Bx, fields.By, fields.Bz
     jx, jy, jz = fields.jx, fields.jy, fields.jz
