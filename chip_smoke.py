@@ -1434,7 +1434,8 @@ def lwfa_cfg(n_cell, lo, hi, x_bound, zmin, beam_z, laser_z, ppc, max_step,
         field_bc_hi=("pml", "pml"), particle_bc_lo=("absorbing",) * 2,
         particle_bc_hi=("absorbing",) * 2, do_moving_window=True,
         moving_window_dir=1, moving_window_v=1.0, sort_interval=interval,
-        tiled_particles="on", tile_mxu="f32", **kw)
+        field_centering_no=(2, 2), tiled_particles="on", tile_mxu="f32",
+        **kw)
 
 
 # The deck texts this script runs through Simulation.from_deck, kept as
@@ -8241,7 +8242,7 @@ IMPLICIT_CFL = 0.5
 TOL_IMPLICIT_DRIFT = 1e-10
 
 
-def implicit_main_cfg(n=128, steps=3):
+def implicit_main_cfg(n=128, steps=2):
     """uniform-128-implicit: main_cfg's plasma (electrons and ions of the
     electron's mass, 2 a cell each, 8.39 M at n = 128, thermal 0.01 c) under
     the theta-implicit scheme at theta = 1/2 with Picard to 1e-12, dt at
@@ -8299,9 +8300,10 @@ def implicit_rhs(sim):
     return rhs, e3
 
 
-def phase_main_implicit(dev, smi, n=128, steps=3):
-    """uniform-128-implicit (``implicit_main_cfg``), float64, 3 steps (the
-    last profiled): ms a step, the Picard iterations of each step, peak
+def phase_main_implicit(dev, smi, n=128, steps=2):
+    """uniform-128-implicit (``implicit_main_cfg``), float64, 2 steps (3
+    until the script needed the time for later phases; the last
+    profiled): ms a step, the Picard iterations of each step, peak
     memory, busy share; the total energy's drift at most
     TOL_IMPLICIT_DRIFT relative, the fields finite, every particle kept."""
     import warpx_tpu_torch
@@ -8340,7 +8342,7 @@ def phase_main_implicit(dev, smi, n=128, steps=3):
     del sim
 
 
-def jfnk_cfg(n=256, steps=2):
+def jfnk_cfg(n=256, steps=1):
     """uniform2d-256-jfnk: main2d's plasma kind (electrons and ions of the
     electron's mass, thermal 0.01 c) at 256^2 with 4 particles a cell
     ((2, 1) a species), order 1, theta-implicit at theta = 1/2 with Newton
@@ -8360,10 +8362,10 @@ def jfnk_cfg(n=256, steps=2):
         gmres_rtol=1e-8, gmres_max_iterations=60, use_filter=False)
 
 
-def phase_main_implicit_jfnk(dev, smi, n=256, steps=2):
-    """uniform2d-256-jfnk (``jfnk_cfg``), float64, 2 steps (the last
-    profiled): the Newton iterations, GMRES restarts and Arnoldi steps
-    (Jacobian-vector products) of each step, ms a step, one JVP's and one
+def phase_main_implicit_jfnk(dev, smi, n=256, steps=1):
+    """uniform2d-256-jfnk (``jfnk_cfg``), float64, 1 step (2 until the
+    script needed the time for later phases): the Newton iterations, GMRES
+    restarts and Arnoldi steps (Jacobian-vector products) of each step, ms a step, one JVP's and one
     right-hand side's ms alone; the total energy's drift at most
     TOL_IMPLICIT_DRIFT relative, the fields finite."""
     import warpx_tpu_torch
@@ -8636,6 +8638,1000 @@ def phase_main_eb(dev, smi, n=128, steps=EB_MAIN_STEPS):
     del sim
 
 
+# ---- the bounded branches of Queue A 11.4 and hybrid QED -------------------
+
+def walls_deck(ndim, faces, particle_bc, steps=6, n=None, extra="", u_th=0.1,
+               tiled="off"):
+    """A box of ``faces`` field boundaries on every side (``particle_bc``
+    particle ones) holding a warm electron plasma: 32^2 in 2D, 16^3 in 3D
+    (``n`` cells a side otherwise), one particle per cell, or tile-binned
+    (``tiled`` on) 3 x 3 or 1 x 1 x 3 (a species of 8192 particles or fewer
+    keeps its compact layout and never reaches the fused kernel)."""
+    n = n or (32 if ndim == 2 else 16)
+    ppc = ["1"] * ndim
+    if tiled == "on":
+        ppc[-1] = "3"
+        ppc[0] = "3" if ndim == 2 else "1"
+    span = " ".join(["-8.e-6"] * ndim), " ".join(["8.e-6"] * ndim)
+    return f"""
+max_step = {steps}
+amr.n_cell = {" ".join([str(n)] * ndim)}
+geometry.dims = {ndim}
+geometry.prob_lo = {span[0]}
+geometry.prob_hi = {span[1]}
+boundary.field_lo = {" ".join([faces] * ndim)}
+boundary.field_hi = {" ".join([faces] * ndim)}
+boundary.particle_lo = {" ".join([particle_bc] * ndim)}
+boundary.particle_hi = {" ".join([particle_bc] * ndim)}
+warpx.cfl = 0.98
+algo.particle_shape = 2
+tpu.tiled_particles = {tiled}
+particles.species_names = electrons
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = {" ".join(ppc)}
+electrons.profile = constant
+electrons.density = 1.e24
+electrons.momentum_distribution_type = gaussian
+electrons.ux_th = {u_th}
+electrons.uy_th = {u_th}
+electrons.uz_th = {u_th}
+""" + extra
+
+
+def random_eb_hook(seed=7):
+    """A hook writing seeded random E (~1e10 V/m) and B (~30 T) of the
+    state's shapes into the fields after init (every guard of a
+    Silver-Mueller face then carries a value)."""
+    def hook(sim):
+        rng = np.random.default_rng(seed)
+        f = sim.state.fields
+        sim.state = sim.state.replace(fields=f.replace(**{
+            nm: torch.as_tensor(
+                rng.normal(size=tuple(getattr(f, nm).shape))
+                * (30.0 if nm[0] == "B" else 1e10),
+                dtype=f.Ex.dtype, device=f.Ex.device)
+            for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz")}))
+    return hook
+
+
+BEAM_3D_DECK = """
+max_step = 8
+amr.n_cell = 16 16 16
+geometry.dims = 3
+geometry.prob_lo = -8.e-6 -8.e-6 -8.e-6
+geometry.prob_hi =  8.e-6  8.e-6  8.e-6
+warpx.cfl = 0.98
+algo.particle_shape = 1
+particles.species_names = electrons beam
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = 1 1 1
+electrons.profile = constant
+electrons.density = 1.e23
+electrons.momentum_distribution_type = gaussian
+electrons.ux_th = 0.01
+electrons.uy_th = 0.01
+electrons.uz_th = 0.01
+beam.species_type = electron
+beam.injection_style = gaussian_beam
+beam.x_rms = 2.e-6
+beam.y_rms = 2.e-6
+beam.z_rms = 1.e-6
+beam.z_m = -4.e-6
+beam.npart = 500
+beam.q_tot = -1.e-14
+beam.momentum_distribution_type = gaussian
+beam.uz_m = 50.
+beam.ux_th = 0.5
+beam.uy_th = 0.5
+beam.uz_th = 1.
+beam.do_not_deposit = 1
+"""
+
+LATTICE_DECK = """
+lattice.elements = d1 q1 d2 l1
+d1.type = drift
+d1.ds = -6.e-6
+q1.type = quad
+q1.ds = 5.e-6
+q1.dEdx = 1.e14
+q1.dBdx = 3.e5
+d2.type = drift
+d2.ds = 1.e-6
+l1.type = plasmalens
+l1.ds = 5.e-6
+l1.dEdx = 2.e14
+l1.dBdx = 1.e5
+"""
+
+WINDOW_WARM_DECK = """
+max_step = 8
+amr.n_cell = 16 64
+geometry.dims = 2
+geometry.prob_lo = -8.e-6 -24.e-6
+geometry.prob_hi =  8.e-6   8.e-6
+boundary.field_lo = pec pml
+boundary.field_hi = pec pml
+warpx.cfl = 0.98
+warpx.do_moving_window = 1
+warpx.moving_window_dir = z
+warpx.moving_window_v = 1.0
+warpx.sort_intervals = 4
+algo.particle_shape = 2
+particles.species_names = electrons
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = 1 2
+electrons.xmin = -6.e-6
+electrons.xmax =  6.e-6
+electrons.zmin = -20.e-6
+electrons.density = 2.e23
+electrons.do_continuous_injection = 1
+electrons.momentum_distribution_type = gaussian
+electrons.ux_th = 0.01
+electrons.uy_th = 0.02
+electrons.uz_th = 0.01
+electrons.uz_m = 0.001
+"""
+
+HYBRID_QED_XI = 1.0e-23
+QED_TRAVEL = 30e-6
+HYBRID_QED_ES = 1.0e5
+
+
+def hybrid_qed_deck(nx, nz, steps, lo_z, hi_z, amp=1.0e2, waist=2.0e-6):
+    """A 2D collocated PSATD box with the Heisenberg-Euler correction
+    (warpx.use_hybrid_QED, quantum_xi = HYBRID_QED_XI): a static Ey of
+    HYBRID_QED_ES and a Gaussian pulse (Ey, Bx = -Ey / c) of ``amp`` at
+    z = 0 travelling along +z; periodic, x uniform."""
+    half_x = 0.05e-6 * nx
+    return f"""
+max_step = {steps}
+amr.n_cell = {nx} {nz}
+geometry.dims = 2
+geometry.prob_lo = {-half_x} {lo_z}
+geometry.prob_hi = {half_x} {hi_z}
+warpx.grid_type = collocated
+warpx.cfl = 0.7
+warpx.use_filter = 0
+algo.maxwell_solver = psatd
+algo.current_deposition = direct
+warpx.use_hybrid_QED = 1
+warpx.quantum_xi = {HYBRID_QED_XI}
+particles.species_names =
+warpx.E_ext_grid_init_style = parse_E_ext_grid_function
+warpx.Ex_external_grid_function(x,y,z) = 0.
+warpx.Ey_external_grid_function(x,y,z) = {HYBRID_QED_ES} + {amp}*exp(-(z/{waist})**2)
+warpx.Ez_external_grid_function(x,y,z) = 0.
+warpx.B_ext_grid_init_style = parse_B_ext_grid_function
+warpx.Bx_external_grid_function(x,y,z) = -{amp}/299792458.*exp(-(z/{waist})**2)
+warpx.By_external_grid_function(x,y,z) = 0.
+warpx.Bz_external_grid_function(x,y,z) = 0.
+"""
+
+
+COLLOCATED_DECK_KEYS = {
+    "yee_periodic_mc": "warpx.grid_type = collocated\n"
+                       "algo.field_gathering = momentum-conserving\n",
+    "psatd_periodic": "warpx.grid_type = collocated\n"
+                      "algo.maxwell_solver = psatd\n"
+                      "algo.current_deposition = direct\n",
+    "yee_bounded": "warpx.grid_type = collocated\n",
+    "psatd_bounded_mc": "warpx.grid_type = collocated\n"
+                        "algo.maxwell_solver = psatd\n"
+                        "algo.current_deposition = direct\n"
+                        "algo.field_gathering = momentum-conserving\n",
+    "staggered_bounded_mc": "algo.field_gathering = momentum-conserving\n",
+}
+
+
+def boundaries_parity_cases():
+    """(name, deck text, hook, tile-binned?, scraped faces): small decks of
+    every branch Queue A 11.4 and hybrid QED brought."""
+    boosted = (LWFA_32X64_DECK.replace("max_step = 12", "max_step = 6")
+               + "warpx.gamma_boost = 10.\nwarpx.boost_direction = z\n"
+               + "particles.rigid_injected_species = beam\n"
+               + "beam.zinject_plane = -13.e-6\n")
+    scrape = ("electrons.save_particles_at_xlo = 1\n"
+              "electrons.save_particles_at_xhi = 1\n"
+              "electrons.save_particles_at_zlo = 1\n"
+              "electrons.save_particles_at_zhi = 1\n")
+    eb = ("eb2.geom_type = sphere\neb2.sphere_center = 0. 0. 0.\n"
+          "eb2.sphere_radius = 3.e-6\neb2.sphere_has_fluid_inside = 0\n"
+          "electrons.save_particles_at_eb = 1\n"
+          "electrons.save_particles_at_zhi = 1\n")
+    periodic = {k: walls_deck(2, "periodic", "periodic", 5, u_th=0.2) + v
+                for k, v in COLLOCATED_DECK_KEYS.items() if "periodic" in k}
+    bounded = {k: walls_deck(2, "pec" if "yee" in k else "pml", "absorbing",
+                             5, u_th=0.2) + v
+               for k, v in COLLOCATED_DECK_KEYS.items()
+               if "bounded" in k}
+    cases = [
+        ("silver_mueller_2d", walls_deck(
+            2, "absorbing_silver_mueller", "absorbing"), random_eb_hook(),
+         False, ()),
+        ("silver_mueller_3d_binned", walls_deck(
+            3, "absorbing_silver_mueller", "absorbing", steps=4,
+            tiled="on"), random_eb_hook(), True, ()),
+        ("thermal_walls_2d_binned", walls_deck(
+            2, "pec", "thermal", steps=4, u_th=0.3, tiled="on")
+         + "boundary.electrons.u_th = 0.05\n", None, True, ()),
+        ("scraping_2d_binned", walls_deck(
+            2, "pec", "absorbing", steps=4, u_th=0.3, tiled="on") + scrape,
+         None, True, ("xlo", "xhi", "zlo", "zhi")),
+        ("scraping_eb_3d", walls_deck(3, "pec", "absorbing", steps=4,
+                                      u_th=0.3) + eb, None, False,
+         ("eb", "zhi")),
+    ]
+    cases += [(f"collocated_{k}", v, None, False, ())
+              for k, v in sorted({**periodic, **bounded}.items())]
+    cases += [
+        ("hybrid_qed_2d", hybrid_qed_deck(16, 64, 10, -16e-6, 16e-6), None,
+         False, ()),
+        ("rigid_lab_3d", BEAM_3D_DECK + "particles.rigid_injected_species "
+         "= beam\nbeam.zinject_plane = -2.e-6\n", None, False, ()),
+        ("rigid_boosted_2d", boosted + "tpu.tiled_particles = off\n", None,
+         False, ()),
+        ("lattice_3d", BEAM_3D_DECK + LATTICE_DECK, None, False, ()),
+        ("do_not_3d_bounded", BEAM_3D_DECK.replace(
+            "beam.do_not_deposit = 1",
+            "beam.do_not_push = 1\nelectrons.do_not_gather = 1")
+         + "boundary.field_lo = pec pec pec\n"
+           "boundary.field_hi = pec pec pec\n", None, False, ()),
+        ("gaussian_injection_window", WINDOW_WARM_DECK
+         + "electrons.profile = parse_density_function\n"
+           "electrons.density_function(x,y,z) = "
+           "2.e23*(1+0.5*sin(z*1.e6))\ntpu.tiled_particles = off\n",
+         None, False, ()),
+        ("gaussian_injection_window_binned", WINDOW_WARM_DECK
+         + "electrons.profile = constant\ntpu.tiled_particles = on\n",
+         None, True, ()),
+    ]
+    return cases
+
+
+def phase_boundaries_parity(dev):
+    """boundaries_parity: every branch of Queue A 11.4 and hybrid QED in
+    float64, card against CPU on the same numbers (``CpuDraws``): absorbing
+    Silver-Mueller faces under random initial fields (2D per particle, 3D
+    tile-binned), thermal walls and the scraping buffers on every face
+    (tile-binned), the buffers at an embedded sphere, collocated Yee and
+    PSATD with and without momentum-conserving gathering, periodic and
+    bounded, momentum-conserving gathering on the staggered bounded grid,
+    hybrid QED, rigid injection in the lab and in a boosted frame, the
+    lattice, the do_not_* species, Gaussian continuous injection under a
+    moving window per particle (parsed density) and tile-binned.  Fields and
+    species within 1e-12 of their largest values per particle (1e-11 for
+    hybrid QED, whose static field is 1000 times its pulse), 1e-9
+    tile-binned (the deposit's atomics sum in another order), checksums and
+    the scraped records within 1e-9; the tile-binned cases must launch the
+    fused kernel (K1 in 3D, K2 in 2D, in the bounded frame) and K3."""
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.ops import tiling
+
+    out = {}
+    for name, text, hook, binned, faces in boundaries_parity_cases():
+        counters = (fp.binned_push_deposit.launches,
+                    fp.binned_push_deposit.launches_2d,
+                    tiling.ragged_expand.launches)
+        t0 = time.perf_counter()
+        card = stochastic_run(text, dev, torch.float64, hook)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        k1_n = fp.binned_push_deposit.launches - counters[0]
+        k2_n = fp.binned_push_deposit.launches_2d - counters[1]
+        k3_n = tiling.ragged_expand.launches - counters[2]
+        t0 = time.perf_counter()
+        cpu = stochastic_run(text, "cpu", torch.float64, hook)
+        cpu_s = time.perf_counter() - t0
+        if card.binned != binned or (binned and not ((k1_n or k2_n)
+                                                     and k3_n)):
+            raise AssertionError(f"boundaries_parity {name}: binned "
+                                 f"{card.binned}, K1 {k1_n}, K2 {k2_n}, "
+                                 f"K3 {k3_n}")
+        # hybrid QED's static Ey is 1000 times its pulse: the transforms'
+        # roundoff of it (cuFFT against pocketfft) reaches ~1e-12 of the
+        # pulse's B in 10 steps
+        tol = (1e-9 if binned else 1e-11 if name == "hybrid_qed_2d"
+               else 1e-12)
+        worst = states_agree(card, cpu, tol, f"boundaries_parity {name}")
+        records = {}
+        for face in faces:
+            got = card.scraped_particles("electrons", face)
+            ref = cpu.scraped_particles("electrons", face)
+            if set(got) != set(ref) or got["w"].shape != ref["w"].shape:
+                raise AssertionError(f"boundaries_parity {name}: {face} "
+                                     f"recorded {got['w'].shape} and "
+                                     f"{ref['w'].shape}")
+            for k, a in ref.items():
+                err = rel_err(torch.as_tensor(got[k]),
+                              torch.as_tensor(a))[1]
+                if not err <= 1e-9:
+                    raise AssertionError(f"boundaries_parity {name}: {face} "
+                                         f"{k} differs by {err}")
+            records[face] = int(ref["w"].shape[0])
+        if faces and not sum(records.values()):
+            raise AssertionError(f"boundaries_parity {name}: no record")
+        worst_sum = checksums_agree(card.checksums(), cpu.checksums(), 1e-9,
+                                    f"boundaries_parity {name}")
+        out[name] = {"tol": tol, "max_rel_err": worst,
+                     "checksum_max_rel_err": worst_sum, "binned": binned,
+                     "k1_launches": k1_n, "k2_launches": k2_n,
+                     "k3_launches": k3_n, "scraped": records,
+                     "alive": {nm: int(sp.alive.sum())
+                               for nm, sp in card.state.species.items()},
+                     "card_s": card_s, "cpu_s": cpu_s}
+    emit("boundaries_parity", ok=True, cases=out)
+
+
+WALLS_STEPS = 20
+WALLS_U_TH = 0.05
+
+
+def walls_thermal_cfg(n=2048, steps=WALLS_STEPS):
+    """uniform2d-2048's plasma in a PEC box with thermal walls on its four
+    faces re-emitting at WALLS_U_TH, the plasma at that temperature too
+    (the reference's particle_thermal_boundary physics), tile-binned at a
+    sort interval of 8 with a margin of 2 cells (a 7-sigma particle drifts
+    two cells in 8 steps)."""
+    cfg = main2d_cfg(n, steps)
+    species = tuple(dataclasses.replace(
+        s, ux_th=WALLS_U_TH, uy_th=WALLS_U_TH, uz_th=WALLS_U_TH,
+        boundary_u_th=WALLS_U_TH) for s in cfg.species)
+    return dataclasses.replace(
+        cfg, geometry=dataclasses.replace(cfg.geometry,
+                                          periodic=(False, False)),
+        species=species, field_bc_lo=("pec", "pec"),
+        field_bc_hi=("pec", "pec"), particle_bc_lo=("thermal", "thermal"),
+        particle_bc_hi=("thermal", "thermal"), sort_interval=8,
+        sort_margin=2)
+
+
+SCRAPE_STEPS = 10
+
+
+def walls_scrape_cfg(n=128, steps=SCRAPE_STEPS):
+    """uniform-128's plasma drifting at +0.1 c along z between absorbing z
+    faces (PEC for the fields) that record what they absorb
+    (save_particles_at_zlo/zhi), periodic across, tile-binned."""
+    cfg = main_cfg(n, steps)
+    u = 0.1 / math.sqrt(1.0 - 0.01)
+    species = tuple(dataclasses.replace(s, uz=u,
+                                        save_particles_at=("zlo", "zhi"))
+                    for s in cfg.species)
+    return dataclasses.replace(
+        cfg, geometry=dataclasses.replace(cfg.geometry,
+                                          periodic=(True, True, False)),
+        species=species, field_bc_lo=("periodic", "periodic", "pec"),
+        field_bc_hi=("periodic", "periodic", "pec"),
+        particle_bc_lo=("periodic", "periodic", "absorbing"),
+        particle_bc_hi=("periodic", "periodic", "absorbing"))
+
+
+def phase_main_walls(dev, smi, k1_row, k1c_row, k3_row, n2=2048, n3=128):
+    """main_walls_thermal: ``walls_thermal_cfg`` (33.5 M particles) bounded
+    and tile-binned (K2 in the bounded frame, K3), WALLS_STEPS steps,
+    float32: the alive count unchanged, every particle inside the box, u_rms
+    within [0.5, 2] u_th (tests/test_pusher_external.py:106-114); ms a
+    step, the thermal re-emission's device ms alone (every face draws
+    full-capacity vectors: 24 rounds of two uniforms for the normal
+    component, a normal each for the others), K2's ms and busy share.
+    main_walls_scrape: ``walls_scrape_cfg`` tile-binned (K1 in the bounded
+    frame, K3), SCRAPE_STEPS steps: the alive count falls by exactly the
+    buffers' count, every record lies beyond its face, the alive weight
+    plus the recorded weight equals the initial weight to float32
+    roundoff.  Adds the launches to the rows of K1c ('f32'), K1 and K3."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.core import bounded_step as bs_mod
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.ops import tiling
+
+    # --- thermal walls
+    cfg = walls_thermal_cfg(n2)
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
+    if not (sim.is_bounded and sim.binned and sim.draws is not None):
+        raise AssertionError("main_walls_thermal did not take the bounded "
+                             "tile-binned step with draws")
+    t0 = time.perf_counter()
+    sim.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n0 = sum(int(sp.alive.sum()) for sp in sim.state.species.values())
+    fp.binned_push_deposit.launches_2d = 0
+    tiling.ragged_expand.launches = 0
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with timed_fn(bs_mod.BoundedStepper, "_thermalize") as th_t, \
+            timed_fn(bs_mod, "binned_push_deposit") as k_t:
+        a.record()
+        sim.evolve()
+        b.record()
+        b.synchronize()
+        th_ms, k_ms = th_t.ms(), k_t.ms()
+    launches = {"fused_pic_2d": fp.binned_push_deposit.launches_2d,
+                "ragged_expand": tiling.ragged_expand.launches}
+    ms_step = a.elapsed_time(b) / cfg.max_step
+    if sim.state.step != cfg.max_step or not all(launches.values()):
+        raise AssertionError(f"main_walls_thermal: {sim.state.step} steps, "
+                             f"launches {launches}")
+    geom = cfg.geometry
+    alive = inside = 0
+    usq = nu = 0.0
+    for sp in sim.state.species.values():
+        m = sp.alive
+        alive += int(m.sum())
+        ok = m.clone()
+        for d, p in enumerate(sp.positions(2)):
+            ok &= (p >= geom.prob_lo[d]) & (p <= geom.prob_hi[d])
+        inside += int(ok.sum())
+        usq += float((sp.ux[m].double() ** 2).sum())
+        nu += int(m.sum())
+    u_rms = math.sqrt(usq / nu) / C_LIGHT
+    sums = sim.checksums()
+    finite = all(np.isfinite(v) for g in sums.values() for v in g.values())
+    if not (alive == n0 == inside and 0.5 * WALLS_U_TH < u_rms
+            < 2.0 * WALLS_U_TH and finite):
+        raise AssertionError(f"main_walls_thermal: alive {alive} of {n0}, "
+                             f"inside {inside}, u_rms {u_rms}, finite "
+                             f"{finite}")
+    k_total = sum(k_ms)
+    emit("main_walls_thermal", ok=True, n_cell=geom.n_cell, particles=n0,
+         steps=cfg.max_step, dtype="float32", u_th=WALLS_U_TH,
+         alive_at_end=alive, inside=inside, u_rms=u_rms,
+         u_rms_bounds=[0.5 * WALLS_U_TH, 2.0 * WALLS_U_TH],
+         ms_per_step=ms_step, init_s=init_s,
+         thermal_ms_per_step=sum(th_ms) / cfg.max_step,
+         thermal_calls=len(th_ms),
+         thermal_share=sum(th_ms) / (ms_step * cfg.max_step),
+         fused_pic_2d_ms=k_total / max(len(k_ms), 1),
+         fused_pic_2d_busy_share=k_total / (ms_step * cfg.max_step),
+         slots=sim.tile_spec.capacity, launches=launches, nvidia_smi=smi)
+    add_launches({"fused_pic_moving_window": k1c_row,
+                  "ragged_expand": k3_row},
+                 {"fused_pic_moving_window": launches["fused_pic_2d"],
+                  "ragged_expand": launches["ragged_expand"]},
+                 "main_walls_thermal")
+    del sim
+    torch.cuda.empty_cache()
+
+    # --- scraping buffers
+    cfg = walls_scrape_cfg(n3)
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
+    if not (sim.is_bounded and sim.binned):
+        raise AssertionError("main_walls_scrape did not take the bounded "
+                             "tile-binned step")
+    sim.init()
+    n0 = sum(int(sp.alive.sum()) for sp in sim.state.species.values())
+    w0 = sum(float(sp.w[sp.alive].double().sum())
+             for sp in sim.state.species.values())
+    fp.binned_push_deposit.launches = 0
+    tiling.ragged_expand.launches = 0
+    a.record()
+    sim.evolve()
+    b.record()
+    b.synchronize()
+    ms_step = a.elapsed_time(b) / cfg.max_step
+    launches = {"fused_pic": fp.binned_push_deposit.launches,
+                "ragged_expand": tiling.ragged_expand.launches}
+    if not all(launches.values()):
+        raise AssertionError(f"main_walls_scrape launched {launches}")
+    geom = cfg.geometry
+    alive = sum(int(sp.alive.sum()) for sp in sim.state.species.values())
+    w_alive = sum(float(sp.w[sp.alive].double().sum())
+                  for sp in sim.state.species.values())
+    recorded = {}
+    w_rec = 0.0
+    for sp_cfg in cfg.species:
+        for face in sp_cfg.save_particles_at:
+            rec = sim.scraped_particles(sp_cfg.name, face)
+            z = rec["p2"]
+            beyond = (z < geom.prob_lo[2]) if face == "zlo" else (
+                z > geom.prob_hi[2])
+            if not beyond.all():
+                raise AssertionError(f"main_walls_scrape: a {face} record "
+                                     "lies inside the box")
+            if rec["w"].shape[0] > sim.state.species[sp_cfg.name].capacity:
+                raise AssertionError("main_walls_scrape: the buffer "
+                                     "overflowed")
+            recorded[f"{sp_cfg.name}:{face}"] = int(rec["w"].shape[0])
+            w_rec += float(rec["w"].astype(np.float64).sum())
+    n_rec = sum(recorded.values())
+    w_err = abs(w_alive + w_rec - w0) / w0
+    if not (n_rec > 0 and alive == n0 - n_rec and w_err < 1e-6):
+        raise AssertionError(f"main_walls_scrape: {n0} -> {alive} alive, "
+                             f"{n_rec} recorded, weight off by {w_err}")
+    emit("main_walls_scrape", ok=True, n_cell=geom.n_cell, particles=n0,
+         steps=cfg.max_step, dtype="float32", drift_beta=0.1,
+         alive_at_end=alive, recorded=recorded, weight_rel_err=w_err,
+         ms_per_step=ms_step, launches=launches, nvidia_smi=smi)
+    add_launches({"fused_pic": k1_row, "ragged_expand": k3_row},
+                 launches, "main_walls_scrape")
+    del sim
+
+
+SM_LAMBDA = 0.8e-6
+SM_TAU = 2.0 * SM_LAMBDA / C_LIGHT
+
+
+def silver_mueller_deck(n, faces, steps):
+    """A 2D vacuum box of n^2 cells of lambda / 16 with ``faces`` on all four
+    sides and a Gaussian antenna at its centre along +z (the reference's
+    silver_mueller 2D deck's pulse): two wavelengths long, its peak at
+    four durations (a smooth turn-on), a waist of 1/8 of the box."""
+    dx = SM_LAMBDA / 16.0
+    half = 0.5 * n * dx
+    tau = SM_TAU
+    return f"""
+max_step = {steps}
+amr.n_cell = {n} {n}
+geometry.dims = 2
+geometry.prob_lo = {-half} {-half}
+geometry.prob_hi = {half} {half}
+boundary.field_lo = {faces} {faces}
+boundary.field_hi = {faces} {faces}
+warpx.cfl = 0.99
+warpx.use_filter = 0
+tpu.tiled_particles = off
+particles.species_names =
+lasers.names = laser1
+laser1.profile = Gaussian
+laser1.position = 0. 0. 0.
+laser1.direction = 0. 0. 1.
+laser1.polarization = 0. 1. 0.
+laser1.e_max = 1.e9
+laser1.profile_waist = {n * dx / 8.0}
+laser1.profile_duration = {tau}
+laser1.profile_t_peak = {4.0 * tau}
+laser1.profile_focal_distance = 0.
+laser1.wavelength = {SM_LAMBDA}
+"""
+
+
+def phase_main_silver_mueller(dev, smi, n=2048):
+    """main_silver_mueller: ``silver_mueller_deck`` at 2048^2 with absorbing
+    Silver-Mueller faces, float32, until the pulse's tail has crossed the
+    half box plus 10 %: max |E| sampled every 50 steps; the pulse exists
+    (max |E| > 1 V/m part-way) and, once it has left, max |E| is below 3 %
+    of its peak (tests/test_silver_mueller.py:38, :52); ms a step.  The same
+    pulse with PML faces, whose residual is reported beside it."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.utils.parser import Deck
+
+    dx = SM_LAMBDA / 16.0
+    out = {}
+    for faces in ("absorbing_silver_mueller", "pml"):
+        probe = warpx_tpu_torch.Simulation.from_deck(
+            Deck.from_string(silver_mueller_deck(n, faces, 1)),
+            dtype=torch.float32, device=dev)
+        dt = probe.cfg.dt
+        steps = int(math.ceil((8.0 * SM_TAU + 1.1 * 0.5 * n * dx / C_LIGHT)
+                              / dt / 50.0)) * 50
+        del probe
+        sim = warpx_tpu_torch.Simulation.from_deck(
+            Deck.from_string(silver_mueller_deck(n, faces, steps)),
+            dtype=torch.float32, device=dev)
+        sim.init()
+        peaks = []
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        while sim.state.step < steps:
+            sim.evolve(50)
+            f = sim.state.fields
+            peaks.append(torch.stack([getattr(f, c).abs().max()
+                                      for c in ("Ex", "Ey", "Ez")]).max())
+        b.record()
+        b.synchronize()
+        peaks = [float(p) for p in torch.stack(peaks).cpu()]
+        ms_step = a.elapsed_time(b) / steps
+        f = sim.state.fields
+        stepper = sim.stepper
+        residual = max(float(getattr(f, c).abs().max())
+                       for c in ("Ex", "Ey", "Ez"))
+        peak = max(peaks)
+        out[faces] = {"steps": steps, "dt": dt, "peak_V_m": peak,
+                      "part_way_V_m": peaks[len(peaks) // 3],
+                      "residual_V_m": residual,
+                      "residual_of_peak": residual / peak,
+                      "ms_per_step": ms_step,
+                      "field_shape": list(stepper.shapes["Ey"])}
+        del sim
+        torch.cuda.empty_cache()
+    sm = out["absorbing_silver_mueller"]
+    if not (sm["part_way_V_m"] > 1.0 and sm["residual_of_peak"] < 0.03):
+        raise AssertionError(f"main_silver_mueller: {sm}")
+    emit("main_silver_mueller", ok=True, n_cell=[n, n], dtype="float32",
+         residual_tol_of_peak=0.03, silver_mueller=sm, pml=out["pml"],
+         nvidia_smi=smi)
+
+
+LANGMUIR_U0 = 0.05
+LANGMUIR_STEPS = 64
+LANGMUIR_PERIOD_STEPS = 36
+
+
+def collocated_langmuir_cfg(n=128, steps=LANGMUIR_STEPS, solver="psatd"):
+    """uniform-128's plasma (electrons and their equal-mass opposite
+    species, u_th 0.01) on a collocated grid with momentum-conserving
+    gathering, per particle, its density lowered so that the pair plasma's
+    period (omega^2 = 2 omega_pe^2 + 3 k^2 v_th^2) is LANGMUIR_PERIOD_STEPS
+    steps; returns (cfg, omega)."""
+    cfg = plasma_cfg(3, n, (2, 1, 1), 1, 0.01, "ions", steps)
+    omega = 2.0 * math.pi / (LANGMUIR_PERIOD_STEPS * cfg.dt)
+    k = 2.0 * math.pi / (cfg.geometry.prob_hi[0] - cfg.geometry.prob_lo[0])
+    v_th = 0.01 * C_LIGHT
+    wpe2 = 0.5 * (omega ** 2 - 3.0 * k * k * v_th * v_th)
+    density = wpe2 * EPS0 * M_E / Q_E ** 2
+    species = tuple(dataclasses.replace(s, density=density)
+                    for s in cfg.species)
+    return dataclasses.replace(
+        cfg, species=species, grid_type="collocated", tiled_particles="off",
+        field_gathering="momentum-conserving", em_solver=solver,
+        current_deposition="direct" if solver == "psatd" else "esirkepov",
+        use_filter=False), omega
+
+
+def seed_langmuir(sim):
+    """ux += u0 c sin(k x) on the electrons."""
+    geom = sim.cfg.geometry
+    sp = sim.state.species["electrons"]
+    k = 2.0 * math.pi / (geom.prob_hi[0] - geom.prob_lo[0])
+    ux = sp.ux + LANGMUIR_U0 * C_LIGHT * torch.sin(k * (sp.x - geom.prob_lo[0]))
+    sim.state = sim.state.replace(species={**sim.state.species,
+                                           "electrons": sp.replace(ux=ux)})
+
+
+def zero_crossing_omega(amp, dt):
+    t = np.arange(len(amp)) * dt
+    crossings = [t[i] - amp[i] * (t[i + 1] - t[i]) / (amp[i + 1] - amp[i])
+                 for i in range(1, len(amp) - 1)
+                 if amp[i] != 0 and amp[i] * amp[i + 1] < 0]
+    if len(crossings) < 3:
+        return float("nan"), len(crossings)
+    return (math.pi * (len(crossings) - 1)
+            / (crossings[-1] - crossings[0]), len(crossings))
+
+
+def phase_main_collocated(dev, smi, n=128, nz_qed=2048):
+    """main_collocated: ``collocated_langmuir_cfg`` under PSATD (the
+    reference's langmuir_multi_psatd_nodal / _momentum_conserving), float32,
+    seeded with ux = u0 sin(k x): the x-Fourier amplitude of Ex after every
+    step, its frequency from the zero crossings within 2 % of the
+    Bohm-Gross frequency over 1.5 periods; ms a step.  The same plasma for
+    a few steps under the nodal curls (Yee), ms a step.  Then hybrid QED:
+    ``hybrid_qed_deck`` at 64 x ``nz_qed`` in float64 until the pulse has
+    travelled QED_TRAVEL: its peak's speed within 1.25 % of c / sqrt((1 +
+    12 xi Es^2/eps0) / (1 + 4 xi Es^2/eps0)) and below c (1 - 1e-4)
+    (tests/test_hybrid_qed.py:36-50); the float32 run's speed and its pulse
+    line's spread from float64's beside it."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.utils.parser import Deck
+
+    res = {}
+    for solver, steps in (("psatd", LANGMUIR_STEPS), ("yee", 5)):
+        cfg, omega = collocated_langmuir_cfg(n, steps, solver)
+        sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32,
+                                         device=dev)
+        sim.init()
+        seed_langmuir(sim)
+        geom = cfg.geometry
+        xc = torch.as_tensor(geom.nodes(0)[:geom.n_cell[0]], device=dev)
+        sin_kx = torch.sin(2 * math.pi * (xc - geom.prob_lo[0])
+                           / (geom.prob_hi[0] - geom.prob_lo[0]))
+        amps = []
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(steps):
+            sim.evolve(1)
+            amps.append((sim.state.fields.Ex.double().sum(dim=(1, 2))
+                         * sin_kx).sum())
+        b.record()
+        b.synchronize()
+        ms_step = a.elapsed_time(b) / steps
+        finite = all(bool(torch.isfinite(getattr(sim.state.fields,
+                                                 c)).all())
+                     for c in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"))
+        res[solver] = {"ms_per_step": ms_step, "steps": steps,
+                       "finite": finite, "binned": sim.binned}
+        if solver == "psatd":
+            amp = torch.stack(amps).cpu().numpy()
+            w_meas, nc = zero_crossing_omega(np.concatenate([[0.0], amp]),
+                                             cfg.dt)
+            err = abs(w_meas / omega - 1.0)
+            res[solver].update(omega=omega, omega_measured=w_meas,
+                               omega_rel_err=err, zero_crossings=nc,
+                               density_m3=cfg.species[0].density)
+            if not (err <= 0.02 and finite):
+                raise AssertionError(f"main_collocated: omega {w_meas} "
+                                     f"against {omega} ({nc} crossings)")
+        elif not finite:
+            raise AssertionError("main_collocated: the nodal curls' run "
+                                 "is not finite")
+        del sim
+        torch.cuda.empty_cache()
+
+    # hybrid QED
+    lo_z, hi_z = -80e-6, 120e-6
+    xi, es = HYBRID_QED_XI, HYBRID_QED_ES
+    g = xi * es * es / EPS0
+    v_th = C_LIGHT / math.sqrt((1.0 + 12.0 * g) / (1.0 + 4.0 * g))
+    qed, lines = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        probe = warpx_tpu_torch.Simulation.from_deck(
+            Deck.from_string(hybrid_qed_deck(64, nz_qed, 1, lo_z, hi_z)),
+            dtype=dtype, device=dev)
+        steps = int(round(QED_TRAVEL / v_th / probe.cfg.dt))
+        del probe
+        sim = warpx_tpu_torch.Simulation.from_deck(
+            Deck.from_string(hybrid_qed_deck(64, nz_qed, steps, lo_z, hi_z)),
+            dtype=dtype, device=dev)
+        sim.init()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        sim.evolve()
+        b.record()
+        b.synchronize()
+        ey = sim.state.fields.Ey.double().cpu().numpy()
+        geom = sim.cfg.geometry
+        line = ey[ey.shape[0] // 2, :] - es
+        z_end = geom.prob_lo[1] + int(np.argmax(line)) * geom.dx[1]
+        v = z_end / float(sim.state.time)
+        lines[dtype] = line
+        qed[str(dtype).split(".")[-1]] = {
+            "steps": steps, "v_over_c": v / C_LIGHT,
+            "v_rel_err": abs(v - v_th) / v_th,
+            "ms_per_step": a.elapsed_time(b) / steps}
+        del sim
+    f64 = qed["float64"]
+    qed["float32"]["pulse_spread_of_peak"] = float(
+        np.abs(lines[torch.float32] - lines[torch.float64]).max()
+        / np.abs(lines[torch.float64]).max())
+    if not (f64["v_rel_err"] < 0.0125
+            and f64["v_over_c"] < 1.0 - 1e-4):
+        raise AssertionError(f"main_collocated hybrid QED: {qed}")
+    emit("main_collocated", ok=True, n_cell=[n] * 3, langmuir=res["psatd"],
+         nodal_yee=res["yee"], omega_tol=0.02,
+         hybrid_qed={"n_cell": [64, nz_qed], "xi": xi, "Es_V_m": es,
+                     "v_theory_over_c": v_th / C_LIGHT, "tol": 0.0125,
+                     **qed},
+         nvidia_smi=smi)
+
+
+BEAMLINE_STEPS = 20
+BEAMLINE_PLANE = -12e-6
+BEAMLINE_ELEMENTS = (("quad", -11e-6, -5e-6, 3.0e14, 2.0e6),
+                     ("plasmalens", -4e-6, 2e-6, 2.0e14, 1.0e6))
+
+
+def beamline_cfg(n=128, steps=BEAMLINE_STEPS, npart=2 ** 20):
+    """A 3D n^3 periodic box of 1 um cells holding a witness beam
+    (do_not_deposit) of ``npart`` electrons at uz = 100, rigid-injected at
+    BEAMLINE_PLANE, through a hard-edged quadrupole and a plasma lens
+    (BEAMLINE_ELEMENTS), per particle (the reference's accelerator_lattice
+    example's witness)."""
+    from warpx_tpu_torch.core.config import SimConfig, SpeciesConfig
+    from warpx_tpu_torch.core.grid import Geometry
+    from warpx_tpu_torch.solvers.yee import compute_dt_yee
+
+    half = 0.5e-6 * n
+    geom = Geometry(ndim=3, n_cell=(n,) * 3, prob_lo=(-half,) * 3,
+                    prob_hi=(half,) * 3, periodic=(True,) * 3)
+    beam = SpeciesConfig(
+        name="beam", charge=-Q_E, mass=M_E, species_type="electron",
+        injection_style="gaussian_beam", x_rms=5e-6, y_rms=5e-6,
+        z_rms=3e-6, z_m=-20e-6, npart=npart, q_tot=-1e-12,
+        momentum_distribution="gaussian", uz=100.0, ux_th=0.1, uy_th=0.1,
+        uz_th=1.0, do_not_deposit=True, zinject_plane=BEAMLINE_PLANE)
+    return SimConfig(geometry=geom, max_step=steps,
+                     dt=compute_dt_yee(geom, 0.999), species=(beam,),
+                     tiled_particles="off",
+                     lattice_elements=BEAMLINE_ELEMENTS)
+
+
+def host_beamline(pos, u, dt, steps, vz_ave, plane):
+    """The beam pushed on the host in float64 through the lattice's
+    hard-edged fields (the JAX package's core/step.py:40-69: the fraction
+    of the step inside each element from z and z + v_z dt) with rigid
+    injection (core/step.py:137-175): Boris, then the particles still
+    upstream of the plane get their momentum back and advance at vz_ave."""
+    x, y, z = (a.copy() for a in pos)
+    ux, uy, uz = (a.copy() for a in u)
+    q, m = -Q_E, M_E
+
+    def inv_g(ux, uy, uz):
+        return 1.0 / np.sqrt(1.0 + (ux * ux + uy * uy + uz * uz)
+                             / C_LIGHT ** 2)
+
+    for _ in range(steps):
+        zp = z + uz * inv_g(ux, uy, uz) * dt
+        zl, zr = np.minimum(z, zp), np.maximum(z, zp)
+        same = zr == zl
+        ex = np.zeros_like(x)
+        ey, bx, by = (np.zeros_like(x) for _ in range(3))
+        for kind, zs, ze, dedx, dbdx in BEAMLINE_ELEMENTS:
+            frac = np.where(same, ((z >= zs) & (z < ze)).astype(float),
+                            (np.clip(zr, zs, ze) - np.clip(zl, zs, ze))
+                            / np.where(same, 1.0, zr - zl))
+            if kind == "quad":
+                ex, ey = ex + x * frac * dedx, ey - y * frac * dedx
+                bx, by = bx + y * frac * dbdx, by + x * frac * dbdx
+            else:
+                ex, ey = ex + x * frac * dedx, ey + y * frac * dedx
+                bx, by = bx + y * frac * dbdx, by - x * frac * dbdx
+        # rigid: the fields of a particle about to cross scaled by the part
+        # of the step past the plane
+        dts = 1.0 - (plane - z) / vz_ave / dt
+        s = np.where((dts > 0.0) & (dts < 1.0), dts, 1.0)
+        e = [ex * s, ey * s, np.zeros_like(x)]
+        bb = [bx * s, by * s, np.zeros_like(x)]
+        ec = 0.5 * q * dt / m
+        vx, vy, vz = ux + ec * e[0], uy + ec * e[1], uz + ec * e[2]
+        ig = inv_g(vx, vy, vz)
+        t = [ec * ig * c for c in bb]
+        tsqi = 2.0 / (1.0 + t[0] ** 2 + t[1] ** 2 + t[2] ** 2)
+        sx, sy, sz = (c * tsqi for c in t)
+        px = vx + vy * t[2] - vz * t[1]
+        py = vy + vz * t[0] - vx * t[2]
+        pz = vz + vx * t[1] - vy * t[0]
+        vx, vy, vz = vx + py * sz - pz * sy, vy + pz * sx - px * sz, \
+            vz + px * sy - py * sx
+        nux, nuy, nuz = vx + ec * e[0], vy + ec * e[1], vz + ec * e[2]
+        ig = inv_g(nux, nuy, nuz)
+        nx, ny, nz = x + nux * ig * dt, y + nuy * ig * dt, z + nuz * ig * dt
+        up = nz <= plane
+        ux, uy, uz = (np.where(up, o, nw) for o, nw in
+                      ((ux, nux), (uy, nuy), (uz, nuz)))
+        x, y = np.where(up, x, nx), np.where(up, y, ny)
+        z = np.where(up, z + dt * vz_ave, nz)
+    return (x, y, z), (ux, uy, uz)
+
+
+def phase_main_beamline(dev, smi, n=128):
+    """main_beamline: ``beamline_cfg`` (2^20 electrons) per particle,
+    float32, BEAMLINE_STEPS steps: the particles still upstream of the plane
+    at the end kept their momenta bitwise and advanced by steps dt vz_ave;
+    every transverse momentum within 1e-5 of the largest of a float64 host
+    push through the same hard-edged fields (``host_beamline``); ms a
+    step."""
+    import warpx_tpu_torch
+
+    cfg = beamline_cfg(n)
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
+    sim.init()
+    sp0 = sim.state.species["beam"]
+    alive = sp0.alive.cpu().numpy()
+    pos0 = [p.cpu().numpy() for p in sp0.positions(3)]
+    u0 = [getattr(sp0, c).cpu().numpy() for c in ("ux", "uy", "uz")]
+    vz_ave = float(sim.state.aux["vzave:beam"])
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    sim.evolve()
+    b.record()
+    b.synchronize()
+    ms_step = a.elapsed_time(b) / cfg.max_step
+    sp = sim.state.species["beam"]
+    pos = [p.cpu().numpy() for p in sp.positions(3)]
+    u = [getattr(sp, c).cpu().numpy() for c in ("ux", "uy", "uz")]
+    up = alive & (pos[2] <= BEAMLINE_PLANE)
+    crossed = alive & ~up
+    same_u = all(np.array_equal(a_[up], b_[up]) for a_, b_ in zip(u, u0))
+    # the float32 sum of ``steps`` equal advances toward z = 0: each rounds
+    # by at most half a unit in the last place of the starting z
+    z_rigid = pos0[2][up].astype(np.float64) + cfg.max_step * cfg.dt * vz_ave
+    z_err = float((np.abs(pos[2][up] - z_rigid)
+                   / (cfg.max_step * np.spacing(np.abs(pos0[2][up])))).max())
+    hpos, hu = host_beamline([p[alive].astype(np.float64) for p in pos0],
+                             [c[alive].astype(np.float64) for c in u0],
+                             cfg.dt, cfg.max_step, vz_ave, BEAMLINE_PLANE)
+    scale = max(float(np.abs(hu[0]).max()), float(np.abs(hu[1]).max()))
+    u_err = max(float(np.abs(u[i][alive] - hu[i]).max()) for i in (0, 1))
+    kick = max(float(np.abs(hu[i] - u0[i][alive]).max()) for i in (0, 1))
+    if not (same_u and z_err <= 1.0 and up.sum() > 0 and crossed.sum() > 0
+            and u_err <= 1e-5 * scale and kick > 0.01 * scale):
+        raise AssertionError(f"main_beamline: upstream u unchanged "
+                             f"{same_u}, z off by {z_err}, {int(up.sum())} "
+                             f"upstream, {int(crossed.sum())} crossed, "
+                             f"transverse u off by {u_err} of {scale}, "
+                             f"kick {kick}")
+    emit("main_beamline", ok=True, n_cell=[n] * 3, particles=int(alive.sum()),
+         steps=cfg.max_step, dtype="float32", plane_m=BEAMLINE_PLANE,
+         elements=[list(e) for e in BEAMLINE_ELEMENTS],
+         upstream=int(up.sum()), crossed=int(crossed.sum()),
+         upstream_z_err_of_steps_ulp=z_err, transverse_u_max_abs_err=u_err,
+         transverse_u_scale=scale, transverse_kick=kick,
+         ms_per_step=ms_step, nvidia_smi=smi)
+    del sim
+
+
+LWFA_WARM_PLAN = dict(warm=4, timed=8, counted=2, interval=16)
+LWFA_WARM_U_TH = 0.01
+
+
+def phase_main_lwfa_warm(dev, smi, k1c_row, k3_row, cold_ms, nx=2048,
+                         nz=8192):
+    """lwfa2d-2048x8192-warm: main_lwfa_deck's deck at 'mixed' whose
+    electrons (the initial ones and the continuously injected ones) take
+    Gaussian momenta of spread LWFA_WARM_U_TH, driven as main_lwfa is
+    (``run_lwfa_path``: zero overflow and violations, finite fields, the
+    alive electrons explained by the rows absorbed and injected); every
+    injection counted: their total equals the rows the window uncovered
+    times a row's electrons, and the injected electrons' mean and rms of
+    each momentum component lie within 3 standard errors of the deck's; ms
+    a step beside main_lwfa_deck's cold run (``cold_ms``); adds the
+    launches to K1c's ('mixed') and K3's rows."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.core import bounded_step as bs_mod
+    from warpx_tpu_torch.utils.parser import Deck
+
+    steps = lwfa_steps(LWFA_WARM_PLAN)
+    text = lwfa_deck_text(nx, nz, steps, "mixed").replace(
+        "electrons.momentum_distribution_type = at_rest",
+        "electrons.momentum_distribution_type = gaussian\n"
+        + "".join(f"electrons.u{c}_th = {LWFA_WARM_U_TH}\n" for c in "xyz"))
+    sim = warpx_tpu_torch.Simulation.from_deck(
+        Deck.from_string(text), dtype=torch.float32, device=dev)
+    injected = []
+    orig = bs_mod.BoundedStepper.continuous_injection
+
+    def counted(self, state, sp_cfg, sp, *a, **kw):
+        st, new = orig(self, state, sp_cfg, sp, *a, **kw)
+        injected.append(int(new.alive.sum()) - int(sp.alive.sum()))
+        return st, new
+
+    row0 = {}
+
+    def top_row(s):
+        el = s.state.species["electrons"]
+        g = s.cfg.geometry
+        row0["n"] = int((el.alive & (el.z >= g.prob_hi[1] - g.dx[1])).sum())
+
+    bs_mod.BoundedStepper.continuous_injection = counted
+    try:
+        launches, _, _, waits = run_lwfa_path(dev, smi, "main_lwfa_warm",
+                                              sim, LWFA_WARM_PLAN,
+                                              on_init=top_row)
+    finally:
+        bs_mod.BoundedStepper.continuous_injection = orig
+    geom = sim.cfg.geometry
+    rows_in = round((float(sim.state.aux["inject_pos:electrons"])
+                     - geom.prob_hi[1]) / geom.dx[1])
+    if not (sum(injected) == rows_in * row0["n"] and rows_in > 0):
+        raise AssertionError(f"main_lwfa_warm: {sum(injected)} injected in "
+                             f"{len(injected)} calls, {rows_in} rows of "
+                             f"{row0['n']}")
+    el = sim.state.species["electrons"]
+    # injected above the window's first top edge and ahead of the laser's
+    # front (which reaches no injected cell at full width in these steps)
+    front = (sim.cfg.lasers[0].position[2]
+             + C_LIGHT * float(sim.state.time))
+    new = el.alive & (el.z > max(geom.prob_hi[1], front) + geom.dx[1])
+    nn = int(new.sum())
+    moments = {}
+    for c in "xyz":
+        v = getattr(el, "u" + c)[new].double() / C_LIGHT
+        mean, std = float(v.mean()), float(v.std())
+        moments[c] = {"mean": mean, "rms": std}
+        if not (abs(mean) < 3.0 * LWFA_WARM_U_TH / math.sqrt(nn)
+                and abs(std - LWFA_WARM_U_TH)
+                < 3.0 * LWFA_WARM_U_TH / math.sqrt(2.0 * nn)):
+            raise AssertionError(f"main_lwfa_warm: injected u{c} mean "
+                                 f"{mean}, rms {std} over {nn}")
+    emit("main_lwfa_warm_injection", ok=True, injected=sum(injected),
+         injections=len(injected), rows_injected=rows_in,
+         row_electrons=row0["n"], moments=moments, sampled=nn,
+         u_th=LWFA_WARM_U_TH, ms_per_step=waits["ms_per_step"],
+         cold_ms_per_step=cold_ms, nvidia_smi=smi)
+    add_launches({"fused_pic_moving_window_mixed": k1c_row,
+                  "ragged_expand": k3_row},
+                 {"fused_pic_moving_window_mixed": launches["fused_pic_2d"],
+                  "ragged_expand": launches["ragged_expand"]},
+                 "main_lwfa_warm")
+
+
 def main() -> int:
     """Every phase in order."""
     if not torch.cuda.is_available():
@@ -8693,6 +9689,7 @@ def main() -> int:
     phase_injection_parity(dev)
     phase_es_parity(dev)
     phase_fieldsolver2_parity(dev)
+    phase_boundaries_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
     k1_row["launches_by_path"] = {"main": k1_row["launches"]}
     phase_main_psatd(dev, smi, k1_row, k3_row)
@@ -8756,6 +9753,17 @@ def main() -> int:
     phase_main_ect(dev, smi)
     torch.cuda.empty_cache()
     phase_main_eb(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_walls(dev, smi, k1_row, k1c_row, k3_row)
+    torch.cuda.empty_cache()
+    phase_main_silver_mueller(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_collocated(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_beamline(dev, smi)
+    torch.cuda.empty_cache()
+    phase_main_lwfa_warm(dev, smi, k1c_mixed_row, k3_row,
+                         waits["ms_per_step"])
     torch.cuda.empty_cache()
     lab_rows = phase_labs(dev)
     print(smi)

@@ -146,20 +146,26 @@ def test_boosted_lwfa_matches_jax(jax_boosted, tiled):
 @pytest.mark.parametrize("extra,item", [
     pytest.param("fluids.species_names = f1\n", "Queue C",
                  id="fluids.species_names = f1\n-Queue A 11.3"),
-    ("lattice.elements = q1\n", "Queue A 11.4"),
-    ("electrons.zinject_plane = 0.\n", "Queue A 11.4"),
+    # the lattice in a boosted frame keeps the JAX reader's refusal, rigid
+    # injection runs since Queue A 11.4 (the cases keep their ids)
+    pytest.param("lattice.elements = q1\n", "Queue C",
+                 id="lattice.elements = q1\n-Queue A 11.4"),
+    pytest.param("particles.rigid_injected_species = beam\n"
+                 "beam.zinject_plane = -13.e-6\n", "runs",
+                 id="electrons.zinject_plane = 0.\n-Queue A 11.4"),
     ("particles.use_fdtd_nci_corr = 1\n", "Queue A 11.3"),
 ])
 def test_boosted_refusals_name_their_items(extra, item):
     """Fluids and the lattice in a boosted frame keep the JAX package's
-    refusals (fluids name Queue C since Queue A 11.3's second half ported
-    them; the case keeps its id); rigid injection is still unported.  The NCI corrector runs
-    since Queue A 11.3's first half: its case (which keeps its id) runs
-    the boosted deck through it for two steps."""
+    refusals (both name Queue C; the cases keep their ids).  The NCI
+    corrector runs since Queue A 11.3's first half, rigid injection since
+    Queue A 11.4: their cases (which keep their ids) run the boosted deck
+    through them for two steps."""
     text = DECK + extra
-    if "nci" in extra:
+    if "nci" in extra or item == "runs":
         cfg = _port_from_deck(text)
-        assert cfg.use_nci_corr and cfg.gamma_boost > 1.0
+        assert (cfg.use_nci_corr or cfg.species[1].zinject_plane
+                is not None) and cfg.gamma_boost > 1.0
         sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float64,
                                          device="cpu")
         sim.init()

@@ -376,11 +376,12 @@ def test_antenna_matches_jax(jax_lwfa):
 
 def test_unported_laser_profile_raises(jax_lwfa):
     """A lasy laser runs since Queue A 11.2 (tests/test_torch_laser_file.py);
-    a parsed-field laser waits for Queue A 11.4."""
+    a parsed-field laser is refused, as the JAX reader refuses it (ROADMAP
+    Queue C)."""
     laser = dataclasses.replace(port_config(jax_lwfa["cfg"]).lasers[0],
                                 profile="parse_field")
     x = torch.zeros(3, **T64)
-    with pytest.raises(NotImplementedError, match=r"Queue A 11\.4"):
+    with pytest.raises(NotImplementedError, match="Queue C"):
         tlaser.fill_amplitude(laser, 2, x, x, 0.0)
 
 
@@ -571,53 +572,67 @@ def _case(change, match, old_id):
     # without an embedded boundary the JAX package runs plain Yee for it
     _case(lambda c: dataclasses.replace(c, em_solver="ect"),
           "Queue C", "Queue A 11_0"),
+    # Queue A 11.4 ported Silver-Mueller faces, thermal walls, collocated
+    # grids, momentum-conserving gathering, do_not_* species and Gaussian
+    # continuous injection (tests/test_torch_field_boundaries.py,
+    # test_torch_particle_walls.py, test_torch_collocated.py,
+    # test_torch_beamline.py, test_torch_continuous_injection.py); what the
+    # JAX package refuses there, or runs as something else, names Queue C
+    # (the cases keep their ids): Silver-Mueller beside PML, damped and open
+    # faces under FDTD, a face periodic on one side, hybrid QED on the
+    # bounded step, a 2D lattice, a bounded centering order above 2, PSATD
+    # with a Silver-Mueller face, Maxwell-Boltzmann continuous injection
     _case(lambda c: dataclasses.replace(
         c, field_bc_lo=("absorbing_silver_mueller", "pml")),
-        r"Queue A 11\.4", "Queue A 11_1"),
+        "Queue C", "Queue A 11_1"),
     _case(lambda c: dataclasses.replace(c, field_bc_hi=("damped", "pml")),
-          r"Queue A 11\.4", "Queue A 11_2"),
+          "Queue C", "Queue A 11_2"),
     _case(lambda c: dataclasses.replace(c, field_bc_lo=("periodic", "pml")),
-          r"Queue A 11\.4", "Queue A 11_3"),
-    _case(lambda c: dataclasses.replace(
-        c, particle_bc_lo=("thermal", "absorbing")), r"Queue A 11\.4",
-        "Queue A 11_4"),
+          "Queue C", "Queue A 11_3"),
+    _case(lambda c: dataclasses.replace(c, use_hybrid_qed=True),
+          "Queue C", "Queue A 11_4"),
     # the JAX package refuses a medium off the periodic torus
     _case(lambda c: dataclasses.replace(c, em_solver_medium="macroscopic"),
           "Queue C", "Queue A 11_5"),
     _case(lambda c: dataclasses.replace(c, field_bc_lo=("open", "pml")),
-          r"Queue A 11\.4", "Queue A 11_6"),
+          "Queue C", "Queue A 11_6"),
     (lambda c: dataclasses.replace(c, current_deposition="villasenor"),
      "Queue A 3"),
-    _case(lambda c: dataclasses.replace(c, grid_type="collocated"),
-          r"Queue A 11\.4", "Queue A 11_7"),
     _case(lambda c: dataclasses.replace(
-        c, field_gathering="momentum-conserving"), r"Queue A 11\.4",
-        "Queue A 11_8"),
+        c, lattice_elements=(("quad", 0.0, 1e-6, 1e12, 1.0),)), "Queue C",
+        "Queue A 11_7"),
+    _case(lambda c: dataclasses.replace(
+        c, field_gathering="momentum-conserving", field_centering_no=(8, 8)),
+        "Queue C", "Queue A 11_8"),
     # the NCI corrector runs on the bounded step since Queue A 11.3
     # (tests/test_torch_nci.py); the hybrid solver, which the JAX package's
     # bounded step advances by Yee, is refused (the case keeps its id)
     pytest.param(lambda c: dataclasses.replace(c, em_solver="hybrid"),
                  "Queue C", id="<lambda>-Queue A 11.3"),
+    # the JAX package reads a laser's continuous injection and runs
+    # without it; a lasy laser runs since Queue A 11.2
+    # (tests/test_torch_laser_file.py), a parsed-field laser is refused by
+    # the JAX reader
     _case(lambda c: dataclasses.replace(c, lasers=(dataclasses.replace(
-        c.lasers[0], do_continuous_injection=True),)), r"Queue A 11\.4",
+        c.lasers[0], do_continuous_injection=True),)), "Queue C",
         "Queue A 11_9"),
-    # a lasy laser runs since Queue A 11.2 (tests/test_torch_laser_file.py);
-    # a parsed-field laser still waits
     _case(lambda c: dataclasses.replace(c, lasers=(dataclasses.replace(
-        c.lasers[0], profile="parse_field"),)), r"Queue A 11\.4",
+        c.lasers[0], profile="parse_field"),)), "Queue C",
         "Queue A 11_10"),
-    _case(lambda c: _with_species(c, 1, do_not_deposit=True),
-          r"Queue A 11\.4", "Queue A 11_11"),
+    _case(lambda c: dataclasses.replace(
+        c, em_solver="psatd",
+        field_bc_lo=("absorbing_silver_mueller", "pml")),
+        "Queue C", "Queue A 11_11"),
     (lambda c: _with_species(c, 1, do_qed_quantum_sync=True,
                              qed_product="electrons"), "Queue C"),
-    _case(lambda c: _with_species(c, 0, momentum_distribution="gaussian",
-                                  ux_th=0.01), r"Queue A 11\.4",
-          "Queue A 11_12"),
+    _case(lambda c: _with_species(c, 0,
+                                  momentum_distribution="maxwell_boltzmann",
+                                  theta=0.01), "Queue C", "Queue A 11_12"),
     _case(lambda c: _with_species(c, 0, profile="predefined"),
-          r"Queue A 11\.4", "Queue A 11_13"),
+          "Queue C", "Queue A 11_13"),
     _case(lambda c: _with_species(c, 0, injection_style="nrandompercell",
                                   num_particles_per_cell=2),
-          r"Queue A 11\.4", "Queue A 11_14"),
+          "Queue C", "Queue A 11_14"),
 ])
 def test_unported_bounded_branches_raise(jax_lwfa, change, match):
     """Every branch of the JAX package's bounded step that the port lacks

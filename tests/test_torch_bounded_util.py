@@ -33,11 +33,10 @@ FIELDS = ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")
 RTOL = 1e-9
 
 # fields of the JAX configuration that the port lacks and that no ported
-# branch reads: the centering order of momentum-conserving gathering
-# (refused), the refinement ratio (read with max_level > 0 only), verbosity,
-# and the deck's constants at the top level (the port's parsed profiles
-# read each species' copy)
-_UNREAD = {"field_centering_no", "ref_ratio", "verbose", "user_constants"}
+# branch reads: the refinement ratio (read with max_level > 0 only),
+# verbosity, and the deck's constants at the top level (the port's parsed
+# profiles read each species' copy)
+_UNREAD = {"ref_ratio", "verbose", "user_constants"}
 
 
 def _default(f):

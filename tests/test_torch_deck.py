@@ -226,16 +226,21 @@ electrons.density = 1.e24
     # test_torch_electrostatic.py), ECT, the implicit schemes and the
     # embedded boundary since its second half (tests/test_torch_ect.py,
     # test_torch_implicit.py); an embedded boundary under PSATD keeps the
-    # JAX reader's refusal, hybrid QED still waits and the scraping buffer
-    # of the embedded boundary too (the cases keep their ids)
+    # JAX reader's refusal.  Hybrid QED and the scraping buffers run since
+    # Queue A 11.4 (tests/test_torch_collocated.py,
+    # test_torch_particle_walls.py): hybrid QED off PSATD on a collocated
+    # grid and current centering on the hybrid grid keep the JAX reader's
+    # refusals (the cases keep their ids)
     pytest.param("algo.maxwell_solver = psatd\n"
                  'warpx.eb_implicit_function = "x"', "Queue C",
                  id="algo.maxwell_solver = hybrid-Queue A 11.3"),
-    pytest.param("warpx.use_hybrid_QED = 1", "Queue A 11.3",
+    pytest.param("warpx.use_hybrid_QED = 1", "Queue C",
                  id="warpx.do_electrostatic = labframe-Queue A 11.3"),
     pytest.param("algo.evolve_scheme = theta_implicit_em\n"
                  'warpx.eb_implicit_function = "x"\n'
-                 "electrons.save_particles_at_eb = 1", "Queue A 11.4",
+                 "electrons.save_particles_at_eb = 1\n"
+                 "warpx.grid_type = hybrid\n"
+                 "warpx.do_current_centering = 1", "Queue C",
                  id="algo.evolve_scheme = theta_implicit_em-Queue A 11.3"),
     # collisions run since Queue A 11.1; a collision key neither reader
     # reads still raises, naming the item (the case keeps its id)
@@ -250,8 +255,16 @@ electrons.density = 1.e24
                  "Queue C",
                  id="lasers.names = laser1\nlaser1.delay = 1.e-15-"
                     "Queue A 11.2"),
-    ("electrons.rigid_advance = 0", "Queue A 11.4"),
-    ("electrons.zinject_plane = 0.", "Queue A 11.4"),
+    # rigid injection runs since Queue A 11.4 (tests/test_torch_beamline
+    # .py): a lattice in a boosted frame keeps the JAX reader's refusal,
+    # and the plane of a species not listed in
+    # particles.rigid_injected_species is read by neither reader (the
+    # cases keep their ids)
+    pytest.param("electrons.rigid_advance = 0\nwarpx.gamma_boost = 10.\n"
+                 "lattice.elements = q1", "Queue C",
+                 id="electrons.rigid_advance = 0-Queue A 11.4"),
+    pytest.param("electrons.zinject_plane = 0.", "Queue C",
+                 id="electrons.zinject_plane = 0.-Queue A 11.4"),
     # the JAX package writes it as a Full diagnostic (the case keeps its id)
     pytest.param(
         "diagnostics.diags_names = diag1\ndiag1.diag_type = TimeAveraged",

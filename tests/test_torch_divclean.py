@@ -94,9 +94,12 @@ def test_cleaning_operators_match_jax(ndim):
         pairs.append((getattr(jB, nm), getattr(tB, nm), nm))
     for ref, got, what in pairs:
         assert_close(got.numpy(), np.asarray(ref), what)
-    with pytest.raises(NotImplementedError, match=r"Queue A 11\.4"):
+    # the collocated grid's centered differences (since Queue A 11.4)
+    assert_close(
         yee.evolve_f(torch.from_numpy(F), tf, torch.from_numpy(rho), tg, dt,
-                     algo="nodal")
+                     algo="nodal").numpy(),
+        np.asarray(jyee.evolve_f(jnp.asarray(F), jf, jnp.asarray(rho), jg,
+                                 dt, "nodal")), "F nodal")
 
 
 def _plasma_cfgs(algo, **kw):

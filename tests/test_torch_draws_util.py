@@ -76,6 +76,11 @@ class ReplayDraws:
         self.key = keys[0]
         return tuple(_Leaf(k, self.device) for k in keys[1:])
 
+    def fold_in(self, i):
+        """``jax.random.fold_in(key, i)`` of the carried key, which stays
+        (the Gaussian continuous injection reads the state's key so)."""
+        return _Leaf(jax.random.fold_in(self.key, i), self.device)
+
 
 def jax_run(text, steps=None, hook=None):
     """The deck through the JAX package (float64, CPU, per particle):

@@ -457,14 +457,21 @@ def test_cli_runs_an_injection_deck(tmp_path, capsys, kind):
     ("single.addRealAttributes = orig_z\n"
      "single.attribute.orig_z(x,y,z,ux,uy,uz,t) = z", "Queue A 11.6"),
     ("warpx.start_moving_window_step = 3", "Queue A 11.6"),
-    ("boundary.single.u_th = 0.1", "Queue A 11.4"),
-    ("single.save_particles_at_zlo = 1", "Queue A 11.4"),
+    # the thermal walls' spread and the scraping buffers are read since
+    # Queue A 11.4 (tests/test_torch_particle_walls.py): the spread of a
+    # species the deck lacks and a face that is none are read by neither
+    # reader, and a parsed-field laser keeps the JAX reader's refusal (the
+    # cases keep their ids)
+    pytest.param("boundary.nosuch.u_th = 0.1", "Queue C",
+                 id="boundary.single.u_th = 0.1-Queue A 11.4"),
+    pytest.param("single.save_particles_at_zmid = 1", "Queue C",
+                 id="single.save_particles_at_zlo = 1-Queue A 11.4"),
     ("single.random_theta = 0", "Queue A 12"),
     # warpx.poisson_solver is read since Queue A 11.3's first half, the
-    # embedded boundary since its second half; its scraping buffer still
-    # waits (the case keeps its id)
+    # embedded boundary since its second half (the case keeps its id)
     pytest.param("warpx.eb_implicit_function = x\n"
-                 "single.save_particles_at_eb = 1", "Queue A 11.4",
+                 "single.save_particles_at_eb = 1\n"
+                 "lasers.names = l1\nl1.profile = parse_field", "Queue C",
                  id="warpx.poisson_solver = fft-Queue A 11.3"),
     ("warpx.do_pml_j_damping = 1", "Queue C"),
     ("single.frobnicate = 1", "Queue C"),

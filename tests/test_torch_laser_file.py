@@ -153,7 +153,7 @@ def test_lasy_deck_matches_jax_and_gaussian(tmp_path):
 def test_lasy_deck_refusals(tmp_path):
     """As in the JAX reader: a from_file laser needs a lasy file (binary
     files are refused, ROADMAP.md Queue C) that exists; other profiles
-    wait for Queue A 11.4."""
+    are refused as the JAX reader refuses them (Queue C)."""
     base = _DECK.format(emax=E_MAX, wl=WAVELENGTH) + "lasy.profile = {p}\n"
     with pytest.raises(NotImplementedError, match="binary_file_name.*Queue C"):
         config_from_deck(Deck.from_string(base.format(p="from_file")))
@@ -161,5 +161,5 @@ def test_lasy_deck_refusals(tmp_path):
         config_from_deck(Deck.from_string(
             base.format(p="from_file") + "lasy.lasy_file_name = "
             f"{tmp_path / 'absent.h5'}\n"))
-    with pytest.raises(NotImplementedError, match=r"Queue A 11\.4"):
+    with pytest.raises(NotImplementedError, match="Queue C"):
         config_from_deck(Deck.from_string(base.format(p="parse_field")))

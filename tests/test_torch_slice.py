@@ -218,14 +218,20 @@ def test_state_round_trip_step(jax_runs, jax_runs_2d, ndim):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(current_deposition="villasenor"), "Queue A 3"),
-    (dict(field_gathering="momentum-conserving"), "Queue A 11"),
+    # momentum-conserving gathering and collocated grids run since Queue A
+    # 11.4 (tests/test_torch_collocated.py); a 2D lattice, whose fields the
+    # JAX package adds in 3D only, and hybrid QED off PSATD on a collocated
+    # grid are refused (the cases keep their ids)
+    pytest.param(dict(lattice_elements=(("quad", 0.0, 1e-6, 1e12, 1.0),)),
+                 "Queue C", id="kw1-Queue A 11"),
     # the NCI corrector runs since Queue A 11.3's first half
     # (tests/test_torch_nci.py); ECT runs on the bounded step since its
     # second half, and on the periodic step, where the JAX package drops
     # it for plain Yee, it is refused (the case keeps its id)
     pytest.param(dict(em_solver="ect"), "Queue C",
                  id="kw2-Queue A 11.3"),
-    (dict(grid_type="collocated"), "Queue A 11"),
+    pytest.param(dict(use_hybrid_qed=True), "Queue C",
+                 id="kw3-Queue A 11"),
 ])
 def test_pic_step_unported_features_raise(kw, match):
     """What the per-particle step does not cover names its ROADMAP item."""

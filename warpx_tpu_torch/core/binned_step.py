@@ -70,6 +70,14 @@ def binned_supported(cfg: SimConfig) -> bool:
         return False
     if cfg.grid_type != "staggered":
         return False
+    # the JAX package's periodic gate passes momentum-conserving gathering,
+    # the lattice and rigid injection, and its kernel then gathers the
+    # staggered fields, adds only the constant external fields and pushes
+    # every particle: here they go per particle (ROADMAP.md Queue C)
+    if cfg.field_gathering == "momentum-conserving" or cfg.lattice_elements:
+        return False
+    if any(sp.zinject_plane is not None for sp in cfg.species):
+        return False
     if not (1 <= cfg.particle_shape <= 3):
         return False
     if cfg.do_dive_cleaning or cfg.do_divb_cleaning:
@@ -109,8 +117,9 @@ def bounded_binned_supported(cfg: SimConfig) -> bool:
     ``core/bounded_step.py::step_binned``): the JAX package's
     ``bounded_binned_supported``.  Only the gather + push + deposit block
     moves onto the fused kernels; guard fills, J filter and fold, field
-    advance (FDTD or PSATD), PML, particle boundaries and continuous
-    injection are the per-particle step's."""
+    advance (FDTD or PSATD, Silver-Mueller faces), PML, particle boundaries
+    (thermal walls, scraping buffers) and continuous injection (Gaussian
+    momenta) are the per-particle step's."""
     geom = cfg.geometry
     if cfg.tiled_particles == "off":
         return False
@@ -143,7 +152,8 @@ def bounded_binned_supported(cfg: SimConfig) -> bool:
         return False
     if cfg.do_moving_window and cfg.moving_window_dir != geom.ndim - 1:
         return False
-    if cfg.collisions:  # the JAX package's ``binned_step.py:127``
+    # the JAX package's ``binned_step.py:127``
+    if cfg.collisions or cfg.lattice_elements:
         return False
     if any(n % t for n, t in zip(geom.n_cell, cfg.tile_size[-geom.ndim:])):
         return False
@@ -154,6 +164,7 @@ def bounded_binned_supported(cfg: SimConfig) -> bool:
                 or sp.species_type == "photon" or sp.mass == 0.0
                 or sp.do_field_ionization or sp.do_resampling
                 or sp.do_qed_quantum_sync or sp.do_qed_breit_wheeler
+                or sp.zinject_plane is not None
                 or sp.injection_style == "nfluxpercell"
                 or sp.pusher not in ("boris", "vay", "higuera")):
             return False

@@ -4,8 +4,11 @@ The counterpart of ``warpx_tpu.core.bounded_step`` (there one closure,
 ``make_bounded_kernels``; here the class ``BoundedStepper``) for the explicit
 FDTD and PSATD cases, 2D XZ and 3D:
 
-* per-face field boundaries (periodic | pec | pml) as guard fills on
-  ng-padded blocks (WarpX_PEC.cpp mirror rules, ``core/boundaries.py``); a
+* per-face field boundaries (periodic | pec | pml | absorbing Silver-Mueller
+  | none) as guard fills on ng-padded blocks (WarpX_PEC.cpp mirror rules,
+  ``core/boundaries.py``; zero guards elsewhere); a Silver-Mueller face owns
+  one guard cell whose fields the curls leave alone and whose transverse B
+  follows the first-order absorbing relation once a step; a
   component nodal in a bounded dimension stores n+1 values, both wall nodes
   included; PML strips are ordinary array regions (``core/domain.py``) that
   evolve the Berenger split fields ``aux["pml:<comp>:<axis>"]``;
@@ -25,7 +28,17 @@ FDTD and PSATD cases, 2D XZ and 3D:
 * the moving window: a whole-cell shift of every field array, domain edges
   accumulated on the host, continuous plasma injection into the newly
   uncovered cells (WarpXMovingWindow.cpp:139-479);
-* absorbing and reflecting particle boundaries;
+* absorbing, reflecting and thermal particle boundaries (a thermal wall
+  re-emits from the Gaussian flux distribution of ``boundary_u_th``), the
+  boundary-scraping buffers of what the faces and the embedded boundary
+  absorb (``aux["scrape:<species>:<face>:*"]``), continuous injection with
+  constant, parsed or Gaussian momenta;
+* collocated grids (the staggered up and down differences of the JAX
+  package on nodal arrays) and momentum-conserving gathering (the padded
+  blocks averaged to the nodes, ``mc_aux_pads``);
+* rigid injection (``core/step.py::rigid_push``), the accelerator
+  lattice's fields in 3D, and species that are not pushed, gather no field
+  or deposit nothing (do_not_*);
 * hyperbolic divergence cleaning (F/G, EvolveF.cpp / EvolveG.cpp): under
   FDTD the scalars advance half steps around the B pushes with their
   gradients fed back into E and B, and in the PML strips each term becomes
@@ -100,8 +113,9 @@ from .injection import (PARSED_PROFILES, _AXES3, _bulk_momentum,
                         _regular_unit_positions, profile_values)
 from .laser import update_antenna
 from .state import SimState
-from .step import (_add_ext, _apply_nci, collisions_substep,
-                   galilean_velocity, ionization_substep)
+from .step import (_add_ext, _apply_nci, check_lattice, collisions_substep,
+                   galilean_velocity, ionization_substep, nodal_staggering,
+                   rigid_push)
 
 __all__ = ["BoundedStepper", "guard_width", "field_shapes",
            "check_bounded_supported", "needs_bounded_step"]
@@ -196,8 +210,9 @@ def check_bounded_supported(cfg: SimConfig) -> None:
     elif cfg.em_solver == "psatd":
         for bc in tuple(cfg.field_bc_lo) + tuple(cfg.field_bc_hi):
             if bc not in ("periodic", "damped", "pml"):
-                no(f"PSATD with field boundary {bc!r} (the JAX package has "
-                   "periodic, damped and pml)", "Queue A 11.4")
+                # the JAX package's refusal (bounded_step.py:128-139)
+                no(f"PSATD with field boundary {bc!r} (the JAX package "
+                   "refuses it: periodic, damped and pml only)", "Queue C")
     elif cfg.em_solver in ("hybrid", "none"):
         no(f"em_solver {cfg.em_solver!r} on the bounded step (the JAX "
            "package's bounded step advances the fields by Yee there)",
@@ -206,9 +221,20 @@ def check_bounded_supported(cfg: SimConfig) -> None:
         raise NotImplementedError(f"maxwell solver {cfg.em_solver}")
     else:
         for bc in faces:
-            if bc not in ("periodic", "pec", "pml"):
-                no(f"field boundary {bc!r} (Silver-Mueller, damped, open)",
-                   "Queue A 11.4")
+            if bc in ("damped", "open"):
+                # the JAX package gives them zero guards and no damping
+                # under FDTD (bounded_step.py:519-560); the reference
+                # allows damped faces with PSATD only and open faces with
+                # the electrostatic solve
+                no(f"field boundary {bc!r} under FDTD (the JAX package runs "
+                   "it as a zero guard)", "Queue C")
+            if bc not in ("periodic", "pec", "pml",
+                          "absorbing_silver_mueller", "none"):
+                raise NotImplementedError(f"field boundary {bc!r}")
+        if "absorbing_silver_mueller" in faces and "pml" in faces:
+            # the JAX package's refusal (bounded_step.py:341-342)
+            no("mixing PML and Silver-Mueller (the JAX package refuses "
+               "it)", "Queue C")
     if cfg.em_solver == "ect" and not cfg.eb_implicit_function:
         no("the ECT solver without an embedded boundary (the JAX "
            "package's bounded step runs plain Yee curls then)", "Queue C")
@@ -246,10 +272,13 @@ def check_bounded_supported(cfg: SimConfig) -> None:
             "implicit schemes support periodic EM domains only")
     for lo, hi in zip(cfg.field_bc_lo, cfg.field_bc_hi):
         if (lo == "periodic") != (hi == "periodic"):
-            no("a dimension periodic on one face only", "Queue A 11.4")
+            # the JAX package reads the lower face's only (bounded_step.py:
+            # 133, 531); the reference aborts on such a deck
+            no("a dimension periodic on one face only (the JAX package "
+               "reads its lower face's condition for both)", "Queue C")
     for bc in tuple(cfg.particle_bc_lo) + tuple(cfg.particle_bc_hi):
-        if bc not in ("periodic", "absorbing", "reflecting"):
-            no(f"particle boundary {bc!r} (thermal walls)", "Queue A 11.4")
+        if bc not in ("periodic", "absorbing", "reflecting", "thermal"):
+            raise NotImplementedError(f"particle boundary {bc!r}")
     if cfg.em_solver_medium != "vacuum":
         # the JAX package refuses it off the periodic torus
         # (simulation.py:146-150)
@@ -260,10 +289,17 @@ def check_bounded_supported(cfg: SimConfig) -> None:
         no("Vay deposition on the bounded step", "Queue C")
     if cfg.current_deposition not in ("esirkepov", "direct"):
         no(f"current deposition {cfg.current_deposition!r}", "Queue A 3")
-    if cfg.grid_type != "staggered":
-        no(f"grid type {cfg.grid_type!r}", "Queue A 11.4")
-    if cfg.field_gathering == "momentum-conserving":
-        no("momentum-conserving gathering", "Queue A 11.4")
+    if cfg.field_gathering == "momentum-conserving" and any(
+            o != 2 for o in cfg.field_centering_no):
+        # the JAX package's bounded average is two-point whatever the
+        # order (bounded_step.py:693-710); its periodic one honours it
+        no("momentum-conserving gathering at centering order "
+           f"{tuple(cfg.field_centering_no)} on the bounded step (the JAX "
+           "package's bounded step averages two points)", "Queue C")
+    if cfg.use_hybrid_qed:
+        no("hybrid QED on the bounded step (the JAX package's bounded "
+           "step has no call to it)", "Queue C")
+    check_lattice(cfg)
     if cfg.do_qed_schwinger:
         no("Schwinger pair creation on the bounded step (the JAX package's "
            "bounded step skips it)", "Queue C")
@@ -278,17 +314,19 @@ def check_bounded_supported(cfg: SimConfig) -> None:
     laser_names = {las.name for las in cfg.lasers}
     for las in cfg.lasers:
         if las.profile not in ("gaussian", "from_file"):
-            no(f"laser profile {las.profile!r}", "Queue A 11.4")
+            # the JAX reader refuses it (deck.py:481-482)
+            no(f"laser profile {las.profile!r} (the JAX package refuses "
+               "it)", "Queue C")
         if las.do_continuous_injection:
-            no("continuous injection of a laser antenna", "Queue A 11.4")
+            # the JAX reader reads it (deck.py:289) and never uses it
+            no("continuous injection of a laser antenna (the JAX package "
+               "reads it and runs without it)", "Queue C")
     for sp in cfg.species:
         if sp.injection_style == "laser":
             if sp.name not in laser_names:
                 raise ValueError(f"laser species {sp.name!r} has no "
                                  "LaserConfig")
             continue
-        if sp.do_not_push or sp.do_not_gather or sp.do_not_deposit:
-            no(f"do_not_push/gather/deposit of {sp.name!r}", "Queue A 11.4")
         if sp.mass == 0.0 and sp.species_type != "photon":
             no(f"massless species {sp.name!r} that is not a photon (the JAX "
                "package's pusher divides by its mass)", "Queue C")
@@ -302,16 +340,20 @@ def check_bounded_supported(cfg: SimConfig) -> None:
                "name either)", "Queue C")
         if sp.do_continuous_injection:
             if sp.injection_style != "nuniformpercell":
-                no("continuous injection other than NUniformPerCell",
-                   "Queue A 11.4")
+                # the JAX package injects the regular lattice of
+                # NUniformPerCell whatever the style (bounded_step.py:1411)
+                no(f"continuous injection of {sp.injection_style!r} (the JAX "
+                   "package injects a regular lattice for it)", "Queue C")
             if sp.profile != "constant" and sp.profile not in PARSED_PROFILES:
-                no(f"continuous injection with the {sp.profile!r} profile",
-                   "Queue A 11.4")
-            if sp.momentum_distribution not in ("at_rest", "none", "constant",
-                                                "parse_momentum_function"):
+                no(f"continuous injection with the {sp.profile!r} profile "
+                   "(the JAX package has no density for it)", "Queue C")
+            if sp.momentum_distribution not in (
+                    "at_rest", "none", "constant", "parse_momentum_function",
+                    "gaussian"):
+                # the JAX package's refusal (bounded_step.py:1585-1588)
                 no("continuous injection with momentum distribution "
-                   f"{sp.momentum_distribution!r} (the JAX package draws it "
-                   "from jax.random)", "Queue A 11.4")
+                   f"{sp.momentum_distribution!r} (the JAX package refuses "
+                   "it)", "Queue C")
 
 
 def _slice(ndim, d, a, b):
@@ -390,7 +432,9 @@ class BoundedStepper:
             self.n_ext[d] + (1 if bounded[d] else 0) + 2 * self.ng
             for d in range(ndim))
         self.static_origin = layout.static_origin()
-        self.is_ckc = cfg.em_solver == "ckc"
+        # CKC's stencil is off on a collocated grid (JAX
+        # bounded_step.py:588)
+        self.is_ckc = cfg.em_solver == "ckc" and cfg.grid_type != "collocated"
         self.ckc = yee._ckc_coefs(geom) if self.is_ckc else None
         self.is_laser = {sp.name: sp.injection_style == "laser"
                          for sp in cfg.species}
@@ -445,6 +489,14 @@ class BoundedStepper:
                     self._damp[nm, d] = torch.as_tensor(
                         v.reshape(shape), **kw)
 
+        # --- Silver-Mueller faces
+        self._init_silver_mueller()
+        # momentum-conserving gathering: the padded blocks averaged to the
+        # nodes, gathered as nodal
+        self.mc_gather = cfg.field_gathering == "momentum-conserving"
+        self.gather_stag = (nodal_staggering(ndim, staggering)
+                            if self.mc_gather else staggering)
+
         # --- embedded boundary
         self._init_eb()
 
@@ -471,6 +523,70 @@ class BoundedStepper:
             # every zshift handed to the kernels, for the callers that check
             # the moving-window mode really ran
             self.zshifts_seen = set()
+
+    def _init_silver_mueller(self):
+        """The absorbing Silver-Mueller faces (ApplySilverMuellerBoundary
+        .cpp:185-330; JAX bounded_step.py:330-395): one guard cell per
+        such face (``DomainLayout``) whose E and B never evolve by the
+        curls (``sm_mask``); the transverse B there follows the first-order
+        absorbing relation once a step, after the first B half push, with
+        the whole step's coefficients (WarpXFieldBoundaries.cpp:136-140)."""
+        cfg = self.cfg
+        ndim = self.ndim
+        self.sm_lo = [bc == "absorbing_silver_mueller" for bc in self.bc_lo]
+        self.sm_hi = [bc == "absorbing_silver_mueller" for bc in self.bc_hi]
+        self.sm_mask = None
+        if not (any(self.sm_lo) or any(self.sm_hi)):
+            return
+        self.sm_mask = {}
+        for nm in _EB:
+            m = np.zeros(self.shapes[nm], bool)
+            for d in range(ndim):
+                if self.sm_lo[d]:
+                    m[(slice(None),) * d + (0,)] = True
+                if self.sm_hi[d]:
+                    m[(slice(None),) * d + (self.shapes[nm][d] - 1,)] = True
+            self.sm_mask[nm] = torch.as_tensor(m, device=self.device)
+        self.sm_c1, self.sm_c2 = [], []
+        for d in range(ndim):
+            cdt = _c * cfg.dt / cfg.geometry.dx[d]
+            self.sm_c1.append((1.0 - cdt) / (1.0 + cdt))
+            self.sm_c2.append(2.0 * cdt / (1.0 + cdt) / _c)
+
+    def apply_silver_mueller(self, fields):
+        """The Silver-Mueller update of the transverse B guards: on the
+        upper face B_t = c1 B_t + s c2 E_p at the wall node inside the
+        guard (E's index n - 2, B's n - 1), on the lower face B_t = c1 B_t -
+        s c2 E_p at index 1 and 0, s the Levi-Civita sign of (normal, t,
+        p) negated."""
+        ndim = self.ndim
+        upd = {nm: getattr(fields, nm) for nm in ("Bx", "By", "Bz")}
+        for d in range(ndim):
+            if not (self.sm_lo[d] or self.sm_hi[d]):
+                continue
+            ia = _COMP_AXIS[self.axes[d]]
+            c1, c2 = self.sm_c1[d], self.sm_c2[d]
+            for it in range(3):
+                if it == ia:
+                    continue
+                ip = 3 - ia - it
+                # +1 cyclic, -1 anticyclic
+                sgn_hi = -float(((ia - it) * (it - ip) * (ip - ia)) // 2)
+                tname = "B" + "xyz"[it]
+                E = getattr(fields, "E" + "xyz"[ip])
+                B = upd[tname]
+                if self.sm_hi[d]:
+                    gi = B.shape[d] - 1
+                    new = (c1 * B.select(d, gi)
+                           + sgn_hi * c2 * E.select(d, E.shape[d] - 2))
+                    B = B.clone()
+                    B.select(d, gi).copy_(new)
+                if self.sm_lo[d]:
+                    new = c1 * B.select(d, 0) - sgn_hi * c2 * E.select(d, 1)
+                    B = B.clone()
+                    B.select(d, 0).copy_(new)
+                upd[tname] = B
+        return fields.replace(**upd)
 
     def _init_eb(self):
         """The embedded boundary (JAX bounded_step.py:413-481): the
@@ -615,7 +731,8 @@ class BoundedStepper:
         of the nodal J (weights w u/gamma), B += curl A.  E and B are
         replaced, phi stored."""
         from ..diagnostics.fields import deposit_total_rho
-        from ..solvers.electrostatic import (phi_to_b, phi_to_e_beta,
+        from ..solvers.electrostatic import (phi_to_b, phi_to_b_nodal,
+                                             phi_to_e_beta, phi_to_e_nodal,
                                              solve_open_igf,
                                              vector_potential_b)
 
@@ -635,11 +752,15 @@ class BoundedStepper:
             else:
                 phi = backend.solve(rho, phi_b if gi == 0 else None)
             phi_tot = phi if phi_tot is None else phi_tot + phi
-            for nm, e in zip(names, phi_to_e_beta(phi, geom, periodic,
-                                                  beta_act)):
+            # a collocated grid takes the nodal gradients (JAX
+            # bounded_step.py:2066-2073)
+            collocated = cfg.grid_type == "collocated"
+            to_e = phi_to_e_nodal if collocated else phi_to_e_beta
+            to_b = phi_to_b_nodal if collocated else phi_to_b
+            for nm, e in zip(names, to_e(phi, geom, periodic, beta_act)):
                 upd[nm] = upd[nm] + e
             if any(b != 0.0 for b in beta3):
-                for i, b in phi_to_b(phi, geom, periodic, beta3).items():
+                for i, b in to_b(phi, geom, periodic, beta3).items():
                     if b is not None:
                         upd["B" + "xyz"[i]] = upd["B" + "xyz"[i]] + b
         if self.es_ms_solver is not None:
@@ -695,6 +816,7 @@ class BoundedStepper:
             current_correction=cfg.psatd_current_correction,
             v_galilean=cfg.psatd_v_galilean,
             v_comoving=cfg.psatd_v_comoving, single_box=True,
+            collocated_grid=cfg.grid_type == "collocated",
             time_averaging=cfg.psatd_time_averaging,
             dive_cleaning=cfg.do_dive_cleaning,
             divb_cleaning=cfg.do_divb_cleaning,
@@ -718,6 +840,7 @@ class BoundedStepper:
         # regular fields in the interior every step (PML::Exchange)
         self.psatd_pml = PsatdPmlSolver(
             ext_geom, self.staggering, cfg.dt, n_order=cfg.psatd_order,
+            collocated_grid=cfg.grid_type == "collocated",
             v_galilean=cfg.psatd_v_galilean,
             dive_cleaning=cfg.do_pml_dive_cleaning,
             divb_cleaning=cfg.do_pml_divb_cleaning,
@@ -927,12 +1050,42 @@ class BoundedStepper:
         return {name: self.pad_eb(getattr(fields, name + suffix), name)
                 for name in _EB}
 
-    def _gather(self, pos, farr_pad, origin):
+    def mc_aux_pads(self, farr_pad):
+        """The padded staggered blocks averaged to the nodes for
+        momentum-conserving gathering (UpdateAuxilaryDataStagToNodal on the
+        padded block; JAX bounded_step.py:692-710): the two-point average
+        along each staggered axis, the first entry zero (a guard the
+        gather never reads)."""
+        out = {}
+        for name, a in farr_pad.items():
+            for d, flag in enumerate(self.staggering[name]):
+                if flag == 0:
+                    n = a.shape[d]
+                    core = 0.5 * (a.narrow(d, 0, n - 1) + a.narrow(d, 1, n - 1))
+                    a = torch.cat([torch.zeros_like(a.narrow(d, 0, 1)), core],
+                                  dim=d)
+            out[name] = a
+        return out
+
+    def _gather_blocks(self, fields, use_avg=False):
+        """The padded blocks a gather reads: through the NCI corrector
+        under use_nci_corr, averaged to the nodes under
+        momentum-conserving gathering (``self.gather_stag``)."""
+        farr_pad = self._padded_eb(fields, use_avg)
+        if self.cfg.use_nci_corr:
+            farr_pad = _apply_nci(farr_pad, self.cfg)
+        if self.mc_gather:
+            farr_pad = self.mc_aux_pads(farr_pad)
+        return farr_pad
+
+    def _gather(self, pos, farr_pad, origin, u3=None):
+        """The fields at ``pos`` with the external ones (and, given the
+        momenta ``u3``, the lattice's)."""
         return _add_ext(
-            gather_eb(pos, farr_pad, self.staggering, self.cfg.geometry,
+            gather_eb(pos, farr_pad, self.gather_stag, self.cfg.geometry,
                       self.cfg.particle_shape, self.cfg.galerkin,
                       origin=origin, wrap=False, offset=self.ng),
-            self.cfg)
+            self.cfg, pos=pos, u3=u3)
 
     def _wrap_periodic(self, pos):
         """Wrap the periodic particle dims into the (static) domain."""
@@ -990,11 +1143,9 @@ class BoundedStepper:
         origin = self.gal_origin_at(origin0, state)
         origin_j = self.gal_origin_at(origin0, state, 0.5)
         origin_new = self.gal_origin_at(origin0, state, 1.0)
-        farr_pad = self._padded_eb(
+        farr_pad = self._gather_blocks(
             state.fields,
             use_avg=cfg.em_solver == "psatd" and cfg.psatd_time_averaging)
-        if cfg.use_nci_corr:
-            farr_pad = _apply_nci(farr_pad, cfg)
         if any(c.kind == "background_mcc" for c in cfg.collisions) and (
                 draws is None):
             raise ValueError("MCC collisions draw random numbers: pass "
@@ -1012,12 +1163,13 @@ class BoundedStepper:
             state = ionization_substep(
                 state, cfg,
                 lambda pos: gather_eb(
-                    pos, farr_pad, self.staggering, cfg.geometry,
+                    pos, farr_pad, self.gather_stag, cfg.geometry,
                     cfg.particle_shape, cfg.galerkin, origin=origin,
                     wrap=False, offset=self.ng),
                 draws)
         j_total = rho_old = rho_new = None
         new_species = {}
+        aux_updates = {}
         for sp_cfg in cfg.species:
             sp = state.species[sp_cfg.name]
             if sp.capacity == 0:
@@ -1036,13 +1188,24 @@ class BoundedStepper:
                 continue
             else:
                 pos = sp.positions(ndim)
-                e6 = self._gather(pos, farr_pad, origin)
-                ux, uy, uz = PUSHERS[sp_cfg.pusher](
-                    sp.ux, sp.uy, sp.uz, *e6, sp_cfg.charge, sp_cfg.mass,
-                    cfg.dt)
-                sp_new = sp.replace(ux=ux, uy=uy, uz=uz).with_positions(
-                    ndim, position_step(pos, ux, uy, uz, cfg.dt, ndim))
+                if sp_cfg.do_not_gather:
+                    e6 = (torch.zeros_like(sp.ux),) * 6
+                else:
+                    e6 = self._gather(pos, farr_pad, origin,
+                                      u3=(sp.ux, sp.uy, sp.uz))
+                if sp_cfg.do_not_push:
+                    u3, new_pos = (sp.ux, sp.uy, sp.uz), pos
+                else:
+                    u3, new_pos, upd = rigid_push(state, sp_cfg, cfg, pos,
+                                                  sp, e6, cfg.dt, ndim)
+                    aux_updates.update(upd)
+                sp_new = sp.replace(ux=u3[0], uy=u3[1],
+                                    uz=u3[2]).with_positions(ndim, new_pos)
                 q_eff = sp_cfg.charge
+            if sp_cfg.do_not_deposit:
+                new_species[sp_cfg.name] = sp_new.with_positions(
+                    ndim, self._wrap_periodic(sp_new.positions(ndim)))
+                continue
             if self.need_rho:
                 zero = torch.zeros_like(sp.w)
                 rho_old = self._deposit_rho(
@@ -1065,8 +1228,9 @@ class BoundedStepper:
             # no deposit and no field advance: the Poisson solve follows
             # the particle boundaries (WarpXEvolve.cpp:269-283)
             return state.replace(species=new_species, step=state.step + 1,
-                                 time=state.time + cfg.dt)
-        return self.field_tail(state, new_species, j_total, {},
+                                 time=state.time + cfg.dt,
+                                 aux={**state.aux, **aux_updates})
+        return self.field_tail(state, new_species, j_total, aux_updates,
                                rho_old, rho_new)
 
     # ------------------------------------------------------------ field tail
@@ -1144,6 +1308,10 @@ class BoundedStepper:
                         aux[key] = split
                         tot = split if tot is None else tot + split
                     reg = torch.where(self.pml_owned[nm], tot, reg)
+                if self.sm_mask is not None and nm in self.sm_mask:
+                    # the Silver-Mueller guards never evolve by the curls
+                    reg = torch.where(self.sm_mask[nm], getattr(fields, nm),
+                                      reg)
                 if self.eb_mask is not None and nm in self.eb_mask:
                     # covered components stay frozen (staircase EB)
                     reg = torch.where(self.eb_mask[nm], reg,
@@ -1174,6 +1342,8 @@ class BoundedStepper:
         if divb:
             fields = advance(fields, ("G",), _c2, 0.5 * dt)
         fields = advance_b(fields, 0.5 * dt)
+        if self.sm_mask is not None:
+            fields = self.apply_silver_mueller(fields)
         fields = advance(fields, e_comps, _c2, dt, with_j=True)
         if dive:
             fields = advance(fields, ("F",), 1.0, 0.5 * dt,
@@ -1284,11 +1454,14 @@ class BoundedStepper:
             arr.narrow(w, num_shift, n - num_shift))
         return out
 
-    def continuous_injection(self, state, sp_cfg, sp, phys_lo, new_hi):
+    def continuous_injection(self, state, sp_cfg, sp, phys_lo, new_hi,
+                             draws=None):
         """Inject plasma into the whole cells newly uncovered at the window's
         top (WarpXMovingWindow.cpp:395-440 with AddPlasma's layout).  The
         j-th selected candidate takes the j-th free slot; asking for the
-        free slots waits for the device."""
+        free slots waits for the device.  Gaussian momenta draw from
+        ``draws`` folded with the step and the species (JAX
+        bounded_step.py:1565-1578)."""
         cfg = self.cfg
         geom = cfg.geometry
         ndim, wdir = self.ndim, self.wdir
@@ -1358,6 +1531,19 @@ class BoundedStepper:
         elif sp_cfg.momentum_distribution == "parse_momentum_function":
             u_new = [profile_values(e, sp_cfg, lab, ndim).to(self.dtype) * _c
                      for e in sp_cfg.momentum_exprs]
+        elif sp_cfg.momentum_distribution == "gaussian":
+            if draws is None:
+                raise ValueError("Gaussian continuous injection draws "
+                                 "random numbers: pass a utils.draws source")
+            # the JAX package folds the key with the step and Python's
+            # (per-process salted) hash of the name; a source replaying its
+            # chain takes the same hash in the same process
+            ks = draws.fold_in(state.step).fold_in(
+                abs(hash(sp_cfg.name)) % (2 ** 31)).split(3)
+            u_new = [(mu + (th or 0.0) * k.normal((npart,), self.dtype)) * _c
+                     for mu, th, k in zip(
+                         (sp_cfg.ux, sp_cfg.uy, sp_cfg.uz),
+                         (sp_cfg.ux_th, sp_cfg.uy_th, sp_cfg.uz_th), ks)]
         else:  # at rest
             u_new = [torch.zeros(npart, **kw) for _ in range(3)]
         if gb > 1.0:
@@ -1395,11 +1581,14 @@ class BoundedStepper:
         aux[key] = new_pos
         return state.replace(aux=aux), new
 
-    def step_window(self, state: SimState, move_j: bool) -> SimState:
+    def step_window(self, state: SimState, move_j: bool,
+                    draws=None) -> SimState:
         """MoveWindow and the particle boundaries: advance the window's host
         scalars, shift the fields and the PML splits (and J when
-        ``move_j``), inject into the uncovered cells, then absorb or reflect
-        what crossed a face."""
+        ``move_j``), inject into the uncovered cells, then record what
+        crossed a face into the scraping buffers, absorb it, and reflect
+        or re-emit it from a thermal wall; the Gaussian injection and the
+        thermal walls draw from ``draws``."""
         cfg = self.cfg
         ndim, wdir = self.ndim, self.wdir
         f = self._f
@@ -1464,12 +1653,13 @@ class BoundedStepper:
                     state, new_species[sp_cfg.name] = \
                         self.continuous_injection(
                             state, sp_cfg, new_species[sp_cfg.name],
-                            new_phys_lo, new_hi)
+                            new_phys_lo, new_hi, draws)
                 state = state.replace(species=new_species)
 
         origin = self.phys_lo_of(state)
         hi = self.domain_hi_of(state)
         new_species = {}
+        scrape = {}
         for sp_cfg in cfg.species:
             sp = state.species[sp_cfg.name]
             if sp.capacity == 0:
@@ -1477,6 +1667,9 @@ class BoundedStepper:
                 continue
             alive = sp.alive
             pos = list(sp.positions(ndim))
+            for face in sp_cfg.save_particles_at:
+                scrape.update(self._scrape(state, sp_cfg, sp, pos, face,
+                                           origin, hi))
             for d in range(ndim):
                 if self.pbc_lo[d] == "absorbing":
                     alive = alive & (pos[d] >= origin[d])
@@ -1488,19 +1681,96 @@ class BoundedStepper:
                 alive = alive & ~self.inside_eb(pos)
             u = {"x": sp.ux, "y": sp.uy, "z": sp.uz}
             for d in range(ndim):
-                ax = self.axes[d]
-                if self.pbc_lo[d] == "reflecting":
-                    ref = pos[d] < origin[d]
-                    pos[d] = torch.where(ref, 2 * origin[d] - pos[d], pos[d])
-                    u[ax] = torch.where(ref, -u[ax], u[ax])
-                if self.pbc_hi[d] == "reflecting":
-                    ref = pos[d] > hi[d]
-                    pos[d] = torch.where(ref, 2 * hi[d] - pos[d], pos[d])
-                    u[ax] = torch.where(ref, -u[ax], u[ax])
+                for bc, sign in ((self.pbc_lo[d], 1.0), (self.pbc_hi[d],
+                                                          -1.0)):
+                    if bc not in ("reflecting", "thermal"):
+                        continue
+                    wall = origin[d] if sign > 0 else hi[d]
+                    ref = pos[d] < wall if sign > 0 else pos[d] > wall
+                    pos[d] = torch.where(ref, 2 * wall - pos[d], pos[d])
+                    if bc == "thermal":
+                        self._thermalize(u, ref, d, sign, sp_cfg, draws)
+                    else:
+                        ax = self.axes[d]
+                        u[ax] = torch.where(ref, -u[ax], u[ax])
             new_species[sp_cfg.name] = sp.replace(
                 alive=alive, ux=u["x"], uy=u["y"], uz=u["z"],
             ).with_positions(ndim, pos)
-        return state.replace(species=new_species)
+        return state.replace(species=new_species,
+                             aux={**state.aux, **scrape} if scrape
+                             else state.aux)
+
+    def _scrape(self, state, sp_cfg, sp, pos, face, origin, hi) -> dict:
+        """Record the live particles of ``sp`` beyond absorbing ``face``
+        (or inside the embedded body for "eb") into its buffer
+        (ParticleBoundaryBuffer; JAX bounded_step.py:1759-1802): the k-th
+        of them in slot order takes record count + k; records past the
+        buffer's capacity are dropped while the count goes on.  Returns the
+        buffer's updated aux entries."""
+        ndim = self.ndim
+        if face == "eb":
+            if self.eb_phi is None:
+                return {}
+            crossed = sp.alive & self.inside_eb(pos)
+        elif face[0] not in self.axes:
+            return {}
+        else:
+            d = self.axes.index(face[0])
+            is_lo = face.endswith("lo")
+            if (self.pbc_lo[d] if is_lo else self.pbc_hi[d]) != "absorbing":
+                return {}
+            crossed = sp.alive & (pos[d] < origin[d] if is_lo
+                                  else pos[d] > hi[d])
+        pref = f"scrape:{sp_cfg.name}:{face}"
+        n0 = state.aux[f"{pref}:n"]
+        cap = state.aux[f"{pref}:w"].shape[0]
+        rank = torch.cumsum(crossed.to(torch.int64), 0) - 1
+        tgt = torch.where(crossed, n0.to(torch.int64) + rank,
+                          torch.full_like(rank, cap)).clamp_(max=cap)
+        recs = [("w", sp.w), ("ux", sp.ux), ("uy", sp.uy), ("uz", sp.uz)]
+        recs += [(f"p{d}", pos[d]) for d in range(ndim)]
+        recs.append(("step", torch.full_like(tgt, state.step)))
+        out = {}
+        for fld, arr in recs:
+            base = state.aux[f"{pref}:{fld}"]
+            # one slot past the buffer takes the rest and is cut away
+            buf = torch.cat([base, base.new_zeros(1)])
+            buf.scatter_(0, tgt, arr.to(base.dtype))
+            out[f"{pref}:{fld}"] = buf[:cap]
+        out[f"{pref}:n"] = n0 + crossed.sum(dtype=n0.dtype)
+        return out
+
+    def _thermalize(self, u, ref, d, side_sign, sp_cfg, draws):
+        """Thermal wall re-emission of the reflected particles ``ref``
+        (ParticleBoundaries_K.H:82-90; JAX bounded_step.py:1820-1851): the
+        normal u from the Gaussian flux distribution of spread u_th,
+        directed into the domain, the tangential ones Gaussian; each face
+        draws full-capacity vectors from three sources split from
+        ``draws``.  With u_th <= 0 the reflected particles stop."""
+        from .flux_injection import sample_gaussian_flux
+
+        uth = sp_cfg.boundary_u_th
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        if uth <= 0.0:
+            for ax in "xyz":
+                u[ax] = torch.where(ref, zero, u[ax])
+            return
+        if draws is None:
+            raise ValueError("thermal walls draw random numbers: pass "
+                             "step_window a utils.draws source")
+        cap = ref.shape[0]
+        k1, k2, k3 = draws.split(3)
+        ax_n = self.axes[d]
+        un = sample_gaussian_flux(k1, cap, 0.0, uth, self.dtype,
+                                  self.device) * _c
+        u[ax_n] = torch.where(ref, side_sign * un, u[ax_n])
+        ks = [k2, k3]
+        for ax in "xyz":
+            if ax == ax_n:
+                continue
+            u[ax] = torch.where(ref, uth * _c * ks.pop().normal((cap,),
+                                                                self.dtype),
+                                u[ax])
 
     # ------------------------------------------------------------- half push
     def half_push(self, state: SimState, dt_half: float) -> SimState:
@@ -1509,11 +1779,14 @@ class BoundedStepper:
         momenta by ``dt_half`` only."""
         origin = self.gal_origin_at(self.origin_of(state), state)
         farr_pad = self._padded_eb(state.fields)
+        if self.mc_gather:
+            farr_pad = self.mc_aux_pads(farr_pad)
         new_species = {}
         for sp_cfg in self.cfg.species:
             sp = state.species[sp_cfg.name]
             if (sp.capacity == 0 or self.is_laser[sp_cfg.name]
-                    or sp_cfg.species_type == "photon"):
+                    or sp_cfg.species_type == "photon"
+                    or sp_cfg.do_not_push):
                 new_species[sp_cfg.name] = sp
                 continue
             pos = sp.positions(self.ndim)
@@ -1521,7 +1794,9 @@ class BoundedStepper:
                 # binned layouts leave the positions unwrapped between
                 # rebins: wrap the gather's coordinate, not the state's
                 pos = self._wrap_periodic(pos)
-            e6 = self._gather(pos, farr_pad, origin)
+            # the JAX package's bounded half push adds the lattice
+            # (bounded_step.py:1932), its periodic one does not
+            e6 = self._gather(pos, farr_pad, origin, u3=(sp.ux, sp.uy, sp.uz))
             ux, uy, uz = PUSHERS[sp_cfg.pusher](
                 sp.ux, sp.uy, sp.uz, *e6, sp_cfg.charge, sp_cfg.mass,
                 dt_half)

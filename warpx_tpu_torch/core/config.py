@@ -14,8 +14,12 @@ classical radiation reaction, resampling, binary collisions (pairwise
 Coulomb, nuclear fusion, DSMC, background MCC and stopping), the
 electrostatic solvers, the Ohm's-law hybrid solver, the macroscopic medium,
 the Godfrey NCI corrector, the theta- and semi-implicit schemes with the
-Picard and Newton-GMRES solvers, cold fluid species, and embedded
-boundaries with the ECT solver; per-particle and tile-binned steps).  Fields keep the reference's names and defaults,
+Picard and Newton-GMRES solvers, cold fluid species, embedded
+boundaries with the ECT solver, absorbing Silver-Mueller and "none" FDTD
+faces, thermal walls and boundary-scraping buffers, collocated and hybrid
+grids with momentum-conserving gathering, hybrid QED, rigid injection, the
+accelerator lattice and the do_not_* species; per-particle and tile-binned
+steps).  Fields keep the reference's names and defaults,
 so a configuration built for ``warpx_tpu`` with these fields builds here
 with the same keyword arguments.  Features whose fields are absent come
 with later items of ROADMAP.md's Queue A.
@@ -131,6 +135,17 @@ class SpeciesConfig:
     do_not_deposit: bool = False
     pusher: str = "boris"  # boris | vay | higuera | boris_rr
     do_continuous_injection: bool = False
+    # boundary scraping: the faces whose absorbed particles are recorded
+    # (<species>.save_particles_at_xlo/... and _eb ->
+    # ParticleBoundaryBuffer), named "xlo", "zhi", "eb"
+    save_particles_at: Tuple[str, ...] = ()
+    # rigid injection (RigidInjectedParticleContainer): the species
+    # advances at its mean vz until it crosses the (boosted-frame) plane
+    zinject_plane: Optional[float] = None
+    rigid_advance: bool = True
+    # thermal particle boundary's re-emission spread (boundary.<sp>.u_th,
+    # units of c)
+    boundary_u_th: float = 0.0
     # QED processes (reference: <species>.do_qed_quantum_sync /
     # do_qed_breit_wheeler and product-species keys)
     do_qed_quantum_sync: bool = False
@@ -227,7 +242,11 @@ class SimConfig:
     em_solver: str = "yee"  # yee | ckc | psatd | hybrid | ect | none
     current_deposition: str = "esirkepov"
     field_gathering: str = "energy-conserving"
-    grid_type: str = "staggered"
+    grid_type: str = "staggered"  # staggered | collocated | hybrid
+    # staggered -> nodal interpolation order per active axis for
+    # momentum-conserving gathering (warpx.field_centering_no*; 2, hybrid
+    # grids 8); () takes 2
+    field_centering_no: Tuple[int, ...] = ()
     use_filter: bool = False
     filter_npass_each_dir: Tuple[int, ...] = ()  # () = one pass per axis
     use_nci_corr: bool = False
@@ -236,10 +255,12 @@ class SimConfig:
     seed: int = 0
     # bound peak memory of deposition tap intermediates (None = no chunking)
     deposit_chunk_size: int | None = 2_000_000
-    # per-dim field boundaries on the active axes: periodic | pec | pml
+    # per-dim field boundaries on the active axes: periodic | pec | pml |
+    # absorbing_silver_mueller | damped | open | none
     field_bc_lo: Tuple[str, ...] = ()
     field_bc_hi: Tuple[str, ...] = ()
-    # per-dim particle boundaries: periodic | absorbing | reflecting
+    # per-dim particle boundaries: periodic | absorbing | reflecting |
+    # thermal
     particle_bc_lo: Tuple[str, ...] = ()
     particle_bc_hi: Tuple[str, ...] = ()
     # moving window (reference: WarpXMovingWindow.cpp)
@@ -256,6 +277,13 @@ class SimConfig:
     # E and faces of B stay frozen (staircase), or the ECT solver's cut
     # cells under em_solver = ect
     eb_implicit_function: str = ""
+    # hybrid QED Maxwell (warpx.use_hybrid_QED, warpx.quantum_xi;
+    # WarpX_QED_Field_Pushers.cpp): PSATD on a collocated grid; xi c^2
+    use_hybrid_qed: bool = False
+    quantum_xi_c2: float = 1.1728865132395492e-35
+    # accelerator lattice: ("quad" | "plasmalens", z_start, z_end, dEdx,
+    # dBdx) laid out from z = 0 (Source/AcceleratorLattice/)
+    lattice_elements: Tuple = ()
     # Lorentz-boosted frame (warpx.gamma_boost / boost_direction; the
     # deck's geometry is given in lab coordinates and converted at parse
     # time)

@@ -18,8 +18,14 @@ the electrostatic solvers with wall potentials, the Ohm's-law hybrid
 solver, the macroscopic medium, the Godfrey NCI corrector, the theta- and
 semi-implicit schemes with their Picard and Newton-GMRES keys, cold fluid
 species, embedded boundaries (``warpx.eb_implicit_function`` and the
-``eb2.*`` builders) with the ECT solver, the tile-binned layout and its
-``tpu.*`` keys), with
+``eb2.*`` builders) with the ECT solver, absorbing Silver-Mueller faces,
+thermal walls (``boundary.<species>.u_th``), the scraping buffers
+(``<species>.save_particles_at_*``), collocated and hybrid grids
+(``warpx.grid_type``, ``warpx.field_centering_no*``), hybrid QED
+(``warpx.use_hybrid_QED``, ``warpx.quantum_xi``), rigid injection
+(``particles.rigid_injected_species``, ``<species>.zinject_plane``,
+``rigid_advance``), the accelerator lattice (``lattice.elements``), the
+tile-binned layout and its ``tpu.*`` keys), with
 the JAX reader's defaults and derived values (reference: Source/WarpX.cpp:466
 ReadParameters; Source/Initialization/PlasmaInjector.cpp), and the deck's
 outputs (``outputs_from_deck``: Full diagnostics in plotfile, openPMD or
@@ -286,6 +292,19 @@ def _species_from_deck(deck: Deck, name: str, ndim: int) -> SpeciesConfig:
         user_constants=tuple(sorted(deck.my_constants.items())),
         do_continuous_injection=bool(
             deck.get_int(f"{name}.do_continuous_injection", 0)),
+        # the scraping buffers, rigid injection and the thermal walls'
+        # spread as the JAX reader reads them (warpx_tpu/core/deck.py:
+        # 184-198, 214): zinject_plane only for a listed rigid species
+        save_particles_at=tuple(
+            f"{ax}{side}" for ax in "xyz" for side in ("lo", "hi")
+            if deck.get_bool(f"{name}.save_particles_at_{ax}{side}", False)
+        ) + (("eb",) if deck.get_bool(f"{name}.save_particles_at_eb", False)
+             else ()),
+        zinject_plane=(
+            g("zinject_plane", None) if name in deck.get_strings(
+                "particles.rigid_injected_species", []) else None),
+        rigid_advance=deck.get_bool(f"{name}.rigid_advance", True),
+        boundary_u_th=deck.get_real(f"boundary.{name}.u_th", 0.0),
         species_type=species_type,
         x_rms=g("x_rms", 0.0), y_rms=g("y_rms", 0.0), z_rms=g("z_rms", 0.0),
         x_m=g("x_m", 0.0), y_m=g("y_m", 0.0), z_m=g("z_m", 0.0),
@@ -816,12 +835,18 @@ def _gate_values(deck: Deck) -> None:
         raise NotImplementedError(
             "macroscopic medium on collocated grids (reference "
             "MacroscopicEvolveE.cpp:95 also forbids this)")
-    if (deck.get_bool("warpx.use_hybrid_QED", False)
-            or deck.contains("warpx.quantum_xi")):
-        # the JAX package runs hybrid QED with PSATD on a collocated grid
-        # only (warpx_tpu/core/deck.py:456-463)
-        _no("hybrid QED (warpx.use_hybrid_QED, warpx.quantum_xi), which "
-            "runs on the collocated grids of Queue A 11.4", "Queue A 11.3")
+    if deck.get_bool("warpx.use_hybrid_QED", False) and (
+            solver != "psatd" or _lower(deck, "warpx.grid_type",
+                                        "staggered") != "collocated"):
+        # the JAX reader's refusal (warpx_tpu/core/deck.py:456-463)
+        _no("hybrid QED Maxwell requires PSATD + collocated grid (as in "
+            "the reference's Hybrid_QED_Push; the JAX reader refuses it "
+            "too)", "Queue C")
+    if _lower(deck, "warpx.grid_type", "staggered") == "hybrid" and (
+            deck.get_bool("warpx.do_current_centering", False)):
+        # the JAX reader's refusal (warpx_tpu/core/deck.py:572-579)
+        _no("hybrid grid with warpx.do_current_centering = 1 (the JAX "
+            "reader refuses it too)", "Queue C")
     scheme = _lower(deck, "algo.evolve_scheme", "explicit")
     if scheme not in ("explicit", "theta_implicit_em", "semi_implicit_em"):
         # the JAX reader's refusals (warpx_tpu/core/deck.py:306-316)
@@ -838,7 +863,9 @@ def _gate_values(deck: Deck) -> None:
             _no("fluid species in a boosted frame (the JAX reader refuses "
                 "them)", "Queue C")
         if deck.get_strings("lattice.elements", []):
-            _no("accelerator lattice in a boosted frame", "Queue A 11.4")
+            # the JAX reader's refusal (warpx_tpu/core/deck.py:397-400)
+            _no("accelerator lattice in a boosted frame (the JAX reader "
+                "refuses it)", "Queue C")
     dep = _lower(deck, "algo.current_deposition",
                  _dep_default(solver, es))
     if dep not in ("esirkepov", "direct", "vay"):
@@ -876,8 +903,10 @@ def _laser_gates(deck: Deck) -> None:
             if not (is_loaded(fp) or os.path.exists(fp)):
                 raise FileNotFoundError(f"{nm}.lasy_file_name: {fp}")
         elif prof != "gaussian":
-            # reference: LaserProfilesImpl/LaserProfileParseField.cpp
-            _no(f"laser profile {prof!r} ({nm}.profile)", "Queue A 11.4")
+            # reference: LaserProfilesImpl/LaserProfileParseField.cpp; the
+            # JAX reader refuses it too (warpx_tpu/core/deck.py:481-482)
+            _no(f"laser profile {prof!r} ({nm}.profile; the JAX reader "
+                "refuses it)", "Queue C")
 
 
 def _psatd_gates(deck: Deck) -> None:
@@ -946,12 +975,6 @@ def _item_of_key(deck: Deck, key: str) -> str:
                                  "n_field_gather_buffer") or (
             head in species and tail == "random_theta"):
         return "Queue A 12"
-    if (tail in ("zinject_plane", "rigid_advance", "rigid_injected_species")
-            or tail.startswith(("save_particles_at_", "field_centering_no"))
-            or head == "lattice"
-            or head in deck.get_strings("lattice.elements", [])
-            or (head == "boundary" and tail.endswith(".u_th"))):
-        return "Queue A 11.4"
     if tail in _ITEM_11_6 or (head in species
                               and tail.startswith("attribute.")):
         return "Queue A 11.6"
@@ -1035,8 +1058,10 @@ def outputs_from_deck(deck: Deck) -> dict:
             btd.append(_btd_from_deck(deck, nm))
             continue
         if kind == "boundaryscraping":
-            _no(f"{nm}.diag_type = {kind}: the scraped particles' buffer",
-                "Queue A 11.4")
+            # the buffers themselves are Simulation.scraped_particles
+            _no(f"{nm}.diag_type = {kind} (the JAX package writes it as a "
+                "Full diagnostic of the instantaneous fields; the scraped "
+                "particles are Simulation.scraped_particles)", "Queue C")
         if kind != "full":
             # the JAX package writes any other type as a Full diagnostic
             # of the instantaneous fields (simulation.py:318-370)
@@ -1090,6 +1115,33 @@ def outputs_from_deck(deck: Deck) -> dict:
                 "warpx.checkpoint_signals", [])}
 
 
+def _lattice_from_deck(deck: Deck) -> tuple:
+    """The accelerator lattice laid out from z = 0 (AcceleratorLattice.cpp:
+    26-34 ReadLattice; JAX deck.py:1322-1347): a line recurses into its
+    elements, a drift advances z, a quad or plasma lens spans [z, z + ds)."""
+    out = []
+
+    def read(names, z):
+        for nm in names:
+            kind = _lower(deck, f"{nm}.type", "")
+            if kind == "line":
+                z = read(deck.get_strings(f"{nm}.elements", []), z)
+            elif kind == "drift":
+                z += deck.get_real(f"{nm}.ds", 0.0)
+            elif kind in ("quad", "plasmalens"):
+                ds = deck.get_real(f"{nm}.ds", 0.0)
+                out.append((kind, z, z + ds,
+                            deck.get_real(f"{nm}.dEdx", 0.0),
+                            deck.get_real(f"{nm}.dBdx", 0.0)))
+                z += ds
+            else:
+                raise NotImplementedError(f"lattice element type {kind}")
+        return z
+
+    read(deck.get_strings("lattice.elements", []), 0.0)
+    return tuple(out)
+
+
 def config_from_deck(deck: Deck) -> SimConfig:
     """The port's ``SimConfig`` from a parsed deck (raises
     ``NotImplementedError`` naming the ROADMAP.md item for what the port
@@ -1137,6 +1189,7 @@ def config_from_deck(deck: Deck) -> SimConfig:
                        for lo, hi in zip(field_lo, field_hi)))
 
     grid_type = _lower(deck, "warpx.grid_type", "staggered")
+    xi_q = deck.get_real("warpx.quantum_xi", None)
     max_step = deck.get_int("max_step", deck.get_int("warpx.max_step", 0))
     cfl = deck.get_real("warpx.cfl", 0.999)
     const_dt = deck.get_real("warpx.const_dt", None)
@@ -1216,9 +1269,21 @@ def config_from_deck(deck: Deck) -> SimConfig:
         particle_shape=deck.get_int("algo.particle_shape", 1),
         em_solver=em_solver,
         current_deposition=dep,
-        field_gathering=_lower(deck, "algo.field_gathering",
-                               "energy-conserving"),
+        use_hybrid_qed=deck.get_bool("warpx.use_hybrid_QED", False),
+        quantum_xi_c2=(xi_q * _C ** 2 if xi_q is not None
+                       else 1.1728865132395492e-35),
+        # hybrid grids default to momentum-conserving gathering at
+        # centering order 8 (parameters.rst:2223; JAX deck.py:948-966)
+        field_gathering=_lower(
+            deck, "algo.field_gathering",
+            "momentum-conserving" if grid_type == "hybrid"
+            else "energy-conserving"),
         grid_type=grid_type,
+        field_centering_no=tuple(
+            deck.get_int(f"warpx.field_centering_no{ax}",
+                         8 if grid_type == "hybrid" else 2)
+            for ax in {2: "xz", 3: "xyz"}[ndim]),
+        lattice_elements=_lattice_from_deck(deck),
         # the reference's default is use_filter = true (WarpX.cpp:158)
         use_filter=deck.get_bool("warpx.use_filter", True),
         filter_npass_each_dir=tuple(deck.get_ints(

@@ -106,7 +106,8 @@ def fill_amplitude(laser: LaserConfig, ndim: int, Xp, Yp, t):
                               float(t) + ld.t_min - laser.delay)
     if laser.profile != "gaussian":
         raise NotImplementedError(
-            f"laser profile {laser.profile!r} (ROADMAP.md Queue A 11.4)")
+            f"laser profile {laser.profile!r} (the JAX package refuses it "
+            "too; ROADMAP.md Queue C)")
     return gaussian_field(laser, ndim, Xp, Yp, t).real
 
 

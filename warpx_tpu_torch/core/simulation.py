@@ -31,7 +31,10 @@ macroscopic medium (``self.medium``) is built for the periodic step.  An
 implicit scheme steps through ``self.implicit`` (``solvers/implicit.py``)
 with no leapfrog half-pushes; cold fluids start from ``init`` into the
 state's ``aux``; under ECT the initial grid fields are zero on the covered
-edges and faces.  The
+edges and faces.  A collocated grid stages every component on the nodes;
+a rigid-injected species starts with its plane and mean v_z in ``aux``;
+the boundary-scraping buffers start empty and ``scraped_particles`` reads
+them.  The
 simulation runs on the CUDA device unless the caller names another
 device; with no GPU it raises rather than run on the CPU unasked.
 """
@@ -71,7 +74,7 @@ from .config import SimConfig
 from .deck import config_from_deck, outputs_from_deck
 from .domain import DomainLayout
 from .flux_injection import flux_capacity, make_flux_injector
-from .grid import yee_staggering
+from .grid import collocated_staggering, yee_staggering
 from .injection import (columns_to_state, inject_gaussian_beam_host,
                         inject_species_host, position_fills)
 from .laser import antenna_particles
@@ -173,7 +176,9 @@ class Simulation:
         # 'auto' takes the tile-binned path wherever it covers the
         # configuration, the per-particle step elsewhere
         self.binned = supported
-        self.staggering = yee_staggering(cfg.geometry.ndim)
+        self.staggering = (collocated_staggering(cfg.geometry.ndim)
+                           if cfg.grid_type == "collocated"
+                           else yee_staggering(cfg.geometry.ndim))
         # the theta- and semi-implicit schemes (JAX simulation.py:176-195):
         # periodic only, particles kept at integer times (no leapfrog
         # half-pushes around the step loop)
@@ -229,6 +234,7 @@ class Simulation:
         every other family is a ``PsatdSolver``."""
         cfg = self.cfg
         kw = dict(n_order=cfg.psatd_order,
+                  collocated_grid=cfg.grid_type == "collocated",
                   update_with_rho=cfg.psatd_update_with_rho,
                   single_box=cfg.psatd_periodic_single_box,
                   dtype=self.dtype, device=self.device)
@@ -398,6 +404,59 @@ class Simulation:
             extra["opticalDepthBW"] = qed_rng.exponential(size=cap).astype(ft)
         return dict(cols, extra=extra) if extra else cols
 
+    def _rigid_aux(self, sp_cfg, cols) -> dict:
+        """A rigid-injected species' plane in the boosted frame and the
+        mean v_z of its initial particles (RigidInjectedParticleContainer
+        .cpp:76, 105; JAX simulation.py:974-988), host numbers in the
+        state's precision."""
+        if sp_cfg.zinject_plane is None:
+            return {}
+        ft = cols["w"].dtype.type
+        a0 = cols["alive"]
+        uz = cols["uz"]
+        g = np.sqrt(1.0 + (cols["ux"] ** 2 + cols["uy"] ** 2 + uz ** 2)
+                    / 299792458.0 ** 2)
+        vzs = (uz / g)[a0]
+        return {f"zinject:{sp_cfg.name}": ft(sp_cfg.zinject_plane
+                                             / self.cfg.gamma_boost),
+                f"vzave:{sp_cfg.name}": ft(float(vzs.mean()) if vzs.size
+                                           else 0.0)}
+
+    def _with_scrape_buffers(self) -> None:
+        """The boundary-scraping buffers (ParticleBoundaryBuffer; JAX
+        simulation.py:1245-1260): per species and face of
+        ``save_particles_at``, a fill count and the species' capacity of
+        records (w, u, positions, step)."""
+        aux = dict(self.state.aux)
+        kw = dict(dtype=self.dtype, device=self.device)
+        ndim = self.cfg.geometry.ndim
+        for sp_cfg in self.cfg.species:
+            cap = self.state.species[sp_cfg.name].capacity
+            for face in sp_cfg.save_particles_at:
+                pref = f"scrape:{sp_cfg.name}:{face}"
+                aux[f"{pref}:n"] = torch.zeros((), dtype=torch.int32,
+                                               device=self.device)
+                for fld in ["w", "ux", "uy", "uz"] + [f"p{d}"
+                                                     for d in range(ndim)]:
+                    aux[f"{pref}:{fld}"] = torch.zeros(cap, **kw)
+                aux[f"{pref}:step"] = torch.zeros(cap, dtype=torch.int32,
+                                                  device=self.device)
+        self.state = self.state.replace(aux=aux)
+
+    def scraped_particles(self, species: str, face: str) -> Dict[str,
+                                                                  np.ndarray]:
+        """The particles of ``species`` absorbed at ``face`` ("xlo", ...,
+        "eb") so far (ParticleBoundaryBuffer::getParticleBuffer; JAX
+        simulation.py:1292-1303): w, ux, uy, uz, p0..p{ndim-1} and the
+        step, trimmed to the fill count.  The count goes on past the
+        buffer's capacity, whose records are dropped, as in the JAX
+        package."""
+        pref = f"scrape:{species}:{face}"
+        n = int(self.state.aux[f"{pref}:n"])
+        return {k.rsplit(":", 1)[-1]: v.detach().cpu().numpy()[:n]
+                for k, v in self.state.aux.items()
+                if k.startswith(pref + ":") and not k.endswith(":n")}
+
     def _capacity(self, sp_cfg, caps) -> int | None:
         """The slots of a species whose size the injection does not
         decide: a plane-emitting species' whole run of emission (at most
@@ -559,7 +618,7 @@ class Simulation:
         kw = dict(dtype=self.dtype, device=self.device)
         ft = torch.empty((), dtype=self.dtype).numpy().dtype
         caps = self._product_capacities()
-        species = {}
+        species, rigid = {}, {}
         for sp_cfg in cfg.species:
             if sp_cfg.injection_style == "gaussian_beam":
                 cols = inject_gaussian_beam_host(sp_cfg, geom, rng, ft,
@@ -570,6 +629,7 @@ class Simulation:
                     self._capacity(sp_cfg, caps), cfg.gamma_boost)
             species[sp_cfg.name] = columns_to_state(
                 self._with_extras(sp_cfg, cols), self.device)
+            rigid.update(self._rigid_aux(sp_cfg, cols))
         aux = {}
         if self.binned:
             species, aux = self._tile_layout(species)
@@ -590,7 +650,8 @@ class Simulation:
             # (ProjectionDivCleaner, WarpXInitData.cpp:589-591)
             fields = project_div_b(fields, geom)
         self.state = SimState(fields=fields, species=species, step=0,
-                              time=0.0, aux=aux)
+                              time=0.0, aux={**aux, **rigid})
+        self._with_scrape_buffers()
         self.is_synchronized = True
         return self.state
 
@@ -680,6 +741,7 @@ class Simulation:
                                                cfg.gamma_boost)
             host[sp_cfg.name] = self._with_extras(sp_cfg, cols,
                                                   pads.get(sp_cfg.name))
+            aux.update(self._rigid_aux(sp_cfg, cols))
             if sp_cfg.do_continuous_injection and cfg.do_moving_window:
                 aux[f"inject_pos:{sp_cfg.name}"] = ft.type(
                     geom.prob_hi[wdir] if cfg.moving_window_v > 0
@@ -724,6 +786,7 @@ class Simulation:
             position_fills(geom)) for nm, cols in host.items()}
         self.state = SimState(fields=fields, species=species, step=0,
                               time=0.0, aux=aux)
+        self._with_scrape_buffers()
         self.is_synchronized = True
         return self.state
 
@@ -856,7 +919,8 @@ class Simulation:
                 # MoveWindow and the particle boundaries; J moves along when
                 # synchronized (WarpXEvolve.cpp:246)
                 self.state = self.stepper.step_window(
-                    self.state, move_j=self.is_synchronized)
+                    self.state, move_j=self.is_synchronized,
+                    draws=self.draws)
                 if self.stepper.is_es:
                     # the electrostatic solve at the end of the PIC loop
                     # (WarpXEvolve.cpp:269-283)

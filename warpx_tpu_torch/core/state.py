@@ -32,7 +32,8 @@ __all__ = ["FieldState", "ParticleState", "SimState", "state_from_numpy",
 # continuously injected species
 HOST_AUX = ("window_x", "window_lo", "window_hi", "window_offset",
             "tile_anchor")
-_HOST_AUX_PREFIX = "inject_pos:"
+# the injection fronts, and the rigid-injection planes and mean speeds
+_HOST_AUX_PREFIX = ("inject_pos:", "zinject:", "vzave:")
 
 
 def is_host_aux(key: str) -> bool:

@@ -216,19 +216,54 @@ def _bounded_div(comp, cfg):
     return div_e, div_b
 
 
-def _components(state: SimState, cfg: SimConfig, staggering: Dict):
+def _nodal_aux_bounded(f, staggering: Dict, cfg: SimConfig) -> Dict:
+    """E and B averaged to the nodes, as momentum-conserving gathering
+    reads them (the aux fields; JAX diagnostics/fields.py:203-245): on a
+    periodic axis the two-point average or the Fornberg centering of order
+    ``field_centering_no``; on a bounded one the two-point average inside,
+    and half the edge value at either end (the unfilled zero guard)."""
+    from ..core.step import center_periodic
+
+    ndim = cfg.geometry.ndim
+    bc_lo = cfg.field_bc_lo or ("periodic",) * ndim
+    orders = cfg.field_centering_no or (2,) * ndim
+    out = {}
+    for name in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"):
+        a = getattr(f, name)
+        for d, flag in enumerate(staggering[name]):
+            if flag != 0:
+                continue
+            if bc_lo[d] != "periodic":
+                n = a.shape[d]
+                core = 0.5 * (a.narrow(d, 0, n - 1) + a.narrow(d, 1, n - 1))
+                a = torch.cat([0.5 * a.narrow(d, 0, 1), core,
+                               0.5 * a.narrow(d, n - 1, 1)], dim=d)
+            else:
+                a = center_periodic(a, d, orders[d])
+        out[name] = a
+    return out
+
+
+def _components(state: SimState, cfg: SimConfig, staggering: Dict,
+                aux: bool = True):
     """(comp, flags): ``comp(name)`` is a field on the physical region
     (the PML strips cropped away; the time-averaged E/B of averaged PSATD,
-    Efield_avg_fp), ``flags`` its nodal flags (Vay deposition stores the
-    nodal J that the solver derived from D)."""
+    Efield_avg_fp; with ``aux`` under momentum-conserving gathering the
+    nodal E/B the gather reads, which the outputs show,
+    CellCenterFunctor on Efield_aux), ``flags`` its nodal flags (Vay
+    deposition stores the nodal J that the solver derived from D)."""
     f = state.fields
     layout = DomainLayout.from_config(cfg)
     crops = ({name: layout.phys_slice(flags)
               for name, flags in staggering.items()}
              if layout.has_ext else None)
+    mc = (_nodal_aux_bounded(f, staggering, cfg)
+          if aux and cfg.field_gathering == "momentum-conserving" else {})
 
     def comp(name):
-        if (cfg.psatd_time_averaging and name[0] in "EB"
+        if name in mc:
+            arr = mc[name]
+        elif (cfg.psatd_time_averaging and name[0] in "EB"
                 and getattr(f, name + "_avg", None) is not None):
             arr = getattr(f, name + "_avg")
         else:
@@ -236,6 +271,7 @@ def _components(state: SimState, cfg: SimConfig, staggering: Dict):
         return arr if crops is None else arr[crops[name]]
 
     flags = dict(staggering)
+    flags.update({nm: (1,) * cfg.geometry.ndim for nm in mc})
     if cfg.current_deposition == "vay":
         flags.update({nm: (1,) * cfg.geometry.ndim
                       for nm in ("jx", "jy", "jz")})
@@ -333,11 +369,6 @@ def cell_centered_output(state: SimState, cfg: SimConfig, staggering: Dict,
     ``names`` only, when given); ``psatd`` is the periodic spectral solver
     under em_solver = psatd."""
     geom = cfg.geometry
-    if cfg.field_gathering == "momentum-conserving":
-        raise NotImplementedError(
-            "momentum-conserving gathering's output fields "
-            "(ROADMAP.md Queue A 11.4)"
-        )
 
     def want(name):
         return names is None or name in names
@@ -366,6 +397,7 @@ def cell_centered_output(state: SimState, cfg: SimConfig, staggering: Dict,
                                     geom.n_cell)
     if want("divE") or want("divB"):
         bc_lo = cfg.field_bc_lo or ("periodic",) * geom.ndim
+        div_e = div_b = None
         if all(bc == "periodic" for bc in bc_lo):
             # spectral i k.E under PSATD (DivEFunctor -> ComputeDivE)
             if cfg.em_solver == "psatd" and psatd is not None:
@@ -374,11 +406,14 @@ def cell_centered_output(state: SimState, cfg: SimConfig, staggering: Dict,
             else:
                 div_e = yee.compute_div_e(f, geom)
             div_b = yee.compute_div_b(f, geom)
-        else:
-            div_e, div_b = _bounded_div(comp, cfg)
-        if want("divE"):
+        elif cfg.grid_type == "staggered":
+            div_e, div_b = _bounded_div(
+                _components(state, cfg, staggering, aux=False)[0], cfg)
+        # a bounded grid of another type has neither, as in the JAX
+        # package (diagnostics/fields.py:407)
+        if want("divE") and div_e is not None:
             out["divE"] = cell_center(div_e, (1,) * geom.ndim, geom.n_cell)
-        if want("divB"):
+        if want("divB") and div_b is not None:
             out["divB"] = div_b
     if want("part_per_cell"):
         origin = current_origin(state, cfg)

@@ -105,7 +105,8 @@ def _yee_gather_flag(ndim, galerkin, stag_items):
     if any(tuple(stag[c]) != yee[c] for c in _COMPS):
         raise NotImplementedError(
             f"the {ndim}D fused kernel gathers on the Yee staggering only "
-            "(ROADMAP.md Queue A 11.4)")
+            "(the binned gates send other grids per particle, as the JAX "
+            "package's do; ROADMAP.md Queue C)")
     return int(bool(galerkin))
 
 
