@@ -37,7 +37,9 @@ non-zero:
                the mode's neutral arguments against the call without them;
                then K1's and K2's branch cases in moving-window mode
                (zshift 3);
-  k3_parity    kernel K3 (rebin slot expansion) against its plain version;
+  k3_parity    kernel K3 (rebin slot expansion) against its plain version,
+               also on a rebin's payload with an integer and a real runtime
+               attribute as further rows;
   lab_parity   the four kernels of the Hopper labs (warpx_tpu_torch/tools/:
                lab_fused, lab_widelane, tile_dot, slot_copy) against their
                plain versions at small shapes, every mode and both layouts,
@@ -76,7 +78,7 @@ non-zero:
                comoving, Vay) to 1e-12; every family (Galilean, averaged,
                current correction, multi-J second and first order, Vay,
                direct, F/G cleaning, comoving) on the 16^3 and 32^2
-               periodic decks per particle, 3 steps; first-order PSATD
+               periodic decks per particle, 2 steps; first-order PSATD
                with J constant through the tile-binned step (K1, K2, K3);
                the rho-free time-averaged and comoving decks refused; the
                32 x 64 laser-wakefield deck with psatd.v_galilean and the
@@ -309,6 +311,25 @@ non-zero:
                sphere, Yee, 5 steps: after every step no alive particle
                inside the body and the covered E edges and B faces
                bitwise at their initial values; ChargeOnEB, ms a step;
+  dims1_parity (after boundaries_parity) 1D Cartesian geometry and the
+               runtime attributes in float64, card against CPU: the periodic
+               1D step under Esirkepov, direct and villasenor deposition at
+               orders 1-3, collocated, PSATD and electrostatic; the 1D
+               laser-wakefield deck and the antenna through PML and
+               Silver-Mueller faces; the attributes through the tile-binned
+               2D steps (K2, K2 in moving-window mode, K3); a boosted
+               backward-propagating Gaussian beam: 1e-12 per particle,
+               1e-9 binned and for checksums, no kernel in 1D;
+  main_1d      uniform1d-1M: 1,048,576 cells, 16.8 M electrons, order 3,
+               Esirkepov, per particle, 40 steps in float64 (the Langmuir
+               frequency within 2 % of Bohm-Gross, the weight kept, no
+               kernel launched; ms a step, pushes/s, busy share) and in
+               float32 (reported: its positions do not resolve a step's
+               motion 0.1 m from the origin);
+  main_lwfa_1d lwfa1d-4096: the 1D laser-wakefield deck at lambda/32 over
+               4096 cells, 256 electrons a cell, 450 steps: the pulse's
+               peak |Ey| within 5 % of e_max, the alive count and the
+               regionofinterest count exact, initialenergy as injected;
   labs         each Hopper lab's main() at the TPU lab's default shapes (L1
                in every mode): kernel against plain version, times, bounds,
                the library's yardstick where there is one; each lab prints
@@ -847,7 +868,60 @@ def phase_k3_parity(dev):
         cases.append({"dtype": str(dtype), "equal": True,
                       "empty_tiles": int((counts == 0).sum()),
                       "overfull_tiles": int((counts > p_max).sum())})
+    cases += [k3_attribute_rows(dev, dtype)
+              for dtype in (torch.float64, torch.float32)]
     emit("k3_parity", ok=True, cases=cases)
+
+
+def k3_attribute_rows(dev, dtype):
+    """K3 on a rebin's own payload with runtime attributes (Queue A 11.6):
+    a 2D species of 20,000 particles with an integer attribute (values to
+    2^24, exact in float32) and a real one rides as payload rows 7 and 8;
+    K3 equals its plain version bit for bit, and the rebin gives the
+    integer attribute back as int32 beside the same particle's real one."""
+    from warpx_tpu_torch.core.grid import Geometry
+    from warpx_tpu_torch.core.state import ParticleState
+    from warpx_tpu_torch.ops import tiling
+
+    rng = np.random.default_rng(11)
+    n, lx = 20000, 40e-6
+    geom = Geometry(ndim=2, n_cell=(32, 32), prob_lo=(-lx / 2,) * 2,
+                    prob_hi=(lx / 2,) * 2, periodic=(True, True))
+    spec = tiling.TileSpec.create(geom.n_cell, order=2, n_particles=n,
+                                  margin=1, interval=1, p_max=2048)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    pos = rng.uniform(-lx / 2, lx / 2, (2, n))
+    alive = rng.random(n) > 0.1
+    roi = rng.integers(-2 ** 24, 2 ** 24 + 1, n).astype(np.int32)
+    sp = ParticleState(
+        x=t(pos[0]).to(dtype), z=t(pos[1]).to(dtype),
+        ux=t(rng.normal(size=n)).to(dtype),
+        uy=t(rng.normal(size=n)).to(dtype),
+        uz=t(rng.normal(size=n)).to(dtype),
+        w=t(rng.random(n) * alive).to(dtype), alive=t(alive),
+        extra={"roi": t(roi), "energy": t(rng.normal(size=n)).to(dtype)})
+    payload, offsets, counts, fill = tiling.rebin_inputs(sp, geom, spec)
+    got = tiling.ragged_expand(payload, offsets, counts, fill, spec.p_max)
+    ref = tiling.ragged_expand_plain(payload, offsets, counts, fill,
+                                     spec.p_max)
+    if payload.shape[0] != 2 + 5 + 2 or not torch.equal(got, ref):
+        raise AssertionError(f"K3 with attribute rows disagrees "
+                             f"({payload.shape[0]} rows)")
+    new, ovf = tiling.rebin(sp, geom, spec)
+    keep = new.alive
+    # each particle by its real attribute, which the rebin copies exactly
+    # (its position it wraps into the box, in the particles' type)
+    back = dict(zip(new.extra["energy"][keep].tolist(),
+                    new.extra["roi"][keep].tolist()))
+    want = dict(zip(sp.extra["energy"][sp.alive].tolist(),
+                    sp.extra["roi"][sp.alive].tolist()))
+    if int(ovf) or new.extra["roi"].dtype != torch.int32 or back != want:
+        raise AssertionError("the rebin lost an integer attribute")
+    return {"dtype": str(dtype), "equal": True, "rows": payload.shape[0],
+            "attributes": sorted(sp.extra), "alive": int(keep.sum())}
 
 
 # ---- the slice on the card against the CPU --------------------------------
@@ -2292,9 +2366,9 @@ PSATD_FAMILIES = {
 PSATD_BINNED_FAMILY = dict(psatd_solution_type="first-order")
 
 
-def psatd_family_cfg(ndim, family, tiled="off", steps=3):
+def psatd_family_cfg(ndim, family, tiled="off", steps=2):
     """small_cfg's plasma drifting along z at 0.3 c with ``family``'s PSATD
-    (psatd_order 16 on guard-padded boxes, bilinear filter), 3 steps, per
+    (psatd_order 16 on guard-padded boxes, bilinear filter), 2 steps, per
     particle unless ``tiled``."""
     cfg = small_cfg(ndim)
     species = tuple(dataclasses.replace(sp, uz=0.3) for sp in cfg.species)
@@ -3187,7 +3261,7 @@ class timed_bounded_deposits(timed_deposits):
         return self
 
 
-def phase_main_lwfa_boosted_galilean(dev, smi, nx=2048, nz=8192, steps=10):
+def phase_main_lwfa_boosted_galilean(dev, smi, nx=2048, nz=8192, steps=6):
     """lwfa2d-2048x8192-boosted-galilean (BASELINE.json configuration 4's
     physics in 2D): bench.py's deck with gamma_boost = 10 under PSATD with
     psatd.use_default_v_galilean = 1 (the grid drifting at -beta c e_z,
@@ -4487,7 +4561,7 @@ class timed_fn:
 # ~2 s on the card and ~2.7 s of host ADK evaluation); on an H100 10 steps
 # saw 9,664 events against a sum of probabilities of 9,622.8, the first 5
 # of them 3,482
-LWFA_ION_STEPS = 3
+LWFA_ION_STEPS = 2
 
 
 def lwfa_ionization_deck(nx, nz, steps):
@@ -4747,7 +4821,7 @@ BW_MOMENTA = ((2000.0, 0, 0), (0, 5000.0, 0), (0, 0, 10000.0),
 # changes the momentum by ~1e-3 of itself a step (at 1000 m_e c the
 # explicit force exceeds the momentum within a few steps)
 RR_MOMENTUM = (0.0, 0.0, 10.0)
-QED_STEPS = 4
+QED_STEPS = 3
 
 
 def qed_box_deck(n=128, steps=QED_STEPS):
@@ -8161,7 +8235,7 @@ def fieldsolver2_cases():
     return [
         ("theta_picard_3d", implicit_deck(3, 16, 3), 3),
         ("semi_implicit_2d", implicit_deck(2, 32, 3, "semi_implicit_em"), 3),
-        ("newton_gmres_2d", implicit_deck(2, 16, 2, extra=NEWTON_KEYS), 2),
+        ("newton_gmres_2d", implicit_deck(2, 16, 1, extra=NEWTON_KEYS), 1),
         ("fluid_langmuir_3d", fluid_langmuir_deck(3, 16, 5), 5),
         ("ect_rotated_cube_2d", ect_cube_deck(2, 32, 10), 10),
         ("eb_sphere_3d", eb_plasma_deck(16, 4, 8e-6), 4),
@@ -8965,7 +9039,7 @@ def phase_boundaries_parity(dev):
     emit("boundaries_parity", ok=True, cases=out)
 
 
-WALLS_STEPS = 20
+WALLS_STEPS = 10
 WALLS_U_TH = 0.05
 
 
@@ -9632,6 +9706,523 @@ def phase_main_lwfa_warm(dev, smi, k1c_row, k3_row, cold_ms, nx=2048,
                  "main_lwfa_warm")
 
 
+# ---- 1D Cartesian geometry and the runtime attributes (Queue A 3-4, 11.6)
+
+def kernel_counters():
+    """(K1, K2, K3) launch counters: K1 3D, K2 2D (K1c in the bounded
+    frame), K3 the rebin's expansion."""
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.ops import tiling
+
+    return (fp.binned_push_deposit.launches,
+            fp.binned_push_deposit.launches_2d, tiling.ragged_expand.launches)
+
+
+DIMS1_PERIODIC_DECK = """
+max_step = 4
+amr.n_cell = 64
+geometry.dims = 1
+geometry.prob_lo = -10.e-6
+geometry.prob_hi = 10.e-6
+warpx.cfl = 0.8
+algo.particle_shape = {order}
+algo.current_deposition = {dep}
+algo.maxwell_solver = {solver}
+particles.species_names = electrons ions
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = 2
+electrons.profile = constant
+electrons.density = 1.e25
+electrons.momentum_distribution_type = parse_momentum_function
+electrons.momentum_function_ux(x,y,z) = 0.01*sin(z*3.e5)
+electrons.momentum_function_uy(x,y,z) = 0.02*cos(z*3.e5)
+electrons.momentum_function_uz(x,y,z) = 0.05*sin(z*3.14159e5)
+ions.species_type = proton
+ions.injection_style = NUniformPerCell
+ions.num_particles_per_cell_each_dim = 1
+ions.profile = constant
+ions.density = 1.e25
+ions.momentum_distribution_type = constant
+ions.uz = 0.001
+"""
+
+# WarpX's inputs_test_1d_laser_acceleration in form (tests/test_langmuir.py
+# :51-66): a window at c, PEC faces, a Gaussian antenna at 0.8 um, CKC, the
+# bilinear filter, order 3, continuous injection, an integer
+# regionofinterest and a real initialenergy attribute
+LWFA_1D_DECK = """
+max_step = {steps}
+amr.n_cell = {n}
+geometry.dims = 1
+geometry.prob_lo = {lo}
+geometry.prob_hi = {hi}
+boundary.field_lo = {faces}
+boundary.field_hi = {faces}
+warpx.cfl = 0.9
+warpx.do_moving_window = 1
+warpx.moving_window_dir = z
+warpx.moving_window_v = 1.0
+warpx.use_filter = 1
+algo.maxwell_solver = ckc
+algo.particle_shape = 3
+particles.species_names = electrons
+electrons.charge = -q_e
+electrons.mass = m_e
+electrons.injection_style = "NUniformPerCell"
+electrons.num_particles_per_cell_each_dim = {ppc}
+electrons.xmin = -20.e-6
+electrons.xmax = 20.e-6
+electrons.ymin = -20.e-6
+electrons.ymax = 20.e-6
+electrons.zmin = {zmin}
+electrons.profile = constant
+electrons.density = 2.e23
+electrons.momentum_distribution_type = "at_rest"
+electrons.do_continuous_injection = 1
+electrons.addIntegerAttributes = regionofinterest
+electrons.attribute.regionofinterest(x,y,z,ux,uy,uz,t) = "(z>12.0e-6) * (z<13.0e-6)"
+electrons.addRealAttributes = initialenergy
+electrons.attribute.initialenergy(x,y,z,ux,uy,uz,t) = " ux*ux + uy*uy + uz*uz"
+lasers.names = laser1
+laser1.profile = Gaussian
+laser1.position = 0. 0. {laser_z}
+laser1.direction = 0. 0. 1.
+laser1.polarization = 0. 1. 0.
+laser1.e_max = 16.e12
+laser1.profile_waist = 5.e-6
+laser1.profile_duration = 15.e-15
+laser1.profile_t_peak = 30.e-15
+laser1.profile_focal_distance = 100.e-6
+laser1.wavelength = 0.8e-6
+"""
+
+
+def lwfa_1d_deck(steps, n=4096, ppc=256, faces="pec", lo=-92.4e-6,
+                 hi=10.e-6, zmin=-10.e-6, laser_z=-20.e-6):
+    return LWFA_1D_DECK.format(steps=steps, n=n, ppc=ppc, faces=faces,
+                               lo=lo, hi=hi, zmin=zmin, laser_z=laser_z)
+
+
+# A 11.6 on the tile-binned steps: 9216 electrons (above the 8192 below
+# which a species keeps its compact layout) with an integer and two real
+# attributes, periodic (K2, K3) and under a moving window with continuous
+# injection (K2 in moving-window mode, K3)
+ATTR_BINNED_DECK = """
+max_step = 4
+amr.n_cell = 32 32
+geometry.dims = 2
+geometry.prob_lo = -8.e-6 -8.e-6
+geometry.prob_hi =  8.e-6  8.e-6
+warpx.sort_intervals = 2
+algo.particle_shape = 2
+particles.species_names = electrons
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = 3 3
+electrons.profile = constant
+electrons.density = 1.e24
+electrons.momentum_distribution_type = gaussian
+electrons.ux_th = 0.01
+electrons.uy_th = 0.01
+electrons.uz_th = 0.01
+electrons.addIntegerAttributes = roi
+electrons.attribute.roi(x,y,z,ux,uy,uz,t) = "(z>-2.0e-6) * (z<3.0e-6) + 3*(x>0)"
+electrons.addRealAttributes = e0 orig_z
+electrons.attribute.e0(x,y,z,ux,uy,uz,t) = "ux*ux + uy*uy + uz*uz"
+electrons.attribute.orig_z(x,y,z,ux,uy,uz,t) = "z"
+tpu.tiled_particles = on
+"""
+
+ATTR_WINDOW_DECK = """
+max_step = 8
+amr.n_cell = 16 64
+geometry.dims = 2
+geometry.prob_lo = -8.e-6 -24.e-6
+geometry.prob_hi =  8.e-6   8.e-6
+boundary.field_lo = pec pml
+boundary.field_hi = pec pml
+warpx.cfl = 0.98
+warpx.do_moving_window = 1
+warpx.moving_window_dir = z
+warpx.moving_window_v = 1.0
+warpx.sort_intervals = 4
+algo.particle_shape = 2
+particles.species_names = electrons
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = 1 2
+electrons.xmin = -6.e-6
+electrons.xmax =  6.e-6
+electrons.zmin = -20.e-6
+electrons.profile = parse_density_function
+electrons.density_function(x,y,z) = "2.e23*(1+0.5*sin(z*1.e6))"
+electrons.momentum_distribution_type = constant
+electrons.ux = 0.01
+electrons.uz = 0.02
+electrons.do_continuous_injection = 1
+electrons.addIntegerAttributes = roi
+electrons.attribute.roi(x,y,z,ux,uy,uz,t) = "(z>4.e-6) + 2*(x>0)"
+electrons.addRealAttributes = t0
+electrons.attribute.t0(x,y,z,ux,uy,uz,t) = "t*1.e15 + uz*1.e-8"
+tpu.tiled_particles = on
+"""
+
+# a boosted Gaussian beam propagating backward (do_backward_propagation)
+# with attributes, in a periodic 2D box at gamma_boost = 10, per particle
+BACKWARD_BEAM_DECK = """
+max_step = 4
+amr.n_cell = 32 64
+geometry.dims = 2
+geometry.prob_lo = -16.e-6 -40.e-6
+geometry.prob_hi =  16.e-6  40.e-6
+warpx.gamma_boost = 10.
+warpx.boost_direction = z
+algo.particle_shape = 2
+particles.species_names = beam
+beam.species_type = electron
+beam.injection_style = gaussian_beam
+beam.x_rms = 2.e-6
+beam.y_rms = 2.e-6
+beam.z_rms = 4.e-6
+beam.z_m = 0.
+beam.npart = 4000
+beam.q_tot = -1.e-10
+beam.momentum_distribution_type = gaussian
+beam.uz_m = 200.
+beam.ux_th = 0.5
+beam.uy_th = 0.5
+beam.uz_th = 5.
+beam.do_backward_propagation = 1
+beam.addRealAttributes = z0
+beam.attribute.z0(x,y,z,ux,uy,uz,t) = "z"
+beam.addIntegerAttributes = up
+beam.attribute.up(x,y,z,ux,uy,uz,t) = "uz > 0"
+tpu.tiled_particles = off
+"""
+
+
+def dims1_parity_cases():
+    """(name, deck text, tile-binned?) of dims1_parity."""
+    cases = []
+    for dep in ("esirkepov", "direct", "villasenor"):
+        for order, solver in ((1, "yee"), (2, "ckc"), (3, "yee")):
+            cases.append((f"periodic_{dep}_{order}_{solver}",
+                          DIMS1_PERIODIC_DECK.format(dep=dep, order=order,
+                                                     solver=solver), False))
+    base = DIMS1_PERIODIC_DECK.format(dep="esirkepov", order=2, solver="yee")
+    cases += [
+        ("periodic_collocated", base + "warpx.grid_type = collocated\n",
+         False),
+        ("periodic_psatd", base.replace("maxwell_solver = yee",
+                                        "maxwell_solver = psatd"), False),
+        ("periodic_electrostatic", base + "warpx.do_electrostatic = "
+         "labframe\nwarpx.use_filter = 0\n", False),
+    ]
+    small = dict(n=128, ppc=4, lo=-30e-6, hi=2e-6, zmin=-5e-6,
+                 laser_z=-8e-6)
+    cases.append(("lwfa_pec_window", lwfa_1d_deck(20, **small), False))
+    for faces in ("pml", "absorbing_silver_mueller"):
+        text = "\n".join(ln for ln in lwfa_1d_deck(
+            20, faces=faces, **small).splitlines()
+            if "moving_window" not in ln and "continuous" not in ln)
+        cases.append((f"antenna_{faces}", text, False))
+    cases += [("attributes_2d_binned", ATTR_BINNED_DECK, True),
+              ("attributes_2d_window_binned", ATTR_WINDOW_DECK, True),
+              ("backward_beam_2d_boosted", BACKWARD_BEAM_DECK, False)]
+    return cases
+
+
+def phase_dims1_parity(dev):
+    """dims1_parity: 1D Cartesian geometry and the runtime attributes in
+    float64, card against CPU on the same numbers: the periodic 1D step
+    under Esirkepov, direct and villasenor deposition at orders 1-3 (Yee
+    and CKC), on a collocated grid, under PSATD and under the lab-frame
+    electrostatic solve; the 1D laser-wakefield deck (window, PEC, antenna,
+    filter, continuous injection, an integer and a real attribute) and the
+    antenna's pulse through PML and Silver-Mueller faces; the attributes
+    through the tile-binned 2D steps (periodic: K2 and K3 with three
+    attribute rows; under a moving window: K2 in moving-window mode and K3,
+    the attributes injected continuously); a boosted Gaussian beam with
+    do_backward_propagation.  Fields and species (the integer attributes
+    exactly) within 1e-12 of their largest values per particle, 1e-9
+    tile-binned, checksums within 1e-9; no 1D case launches a kernel, each
+    binned case launches K2 and K3.  Returns the binned cases' K2 and K3
+    launches (not the main paths'): K2 periodic, K2 in the bounded frame
+    (the K1c row) and K3."""
+    out = {}
+    counts = {"fused_pic_2d": 0, "fused_pic_2d_window": 0,
+              "ragged_expand": 0}
+    for name, text, binned in dims1_parity_cases():
+        before = kernel_counters()
+        t0 = time.perf_counter()
+        card = stochastic_run(text, dev, torch.float64)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        k1_n, k2_n, k3_n = (a - b for a, b in zip(kernel_counters(), before))
+        t0 = time.perf_counter()
+        cpu = stochastic_run(text, "cpu", torch.float64)
+        cpu_s = time.perf_counter() - t0
+        if card.binned != binned or bool(k1_n or k2_n or k3_n) != binned or (
+                binned and not (k2_n and k3_n)):
+            raise AssertionError(f"dims1_parity {name}: binned {card.binned},"
+                                 f" K1 {k1_n}, K2 {k2_n}, K3 {k3_n}")
+        tol = 1e-9 if binned else 1e-12
+        worst = states_agree(card, cpu, tol, f"dims1_parity {name}")
+        worst_sum = checksums_agree(card.checksums(), cpu.checksums(), 1e-9,
+                                    f"dims1_parity {name}")
+        extra = {nm: sorted(sp.extra) for nm, sp in card.state.species.items()
+                 if sp.extra}
+        for nm, sp in card.state.species.items():
+            for k, v in sp.extra.items():
+                if k in ("roi", "regionofinterest", "up") and (
+                        v.dtype != torch.int32):
+                    raise AssertionError(f"dims1_parity {name}: {nm}.{k} is "
+                                         f"{v.dtype}")
+        counts["fused_pic_2d_window" if card.is_bounded
+               else "fused_pic_2d"] += k2_n
+        counts["ragged_expand"] += k3_n
+        out[name] = {"ndim": card.cfg.geometry.ndim, "tol": tol,
+                     "max_rel_err": worst, "checksum_max_rel_err": worst_sum,
+                     "binned": binned, "k2_launches": k2_n,
+                     "k3_launches": k3_n, "attributes": extra,
+                     "alive": {nm: int(sp.alive.sum())
+                               for nm, sp in card.state.species.items()},
+                     "card_s": card_s, "cpu_s": cpu_s}
+    emit("dims1_parity", ok=True, cases=out)
+    return counts
+
+
+MAIN_1D_PERIOD_STEPS = 24
+MAIN_1D_U0 = 0.05
+TOL_MAIN_1D_OMEGA = 0.02
+
+
+def main_1d_cfg(n=1048576, ppc=16, steps=40):
+    """uniform1d-1M: a periodic 1D thermal electron plasma (u_th 0.01) of n
+    cells of 0.1 um, ``ppc`` electrons a cell, order 3, Esirkepov, Yee at
+    cfl 0.999, no filter, its density chosen so that the plasma period is
+    MAIN_1D_PERIOD_STEPS steps; returns (cfg, Bohm-Gross omega at the
+    box's longest mode)."""
+    from warpx_tpu_torch.core.deck import config_from_deck
+    from warpx_tpu_torch.utils.parser import Deck
+
+    dz = 1e-7
+    text = f"""
+max_step = {steps}
+amr.n_cell = {n}
+geometry.dims = 1
+geometry.prob_lo = 0.
+geometry.prob_hi = {n * dz}
+warpx.cfl = 0.999
+warpx.use_filter = 0
+algo.particle_shape = 3
+algo.current_deposition = esirkepov
+particles.species_names = electrons
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = {ppc}
+electrons.profile = constant
+electrons.density = 1.e25
+electrons.momentum_distribution_type = gaussian
+electrons.ux_th = 0.01
+electrons.uy_th = 0.01
+electrons.uz_th = 0.01
+"""
+    cfg = config_from_deck(Deck.from_string(text))
+    omega = 2.0 * math.pi / (MAIN_1D_PERIOD_STEPS * cfg.dt)
+    k = 2.0 * math.pi / (n * dz)
+    v_th = 0.01 * C_LIGHT
+    wpe2 = omega ** 2 - 3.0 * k * k * v_th * v_th
+    density = wpe2 * EPS0 * M_E / Q_E ** 2
+    cfg = dataclasses.replace(cfg, species=tuple(
+        dataclasses.replace(s, density=density) for s in cfg.species))
+    return cfg, omega
+
+
+def run_main_1d(dev, cfg, omega, dtype, steps):
+    """One run of uniform1d-1M in ``dtype``: init, the seed uz += u0 c
+    sin(k z), ``steps`` - 2 timed steps sampling the Fourier amplitude of
+    Ez, one profiled step, the closing step.  Returns the phase's numbers
+    (the frequency from the amplitude's zero crossings)."""
+    import warpx_tpu_torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=dtype, device=dev)
+    if sim.binned or sim.is_bounded:
+        raise AssertionError("main_1d left the periodic per-particle step")
+    sim.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    geom = cfg.geometry
+    sp = sim.state.species["electrons"]
+    k = 2.0 * math.pi / (geom.prob_hi[0] - geom.prob_lo[0])
+    sim.state = sim.state.replace(species={"electrons": sp.replace(
+        uz=sp.uz + MAIN_1D_U0 * C_LIGHT * torch.sin(k * sp.z))})
+    n_part = int(sp.alive.sum())
+    w0 = float(sp.w.double().sum())
+    sin_kz = torch.sin(k * torch.as_tensor(geom.cell_centers(0), device=dev))
+    amps = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(steps - 2):
+        sim.evolve(1)
+        amps.append((sim.state.fields.Ez.double() * sin_kz).sum())
+    b.record()
+    b.synchronize()
+    ms_step = a.elapsed_time(b) / (steps - 2)
+    breakdown = profile_steps(sim, 1)
+    sim.evolve()  # the closing step, with the +dt/2 synchronization
+    torch.cuda.synchronize()
+    amp = torch.stack(amps).cpu().numpy()
+    w_meas, nc = zero_crossing_omega(np.concatenate([[0.0], amp]), cfg.dt)
+    sp = sim.state.species["electrons"]
+    out = {"steps": sim.state.step, "ms_per_step": ms_step,
+           "pushes_per_s": n_part / (ms_step * 1e-3), "init_s": init_s,
+           "omega_measured": w_meas, "omega_rel_err": abs(w_meas / omega
+                                                           - 1.0),
+           "zero_crossings": nc, "n_particles": n_part,
+           "alive": int(sp.alive.sum()),
+           "weight_rel_err": abs(float(sp.w.double().sum()) / w0 - 1.0),
+           "finite": all(bool(torch.isfinite(getattr(sim.state.fields,
+                                                     c)).all())
+                         for c in ("Ex", "Ey", "Ez", "Bx", "By", "Bz")),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "device_busy_share": breakdown["device_busy_share"],
+           "device_ms_per_step": breakdown["device_ms_per_step"]}
+    del sim
+    torch.cuda.empty_cache()
+    return out, breakdown
+
+
+def phase_main_1d(dev, smi, n=1048576, ppc=16, steps=40):
+    """uniform1d-1M (``main_1d_cfg``), per particle (the JAX package's 1D
+    is per particle; no kernel), in float64 and in float32: seeded with uz
+    += u0 c sin(k z) at the box's longest mode, the Fourier amplitude of
+    Ez after every step (CUDA events around the steps), its frequency from
+    the zero crossings (as main_collocated measures it).  In float64 the
+    frequency within TOL_MAIN_1D_OMEGA of Bohm-Gross, the weight kept to
+    1e-6, every electron alive, finite fields and no kernel launched; ms a
+    step, pushes a second, the device's busy share over one profiled step.
+    The float32 run is reported beside it: at 0.1 m from the origin a
+    float32 position resolves 7.5e-9 m, 0.075 cells, more than a thermal
+    electron moves in a step (0.01 cells), so its far cells do not move."""
+    cfg, omega = main_1d_cfg(n, ppc, steps)
+    before = kernel_counters()
+    runs, profiles = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        runs[name], profiles[name] = run_main_1d(dev, cfg, omega, dtype,
+                                                 steps)
+    launched = [a_ - b_ for a_, b_ in zip(kernel_counters(), before)]
+    f64 = runs["float64"]
+    if not (f64["omega_rel_err"] <= TOL_MAIN_1D_OMEGA
+            and f64["alive"] == f64["n_particles"]
+            and f64["weight_rel_err"] <= 1e-6 and f64["finite"]
+            and not any(launched)):
+        raise AssertionError(f"main_1d: {f64}, omega {omega}, kernels "
+                             f"launched {launched}")
+    emit("main_1d", ok=True, n_cell=cfg.geometry.n_cell,
+         order=cfg.particle_shape, steps_timed=steps - 2, omega=omega,
+         omega_tol=TOL_MAIN_1D_OMEGA, density_m3=cfg.species[0].density,
+         kernel_launches=launched, **f64, float32=runs["float32"],
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    emit("main_1d_profile", steps=1, **profiles["float64"])
+
+
+# the pulse's peak leaves the antenna at step ~400 and the injection front
+# passes 13 um at step ~134; the per-particle bounded step is host-bound
+# (some 1900 launches a step)
+MAIN_LWFA_1D_STEPS = 450
+TOL_LWFA_1D_PEAK = 0.05
+
+
+def phase_main_lwfa_1d(dev, smi, steps=MAIN_LWFA_1D_STEPS, ppc=256):
+    """lwfa1d-4096: ``lwfa_1d_deck`` at dz = lambda/32 over a 102.4 um
+    window (4096 cells), 256 electrons a cell, float32, ``steps`` steps
+    (per particle, no kernel): the antenna's pulse peak |Ey| (max over the
+    grid, sampled every step while its peak is emitted, before it reaches
+    the plasma) within TOL_LWFA_1D_PEAK of e_max; the alive electrons
+    exactly the lattice the window has uncovered above zmin (none left);
+    regionofinterest (int32) 1 on exactly the 256 a cell injected in
+    (12, 13) um; initialenergy bitwise 0.0 as injected at rest; ms a step,
+    pushes a second and the busy share."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.utils.parser import Deck
+
+    text = lwfa_1d_deck(steps, ppc=ppc)
+    before = kernel_counters()
+    t0 = time.perf_counter()
+    sim = warpx_tpu_torch.Simulation.from_deck(Deck.from_string(text),
+                                               dtype=torch.float32,
+                                               device=dev)
+    sim.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = sim.cfg
+    las = cfg.lasers[0]
+    # the pulse peak leaves the antenna at t_peak; sample around it
+    k_peak = int(round(las.profile_t_peak / cfg.dt))
+    sample = range(k_peak - 40, k_peak + 41)
+    peaks = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for s in range(1, steps):
+        sim.evolve(1)
+        if s in sample:
+            peaks.append(sim.state.fields.Ey.abs().max())
+    b.record()
+    b.synchronize()
+    ms_step = a.elapsed_time(b) / (steps - 1)
+    breakdown = profile_steps(sim, 1)
+    torch.cuda.synchronize()
+    peak = float(torch.stack(peaks).max())
+    peak_rel = abs(peak / las.e_max - 1.0)
+    sp = sim.state.species["electrons"]
+    alive = int(sp.alive.sum())
+    dz = cfg.geometry.dx[0]
+    zmin = cfg.species[0].bounds_lo[0]
+    front = float(sim.state.aux["inject_pos:electrons"])
+    ppc = cfg.species[0].num_particles_per_cell_each_dim[0]
+    expect = int(round((front - zmin) / dz)) * ppc
+    roi = sp.extra["regionofinterest"]
+    n_roi = int((roi[sp.alive] == 1).sum())
+    expect_roi = int(round(1e-6 / dz)) * ppc
+    energy0 = bool((sp.extra["initialenergy"][sp.alive] == 0.0).all())
+    lo = float(sim.state.aux["window_lo"])
+    launched = [a_ - b_ for a_, b_ in zip(kernel_counters(), before)]
+    finite = all(bool(torch.isfinite(getattr(sim.state.fields, c)).all())
+                 for c in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"))
+    ok = (peak_rel <= TOL_LWFA_1D_PEAK and alive == expect
+          and n_roi == expect_roi and roi.dtype == torch.int32 and energy0
+          and finite and not any(launched) and lo < zmin)
+    if not ok:
+        raise AssertionError(
+            f"main_lwfa_1d: peak {peak} against {las.e_max}, alive {alive} "
+            f"against {expect}, roi {n_roi} against {expect_roi} "
+            f"({roi.dtype}), initialenergy 0 {energy0}, finite {finite}, "
+            f"window lo {lo}, kernels {launched}")
+    emit("main_lwfa_1d", ok=True, n_cell=cfg.geometry.n_cell,
+         dz_over_lambda=dz / las.wavelength, ppc=ppc, dtype="float32",
+         steps=sim.state.step, ms_per_step=ms_step,
+         pushes_per_s=alive / (ms_step * 1e-3), n_alive=alive,
+         expected_alive=expect, init_s=init_s, peak_Ey_V_m=peak,
+         e_max_V_m=las.e_max, peak_rel_err=peak_rel,
+         peak_tol=TOL_LWFA_1D_PEAK, roi_count=n_roi,
+         expected_roi_count=expect_roi,
+         window_offset=int(sim.state.aux["window_offset"]),
+         injection_front_m=front, kernel_launches=launched,
+         device_busy_share=breakdown["device_busy_share"],
+         device_ms_per_step=breakdown["device_ms_per_step"],
+         nvidia_smi=smi)
+    emit("main_lwfa_1d_profile", steps=1, **breakdown)
+    del sim
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     """Every phase in order."""
     if not torch.cuda.is_available():
@@ -9690,6 +10281,7 @@ def main() -> int:
     phase_es_parity(dev)
     phase_fieldsolver2_parity(dev)
     phase_boundaries_parity(dev)
+    dims1 = phase_dims1_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
     k1_row["launches_by_path"] = {"main": k1_row["launches"]}
     phase_main_psatd(dev, smi, k1_row, k3_row)
@@ -9706,8 +10298,13 @@ def main() -> int:
     for row, nm in ((k1_row, "fused_pic"), (k2_row, "fused_pic_2d"),
                     (k3_row, "ragged_expand")):
         row["launches_by_path"]["psatd_variants_parity"] = variants[nm]
+    # the runtime attributes' tile-binned runs of dims1_parity (K1c: below)
+    k2_row["launches_by_path"]["dims1_parity"] = dims1["fused_pic_2d"]
+    k3_row["launches_by_path"]["dims1_parity"] = dims1["ragged_expand"]
     torch.cuda.empty_cache()
     k1c_row = phase_main_lwfa(dev, smi, k2_row, k3_row)
+    k1c_row.setdefault("launches_by_path", {})["dims1_parity"] = dims1[
+        "fused_pic_2d_window"]
     torch.cuda.empty_cache()
     k1c_mixed_row, waits = phase_main_lwfa_deck(dev, smi, k3_row)
     torch.cuda.empty_cache()
@@ -9765,6 +10362,8 @@ def main() -> int:
     phase_main_lwfa_warm(dev, smi, k1c_mixed_row, k3_row,
                          waits["ms_per_step"])
     torch.cuda.empty_cache()
+    phase_main_1d(dev, smi)
+    phase_main_lwfa_1d(dev, smi)
     lab_rows = phase_labs(dev)
     print(smi)
     print(json.dumps({"kernels": [k1_row, *k1d_rows, k2_row, k1c_row,

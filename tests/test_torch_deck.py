@@ -216,11 +216,17 @@ electrons.density = 1.e24
 
 
 @pytest.mark.parametrize("extra,item", [
-    ("geometry.dims = 1\namr.n_cell = 16\ngeometry.prob_lo = 0\n"
-     "geometry.prob_hi = 1.e-6", "Queue A 3-4"),
+    # 1D decks and villasenor deposition run since Queue A 3-4
+    # (tests/test_torch_dims1.py); the window's step range, which the JAX
+    # package reads and never uses, is refused (the cases keep their ids)
+    pytest.param("warpx.end_moving_window_step = 5", "Queue C",
+                 id="geometry.dims = 1\namr.n_cell = 16\n"
+                    "geometry.prob_lo = 0\ngeometry.prob_hi = 1.e-6-"
+                    "Queue A 3-4"),
     ("geometry.dims = RZ", "Queue A 12"),
     ("amr.max_level = 1", "Queue A 12"),
-    ("algo.current_deposition = villasenor", "Queue A 3"),
+    pytest.param("warpx.start_moving_window_step = 2", "Queue C",
+                 id="algo.current_deposition = villasenor-Queue A 3"),
     # the hybrid solver and the electrostatic solvers run since Queue A
     # 11.3's first half (tests/test_torch_hybrid.py,
     # test_torch_electrostatic.py), ECT, the implicit schemes and the

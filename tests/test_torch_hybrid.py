@@ -3,7 +3,8 @@
 ``electron_pressure``, ``ohm_solve_e`` (Hall, pressure, resistive and
 hyper-resistive terms, an external current) on the analytic fields of
 ``tests/test_hybrid.py`` laid on 2D and 3D grids (the JAX package's own
-hybrid tests are 1D, which the port lacks until ROADMAP.md Queue A 3-4) and
+hybrid tests are 1D: their Ohm's-law terms and a 1D hybrid run are held in
+``tests/test_torch_dims1.py``) and
 on seeded fields, ``_rk4_b``, ``hybrid_evolve_fields`` and
 ``hybrid_initial_e``, each at 1e-9; whole 2D and 3D hybrid ``Simulation``
 runs of 3 steps (the initial deposit into ``hrho``/``hj*`` included) and a

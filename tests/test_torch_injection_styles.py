@@ -454,9 +454,16 @@ def test_cli_runs_an_injection_deck(tmp_path, capsys, kind):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ("single.addRealAttributes = orig_z\n"
-     "single.attribute.orig_z(x,y,z,ux,uy,uz,t) = z", "Queue A 11.6"),
-    ("warpx.start_moving_window_step = 3", "Queue A 11.6"),
+    # runtime attributes and the window's step range are read since Queue
+    # A 11.6 (tests/test_torch_attributes.py): an attribute's expression
+    # without its declaration is read by neither reader, and a step range
+    # the JAX package does not run is refused (the cases keep their ids)
+    pytest.param("single.attribute.orig_z(x,y,z,ux,uy,uz,t) = z", "Queue C",
+                 id="single.addRealAttributes = orig_z\n"
+                    "single.attribute.orig_z(x,y,z,ux,uy,uz,t) = z-"
+                    "Queue A 11.6"),
+    pytest.param("warpx.start_moving_window_step = 3", "Queue C",
+                 id="warpx.start_moving_window_step = 3-Queue A 11.6"),
     # the thermal walls' spread and the scraping buffers are read since
     # Queue A 11.4 (tests/test_torch_particle_walls.py): the spread of a
     # species the deck lacks and a face that is none are read by neither

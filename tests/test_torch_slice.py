@@ -217,7 +217,11 @@ def test_state_round_trip_step(jax_runs, jax_runs_2d, ndim):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(current_deposition="villasenor"), "Queue A 3"),
+    # villasenor runs since Queue A 3-4 (tests/test_torch_dims1.py); Vay
+    # deposition off PSATD is refused (the case keeps its id)
+    pytest.param(dict(current_deposition="vay"),
+                 "Vay deposition requires the PSATD solver",
+                 id="kw0-Queue A 3"),
     # momentum-conserving gathering and collocated grids run since Queue A
     # 11.4 (tests/test_torch_collocated.py); a 2D lattice, whose fields the
     # JAX package adds in 3D only, and hybrid QED off PSATD on a collocated

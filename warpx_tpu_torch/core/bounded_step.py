@@ -110,7 +110,8 @@ from .config import SimConfig
 from .domain import DomainLayout
 from .grid import Geometry
 from .injection import (PARSED_PROFILES, _AXES3, _bulk_momentum,
-                        _regular_unit_positions, profile_values)
+                        _regular_unit_positions, attribute_values,
+                        profile_values, xyz_of)
 from .laser import update_antenna
 from .state import SimState
 from .step import (_add_ext, _apply_nci, check_lattice, collisions_substep,
@@ -178,8 +179,11 @@ def check_bounded_supported(cfg: SimConfig) -> None:
     def no(what, item):
         raise NotImplementedError(f"bounded step: {what} (ROADMAP.md {item})")
 
-    if ndim not in (2, 3):
-        no("1D", "Queue A 3-4")
+    if (cfg.start_moving_window_step != 0
+            or cfg.end_moving_window_step != -1):
+        # the JAX package reads the window's step range and never uses it
+        no("a moving-window step range other than 0 / -1 (the JAX "
+           "package moves the window from step 0 to the end)", "Queue C")
     if any(cfg.psatd_v_galilean) and cfg.em_solver != "psatd":
         raise NotImplementedError(
             "psatd.v_galilean without the PSATD solver")
@@ -287,8 +291,9 @@ def check_bounded_supported(cfg: SimConfig) -> None:
         # the JAX package's bounded step deposits direct J there and hands
         # it to a solver that divides it by i k as if it were D
         no("Vay deposition on the bounded step", "Queue C")
-    if cfg.current_deposition not in ("esirkepov", "direct"):
-        no(f"current deposition {cfg.current_deposition!r}", "Queue A 3")
+    if cfg.current_deposition not in ("esirkepov", "direct", "villasenor"):
+        raise NotImplementedError(
+            f"current deposition {cfg.current_deposition!r}")
     if cfg.field_gathering == "momentum-conserving" and any(
             o != 2 for o in cfg.field_centering_no):
         # the JAX package's bounded average is two-point whatever the
@@ -740,7 +745,7 @@ class BoundedStepper:
         geom = cfg.geometry
         ndim = self.ndim
         periodic = self.es_periodic
-        names = ("Ex", "Ez") if ndim == 2 else ("Ex", "Ey", "Ez")
+        names = {1: ("Ez",), 2: ("Ex", "Ez"), 3: ("Ex", "Ey", "Ez")}[ndim]
         kw = dict(dtype=self.dtype, device=self.device)
         upd = {nm: torch.zeros(self.shapes[nm], **kw) for nm in _EB}
         phi_b = self.wall_potential(state.time)
@@ -1101,7 +1106,9 @@ class BoundedStepper:
         cfg = self.cfg
         kw = dict(origin=origin, wrap=False, offset=self.ng, out_shape=shape,
                   chunk_size=cfg.deposit_chunk_size, out=out)
-        if cfg.current_deposition == "direct":
+        if cfg.current_deposition != "esirkepov":
+            # direct, and villasenor, which the JAX package deposits
+            # directly too (bounded_step.py:1023-1036)
             return deposit_current_direct(
                 pos, *u, w_eff, q, cfg.geometry, self.staggering, cfg.dt,
                 cfg.particle_shape, **kw)
@@ -1292,7 +1299,11 @@ class BoundedStepper:
             for nm in out_names:
                 terms = terms_of[nm]
                 curls = [self.curl_term(nm, t, pads, coef) for t in terms]
-                total = curls[0]
+                # a component with no term (Ez and Bz in 1D) keeps its
+                # value outside the PML and is zero inside it, as in the
+                # JAX package
+                zero = torch.zeros_like(getattr(fields, nm))
+                total = curls[0] if curls else zero
                 for t in curls[1:]:
                     total = total + t
                 reg = getattr(fields, nm) + dth * total
@@ -1301,12 +1312,12 @@ class BoundedStepper:
                 if source is not None:
                     reg = reg + dth * source
                 if self.has_pml:
-                    tot = None
+                    tot = zero
                     for term, cur in zip(terms, curls):
                         key = f"pml:{nm}:{term[2]}"
                         split = self.pml_mask[nm] * (aux[key] + dth * cur)
                         aux[key] = split
-                        tot = split if tot is None else tot + split
+                        tot = tot + split
                     reg = torch.where(self.pml_owned[nm], tot, reg)
                 if self.sm_mask is not None and nm in self.sm_mask:
                     # the Silver-Mueller guards never evolve by the curls
@@ -1577,6 +1588,15 @@ class BoundedStepper:
                          alive=alive)
         new = new.with_positions(ndim, [
             put(p, pos[:, d]) for d, p in enumerate(sp.positions(ndim))])
+        if sp_cfg.attributes:
+            # at the lab position, the boosted momenta and the time of the
+            # step (JAX bounded_step.py:1600-1605)
+            vals = attribute_values(
+                sp_cfg, xyz_of([lab[:, d] for d in range(ndim)], ndim),
+                *u_new, state.time, self.dtype)
+            new = new.replace(extra={
+                **new.extra, **{k: put(new.extra[k], v)
+                                for k, v in vals.items()}})
         aux = dict(state.aux)
         aux[key] = new_pos
         return state.replace(aux=aux), new

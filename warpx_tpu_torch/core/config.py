@@ -143,6 +143,9 @@ class SpeciesConfig:
     # advances at its mean vz until it crosses the (boosted-frame) plane
     zinject_plane: Optional[float] = None
     rigid_advance: bool = True
+    # flip u_z after the boost transform of a Gaussian beam that propagates
+    # backward in a boosted frame (PhysicalParticleContainer.cpp:487-489)
+    do_backward_propagation: bool = False
     # thermal particle boundary's re-emission spread (boundary.<sp>.u_th,
     # units of c)
     boundary_u_th: float = 0.0
@@ -163,6 +166,10 @@ class SpeciesConfig:
     npart: int = 0
     q_tot: float = 0.0
     z_cut: float = float("inf")
+    # runtime attributes (<species>.addRealAttributes /
+    # addIntegerAttributes): (name, expression of (x, y, z, ux, uy, uz, t),
+    # is_integer), evaluated where a particle is injected
+    attributes: Tuple[Tuple[str, str, bool], ...] = ()
     species_type: str = ""
     # the deck's my_constants, which the parsed profiles may name
     user_constants: Tuple[Tuple[str, float], ...] = ()
@@ -267,6 +274,11 @@ class SimConfig:
     do_moving_window: bool = False
     moving_window_dir: int = -1  # active-axis index
     moving_window_v: float = 1.0  # units of c
+    # the window's step range (warpx.start/end_moving_window_step); the
+    # window moves from step 0 to the end, the only range the JAX package
+    # runs (ROADMAP.md Queue C)
+    start_moving_window_step: int = 0
+    end_moving_window_step: int = -1
     lasers: Tuple[LaserConfig, ...] = ()
     # cold relativistic fluid species (reference: fluids.species_names,
     # WarpXFluidContainer), on the SpeciesConfig profile fields

@@ -139,7 +139,8 @@ NO_PHYSICS = (
     "algo.costs_heuristic_particles_wt",
 )
 
-_AXES3 = {2: (0, 2), 3: (0, 1, 2)}
+_AXES3 = {1: (2,), 2: (0, 2), 3: (0, 1, 2)}
+_AXIS_NAMES = {1: ("z",), 2: ("x", "z"), 3: ("x", "y", "z")}
 
 
 def _no(what: str, item: str):
@@ -217,6 +218,15 @@ def _species_from_deck(deck: Deck, name: str, ndim: int) -> SpeciesConfig:
     full_lo = (g("xmin", -inf), g("ymin", -inf), g("zmin", -inf))
     full_hi = (g("xmax", inf), g("ymax", inf), g("zmax", inf))
     axes = _AXES3[ndim]
+    # runtime attributes (PhysicalParticleContainer addRealAttributes /
+    # addIntegerAttributes; the JAX reader, warpx_tpu/core/deck.py:105-115)
+    attributes = []
+    for key, is_int in (("addRealAttributes", False),
+                        ("addIntegerAttributes", True)):
+        for attr in deck.get_strings(f"{name}.{key}", []):
+            found = deck.get_expr_string(f"{name}.attribute", attr)
+            if found:
+                attributes.append((attr, found[0], is_int))
     charge = g("charge", type_q if type_q is not None else 0.0)
     mass = g("mass", type_m if type_m is not None else 0.0)
     injection_file = None
@@ -304,6 +314,9 @@ def _species_from_deck(deck: Deck, name: str, ndim: int) -> SpeciesConfig:
             g("zinject_plane", None) if name in deck.get_strings(
                 "particles.rigid_injected_species", []) else None),
         rigid_advance=deck.get_bool(f"{name}.rigid_advance", True),
+        do_backward_propagation=deck.get_bool(
+            f"{name}.do_backward_propagation", False),
+        attributes=tuple(attributes),
         boundary_u_th=deck.get_real(f"boundary.{name}.u_th", 0.0),
         species_type=species_type,
         x_rms=g("x_rms", 0.0), y_rms=g("y_rms", 0.0), z_rms=g("z_rms", 0.0),
@@ -802,11 +815,9 @@ def _implicit_from_deck(deck: Deck) -> dict:
 def _gate_values(deck: Deck) -> None:
     """Keys the reader reads whose value selects what the port lacks."""
     dims = _lower(deck, "geometry.dims", "3")
-    if dims == "1":
-        _no("geometry.dims = 1", "Queue A 3-4")
     if dims == "rz":
         _no("geometry.dims = RZ", "Queue A 12")
-    if dims not in ("2", "3"):
+    if dims not in ("1", "2", "3"):
         raise ValueError(f"geometry.dims = {dims}")
     if deck.get_int("amr.max_level", 0) > 0:
         _no("mesh refinement (amr.max_level > 0)", "Queue A 12")
@@ -868,8 +879,16 @@ def _gate_values(deck: Deck) -> None:
                 "refuses it)", "Queue C")
     dep = _lower(deck, "algo.current_deposition",
                  _dep_default(solver, es))
-    if dep not in ("esirkepov", "direct", "vay"):
-        _no(f"algo.current_deposition = {dep}", "Queue A 3")
+    if dep not in ("esirkepov", "direct", "vay", "villasenor"):
+        raise NotImplementedError(f"algo.current_deposition = {dep}")
+    if (deck.get_int("warpx.start_moving_window_step", 0) != 0
+            or deck.get_int("warpx.end_moving_window_step", -1) != -1):
+        # the JAX package reads the window's step range and never uses it
+        # (warpx_tpu/core/deck.py:988-989): its window moves from step 0
+        # to the end whatever the deck says
+        _no("warpx.start_moving_window_step / end_moving_window_step "
+            "other than 0 / -1 (the JAX package reads them and moves the "
+            "window from step 0 to the end)", "Queue C")
     _psatd_gates(deck)
     for which in ("E", "B"):
         style = _lower(deck, f"particles.{which}_ext_particle_init_style",
@@ -947,12 +966,6 @@ def _psatd_gates(deck: Deck) -> None:
             "Vay deposition not implemented with multi-J (WarpX.cpp:1162)")
 
 
-# keys the JAX reader reads that no other item of ROADMAP.md names
-_ITEM_11_6 = ("addRealAttributes", "addIntegerAttributes",
-              "do_backward_propagation", "start_moving_window_step",
-              "end_moving_window_step")
-
-
 def _item_of_key(deck: Deck, key: str) -> str:
     """The ROADMAP.md item a deck key the reader does not read waits for;
     a key that neither package reads names Queue C (the JAX package lists
@@ -975,9 +988,6 @@ def _item_of_key(deck: Deck, key: str) -> str:
                                  "n_field_gather_buffer") or (
             head in species and tail == "random_theta"):
         return "Queue A 12"
-    if tail in _ITEM_11_6 or (head in species
-                              and tail.startswith("attribute.")):
-        return "Queue A 11.6"
     return "Queue C"
 
 
@@ -1161,7 +1171,7 @@ def config_from_deck(deck: Deck) -> SimConfig:
     boost_dir = _lower(deck, "warpx.boost_direction", "z")
     if gamma_boost > 1.0:
         beta_boost = math.sqrt(1.0 - 1.0 / (gamma_boost * gamma_boost))
-        d = {2: ["x", "z"], 3: ["x", "y", "z"]}[ndim].index(boost_dir)
+        d = _AXIS_NAMES[ndim].index(boost_dir)
         beta_window = beta_boost
         if deck.get_bool("warpx.do_moving_window", False) and (
                 deck.get_string("warpx.moving_window_dir", "z").lower()
@@ -1202,7 +1212,7 @@ def config_from_deck(deck: Deck) -> SimConfig:
     boundary_potentials = tuple(
         (deck.get_string(f"boundary.potential_lo_{nm}", "") or "",
          deck.get_string(f"boundary.potential_hi_{nm}", "") or "")
-        for nm in {2: ("x", "z"), 3: ("x", "y", "z")}[ndim])
+        for nm in _AXIS_NAMES[ndim])
     if not any(lo or hi for lo, hi in boundary_potentials):
         boundary_potentials = ()
     if const_dt is not None:
@@ -1245,7 +1255,7 @@ def config_from_deck(deck: Deck) -> SimConfig:
     do_window = deck.get_bool("warpx.do_moving_window", False)
     window_dir = -1
     if do_window:
-        window_dir = {2: ["x", "z"], 3: ["x", "y", "z"]}[ndim].index(
+        window_dir = _AXIS_NAMES[ndim].index(
             deck.get_string("warpx.moving_window_dir", "z").lower())
     lasers = tuple(_laser_from_deck(deck, nm)
                    for nm in deck.get_strings("lasers.names", []))
@@ -1282,7 +1292,7 @@ def config_from_deck(deck: Deck) -> SimConfig:
         field_centering_no=tuple(
             deck.get_int(f"warpx.field_centering_no{ax}",
                          8 if grid_type == "hybrid" else 2)
-            for ax in {2: "xz", 3: "xyz"}[ndim]),
+            for ax in _AXIS_NAMES[ndim]),
         lattice_elements=_lattice_from_deck(deck),
         # the reference's default is use_filter = true (WarpX.cpp:158)
         use_filter=deck.get_bool("warpx.use_filter", True),
@@ -1300,6 +1310,10 @@ def config_from_deck(deck: Deck) -> SimConfig:
         do_moving_window=do_window,
         moving_window_dir=window_dir,
         moving_window_v=deck.get_real("warpx.moving_window_v", 1.0),
+        start_moving_window_step=deck.get_int(
+            "warpx.start_moving_window_step", 0),
+        end_moving_window_step=deck.get_int(
+            "warpx.end_moving_window_step", -1),
         lasers=lasers,
         pml_ncell=deck.get_int("pml_ncell",
                                deck.get_int("warpx.pml_ncell", 10)),

@@ -34,7 +34,7 @@ from ..utils.expression import compile_expression
 __all__ = ["make_flux_injector", "sample_gaussian_flux", "flux_capacity"]
 
 _ROUNDS = 24  # rejection rounds (the acceptance of a round is high)
-_AXES3 = {2: (0, 2), 3: (0, 1, 2)}
+_AXES3 = {1: (2,), 2: (0, 2), 3: (0, 1, 2)}
 
 
 def sample_gaussian_flux(draws, n: int, u_m: float, u_th: float,

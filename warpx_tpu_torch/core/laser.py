@@ -230,7 +230,9 @@ def antenna_particles(
     zeros = np.zeros(n, dtype=dtype)
     cols = dict(w=w, ux=zeros.copy(), uy=zeros.copy(), uz=zeros.copy(),
                 alive=alive)
-    if ndim == 2:
+    if ndim == 1:
+        cols.update(z=xyz[:, 2].copy())
+    elif ndim == 2:
         cols.update(x=xyz[:, 0].copy(), z=xyz[:, 2].copy())
     else:
         cols.update(x=xyz[:, 0].copy(), y=xyz[:, 1].copy(),
@@ -283,7 +285,10 @@ def update_antenna(
     u_Y = [float(v) for v in u_Y]
     pos = sp.positions(ndim)
     # laser-plane coordinates
-    if ndim == 2:
+    if ndim == 1:
+        Xp = torch.zeros_like(pos[0])
+        Yp = torch.zeros_like(pos[0])
+    elif ndim == 2:
         Xp = u_X[0] * (pos[0] - laser.position[0]) + u_X[2] * (
             pos[1] - laser.position[2]
         )
@@ -316,7 +321,9 @@ def update_antenna(
         vy = vy - beta_boost * constants.c * float(nvec[1])
         vz = vz - beta_boost * constants.c * float(nvec[2])
     gamma = gamma_boost / torch.sqrt(1.0 - v_over_c * v_over_c)
-    if ndim == 2:
+    if ndim == 1:
+        new_pos = [pos[0] + vz * dt]
+    elif ndim == 2:
         new_pos = [pos[0] + vx * dt, pos[1] + vz * dt]
     else:
         new_pos = [pos[0] + vx * dt, pos[1] + vy * dt, pos[2] + vz * dt]

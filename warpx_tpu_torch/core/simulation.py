@@ -74,7 +74,7 @@ from .config import SimConfig
 from .deck import config_from_deck, outputs_from_deck
 from .domain import DomainLayout
 from .flux_injection import flux_capacity, make_flux_injector
-from .grid import collocated_staggering, yee_staggering
+from .grid import AXIS_NAMES, collocated_staggering, yee_staggering
 from .injection import (columns_to_state, inject_gaussian_beam_host,
                         inject_species_host, position_fills)
 from .laser import antenna_particles
@@ -158,8 +158,17 @@ class Simulation:
                        else torch.device(device))
         self.dtype = dtype
         self.cfg = cfg
-        if cfg.geometry.ndim not in (2, 3):
-            raise NotImplementedError("1D (ROADMAP.md Queue A 3-4)")
+        if cfg.geometry.ndim not in (1, 2, 3):
+            raise ValueError(f"geometry.ndim = {cfg.geometry.ndim}")
+        for sp_cfg in cfg.species:
+            if sp_cfg.attributes and sp_cfg.injection_style not in (
+                    "nuniformpercell", "nrandompercell", "gaussian_beam"):
+                # the JAX package evaluates them for the plasma styles and
+                # the Gaussian beam only, and gives any other species none
+                raise NotImplementedError(
+                    f"runtime attributes of the {sp_cfg.injection_style!r} "
+                    "style (the JAX package injects such a species without "
+                    "them; ROADMAP.md Queue C)")
         self.is_bounded = needs_bounded_step(cfg)
         if cfg.do_divb_cleaning_external and self.is_bounded:
             # the JAX package's refusal (simulation.py:803-812)
@@ -390,10 +399,11 @@ class Simulation:
         simulation.py:956-973): the ions' initial level, and exponentially
         distributed QED optical depths from ``default_rng(seed + 17)``,
         created anew for every species as the JAX package does; for
-        ``capacity`` slots (default: the columns' length)."""
+        ``capacity`` slots (default: the columns' length), beside the
+        deck's attributes that the injection evaluated."""
         cap = capacity or cols["w"].shape[0]
         ft = cols["w"].dtype
-        extra = {}
+        extra = dict(cols.get("extra", {}))
         if sp_cfg.do_field_ionization:
             extra["ionizationLevel"] = np.full(
                 cap, sp_cfg.ionization_initial_level, np.int32)
@@ -477,7 +487,7 @@ class Simulation:
         on the host, then moved to the device."""
         cfg = self.cfg
         geom = cfg.geometry
-        axes = {2: (0, 2), 3: (0, 1, 2)}[geom.ndim]
+        axes = {1: (2,), 2: (0, 2), 3: (0, 1, 2)}[geom.ndim]
         upd = {}
         for spec, comps in ((cfg.e_ext_grid, ("Ex", "Ey", "Ez")),
                             (cfg.b_ext_grid, ("Bx", "By", "Bz"))):
@@ -681,6 +691,7 @@ class Simulation:
             return ps.replace(
                 ux=ext(ps.ux), uy=ext(ps.uy), uz=ext(ps.uz), w=ext(ps.w),
                 alive=ext(ps.alive, False),
+                extra={k: ext(v, 0) for k, v in ps.extra.items()},
             ).with_positions(geom.ndim, pos)
 
         counter = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -804,7 +815,7 @@ class Simulation:
         cfg = self.cfg
         geom = cfg.geometry
         ndim = geom.ndim
-        names = ("x", "z") if ndim == 2 else ("x", "y", "z")
+        names = AXIS_NAMES[ndim]
         tile = cfg.tile_size[-ndim:]
         ntpd = [n // t for n, t in zip(geom.n_cell, tile)]
         n_tiles = int(np.prod(ntpd))
@@ -857,10 +868,22 @@ class Simulation:
             if alive[:n_alive].all():
                 # alive first already: the first ``cap`` rows, padded to
                 # ``cap`` on the device (columns_to_state)
-                return {k: a[:cap] for k, a in cols.items()}
+                out = {k: a[:cap] for k, a in cols.items() if k != "extra"}
+                if "extra" in cols:
+                    out["extra"] = {k: a[:cap]
+                                    for k, a in cols["extra"].items()}
+                return out
             take = np.argsort(~alive, kind="stable")[:cap]
             out = {}
+            if "extra" in cols:
+                out["extra"] = {}
+                for k, a in cols["extra"].items():
+                    arr = np.zeros(cap, a.dtype)
+                    arr[:take.shape[0]] = a[take]
+                    out["extra"][k] = arr
             for k, a in cols.items():
+                if k == "extra":
+                    continue
                 fill = False if k == "alive" else 0.0
                 if k in names:
                     d = names.index(k)

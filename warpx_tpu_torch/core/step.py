@@ -283,11 +283,12 @@ def _check_pic_step(cfg: SimConfig):
         raise ValueError(
             "a bounded configuration was handed to pic_step, the periodic "
             "step: Simulation runs it through core/bounded_step.py")
-    if cfg.current_deposition not in ("esirkepov", "direct", "vay"):
+    if cfg.current_deposition not in ("esirkepov", "direct", "vay",
+                                      "villasenor"):
+        # villasenor is deposited directly, with the Galerkin gather on, as
+        # the JAX package runs it (step.py:593-614, config.py:499-514)
         raise NotImplementedError(
-            f"current deposition {cfg.current_deposition!r} "
-            "(ROADMAP.md Queue A 3)"
-        )
+            f"current deposition {cfg.current_deposition!r}")
     if cfg.current_deposition == "vay" and cfg.em_solver != "psatd":
         # the deposited D arrays become J only in the spectral solver
         raise NotImplementedError(

@@ -348,7 +348,8 @@ def _es_current(state: SimState, cfg: SimConfig, staggering: Dict):
         pos = sp.positions(ndim)
         if cfg.current_deposition == "esirkepov":
             g = inv_gamma(sp.ux, sp.uy, sp.uz)
-            vel = {2: (sp.ux, sp.uz), 3: (sp.ux, sp.uy, sp.uz)}[ndim]
+            vel = {1: (sp.uz,), 2: (sp.ux, sp.uz),
+                   3: (sp.ux, sp.uy, sp.uz)}[ndim]
             pos = [p + (0.5 * cfg.dt) * (v * g) for p, v in zip(pos, vel)]
             deposit_current_esirkepov(pos, sp.ux, sp.uy, sp.uz, w_eff,
                                       sp_cfg.charge, geom, cfg.dt,

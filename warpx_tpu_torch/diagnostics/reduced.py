@@ -24,7 +24,7 @@ from ..ops.deposit import deposit_rho
 from ..utils.expression import compile_expression
 from .fields import cell_centered_output, current_origin, deposit_total_rho
 
-_AXES3 = {2: (0, 2), 3: (0, 1, 2)}
+_AXES3 = {1: (2,), 2: (0, 2), 3: (0, 1, 2)}
 
 __all__ = ["REDUCED_DIAGS", "ReducedDiagWriter", "compute_reduced"]
 

@@ -13,8 +13,8 @@ become (taps, n) tensors and the reference's atomicAdd becomes
 
 * ``deposit_rho``: nodal charge density (ChargeDeposition.H shape-N);
 * ``count_particles_per_cell``: the ``part_per_cell`` diagnostic;
-* ``deposit_current_esirkepov``: charge-conserving current, 2D XZ and 3D
-  (CurrentDeposition.H:643-900).  The per-particle steps run it; the binned
+* ``deposit_current_esirkepov``: charge-conserving current, 1D Z, 2D XZ
+  and 3D (CurrentDeposition.H:643-900).  The per-particle steps run it; the binned
   steps run it only for laser antennas and small compact species, so it is
   also the port's own slow-path oracle for the fused kernels in
   ``fused_pic``;
@@ -151,7 +151,8 @@ def deposit_current_esirkepov(
     gaminv_override=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Charge-conserving current deposition of ``warpx_tpu.ops.deposit.
-    _esirkepov_body`` at the default relative time -dt/2 (2D XZ and 3D).
+    _esirkepov_body`` at the default relative time -dt/2 (1D Z, 2D XZ and
+    3D).
 
     ``positions`` are the already-pushed x^{n+1}; the old position is
     reconstructed as x^{n+1} - dt*v (CurrentDeposition.H:725-738), and the
@@ -161,15 +162,11 @@ def deposit_current_esirkepov(
     ``gaminv_override`` with u = u^{n+1/2}
     (doChargeConservingDepositionShapeNImplicit, CurrentDeposition.H:934).
     """
-    if geom.ndim not in (2, 3):
-        raise NotImplementedError(
-            "1D Esirkepov deposition (ROADMAP.md Queue A 3)"
-        )
     shape = tuple(out_shape or geom.n_cell)
     lo = geom.prob_lo if origin is None else origin
     j3 = out if out is not None else tuple(
         torch.zeros(shape, dtype=w.dtype, device=w.device) for _ in range(3))
-    body = _esirkepov_2d if geom.ndim == 2 else _esirkepov_3d
+    body = {1: _esirkepov_1d, 2: _esirkepov_2d, 3: _esirkepov_3d}[geom.ndim]
     for sl in _chunks(w.shape[0], chunk_size):
         u = (ux[sl], uy[sl], uz[sl])
         gaminv = (inv_gamma(*u) if gaminv_override is None
@@ -263,6 +260,32 @@ def _esirkepov_2d(positions, vel, wq, geom, dt, order, lo, wrap, offset, j3,
            torch.broadcast_to(iz[None, :], valx.shape)]
     for j, v in zip(j3, (valx, valy, valz)):
         _scatter_add_(j, idx, v)
+
+
+def _esirkepov_1d(positions, vel, wq, geom, dt, order, lo, wrap, offset, j3,
+                  positions_old=None):
+    """The 1D branch (CurrentDeposition.H, WARPX_DIM_1D_Z; JAX
+    deposit.py:328-348): the transverse currents are direct, wq v on the
+    half-sum of the old and new shapes; Jz is the charge-conserving running
+    sum."""
+    shape = j3[0].shape
+    (dz,) = geom.dx
+    vx, vy, vz = vel
+    invvol = 1.0 / dz
+    zn = (positions[0] - lo[0]) / dz
+    if positions_old is None:
+        zo = zn - dt / dz * vz
+    else:
+        zo = (positions_old[0] - lo[0]) / dz
+    i0z, snz, soz = esirkepov_weights(zn, zo, order)
+    SNz, SOz = torch.stack(snz, dim=0), torch.stack(soz, dim=0)
+    CUMz = torch.cumsum(SOz - SNz, dim=0)
+    valx = (wq * vx * invvol) * 0.5 * (SOz + SNz)
+    valy = (wq * vy * invvol) * 0.5 * (SOz + SNz)
+    valz = (wq / dt) * CUMz
+    iz = _tap_idx(i0z, order + 3, shape[0], wrap, offset)
+    for j, v in zip(j3, (valx, valy, valz)):
+        _scatter_add_(j, [iz], v)
 
 
 def _blocks(j3, shape, like):

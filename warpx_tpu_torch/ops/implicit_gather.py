@@ -131,6 +131,20 @@ def _gather_2d(new_g, old_g, F, n_cell, order):
     return [ex, ey, ez, bx, by, bz]
 
 
+def _gather_1d(new_g, old_g, F, n_cell, order):
+    """The 1D branch (JAX implicit_gather.py:184-198): Ex, Ey and Bz take
+    the averaged shapes, Ez, Bx and By the running sums."""
+    wz = _weights(new_g[0], old_g[0], order)
+    iz = _win_idx(wz[0], order + 3, n_cell[0])
+    ovz, avz = wz[3], wz[4]
+
+    def s1(field, wgt):
+        return torch.sum(field[iz] * wgt, dim=0)
+
+    return [s1(F["Ex"], avz), s1(F["Ey"], avz), s1(F["Ez"], ovz),
+            s1(F["Bx"], ovz), s1(F["By"], ovz), s1(F["Bz"], avz)]
+
+
 def gather_eb_implicit(
     pos_n: Sequence[torch.Tensor],
     pos_nph: Sequence[torch.Tensor],
@@ -144,14 +158,11 @@ def gather_eb_implicit(
     (the new full position is 2 pos_nph - pos_n, FieldGather.H:488-494).
     Periodic domains only."""
     ndim = geom.ndim
-    if ndim not in (2, 3):
-        raise NotImplementedError(
-            "1D implicit gather (ROADMAP.md Queue A 3-4)")
     dx, lo = geom.dx, geom.prob_lo
     new_g = [(2.0 * pos_nph[d] - pos_n[d] - lo[d]) / dx[d]
              for d in range(ndim)]
     old_g = [(pos_n[d] - lo[d]) / dx[d] for d in range(ndim)]
-    body = _gather_3d if ndim == 3 else _gather_2d
+    body = {1: _gather_1d, 2: _gather_2d, 3: _gather_3d}[ndim]
     parts = [body([g[sl] for g in new_g], [g[sl] for g in old_g],
                   field_arrays, geom.n_cell, order)
              for sl in _chunks(pos_n[0].shape[0], chunk_size)]

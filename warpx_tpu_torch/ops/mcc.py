@@ -134,7 +134,7 @@ def background_xyz(sp, ndim: int):
     inactive axes at 0."""
     pos = sp.positions(ndim)
     out = [torch.zeros_like(sp.w)] * 3
-    for a, arr in zip({2: (0, 2), 3: (0, 1, 2)}[ndim], pos):
+    for a, arr in zip({1: (2,), 2: (0, 2), 3: (0, 1, 2)}[ndim], pos):
         out[a] = arr
     return out
 

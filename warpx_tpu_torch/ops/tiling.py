@@ -226,7 +226,7 @@ def rebin_inputs(sp, geom, spec: TileSpec, origin=None, wrap_dims=None):
 
     Returns (payload_sorted (n_attr, cap), offsets, counts (n_tiles,) int32,
     fill (n_attr, n_tiles)); the payload rows are the positions, ux, uy, uz,
-    w and alive (as 0/1).
+    w, alive (as 0/1) and the runtime attributes in sorted name order.
     """
     ndim = spec.ndim
     n_tiles = spec.n_tiles
@@ -241,8 +241,11 @@ def rebin_inputs(sp, geom, spec: TileSpec, origin=None, wrap_dims=None):
         pos[d] = lo + torch.remainder(pos[d] - lo, hi - lo)
     tid = torch.where(sp.alive, tile_ids(pos, geom, spec, origin=lo_all),
                       torch.full_like(sp.alive, n_tiles, dtype=torch.int32))
+    # the runtime attributes ride as further rows in sorted name order,
+    # in the payload's floating type (JAX tiling.py:257-264)
     payload = torch.stack(
-        pos + [sp.ux, sp.uy, sp.uz, sp.w, sp.alive.to(dtype)], dim=0
+        pos + [sp.ux, sp.uy, sp.uz, sp.w, sp.alive.to(dtype)]
+        + [sp.extra[k].to(dtype) for k in sorted(sp.extra)], dim=0
     )
     key_sorted, perm = torch.sort(tid, stable=True)
     payload_sorted = payload[:, perm]
@@ -275,12 +278,6 @@ def rebin(sp, geom, spec: TileSpec, origin=None, wrap_dims=None):
     slots; callers treat overflow > 0 as a hard error.
     """
     ndim = spec.ndim
-    if sp.extra:
-        # the tile-binned gates keep species with runtime attributes
-        # (ionizable ions, QED species) on the per-particle step
-        raise NotImplementedError(
-            f"rebinning runtime attributes {sorted(sp.extra)}: species "
-            "with them run per particle")
     payload_sorted, offsets, counts, fill = rebin_inputs(
         sp, geom, spec, origin=origin, wrap_dims=wrap_dims)
     overflow = torch.clamp(counts - spec.p_max, min=0).sum(dtype=torch.int32)
@@ -290,8 +287,20 @@ def rebin(sp, geom, spec: TileSpec, origin=None, wrap_dims=None):
         **{nm: out[d] for d, nm in enumerate(names)},
         ux=out[ndim], uy=out[ndim + 1], uz=out[ndim + 2], w=out[ndim + 3],
         alive=out[ndim + 4] > 0.5,
+        extra={k: _like(out[ndim + 5 + i], sp.extra[k])
+               for i, k in enumerate(sorted(sp.extra))},
     )
     return new, overflow
+
+
+def _like(row, attr):
+    """A payload row back in its attribute's type: an integer attribute
+    was floated exactly below 2^24 in float32 (2^53 in float64), and the
+    JAX package, whose rebin leaves it floated, raises on it in its binned
+    steps (ROADMAP.md Queue C)."""
+    if attr.dtype.is_floating_point:
+        return row
+    return torch.round(row).to(attr.dtype)
 
 
 # ---- field windows -------------------------------------------------------

@@ -23,9 +23,10 @@ __all__ = ["project_div_b"]
 
 def project_div_b(fields: FieldState, geom) -> FieldState:
     """B -= grad(phi) with div(grad phi) = div(B) (periodic, staggered,
-    2D XZ and 3D)."""
+    1D Z, 2D XZ and 3D)."""
     ndim = geom.ndim
-    names = {2: {"Bx": 0, "Bz": 1}, 3: {"Bx": 0, "By": 1, "Bz": 2}}[ndim]
+    names = {1: {"Bz": 0}, 2: {"Bx": 0, "Bz": 1},
+             3: {"Bx": 0, "By": 1, "Bz": 2}}[ndim]
     shape = fields.Bx.shape
     dev = fields.Bx.device
     ks = []

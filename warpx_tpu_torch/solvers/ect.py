@@ -164,7 +164,7 @@ def cached_ect_geometry(expr: str, consts_items, geom, origin) -> Dict:
            tuple(geom.dx))
     if key not in _GEO_CACHE:
         fn = compile_expression(expr, ("x", "y", "z"), dict(consts_items))
-        axes3 = {2: (0, 2), 3: (0, 1, 2)}[geom.ndim]
+        axes3 = {1: (2,), 2: (0, 2), 3: (0, 1, 2)}[geom.ndim]
 
         def phi_at(coords):
             xyz = [np.zeros_like(np.asarray(coords[0])) for _ in range(3)]

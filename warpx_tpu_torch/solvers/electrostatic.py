@@ -32,7 +32,7 @@ __all__ = ["PoissonSolver", "phi_to_e", "phi_to_e_beta", "phi_to_b",
            "igf_greens_hat", "solve_open_igf", "vector_potential_b",
            "phi_to_e_nodal", "phi_to_b_nodal"]
 
-_AXIS_OF = {2: {0: 0, 2: 1}, 3: {0: 0, 1: 1, 2: 2}}
+_AXIS_OF = {1: {2: 0}, 2: {0: 0, 2: 1}, 3: {0: 0, 1: 1, 2: 2}}
 
 
 def _dst1(arr: torch.Tensor, axis: int) -> torch.Tensor:

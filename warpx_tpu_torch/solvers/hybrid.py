@@ -40,11 +40,16 @@ def curl_b_over_mu0(fields, geom):
         jx = (_down(Bz, 1, idy) - _down(By, 2, idz)) * inv_mu0
         jy = (_down(Bx, 2, idz) - _down(Bz, 0, idx)) * inv_mu0
         jz = (_down(By, 0, idx) - _down(Bx, 1, idy)) * inv_mu0
-    else:
+    elif geom.ndim == 2:
         idx, idz = (1.0 / d for d in geom.dx)
         jx = -_down(By, 1, idz) * inv_mu0
         jy = (_down(Bx, 1, idz) - _down(Bz, 0, idx)) * inv_mu0
         jz = _down(By, 0, idx) * inv_mu0
+    else:
+        idz = 1.0 / geom.dx[0]
+        jx = -_down(By, 0, idz) * inv_mu0
+        jy = _down(Bx, 0, idz) * inv_mu0
+        jz = torch.zeros_like(fields.Ez)
     return jx, jy, jz
 
 
@@ -111,7 +116,7 @@ def _j_external(cfg, geom, staggering, like):
     from ..utils.expression import compile_expression
 
     ndim = geom.ndim
-    axes = {2: (0, 2), 3: (0, 1, 2)}[ndim]
+    axes = {1: (2,), 2: (0, 2), 3: (0, 1, 2)}[ndim]
     out = []
     for i, expr in enumerate(cfg.hybrid_j_ext):
         if not expr:
@@ -155,7 +160,7 @@ def ohm_solve_e(fields, Ji3: Tuple, rho, geom, staggering, cfg,
            dj[2] * bn[0] - dj[0] * bn[2],
            dj[0] * bn[1] - dj[1] * bn[0])
     rho_floor = _q_e * cfg.hybrid_n_floor
-    axis_of = {2: {0: 0, 2: 1}, 3: {0: 0, 1: 1, 2: 2}}[ndim]
+    axis_of = {1: {2: 0}, 2: {0: 0, 2: 1}, 3: {0: 0, 1: 1, 2: 2}}[ndim]
     with_eta = eta_fn is not None and solve_for_Faraday
     if with_eta and cfg.hybrid_resistivity_has_J:
         # |J| from the nodal plasma current

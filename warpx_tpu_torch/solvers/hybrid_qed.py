@@ -56,7 +56,7 @@ def hybrid_qed_push(fields, geom, dt: float, xi_c2: float):
     b3 = (fields.Bx, fields.By, fields.Bz)
     j3 = (fields.jx, fields.jy, fields.jz)
     # the array axis of an xyz axis (None: inactive, d/dy = 0 in 2D)
-    axis_of = {2: {0: 0, 2: 1}, 3: {0: 0, 1: 1, 2: 2}}[ndim]
+    axis_of = {1: {2: 0}, 2: {0: 0, 2: 1}, 3: {0: 0, 1: 1, 2: 2}}[ndim]
 
     def dc(arr, a_xyz):
         d = axis_of.get(a_xyz)

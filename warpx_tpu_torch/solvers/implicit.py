@@ -48,7 +48,7 @@ from . import yee
 __all__ = ["ImplicitStepper", "gmres", "check_implicit_supported"]
 
 _inv_c2 = 1.0 / (_c * _c)
-_AXES = {2: (0, 2), 3: (0, 1, 2)}
+_AXES = {1: (2,), 2: (0, 2), 3: (0, 1, 2)}
 
 
 def _gamma(ux, uy, uz):

@@ -34,12 +34,15 @@ __all__ = ["MacroscopicMedium", "evolve_e_macroscopic"]
 
 
 def _cc_coords(geom):
-    """Cell-center (x, y, z) coordinates over the grid (y = 0 in 2D)."""
+    """Cell-center (x, y, z) coordinates over the grid (y = 0 in 2D, x = y
+    = 0 in 1D)."""
     mesh = np.meshgrid(*[geom.cell_centers(d) for d in range(geom.ndim)],
                        indexing="ij")
     if geom.ndim == 3:
         return mesh[0], mesh[1], mesh[2]
-    return mesh[0], np.zeros_like(mesh[0]), mesh[1]
+    if geom.ndim == 2:
+        return mesh[0], np.zeros_like(mesh[0]), mesh[1]
+    return np.zeros_like(mesh[0]), np.zeros_like(mesh[0]), mesh[0]
 
 
 def _avg_to(arr: torch.Tensor, e_flags) -> torch.Tensor:
@@ -121,10 +124,15 @@ def evolve_e_macroscopic(fields, medium: MacroscopicMedium, geom,
             _down(Hx, 2, idz) - _down(Hz, 0, idx) - jy)
         Ez = az_al * fields.Ez + az_be * (
             _down(Hy, 0, idx) - _down(Hx, 1, idy) - jz)
-    else:  # (x, z); d/dy = 0
+    elif geom.ndim == 2:  # (x, z); d/dy = 0
         idx, idz = (1.0 / d for d in geom.dx)
         Ex = ax_al * fields.Ex + ax_be * (-_down(Hy, 1, idz) - jx)
         Ey = ay_al * fields.Ey + ay_be * (
             _down(Hx, 1, idz) - _down(Hz, 0, idx) - jy)
         Ez = az_al * fields.Ez + az_be * (_down(Hy, 0, idx) - jz)
+    else:  # (z); d/dx = d/dy = 0
+        idz = 1.0 / geom.dx[0]
+        Ex = ax_al * fields.Ex + ax_be * (-_down(Hy, 0, idz) - jx)
+        Ey = ay_al * fields.Ey + ay_be * (_down(Hx, 0, idz) - jy)
+        Ez = az_al * fields.Ez + az_be * (-jz)
     return fields.replace(Ex=Ex, Ey=Ey, Ez=Ez)

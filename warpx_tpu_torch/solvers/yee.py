@@ -1,5 +1,5 @@
-"""FDTD Maxwell updates on the staggered Yee mesh (periodic torus, 2D XZ
-and 3D).
+"""FDTD Maxwell updates on the staggered Yee mesh (periodic torus, 1D Z,
+2D XZ and 3D).
 
 The counterpart of ``warpx_tpu.solvers.yee`` (reference:
 FiniteDifferenceSolver EvolveB.cpp:120-190, EvolveE.cpp:120-215,
@@ -34,13 +34,6 @@ __all__ = [
 ]
 
 _c2 = _c * _c
-
-
-def _need_2d_3d(geom):
-    if geom.ndim not in (2, 3):
-        raise NotImplementedError(
-            "1D field advance (ROADMAP.md Queue A 4)"
-        )
 
 
 def _up(F, axis, inv_d):
@@ -85,6 +78,8 @@ def _ckc_coefs(geom):
     (CartesianCKCAlgorithm.H:36-105)."""
     inv = [1.0 / d for d in geom.dx]
     delta = max(inv)
+    if geom.ndim == 1:
+        return {"alphaz": inv[0]}
     if geom.ndim == 2:
         rx, rz = (inv[0] / delta) ** 2, (inv[1] / delta) ** 2
         beta = 0.125
@@ -112,6 +107,8 @@ def _ckc_coefs(geom):
 
 def _up_ckc(F, daxis, coefs):
     """CKC extended upward difference along array axis ``daxis``."""
+    if F.ndim == 1:
+        return coefs["alphaz"] * (torch.roll(F, -1, 0) - F)
     if F.ndim == 2:
         other = 1 - daxis
         base = torch.roll(F, -1, daxis) - F
@@ -140,7 +137,6 @@ def _up_ckc(F, daxis, coefs):
 
 def evolve_b(fields: FieldState, geom, dt: float,
              algo: str = "yee") -> FieldState:
-    _need_2d_3d(geom)
     Ex, Ey, Ez = fields.Ex, fields.Ey, fields.Ez
     if algo == "ckc":
         coefs = _ckc_coefs(geom)
@@ -155,7 +151,11 @@ def evolve_b(fields: FieldState, geom, dt: float,
             return diff(F, axis, inv[axis])
     else:
         _refuse(algo)
-    if geom.ndim == 2:  # axes (x, z); d/dy = 0
+    if geom.ndim == 1:  # axis (z); d/dx = d/dy = 0
+        Bx = fields.Bx + dt * up(Ey, 0)
+        By = fields.By - dt * up(Ex, 0)
+        Bz = fields.Bz
+    elif geom.ndim == 2:  # axes (x, z); d/dy = 0
         Bx = fields.Bx + dt * up(Ey, 1)
         By = fields.By + dt * (up(Ez, 0) - up(Ex, 1))
         Bz = fields.Bz - dt * up(Ey, 0)
@@ -170,13 +170,18 @@ def evolve_e(fields: FieldState, geom, dt: float,
              algo: str = "yee") -> FieldState:
     """E update; CKC uses the plain Yee downward differences for E, a
     collocated grid the centered ones."""
-    _need_2d_3d(geom)
     if algo not in ("yee", "ckc", "nodal"):
         _refuse(algo)
     d = _centered if algo == "nodal" else _down
     Bx, By, Bz = fields.Bx, fields.By, fields.Bz
     jx, jy, jz = fields.jx, fields.jy, fields.jz
     k = _c2 * dt
+    if geom.ndim == 1:
+        idz = 1.0 / geom.dx[0]
+        Ex = fields.Ex + k * (-d(By, 0, idz) - _mu0 * jx)
+        Ey = fields.Ey + k * (d(Bx, 0, idz) - _mu0 * jy)
+        Ez = fields.Ez + k * (-_mu0 * jz)
+        return fields.replace(Ex=Ex, Ey=Ey, Ez=Ez)
     if geom.ndim == 2:
         idx, idz = (1.0 / d_ for d_ in geom.dx)
         Ex = fields.Ex + k * (-d(By, 1, idz) - _mu0 * jx)
@@ -192,7 +197,8 @@ def evolve_e(fields: FieldState, geom, dt: float,
 
 def compute_div_e(fields: FieldState, geom) -> torch.Tensor:
     """Nodal div(E) (ComputeDivE.cpp; downward differences onto nodes)."""
-    _need_2d_3d(geom)
+    if geom.ndim == 1:
+        return _down(fields.Ez, 0, 1.0 / geom.dx[0])
     if geom.ndim == 2:
         idx, idz = (1.0 / d for d in geom.dx)
         return _down(fields.Ex, 0, idx) + _down(fields.Ez, 1, idz)
@@ -206,7 +212,8 @@ def compute_div_e(fields: FieldState, geom) -> torch.Tensor:
 
 def compute_div_b(fields: FieldState, geom) -> torch.Tensor:
     """Cell-centered div(B) (upward differences from faces to centers)."""
-    _need_2d_3d(geom)
+    if geom.ndim == 1:
+        return _up(fields.Bz, 0, 1.0 / geom.dx[0])
     if geom.ndim == 2:
         idx, idz = (1.0 / d for d in geom.dx)
         return _up(fields.Bx, 0, idx) + _up(fields.Bz, 1, idz)
@@ -226,6 +233,8 @@ def _pick(algo: str, staggered):
 def _div(fields: FieldState, names, geom, diff):
     inv = [1.0 / d for d in geom.dx]
     comps = [getattr(fields, nm) for nm in names]
+    if geom.ndim == 1:
+        return diff(comps[2], 0, inv[0])
     if geom.ndim == 2:
         return diff(comps[0], 0, inv[0]) + diff(comps[2], 1, inv[1])
     return (diff(comps[0], 0, inv[0]) + diff(comps[1], 1, inv[1])
@@ -236,7 +245,6 @@ def evolve_f(F, fields: FieldState, rho, geom, dt: float,
              algo: str = "yee"):
     """div E cleaning scalar: F += dt (div E - rho/eps0) (EvolveF.cpp:
     119-126; F is nodal on the staggered grid)."""
-    _need_2d_3d(geom)
     div = _div(fields, ("Ex", "Ey", "Ez"), geom, _pick(algo, _down))
     return F + dt * (div - rho / _ep0)
 
@@ -244,7 +252,6 @@ def evolve_f(F, fields: FieldState, rho, geom, dt: float,
 def evolve_g(G, fields: FieldState, geom, dt: float, algo: str = "yee"):
     """div B cleaning scalar: G += c^2 dt div B (EvolveG.cpp:108-112; G is
     cell-centered on the staggered grid)."""
-    _need_2d_3d(geom)
     return G + _c2 * dt * _div(fields, ("Bx", "By", "Bz"), geom,
                                _pick(algo, _up))
 
@@ -253,10 +260,11 @@ def add_grad_f(fields: FieldState, F, geom, dt: float,
                algo: str = "yee") -> FieldState:
     """The charge-conservation correction E += c^2 dt grad F
     (EvolveE.cpp:218-240)."""
-    _need_2d_3d(geom)
     up = _pick(algo, _up)
     inv = [1.0 / d for d in geom.dx]
     k = _c2 * dt
+    if geom.ndim == 1:
+        return fields.replace(Ez=fields.Ez + k * up(F, 0, inv[0]))
     if geom.ndim == 2:
         return fields.replace(Ex=fields.Ex + k * up(F, 0, inv[0]),
                               Ez=fields.Ez + k * up(F, 1, inv[1]))
@@ -268,9 +276,10 @@ def add_grad_f(fields: FieldState, F, geom, dt: float,
 def add_grad_g(fields: FieldState, G, geom, dt: float,
                algo: str = "yee") -> FieldState:
     """The div B correction B += dt grad G (EvolveB.cpp:192-209)."""
-    _need_2d_3d(geom)
     down = _pick(algo, _down)
     inv = [1.0 / d for d in geom.dx]
+    if geom.ndim == 1:
+        return fields.replace(Bz=fields.Bz + dt * down(G, 0, inv[0]))
     if geom.ndim == 2:
         return fields.replace(Bx=fields.Bx + dt * down(G, 0, inv[0]),
                               Bz=fields.Bz + dt * down(G, 1, inv[1]))
