@@ -3,17 +3,17 @@
 
     python3 chip_smoke.py
 
-It runs every phase, in order (but for the five per-particle paths
-main_lwfa_ionization, main_qed, main_coulomb, main_fusion and
-main_mcc_dsmc, which launch none of the kernels and run first, while the
-kernels compile); each prints one JSON line and any failure exits
-non-zero:
+It runs every phase, in order (but for the seven per-particle paths
+main_lwfa_ionization, main_qed, main_coulomb, main_fusion, main_mcc_dsmc,
+main_mr and main_lwfa_mr, which launch none of the kernels and run first,
+while the kernels compile); each prints one JSON line and any failure
+exits non-zero:
 
   device       the card's name, count and power limit;
   build        compile every kernel under warpx_tpu_torch/csrc with nvcc,
                one nvcc a source, all started together at the lowest
-               priority before the five paths above, and waited for after
-               them;
+               priority before the seven paths above, and waited for
+               after them;
   k1_parity    kernel K1 (fused gather/push/deposit) against its plain
                PyTorch version at 16^3, two species, orders 1-3, the Boris,
                Vay and Higuera-Cary pushers, float64 and float32, each case
@@ -330,6 +330,26 @@ non-zero:
                4096 cells, 256 electrons a cell, 450 steps: the pulse's
                peak |Ey| within 5 % of e_max, the alive count and the
                regionofinterest count exact, initialenergy as injected;
+  mr_parity    (after dims1_parity) mesh refinement in float64, card
+               against CPU: the periodic step in 2D and 3D, subcycled,
+               subcycled under the NCI corrector, momentum-conserving, and
+               the bounded 32 x 64 laser-wakefield deck with a patch riding
+               the window, PML and refine_plasma: states, patch arrays and
+               the lev=0/lev=1 checksums within 1e-9, no kernel;
+  main_mr      (while the kernels compile) uniform-128-mr: main's plasma
+               (8.39 M) with a ratio-2 patch over the central 64^3 cells,
+               per particle, float32, plain and subcycled: ms a step,
+               pushes/s, busy share, the patch's work alone, the level-1
+               share of the particles against the patch's volume share;
+               finite fields on both levels, the weight bitwise, no
+               kernel;
+  main_lwfa_mr (while the kernels compile) lwfa2d-2048x8192-mr:
+               main_lwfa's deck with a ratio-2 patch of 512 x 1024 cells
+               around the antenna riding the window, refine_plasma on (95
+               M electrons), per particle, float32: ms a step, busy share,
+               the patch's work alone; the alive count exactly the refined
+               lattice's between the window's edge and the injection
+               front, finite fields, no kernel;
   labs         each Hopper lab's main() at the TPU lab's default shapes (L1
                in every mode): kernel against plain version, times, bounds,
                the library's yardstick where there is one; each lab prints
@@ -970,11 +990,13 @@ PROFILED_STEPS_PER_PARTICLE = 1
 def profile_steps(sim, steps, top=15):
     """Device time by kernel over ``steps`` steps of the main path (from
     torch.profiler), per step, and the device's busy share of the wall
-    time of those steps."""
+    time of those steps.  The profiler traces the device alone: recording
+    every host operator too doubles the time a per-particle step's trace
+    takes to read back and stretches the wall time it divides by."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         sim.evolve(steps)
@@ -1509,7 +1531,8 @@ def lwfa_cfg(n_cell, lo, hi, x_bound, zmin, beam_z, laser_z, ppc, max_step,
         particle_bc_hi=("absorbing",) * 2, do_moving_window=True,
         moving_window_dir=1, moving_window_v=1.0, sort_interval=interval,
         field_centering_no=(2, 2), tiled_particles="on", tile_mxu="f32",
-        **kw)
+        # the deck reader's amr.ref_ratio, read whatever amr.max_level is
+        ref_ratio=(2, 2), **kw)
 
 
 # The deck texts this script runs through Simulation.from_deck, kept as
@@ -7505,7 +7528,7 @@ def profile_call(fn):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         fn()
@@ -8850,7 +8873,7 @@ electrons.uz_m = 0.001
 """
 
 HYBRID_QED_XI = 1.0e-23
-QED_TRAVEL = 30e-6
+QED_TRAVEL = 20e-6
 HYBRID_QED_ES = 1.0e5
 
 
@@ -10223,6 +10246,423 @@ def phase_main_lwfa_1d(dev, smi, steps=MAIN_LWFA_1D_STEPS, ppc=256):
     torch.cuda.empty_cache()
 
 
+# ---- mesh refinement (Queue A 12.1-12.2) ------------------------------------
+
+# tests/test_torch_mr.py's periodic deck (copied: this script imports no
+# test), 32^2 or 16^3 with a ratio-2 patch over the central half of each
+# axis
+MR_PERIODIC_DECK = """
+max_step = {steps}
+amr.n_cell = {cells}
+amr.max_level = 1
+amr.ref_ratio = 2
+geometry.dims = {dims}
+geometry.prob_lo = {lo}
+geometry.prob_hi = {hi}
+warpx.fine_tag_lo = {tag_lo}
+warpx.fine_tag_hi = {tag_hi}
+warpx.cfl = 0.9
+warpx.use_filter = 1
+algo.particle_shape = {order}
+particles.species_names = electrons
+electrons.species_type = electron
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = {ppc}
+electrons.profile = constant
+electrons.density = 1.e25
+electrons.momentum_distribution_type = gaussian
+electrons.ux_th = 0.05
+electrons.uy_th = 0.05
+electrons.uz_th = 0.05
+"""
+# tests/test_torch_mr_bounded.py's patch on the 32 x 64 laser-wakefield deck
+MR_WINDOW_KEYS = """
+amr.max_level = 1
+amr.ref_ratio = 2
+warpx.fine_tag_lo = -7.5e-6 -17.e-6
+warpx.fine_tag_hi = 7.5e-6 -5.e-6
+warpx.refine_plasma = 1
+tpu.tiled_particles = off
+"""
+
+
+def mr_parity_cases():
+    """(name, deck text) of mr_parity."""
+    def deck2d(order=1, steps=4, extra=""):
+        return MR_PERIODIC_DECK.format(
+            steps=steps, cells="32 32", dims=2, lo="-20.e-6 -20.e-6",
+            hi="20.e-6 20.e-6", tag_lo="-8.e-6 -8.e-6",
+            tag_hi="8.e-6 8.e-6", order=order, ppc="2 2 2") + extra
+
+    return [
+        ("periodic_2d", deck2d()),
+        ("periodic_3d", MR_PERIODIC_DECK.format(
+            steps=3, cells="16 16 16", dims=3, lo="-8.e-6 -8.e-6 -8.e-6",
+            hi="8.e-6 8.e-6 8.e-6", tag_lo="-4.e-6 -4.e-6 -4.e-6",
+            tag_hi="4.e-6 4.e-6 4.e-6", order=1, ppc="1 1 1")),
+        ("subcycled", deck2d(extra="warpx.do_subcycling = 1\n")),
+        ("nci_subcycled", deck2d(order=3, steps=3, extra=(
+            "warpx.do_subcycling = 1\nwarpx.use_fdtd_nci_corr = 1\n"))),
+        ("momentum_conserving", deck2d(order=2, extra=(
+            "algo.field_gathering = momentum-conserving\n"))),
+        ("window_pml_refine", LWFA_32X64_DECK + MR_WINDOW_KEYS),
+    ]
+
+
+def phase_mr_parity(dev):
+    """mr_parity: mesh refinement in float64, card against CPU on the same
+    numbers (the decks of tests/test_torch_mr.py and
+    test_torch_mr_bounded.py, which hold the port to the JAX package):
+    periodic 2D and 3D, subcycled, subcycled under the NCI corrector,
+    momentum-conserving gathering, and the bounded 32 x 64 laser-wakefield
+    deck with a patch riding the moving window, PML and refine_plasma.
+    Fields, species, the patch's state within 1e-9 of their largest
+    values, checksums (lev=0 and lev=1) within 1e-9; MR runs per particle,
+    so no kernel is launched."""
+    out = {}
+    for name, text in mr_parity_cases():
+        before = kernel_counters()
+        t0 = time.perf_counter()
+        card = stochastic_run(text, dev, torch.float64)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launched = [a - b for a, b in zip(kernel_counters(), before)]
+        cpu = stochastic_run(text, "cpu", torch.float64)
+        if card.mr_layout is None or card.binned or any(launched):
+            raise AssertionError(f"mr_parity {name}: MR {card.mr_layout}, "
+                                 f"binned {card.binned}, kernels {launched}")
+        worst = states_agree(card, cpu, 1e-9, f"mr_parity {name}")
+        worst_patch = 0.0
+        for k, v in cpu.state.aux.items():
+            if k.startswith("mr:"):
+                _, rel = rel_err(card.state.aux[k].cpu(), v)
+                worst_patch = max(worst_patch, rel)
+                if not rel <= 1e-9:
+                    raise AssertionError(f"mr_parity {name}: {k} differs by "
+                                         f"{rel}")
+        sums = card.checksums()
+        if "lev=1" not in sums:
+            raise AssertionError(f"mr_parity {name}: no lev=1 checksums")
+        worst_sum = checksums_agree(sums, cpu.checksums(), 1e-9,
+                                    f"mr_parity {name}")
+        out[name] = {"max_rel_err": worst, "patch_max_rel_err": worst_patch,
+                     "checksum_max_rel_err": worst_sum,
+                     "bounded": card.is_bounded,
+                     "subcycled": card.cfg.do_subcycling,
+                     "patch_cells": card.mr_layout.nc,
+                     "alive": {nm: int(sp.alive.sum())
+                               for nm, sp in card.state.species.items()},
+                     "card_s": card_s}
+    emit("mr_parity", ok=True, tol=1e-9, kernel_launches=0, cases=out)
+
+
+def mr_patch_ms(sim):
+    """Each piece of the patch's work alone on the run's state, CUDA events
+    over three calls: aux(1) (the interpolation of level 0 into the fine
+    patch), the fine and the coarse patch advances (B, E, B with their
+    split-field PML), the average-down of the fine J."""
+    from warpx_tpu_torch.core import mr as mr_mod
+    from warpx_tpu_torch.core.step import _field_dict
+
+    state = sim.state
+    layout = sim.mr_layout
+    stag = sim.staggering
+    cfg = sim.cfg
+    if sim.is_bounded:
+        stepper = sim.stepper
+        adv = stepper.mr.adv
+
+        def aux1():
+            return stepper.mr_gather_fields(state)
+    else:
+        adv = {fine: mr_mod.make_patch_advance(
+            layout, stag, cfg.em_solver, 0.5 * cfg.dt, cfg.dt, fine,
+            sim.dtype, sim.device) for fine in (True, False)}
+
+        def aux1():
+            return mr_mod.compute_aux1(_field_dict(state.fields), state.aux,
+                                       layout, stag)
+    jf = tuple(state.aux[f"mr:j:{nm}"] for nm in ("jx", "jy", "jz"))
+    out = {"aux1_ms": cuda_ms(aux1, 3)}
+    for fine, tag in ((True, "f"), (False, "c")):
+        b, e = adv[fine]
+        parts = mr_mod.patch_parts(state.aux, tag)
+        j3 = jf if fine else tuple(mr_mod.coarsen_field(a, stag[nm], layout)
+                                   for a, nm in zip(jf, ("jx", "jy", "jz")))
+        out[("fine" if fine else "coarse") + "_advance_ms"] = cuda_ms(
+            lambda: b(e(b(parts), j3)), 3)
+    out["coarsen_j_ms"] = cuda_ms(
+        lambda: [mr_mod.coarsen_field(a, stag[nm], layout)
+                 for a, nm in zip(jf, ("jx", "jy", "jz"))], 3)
+    out["patch_ms"] = (out["fine_advance_ms"] + out["coarse_advance_ms"]
+                       + out["aux1_ms"] + out["coarsen_j_ms"])
+    return out
+
+
+def mr_finite(sim):
+    """Every field of level 0 and every array of the patch finite."""
+    f = sim.state.fields
+    return (all(bool(torch.isfinite(getattr(f, nm)).all())
+                for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy",
+                           "jz"))
+            and all(bool(torch.isfinite(v).all())
+                    for k, v in sim.state.aux.items() if k.startswith("mr:")))
+
+
+MAIN_MR_STEPS = 6
+
+
+def main_mr_cfg(subcycled, n=128, steps=MAIN_MR_STEPS):
+    """uniform-128-mr: uniform-128's plasma (``main_cfg``: 128^3 cells, 2 x
+    2 x 128^3 particles, order 1) with a ratio-2 patch over the central 64^3
+    coarse cells (a fine 128^3 plus its 10-cell PML ring), per particle; dt
+    at 0.999 of the fine level's Courant limit (the deck reader's rule;
+    twice that subcycled)."""
+    from warpx_tpu_torch.core.grid import Geometry
+    from warpx_tpu_torch.solvers.yee import compute_dt_yee
+
+    cfg = main_cfg(n, steps)
+    geom = cfg.geometry
+    fine = Geometry(ndim=3, n_cell=tuple(2 * c for c in geom.n_cell),
+                    prob_lo=geom.prob_lo, prob_hi=geom.prob_hi,
+                    periodic=geom.periodic)
+    dt = compute_dt_yee(fine, 0.999) * (2 if subcycled else 1)
+    quarter = [0.25 * (hi - lo) for lo, hi in zip(geom.prob_lo,
+                                                  geom.prob_hi)]
+    return dataclasses.replace(
+        cfg, dt=dt, max_level=1, ref_ratio=(2, 2, 2),
+        fine_tag_lo=tuple(-q for q in quarter), fine_tag_hi=tuple(quarter),
+        do_subcycling=subcycled, tiled_particles="off")
+
+
+def level_shares(sim):
+    """The share of the live particles on level 1 (inside the patch), in
+    its gather and in its deposition interior."""
+    layout = sim.mr_layout
+    counts = [0, 0, 0]
+    total = 0
+    for sp in sim.state.species.values():
+        pos = sp.positions(layout.ndim)
+        total += int(sp.alive.sum())
+        for i, nbuf in enumerate((0, layout.gather_buf, layout.dep_buf)):
+            counts[i] += int((sp.alive & layout.fine_mask(pos, nbuf)).sum())
+    return [c / total for c in counts]
+
+
+def phase_main_mr(dev, smi, steps=MAIN_MR_STEPS):
+    """uniform-128-mr (``main_mr_cfg``), float32, per particle (the JAX
+    package's MR is per particle; no kernel), plain then subcycled: init, a
+    warm step, ``steps`` - 3 timed steps (CUDA events), one step (profiled
+    in the plain run), the closing step; the patch's work alone
+    (``mr_patch_ms``).  Gates:
+    finite fields on both levels, every particle alive, the total weight
+    bitwise as injected, the level-1 share of the particles within the
+    buffer shell's volume share of the patch's volume share; no kernel
+    launched."""
+    import warpx_tpu_torch
+
+    runs = {}
+    for subcycled in (False, True):
+        name = "subcycled" if subcycled else "plain"
+        cfg = main_mr_cfg(subcycled, steps=steps)
+        before = kernel_counters()
+        t0 = time.perf_counter()
+        sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32,
+                                         device=dev)
+        if sim.binned or sim.mr_step is None:
+            raise AssertionError("main_mr left the periodic MR step")
+        sim.init()
+        n = sum(int(sp.alive.sum()) for sp in sim.state.species.values())
+        w0 = [float(sp.w.double().sum())
+              for sp in sim.state.species.values()]
+        sim.evolve(1)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        timed = steps - 3
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(timed + 1)]
+        marks[0].record()
+        for mark in marks[1:]:
+            sim.evolve(1)
+            mark.record()
+        marks[-1].synchronize()
+        series = [round(a.elapsed_time(b), 3)
+                  for a, b in zip(marks, marks[1:])]
+        t1 = time.perf_counter()
+        # one profile: reading a step's trace back takes seconds
+        breakdown = (profile_steps(sim, 1) if not subcycled else
+                     {"device_busy_share": "not measured",
+                      "device_ms_per_step": "not measured", "top": []})
+        if subcycled:
+            sim.evolve(1)
+        t2 = time.perf_counter()
+        patch = mr_patch_ms(sim)
+        sim.evolve()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launched = [a - b for a, b in zip(kernel_counters(), before)]
+        layout = sim.mr_layout
+        shares = level_shares(sim)
+        vol = float(np.prod(layout.nc) / np.prod(layout.n0))
+        # the buffer shell: the patch less its gather interior
+        margin = vol * (1.0 - float(np.prod(
+            [(f - 2 * layout.gather_buf) / f for f in layout.nf])))
+        alive = sum(int(sp.alive.sum())
+                    for sp in sim.state.species.values())
+        w1 = [float(sp.w.double().sum())
+              for sp in sim.state.species.values()]
+        finite = mr_finite(sim)
+        ms_step = sum(series) / timed
+        runs[name] = {
+            "dt": cfg.dt, "steps": sim.state.step, "steps_timed": timed,
+            "ms_per_step": ms_step, "pushes_per_s": n / (ms_step * 1e-3),
+            "ms_each_step": series, "init_s": init_s,
+            "device_busy_share": breakdown["device_busy_share"],
+            "device_ms_per_step": breakdown["device_ms_per_step"],
+            "patch": patch, "level1_share": shares[0],
+            "gather_interior_share": shares[1],
+            "deposit_interior_share": shares[2], "patch_volume_share": vol,
+            "share_margin": margin, "n_particles": n, "alive": alive,
+            "weight_bitwise": w1 == w0, "finite": finite,
+            "kernel_launches": launched, "profile_top": breakdown["top"][:8],
+            "wall_s": {"to_profile": t1 - t0, "profile": t2 - t1,
+                       "patch_and_last": t3 - t2,
+                       "gates": time.perf_counter() - t3}}
+        if not (finite and alive == n and w1 == w0 and not any(launched)
+                and abs(shares[0] - vol) <= margin):
+            raise AssertionError(f"main_mr {name}: {runs[name]}")
+        del sim
+        torch.cuda.empty_cache()
+    emit("main_mr", ok=True, n_cell=(128,) * 3, patch_coarse_cells=(64,) * 3,
+         ref_ratio=2, order=1, dtype="float32", **runs,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+
+
+MAIN_LWFA_MR_STEPS = 5
+
+
+def main_lwfa_mr_cfg(nx=2048, nz=8192, steps=MAIN_LWFA_MR_STEPS):
+    """lwfa2d-2048x8192-mr: main_lwfa's deck (``main_lwfa_cfg``: 2048 x
+    8192, 2 x 2 electrons a cell, PML, the window, the filter, order 3)
+    with a ratio-2 patch of 512 x 1024 coarse cells, centered across and
+    from 2.44 um to 10.94 um along z at the start (the antenna at 9 um and
+    the plasma behind it), riding the window, refine_plasma on; per
+    particle; dt at 0.98 of the fine level's Courant limit."""
+    from warpx_tpu_torch.core.grid import Geometry
+    from warpx_tpu_torch.solvers.yee import compute_dt_yee
+
+    cfg = main_lwfa_cfg(nx, nz, steps)
+    geom = cfg.geometry
+    fine = Geometry(ndim=2, n_cell=tuple(2 * c for c in geom.n_cell),
+                    prob_lo=geom.prob_lo, prob_hi=geom.prob_hi,
+                    periodic=geom.periodic)
+    dx, dz = geom.dx
+    ix = (nx // 2 - nx // 8, nx // 2 + nx // 8)
+    iz = (nz - 9 * nz // 64, nz - nz // 64)
+    return dataclasses.replace(
+        cfg, dt=compute_dt_yee(fine, 0.98), max_level=1, ref_ratio=(2, 2),
+        fine_tag_lo=(geom.prob_lo[0] + ix[0] * dx,
+                     geom.prob_lo[1] + iz[0] * dz),
+        fine_tag_hi=(geom.prob_lo[0] + ix[1] * dx,
+                     geom.prob_lo[1] + iz[1] * dz),
+        refine_plasma=True, tiled_particles="off")
+
+
+def refined_row_count(cfg, layout):
+    """Electrons a cell row across x of the refined lattice, counted on the
+    host in float64 from the deck's numbers: 2 x 2 a coarse cell in bounds
+    outside the patch's x footprint, 4 x 4 (the fine lattice's 2 x 2 a
+    fine cell) inside it."""
+    sp = cfg.species[0]
+    geom = cfg.geometry
+    dx = geom.dx[0]
+    ppx, ppz = sp.num_particles_per_cell_each_dim[:2]
+    r = layout.rv[0]
+    i = np.arange(geom.n_cell[0])[:, None]
+    u = (np.arange(ppx) + 0.5) / ppx
+    inside = (i >= layout.i0[0]) & (i < layout.i1[0])
+    xc = geom.prob_lo[0] + (i + u[None, :]) * dx
+    sub = (np.arange(r)[:, None] + u[None, :]).reshape(-1) / r
+    xf = geom.prob_lo[0] + (i + sub[None, :]) * dx
+
+    def inb(x):
+        return (x >= sp.bounds_lo[0]) & (x <= sp.bounds_hi[0])
+    coarse = int((inb(xc) & ~inside).sum()) * ppz
+    refined = int((inb(xf) & inside).sum()) * ppz * layout.rv[1]
+    return coarse + refined
+
+
+def phase_main_lwfa_mr(dev, smi, steps=MAIN_LWFA_MR_STEPS):
+    """lwfa2d-2048x8192-mr (``main_lwfa_mr_cfg``), float32, per particle
+    (the JAX package's bounded MR is per particle; no kernel): init, a warm
+    step, ``steps`` - 3 timed steps, one profiled step, the closing step;
+    the patch's work alone.  Gates: finite fields on both levels; the
+    electrons alive exactly a refined row's count (``refined_row_count``)
+    times the cells between the window's lower edge and the injection
+    front, at init and at the end (the plasma at rest, the refined
+    injection at init and on the window's move); no kernel launched."""
+    import warpx_tpu_torch
+
+    cfg = main_lwfa_mr_cfg(steps=steps)
+    before = kernel_counters()
+    t0 = time.perf_counter()
+    sim = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
+    sim.init()
+    if sim.binned or not sim.is_bounded or sim.stepper.mr is None:
+        raise AssertionError("main_lwfa_mr left the bounded MR step")
+    torch.cuda.synchronize()
+    host_init_s = time.perf_counter() - t0
+    layout = sim.mr_layout
+    row = refined_row_count(cfg, layout)
+    dz = cfg.geometry.dx[1]
+
+    def expected():
+        lo = float(sim.state.aux["window_lo"])
+        front = float(sim.state.aux["inject_pos:electrons"])
+        return row * int(round((front - lo) / dz))
+
+    def alive():
+        return int(sim.state.species["electrons"].alive.sum())
+
+    n0, e0 = alive(), expected()
+    sim.evolve(1)
+    timed = steps - 3
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    marks[0].record()
+    for mark in marks[1:]:
+        sim.evolve(1)
+        mark.record()
+    marks[-1].synchronize()
+    series = [round(a.elapsed_time(b), 3) for a, b in zip(marks, marks[1:])]
+    breakdown = profile_steps(sim, 1)
+    patch = mr_patch_ms(sim)
+    sim.evolve()
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(kernel_counters(), before)]
+    n1, e1 = alive(), expected()
+    finite = mr_finite(sim)
+    ms_step = sum(series) / timed
+    out = dict(n_cell=cfg.geometry.n_cell, patch_coarse_cells=layout.nc,
+               patch_i0=layout.i0, ref_ratio=2, order=3, dtype="float32",
+               dt=cfg.dt, steps=sim.state.step, steps_timed=timed,
+               ms_per_step=ms_step, pushes_per_s=n1 / (ms_step * 1e-3),
+               ms_each_step=series, host_init_s=host_init_s,
+               device_busy_share=breakdown["device_busy_share"],
+               device_ms_per_step=breakdown["device_ms_per_step"],
+               patch=patch, row_count=row, alive_init=n0,
+               expected_init=e0, alive_end=n1, expected_end=e1,
+               window_offset=int(sim.state.aux["window_offset"]),
+               finite=finite, kernel_launches=launched,
+               profile_top=breakdown["top"][:8],
+               device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    if not (finite and n0 == e0 and n1 == e1 and not any(launched)
+            and out["window_offset"] > 0):
+        raise AssertionError(f"main_lwfa_mr: {out}")
+    emit("main_lwfa_mr", ok=True, **out)
+    del sim
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     """Every phase in order."""
     if not torch.cuda.is_available():
@@ -10246,7 +10686,8 @@ def main() -> int:
     # launch none of the kernels and keep the card busy, run beside them
     build.start_all(nice=19)
     meanwhile = (phase_main_lwfa_ionization, phase_main_qed,
-                 phase_main_coulomb, phase_main_fusion, phase_main_mcc_dsmc)
+                 phase_main_coulomb, phase_main_fusion, phase_main_mcc_dsmc,
+                 phase_main_mr, phase_main_lwfa_mr)
     for phase in meanwhile:
         phase(dev, smi)
         torch.cuda.empty_cache()
@@ -10282,6 +10723,7 @@ def main() -> int:
     phase_fieldsolver2_parity(dev)
     phase_boundaries_parity(dev)
     dims1 = phase_dims1_parity(dev)
+    phase_mr_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
     k1_row["launches_by_path"] = {"main": k1_row["launches"]}
     phase_main_psatd(dev, smi, k1_row, k3_row)

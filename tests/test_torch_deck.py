@@ -223,8 +223,13 @@ electrons.density = 1.e24
                  id="geometry.dims = 1\namr.n_cell = 16\n"
                     "geometry.prob_lo = 0\ngeometry.prob_hi = 1.e-6-"
                     "Queue A 3-4"),
-    ("geometry.dims = RZ", "Queue A 12"),
-    ("amr.max_level = 1", "Queue A 12"),
+    # mesh refinement runs since Queue A 12.1-12.2 (tests/test_torch_mr.py,
+    # test_torch_mr_bounded.py): a second level keeps the JAX reader's
+    # refusal, and RZ waits for Queue A 12.3 (the cases keep their ids)
+    pytest.param("geometry.dims = RZ", "Queue A 12.3",
+                 id="geometry.dims = RZ-Queue A 12"),
+    pytest.param("amr.max_level = 2", "Queue C",
+                 id="amr.max_level = 1-Queue A 12"),
     pytest.param("warpx.start_moving_window_step = 2", "Queue C",
                  id="algo.current_deposition = villasenor-Queue A 3"),
     # the hybrid solver and the electrostatic solvers run since Queue A
@@ -249,10 +254,10 @@ electrons.density = 1.e24
                  "warpx.do_current_centering = 1", "Queue C",
                  id="algo.evolve_scheme = theta_implicit_em-Queue A 11.3"),
     # collisions run since Queue A 11.1; a collision key neither reader
-    # reads still raises, naming the item (the case keeps its id)
+    # reads still raises, naming Queue C (the case keeps its id)
     pytest.param(
         "collisions.collision_names = c1\nc1.species = electrons electrons\n"
-        "c1.frobnicate = 1", "Queue A 11.1",
+        "c1.frobnicate = 1", "Queue C",
         id="collisions.collision_names = c1\nc1.species = electrons "
            "electrons-Queue A 11.1"),
     # lasy lasers (and their delay) run since Queue A 11.2; a binary laser

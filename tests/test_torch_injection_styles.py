@@ -473,7 +473,9 @@ def test_cli_runs_an_injection_deck(tmp_path, capsys, kind):
                  id="boundary.single.u_th = 0.1-Queue A 11.4"),
     pytest.param("single.save_particles_at_zmid = 1", "Queue C",
                  id="single.save_particles_at_zlo = 1-Queue A 11.4"),
-    ("single.random_theta = 0", "Queue A 12"),
+    # RZ's keys wait for Queue A 12.3 (the case keeps its id)
+    pytest.param("single.random_theta = 0", "Queue A 12.3",
+                 id="single.random_theta = 0-Queue A 12"),
     # warpx.poisson_solver is read since Queue A 11.3's first half, the
     # embedded boundary since its second half (the case keeps its id)
     pytest.param("warpx.eb_implicit_function = x\n"

@@ -48,6 +48,9 @@ def binned_supported(cfg: SimConfig) -> bool:
         return False
     if geom.ndim not in (2, 3) or not geom.all_periodic:
         return False
+    # mesh refinement runs per particle (core/mr.py)
+    if cfg.max_level > 0:
+        return False
     if cfg.em_solver not in ("yee", "ckc", "psatd", "none"):
         return False
     if cfg.em_solver_medium != "vacuum":
@@ -124,6 +127,10 @@ def bounded_binned_supported(cfg: SimConfig) -> bool:
     if cfg.tiled_particles == "off":
         return False
     if geom.ndim not in (2, 3) or geom.rz:
+        return False
+    # the bounded step carries mesh refinement per particle only (the JAX
+    # package's simulation.py:126)
+    if cfg.max_level > 0:
         return False
     if cfg.em_solver not in ("yee", "ckc", "psatd"):
         return False

@@ -59,6 +59,11 @@ FDTD and PSATD cases, 2D XZ and 3D:
   particle): the covered E edges and B faces frozen (staircase), or the
   ECT solver's cut-cell faces (``solvers/ect.py``), and the particles
   inside the body removed with the particle boundaries;
+* two-level mesh refinement (``core/mr.py``; per particle): the fine
+  patch rides the window, the particles deep in it gather from the fine
+  aux and deposit on the fine grid, the fine J is averaged down into level
+  0's block, both patch solutions advance in their PML rings, and
+  ``warpx.refine_plasma`` injects the fine lattice in its footprint;
 * field ionization before the push (``ops/ionization.py``), photon species
   streaming at c, the radiation-reaction pusher.  The JAX package's bounded
   step runs no QED event and no Schwinger pair creation: a configuration
@@ -102,7 +107,7 @@ from ..ops.gather import gather_eb
 from ..ops.push import PUSHERS, photon_position_step, position_step
 from ..ops.tiling import fold_windows_open, rebin
 from ..solvers import yee
-from ..solvers.filter import bilinear_filter_padded
+from ..solvers.filter import bilinear_filter, bilinear_filter_padded
 from ..solvers.psatd import PsatdPmlSolver, PsatdSolver
 from .binned_step import _FOLD_AXES, pusher_groups, pusher_params
 from .boundaries import fill_guards_pec, is_tangential
@@ -113,6 +118,9 @@ from .injection import (PARSED_PROFILES, _AXES3, _bulk_momentum,
                         _regular_unit_positions, attribute_values,
                         profile_values, xyz_of)
 from .laser import update_antenna
+from .mr import (MRLayout, add_patch_j, check_mr_supported, coarsen_field,
+                 compute_aux1, deposit_slots, gather_levels,
+                 make_patch_advance, patch_parts, select, to_nodal_torus)
 from .state import SimState
 from .step import (_add_ext, _apply_nci, check_lattice, collisions_substep,
                    galilean_velocity, ionization_substep, nodal_staggering,
@@ -316,6 +324,23 @@ def check_bounded_supported(cfg: SimConfig) -> None:
                "JAX package's bounded step skips it)", "Queue C")
     if cfg.do_moving_window and not 0 <= cfg.moving_window_dir < ndim:
         raise ValueError("moving_window_dir must be an active-axis index")
+    if cfg.max_level > 0:
+        # the JAX package's refusals (bounded_step.py:730-741)
+        if cfg.em_solver == "psatd":
+            no("mesh refinement with PSATD (the JAX package refuses it)",
+               "Queue C")
+        if cfg.do_subcycling:
+            no("mesh refinement with subcycling (the JAX package refuses it "
+               "on the bounded step)", "Queue C")
+        if (any(cfg.psatd_v_galilean) or cfg.electrostatic != "none"
+                or cfg.evolve_scheme != "explicit"):
+            no("mesh refinement outside explicit electromagnetics (the JAX "
+               "package refuses it)", "Queue C")
+        if cfg.use_nci_corr:
+            no("mesh refinement with the NCI corrector on the bounded step "
+               "(the JAX package refuses it; its periodic MR covers it)",
+               "Queue C")
+        check_mr_supported(cfg)
     laser_names = {las.name for las in cfg.lasers}
     for las in cfg.lasers:
         if las.profile not in ("gaussian", "from_file"):
@@ -505,6 +530,11 @@ class BoundedStepper:
         # --- embedded boundary
         self._init_eb()
 
+        # --- mesh refinement
+        self.mr = None
+        if cfg.max_level > 0:
+            self._init_mr()
+
         # --- tile-binned step
         if tile_spec is not None:
             spec = tile_spec
@@ -528,6 +558,54 @@ class BoundedStepper:
             # every zshift handed to the kernels, for the callers that check
             # the moving-window mode really ran
             self.zshifts_seen = set()
+
+    def _init_mr(self):
+        """Two-level mesh refinement inside the bounded step (JAX
+        bounded_step.py:713-814): the patch machinery of ``core/mr.py``
+        (its own PML rings, the average-down, the aux interpolation, the
+        buffer masks), level 0 through this stepper.  The refined box is
+        fixed in level 0's index space, so it rides the moving window: its
+        arrays shift with the fields (``step_window``) and its physical
+        bounds, for the particles' masks and the patch's gather and
+        deposit origin, gain the window's offset."""
+        from types import SimpleNamespace
+
+        cfg = self.cfg
+        layout = MRLayout(cfg, self.staggering)
+        adv = {fine: make_patch_advance(layout, self.staggering,
+                                        cfg.em_solver, 0.5 * cfg.dt, cfg.dt,
+                                        fine, self.dtype, self.device)
+               for fine in (True, False)}
+        self.mr = SimpleNamespace(layout=layout, adv=adv)
+
+    def mr_frame(self, state):
+        """The patch's frame at the window's offset: (lower corner of its
+        valid box, origin of its fine extended grid), host numbers in the
+        state's precision as the JAX package's traced scalars hold them."""
+        layout = self.mr.layout
+        patch_lo = list(layout.patch_lo)
+        origin_f = list(layout.geom_f_ext.prob_lo)
+        if self.cfg.do_moving_window:
+            f, w = self._f, self.wdir
+            ws = f(state.aux["window_lo"]
+                   - f(self.cfg.geometry.prob_lo[w]))
+            patch_lo[w] = f(f(patch_lo[w]) + ws)
+            origin_f[w] = f(f(origin_f[w]) + ws)
+        return patch_lo, origin_f
+
+    def mr_gather_fields(self, state):
+        """aux(1) = fp + I(aux(0) - cp) from level 0's fields cropped to
+        the domain frame (PML strips and nodal tops dropped), averaged to
+        the nodes on the patch torus under momentum-conserving gathering,
+        and the patch's frame: what the fine gather reads."""
+        n_cell = self.cfg.geometry.n_cell
+        crop = {nm: getattr(state.fields, nm)[tuple(
+            slice(self.ext_lo[d], self.ext_lo[d] + n_cell[d])
+            for d in range(self.ndim))] for nm in _EB}
+        aux1 = compute_aux1(crop, state.aux, self.mr.layout, self.staggering)
+        if self.mc_gather:
+            aux1 = to_nodal_torus(aux1, self.staggering)
+        return (aux1, *self.mr_frame(state))
 
     def _init_silver_mueller(self):
         """The absorbing Silver-Mueller faces (ApplySilverMuellerBoundary
@@ -1083,14 +1161,26 @@ class BoundedStepper:
             farr_pad = self.mc_aux_pads(farr_pad)
         return farr_pad
 
-    def _gather(self, pos, farr_pad, origin, u3=None):
+    def _gather(self, pos, farr_pad, origin, u3=None, fine=None):
         """The fields at ``pos`` with the external ones (and, given the
-        momenta ``u3``, the lattice's)."""
-        return _add_ext(
-            gather_eb(pos, farr_pad, self.gather_stag, self.cfg.geometry,
-                      self.cfg.particle_shape, self.cfg.galerkin,
-                      origin=origin, wrap=False, offset=self.ng),
-            self.cfg, pos=pos, u3=u3)
+        momenta ``u3``, the lattice's); with ``fine`` (the result of
+        ``mr_gather_fields``) the particles deep in the refined patch read
+        the fine aux instead (buffer-mask ownership)."""
+        cfg = self.cfg
+        e6 = gather_eb(pos, farr_pad, self.gather_stag, cfg.geometry,
+                       cfg.particle_shape, cfg.galerkin, origin=origin,
+                       wrap=False, offset=self.ng)
+        if fine is not None:
+            aux1, patch_lo, origin_f = fine
+            layout = self.mr.layout
+            e6 = gather_levels(
+                e6, select(layout.fine_mask(pos, layout.gather_buf,
+                                            patch_lo)), pos,
+                lambda p: gather_eb(p, aux1, self.gather_stag,
+                                    layout.geom_f_ext, cfg.particle_shape,
+                                    cfg.galerkin, origin=origin_f,
+                                    wrap=False))
+        return _add_ext(e6, cfg, pos=pos, u3=u3)
 
     def _wrap_periodic(self, pos):
         """Wrap the periodic particle dims into the (static) domain."""
@@ -1177,6 +1267,12 @@ class BoundedStepper:
         j_total = rho_old = rho_new = None
         new_species = {}
         aux_updates = {}
+        fine = mr_jf = None
+        if self.mr is not None:
+            fine = self.mr_gather_fields(state)
+            mr_jf = tuple(torch.zeros(self.mr.layout.n_fext,
+                                      dtype=self.dtype, device=self.device)
+                          for _ in range(3))
         for sp_cfg in cfg.species:
             sp = state.species[sp_cfg.name]
             if sp.capacity == 0:
@@ -1199,7 +1295,7 @@ class BoundedStepper:
                     e6 = (torch.zeros_like(sp.ux),) * 6
                 else:
                     e6 = self._gather(pos, farr_pad, origin,
-                                      u3=(sp.ux, sp.uy, sp.uz))
+                                      u3=(sp.ux, sp.uy, sp.uz), fine=fine)
                 if sp_cfg.do_not_push:
                     u3, new_pos = (sp.ux, sp.uy, sp.uz), pos
                 else:
@@ -1225,6 +1321,23 @@ class BoundedStepper:
             if not self.is_es:
                 w_eff = torch.where(sp.alive, sp_new.w,
                                     torch.zeros_like(sp.w))
+                if mr_jf is not None and not self.is_laser[sp_cfg.name]:
+                    # the deposition buffer split: deep-patch particles
+                    # deposit on the fine grid, the rest (the buffer ring
+                    # too) on level 0 (PartitionParticlesInBuffers)
+                    layout = self.mr.layout
+                    new_pos = sp_new.positions(ndim)
+                    mask_d = layout.fine_mask(new_pos, layout.dep_buf,
+                                              fine[1])
+                    mr_jf = deposit_slots(
+                        select(mask_d & sp.alive), new_pos,
+                        (sp_new.ux, sp_new.uy, sp_new.uz), w_eff, q_eff,
+                        layout.geom_f_ext, cfg.dt, cfg.particle_shape,
+                        mr_jf, origin=fine[2], wrap=False,
+                        out_shape=layout.n_fext,
+                        chunk_size=cfg.deposit_chunk_size)
+                    w_eff = torch.where(mask_d, torch.zeros_like(w_eff),
+                                        w_eff)
                 j_total = self._deposit(
                     sp_new.positions(ndim),
                     (sp_new.ux, sp_new.uy, sp_new.uz), w_eff, q_eff,
@@ -1237,8 +1350,39 @@ class BoundedStepper:
             return state.replace(species=new_species, step=state.step + 1,
                                  time=state.time + cfg.dt,
                                  aux={**state.aux, **aux_updates})
+        if mr_jf is not None:
+            j_total = self.mr_sync(state, mr_jf, j_total, aux_updates)
         return self.field_tail(state, new_species, j_total, aux_updates,
                                rho_old, rho_new)
+
+    def mr_sync(self, state, mr_jf, j_total, aux_updates):
+        """SyncCurrent and the patch solves (JAX bounded_step.py:1064-1108):
+        the fine J averaged down and added into level 0's padded block over
+        the patch box (the deposit block's index = domain cell + ext_lo +
+        ng), the per-level filters, both patch advances; the patch state
+        into ``aux_updates``.  Returns level 0's J block."""
+        layout = self.mr.layout
+        jcp = tuple(coarsen_field(a, self.staggering[nm], layout)
+                    for a, nm in zip(mr_jf, ("jx", "jy", "jz")))
+        if j_total is None:
+            j_total = tuple(torch.zeros(self.big_shape, dtype=self.dtype,
+                                        device=self.device)
+                            for _ in range(3))
+        j_total = add_patch_j(j_total, jcp, layout, self.staggering,
+                              [self.ext_lo[d] + self.ng
+                               for d in range(self.ndim)])
+        if self.cfg.use_filter:
+            npass = self.cfg.filter_npass_each_dir or (1,) * self.ndim
+            mr_jf = tuple(bilinear_filter(a, npass) for a in mr_jf)
+            jcp = tuple(bilinear_filter(a, npass) for a in jcp)
+        for prefix, j3 in (("f", mr_jf), ("c", jcp)):
+            b, e = self.mr.adv[prefix == "f"]
+            parts = b(e(b(patch_parts(state.aux, prefix)), j3))
+            aux_updates.update({f"mr:{prefix}:{k}": v
+                                for k, v in parts.items()})
+        aux_updates.update({f"mr:j:{nm}": a
+                            for nm, a in zip(("jx", "jy", "jz"), mr_jf)})
+        return j_total
 
     # ------------------------------------------------------------ field tail
     def field_tail(self, state, new_species, j_total, aux_updates,
@@ -1511,6 +1655,44 @@ class BoundedStepper:
         pos = (cell_lo[:, None, :]
                + unit_active * torch.as_tensor(dxs, **kw)).reshape(npart,
                                                                    ndim)
+        scale_vec = torch.full((npart,), geom.cell_volume / ppc_tot, **kw)
+        if self.mr is not None and cfg.refine_plasma and \
+                sp_cfg.do_continuous_injection:
+            # warpx.refine_plasma (findRefinedInjectionBox,
+            # PhysicalParticleContainer.cpp:3260; JAX bounded_step.py:
+            # 1446-1490): the cells whose coarse index across the window
+            # axis falls in the refined box's footprint inject on the fine
+            # lattice instead, after the coarse candidates
+            mrl = self.mr.layout
+            rv = mrl.rv
+            R = int(np.prod(rv))
+            dxf = torch.as_tensor([dxs[d] / rv[d] for d in range(ndim)],
+                                  **kw)
+            subs = torch.meshgrid(*[torch.arange(rv[d], **kw)
+                                    * (dxs[d] / rv[d]) for d in range(ndim)],
+                                  indexing="ij")
+            sub = torch.stack([t.reshape(-1) for t in subs], dim=-1)
+            pos_f = (cell_lo[:, None, None, :] + sub[None, :, None, :]
+                     + unit_active * dxf).reshape(-1, ndim)
+
+            def in_footprint(p):
+                m = torch.ones(p.shape[0], dtype=torch.bool,
+                               device=self.device)
+                for d in range(ndim):
+                    if d == wdir:
+                        continue
+                    ci = torch.floor((p[:, d] - geom.prob_lo[d]) / dxs[d])
+                    m &= (ci >= mrl.i0[d]) & (ci < mrl.i1[d])
+                return m
+
+            zero = torch.zeros((), **kw)
+            scale_vec = torch.cat([
+                torch.where(in_footprint(pos), zero, scale_vec),
+                torch.where(in_footprint(pos_f),
+                            torch.full((), geom.cell_volume / (R * ppc_tot),
+                                       **kw), zero)])
+            pos = torch.cat([pos, pos_f], dim=0)
+            npart = pos.shape[0]
         pz = pos[:, wdir]
         sel = (pz > cur_pos) & (pz < new_pos)
         # boosted frame: the profiles and bounds are the lab's at
@@ -1533,8 +1715,7 @@ class BoundedStepper:
         else:
             dens = profile_values(sp_cfg.density_expr, sp_cfg, lab,
                                   ndim).to(self.dtype)
-        w_new = torch.where(sel, dens * (geom.cell_volume / ppc_tot),
-                            torch.zeros((), **kw))
+        w_new = torch.where(sel, dens * scale_vec, torch.zeros((), **kw))
         sel &= w_new > 0
         if sp_cfg.momentum_distribution == "constant":
             u_new = [torch.full((npart,), v * _c, **kw)
@@ -1653,8 +1834,15 @@ class BoundedStepper:
             upd = {nm: self.shift_field(getattr(fl, nm), num_shift)
                    for nm in names}
             for key in aux:
-                if key.startswith("pml:"):
+                if key.startswith(("pml:", "mr:c:")):
                     aux[key] = self.shift_field(aux[key], num_shift)
+                elif key.startswith(("mr:f:", "mr:j:")):
+                    # the refined box is fixed in level 0's index space: the
+                    # fine patch shifts by ref_ratio fine cells a coarse
+                    # cell (shiftMF on every level,
+                    # WarpXMovingWindow.cpp:479)
+                    aux[key] = self.shift_field(
+                        aux[key], num_shift * self.mr.layout.rv[wdir])
             state = state.replace(fields=fl.replace(**upd), aux=aux)
             new_phys_lo = self.phys_lo_of(state)
             new_hi = self.domain_hi_of(state)
@@ -1801,6 +1989,8 @@ class BoundedStepper:
         farr_pad = self._padded_eb(state.fields)
         if self.mc_gather:
             farr_pad = self.mc_aux_pads(farr_pad)
+        fine = (self.mr_gather_fields(state) if self.mr is not None
+                else None)
         new_species = {}
         for sp_cfg in self.cfg.species:
             sp = state.species[sp_cfg.name]
@@ -1816,7 +2006,8 @@ class BoundedStepper:
                 pos = self._wrap_periodic(pos)
             # the JAX package's bounded half push adds the lattice
             # (bounded_step.py:1932), its periodic one does not
-            e6 = self._gather(pos, farr_pad, origin, u3=(sp.ux, sp.uy, sp.uz))
+            e6 = self._gather(pos, farr_pad, origin, u3=(sp.ux, sp.uy, sp.uz),
+                              fine=fine)
             ux, uy, uz = PUSHERS[sp_cfg.pusher](
                 sp.ux, sp.uy, sp.uz, *e6, sp_cfg.charge, sp_cfg.mass,
                 dt_half)

@@ -284,6 +284,26 @@ class SimConfig:
     # WarpXFluidContainer), on the SpeciesConfig profile fields
     fluids: Tuple[SpeciesConfig, ...] = ()
     pml_ncell: int = 10
+    # mesh refinement (amr.max_level, warpx.fine_tag_lo/hi): one static
+    # fine patch, Vay's substitution scheme (core/mr.py); the ratio per
+    # active axis (amr.ref_ratio / amr.ref_ratio_vect)
+    max_level: int = 0
+    ref_ratio: Tuple[int, ...] = ()
+    fine_tag_lo: Tuple[float, ...] = ()
+    fine_tag_hi: Tuple[float, ...] = ()
+    # the refined box is the tag box grown to amr.blocking_factor multiples
+    # in fine cells (AMReX BoxArray blocking)
+    blocking_factor: int = 8
+    # inject r-times finer particle streams where the transverse footprint
+    # of the refined box covers the cell (warpx.refine_plasma;
+    # PhysicalParticleContainer::findRefinedInjectionBox)
+    refine_plasma: bool = False
+    # particles within this many fine cells of the patch's edge gather from
+    # / deposit to level 0 (WarpX::BuildBufferMasks)
+    n_field_gather_buffer: int = 3
+    n_current_deposition_buffer: int = 2
+    # fine-level time subcycling (warpx.do_subcycling; OneStep_sub1)
+    do_subcycling: bool = False
     # embedded boundary: the implicit function f(x, y, z), > 0 covered
     # (warpx.eb_implicit_function or the eb2.* builders); covered edges of
     # E and faces of B stay frozen (staircase), or the ECT solver's cut

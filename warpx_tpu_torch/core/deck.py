@@ -816,11 +816,9 @@ def _gate_values(deck: Deck) -> None:
     """Keys the reader reads whose value selects what the port lacks."""
     dims = _lower(deck, "geometry.dims", "3")
     if dims == "rz":
-        _no("geometry.dims = RZ", "Queue A 12")
+        _no("geometry.dims = RZ", "Queue A 12.3")
     if dims not in ("1", "2", "3"):
         raise ValueError(f"geometry.dims = {dims}")
-    if deck.get_int("amr.max_level", 0) > 0:
-        _no("mesh refinement (amr.max_level > 0)", "Queue A 12")
     solver = _lower(deck, "algo.maxwell_solver", "yee")
     if solver not in ("yee", "ckc", "psatd", "hybrid", "ect", "none"):
         # the JAX reader's refusal (warpx_tpu/core/deck.py:601)
@@ -901,6 +899,20 @@ def _gate_values(deck: Deck) -> None:
     _laser_gates(deck)
 
 
+def _mr_ref_ratio(deck: Deck, ndim: int) -> tuple:
+    """The refinement ratio per active axis (amr.ref_ratio_vect wins over
+    the scalar amr.ref_ratio; the JAX reader's ``_mr_ref_ratio``,
+    deck.py:487)."""
+    vect = deck.get_reals("amr.ref_ratio_vect", ())
+    if vect:
+        rv = [max(int(v), 1) for v in vect[:ndim]]
+        while len(rv) < ndim:
+            rv.append(rv[-1])
+        return tuple(rv)
+    r = max(int(deck.get_real("amr.ref_ratio", 2)), 1)
+    return (r,) * ndim
+
+
 def _laser_gates(deck: Deck) -> None:
     """The laser profiles the JAX reader refuses, with its messages
     (warpx_tpu/core/deck.py:464-481): from_file reads lasy files only, and
@@ -978,16 +990,10 @@ def _item_of_key(deck: Deck, key: str) -> str:
         # the legacy AMReX output keys and a restart named in the deck,
         # which neither package reads (the CLI's --restart does)
         return "Queue A 15"
-    if head == "collisions" or head in deck.get_strings(
-            "collisions.collision_names", []):
-        return "Queue A 11.1"
-    if head == "amr" or tail in ("do_subcycling", "fine_tag_lo",
-                                 "fine_tag_hi", "refine_plasma",
-                                 "n_rz_azimuthal_modes",
-                                 "n_current_deposition_buffer",
-                                 "n_field_gather_buffer") or (
+    if tail == "n_rz_azimuthal_modes" or (
             head in species and tail == "random_theta"):
-        return "Queue A 12"
+        # RZ's keys (the JAX reader reads them for RZ decks)
+        return "Queue A 12.3"
     return "Queue C"
 
 
@@ -1224,6 +1230,18 @@ def config_from_deck(deck: Deck) -> SimConfig:
     else:
         # Yee and collocated (nodal) share the same CFL formula
         dt = compute_dt_yee(geom, cfl)
+    if const_dt is None and deck.get_int("amr.max_level", 0) > 0:
+        # the finest level's cell sets dt (WarpXComputeDt.cpp:57
+        # geom[max_level].CellSize()); under subcycling the coarse step is
+        # ref_ratio fine steps (ComputeDt do_subcycling)
+        rv = _mr_ref_ratio(deck, ndim)
+        geom_f = dataclasses.replace(
+            geom, n_cell=tuple(n * r for n, r in zip(geom.n_cell, rv)))
+        dt = (compute_dt_ckc(geom_f, cfl)
+              if em_solver == "ckc" and grid_type != "collocated"
+              else compute_dt_yee(geom_f, cfl))
+        if deck.get_bool("warpx.do_subcycling", False):
+            dt *= rv[0]
     # stop_time: run while cur_time < stop_time (WarpXEvolve.cpp:112)
     stop_time = deck.get_real("stop_time",
                               deck.get_real("warpx.stop_time", None))
@@ -1317,6 +1335,16 @@ def config_from_deck(deck: Deck) -> SimConfig:
         lasers=lasers,
         pml_ncell=deck.get_int("pml_ncell",
                                deck.get_int("warpx.pml_ncell", 10)),
+        max_level=deck.get_int("amr.max_level", 0),
+        ref_ratio=_mr_ref_ratio(deck, ndim),
+        do_subcycling=deck.get_bool("warpx.do_subcycling", False),
+        fine_tag_lo=tuple(deck.get_reals("warpx.fine_tag_lo", ())),
+        fine_tag_hi=tuple(deck.get_reals("warpx.fine_tag_hi", ())),
+        blocking_factor=deck.get_int("amr.blocking_factor", 8),
+        refine_plasma=deck.get_bool("warpx.refine_plasma", False),
+        n_field_gather_buffer=deck.get_int("warpx.n_field_gather_buffer", 3),
+        n_current_deposition_buffer=deck.get_int(
+            "warpx.n_current_deposition_buffer", 2),
         gamma_boost=gamma_boost,
         boost_direction=boost_dir,
         e_ext_particle=ext["E"],
@@ -1357,6 +1385,12 @@ def config_from_deck(deck: Deck) -> SimConfig:
         **_macroscopic_from_deck(deck),
         **_hybrid_from_deck(deck, em_solver),
     )
+    if cfg.max_level > 0:
+        # the JAX reader's mesh-refinement envelope (warpx_tpu/core/deck.py:
+        # 317-355), and what the JAX package's MR step would drop
+        from .mr import check_mr_supported
+
+        check_mr_supported(cfg)
     outputs = outputs_from_deck(deck)
     names = {o["name"] for o in (outputs["diags"] + outputs["btd"]
                                  + outputs["reduced"])}

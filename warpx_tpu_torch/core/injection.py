@@ -364,12 +364,19 @@ def inject_species_host(
     np_dtype,
     capacity: int | None = None,
     gamma_boost: float = 1.0,
+    refine_spec=None,
 ) -> dict:
     """Inject one species on the host; alive particles first, dead slots (up
     to ``capacity``) parked at the domain center with zero weight.  With
     ``gamma_boost`` > 1 the profiles and bounds are evaluated at the lab
     position of each boosted-frame particle at t_lab = 0, and the weights
-    and uz are boosted (AddPlasma:1243-1246)."""
+    and uz are boosted (AddPlasma:1243-1246).  ``refine_spec`` = (i0, i1,
+    ratio, window axis) is ``warpx.refine_plasma``: the cells whose coarse
+    index across the window axis lies in [i0, i1) of the refined box
+    inject on the fine lattice instead, ratio-times more streams an axis at
+    1/prod(ratio) the weight (findRefinedInjectionBox,
+    PhysicalParticleContainer.cpp:3260; the JAX package's
+    ``inject_species``), after all the coarse candidates."""
     ndim = geom.ndim
     names = _NAMES[ndim]
     if sp.injection_style in _EMPTY_STYLES:
@@ -410,9 +417,10 @@ def inject_species_host(
 
     if sp.profile == "constant" and not _momenta_use_positions(sp):
         cols = _constant_density_rows(sp, geom, unit, rng, np_dtype,
-                                      gamma_boost)
+                                      gamma_boost, refine_spec)
     else:
-        cols = _rows(sp, geom, unit, rng, np_dtype, gamma_boost)
+        cols = _rows(sp, geom, unit, rng, np_dtype, gamma_boost,
+                     refine_spec)
     count = cols["w"].shape[0]
     if gamma_boost > 1.0:
         # to the boosted frame (AddPlasma:1243-1246):
@@ -468,11 +476,23 @@ def _boost_ballistic(z, sp: SpeciesConfig, gamma_boost: float):
     return lab
 
 
-def _rows(sp, geom, unit, rng, np_dtype, gamma_boost) -> dict:
+def _in_footprint(p, d, geom, refine_spec):
+    """Where coordinates ``p`` along axis ``d`` fall in a coarse cell of
+    the refined box's footprint (every cell along the window axis)."""
+    i0, i1, _rv, wdir = refine_spec
+    if d == wdir:
+        return np.ones(p.shape, bool)
+    ci = np.floor((p - geom.prob_lo[d]) / geom.dx[d]).astype(np.int64)
+    return (ci >= i0[d]) & (ci < i1[d])
+
+
+def _rows(sp, geom, unit, rng, np_dtype, gamma_boost,
+          refine_spec=None) -> dict:
     """The kept rows (positions by name, w, and ux, uy, uz in units of c)
     of every cell's ``unit`` offsets: the profiles and bounds at the lab
     position of each particle at t_lab = 0 (AddPlasma:1021), the momenta
-    drawn for every candidate in the JAX package's order."""
+    drawn for every candidate in the JAX package's order; under
+    ``refine_spec`` the fine lattice's candidates follow the coarse ones."""
     ndim = geom.ndim
     ppc_tot = unit.shape[0]
     mesh_axes = [
@@ -486,6 +506,28 @@ def _rows(sp, geom, unit, rng, np_dtype, gamma_boost) -> dict:
     pos = cell_lo[:, None, :] + unit_active[None, :, :] * dx[None, None, :]
     pos = pos.reshape(-1, ndim).astype(np_dtype)
     scale_vec = np.full(pos.shape[0], geom.cell_volume / ppc_tot, np_dtype)
+    if refine_spec is not None:
+        rv = refine_spec[2]
+        R = int(np.prod(rv))
+        dxf = dx / np.asarray(rv)
+        subs = np.meshgrid(*[np.arange(rv[d]) * dxf[d] for d in range(ndim)],
+                           indexing="ij")
+        sub = np.stack([s_.reshape(-1) for s_ in subs], axis=-1)
+        pos_f = (cell_lo[:, None, None, :] + sub[None, :, None, :]
+                 + unit_active[None, None, :, :] * dxf[None, None, None, :]
+                 ).reshape(-1, ndim).astype(np_dtype)
+
+        def in_fp(p):
+            m = np.ones(p.shape[0], bool)
+            for d in range(ndim):
+                m &= _in_footprint(p[:, d], d, geom, refine_spec)
+            return m
+
+        scale_vec = np.concatenate([
+            np.where(in_fp(pos), 0.0, scale_vec),
+            np.where(in_fp(pos_f), geom.cell_volume / (R * ppc_tot),
+                     0.0).astype(np_dtype)])
+        pos = np.concatenate([pos, pos_f], axis=0)
 
     lab = pos
     if gamma_boost > 1.0:
@@ -515,43 +557,83 @@ def _rows(sp, geom, unit, rng, np_dtype, gamma_boost) -> dict:
 
 
 def _constant_density_rows(sp, geom, unit, rng, np_dtype,
-                           gamma_boost) -> dict:
+                           gamma_boost, refine_spec=None) -> dict:
     """``_rows`` of a constant density whose momenta do not depend on the
     position, computed at the kept rows only: a coordinate, and the bound
     on it, depend on one axis's cell index and the offset alone, so each
     axis is an (n_cell, offsets) table, the same numbers ``_rows`` makes,
-    and every candidate shares one weight."""
+    and every candidate shares one weight.  Under ``refine_spec`` the fine
+    lattice's axis tables are (n_cell, ratio, offsets), their candidates
+    following the coarse ones, each lattice's weight zero outside its
+    part of the footprint."""
     ndim = geom.ndim
     ppc_tot = unit.shape[0]
     unit_active = unit[:, list(_AXES3[ndim])]
-    table = [((geom.prob_lo[d] + np.arange(geom.n_cell[d]) * geom.dx[d])
-              [:, None] + unit_active[None, :, d] * geom.dx[d])
-             .astype(np_dtype) for d in range(ndim)]
-    lab = list(table)
-    if gamma_boost > 1.0:
-        lab[-1] = _boost_ballistic(table[-1], sp, gamma_boost)
-    shape = (*geom.n_cell[:ndim], ppc_tot)
+    lattices = [(
+        [((geom.prob_lo[d] + np.arange(geom.n_cell[d]) * geom.dx[d])
+          [:, None] + unit_active[None, :, d] * geom.dx[d]).astype(np_dtype)
+         for d in range(ndim)],
+        (*geom.n_cell[:ndim], ppc_tot), geom.cell_volume / ppc_tot)]
+    if refine_spec is not None:
+        i0, i1, rv, wdir = refine_spec
+        dxf = np.array(geom.dx) / np.asarray(rv)
+        # the fine lattice keeps nothing outside the footprint: with no
+        # momenta drawn per candidate its cells across the window axis can
+        # stop one cell beyond the footprint, which keeps the kept rows and
+        # their order
+        drawn = sp.momentum_distribution not in ("at_rest", "none",
+                                                 "constant")
+        cells = [np.arange(geom.n_cell[d]) if d == wdir or drawn
+                 else np.arange(max(i0[d] - 1, 0),
+                                min(i1[d] + 1, geom.n_cell[d]))
+                 for d in range(ndim)]
+        lattices.append((
+            [((geom.prob_lo[d] + cells[d] * geom.dx[d])[:, None, None]
+              + (np.arange(rv[d]) * dxf[d])[None, :, None]
+              + (unit_active[:, d] * dxf[d])[None, None, :]).astype(np_dtype)
+             for d in range(ndim)],
+            (*[c.shape[0] for c in cells], *rv[:ndim], ppc_tot),
+            geom.cell_volume / (int(np.prod(rv)) * ppc_tot)))
+    cols = {nm: [] for nm in _NAMES[ndim] + ("w",)}
+    masks = []
+    for k, (table, shape, scale) in enumerate(lattices):
+        lab = list(table)
+        if gamma_boost > 1.0:
+            lab[-1] = _boost_ballistic(table[-1], sp, gamma_boost)
 
-    def spread(t, d):
-        """``t`` (n_cell[d], offsets) broadcast over the candidates."""
-        idx = [None] * ndim + [slice(None)]
-        idx[d] = slice(None)
-        return np.broadcast_to(t[tuple(idx)], shape)
+        def spread(t, d, shape=shape):
+            """An axis table broadcast over the lattice's candidates."""
+            idx = [None] * (len(shape) - 1) + [slice(None)]
+            idx[d] = slice(None)
+            if t.ndim == 3:
+                idx[ndim + d] = slice(None)
+            return np.broadcast_to(t[tuple(idx)], shape)
 
-    mask = np.ones(shape, dtype=bool)
-    if sp.bounds_lo:
-        for d in range(ndim):
-            mask &= spread((lab[d] >= sp.bounds_lo[d])
-                           & (lab[d] <= sp.bounds_hi[d]), d)
-    w = (np.full(1, sp.density, dtype=np_dtype)
-         * np.full(1, geom.cell_volume / ppc_tot, np_dtype))
-    w = np.where(True, w, 0.0).astype(np_dtype)
-    if not w[0] > 0:
-        mask[...] = False
-    count = int(np.count_nonzero(mask))
-    cols = {nm: spread(table[d], d)[mask]
-            for d, nm in enumerate(_NAMES[ndim])}
-    cols["w"] = np.full(count, w[0], dtype=np_dtype)
+        mask = np.ones(shape, dtype=bool)
+        if sp.bounds_lo:
+            for d in range(ndim):
+                mask &= spread((lab[d] >= sp.bounds_lo[d])
+                               & (lab[d] <= sp.bounds_hi[d]), d)
+        if refine_spec is not None:
+            inside = np.ones(shape, dtype=bool)
+            for d in range(ndim):
+                inside &= spread(_in_footprint(table[d], d, geom,
+                                               refine_spec), d)
+            # the coarse lattice stands outside the footprint, the fine one
+            # inside
+            mask &= inside if k else ~inside
+        w = (np.full(1, sp.density, dtype=np_dtype)
+             * np.full(1, scale, np_dtype))
+        w = np.where(True, w, 0.0).astype(np_dtype)
+        if not w[0] > 0:
+            mask[...] = False
+        for d, nm in enumerate(_NAMES[ndim]):
+            cols[nm].append(spread(table[d], d)[mask])
+        cols["w"].append(np.full(int(np.count_nonzero(mask)), w[0],
+                                 dtype=np_dtype))
+        masks.append(mask.reshape(-1))
+    cols = {k: np.concatenate(v) for k, v in cols.items()}
+    count = cols["w"].shape[0]
     dist = sp.momentum_distribution
     if dist in ("at_rest", "none"):
         u = tuple(np.zeros(count, dtype=np_dtype) for _ in range(3))
@@ -559,8 +641,8 @@ def _constant_density_rows(sp, geom, unit, rng, np_dtype,
         u = tuple(np.full(count, v, dtype=np_dtype)
                   for v in (sp.ux, sp.uy, sp.uz))
     else:
-        flat = mask.reshape(-1)
-        u = tuple(a[flat] for a in _momenta(sp, rng, mask.size, None, ndim,
+        flat = np.concatenate(masks)
+        u = tuple(a[flat] for a in _momenta(sp, rng, flat.size, None, ndim,
                                               np_dtype))
     cols.update(ux=u[0], uy=u[1], uz=u[2])
     return cols

@@ -34,7 +34,11 @@ state's ``aux``; under ECT the initial grid fields are zero on the covered
 edges and faces.  A collocated grid stages every component on the nodes;
 a rigid-injected species starts with its plane and mean v_z in ``aux``;
 the boundary-scraping buffers start empty and ``scraped_particles`` reads
-them.  The
+them.  Under mesh refinement (``amr.max_level = 1``) the periodic step
+is ``core/mr.py::make_mr_step``'s (``self.mr_step``) and the bounded
+stepper carries the patch; ``init`` starts the patch at rest and injects
+``warpx.refine_plasma``'s fine lattice, the checksums and plotfiles gain
+level 1.  The
 simulation runs on the CUDA device unless the caller names another
 device; with no GPU it raises rather than run on the CPU unasked.
 """
@@ -78,6 +82,8 @@ from .grid import AXIS_NAMES, collocated_staggering, yee_staggering
 from .injection import (columns_to_state, inject_gaussian_beam_host,
                         inject_species_host, position_fills)
 from .laser import antenna_particles
+from .mr import (MRLayout, make_mr_step, mr_init_aux, mr_output_fields,
+                 refine_spec_of)
 from .state import FieldState, ParticleState, SimState
 from .step import has_stochastic, pic_step, push_momenta_half, wrap_positions
 
@@ -188,6 +194,19 @@ class Simulation:
         self.staggering = (collocated_staggering(cfg.geometry.ndim)
                            if cfg.grid_type == "collocated"
                            else yee_staggering(cfg.geometry.ndim))
+        # mesh refinement (JAX simulation.py:119-144): the bounded step
+        # carries the patch inside its stepper, the periodic one is
+        # core/mr.py's; neither is tile-binned (the JAX package runs MR
+        # per particle)
+        self.mr_layout = None
+        self.mr_step = self.mr_half_push = None
+        if cfg.max_level > 0:
+            if self.is_bounded:
+                check_bounded_supported(cfg)
+                self.mr_layout = MRLayout(cfg, self.staggering)
+            else:
+                self.mr_step, self.mr_half_push, self.mr_layout = \
+                    make_mr_step(cfg, self.staggering, dtype, self.device)
         # the theta- and semi-implicit schemes (JAX simulation.py:176-195):
         # periodic only, particles kept at integer times (no leapfrog
         # half-pushes around the step loop)
@@ -566,6 +585,12 @@ class Simulation:
             self._init_bounded(rng)
         else:
             self._init_periodic(rng)
+        if self.mr_layout is not None:
+            # the patch's solutions and fine current start at rest (JAX
+            # simulation.py:1262-1267)
+            self.state = self.state.replace(aux={
+                **self.state.aux,
+                **mr_init_aux(self.mr_layout, self.dtype, self.device)})
         if self.stepper is not None and self.stepper.is_es:
             # the initial space-charge field (WarpXInitData.cpp:598)
             self.state = self.stepper.solve_es(self.state)
@@ -636,7 +661,8 @@ class Simulation:
             else:
                 cols = inject_species_host(
                     self._mcc_grown(sp_cfg), geom, rng, ft,
-                    self._capacity(sp_cfg, caps), cfg.gamma_boost)
+                    self._capacity(sp_cfg, caps), cfg.gamma_boost,
+                    refine_spec_of(cfg, self.mr_layout, sp_cfg))
             species[sp_cfg.name] = columns_to_state(
                 self._with_extras(sp_cfg, cols), self.device)
             rigid.update(self._rigid_aux(sp_cfg, cols))
@@ -723,6 +749,7 @@ class Simulation:
                                                  cfg.gamma_boost)
             else:
                 capacity = self._capacity(sp_cfg, caps)
+                refine = refine_spec_of(cfg, self.mr_layout, sp_cfg)
                 cols = None
                 if sp_cfg.do_continuous_injection and cfg.do_moving_window:
                     # room for what the window uncovers over the whole run
@@ -730,12 +757,16 @@ class Simulation:
                     ppc_tot = int(np.prod(ppc)) if ppc else 1
                     cross = int(np.prod([geom.n_cell[d] for d in range(ndim)
                                          if d != wdir]))
+                    if refine is not None:
+                        # the refined streams multiply the cross section
+                        cross *= int(np.prod(self.mr_layout.rv))
                     travel_cells = math.ceil(
                         cfg.moving_window_v * _c * cfg.dt * cfg.max_step
                         / geom.dx[wdir]) + 4
                     drawn = rng.bit_generator.state
                     first = inject_species_host(sp_cfg, geom, rng, ft,
-                                                gamma_boost=cfg.gamma_boost)
+                                                gamma_boost=cfg.gamma_boost,
+                                                refine_spec=refine)
                     count = int(first["alive"].sum())
                     capacity = count + travel_cells * cross * ppc_tot
                     if (rng.bit_generator.state == drawn
@@ -749,7 +780,7 @@ class Simulation:
                 if cols is None:
                     cols = inject_species_host(self._mcc_grown(sp_cfg), geom,
                                                rng, ft, capacity,
-                                               cfg.gamma_boost)
+                                               cfg.gamma_boost, refine)
             host[sp_cfg.name] = self._with_extras(sp_cfg, cols,
                                                   pads.get(sp_cfg.name))
             aux.update(self._rigid_aux(sp_cfg, cols))
@@ -903,6 +934,8 @@ class Simulation:
         it in ``evolve``)."""
         if self.is_bounded:
             return self.stepper.step(state, self.draws)
+        if self.mr_step is not None:
+            return self.mr_step(state)
         if self.implicit is not None:
             return self.implicit(state)
         if not self.binned:
@@ -1003,6 +1036,8 @@ class Simulation:
     def _half_push(self, dt_half: float) -> SimState:
         if self.is_bounded:
             return self.stepper.half_push(self.state, dt_half)
+        if self.mr_half_push is not None:
+            return self.mr_half_push(self.state, dt_half)
         return push_momenta_half(self.state, self.cfg, self.staggering,
                                  dt_half)
 
@@ -1110,11 +1145,19 @@ class Simulation:
         prob_hi = [o + hi - lo for o, lo, hi in zip(origin, geom.prob_lo,
                                                      geom.prob_hi)]
         # a plotfile holds at least one component
-        level = ({k: host(v) for k, v in fields.items()} if fields
-                 else {"Ex": host(self.state.fields.Ex)})
+        levels = [{k: host(v) for k, v in fields.items()} if fields
+                  else {"Ex": host(self.state.fields.Ex)}]
+        ref_ratio = []
+        if self.mr_layout is not None and fields:
+            # level 1: the covering grid of the lev=1 checksums, the
+            # requested components (JAX simulation.py:558-568)
+            lev1 = mr_output_fields(self.state, self.cfg, self.staggering,
+                                    self.mr_layout)
+            levels.append({k: lev1[k] for k in fields if k in lev1})
+            ref_ratio.append(tuple(self.mr_layout.rv))
         write_plotfile(
-            path, [level], prob_lo=origin, prob_hi=prob_hi,
-            time=float(self.state.time), step=step,
+            path, levels, prob_lo=origin, prob_hi=prob_hi,
+            time=float(self.state.time), step=step, ref_ratio=ref_ratio,
             particles=self.plotfile_particles(dg["species"], select))
 
     def _particle_select(self, pfilters):
@@ -1159,4 +1202,4 @@ class Simulation:
     def checksums(self) -> Dict[str, Dict[str, float]]:
         self._normalize_binned()
         return compute_checksums(self.state, self.cfg, self.staggering,
-                                 psatd=self.psatd)
+                                 psatd=self.psatd, mr_layout=self.mr_layout)

@@ -29,11 +29,20 @@ def _abs_sum(t) -> float:
 
 
 def compute_checksums(state: SimState, cfg: SimConfig, staggering: Dict,
-                      psatd=None) -> Dict[str, Dict[str, float]]:
+                      psatd=None, mr_layout=None
+                      ) -> Dict[str, Dict[str, float]]:
     """Checksums of the state; ``psatd`` (the periodic spectral solver)
-    makes divE spectral, as in the JAX package."""
+    makes divE spectral, as in the JAX package; with ``mr_layout`` (the
+    refined patch's ``core/mr.py::MRLayout``) the lev=1 sums of the
+    covering grid (``mr_output_fields``)."""
     fields = cell_centered_output(state, cfg, staggering, psatd=psatd)
     data = {"lev=0": {name: _abs_sum(arr) for name, arr in fields.items()}}
+    if mr_layout is not None:
+        from ..core.mr import mr_output_fields
+
+        lev1 = mr_output_fields(state, cfg, staggering, mr_layout)
+        data["lev=1"] = {name: float(np.sum(np.abs(arr)))
+                         for name, arr in lev1.items()}
     ndim = cfg.geometry.ndim
     pos_names = {1: ["x"], 2: ["x", "y"], 3: ["x", "y", "z"]}[ndim]
     for sp_cfg in cfg.species:

@@ -97,6 +97,27 @@ def slab_reach(cfg: SimConfig) -> int:
             + (max(npass) if cfg.use_filter else 0))
 
 
+def _patch_exclusion(state: SimState, cfg: SimConfig):
+    """Under mesh refinement with a patch short of the whole domain, the
+    mask of the particles deep in the patch (at the window's offset), as a
+    function of the positions; None otherwise."""
+    if cfg.max_level <= 0:
+        return None
+    from ..core.grid import yee_staggering
+    from ..core.mr import MRLayout
+
+    ndim = cfg.geometry.ndim
+    lay = MRLayout(cfg, yee_staggering(ndim))
+    if lay.full_domain:
+        return None
+    patch_lo = list(lay.patch_lo)
+    if cfg.do_moving_window and "window_lo" in state.aux:
+        wd = cfg.moving_window_dir
+        patch_lo[wd] = patch_lo[wd] + (state.aux["window_lo"]
+                                       - cfg.geometry.prob_lo[wd])
+    return lambda pos: lay.fine_mask(pos, lay.dep_buf, patch_lo)
+
+
 def deposit_total_rho(state: SimState, cfg: SimConfig,
                       slab=None, only=None) -> torch.Tensor:
     """Nodal charge density summed over species (lasers included) at the
@@ -128,6 +149,7 @@ def deposit_total_rho(state: SimState, cfg: SimConfig,
                       + 2 * ng for d in range(ndim))
         kw = dict(origin=origin, wrap=False, offset=ng, out_shape=shape)
     rho = torch.zeros(shape, dtype=f.dtype, device=f.device)
+    patch_excl = _patch_exclusion(state, cfg)
     for sp_cfg in cfg.species:
         sp = state.species[sp_cfg.name]
         if sp.capacity == 0 or sp_cfg.do_not_deposit:
@@ -135,6 +157,11 @@ def deposit_total_rho(state: SimState, cfg: SimConfig,
         if only is not None and sp_cfg.name not in only:
             continue
         pos = sp.positions(ndim)
+        if patch_excl is not None:
+            # mesh refinement: the particles deep in the fine patch live
+            # on level 1, so level 0's rho leaves them out (GetChargeDensity
+            # (0) deposits level 0's particles; JAX fields.py:68-103)
+            sp = sp.replace(alive=sp.alive & ~patch_excl(pos))
         how, arg = (None, None) if slab is None else slab[2].get(
             sp_cfg.name, (None, None))
         if how == "slots":
