@@ -3,16 +3,16 @@
 
     python3 chip_smoke.py
 
-It runs every phase, in order (but for the seven per-particle paths
+It runs every phase, in order (but for the nine per-particle paths
 main_lwfa_ionization, main_qed, main_coulomb, main_fusion, main_mcc_dsmc,
-main_mr and main_lwfa_mr, which launch none of the kernels and run first,
-while the kernels compile); each prints one JSON line and any failure
-exits non-zero:
+main_mr, main_lwfa_mr, main_rz_lwfa and main_rz_psatd, which launch none
+of the kernels and run first, while the kernels compile); each prints one
+JSON line and any failure exits non-zero:
 
   device       the card's name, count and power limit;
   build        compile every kernel under warpx_tpu_torch/csrc with nvcc,
                one nvcc a source, all started together at the lowest
-               priority before the seven paths above, and waited for
+               priority before the nine paths above, and waited for
                after them;
   k1_parity    kernel K1 (fused gather/push/deposit) against its plain
                PyTorch version at 16^3, two species, orders 1-3, the Boris,
@@ -48,15 +48,15 @@ exits non-zero:
                multiple of the slice, n not of 64, M = 8 and 40), lab_fused
                at W 16 and 8 with P a multiple of 64 but not of its chunk,
                and the refusals;
-  slice_parity 8 steps of Simulation at 16^3 in float64 on the card and on
+  slice_parity 4 steps of Simulation at 16^3 in float64 on the card and on
                the CPU: every checksum but divE/divB agrees to 1e-9;
-  slice2d_parity  the same for the 2D slice at 32^2;
+  slice2d_parity  the same for the 2D slice at 32^2, 8 steps;
   bounded_parity  the bounded step in float64 on the card (kernels) and on
                the CPU (plain versions): the 32 x 64 laser-wakefield deck
                (PML, moving window, antenna, continuous injection, beam,
                filter, order 3; 12 steps, K2 in moving-window mode) and the
                16^3 deck with PEC walls along z (three particles per cell,
-               8 steps, K1): every
+               5 steps, K1): every
                checksum but divE/divB agrees to 1e-9, the window moved, the
                kernels were launched once per step;
   deck_parity  the 32 x 64 deck at tpu.tile_mxu = mixed through
@@ -106,7 +106,7 @@ exits non-zero:
   main_psatd_galilean  uniform-128-galilean: main's plasma and dt, both
                species drifting along z at gamma = 10, Galilean PSATD at
                the drift's velocity with update-with-rho, Esirkepov
-               deposition, per particle, 25 steps (20 timed): ms a step,
+               deposition, per particle, 13 steps (8 timed): ms a step,
                the device's busy share, peak memory, each deposit's device
                ms, the field energy after the first step and at the end;
                then the spectral push timed alone;
@@ -126,8 +126,9 @@ exits non-zero:
                Gaussian laser antenna, continuously injected plasma of
                ~45 M electrons at 2 x 2 per cell, a 100-particle beam,
                bilinear filter, order 3, sort interval 16), float32: init,
-               16 warm steps, 16 timed steps, 16 steps with the host's waits
-               for the device counted, 3 profiled steps, the closing steps;
+               4 warm steps, 16 timed steps, 4 steps with the host's waits
+               for the device counted, a rebin step, 3 profiled steps, the
+               closing steps (30 in all);
                then the step's layers timed one by one, and K2 in
                moving-window mode (K1c)
                at its shapes against its plain version, timed beside its
@@ -137,12 +138,12 @@ exits non-zero:
                bench.py runs it; then K2 in moving-window mode at 'mixed'
                against its plain version, timed beside K1c at 'f32';
   main_lwfa_diags  the same deck at 'mixed' with outputs, as a user runs
-               it (Simulation.from_deck with an output directory), 40 steps:
-               a plotfile of Ex Ez By jz rho and both species at step 40,
+               it (Simulation.from_deck with an output directory), 24 steps:
+               a plotfile of Ex Ez By jz rho and both species at step 24,
                read back and held exactly against the tensors it was
-               written from; a checkpoint at 20; eight reduced
+               written from; a checkpoint at 12; eight reduced
                diagnostics every 4 steps (rows and ParticleNumber checked);
-               an openPMD file of the beam at 40 where h5py is installed
+               an openPMD file of the beam at 24 where h5py is installed
                (held against the plotfile's beam); the host's waits for the
                device on steps with no output due against main_lwfa_deck's
                steps without a rebin; each flush kind timed (ms, bytes
@@ -150,18 +151,19 @@ exits non-zero:
                checkpoint where the run wrote them, the others alone on the
                final state); then a fresh simulation of the deck without
                the plotfile and openPMD outputs restarted from the
-               checkpoint and run to 40, its checksums within TOL_RESTART
+               checkpoint and run to 24, its checksums within TOL_RESTART
                of the run's;
   main_lwfa_psatd  lwfa2d-2048x8192-psatd: bench.py's deck text with the
                PSATD solver and Esirkepov deposition at 'mixed' (spectral
-               PML with F/G splits), 38 steps driven as main_lwfa is; then
+               PML with F/G splits), 20 steps driven as main_lwfa is; then
                the spectral push with its PML splits timed alone, and K1c at
                'mixed' at its shapes against its plain version;
   main_lwfa_boosted  lwfa2d-2048x8192-boosted: bench.py's deck at 'mixed',
                translated +36 um along z, with gamma_boost = 10 and a
                4-snapshot BackTransformed diagnostic whose planes cross the
                plasma, tile-binned through K1c and K3 at the default tile
-               headroom, driven as main_lwfa is; the fullest tile after
+               headroom, driven as main_lwfa is but for its 16 warm and 16
+               counted steps (54 in all); the fullest tile after
                each rebin, every filled row holding data and matching an
                independent float64 back-transform of the slices, the slab's
                rho against the whole grid's, one row's work timed alone,
@@ -293,7 +295,7 @@ exits non-zero:
                nonlinear iteration counts equal;
   main_implicit  uniform-128-implicit: main's plasma (8.39 M) theta-
                implicit at theta = 1/2, Picard to 1e-12, float64, dt at half
-               the Courant limit, 3 steps: energy drift at most 1e-10,
+               the Courant limit, 1 step: energy drift at most 1e-10,
                Picard iterations, ms a step, peak memory, busy share;
   main_implicit_jfnk  uniform2d-256-jfnk: 256^2, 4 particles a cell,
                Newton (1e-12) with GMRES (restart 30), float64, 2 steps:
@@ -350,6 +352,28 @@ exits non-zero:
                the patch's work alone; the alive count exactly the refined
                lattice's between the window's edge and the injection
                front, finite fields, no kernel;
+  rz_parity    (after mr_parity) RZ in float64, card against CPU: the
+               RZ Langmuir wave at 2 modes, the RZ LWFA at 32 x 256 (PEC z
+               walls, the window, the antenna, continuous injection with
+               random_theta, a Gaussian beam), Silver-Mueller faces, a
+               laser around an embedded disk, PSATD standard, with current
+               correction and Galilean: fields (F and the rings too),
+               species and the RZ checksums within 1e-9, no kernel;
+  main_rz_lwfa (while the kernels compile) rz-lwfa-1024x8192: the
+               reference's RZ LWFA in form at this repo's LWFA cells, 2
+               modes, PEC z walls, the window, the antenna, 33.5 M
+               electrons with random_theta and continuous injection, a
+               Gaussian beam, order 3, float32, per particle: ms a step,
+               pushes/s, busy share, host init; the alive count exactly
+               the injection plan's, the antenna's m = 1 field nonzero,
+               finite fields, no kernel;
+  main_rz_psatd (while the kernels compile) rz-psatd-galilean-512x4096:
+               the Galilean RZ plasma at 512 x 4096, 2 modes, noz = 16,
+               electrons and protons drifting at u_z = 10 (16 M), the
+               direct cell-centered deposit, order 3, float32: ms a step,
+               busy share, the spectral push, each transform and the
+               deposits alone, the field energy against the kinetic; no
+               particle lost, finite fields, no kernel;
   labs         each Hopper lab's main() at the TPU lab's default shapes (L1
                in every mode): kernel against plain version, times, bounds,
                the library's yardstick where there is one; each lab prints
@@ -963,12 +987,20 @@ def checksums_agree(got, ref, tol, what):
     return worst
 
 
+def slice_cfg(ndim):
+    """slice_parity's configuration: small_cfg, the 3D one cut to 4 steps
+    (a rebin at 0 and 3; 8 until the script needed the time for later
+    phases)."""
+    cfg = small_cfg(ndim)
+    return dataclasses.replace(cfg, max_step=4) if ndim == 3 else cfg
+
+
 def phase_slice_parity(dev, phase, ndim):
     import warpx_tpu_torch
 
     sums = {}
     for device in (dev, "cpu"):
-        sim = warpx_tpu_torch.Simulation(small_cfg(ndim),
+        sim = warpx_tpu_torch.Simulation(slice_cfg(ndim),
                                          dtype=torch.float64, device=device)
         sim.init()
         sim.evolve()
@@ -1673,7 +1705,8 @@ def main_lwfa_cfg(nx=2048, nz=8192, steps=95):
 def pec3d_cfg():
     """tests/test_binned_bounded.py's 16^3 deck: periodic in x and y, PEC
     walls and reflecting particles along z, thermal electrons and protons
-    at rest, order 2, current filter, 8 steps; with three particles per
+    at rest, order 2, current filter, 5 steps (rebins at 0 and 4; 8 until
+    the script needed the time for later phases); with three particles per
     cell instead of one, because a species of at most 8192 particles keeps
     its compact layout and would never reach K1."""
     from warpx_tpu_torch.core.config import SimConfig, SpeciesConfig
@@ -1694,7 +1727,7 @@ def pec3d_cfg():
                       species_type="proton",
                       momentum_distribution="at_rest", **common))
     return SimConfig(
-        geometry=geom, max_step=8, dt=compute_dt_yee(geom, 0.98), cfl=0.98,
+        geometry=geom, max_step=5, dt=compute_dt_yee(geom, 0.98), cfl=0.98,
         particle_shape=2, use_filter=True, filter_npass_each_dir=(1, 1, 1),
         species=species, field_bc_lo=("periodic", "periodic", "pec"),
         field_bc_hi=("periodic", "periodic", "pec"),
@@ -1820,7 +1853,11 @@ def lwfa_layers(sim, anchors, zshift):
     }
 
 
-LWFA_PLAN = dict(warm=16, timed=16, counted=16, interval=16)
+# main_lwfa's and main_lwfa_deck's 30 steps (54, warm and counted 16,
+# until the script needed the time for later phases); the boosted run keeps
+# the 54 its band of lab times was laid out for
+LWFA_PLAN = dict(warm=4, timed=16, counted=4, interval=16)
+LWFA_BOOSTED_PLAN = dict(warm=16, timed=16, counted=16, interval=16)
 
 
 def lwfa_steps(plan):
@@ -2073,8 +2110,9 @@ def phase_main_lwfa_deck(dev, smi, k3_row, nx=2048, nz=8192):
 C_LIGHT = 299792458.0
 # seeded random fields for the solver pushes: E [V/m], B [T], J [A/m^2], F, G
 PSATD_SCALE = {"E": 1e10, "B": 30.0, "j": 1e12, "F": 1e10, "G": 1e9}
-# LWFA_PSATD_PLAN's 38 steps rebin at steps 0, 16 and 32
-LWFA_PSATD_PLAN = dict(warm=16, timed=8, counted=8, interval=16)
+# LWFA_PSATD_PLAN's 20 steps rebin at steps 0 and 16 (38 steps, warm 16
+# and counted 8, until the script needed the time for later phases)
+LWFA_PSATD_PLAN = dict(warm=4, timed=8, counted=2, interval=16)
 
 
 def psatd_deck(text):
@@ -2321,8 +2359,8 @@ def phase_main_lwfa_psatd(dev, smi, k1c_row, k3_row, nx=2048, nz=8192):
     takes the tile-binned step and its numbers stay comparable with the
     earlier runs of this phase) through Simulation.from_deck at 'mixed'
     (PML on four faces with their F/G splits, the extended box of
-    (nx + 20) x (nz + 20) transformed whole), 38 steps with rebins at 0, 16
-    and 32, driven as main_lwfa is; then the spectral push (with the PML
+    (nx + 20) x (nz + 20) transformed whole), 20 steps with rebins at 0
+    and 16, driven as main_lwfa is; then the spectral push (with the PML
     splits) timed alone on the final state, and K2 in moving-window mode at
     'mixed' at its shapes against its plain version, with the tiles that
     took its checked path (``k1c_wide_tiles.py`` counts them at this step
@@ -2675,7 +2713,12 @@ def field_energy(fields, geom):
     return float((0.5 * ep0 * e2 + 0.5 * b2 / mu0) * geom.cell_volume)
 
 
-def drifting_cfg(n=128, steps=25, **psatd):
+# the drifting plasma's steps (25 until the script needed the time for
+# later phases)
+DRIFT_STEPS = 13
+
+
+def drifting_cfg(n=128, steps=DRIFT_STEPS, **psatd):
     """uniform-128's plasma (main_cfg: n^3 cells, 2 x 2 n^3 particles,
     order 1, its dt) with both species drifting along z at gamma = 10
     (u_z = 9.95 c, thermal spread 0.01 c) under PSATD (psatd_order 16),
@@ -2770,14 +2813,16 @@ def phase_main_psatd_galilean(dev, smi, n=128):
     Galilean PSATD at v_galilean = beta c e_z (beta = sqrt(1 - 1/gamma^2)),
     update-with-rho on (rho at t^n and t^{n+1} beside J at t^{n+1/2}, each
     at its own origin), Esirkepov deposition, per particle (the
-    tile-binned gate refuses rho deposits), 25 steps with the last 20
-    timed; then the spectral push with its rho pair timed alone."""
+    tile-binned gate refuses rho deposits), DRIFT_STEPS steps with the
+    last DRIFT_STEPS - 5 timed; then the spectral push with its rho pair
+    timed alone."""
     gamma = 10.0
     beta = (1.0 - 1.0 / gamma ** 2) ** 0.5
-    cfg = drifting_cfg(n, psatd_v_galilean=(0.0, 0.0, beta * C_LIGHT),
+    cfg = drifting_cfg(n, steps=DRIFT_STEPS,
+                       psatd_v_galilean=(0.0, 0.0, beta * C_LIGHT),
                        psatd_update_with_rho=True)
     sim = run_per_particle_path(dev, smi, "main_psatd_galilean", cfg,
-                                2 * 2 * n ** 3, 20)
+                                2 * 2 * n ** 3, DRIFT_STEPS - 5)
     f = sim.state.fields
     names = ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")
     rho = (torch.zeros_like(f.Ex), torch.zeros_like(f.Ex))
@@ -2791,15 +2836,16 @@ def phase_main_psatd_multij(dev, smi, n=128):
     """uniform-128-multij: the drifting plasma with first-order PSATD,
     two depositions a step, J and rho constant in time, F/G cleaning,
     direct deposition (the family of WarpX's
-    inputs_test_3d_uniform_plasma_multiJ), per particle, 25 steps with the
-    last 20 timed; then one first-order sub-step push timed alone."""
+    inputs_test_3d_uniform_plasma_multiJ), per particle, DRIFT_STEPS steps
+    with the last DRIFT_STEPS - 5 timed; then one first-order sub-step push
+    timed alone."""
     cfg = drifting_cfg(n, current_deposition="direct",
                        psatd_solution_type="first-order",
                        multi_j_n_depositions=2, psatd_j_in_time="constant",
                        psatd_rho_in_time="constant", do_dive_cleaning=True,
                        do_divb_cleaning=True, psatd_update_with_rho=True)
     sim = run_per_particle_path(dev, smi, "main_psatd_multij", cfg,
-                                2 * 2 * n ** 3, 20)
+                                2 * 2 * n ** 3, DRIFT_STEPS - 5)
     f = sim.state.fields
     names = ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz", "F", "G")
     fmap = {nm: getattr(f, nm) for nm in names}
@@ -3146,7 +3192,8 @@ def phase_main_lwfa_boosted(dev, smi, k1c_row, k3_row, lab_idle,
     BackTransformed diagnostic of 4 snapshots with JAX's default fields
     (rho included), their lab times from ``btd_snapshot_times``;
     tile-binned through K1c and K3 at the default tile headroom, driven as
-    main_lwfa is (54 steps), with the fullest tile after each rebin
+    main_lwfa is (LWFA_BOOSTED_PLAN, 54 steps), with the fullest tile after
+    each rebin
     recorded.  Every filled row holds data (each plane crosses the plasma)
     and matches an independent back-transform (``btd_independent_check``);
     the slab's rho at each plane on the final state against the whole-grid
@@ -3160,7 +3207,7 @@ def phase_main_lwfa_boosted(dev, smi, k1c_row, k3_row, lab_idle,
                                                     cell_centered_slice)
     from warpx_tpu_torch.utils.parser import Deck
 
-    steps = lwfa_steps(LWFA_PLAN)
+    steps = lwfa_steps(LWFA_BOOSTED_PLAN)
     text = lwfa_boosted_deck_text(nx, nz, steps)
     probe = warpx_tpu_torch.Simulation.from_deck(
         Deck.from_string(text), dtype=torch.float32, device=dev)
@@ -3179,7 +3226,8 @@ def phase_main_lwfa_boosted(dev, smi, k1c_row, k3_row, lab_idle,
         raise AssertionError("main_lwfa_boosted: not a boosted binned run")
     with recorded_slices() as rec, recorded_occupancy() as occ:
         launches, anchors, zshift, waits = run_lwfa_path(
-            dev, smi, "main_lwfa_boosted", sim, LWFA_PLAN, boosted=True)
+            dev, smi, "main_lwfa_boosted", sim, LWFA_BOOSTED_PLAN,
+            boosted=True)
     btd.check_overflow()
     spec = sim.tile_spec
     peaks = [int(p) for p in occ.peaks]
@@ -3389,13 +3437,13 @@ def phase_main_divclean(dev, smi, n=128, steps=10):
 # is installed) an openPMD file of the beam at 40.
 LWFA_DIAGS = """
 diagnostics.diags_names = {names}
-diag1.intervals = 40:40
+diag1.intervals = {end}:{end}
 diag1.fields_to_plot = Ex Ez By jz rho
 diag1.species = electrons beam
 chk.format = checkpoint
-chk.intervals = 20:20
+chk.intervals = {chk}:{chk}
 diag2.format = openpmd
-diag2.intervals = 40:40
+diag2.intervals = {end}:{end}
 diag2.fields_to_plot = none
 diag2.species = beam
 warpx.reduced_diags_names = fe fm pe pn px rm br ph
@@ -3422,11 +3470,16 @@ rm.intervals = 4
 br.intervals = 4
 ph.intervals = 4
 """
-DIAGS_STEPS = 40
-# Restarted from step 20 and run to 40, the card's run differs from the
-# uninterrupted one only in the order of K2's float32 shared-memory atomics:
-# J differs by up to ~1.5e-7 of itself from launch to launch (ROADMAP Queue
-# C), and 20 steps carry that into the fields and the particles.  Two runs
+# 40 steps and the checkpoint at 20 until the script needed the time for
+# later phases
+DIAGS_STEPS = 24
+DIAGS_CHK = 12
+# Restarted from step DIAGS_CHK and run to DIAGS_STEPS, the card's run
+# differs from the uninterrupted one only in the order of K2's float32
+# shared-memory atomics: J differs by up to ~1.5e-7 of itself from launch
+# to launch (ROADMAP Queue C), and the steps after the checkpoint carry
+# that into the fields and the particles (20 steps in the measurements
+# below).  Two runs
 # on one NVIDIA H100 80GB HBM3 at 700 W measured 2.1e-8 and 4.7e-7 (the
 # spread itself varies by 20x from run to run); 1e-4 leaves a factor 200
 # over the larger, and a restart that lost a field, a window scalar or the
@@ -3451,7 +3504,8 @@ def state_bytes(state) -> int:
 def phase_main_lwfa_diags(dev, smi, k2_row, k3_row, idle_waits, nx=2048,
                           nz=8192):
     """lwfa2d-2048x8192 from bench.py's deck text at 'mixed' with the
-    outputs of LWFA_DIAGS, 40 steps (rebins at 0, 16, 32), as a user runs a
+    outputs of LWFA_DIAGS, DIAGS_STEPS steps (rebins every 16), as a user
+    runs a
     deck with outputs (Simulation.from_deck with an output directory).  It
     checks that the plotfile reads back exactly as the port held it (the
     cell-centered fields and the compacted particle columns, float64 of the
@@ -3460,7 +3514,8 @@ def phase_main_lwfa_diags(dev, smi, k2_row, k3_row, idle_waits, nx=2048,
     beam, that a step with no output due waits for the device as often as
     main_lwfa_deck's steps that neither rebin nor inject (``idle_waits``;
     ``quiet_step``), and that a
-    fresh simulation restarted from the step-20 checkpoint and run to 40
+    fresh simulation restarted from the step-DIAGS_CHK checkpoint and run
+    to DIAGS_STEPS
     agrees with the run on every checksum but divE/divB within TOL_RESTART
     (its deck without the plotfile and openPMD outputs, which change no
     step).  It times the plotfile and the checkpoint where the run writes
@@ -3484,7 +3539,8 @@ def phase_main_lwfa_diags(dev, smi, k2_row, k3_row, idle_waits, nx=2048,
     has_h5py = importlib.util.find_spec("h5py") is not None
     names = "diag1 chk diag2" if has_h5py else "diag1 chk"
     text = (lwfa_deck_text(nx, nz, DIAGS_STEPS, "mixed")
-            + LWFA_DIAGS.format(names=names))
+            + LWFA_DIAGS.format(names=names, end=DIAGS_STEPS,
+                                chk=DIAGS_CHK))
     if not has_h5py:
         # no openPMD diagnostic at all: its keys would be unread
         text = "\n".join(ln for ln in text.splitlines()
@@ -3585,10 +3641,10 @@ def phase_main_lwfa_diags(dev, smi, k2_row, k3_row, idle_waits, nx=2048,
         sim_mod.save_checkpoint = save_checkpoint
         if [p["step"] for p in plotfiles] != [DIAGS_STEPS]:
             raise AssertionError(f"plotfiles at {plotfiles}")
-        if (not (out / "run" / "chk000020" / "state.npz").exists()
+        if (not (out / "run" / f"chk{DIAGS_CHK:06d}" / "state.npz").exists()
                 or len(checkpoints) != 1):
             raise AssertionError(f"checkpoints {checkpoints}, not one at "
-                                 "step 20")
+                                 f"step {DIAGS_CHK}")
         alive = {nm: int(sp.alive.sum())
                  for nm, sp in sim.state.species.items()}
         reduced_rows = {}
@@ -3645,7 +3701,7 @@ def phase_main_lwfa_diags(dev, smi, k2_row, k3_row, idle_waits, nx=2048,
                              "step": DIAGS_STEPS,
                              "bytes": plotfiles[-1]["bytes"],
                              "d2h_bytes": plotfiles[-1]["d2h_bytes"]}
-        flush["checkpoint"] = {**checkpoints[0], "step": 20}
+        flush["checkpoint"] = {**checkpoints[0], "step": DIAGS_CHK}
         if has_h5py:
             flush["openpmd"] = {"ms": timed(lambda: write_openpmd_iteration(
                 str(alone / "beam.h5"), DIAGS_STEPS, sim.state, sim.cfg, {},
@@ -3664,8 +3720,8 @@ def phase_main_lwfa_diags(dev, smi, k2_row, k3_row, idle_waits, nx=2048,
                                    output_dir=str(out / "restart"))
         sim.init()
         sim.state, sim.is_synchronized = load_checkpoint(
-            str(out / "run" / "chk000020"), sim.state)
-        if sim.state.step != 20:
+            str(out / "run" / f"chk{DIAGS_CHK:06d}"), sim.state)
+        if sim.state.step != DIAGS_CHK:
             raise AssertionError(f"restarted at step {sim.state.step}")
         sim.evolve()
         restarted = sim.checksums()
@@ -3692,7 +3748,7 @@ def phase_main_lwfa_diags(dev, smi, k2_row, k3_row, idle_waits, nx=2048,
          s_a_step_without=idle_steps,
          mean_s_idle=sum(idle_steps.values()) / max(len(idle_steps), 1),
          device_waits_idle_steps=waits, main_lwfa_deck_idle=idle_waits,
-         restart={"from_step": 20, "to_step": DIAGS_STEPS,
+         restart={"from_step": DIAGS_CHK, "to_step": DIAGS_STEPS,
                   "max_rel_err": restart_err, "tol": TOL_RESTART,
                   "worst": "/".join(worst_of)},
          checksum_jz=sums["lev=0"]["jz"], nvidia_smi=smi)
@@ -4584,7 +4640,8 @@ class timed_fn:
 # ~2 s on the card and ~2.7 s of host ADK evaluation); on an H100 10 steps
 # saw 9,664 events against a sum of probabilities of 9,622.8, the first 5
 # of them 3,482
-LWFA_ION_STEPS = 2
+# one timed step (2 until the script needed the time for later phases)
+LWFA_ION_STEPS = 1
 
 
 def lwfa_ionization_deck(nx, nz, steps):
@@ -8397,12 +8454,12 @@ def implicit_rhs(sim):
     return rhs, e3
 
 
-def phase_main_implicit(dev, smi, n=128, steps=2):
-    """uniform-128-implicit (``implicit_main_cfg``), float64, 2 steps (3
-    until the script needed the time for later phases; the last
-    profiled): ms a step, the Picard iterations of each step, peak
-    memory, busy share; the total energy's drift at most
-    TOL_IMPLICIT_DRIFT relative, the fields finite, every particle kept."""
+def phase_main_implicit(dev, smi, n=128, steps=1):
+    """uniform-128-implicit (``implicit_main_cfg``), float64, 1 step (3,
+    then 2, until the script needed the time for later phases): ms a
+    step, the Picard iterations of each step, peak memory, busy share; the
+    total energy's drift at most TOL_IMPLICIT_DRIFT relative, the fields
+    finite, every particle kept."""
     import warpx_tpu_torch
 
     cfg = implicit_main_cfg(n, steps)
@@ -9285,13 +9342,18 @@ laser1.wavelength = {SM_LAMBDA}
 """
 
 
+SM_PML_TWIN_STEPS = 200
+
+
 def phase_main_silver_mueller(dev, smi, n=2048):
     """main_silver_mueller: ``silver_mueller_deck`` at 2048^2 with absorbing
     Silver-Mueller faces, float32, until the pulse's tail has crossed the
     half box plus 10 %: max |E| sampled every 50 steps; the pulse exists
     (max |E| > 1 V/m part-way) and, once it has left, max |E| is below 3 %
     of its peak (tests/test_silver_mueller.py:38, :52); ms a step.  The same
-    pulse with PML faces, whose residual is reported beside it."""
+    pulse with PML faces for SM_PML_TWIN_STEPS steps, its ms a step
+    reported beside (its residual after the pulse left is not measured:
+    the twin ran the whole crossing until the script needed the time)."""
     import warpx_tpu_torch
     from warpx_tpu_torch.utils.parser import Deck
 
@@ -9304,6 +9366,8 @@ def phase_main_silver_mueller(dev, smi, n=2048):
         dt = probe.cfg.dt
         steps = int(math.ceil((8.0 * SM_TAU + 1.1 * 0.5 * n * dx / C_LIGHT)
                               / dt / 50.0)) * 50
+        if faces == "pml":
+            steps = SM_PML_TWIN_STEPS
         del probe
         sim = warpx_tpu_torch.Simulation.from_deck(
             Deck.from_string(silver_mueller_deck(n, faces, steps)),
@@ -9333,6 +9397,10 @@ def phase_main_silver_mueller(dev, smi, n=2048):
                       "residual_of_peak": residual / peak,
                       "ms_per_step": ms_step,
                       "field_shape": list(stepper.shapes["Ey"])}
+        if faces == "pml":
+            # the pulse has not left the box yet
+            out[faces].update(residual_V_m="not measured",
+                              residual_of_peak="not measured")
         del sim
         torch.cuda.empty_cache()
     sm = out["absorbing_silver_mueller"]
@@ -10663,6 +10731,631 @@ def phase_main_lwfa_mr(dev, smi, steps=MAIN_LWFA_MR_STEPS):
     torch.cuda.empty_cache()
 
 
+# ---- RZ geometry: the cylindrical FDTD step and the Hankel PSATD step -----
+
+# The RZ deck texts: the templates of tests/test_torch_rz_util.py, copied
+# (this script imports no test module; tests/test_torch_rz_bounded.py holds
+# the copies equal), which rz_parity runs; and the two cells' decks.
+RZ_TEST_DECKS = {
+    "langmuir": """
+max_step = {steps}
+amr.n_cell = 16 32
+geometry.dims = RZ
+geometry.prob_lo = 0. -20.e-6
+geometry.prob_hi = 20.e-6 20.e-6
+boundary.field_lo = none periodic
+boundary.field_hi = pec periodic
+warpx.n_rz_azimuthal_modes = {modes}
+warpx.cfl = 0.9
+algo.particle_shape = {order}
+my_constants.epsilon = 0.01
+my_constants.n0 = 2.e24
+my_constants.w0 = 5.e-6
+my_constants.k0 = 2*pi*2/40.e-6
+particles.species_names = electrons
+electrons.charge = -q_e
+electrons.mass = m_e
+electrons.injection_style = "NUniformPerCell"
+electrons.num_particles_per_cell_each_dim = 2 4 1
+electrons.profile = constant
+electrons.density = n0
+electrons.momentum_distribution_type = parse_momentum_function
+electrons.momentum_function_ux(x,y,z) = "epsilon*(2*x/w0**2 + 1/w0)*w0*exp(-(x**2+y**2)/w0**2)*sin(k0*z)"
+electrons.momentum_function_uy(x,y,z) = "epsilon*2*y/w0*exp(-(x**2+y**2)/w0**2)*sin(k0*z)"
+electrons.momentum_function_uz(x,y,z) = "-epsilon*exp(-(x**2+y**2)/w0**2)*cos(k0*z)"
+{extra}
+""",
+    "lwfa": """
+max_step = {steps}
+amr.n_cell = {nr} {nz}
+geometry.dims = RZ
+geometry.prob_lo = 0. -56.e-6
+geometry.prob_hi = 30.e-6 12.e-6
+boundary.field_lo = none pec
+boundary.field_hi = pec pec
+warpx.n_rz_azimuthal_modes = {modes}
+warpx.cfl = 1.
+warpx.do_moving_window = 1
+warpx.moving_window_dir = z
+warpx.moving_window_v = 1.0
+algo.particle_shape = {order}
+particles.species_names = electrons beam
+electrons.charge = -q_e
+electrons.mass = m_e
+electrons.injection_style = "NUniformPerCell"
+electrons.num_particles_per_cell_each_dim = 1 4 1
+electrons.xmax = 25.e-6
+electrons.zmin = 5.e-6
+electrons.profile = constant
+electrons.density = 2.e23
+electrons.do_continuous_injection = 1
+{plasma_extra}
+beam.charge = -q_e
+beam.mass = m_e
+beam.injection_style = "gaussian_beam"
+beam.x_rms = 1.e-6
+beam.y_rms = 1.e-6
+beam.z_rms = 1.e-6
+beam.x_m = 0.
+beam.y_m = 0.
+beam.z_m = -40.e-6
+beam.npart = 128
+beam.q_tot = -1.e-12
+beam.momentum_distribution_type = "gaussian"
+beam.ux_m = 0.0
+beam.uy_m = 0.0
+beam.uz_m = 200.
+beam.ux_th = .2
+beam.uy_th = .2
+beam.uz_th = 2.
+lasers.names = laser1
+laser1.profile = Gaussian
+laser1.position = 0. 0. 9.e-6
+laser1.direction = 0. 0. 1.
+laser1.polarization = 1. 0. 0.
+laser1.a0 = 2.
+laser1.wavelength = 0.8e-6
+laser1.profile_waist = 5.e-6
+laser1.profile_duration = 15.e-15
+laser1.profile_t_peak = 30.e-15
+laser1.profile_focal_distance = 100.e-6
+{extra}
+""",
+    "silver_mueller": """
+max_step = {steps}
+amr.n_cell = 16 64
+geometry.dims = RZ
+geometry.prob_lo = 0. -10.e-6
+geometry.prob_hi = 8.e-6 10.e-6
+boundary.field_lo = none absorbing_silver_mueller
+boundary.field_hi = absorbing_silver_mueller absorbing_silver_mueller
+warpx.n_rz_azimuthal_modes = 2
+warpx.cfl = 0.9
+algo.particle_shape = 1
+lasers.names = laser1
+laser1.profile = Gaussian
+laser1.position = 0. 0. -6.e-6
+laser1.direction = 0. 0. 1.
+laser1.polarization = 1. 0. 0.
+laser1.e_max = 1.e12
+laser1.wavelength = 1.e-6
+laser1.profile_waist = 3.e-6
+laser1.profile_duration = 4.e-15
+laser1.profile_t_peak = 8.e-15
+laser1.profile_focal_distance = 0.
+{extra}
+""",
+    "eb": """
+max_step = {steps}
+amr.n_cell = 16 64
+geometry.dims = RZ
+geometry.prob_lo = 0. -8.e-6
+geometry.prob_hi = 8.e-6 8.e-6
+boundary.field_lo = none pec
+boundary.field_hi = pec pec
+warpx.n_rz_azimuthal_modes = 2
+warpx.cfl = 0.9
+warpx.eb_implicit_function = "-max(x - 3.e-6, abs(z) - 0.1e-6)"
+lasers.names = laser1
+laser1.profile = Gaussian
+laser1.position = 0. 0. -6.e-6
+laser1.direction = 0. 0. 1.
+laser1.polarization = 1. 0. 0.
+laser1.e_max = 1.e12
+laser1.wavelength = 1.e-6
+laser1.profile_waist = 4.e-6
+laser1.profile_duration = 4.e-15
+laser1.profile_t_peak = 8.e-15
+laser1.profile_focal_distance = 0.
+{extra}
+""",
+    "psatd": """
+max_step = {steps}
+amr.n_cell = 16 32
+geometry.dims = RZ
+geometry.prob_lo = 0. -16.e-6
+geometry.prob_hi = 16.e-6 16.e-6
+boundary.field_lo = none periodic
+boundary.field_hi = pec periodic
+warpx.n_rz_azimuthal_modes = 2
+warpx.cfl = 0.9
+algo.maxwell_solver = psatd
+algo.current_deposition = direct
+algo.particle_shape = {order}
+psatd.noz = 8
+my_constants.n0 = 1.e24
+my_constants.w0 = 5.e-6
+particles.species_names = electrons ions
+electrons.charge = -q_e
+electrons.mass = m_e
+electrons.injection_style = "NUniformPerCell"
+electrons.num_particles_per_cell_each_dim = 1 4 1
+electrons.profile = parse_density_function
+electrons.density_function(x,y,z) = "n0*exp(-(x**2+y**2)/(4*w0**2))*(1 + 0.05*x/w0)"
+electrons.momentum_distribution_type = parse_momentum_function
+electrons.momentum_function_ux(x,y,z) = "0.01*exp(-(x**2+y**2)/w0**2)"
+electrons.momentum_function_uy(x,y,z) = "0."
+electrons.momentum_function_uz(x,y,z) = "{uz}"
+ions.charge = q_e
+ions.mass = m_p
+ions.injection_style = "NUniformPerCell"
+ions.num_particles_per_cell_each_dim = 1 4 1
+ions.profile = parse_density_function
+ions.density_function(x,y,z) = "n0*exp(-(x**2+y**2)/(4*w0**2))"
+ions.momentum_distribution_type = constant
+ions.uz = {uz}
+{extra}
+""",
+}
+
+RZ_LWFA_DECK = """
+max_step = {steps}
+amr.n_cell = {nr} {nz}
+geometry.dims = RZ
+geometry.prob_lo = 0. -56.e-6
+geometry.prob_hi = 30.e-6 12.e-6
+boundary.field_lo = none pec
+boundary.field_hi = pec pec
+warpx.n_rz_azimuthal_modes = 2
+warpx.cfl = {cfl}
+warpx.do_moving_window = 1
+warpx.moving_window_dir = z
+warpx.moving_window_v = 1.0
+algo.particle_shape = 3
+particles.species_names = electrons beam
+electrons.charge = -q_e
+electrons.mass = m_e
+electrons.injection_style = "NUniformPerCell"
+electrons.num_particles_per_cell_each_dim = 1 4 1
+electrons.xmax = {rmax_plasma}
+electrons.zmin = -56.e-6
+electrons.profile = constant
+electrons.density = 2.e23
+electrons.do_continuous_injection = 1
+electrons.random_theta = 1
+{plasma_extra}
+beam.charge = -q_e
+beam.mass = m_e
+beam.injection_style = "gaussian_beam"
+beam.x_rms = 0.5e-6
+beam.y_rms = 0.5e-6
+beam.z_rms = 0.5e-6
+beam.z_m = -28.e-6
+beam.npart = 100
+beam.q_tot = -1.e-12
+beam.momentum_distribution_type = "gaussian"
+beam.uz_m = 500.
+beam.ux_th = 2.
+beam.uy_th = 2.
+beam.uz_th = 50.
+lasers.names = laser1
+laser1.profile = Gaussian
+laser1.position = 0. 0. 9.e-6
+laser1.direction = 0. 0. 1.
+laser1.polarization = 1. 0. 0.
+laser1.e_max = 16.e12
+laser1.wavelength = 0.8e-6
+laser1.profile_waist = 5.e-6
+laser1.profile_duration = 15.e-15
+laser1.profile_t_peak = 30.e-15
+laser1.profile_focal_distance = 100.e-6
+"""
+
+RZ_PSATD_DECK = """
+max_step = {steps}
+amr.n_cell = {nr} {nz}
+geometry.dims = RZ
+geometry.prob_lo = 0. {zlo}
+geometry.prob_hi = {rmax} {zhi}
+boundary.field_lo = none periodic
+boundary.field_hi = pec periodic
+warpx.n_rz_azimuthal_modes = 2
+warpx.cfl = 0.9
+algo.maxwell_solver = psatd
+algo.current_deposition = direct
+algo.particle_shape = {order}
+psatd.noz = {noz}
+particles.species_names = electrons ions
+electrons.charge = -q_e
+electrons.mass = m_e
+electrons.injection_style = "NUniformPerCell"
+electrons.num_particles_per_cell_each_dim = 1 4 1
+electrons.xmax = {rmax_plasma}
+electrons.profile = constant
+electrons.density = {density}
+electrons.momentum_distribution_type = parse_momentum_function
+electrons.momentum_function_ux(x,y,z) = "{ux}"
+electrons.momentum_function_uy(x,y,z) = "0."
+electrons.momentum_function_uz(x,y,z) = "{uz}"
+ions.charge = q_e
+ions.mass = m_p
+ions.injection_style = "NUniformPerCell"
+ions.num_particles_per_cell_each_dim = 1 4 1
+ions.xmax = {rmax_plasma}
+ions.profile = constant
+ions.density = {density}
+ions.momentum_distribution_type = constant
+ions.uz = {uz}
+{extra}
+"""
+
+
+def rz_parity_cases():
+    """(name, deck text) of rz_parity: the tests' decks, the LWFA at
+    32 x 256 and order 3."""
+    t = RZ_TEST_DECKS
+    warm = ("electrons.momentum_distribution_type = gaussian\n"
+            "electrons.ux_th = 0.01\nelectrons.uy_th = 0.01\n"
+            "electrons.uz_th = 0.01\nelectrons.random_theta = 1")
+    return [
+        ("langmuir_m2", t["langmuir"].format(steps=6, modes=2, order=2,
+                                             extra="")),
+        ("lwfa_32x256", t["lwfa"].format(steps=10, modes=2, nr=32, nz=256,
+                                         order=3, plasma_extra=warm,
+                                         extra="")),
+        ("silver_mueller", t["silver_mueller"].format(steps=20, extra="")),
+        ("eb", t["eb"].format(steps=20, extra="")),
+        ("psatd", t["psatd"].format(
+            steps=6, order=1, uz="0.", extra="psatd.current_correction = 0\n"
+                                             "psatd.update_with_rho = 0")),
+        ("psatd_cc", t["psatd"].format(steps=6, order=1, uz="0.", extra="")),
+        ("psatd_galilean", t["psatd"].format(
+            steps=6, order=1, uz="10.",
+            extra="psatd.v_galilean = 0. 0. 0.99498743710662")),
+    ]
+
+
+def rz_checksums_agree(got, ref, tol, what):
+    """The RZ checksums, each within ``tol`` of its group's largest: the
+    E, B, J, rho and div E sums of every mode a group each (a mode the run
+    does not drive sits at roundoff), a species' sums each on its own."""
+    worst = 0.0
+    for group in ref:
+        if set(got[group]) != set(ref[group]):
+            raise AssertionError(f"{what}: {group} holds "
+                                 f"{sorted(got[group])}")
+        scale = {}
+
+        def key(q):
+            return q[0] if group == "lev=0" else q
+        for q, a in ref[group].items():
+            scale[key(q)] = max(scale.get(key(q), 0.0), abs(a))
+        for q, a in ref[group].items():
+            s = scale[key(q)]
+            r = abs(got[group][q] - a) / s if s else abs(got[group][q])
+            worst = max(worst, r)
+            if not r <= tol:
+                raise AssertionError(f"{what} checksum {group}/{q}: "
+                                     f"{got[group][q]!r} vs {a!r}")
+    return worst
+
+
+def rz_extra_fields_agree(got, ref, tol, what):
+    """F and the Silver-Mueller rings, where a run has them."""
+    worst = 0.0
+    pairs = []
+    if ref.state.fields.F is not None:
+        pairs.append(("F", got.state.fields.F, ref.state.fields.F))
+    for k, v in (ref.state.fields.smg or {}).items():
+        pairs.append((f"smg:{k}", got.state.fields.smg[k], v))
+    for name, a, b in pairs:
+        _, rel = rel_err(a.cpu(), b)
+        worst = max(worst, rel)
+        if not rel <= tol:
+            raise AssertionError(f"{what}: {name} differs by {rel}")
+    return worst
+
+
+def phase_rz_parity(dev):
+    """rz_parity: RZ in float64, card against CPU on the same numbers (the
+    decks of tests/test_torch_rz*.py, which hold the port to the JAX
+    package): the RZ Langmuir wave at 2 modes on periodic z; the RZ LWFA at
+    32 x 256 (PEC z walls, the window, the antenna, continuous injection
+    with random_theta and warm momenta, a Gaussian beam); Silver-Mueller
+    faces; a laser around an embedded disk; PSATD standard, with current
+    correction, Galilean.  Fields (F and the rings too), species (theta
+    too) within 1e-9 of their largest values, the RZ checksums within 1e-9
+    of their groups'; RZ runs per particle, so no kernel is launched."""
+    out = {}
+    for name, text in rz_parity_cases():
+        before = kernel_counters()
+        t0 = time.perf_counter()
+        card = stochastic_run(text, dev, torch.float64)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launched = [a - b for a, b in zip(kernel_counters(), before)]
+        cpu = stochastic_run(text, "cpu", torch.float64)
+        if card.rz is None or card.binned or any(launched):
+            raise AssertionError(f"rz_parity {name}: rz {card.rz}, binned "
+                                 f"{card.binned}, kernels {launched}")
+        worst = states_agree(card, cpu, 1e-9, f"rz_parity {name}")
+        worst_extra = rz_extra_fields_agree(card, cpu, 1e-9,
+                                            f"rz_parity {name}")
+        worst_sum = rz_checksums_agree(card.checksums(), cpu.checksums(),
+                                       1e-9, f"rz_parity {name}")
+        out[name] = {"max_rel_err": worst,
+                     "f_and_rings_max_rel_err": worst_extra,
+                     "checksum_max_rel_err": worst_sum,
+                     "solver": card.cfg.em_solver,
+                     "modes": card.cfg.n_rz_modes,
+                     "window_lo": float(card.state.aux.get("window_lo",
+                                                           0.0)),
+                     "alive": {nm: int(sp.alive.sum())
+                               for nm, sp in card.state.species.items()},
+                     "card_s": card_s}
+    emit("rz_parity", ok=True, tol=1e-9, kernel_launches=0, cases=out)
+
+
+MAIN_RZ_LWFA_STEPS = 6
+
+
+def rz_lwfa_deck(nr=1024, nz=8192, steps=MAIN_RZ_LWFA_STEPS):
+    """rz-lwfa-1024x8192: the reference's RZ laser-wakefield deck in form
+    (inputs_test_rz_laser_acceleration) at this repo's LWFA resolution: r
+    in [0, 30 um] over ``nr`` cells and z in [-56, 12] um over ``nz`` (the
+    2D deck's cell sizes), 2 azimuthal modes, PEC z walls, the window at c,
+    main_lwfa's Gaussian antenna (x-polarized), electrons at 1 x 4 x 1 a
+    cell over the whole radius with random_theta, continuously injected,
+    a 100-particle Gaussian beam, order 3, the filter on, dt at the RZ
+    Courant limit."""
+    return RZ_LWFA_DECK.format(steps=steps, nr=nr, nz=nz, cfl=0.999,
+                               rmax_plasma="30.e-6", plasma_extra="")
+
+
+def rz_finite(sim):
+    f = sim.state.fields
+    return all(bool(torch.isfinite(getattr(f, nm)).all())
+               for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy",
+                          "jz"))
+
+
+def phase_main_rz_lwfa(dev, smi, nr=1024, nz=8192,
+                       steps=MAIN_RZ_LWFA_STEPS):
+    """rz-lwfa-1024x8192 (``rz_lwfa_deck``) through Simulation.from_deck,
+    float32, per particle (the JAX package's RZ step is per particle; no
+    kernel): init, a warm step, ``steps`` - 3 timed steps (CUDA events),
+    one profiled step, the closing step.  Gates: finite fields; the
+    electrons alive exactly 4 nr a cell row times the rows between the
+    window's edge at the last step's start and the injection front (the
+    plasma at rest there, injected by whole columns); the antenna's m = 1
+    field nonzero after the window moved; no kernel launched."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.utils.parser import Deck
+
+    text = rz_lwfa_deck(nr, nz, steps)
+    before = kernel_counters()
+    t0 = time.perf_counter()
+    sim = warpx_tpu_torch.Simulation.from_deck(
+        Deck.from_string(text), dtype=torch.float32, device=dev)
+    sim.init()
+    torch.cuda.synchronize()
+    host_init_s = time.perf_counter() - t0
+    if sim.rz is None or sim.binned:
+        raise AssertionError("main_rz_lwfa left the RZ FDTD step")
+    cfg = sim.cfg
+    dz = cfg.geometry.dx[1]
+    row = 4 * nr
+
+    def alive():
+        return int(sim.state.species["electrons"].alive.sum())
+
+    def expected(lo):
+        front = float(sim.state.aux["inject_pos:electrons"])
+        return row * int(round((front - lo) / dz))
+
+    n0, e0 = alive(), expected(float(sim.state.aux["window_lo"]))
+    sim.evolve(1)
+    timed = steps - 3
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    marks[0].record()
+    for mark in marks[1:]:
+        sim.evolve(1)
+        mark.record()
+    marks[-1].synchronize()
+    series = [round(a.elapsed_time(b), 3) for a, b in zip(marks, marks[1:])]
+    breakdown = profile_steps(sim, 1)
+    lo_last = float(sim.state.aux["window_lo"])
+    sim.evolve()
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(kernel_counters(), before)]
+    n1, e1 = alive(), expected(lo_last)
+    ey = sim.state.fields.Ey
+    m1 = float(ey[1:].abs().max())
+    finite = rz_finite(sim)
+    moved = float(sim.state.aux["window_lo"]) > cfg.geometry.prob_lo[1]
+    ms_step = sum(series) / timed
+    n_all = sum(int(sp.alive.sum()) for sp in sim.state.species.values())
+    out = dict(n_cell=cfg.geometry.n_cell, modes=cfg.n_rz_modes, order=3,
+               dtype="float32", dt=cfg.dt, steps=sim.state.step,
+               steps_timed=timed, ms_per_step=ms_step,
+               pushes_per_s=n_all / (ms_step * 1e-3), ms_each_step=series,
+               host_init_s=host_init_s,
+               device_busy_share=breakdown["device_busy_share"],
+               device_ms_per_step=breakdown["device_ms_per_step"],
+               electrons_init=n0, expected_init=e0, electrons_end=n1,
+               expected_end=e1,
+               beam_alive=int(sim.state.species["beam"].alive.sum()),
+               window_moved_m=float(sim.state.aux["window_lo"])
+               - cfg.geometry.prob_lo[1],
+               et_mode1_max=m1, et_mode0_max=float(ey[0].abs().max()),
+               finite=finite, kernel_launches=launched,
+               profile_top=breakdown["top"][:8],
+               device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    if not (finite and n0 == e0 and n1 == e1 and moved and m1 > 0.0
+            and not any(launched)):
+        raise AssertionError(f"main_rz_lwfa: {out}")
+    emit("main_rz_lwfa", ok=True, **out)
+    del sim
+    torch.cuda.empty_cache()
+
+
+MAIN_RZ_PSATD_STEPS = 6
+# u_z = 10 (gamma beta): beta = 10 / sqrt(101)
+RZ_GALILEAN_BETA = 10.0 / math.sqrt(101.0)
+
+
+def rz_psatd_deck(nr=512, nz=4096, steps=MAIN_RZ_PSATD_STEPS):
+    """rz-psatd-galilean-512x4096: BASELINE.json configuration 3's spectral
+    solve at production width on the reference's Galilean RZ stability
+    setup (nci_psatd_stability/inputs_test_rz_galilean_psatd in form):
+    periodic z, ``nr`` x ``nz`` cells of 0.3125 um (uniform-128-galilean's
+    cell), 2 modes, psatd.noz = 16, update-with-rho and current correction
+    (the RZ reader's defaults), electrons and protons at 2e24 m^-3, 1 x 4 x
+    1 a cell each within 0.95 of the radius, drifting at u_z = 10 with
+    v_galilean at that drift; the direct cell-centered deposit, order 3."""
+    cell = 0.3125e-6
+    return RZ_PSATD_DECK.format(
+        steps=steps, nr=nr, nz=nz, zlo=repr(-nz * cell / 2),
+        zhi=repr(nz * cell / 2), rmax=repr(nr * cell), order=3, noz=16,
+        rmax_plasma=repr(0.95 * nr * cell), density="2.e24", ux="0.",
+        uz="10.", extra=f"psatd.v_galilean = 0. 0. {RZ_GALILEAN_BETA!r}")
+
+
+def rz_energies(sim):
+    """(field energy, kinetic energy) in J: the modes' E and B over the
+    rings (2 pi r dr dz; mode 0 once, each cos/sin pair half), cell
+    centered; sum w m c^2 (gamma - 1) over the live particles."""
+    from warpx_tpu_torch.rz.core import _rz_center
+
+    cfg = sim.cfg
+    geom = cfg.geometry
+    dr, dz = geom.dx
+    r = (torch.arange(geom.n_cell[0], dtype=torch.float64,
+                      device=sim.device) + 0.5) * dr
+    vol = (2.0 * math.pi * r * dr * dz)[:, None]
+    f = sim.state.fields
+    ep0, mu0, c = 8.8541878128e-12, 1.25663706212e-06, 299792458.0
+    wf = 0.0
+    for nm, attr, k in (("Er", "Ex", ep0), ("Et", "Ey", ep0),
+                        ("Ez", "Ez", ep0), ("Br", "Bx", 1 / mu0),
+                        ("Bt", "By", 1 / mu0), ("Bz", "Bz", 1 / mu0)):
+        arr = getattr(f, attr).double()
+        for ci in range(arr.shape[0]):
+            a = _rz_center(arr[ci], nm, cfg)
+            wf += 0.5 * k * (1.0 if ci == 0 else 0.5) * float(
+                (a * a * vol).sum())
+    wk = 0.0
+    for sp_cfg in cfg.species:
+        sp = sim.state.species[sp_cfg.name]
+        u2 = (sp.ux.double() ** 2 + sp.uy.double() ** 2
+              + sp.uz.double() ** 2) / (c * c)
+        gm1 = u2 / (torch.sqrt(1.0 + u2) + 1.0)
+        wk += float((torch.where(sp.alive, sp.w.double(), 0.0) * gm1).sum()
+                    ) * sp_cfg.mass * c * c
+    return wf, wk
+
+
+def phase_main_rz_psatd(dev, smi, nr=512, nz=4096,
+                        steps=MAIN_RZ_PSATD_STEPS):
+    """rz-psatd-galilean-512x4096 (``rz_psatd_deck``) through
+    Simulation.from_deck, float32, per particle (no kernel): init, a warm
+    step, ``steps`` - 3 timed steps, one profiled step, the closing step;
+    then, on the end state, the spectral push alone, each Hankel + FFT
+    transform alone, the electrons' current and rho deposits alone (CUDA
+    events); the field energy against the plasma's kinetic energy.  Gates:
+    finite fields, no particle lost, no kernel launched."""
+    import warpx_tpu_torch
+    from warpx_tpu_torch.rz.spectral import deposit_cc_rz
+    from warpx_tpu_torch.utils.parser import Deck
+
+    text = rz_psatd_deck(nr, nz, steps)
+    before = kernel_counters()
+    t0 = time.perf_counter()
+    sim = warpx_tpu_torch.Simulation.from_deck(
+        Deck.from_string(text), dtype=torch.float32, device=dev)
+    sim.init()
+    torch.cuda.synchronize()
+    host_init_s = time.perf_counter() - t0
+    if sim.rz is None or sim.cfg.em_solver != "psatd":
+        raise AssertionError("main_rz_psatd left the RZ spectral step")
+    cfg = sim.cfg
+    n0 = sum(int(sp.alive.sum()) for sp in sim.state.species.values())
+    sim.evolve(1)
+    timed = steps - 3
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    marks[0].record()
+    for mark in marks[1:]:
+        sim.evolve(1)
+        mark.record()
+    marks[-1].synchronize()
+    series = [round(a.elapsed_time(b), 3) for a, b in zip(marks, marks[1:])]
+    breakdown = profile_steps(sim, 1)
+    sim.evolve()
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(kernel_counters(), before)]
+    n1 = sum(int(sp.alive.sum()) for sp in sim.state.species.values())
+    finite = rz_finite(sim)
+    # the pieces alone on the end state
+    solver = sim.rz.solver
+    f = sim.state.fields
+    rho = torch.zeros_like(f.Ex)
+    sp = sim.state.species["electrons"]
+    sp_cfg = cfg.species[0]
+    pos = (sp.x, sp.y, sp.z)
+    order = cfg.particle_shape
+    alone = {
+        "push_with_rho_pair": cuda_ms(lambda: solver.push(f, (rho, rho)), 3),
+        "fwd_vector": cuda_ms(lambda: solver.fwd_vector(f.Ex, f.Ey), 5),
+        "fwd_scalar": cuda_ms(lambda: solver.fwd_scalar(f.Ez), 5),
+        "deposit_j_electrons": cuda_ms(lambda: deposit_cc_rz(
+            pos, sp.w, sp_cfg.charge, cfg, order, order + 2, torch.float32,
+            vel=(sp.ux, sp.uy, sp.uz), dt=cfg.dt), 2),
+        "deposit_rho_electrons": cuda_ms(lambda: deposit_cc_rz(
+            pos, sp.w, sp_cfg.charge, cfg, order, order + 2,
+            torch.float32), 2),
+    }
+    U = solver.fwd_scalar(f.Ez)
+    alone["bwd_vector"] = cuda_ms(
+        lambda: solver.bwd_vector(U, U, torch.float32), 5)
+    alone["bwd_scalar"] = cuda_ms(
+        lambda: solver.bwd_scalar(U, torch.float32), 5)
+    # a push: 3 vector and 5 scalar forward transforms, 3 and 3 backward
+    # (the corrected current's included)
+    alone["transforms_in_a_push"] = (
+        3 * (alone["fwd_vector"] + alone["bwd_vector"])
+        + 5 * alone["fwd_scalar"] + 3 * alone["bwd_scalar"])
+    wf, wk = rz_energies(sim)
+    ms_step = sum(series) / timed
+    out = dict(n_cell=cfg.geometry.n_cell, modes=cfg.n_rz_modes,
+               order=order, psatd_noz=cfg.psatd_order,
+               v_galilean_over_c=RZ_GALILEAN_BETA, dtype="float32",
+               dt=cfg.dt, steps=sim.state.step, steps_timed=timed,
+               ms_per_step=ms_step, pushes_per_s=n1 / (ms_step * 1e-3),
+               ms_each_step=series, host_init_s=host_init_s,
+               device_busy_share=breakdown["device_busy_share"],
+               device_ms_per_step=breakdown["device_ms_per_step"],
+               alone_ms=alone, field_energy_J=wf, kinetic_energy_J=wk,
+               field_over_kinetic=wf / wk if wk else None,
+               n_particles=n0, alive_end=n1, finite=finite,
+               kernel_launches=launched, profile_top=breakdown["top"][:8],
+               device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    if not (finite and n1 == n0 and not any(launched)):
+        raise AssertionError(f"main_rz_psatd: {out}")
+    emit("main_rz_psatd", ok=True, **out)
+    del sim, f, U, rho, sp, pos
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     """Every phase in order."""
     if not torch.cuda.is_available():
@@ -10687,7 +11380,8 @@ def main() -> int:
     build.start_all(nice=19)
     meanwhile = (phase_main_lwfa_ionization, phase_main_qed,
                  phase_main_coulomb, phase_main_fusion, phase_main_mcc_dsmc,
-                 phase_main_mr, phase_main_lwfa_mr)
+                 phase_main_mr, phase_main_lwfa_mr, phase_main_rz_lwfa,
+                 phase_main_rz_psatd)
     for phase in meanwhile:
         phase(dev, smi)
         torch.cuda.empty_cache()
@@ -10724,6 +11418,7 @@ def main() -> int:
     phase_boundaries_parity(dev)
     dims1 = phase_dims1_parity(dev)
     phase_mr_parity(dev)
+    phase_rz_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
     k1_row["launches_by_path"] = {"main": k1_row["launches"]}
     phase_main_psatd(dev, smi, k1_row, k3_row)

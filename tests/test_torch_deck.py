@@ -225,8 +225,10 @@ electrons.density = 1.e24
                     "Queue A 3-4"),
     # mesh refinement runs since Queue A 12.1-12.2 (tests/test_torch_mr.py,
     # test_torch_mr_bounded.py): a second level keeps the JAX reader's
-    # refusal, and RZ waits for Queue A 12.3 (the cases keep their ids)
-    pytest.param("geometry.dims = RZ", "Queue A 12.3",
+    # refusal; RZ runs since Queue A 12.3-12.4 (tests/test_torch_rz*.py):
+    # an RZ solver other than Yee and PSATD keeps the JAX reader's refusal
+    # (the cases keep their ids)
+    pytest.param("geometry.dims = RZ\nalgo.maxwell_solver = ckc", "Queue C",
                  id="geometry.dims = RZ-Queue A 12"),
     pytest.param("amr.max_level = 2", "Queue C",
                  id="amr.max_level = 1-Queue A 12"),

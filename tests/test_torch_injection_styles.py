@@ -473,8 +473,10 @@ def test_cli_runs_an_injection_deck(tmp_path, capsys, kind):
                  id="boundary.single.u_th = 0.1-Queue A 11.4"),
     pytest.param("single.save_particles_at_zmid = 1", "Queue C",
                  id="single.save_particles_at_zlo = 1-Queue A 11.4"),
-    # RZ's keys wait for Queue A 12.3 (the case keeps its id)
-    pytest.param("single.random_theta = 0", "Queue A 12.3",
+    # RZ's keys are read since Queue A 12.3 (tests/test_torch_rz.py), on
+    # RZ decks only: on a Cartesian deck neither reader's path uses them
+    # (the case keeps its id)
+    pytest.param("single.random_theta = 0", "Queue C",
                  id="single.random_theta = 0-Queue A 12"),
     # warpx.poisson_solver is read since Queue A 11.3's first half, the
     # embedded boundary since its second half (the case keeps its id)

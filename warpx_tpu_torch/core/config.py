@@ -192,6 +192,9 @@ class SpeciesConfig:
     physical_element: str = ""
     ionization_initial_level: int = 0
     ionization_product_species: str = ""
+    # RZ: a random azimuth offset per cell at injection
+    # (<species>.random_theta, PhysicalParticleContainer.cpp:300)
+    random_theta: bool = True
 
     @property
     def qm(self) -> float:
@@ -436,6 +439,9 @@ class SimConfig:
     gmres_restart: int = 30
     gmres_rtol: float = 1.0e-4
     gmres_atol: float = 0.0
+    # RZ geometry: the azimuthal modes of the fields
+    # (warpx.n_rz_azimuthal_modes, Source/WarpX.H:316)
+    n_rz_modes: int = 1
 
     @property
     def galerkin(self) -> bool:

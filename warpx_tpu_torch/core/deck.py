@@ -173,7 +173,8 @@ def _predefined_profile(deck: Deck, name: str, profile: str):
     return "parse_density_function", f"({n0})*(1+({inv})*(x*x+y*y))*{lon}"
 
 
-def _species_from_deck(deck: Deck, name: str, ndim: int) -> SpeciesConfig:
+def _species_from_deck(deck: Deck, name: str, ndim: int,
+                       rz: bool = False) -> SpeciesConfig:
     def g(k, default=None):
         return deck.get_real(f"{name}.{k}", default)
 
@@ -357,6 +358,10 @@ def _species_from_deck(deck: Deck, name: str, ndim: int) -> SpeciesConfig:
                                       1),
         resampling_delta_u=tuple(deck.get_reals(
             f"{name}.resampling_algorithm_delta_u", (0.0, 0.0, 0.0))),
+        # RZ only (the JAX reader reads it for every deck and only its RZ
+        # injection uses it, warpx_tpu/core/deck.py:171)
+        **({"random_theta": deck.get_bool(f"{name}.random_theta", True)}
+           if rz else {}),
     )
 
 
@@ -815,8 +820,6 @@ def _implicit_from_deck(deck: Deck) -> dict:
 def _gate_values(deck: Deck) -> None:
     """Keys the reader reads whose value selects what the port lacks."""
     dims = _lower(deck, "geometry.dims", "3")
-    if dims == "rz":
-        _no("geometry.dims = RZ", "Queue A 12.3")
     if dims not in ("1", "2", "3"):
         raise ValueError(f"geometry.dims = {dims}")
     solver = _lower(deck, "algo.maxwell_solver", "yee")
@@ -984,16 +987,11 @@ def _item_of_key(deck: Deck, key: str) -> str:
     it as unused and runs without it; the port refuses it, so that a
     misspelt key drops nothing silently)."""
     head, _, tail = key.partition(".")
-    species = deck.get_strings("particles.species_names", [])
     if (head == "amr" and tail.split("_")[0] in ("plot", "check")
             or "checkpoint" in key or "restart" in key):
         # the legacy AMReX output keys and a restart named in the deck,
         # which neither package reads (the CLI's --restart does)
         return "Queue A 15"
-    if tail == "n_rz_azimuthal_modes" or (
-            head in species and tail == "random_theta"):
-        # RZ's keys (the JAX reader reads them for RZ decks)
-        return "Queue A 12.3"
     return "Queue C"
 
 
@@ -1158,10 +1156,174 @@ def _lattice_from_deck(deck: Deck) -> tuple:
     return tuple(out)
 
 
+def _jax_refuses(what: str):
+    raise NotImplementedError(
+        f"{what} (the JAX reader refuses it too; ROADMAP.md Queue C)")
+
+
+def _rz_config_from_deck(deck: Deck) -> SimConfig:
+    """An RZ deck (geometry.dims = RZ) as the JAX reader reads it
+    (warpx_tpu/core/deck.py:1074-1230): a 2D (r, z) grid with
+    n_rz_azimuthal_modes field modes, particles in 3D Cartesian, with its
+    refusals and messages; only these keys are read, so any other key of
+    the deck is refused as unread (Queue C)."""
+    n_cell = tuple(deck.get_ints("amr.n_cell"))
+    prob_lo = tuple(deck.get_reals("geometry.prob_lo"))
+    prob_hi = tuple(deck.get_reals("geometry.prob_hi"))
+    if len(n_cell) != 2:
+        raise ValueError("RZ expects amr.n_cell = nr nz")
+    field_lo = [b.lower() for b in deck.get_strings(
+        "boundary.field_lo", ["none", "periodic"])]
+    field_hi = [b.lower() for b in deck.get_strings(
+        "boundary.field_hi", ["none", "periodic"])]
+    periodic = (False, field_lo[1] == "periodic" and field_hi[1] == "periodic")
+    if field_hi[0] == "pml":
+        _jax_refuses("RZ radial PML (PML_RZ)")
+    solver = _lower(deck, "algo.maxwell_solver", "yee")
+    if solver not in ("yee", "psatd"):
+        _jax_refuses(f"RZ maxwell solver {solver}")
+    if not periodic[1]:
+        if solver == "psatd":
+            _jax_refuses("RZ PSATD with bounded z (PML_RZ)")
+        for b in (field_lo[1], field_hi[1]):
+            if b not in ("pec", "none", "absorbing_silver_mueller"):
+                _jax_refuses(f"RZ z boundary '{b}'")
+    geom = Geometry(ndim=2, n_cell=n_cell, prob_lo=prob_lo, prob_hi=prob_hi,
+                    periodic=periodic, rz=True)
+    # the particle faces, which the JAX reader leaves unread and its RZ
+    # steps fix: absorbed past rmax, wrapped or absorbed along z
+    want = {"hi": ("absorbing", "periodic" if periodic[1] else "absorbing"),
+            "lo": (("none", "absorbing") if prob_lo[0] == 0.0 else ("none",),
+                   "periodic" if periodic[1] else "absorbing")}
+    for side in ("lo", "hi"):
+        got = [b.lower() for b in deck.get_strings(f"boundary.particle_{side}",
+                                                   [])]
+        r_ok, z_ok = want[side]
+        if got and (got[0] not in (r_ok if side == "lo" else (r_ok,))
+                    or len(got) < 2 or got[1] != z_ok):
+            _no(f"boundary.particle_{side} = {' '.join(got)} (the JAX "
+                "package's RZ steps absorb past rmax and wrap or absorb "
+                "along z whatever it says)", "Queue C")
+    n_modes = deck.get_int("warpx.n_rz_azimuthal_modes", 1)
+    cfl = deck.get_real("warpx.cfl", 0.999)
+    const_dt = deck.get_real("warpx.const_dt", None)
+    if const_dt is not None:
+        dt = const_dt
+    elif solver == "psatd":
+        # the spectral dt: cfl * the smaller cell / c (WarpXComputeDt.cpp:
+        # 69-72)
+        dt = cfl * min(geom.dx) / _C
+    else:
+        from ..rz.core import compute_dt_rz
+
+        dt = compute_dt_rz(geom.dx[0], geom.dx[1], n_modes, cfl)
+    pusher = _lower(deck, "algo.particle_pusher", "boris")
+    species = tuple(
+        dataclasses.replace(_species_from_deck(deck, nm, 2, rz=True),
+                            pusher=pusher)
+        for nm in deck.get_strings("particles.species_names", []))
+    dep = _lower(deck, "algo.current_deposition", "esirkepov")
+    dive = deck.get_bool("warpx.do_dive_cleaning", False)
+    psatd_kw = {}
+    if solver == "psatd":
+        # the JAX reader's RZ spectral gates: the standard J-constant and
+        # Galilean algorithms with update-with-rho and current correction
+        if _lower(deck, "psatd.J_in_time", "constant") != "constant":
+            _jax_refuses("RZ PSATD with psatd.J_in_time=linear")
+        if deck.get_bool("psatd.do_time_averaging", False):
+            _jax_refuses("RZ PSATD time averaging")
+        if deck.get_int("warpx.do_multi_J", 0):
+            _jax_refuses("RZ multi-J PSATD")
+        if dive:
+            _jax_refuses("RZ PSATD divergence cleaning (requires "
+                         "J_in_time=linear)")
+        if dep not in ("direct",):
+            _jax_refuses(f"RZ PSATD with {dep} deposition (cell-centered "
+                         "direct only)")
+        psatd_kw = dict(
+            psatd_order=deck.get_int("psatd.noz",
+                                     deck.get_int("psatd.nox", 16)),
+            # RZ always updates with rho (WarpX.cpp:1589-1590)
+            psatd_update_with_rho=deck.get_bool("psatd.update_with_rho",
+                                                True),
+            psatd_current_correction=deck.get_bool(
+                "psatd.current_correction", True),
+            psatd_v_galilean=tuple(v * _C for v in deck.get_reals(
+                "psatd.v_galilean", (0.0, 0.0, 0.0))))
+    # the moving window, along z only (WarpX.cpp asserts it)
+    window_kw = {}
+    if deck.get_bool("warpx.do_moving_window", False):
+        if _lower(deck, "warpx.moving_window_dir", "z") != "z":
+            _jax_refuses("RZ moving window must be along z")
+        if periodic[1]:
+            raise ValueError("moving window requires bounded z")
+        window_kw = dict(do_moving_window=True, moving_window_dir=1,
+                         moving_window_v=deck.get_real(
+                             "warpx.moving_window_v", 1.0))
+    # the antennas (LaserParticleContainer RZ: radial spokes)
+    lasers = tuple(_laser_from_deck(deck, nm)
+                   for nm in deck.get_strings("lasers.names", []))
+    laser_species = tuple(
+        SpeciesConfig(name=las.name, charge=1.0, mass=0.0,
+                      injection_style="laser") for las in lasers)
+    _laser_gates(deck)
+    return SimConfig(
+        geometry=geom,
+        max_step=deck.get_int("max_step", deck.get_int("warpx.max_step", 0)),
+        dt=dt,
+        particle_shape=deck.get_int("algo.particle_shape", 1),
+        em_solver=solver,
+        current_deposition=dep,
+        field_gathering=_lower(deck, "algo.field_gathering",
+                               "energy-conserving"),
+        use_filter=deck.get_bool("warpx.use_filter", True),
+        grid_type=_lower(deck, "warpx.grid_type", "staggered"),
+        cfl=cfl,
+        n_rz_modes=n_modes,
+        do_dive_cleaning=dive,
+        field_bc_lo=tuple(field_lo),
+        field_bc_hi=tuple(field_hi),
+        filter_npass_each_dir=tuple(
+            deck.get_ints("warpx.filter_npass_each_dir", (1, 1))),
+        lasers=lasers,
+        species=species + laser_species,
+        user_constants=tuple(sorted(deck.my_constants.items())),
+        tiled_particles="off",
+        eb_implicit_function=_eb_function(deck),
+        **window_kw,
+        **psatd_kw,
+    )
+
+
+def _check_unread(deck: Deck, outputs: dict) -> None:
+    names = {o["name"] for o in (outputs["diags"] + outputs["btd"]
+                                 + outputs["reduced"])}
+    unread = [k for k in deck.unused_keys()
+              if k not in NO_PHYSICS and k.partition(".")[0] not in names]
+    if unread:
+        raise NotImplementedError(
+            "deck keys the port does not read: " + ", ".join(
+                f"{k} (ROADMAP.md {_item_of_key(deck, k)})" for k in unread))
+
+
 def config_from_deck(deck: Deck) -> SimConfig:
     """The port's ``SimConfig`` from a parsed deck (raises
     ``NotImplementedError`` naming the ROADMAP.md item for what the port
     does not run)."""
+    if _lower(deck, "geometry.dims", "3") == "rz":
+        # the JAX reader routes RZ first (warpx_tpu/core/deck.py:1074)
+        from ..rz.core import check_rz_supported
+
+        cfg = _rz_config_from_deck(deck)
+        outputs = outputs_from_deck(deck)
+        if outputs["reduced"] or outputs["btd"] or any(
+                d["format"] == "openpmd" for d in outputs["diags"]):
+            _no("reduced, back-transformed or openPMD outputs of an RZ "
+                "run (the JAX package computes them on the Cartesian "
+                "layout)", "Queue C")
+        _check_unread(deck, outputs)
+        check_rz_supported(cfg)
+        return cfg
     _gate_values(deck)
     ndim = int(_lower(deck, "geometry.dims", "3"))
     n_cell = tuple(deck.get_ints("amr.n_cell"))
@@ -1391,13 +1553,5 @@ def config_from_deck(deck: Deck) -> SimConfig:
         from .mr import check_mr_supported
 
         check_mr_supported(cfg)
-    outputs = outputs_from_deck(deck)
-    names = {o["name"] for o in (outputs["diags"] + outputs["btd"]
-                                 + outputs["reduced"])}
-    unread = [k for k in deck.unused_keys()
-              if k not in NO_PHYSICS and k.partition(".")[0] not in names]
-    if unread:
-        raise NotImplementedError(
-            "deck keys the port does not read: " + ", ".join(
-                f"{k} (ROADMAP.md {_item_of_key(deck, k)})" for k in unread))
+    _check_unread(deck, outputs_from_deck(deck))
     return cfg

@@ -38,7 +38,9 @@ them.  Under mesh refinement (``amr.max_level = 1``) the periodic step
 is ``core/mr.py::make_mr_step``'s (``self.mr_step``) and the bounded
 stepper carries the patch; ``init`` starts the patch at rest and injects
 ``warpx.refine_plasma``'s fine lattice, the checksums and plotfiles gain
-level 1.  The
+level 1.  An RZ configuration takes ``self.rz`` (``rz/core.py::RZStepper``
+or ``rz/spectral.py::RZSpectralStepper``) before any other path, with the
+RZ plotfile names and checksums.  The
 simulation runs on the CUDA device unless the caller names another
 device; with no GPU it raises rather than run on the CPU unasked.
 """
@@ -62,6 +64,9 @@ from ..diagnostics.reduced import ReducedDiagWriter, compute_reduced
 from ..io.checkpoint import save_checkpoint
 from ..io.openpmd import compact_columns, host, write_openpmd_iteration
 from ..io.plotfile import write_plotfile
+from ..rz.core import (RZStepper, check_rz_supported, rz_cell_centered_output,
+                       rz_checksums, rz_init_state)
+from ..rz.spectral import RZSpectralStepper
 from ..solvers.div_cleaner import project_div_b
 from ..solvers.psatd import PsatdFirstOrder, PsatdSolver
 from ..utils.draws import Draws
@@ -164,6 +169,10 @@ class Simulation:
                        else torch.device(device))
         self.dtype = dtype
         self.cfg = cfg
+        self.rz = None
+        if cfg.geometry.rz:
+            self._init_rz()
+            return
         if cfg.geometry.ndim not in (1, 2, 3):
             raise ValueError(f"geometry.ndim = {cfg.geometry.ndim}")
         for sp_cfg in cfg.species:
@@ -254,6 +263,36 @@ class Simulation:
                     cfg, self.staggering, dtype=dtype, device=self.device)
             self.params = (pusher_params(cfg, dtype, self.device)
                            if self.binned else None)
+
+    def _init_rz(self):
+        """The RZ paths, routed first as the JAX package routes them
+        (simulation.py:97-114): the cylindrical FDTD stepper
+        (``rz/core.py``) or the Hankel PSATD one (``rz/spectral.py``), per
+        particle; the continuous injection behind a window draws from
+        ``self.draws``."""
+        cfg = self.cfg
+        check_rz_supported(cfg)
+        self.rz = (RZSpectralStepper if cfg.em_solver == "psatd"
+                   else RZStepper)(cfg, self.dtype, self.device)
+        self.is_bounded = self.binned = False
+        self.staggering = yee_staggering(2)
+        self.mr_layout = self.mr_step = self.mr_half_push = None
+        self.implicit = self.state = self.tile_spec = self.stepper = None
+        self.is_synchronized = True
+        self.deck = None
+        self.output_dir = "diags"
+        self.diags, self.btd, self.reduced = [], [], []
+        self.signals = None
+        self.draws = (Draws(cfg.seed, self.device) if cfg.do_moving_window
+                      and any(s.do_continuous_injection for s in cfg.species)
+                      else None)
+        self._flux_injectors, self._resampling_triggers = {}, {}
+        self.psatd = self.medium = self.params = None
+
+    def _rz_output(self) -> Dict[str, torch.Tensor]:
+        """The RZ plotfile's fields (``rz_cell_centered_output``)."""
+        return rz_cell_centered_output(self.state, self.cfg,
+                                       getattr(self.rz, "solver", None))
 
     def _periodic_psatd(self):
         """The periodic spectral solver of the JAX package's choice
@@ -581,6 +620,12 @@ class Simulation:
         cfg = self.cfg
         geom = cfg.geometry
         rng = np.random.default_rng(seed if seed is not None else cfg.seed)
+        if self.rz is not None:
+            # the species from rng, the window's and fronts' scalars (JAX
+            # simulation.py:746-778)
+            self.state = rz_init_state(cfg, self.dtype, self.device, rng)
+            self.is_synchronized = True
+            return self.state
         if self.is_bounded:
             self._init_bounded(rng)
         else:
@@ -932,6 +977,9 @@ class Simulation:
         """One PIC step of ``state`` (no half-pushes; on a bounded domain
         without the window's move and the particle boundaries that follow
         it in ``evolve``)."""
+        if self.rz is not None:
+            # an RZ step ends with the window's move (JAX rz/core.py:1535)
+            return self.rz.step(state, self.draws)
         if self.is_bounded:
             return self.stepper.step(state, self.draws)
         if self.mr_step is not None:
@@ -1034,6 +1082,8 @@ class Simulation:
                 species={**self.state.species, sp_cfg.name: sp})
 
     def _half_push(self, dt_half: float) -> SimState:
+        if self.rz is not None:
+            return self.rz.half_push(self.state, dt_half)
         if self.is_bounded:
             return self.stepper.half_push(self.state, dt_half)
         if self.mr_half_push is not None:
@@ -1094,7 +1144,12 @@ class Simulation:
                 continue
             wanted = dg["fields"]
             fields = {}
-            if wanted != ["none"]:
+            if wanted != ["none"] and self.rz is not None:
+                # the RZ plotfile's names (JAX simulation.py:506-509)
+                fields = dict(sorted(
+                    (k, v) for k, v in self._rz_output().items()
+                    if not wanted or k in wanted))
+            elif wanted != ["none"]:
                 # by name, the order of the JAX package's files
                 fields = dict(sorted(cell_centered_output(
                     self.state, self.cfg, self.staggering,
@@ -1196,10 +1251,16 @@ class Simulation:
         return select
 
     def field_diagnostics(self) -> Dict[str, torch.Tensor]:
+        if self.rz is not None:
+            return self._rz_output()
         return cell_centered_output(self.state, self.cfg, self.staggering,
                                     psatd=self.psatd)
 
     def checksums(self) -> Dict[str, Dict[str, float]]:
+        if self.rz is not None:
+            # JAX simulation.py:1547-1550
+            return rz_checksums(self.state, self.cfg,
+                                getattr(self.rz, "solver", None))
         self._normalize_binned()
         return compute_checksums(self.state, self.cfg, self.staggering,
                                  psatd=self.psatd, mr_layout=self.mr_layout)

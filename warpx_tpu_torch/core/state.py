@@ -6,7 +6,8 @@ through ``.replace``; nothing updates a state in place.
 
 ``state_from_numpy`` / ``state_to_numpy`` carry a state across frameworks as
 a nested dict of numpy arrays (``{"fields": {...}, "species": {name:
-{...}}, "step", "time", "aux"}``); a species' runtime attributes ride in its
+{...}}, "step", "time", "aux"}``); the RZ Silver-Mueller rings ride under
+``fields["smg"]`` as a dict, a species' runtime attributes in its
 dict under ``"extra"`` (``{"ionizationLevel": ..., ...}``; absent when it
 has none).  The tests use them to start the port
 from a ``warpx_tpu`` state and to compare the two.  In ``aux`` the moving
@@ -83,6 +84,10 @@ class FieldState:
     hjx: Optional[torch.Tensor] = None
     hjy: Optional[torch.Tensor] = None
     hjz: Optional[torch.Tensor] = None
+    # RZ Silver-Mueller: the guard-cell B rings outside the absorbing walls
+    # (br_zlo, bt_zlo, br_zhi, bt_zhi: (C, NR(+1)); bt_rhi, bz_rhi: (C,
+    # NZ(+1))), advanced once a step (the JAX package's FieldState.smg)
+    smg: Optional[Dict[str, torch.Tensor]] = None
 
     def e(self):
         return (self.Ex, self.Ey, self.Ez)
@@ -185,6 +190,10 @@ def state_from_numpy(data: dict, dtype: torch.dtype,
         nm: _tensor(a, dtype, device) for nm, a in data["fields"].items()
         if nm in _FIELD_NAMES + OPTIONAL_FIELDS and a is not None
     })
+    if data["fields"].get("smg") is not None:
+        fields = fields.replace(smg={
+            k: _tensor(a, dtype, device)
+            for k, a in data["fields"]["smg"].items()})
     species = {}
     for name, sp in data["species"].items():
         species[name] = ParticleState(
@@ -208,9 +217,12 @@ def state_to_numpy(state: SimState) -> dict:
     def host(t):
         return None if t is None else t.detach().cpu().numpy()
 
+    fields = {nm: host(getattr(state.fields, nm))
+              for nm in field_names(state.fields)}
+    if state.fields.smg is not None:
+        fields["smg"] = {k: host(v) for k, v in state.fields.smg.items()}
     return {
-        "fields": {nm: host(getattr(state.fields, nm))
-                   for nm in field_names(state.fields)},
+        "fields": fields,
         "species": {
             name: {**{nm: host(getattr(sp, nm)) for nm in _PARTICLE_NAMES},
                    **({"extra": {k: host(v) for k, v in sp.extra.items()}}

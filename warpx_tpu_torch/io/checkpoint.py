@@ -7,7 +7,8 @@ checkpoint directory holds ``state.npz``, one array per entry of
 ``state_to_numpy``'s nesting under its path (``fields/Ex``,
 ``species/electrons/x``, ``aux/pml:Ex:z``, ``aux/window_lo``, ``step``,
 ``time``; ``fields/F``, ``fields/Ex_avg`` and the like where the
-configuration carries them; ``species/<name>/extra/<attribute>`` for the
+configuration carries them, ``fields/smg/<ring>`` for the RZ
+Silver-Mueller guard rings; ``species/<name>/extra/<attribute>`` for the
 runtime attributes; ``rng`` for the state of the simulation's draw source,
 ``utils/draws.py``, where it has one, as the JAX package keeps its key in
 the state), and ``header.json`` with the JAX package's keys (``n_leaves``,
@@ -46,9 +47,12 @@ def _entries(state: SimState, draws=None):
     """``state_to_numpy``'s nesting, flat (``fields/Ex``), with the state's
     own tensors and host numbers as values (nothing moved), and the draw
     source's state under ``rng``."""
+    fields = {nm: getattr(state.fields, nm)
+              for nm in field_names(state.fields)}
+    if state.fields.smg is not None:
+        fields["smg"] = dict(state.fields.smg)
     out = _flatten({
-        "fields": {nm: getattr(state.fields, nm)
-                   for nm in field_names(state.fields)},
+        "fields": fields,
         "species": {name: {**{nm: getattr(sp, nm)
                               for nm in ("w", "ux", "uy", "uz", "alive",
                                          "x", "y", "z")},
