@@ -3,16 +3,17 @@
 
     python3 chip_smoke.py
 
-It runs every phase, in order (but for the nine per-particle paths
+It runs every phase, in order (but for the eleven per-particle paths
 main_lwfa_ionization, main_qed, main_coulomb, main_fusion, main_mcc_dsmc,
-main_mr, main_lwfa_mr, main_rz_lwfa and main_rz_psatd, which launch none
-of the kernels and run first, while the kernels compile); each prints one
-JSON line and any failure exits non-zero:
+main_mr, main_lwfa_mr, main_rz_lwfa, main_rz_psatd, main_dist and
+main_lwfa_pdist, which launch none of the kernels and run first, while the
+kernels compile); each prints one JSON line and any failure exits
+non-zero:
 
   device       the card's name, count and power limit;
   build        compile every kernel under warpx_tpu_torch/csrc with nvcc,
                one nvcc a source, all started together at the lowest
-               priority before the nine paths above, and waited for
+               priority before the eleven paths above, and waited for
                after them;
   k1_parity    kernel K1 (fused gather/push/deposit) against its plain
                PyTorch version at 16^3, two species, orders 1-3, the Boris,
@@ -374,6 +375,29 @@ JSON line and any failure exits non-zero:
                busy share, the spectral push, each transform and the
                deposits alone, the field energy against the kinetic; no
                particle lost, finite fields, no kernel;
+  dist_parity  (after rz_parity) Queue A 14 in float64 on one rank (a
+               process group of this process alone: NCCL for the card,
+               gloo for the CPU), card against CPU: the periodic 2D
+               Langmuir and 3D thermal decks of tests/test_torch_sharded.py
+               through DistSimulation, the corner plasma of
+               tests/test_load_balance.py after a load_balance() and a
+               forced switch to the balanced step and half push, the
+               32 x 64 laser-wakefield and 16^3 PEC decks through
+               ParticleDistSimulation: states and checksums within 1e-9,
+               no particle lost, no kernel;
+  main_dist    (while the kernels compile) uniform-128-dist: main's plasma
+               (8,388,608 particles, order 1, Yee, float32) through
+               DistSimulation(cfg, {"z": 1}) over NCCL, per particle, 8
+               steps (5 timed, 1 profiled): ms a step, pushes/s, busy
+               share, lost = 0, one load_balance() alone; the checksums
+               within TOL_DIST_F32 of the single-card per-particle step's,
+               which runs after it, driven the same way;
+  main_lwfa_pdist (while the kernels compile) lwfa2d-2048x8192-pdist:
+               main_lwfa's configuration (44.7 M electrons) through
+               ParticleDistSimulation over NCCL, per particle, 6 steps (3
+               timed, 1 profiled): ms a step, busy share, the J
+               all-reduce alone; the live count the single-card
+               per-particle run's exactly;
   labs         each Hopper lab's main() at the TPU lab's default shapes (L1
                in every mode): kernel against plain version, times, bounds,
                the library's yardstick where there is one; each lab prints
@@ -11356,6 +11380,345 @@ def phase_main_rz_psatd(dev, smi, nr=512, nz=4096,
     torch.cuda.empty_cache()
 
 
+# ---- ROADMAP Queue A 14: multiple GPUs (one rank on this card) -------------
+
+# tests/test_torch_sharded.py's 2D Langmuir deck (its current has a curl)
+DIST_LANGMUIR_2D = """
+max_step = 5
+amr.n_cell = 32 32
+geometry.dims = 2
+geometry.prob_lo = -20.e-6 -20.e-6
+geometry.prob_hi =  20.e-6  20.e-6
+algo.current_deposition = esirkepov
+algo.particle_shape = 1
+warpx.cfl = 1.0
+warpx.use_filter = 0
+my_constants.epsilon = 0.01
+my_constants.k = 157079.63267948965
+my_constants.kp = 376357.71
+particles.species_names = electrons positrons
+electrons.charge = -q_e
+electrons.mass = m_e
+electrons.injection_style = NUniformPerCell
+electrons.num_particles_per_cell_each_dim = 2 2
+electrons.profile = constant
+electrons.density = 2.e24
+electrons.momentum_distribution_type = parse_momentum_function
+electrons.momentum_function_ux(x,y,z) = "epsilon * k/kp * sin(k*x) * cos(k*z)"
+electrons.momentum_function_uy(x,y,z) = "0."
+electrons.momentum_function_uz(x,y,z) = "0."
+positrons.charge = q_e
+positrons.mass = m_e
+positrons.injection_style = NUniformPerCell
+positrons.num_particles_per_cell_each_dim = 2 2
+positrons.profile = constant
+positrons.density = 2.e24
+positrons.momentum_distribution_type = parse_momentum_function
+positrons.momentum_function_ux(x,y,z) = "-epsilon * k/kp * sin(k*x) * cos(k*z)"
+positrons.momentum_function_uy(x,y,z) = "0."
+positrons.momentum_function_uz(x,y,z) = "0."
+"""
+
+# tests/test_torch_sharded.py's 3D thermal deck
+DIST_THERMAL_3D = """
+max_step = 3
+amr.n_cell = 16 16 16
+geometry.dims = 3
+geometry.prob_lo = -8.e-6 -8.e-6 -8.e-6
+geometry.prob_hi =  8.e-6  8.e-6  8.e-6
+algo.current_deposition = esirkepov
+algo.particle_shape = 1
+warpx.cfl = 0.9
+warpx.use_filter = 0
+particles.species_names = electrons protons
+electrons.charge = -q_e
+electrons.mass = m_e
+electrons.injection_style = nuniformpercell
+electrons.num_particles_per_cell_each_dim = 1 1 2
+electrons.profile = constant
+electrons.density = 1.e24
+electrons.momentum_distribution_type = gaussian
+electrons.ux_th = 0.05
+electrons.uy_th = 0.05
+electrons.uz_th = 0.05
+protons.charge = q_e
+protons.mass = m_p
+protons.injection_style = nuniformpercell
+protons.num_particles_per_cell_each_dim = 1 1 1
+protons.profile = constant
+protons.density = 1.e24
+protons.momentum_distribution_type = at_rest
+"""
+
+# tests/test_load_balance.py's _CORNER_3D: all plasma in the lowest-z corner
+DIST_CORNER_3D = """
+max_step = 6
+amr.n_cell = 16 16 64
+geometry.dims = 3
+geometry.prob_lo = -8e-6 -8e-6 -8e-6
+geometry.prob_hi = 8e-6 8e-6 8e-6
+algo.current_deposition = esirkepov
+algo.particle_shape = 2
+warpx.cfl = 0.9
+warpx.use_filter = 0
+particles.species_names = electrons
+electrons.charge = -q_e
+electrons.mass = m_e
+electrons.injection_style = nuniformpercell
+electrons.num_particles_per_cell_each_dim = 2 1 1
+electrons.profile = parse_density_function
+electrons.density_function(x,y,z) = "if(z < -6.0e-6, 1.0e20, 0.0)"
+electrons.momentum_distribution_type = gaussian
+electrons.ux_th = 0.01
+electrons.uy_th = 0.01
+electrons.uz_th = 0.01
+"""
+
+
+@contextlib.contextmanager
+def one_rank():
+    """This process as a process group of one rank: NCCL carries the
+    card's tensors, gloo the CPU's; NCCL's bootstrap binds the loopback
+    interface.  Destroyed on the way out."""
+    import os
+
+    import torch.distributed as dist
+    from warpx_tpu_torch.parallel.launch import init_single_rank
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    init_single_rank("cpu:gloo,cuda:nccl")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def deck_cfg(text):
+    from warpx_tpu_torch.core.deck import config_from_deck
+    from warpx_tpu_torch.utils.parser import Deck
+
+    return config_from_deck(Deck.from_string(text))
+
+
+def dist_sim(kind, cfg, device, dtype):
+    """A one-rank DistSimulation over {"z": 1} or ParticleDistSimulation."""
+    from warpx_tpu_torch.core.particle_dist import ParticleDistSimulation
+    from warpx_tpu_torch.core.simulation import DistSimulation
+
+    if kind == "dist":
+        return DistSimulation(cfg, {"z": 1}, dtype=dtype, device=device)
+    return ParticleDistSimulation(cfg, dtype=dtype, device=device)
+
+
+def dist_parity_run(kind, cfg, device, balance):
+    sim = dist_sim(kind, cfg, device, torch.float64)
+    sim.init()
+    if balance:
+        sim.evolve(2)
+        sim.load_balance()
+        # one rank never adopts an assignment (nothing to gain): switch to
+        # the balanced step and half push all the same
+        sim._enter_balanced_mode()
+    sim.evolve()
+    return sim
+
+
+def dist_parity_cases():
+    """(name, kind, configuration, forced balance) of dist_parity."""
+    return [("periodic_2d", "dist", deck_cfg(DIST_LANGMUIR_2D), False),
+            ("periodic_3d", "dist", deck_cfg(DIST_THERMAL_3D), False),
+            ("corner_balanced", "dist", deck_cfg(DIST_CORNER_3D), True),
+            ("lwfa_32x64", "pdist", small_lwfa_cfg(), False),
+            ("pec_16", "pdist", pec3d_cfg(), False)]
+
+
+def phase_dist_parity(dev):
+    """dist_parity: Queue A 14 in float64 on one rank, the card over NCCL
+    against the CPU over gloo (one process group of both): the periodic
+    2D and 3D decks of tests/test_torch_sharded.py through DistSimulation,
+    the corner plasma of tests/test_load_balance.py after a load_balance()
+    and a forced switch to the balanced step and half push, and the
+    32 x 64 laser-wakefield and 16^3 PEC decks through
+    ParticleDistSimulation (whose J all-reduce goes through NCCL):
+    states slot by slot and checksums within 1e-9, no particle lost, no
+    kernel launched (the JAX package runs these paths per particle)."""
+    import torch.distributed as dist
+
+    out = {}
+    with one_rank():
+        backend = str(dist.get_backend())
+        for name, kind, cfg, balance in dist_parity_cases():
+            before = kernel_counters()
+            t0 = time.perf_counter()
+            card = dist_parity_run(kind, cfg, dev, balance)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            launched = [a - b for a, b in zip(kernel_counters(), before)]
+            cpu = dist_parity_run(kind, cfg, "cpu", balance)
+            lost = int(card.state.aux.get("lost", 0))
+            if card.binned or any(launched) or lost:
+                raise AssertionError(f"dist_parity {name}: binned "
+                                     f"{card.binned}, kernels {launched}, "
+                                     f"lost {lost}")
+            worst = states_agree(card, cpu, 1e-9, f"dist_parity {name}")
+            worst_sum = checksums_agree(card.checksums(), cpu.checksums(),
+                                        1e-9, f"dist_parity {name}")
+            out[name] = {"kind": kind, "max_rel_err": worst,
+                         "checksum_max_rel_err": worst_sum,
+                         "balanced": bool(getattr(card, "_balanced", False)),
+                         "alive": {nm: int(sp.alive.sum()) for nm, sp
+                                   in card.state.species.items()},
+                         "card_s": card_s}
+    emit("dist_parity", ok=True, tol=1e-9, world=1, backend=backend,
+         kernel_launches=0, cases=out)
+
+
+def drive_timed(sim, steps):
+    """init, a warm step, ``steps`` - 3 steps in one ``evolve`` call timed
+    by CUDA events (a distributed simulation reads its ``lost`` count back
+    once a call), one profiled step, the closing step; returns (host init
+    s, ms a step, the profile)."""
+    t0 = time.perf_counter()
+    sim.init()
+    sim.evolve(1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    sim.evolve(steps - 3)
+    b.record()
+    b.synchronize()
+    breakdown = profile_steps(sim, PROFILED_STEPS_PER_PARTICLE)
+    sim.evolve()
+    torch.cuda.synchronize()
+    return init_s, a.elapsed_time(b) / (steps - 3), breakdown
+
+
+MAIN_DIST_STEPS = 8
+# the checksums of uniform-128-dist against the single-card per-particle
+# step in float32: the two sum J in another order (the guard fold against
+# the periodic wrap, index_add_'s atomics in both)
+TOL_DIST_F32 = 1e-3
+
+
+def phase_main_dist(dev, smi, n=128, steps=MAIN_DIST_STEPS):
+    """uniform-128-dist: main's plasma (bench.py::_build_sim at n = 128,
+    8,388,608 particles, order 1, Yee, float32) through DistSimulation(cfg,
+    {"z": 1}) on one rank over NCCL, per particle (the JAX package's
+    sharded step is per particle): init (the host's distribute_state
+    included), a warm step, ``steps`` - 3 timed steps, one profiled step,
+    the closing step; one load_balance() timed alone; then the single-card
+    per-particle Simulation of the same configuration driven the same way.
+    Gates: lost = 0, every particle alive, finite fields, no kernel
+    launched, the checksums within TOL_DIST_F32 of the single run's."""
+    import warpx_tpu_torch
+
+    cfg = dataclasses.replace(main_cfg(n, steps), tiled_particles="off")
+    n_particles = 2 * 2 * n ** 3
+    before = kernel_counters()
+    with one_rank():
+        sim = dist_sim("dist", cfg, dev, torch.float32)
+        init_s, ms, prof = drive_timed(sim, steps)
+        sim.assert_no_lost()
+        lost = int(sim.state.aux["lost"])
+        sums = sim.checksums()
+        alive = sum(int(sp.alive.sum()) for sp in sim.state.species.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adopted = sim.load_balance()
+        torch.cuda.synchronize()
+        lb_ms = (time.perf_counter() - t0) * 1e3
+        lb_eff = float(sim.state.aux["lb_efficiency"])
+        finite = all(bool(torch.isfinite(getattr(sim.state.fields, nm)).all())
+                     for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"))
+        del sim
+        torch.cuda.empty_cache()
+    launched = [a - b for a, b in zip(kernel_counters(), before)]
+    single = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
+    if single.binned:
+        raise AssertionError("main_dist's reference took the binned step")
+    s_init, s_ms, s_prof = drive_timed(single, steps)
+    worst = checksums_agree(sums, single.checksums(), TOL_DIST_F32,
+                            "main_dist")
+    del single
+    torch.cuda.empty_cache()
+    if lost or alive != n_particles or not finite or any(launched):
+        raise AssertionError(f"main_dist: lost {lost}, alive {alive} of "
+                             f"{n_particles}, finite {finite}, kernels "
+                             f"{launched}")
+    emit("main_dist", ok=True, cell="uniform-128-dist", mesh={"z": 1},
+         world=1, n_cell=cfg.geometry.n_cell, n_particles=n_particles,
+         order=cfg.particle_shape, steps_timed=steps - 3, ms_per_step=ms,
+         pushes_per_s=n_particles / (ms * 1e-3),
+         init_s=init_s, device_busy_share=prof["device_busy_share"],
+         lost=lost, load_balance_ms=lb_ms, load_balance_adopted=adopted,
+         lb_efficiency=lb_eff, checksum_max_rel_err=worst,
+         checksum_tol=TOL_DIST_F32, single_ms_per_step=s_ms,
+         single_init_s=s_init,
+         single_device_busy_share=s_prof["device_busy_share"],
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    emit("main_dist_profile", steps=PROFILED_STEPS_PER_PARTICLE, **prof)
+
+
+MAIN_LWFA_PDIST_STEPS = 6
+
+
+def phase_main_lwfa_pdist(dev, smi, steps=MAIN_LWFA_PDIST_STEPS):
+    """lwfa2d-2048x8192-pdist: main_lwfa's configuration (bench.py's 2D
+    laser-wakefield deck at 2048 x 8192, 44.7 M electrons, PML, window,
+    antenna, continuous injection, beam, filter, order 3, float32) through
+    ParticleDistSimulation on one rank over NCCL, per particle: driven as
+    main_dist, then the J all-reduce of its deposit block alone (CUDA
+    events); then the single-card per-particle Simulation driven the same
+    way.  Gates: the live count the single run's exactly, finite fields,
+    no kernel launched."""
+    import warpx_tpu_torch
+
+    cfg = dataclasses.replace(main_lwfa_cfg(steps=steps),
+                              tiled_particles="off")
+    before = kernel_counters()
+    with one_rank():
+        sim = dist_sim("pdist", cfg, dev, torch.float32)
+        init_s, ms, prof = drive_timed(sim, steps)
+        alive = sim.alive_count()
+        st = sim.stepper
+        block = [torch.zeros(st.big_shape, dtype=torch.float32, device=dev)
+                 for _ in range(3)]
+        st.shards.sum(block)
+        reduce_ms = cuda_ms(lambda: st.shards.sum(block), 20)
+        reduce_bytes = sum(t.numel() * t.element_size() for t in block)
+        finite = all(bool(torch.isfinite(getattr(sim.state.fields, nm)).all())
+                     for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz"))
+        window_lo = float(sim.state.aux["window_lo"])
+        del sim, st, block
+        torch.cuda.empty_cache()
+    launched = [a - b for a, b in zip(kernel_counters(), before)]
+    single = warpx_tpu_torch.Simulation(cfg, dtype=torch.float32, device=dev)
+    if single.binned:
+        raise AssertionError("main_lwfa_pdist's reference took the binned "
+                             "step")
+    s_init, s_ms, s_prof = drive_timed(single, steps)
+    alive1 = sum(int(sp.alive.sum()) for sp in single.state.species.values())
+    del single
+    torch.cuda.empty_cache()
+    if alive != alive1 or not finite or any(launched):
+        raise AssertionError(f"main_lwfa_pdist: alive {alive} against "
+                             f"{alive1}, finite {finite}, kernels "
+                             f"{launched}")
+    emit("main_lwfa_pdist", ok=True, cell="lwfa2d-2048x8192-pdist", world=1,
+         n_cell=cfg.geometry.n_cell, alive=alive, alive_single=alive1,
+         steps_timed=steps - 3, ms_per_step=ms,
+         pushes_per_s=alive / (ms * 1e-3), init_s=init_s,
+         device_busy_share=prof["device_busy_share"],
+         all_reduce_ms=reduce_ms, all_reduce_bytes=reduce_bytes,
+         window_lo=window_lo, single_ms_per_step=s_ms, single_init_s=s_init,
+         single_device_busy_share=s_prof["device_busy_share"],
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    emit("main_lwfa_pdist_profile", steps=PROFILED_STEPS_PER_PARTICLE, **prof)
+
+
 def main() -> int:
     """Every phase in order."""
     if not torch.cuda.is_available():
@@ -11381,7 +11744,7 @@ def main() -> int:
     meanwhile = (phase_main_lwfa_ionization, phase_main_qed,
                  phase_main_coulomb, phase_main_fusion, phase_main_mcc_dsmc,
                  phase_main_mr, phase_main_lwfa_mr, phase_main_rz_lwfa,
-                 phase_main_rz_psatd)
+                 phase_main_rz_psatd, phase_main_dist, phase_main_lwfa_pdist)
     for phase in meanwhile:
         phase(dev, smi)
         torch.cuda.empty_cache()
@@ -11419,6 +11782,7 @@ def main() -> int:
     dims1 = phase_dims1_parity(dev)
     phase_mr_parity(dev)
     phase_rz_parity(dev)
+    phase_dist_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
     k1_row["launches_by_path"] = {"main": k1_row["launches"]}
     phase_main_psatd(dev, smi, k1_row, k3_row)

@@ -17,7 +17,10 @@ outputs: plotfile, openPMD and checkpoint files (``io/``) and reduced
 diagnostics (``diagnostics/reduced.py``), written on the deck's schedule;
 with the field models of ``solvers/`` (PSATD, electrostatic, hybrid,
 macroscopic, the implicit schemes, ECT), cold fluids and embedded
-boundaries.
+boundaries; and runs over several devices on ``torch.distributed``
+(``parallel/``): the spatially decomposed ``core.simulation.
+DistSimulation`` with dynamic load balancing and the particle-decomposed
+``core.particle_dist.ParticleDistSimulation``.
 """
 
 from . import constants  # noqa: F401

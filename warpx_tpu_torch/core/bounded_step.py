@@ -430,9 +430,16 @@ class BoundedStepper:
     """
 
     def __init__(self, cfg: SimConfig, staggering: Dict, dtype: torch.dtype,
-                 device, tile_spec=None, slow_species=()):
+                 device, tile_spec=None, slow_species=(), shards=None):
         check_bounded_supported(cfg)
         self.cfg = cfg
+        # particle decomposition (core/particle_dist.py; JAX
+        # make_bounded_kernels' psum_axis): the fields replicated, this
+        # rank's slice of every species' slots; ``shards.sum`` all-reduces
+        # the deposited sources at the deposit -> advance seam and in the
+        # electrostatic solve, ``shards.rank`` and ``shards.world`` split
+        # the continuous injection and the thermal walls' draws
+        self.shards = shards
         self.staggering = staggering
         self.dtype = dtype
         self.device = torch.device(device)
@@ -830,6 +837,8 @@ class BoundedStepper:
         phi_tot = None
         for gi, (grp, beta3, beta_act, backend) in enumerate(self.es_groups):
             rho = deposit_total_rho(state, cfg, only=grp)
+            if self.shards is not None:
+                (rho,) = self.shards.sum((rho,))
             if self.es_igf:
                 phi = solve_open_igf(rho, backend)
             else:
@@ -867,6 +876,9 @@ class BoundedStepper:
                         cfg.particle_shape, out=Jn, wrap=wrap,
                         out_shape=None if wrap else self.shapes["rho"],
                         chunk_size=cfg.deposit_chunk_size)
+                if self.shards is not None:
+                    # the JAX package sums rho only (ROADMAP.md Queue C)
+                    (Jn,) = self.shards.sum((Jn,))
                 A3[i] = self.es_ms_solver.solve(Jn * mu0_ep0)
             for i, b in vector_potential_b(A3, geom, periodic).items():
                 if b is not None:
@@ -1397,6 +1409,14 @@ class BoundedStepper:
         cfg = self.cfg
         dt = cfg.dt
         kw = dict(dtype=self.dtype, device=self.device)
+        if self.shards is not None:
+            # the particle-decomposition seam (SyncCurrent over the
+            # particle shards; JAX bounded_step.py:1121-1130): the replicated
+            # field advance sees the global deposit
+            if j_total is not None:
+                j_total = self.shards.sum(j_total)
+            if rho_old is not None:
+                rho_old, rho_new = self.shards.sum((rho_old, rho_new))
         if j_total is None:
             j_valid = tuple(torch.zeros(self.shapes[nm], **kw)
                             for nm in ("jx", "jy", "jz"))
@@ -1695,6 +1715,13 @@ class BoundedStepper:
             npart = pos.shape[0]
         pz = pos[:, wdir]
         sel = (pz > cur_pos) & (pz < new_pos)
+        if self.shards is not None:
+            # particle decomposition: each candidate lands on exactly one
+            # rank, dealt round-robin by rank WITHIN the selected set so
+            # that every batch spreads evenly whatever the candidate grid's
+            # order (JAX bounded_step.py:1499-1507)
+            sel &= ((torch.cumsum(sel, 0) - 1) % self.shards.world
+                    == self.shards.rank)
         # boosted frame: the profiles and bounds are the lab's at
         # t_lab = 0, reached by the ballistic correction at the boosted
         # time (PhysicalParticleContainer.cpp applyBallisticCorrection)
@@ -1969,16 +1996,33 @@ class BoundedStepper:
         cap = ref.shape[0]
         k1, k2, k3 = draws.split(3)
         ax_n = self.axes[d]
-        un = sample_gaussian_flux(k1, cap, 0.0, uth, self.dtype,
-                                  self.device) * _c
+        un = self._shard_draw(
+            k1, lambda k, n: sample_gaussian_flux(k, n, 0.0, uth, self.dtype,
+                                                  self.device), cap) * _c
         u[ax_n] = torch.where(ref, side_sign * un, u[ax_n])
         ks = [k2, k3]
         for ax in "xyz":
             if ax == ax_n:
                 continue
-            u[ax] = torch.where(ref, uth * _c * ks.pop().normal((cap,),
-                                                                self.dtype),
-                                u[ax])
+            u[ax] = torch.where(ref, uth * _c * self._shard_draw(
+                ks.pop(), lambda k, n: k.normal((n,), self.dtype), cap),
+                u[ax])
+
+    def _shard_draw(self, k, draw, cap):
+        """``draw(k, cap)``; under particle decomposition from
+        ``k.fold_in(rank)``, so that the ranks' particles take different
+        numbers (JAX bounded_step.py:483-490 ``_shard_key``).  A source
+        whose ``fold_in`` derives no new stream (``utils/draws.py``'s
+        ``Draws``: every rank's generator runs in step) draws every rank's
+        vector and this rank keeps its own: the streams stay in step, the
+        ranks' numbers differ."""
+        if self.shards is None:
+            return draw(k, cap)
+        folded = k.fold_in(self.shards.rank)
+        if folded is not k:
+            return draw(folded, cap)
+        r = self.shards.rank
+        return draw(k, cap * self.shards.world)[r * cap:(r + 1) * cap]
 
     # ------------------------------------------------------------- half push
     def half_push(self, state: SimState, dt_half: float) -> SimState:

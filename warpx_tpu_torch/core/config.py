@@ -439,6 +439,15 @@ class SimConfig:
     gmres_restart: int = 30
     gmres_rtol: float = 1.0e-4
     gmres_atol: float = 0.0
+    # --- dynamic load balancing (algo.load_balance_*, WarpXRegrid.cpp:74):
+    # DistSimulation.load_balance; the JAX package's defaults ---
+    load_balance_intervals: str = "0"  # IntervalsParser string; "0" = never
+    load_balance_with_sfc: bool = False  # SFC split instead of knapsack
+    load_balance_knapsack_factor: float = 1.24  # max tiles/rank = ceil(T/n*f)
+    load_balance_efficiency_ratio_threshold: float = 1.1
+    load_balance_costs_update: str = "heuristic"  # heuristic only
+    costs_heuristic_cells_wt: float = 0.1   # WarpX.cpp:417 (non-GPU default)
+    costs_heuristic_particles_wt: float = 0.9
     # RZ geometry: the azimuthal modes of the fields
     # (warpx.n_rz_azimuthal_modes, Source/WarpX.H:316)
     n_rz_modes: int = 1

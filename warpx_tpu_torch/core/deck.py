@@ -121,9 +121,9 @@ _SPECIES_TYPE_ALIASES = {
     "tritium": "hydrogen3",
 }
 
-# keys that change no physics on one device: the reference's box
-# decomposition, warning policy, OpenMP scheduling and the multi-device load
-# balancing
+# keys that change no physics: the reference's box decomposition, warning
+# policy and OpenMP scheduling (the load-balancing keys are read into the
+# configuration: ``_load_balance_from_deck``)
 NO_PHYSICS = (
     "amr.max_grid_size", "amr.max_grid_size_x", "amr.max_grid_size_y",
     "amr.max_grid_size_z",
@@ -132,11 +132,6 @@ NO_PHYSICS = (
     "warpx.numprocs",
     "warpx.abort_on_warning_threshold", "warpx.always_warn_immediately",
     "warpx.do_dynamic_scheduling",
-    "algo.load_balance_intervals", "algo.load_balance_with_sfc",
-    "algo.load_balance_knapsack_factor",
-    "algo.load_balance_efficiency_ratio_threshold",
-    "algo.load_balance_costs_update", "algo.costs_heuristic_cells_wt",
-    "algo.costs_heuristic_particles_wt",
 )
 
 _AXES3 = {1: (2,), 2: (0, 2), 3: (0, 1, 2)}
@@ -450,6 +445,41 @@ def _tiling_from_deck(deck: Deck, ndim: int) -> dict:
     if mxu not in ("f32", "mixed", "bf16"):
         raise ValueError(f"tpu.tile_mxu must be f32|mixed|bf16, got {mxu}")
     out["tile_mxu"] = mxu
+    out.update(_load_balance_from_deck(deck))
+    return out
+
+
+def _load_balance_from_deck(deck: Deck) -> dict:
+    """The dynamic load balancing keys of ``DistSimulation.load_balance``
+    (WarpX.cpp:1264-1281; the JAX reader's, warpx_tpu/core/deck.py:
+    1492-1518), with its refusal of per-box timer costs."""
+    out = {}
+    lb_iv = deck.get_strings("algo.load_balance_intervals", [])
+    if lb_iv:
+        out["load_balance_intervals"] = " ".join(lb_iv)
+    out["load_balance_with_sfc"] = bool(
+        deck.get_int("algo.load_balance_with_sfc", 0)
+    )
+    kf = deck.get_real("algo.load_balance_knapsack_factor", 0.0)
+    if kf:
+        out["load_balance_knapsack_factor"] = kf
+    th = deck.get_real("algo.load_balance_efficiency_ratio_threshold", -1.0)
+    if th >= 0.0:
+        out["load_balance_efficiency_ratio_threshold"] = th
+    cu = (deck.get_string("algo.load_balance_costs_update", "heuristic")
+          or "heuristic").lower().replace("-", "").replace("_", "")
+    if cu == "timers":
+        raise NotImplementedError(
+            "algo.load_balance_costs_update = timers (per-box profiler "
+            "costs) is not implemented; use heuristic"
+        )
+    out["load_balance_costs_update"] = "heuristic"
+    cw = deck.get_real("algo.costs_heuristic_cells_wt", -1.0)
+    if cw >= 0.0:
+        out["costs_heuristic_cells_wt"] = cw
+    pw = deck.get_real("algo.costs_heuristic_particles_wt", -1.0)
+    if pw >= 0.0:
+        out["costs_heuristic_particles_wt"] = pw
     return out
 
 
@@ -1321,6 +1351,9 @@ def config_from_deck(deck: Deck) -> SimConfig:
             _no("reduced, back-transformed or openPMD outputs of an RZ "
                 "run (the JAX package computes them on the Cartesian "
                 "layout)", "Queue C")
+        # the JAX RZ reader leaves the load-balancing keys at their
+        # defaults: read, and dropped
+        _load_balance_from_deck(deck)
         _check_unread(deck, outputs)
         check_rz_supported(cfg)
         return cfg

@@ -55,6 +55,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..constants import c as _c
 from ..diagnostics.btd import BTDSnapshots
@@ -64,6 +65,10 @@ from ..diagnostics.reduced import ReducedDiagWriter, compute_reduced
 from ..io.checkpoint import save_checkpoint
 from ..io.openpmd import compact_columns, host, write_openpmd_iteration
 from ..io.plotfile import write_plotfile
+from ..parallel.distribute import distribute_state, gather_particles
+from ..parallel.load_balance import (knapsack_assignment, morton_order,
+                                     sfc_assignment)
+from ..parallel.topology import SpatialMesh, rank_device
 from ..rz.core import (RZStepper, check_rz_supported, rz_cell_centered_output,
                        rz_checksums, rz_init_state)
 from ..rz.spectral import RZSpectralStepper
@@ -87,12 +92,15 @@ from .grid import AXIS_NAMES, collocated_staggering, yee_staggering
 from .injection import (columns_to_state, inject_gaussian_beam_host,
                         inject_species_host, position_fills)
 from .laser import antenna_particles
+from .sharded_step import (all_gather_grid, make_balanced_half_push,
+                           make_balanced_step, make_sharded_half_push,
+                           make_sharded_step)
 from .mr import (MRLayout, make_mr_step, mr_init_aux, mr_output_fields,
                  refine_spec_of)
 from .state import FieldState, ParticleState, SimState
 from .step import has_stochastic, pic_step, push_momenta_half, wrap_positions
 
-__all__ = ["Simulation"]
+__all__ = ["Simulation", "DistSimulation"]
 
 # the slots of a plane-emitting species: a whole run's emission, at most
 # this many (the JAX package's simulation.py:900-910)
@@ -849,9 +857,12 @@ class Simulation:
             aux["tile_violations"] = counter
             if cfg.do_moving_window:
                 aux["tile_anchor"] = ft.type(geom.prob_lo[wdir])
+        # ParticleDistSimulation's hook (core/particle_dist.py), as the JAX
+        # package passes its psum axis (simulation.py:130)
         self.stepper = BoundedStepper(
             cfg, self.staggering, self.dtype, self.device,
-            tile_spec=self.tile_spec, slow_species=slow)
+            tile_spec=self.tile_spec, slow_species=slow,
+            shards=getattr(self, "_shards", None))
 
         kw = dict(dtype=self.dtype, device=self.device)
         shapes = self.stepper.shapes
@@ -1264,3 +1275,383 @@ class Simulation:
         self._normalize_binned()
         return compute_checksums(self.state, self.cfg, self.staggering,
                                  psatd=self.psatd, mr_layout=self.mr_layout)
+
+
+def _dist_refusals(what: str):
+    """The ``need`` of a distributed simulation's ``_check_supported``:
+    raises ``what`` with the item for a feature it does not run."""
+    def need(ok: bool, item: str) -> None:
+        if not ok:
+            raise NotImplementedError(what.format(item))
+    return need
+
+
+class DistSimulation(Simulation):
+    """A simulation spread over the ranks of a ``torch.distributed``
+    process group, one spatial block of the grid per rank (the counterpart
+    of ``warpx_tpu.core.simulation.DistSimulation``).
+
+    ``mesh_shape`` maps axis names to shard counts (``{"x": 2, "z": 2}``);
+    its product must be the group's size.  ``device=None`` takes
+    ``cuda:$LOCAL_RANK``; ``device="cpu"`` runs over gloo.  Every rank
+    builds the whole initial state on its device from the same seed, then
+    keeps its block of the fields and its own segment of the particles
+    (``parallel/distribute.py``); the step is ``core/sharded_step.py``'s.
+    ``checksums``, ``field_diagnostics`` and ``gather_state`` are
+    collectives: every rank calls them and gets the same numbers.  The
+    single-device ``Simulation`` is the parity reference.
+    """
+
+    #: configuration features the sharded step implements; anything else
+    #: must fail rather than silently run periodic Yee
+    @staticmethod
+    def _check_supported(cfg: SimConfig) -> None:
+        geom = cfg.geometry
+        need = _dist_refusals(
+            "DistSimulation does not implement {} yet; use the single-chip "
+            "Simulation")
+        need(not geom.rz, "RZ geometry under sharding")
+        need(all(geom.periodic), "non-periodic boundaries under sharding")
+        need(cfg.em_solver in ("yee",), f"em_solver={cfg.em_solver} under sharding")
+        need(cfg.electrostatic == "none", "electrostatic solve under sharding")
+        need(cfg.evolve_scheme == "explicit", "implicit schemes under sharding")
+        need(not cfg.do_moving_window, "moving window under sharding")
+        need(not cfg.lasers, "laser antennas under sharding")
+        need(not cfg.fluids, "fluid species under sharding")
+        need(not cfg.collisions, "collisions under sharding")
+        need(not cfg.use_filter, "bilinear filter under sharding")
+        need(not cfg.lattice_elements, "accelerator lattice under sharding")
+        need(not cfg.do_qed_schwinger, "Schwinger pair production under sharding")
+        for sp in cfg.species:
+            need(not sp.do_field_ionization, "field ionization under sharding")
+            need(not (sp.do_qed_quantum_sync or sp.do_qed_breit_wheeler),
+                 "QED processes under sharding")
+        # what the sharded step would drop without a word, as the JAX
+        # package's does (ROADMAP.md Queue C)
+        need(cfg.max_level == 0, "mesh refinement under sharding")
+        need(cfg.grid_type == "staggered"
+             and cfg.field_gathering != "momentum-conserving",
+             "collocated or hybrid grids, momentum-conserving gathering "
+             "under sharding")
+        need(cfg.current_deposition in ("esirkepov", "direct"),
+             f"current_deposition={cfg.current_deposition} under sharding")
+        need(not (any(cfg.e_ext_particle) or any(cfg.b_ext_particle)),
+             "external particle fields under sharding")
+        need(not (cfg.do_dive_cleaning or cfg.do_divb_cleaning),
+             "divergence cleaning under sharding")
+        need(cfg.em_solver_medium != "macroscopic",
+             "a macroscopic medium under sharding")
+        need(not cfg.use_nci_corr, "the NCI corrector under sharding")
+        for sp in cfg.species:
+            need(not sp.attributes, "runtime attributes under sharding")
+            need(not sp.do_resampling, "resampling under sharding")
+            need(sp.injection_style != "nfluxpercell",
+                 "flux injection under sharding")
+            need(sp.zinject_plane is None, "rigid injection under sharding")
+            need(sp.species_type != "photon" and sp.mass != 0.0,
+                 "photon species under sharding")
+
+    def __init__(self, cfg: SimConfig, mesh_shape: Dict[str, int],
+                 dtype: torch.dtype = torch.float32, headroom: float = 1.5,
+                 device: torch.device | str | None = None, group=None):
+        self._check_supported(cfg)
+        device = rank_device(device, group)
+        self.smesh = SpatialMesh.create(mesh_shape, group)
+        super().__init__(cfg, dtype=dtype, device=device)
+        # the sharded path has its own layout: no tile binning
+        self.binned = False
+        self.params = self.tile_spec = None
+        self.headroom = headroom
+        self._step = make_sharded_step(cfg, self.staggering, self.smesh)
+        self._half_push_fn = make_sharded_half_push(cfg, self.staggering,
+                                                    self.smesh)
+        self._lb_intervals = IntervalsParser(cfg.load_balance_intervals)
+        self._balanced = False  # particles still live with their slab owner
+
+    @property
+    def rank(self) -> int:
+        return self.smesh.rank
+
+    def init(self, seed: int | None = None) -> SimState:
+        state = super().init(seed)
+        aux = dict(state.aux)
+        aux.setdefault("lost", torch.zeros((), dtype=torch.int32,
+                                           device=self.device))
+        aux.setdefault("lb_efficiency", torch.ones((), dtype=self.dtype,
+                                                   device=self.device))
+        self.state = distribute_state(state.replace(aux=aux),
+                                      self.cfg.geometry, self.smesh,
+                                      self.headroom)
+        return self.state
+
+    def step(self, state: SimState) -> SimState:
+        return self._step(state)
+
+    def _half_push(self, dt_half: float) -> SimState:
+        return self._half_push_fn(self.state, dt_half)
+
+    def assert_no_lost(self) -> None:
+        """Fail loudly if the fixed-K particle exchange buffers overflowed.
+
+        The reference's Redistribute cannot lose particles; the fixed
+        buffers can, so the step counts the overflow into aux['lost'] (the
+        same on every rank) and the host asserts here."""
+        lost = self.state.aux.get("lost")
+        if lost is not None:
+            n = int(lost)
+            if n:
+                raise RuntimeError(
+                    f"{n} particles overflowed the exchange buffers "
+                    "(increase headroom / exchange capacity K)"
+                )
+
+    def evolve(self, numsteps: int = -1) -> SimState:
+        if not self._lb_intervals.is_activated():
+            state = super().evolve(numsteps)
+            self.assert_no_lost()
+            return state
+        # single-step the base loop so that the rebalance fires at the
+        # algo.load_balance_intervals boundaries (WarpXEvolve.cpp:434
+        # `if (step > 0 && load_balance_intervals.contains(step+1))`)
+        if self.state is None:
+            self.init()
+        cfg = self.cfg
+        start = self.state.step
+        stop = cfg.max_step if numsteps < 0 else min(start + numsteps,
+                                                     cfg.max_step)
+        for _ in range(start, stop):
+            super().evolve(1)
+            t = self.state.step
+            if t < cfg.max_step and self._lb_intervals.contains(t):
+                self.load_balance()
+        self.assert_no_lost()
+        return self.state
+
+    # -- the global view, by collectives -----------------------------------
+    def gather_state(self) -> SimState:
+        """The global state in the JAX package's layout: whole fields, each
+        species' slot axis the ranks' segments in rank order; on every
+        rank (a collective)."""
+        st = self.state
+        geom = self.cfg.geometry
+        fields = st.fields.replace(**{
+            nm: all_gather_grid(getattr(st.fields, nm), geom, self.smesh)
+            for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz")})
+        species = {nm: gather_particles(sp, self.smesh.group,
+                                        self.smesh.total_shards)
+                   for nm, sp in st.species.items()}
+        return st.replace(fields=fields, species=species)
+
+    def checksums(self) -> Dict[str, Dict[str, float]]:
+        return compute_checksums(self.gather_state(), self.cfg,
+                                 self.staggering)
+
+    def field_diagnostics(self) -> Dict[str, torch.Tensor]:
+        return cell_centered_output(self.gather_state(), self.cfg,
+                                    self.staggering)
+
+    def _setup_diagnostics(self, outputs: dict, output_dir: str):
+        _dist_outputs(outputs)
+        super()._setup_diagnostics(outputs, output_dir)
+
+    def flush_diagnostics(self, step: int):
+        _dist_flush(self, step)
+
+    # -- dynamic load balancing (WarpXRegrid.cpp:74-160 analog) -------------
+    def _tile_grid(self) -> tuple:
+        """Per-axis tile counts for cost binning: the shard grid refined
+        until there are >= 8 tiles per rank (the over-decomposition that
+        gives makeKnapSack/makeSFC something to trade)."""
+        geom = self.cfg.geometry
+        tiles = [max(1, self.smesh.n_shards(ax)) for ax in geom.axis_names]
+        n_chips = self.smesh.total_shards
+        while int(np.prod(tiles)) < 8 * n_chips:
+            # double the axis with the fewest tiles that still has cells
+            cand = [d for d in range(geom.ndim)
+                    if tiles[d] * 2 <= geom.n_cell[d]]
+            if not cand:
+                break
+            d = min(cand, key=lambda i: tiles[i])
+            tiles[d] *= 2
+        return tuple(tiles)
+
+    def measure_costs(self):
+        """Per-tile and per-rank heuristic costs of the live state:
+        (tiles, tile costs, rank costs, each species' tile index per local
+        slot, -1 for a dead one).
+
+        cost = cells_wt * n_cells + particles_wt * n_particles
+        (ComputeCostsHeuristic, WarpXRegrid.cpp:316; weights
+        algo.costs_heuristic_*_wt).  The fields stay on even slabs, so the
+        cell term is a constant per rank; the particle term follows slot
+        ownership.  The tile counts are all-reduced and the ranks' counts
+        all-gathered, so every rank computes the same costs."""
+        cfg = self.cfg
+        geom = cfg.geometry
+        smesh = self.smesh
+        n_chips = smesh.total_shards
+        tiles = self._tile_grid()
+        n_tiles = int(np.prod(tiles))
+        kw = dict(dtype=torch.int64, device=self.device)
+        tile_counts = torch.zeros(n_tiles, **kw)
+        mine = torch.zeros(1, **kw)
+        owner_tile = {}
+        for sp_cfg in cfg.species:
+            sp = self.state.species[sp_cfg.name]
+            if sp.capacity == 0:
+                owner_tile[sp_cfg.name] = torch.zeros(0, **kw)
+                continue
+            idx = torch.zeros(sp.capacity, **kw)
+            for d, p in enumerate(sp.positions(geom.ndim)):
+                ext = (geom.prob_hi[d] - geom.prob_lo[d]) / tiles[d]
+                cell = torch.div(p - geom.prob_lo[d], ext,
+                                 rounding_mode="floor").long()
+                idx = idx * tiles[d] + torch.clamp(cell, 0, tiles[d] - 1)
+            idx = torch.where(sp.alive, idx, torch.full_like(idx, -1))
+            owner_tile[sp_cfg.name] = idx
+            tile_counts += torch.bincount(idx[idx >= 0], minlength=n_tiles)
+            mine += sp.alive.sum()
+        if n_chips > 1:
+            dist.all_reduce(tile_counts, group=smesh.group)
+            parts = [torch.zeros_like(mine) for _ in range(n_chips)]
+            dist.all_gather(parts, mine, group=smesh.group)
+            mine = torch.cat(parts)
+        chip_counts = mine.cpu().numpy()
+        cw, pw = cfg.costs_heuristic_cells_wt, cfg.costs_heuristic_particles_wt
+        cells_per_chip = float(np.prod(geom.n_cell)) / n_chips
+        tile_costs = pw * tile_counts.cpu().numpy().astype(np.float64)
+        chip_costs = pw * chip_counts.astype(np.float64) + cw * cells_per_chip
+        return tiles, tile_costs, chip_costs, owner_tile
+
+    def load_balance(self) -> bool:
+        """Propose a new tile->rank assignment and adopt it when the
+        efficiency gain beats algo.load_balance_efficiency_ratio_threshold
+        (the doLoadBalance test, WarpXRegrid.cpp:119-124).  Adoption
+        repacks every species' slots to the assigned ranks, in their global
+        slot order, and switches the step to balanced mode (all-gathered
+        gather fields, one J all-reduce): the counterpart of the
+        reference's RemakeLevel + Redistribute.  Returns True when
+        adopted."""
+        cfg = self.cfg
+        geom = cfg.geometry
+        n_chips = self.smesh.total_shards
+        tiles, tile_costs, chip_costs, owner_tile = self.measure_costs()
+        cur_eff = float(chip_costs.mean() / chip_costs.max()) \
+            if chip_costs.max() > 0 else 1.0
+        if cfg.load_balance_with_sfc:
+            order = morton_order(tiles)
+            assign = sfc_assignment(tile_costs, order, n_chips)
+        else:
+            nmax = int(math.ceil(
+                len(tile_costs) / n_chips * cfg.load_balance_knapsack_factor
+            ))
+            assign = knapsack_assignment(tile_costs, n_chips, nmax)
+        cw = cfg.costs_heuristic_cells_wt
+        cells_per_chip = float(np.prod(geom.n_cell)) / n_chips
+        loads = np.bincount(assign, weights=tile_costs, minlength=n_chips)
+        loads = loads + cw * cells_per_chip
+        new_eff = float(loads.mean() / loads.max()) if loads.max() > 0 else 1.0
+
+        aux = dict(self.state.aux)
+        adopt = new_eff > cur_eff * cfg.load_balance_efficiency_ratio_threshold
+        self.last_assignment = assign
+        if adopt:
+            assign_t = torch.as_tensor(assign, device=self.device)
+            species = {}
+            for sp_cfg in cfg.species:
+                sp = self.state.species[sp_cfg.name]
+                if sp.capacity == 0:
+                    species[sp_cfg.name] = sp
+                    continue
+                idx = owner_tile[sp_cfg.name]
+                owner = torch.where(idx >= 0, assign_t[idx.clamp(min=0)],
+                                    torch.full_like(idx, -1))
+                species[sp_cfg.name] = self._repack(sp, owner)
+            aux["lb_efficiency"] = torch.tensor(new_eff, dtype=self.dtype,
+                                                device=self.device)
+            self.state = self.state.replace(species=species, aux=aux)
+            self._enter_balanced_mode()
+        else:
+            aux["lb_efficiency"] = torch.tensor(cur_eff, dtype=self.dtype,
+                                                device=self.device)
+            self.state = self.state.replace(aux=aux)
+        if cfg.verbose and self.rank == 0:
+            print(
+                f"load balance @step {self.state.step}: efficiency "
+                f"{cur_eff:.3f} -> {new_eff:.3f} "
+                f"({'adopted' if adopt else 'kept'})"
+            )
+        return adopt
+
+    def _repack(self, sp: ParticleState, owner: torch.Tensor):
+        """This rank's new segment: the particles assigned to it, in
+        global slot order, then dead slots at the domain's center (the JAX
+        package's ``pack_by_owner`` on the all-gathered slots)."""
+        geom = self.cfg.geometry
+        n = self.smesh.total_shards
+        cap = sp.capacity
+        g = gather_particles(sp, self.smesh.group, n)
+        if n > 1:
+            parts = [torch.empty_like(owner) for _ in range(n)]
+            dist.all_gather(parts, owner, group=self.smesh.group)
+            owner = torch.cat(parts)
+        counts = torch.bincount(owner[owner >= 0], minlength=n)
+        if counts.numel() and int(counts.max()) > cap:
+            raise RuntimeError(
+                f"load-balance repack overflow: a chip was assigned "
+                f"{int(counts.max())} particles > segment capacity {cap}; "
+                "increase headroom"
+            )
+        sel = torch.nonzero(owner == self.rank).reshape(-1)
+        k = sel.numel()
+
+        def pack(t, fill=0.0):
+            out = torch.full((cap,), fill, dtype=t.dtype, device=t.device)
+            out[:k] = t[sel]
+            return out
+
+        centers = [0.5 * (lo + hi) for lo, hi in zip(geom.prob_lo,
+                                                     geom.prob_hi)]
+        return sp.replace(
+            w=pack(g.w), ux=pack(g.ux), uy=pack(g.uy), uz=pack(g.uz),
+            alive=torch.arange(cap, device=self.device) < k,
+            extra={nm: pack(v, 0) for nm, v in g.extra.items()},
+        ).with_positions(geom.ndim, [
+            pack(p, c) for p, c in zip(g.positions(geom.ndim), centers)])
+
+    def _enter_balanced_mode(self) -> None:
+        """Swap to the balanced step: particles ride their assigned rank,
+        the gather reads all-gathered fields, the deposit all-reduces J to
+        the slab owners."""
+        if self._balanced:
+            return
+        self._step = make_balanced_step(self.cfg, self.staggering,
+                                        self.smesh)
+        self._half_push_fn = make_balanced_half_push(
+            self.cfg, self.staggering, self.smesh)
+        self._balanced = True
+
+
+def _dist_outputs(outputs: dict) -> None:
+    """A distributed run writes reduced diagnostics only (rank 0, from the
+    gathered state)."""
+    if outputs["diags"] or outputs.get("btd") or outputs.get(
+            "break_signals") or outputs.get("checkpoint_signals"):
+        raise NotImplementedError(
+            "plotfile, openPMD, back-transformed and checkpoint outputs of a "
+            "distributed run (ROADMAP.md Queue A 14.4)")
+
+
+def _dist_flush(sim, step: int) -> None:
+    """The reduced diagnostics due at ``step``, computed on rank 0 from the
+    gathered state (every rank joins the gather)."""
+    due = [rd for rd in sim.reduced if rd["intervals"].contains(step)]
+    if not due:
+        return
+    state = sim.gather_state()
+    if sim.rank != 0:
+        return
+    for rd in due:
+        vals = compute_reduced(rd["kind"], state, sim.cfg, sim.staggering,
+                               params=rd["params"])
+        rd["writer"].write(step, float(state.time), vals)
