@@ -138,6 +138,19 @@ non-zero:
                through Simulation.from_deck at tpu.tile_mxu = mixed, as
                bench.py runs it; then K2 in moving-window mode at 'mixed'
                against its plain version, timed beside K1c at 'f32';
+  main_lwfa_picmi  lwfa2d-2048x8192-picmi: the same deck written as PICMI
+               objects (Cartesian2DGrid with open faces and a window at c,
+               UniformDistribution with fill_in, GaussianBunchDistribution,
+               GaussianLaser from a LaserAntenna, warpx_sort_intervals=16)
+               and stepped by picmi.Simulation.step in float32, 18 steps
+               (one rebin past the first): its configuration main_lwfa's
+               but for the fields PICMI cannot write (PICMI_CANNOT, each
+               with its reason on the line); 6 steps timed without and 6
+               with an afterstep callback reading EyWrapper().norm0(), one
+               data-view read of the whole Ey and one norm0 timed alone;
+               K1c once a step and K3 once a rebin, zero overflow and
+               violations, the afterstep calls the steps, the electrons'
+               count through ParticleContainerWrapper the alive sum;
   main_lwfa_diags  the same deck at 'mixed' with outputs, as a user runs
                it (Simulation.from_deck with an output directory), 24 steps:
                a plotfile of Ex Ez By jz rho and both species at step 24,
@@ -385,6 +398,15 @@ non-zero:
                32 x 64 laser-wakefield and 16^3 PEC decks through
                ParticleDistSimulation: states and checksums within 1e-9,
                no particle lost, no kernel;
+  frontend_parity  (after dist_parity) Queue A 15's front ends in float64,
+               card against CPU: a 3D Langmuir wave at 16^3 built by the
+               port's picmi and stepped by picmi.Simulation.step, with
+               callbacks on every hook (recorded), reading Ez and the
+               electrons' count through the data views after every step,
+               scaling a strip of Ex and adding four electrons through
+               them; then the same scene from pywarpx buckets: states and
+               checksums within 1e-9, the hooks' sequence and the counts
+               exact, K1 and K3 launched (by path only);
   main_dist    (while the kernels compile) uniform-128-dist: main's plasma
                (8,388,608 particles, order 1, Yee, float32) through
                DistSimulation(cfg, {"z": 1}) over NCCL, per particle, 8
@@ -2086,7 +2108,8 @@ def phase_main_lwfa(dev, smi, k2_row, k3_row, nx=2048, nz=8192):
     return {"name": "fused_pic_moving_window", "route": "cuda",
             "source": "warpx_tpu_torch/csrc/fused_pic_2d.cu",
             "replaces": "warpx_tpu/ops/pallas_pic.py:197",
-            "launches": launches["fused_pic_2d"], "zshift": zshift,
+            "launches": launches["fused_pic_2d"], "launches_by_path": {
+                "main_lwfa": launches["fused_pic_2d"]}, "zshift": zshift,
             "smax": sim.stepper.smax, **k1c}
 
 
@@ -4454,16 +4477,25 @@ def write_fields(arrs):
     return hook
 
 
-def states_agree(got, ref, tol, what):
+def states_agree(got, ref, tol, what, by_family=False):
     """Two runs slot by slot (fields, and every species with its runtime
     attributes: alive masks and integer attributes exactly, the rest within
-    ``tol`` of the largest magnitude); returns the worst relative error."""
+    ``tol`` of the largest magnitude); returns the worst relative error.
+    ``by_family``: a field component against its family's largest value
+    (E; B, at least E's over c; j) and a momentum against the momenta's,
+    the particles' alive slots only, so that a component at roundoff (Ex of
+    a wave along z) is held to its family's scale."""
     worst = 0.0
 
-    def close(a, b, name):
+    def big(ts):
+        return max(float(t.detach().double().abs().max()) if t.numel()
+                   else 0.0 for t in ts)
+
+    def close(a, b, name, scale=None):
         nonlocal worst
         a, b = a.detach().double().cpu(), b.detach().double().cpu()
-        scale = float(b.abs().max()) if b.numel() else 0.0
+        if scale is None:
+            scale = float(b.abs().max()) if b.numel() else 0.0
         err = float((a - b).abs().max()) if b.numel() else 0.0
         rel = err / scale if scale else err
         worst = max(worst, rel)
@@ -4471,16 +4503,25 @@ def states_agree(got, ref, tol, what):
             raise AssertionError(f"{what}: {name} differs by {rel} of its "
                                  f"largest value (tolerance {tol})")
 
+    f = ref.state.fields
+    family = {}
+    if by_family:
+        e = big([f.Ex, f.Ey, f.Ez])
+        family = {"E": e, "B": max(big([f.Bx, f.By, f.Bz]), e / C_LIGHT),
+                  "j": big([f.jx, f.jy, f.jz])}
     for nm in ("Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz"):
-        close(getattr(got.state.fields, nm), getattr(ref.state.fields, nm),
-              nm)
+        close(getattr(got.state.fields, nm), getattr(f, nm), nm,
+              family.get(nm[0]))
     for name, sp in ref.state.species.items():
         g = got.state.species[name]
         if not torch.equal(g.alive.cpu(), sp.alive.cpu()):
             raise AssertionError(f"{what}: {name} alive masks differ")
+        live = sp.alive if by_family else slice(None)
+        u = big([sp.ux[live], sp.uy[live], sp.uz[live]]) if by_family else None
         for k in ("w", "ux", "uy", "uz", "x", "y", "z"):
             if getattr(sp, k) is not None:
-                close(getattr(g, k), getattr(sp, k), f"{name}.{k}")
+                close(getattr(g, k)[live], getattr(sp, k)[live],
+                      f"{name}.{k}", u if k[0] == "u" else None)
         for k, v in sp.extra.items():
             if v.dtype == torch.int32:
                 if not torch.equal(g.extra[k].cpu(), v.cpu()):
@@ -7434,11 +7475,13 @@ def nci_drift_cfg(nci, steps):
                      tiled_particles="off")
 
 
-def grouped_agree(got, ref, tol, what):
+def grouped_agree(got, ref, tol, what, b_from_e=False):
     """``checksums_agree`` with each quantity held within ``tol`` of the
     largest of its group (E*, B*, j*, particle_momentum_*,
     particle_position_*): a component the physics leaves at roundoff (Ey
-    of a current along z) compares at its group's scale."""
+    of a current along z) compares at its group's scale; with
+    ``b_from_e``, B's scale is at least E's over c (a wave with no B at
+    all)."""
     def group_of(q):
         for pre in ("particle_momentum_", "particle_position_"):
             if q.startswith(pre):
@@ -7453,6 +7496,8 @@ def grouped_agree(got, ref, tol, what):
         scale = {}
         for q, a in ref[group].items():
             scale[group_of(q)] = max(scale.get(group_of(q), 0.0), abs(a))
+        if b_from_e and "B" in scale:
+            scale["B"] = max(scale["B"], scale.get("E", 0.0) / C_LIGHT)
         for q, a in ref[group].items():
             if q in ("divE", "divB"):
                 continue
@@ -11719,6 +11764,367 @@ def phase_main_lwfa_pdist(dev, smi, steps=MAIN_LWFA_PDIST_STEPS):
     emit("main_lwfa_pdist_profile", steps=PROFILED_STEPS_PER_PARTICLE, **prof)
 
 
+# ---- the front ends (Queue A 15) ---------------------------------------------
+
+FRONTEND_STEPS = 3
+
+
+def frontend_langmuir(picmi, device, steps=FRONTEND_STEPS):
+    """frontend_parity's scene as PICMI objects: a 3D Langmuir wave at 16^3
+    (u_z = u0 sin(2 pi z / L), 1 x 1 x 2 electrons a cell: 8192), order 1,
+    no filter, in float64 on ``device``."""
+    c = picmi.constants.c
+    grid = picmi.Cartesian3DGrid(
+        number_of_cells=[16] * 3, lower_bound=[-20e-6] * 3,
+        upper_bound=[20e-6] * 3, lower_boundary_conditions=["periodic"] * 3,
+        upper_boundary_conditions=["periodic"] * 3)
+    sim = picmi.Simulation(
+        solver=picmi.ElectromagneticSolver(grid=grid, cfl=0.999),
+        max_steps=steps, particle_shape="linear", warpx_use_filter=0,
+        device=device, dtype=torch.float64)
+    dist = picmi.AnalyticDistribution(
+        density_expression="2e24",
+        momentum_expressions=[None, None, "u0*sin(2*pi*z/40e-6)"],
+        u0=0.01 * c)
+    sim.add_species(picmi.Species(particle_type="electron", name="electrons",
+                                  initial_distribution=dist),
+                    layout=picmi.GriddedLayout([1, 1, 2], grid))
+    return sim
+
+
+def frontend_buckets(pywarpx, steps=FRONTEND_STEPS):
+    """The same scene as pywarpx buckets, as a user writes them (the
+    module reloaded first: its buckets are module globals)."""
+    import importlib
+
+    importlib.reload(pywarpx)
+    pywarpx.max_step = steps
+    pywarpx.amr.n_cell = [16, 16, 16]
+    pywarpx.amr.max_level = 0
+    pywarpx.geometry.dims = 3
+    pywarpx.geometry.prob_lo = [-20e-6] * 3
+    pywarpx.geometry.prob_hi = [20e-6] * 3
+    pywarpx.boundary.field_lo = ["periodic"] * 3
+    pywarpx.boundary.field_hi = ["periodic"] * 3
+    pywarpx.algo.maxwell_solver = "yee"
+    pywarpx.algo.particle_shape = 1
+    pywarpx.warpx.cfl = 0.999
+    pywarpx.warpx.use_filter = 0
+    pywarpx.my_constants.u0 = 0.01 * C_LIGHT
+    pywarpx.particles.species_names = ["electrons"]
+    el = pywarpx.Species("electrons")
+    el.species_type = "electron"
+    el.injection_style = "NUniformPerCell"
+    el.num_particles_per_cell_each_dim = [1, 1, 2]
+    el.profile = "parse_density_function"
+    el.add_new_attr("density_function(x,y,z)", "2e24")
+    el.momentum_distribution_type = "parse_momentum_function"
+    for comp, expr in (("ux", "0"), ("uy", "0"),
+                       ("uz", "u0*sin(2*pi*z/40e-6)")):
+        el.add_new_attr(f"momentum_function_{comp}(x,y,z)",
+                        f"({expr})/{C_LIGHT!r}")
+
+
+def frontend_hooks(log, reads, add_at):
+    """frontend_parity's callbacks: a recorder on every hook ((hook, step)
+    into ``log``); on afterstep Ez's largest |value| and the electrons'
+    count through the data views (into ``reads``); before step 1 a strip
+    of Ex scaled by 1.5 through its view; before step ``add_at`` four
+    electrons added (in the lowest corner's cell, the tile whose slots
+    come first, so that the binned layout stays valid)."""
+    from warpx_tpu_torch import fields, particle_containers, runtime
+    from warpx_tpu_torch.utils import callbacks as cb
+
+    for h in cb.HOOKS:
+        cb.installcallback(h, lambda h=h: log.append(
+            (h, runtime.get_simulation().state.step)))
+
+    def read():
+        reads.append((fields.EzWrapper().norm0(), particle_containers.
+                      ParticleContainerWrapper("electrons").nps))
+
+    def write():
+        step = runtime.get_simulation().state.step
+        if step == 1:
+            Ex = fields.ExWrapper()
+            Ex[4:8] = 1.5 * Ex[4:8]
+        elif step == add_at:
+            lo = -20e-6 + 2.5e-6 * np.array([0.2, 0.4, 0.6, 0.8])
+            particle_containers.ParticleContainerWrapper(
+                "electrons").add_particles(x=lo, y=lo[::-1], z=lo,
+                                           ux=1e7, w=1e9)
+
+    cb.installcallback("afterstep", read)
+    cb.installcallback("beforestep", write)
+
+
+def phase_frontend_parity(dev):
+    """frontend_parity: Queue A 15's front ends in float64, card against
+    CPU: the 3D Langmuir scene built by the port's picmi and stepped by
+    ``picmi.Simulation.step`` with callbacks that read Ez and the
+    electrons' count through the data views after every step, scale a
+    strip of Ex and add four electrons (tile-binned, K1 and K3); then the
+    same scene from pywarpx buckets (``pywarpx.init``/``evolve``), whose
+    configuration must be the PICMI scene's.  States slot by slot and
+    checksums within 1e-9, the hooks' (name, step) sequence and the
+    views' counts exact, zero tile_overflow and tile_violations.  Returns
+    the card's K1 and K3 launches (by path, not the main paths')."""
+    from warpx_tpu_torch import picmi, pywarpx
+    from warpx_tpu_torch.utils import callbacks as cb
+
+    runs, launches = {}, {"fused_pic": 0, "ragged_expand": 0}
+
+    def count(before):
+        torch.cuda.synchronize()
+        k1, _, k3 = (a - b for a, b in zip(kernel_counters(), before))
+        launches["fused_pic"] += k1
+        launches["ragged_expand"] += k3
+
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        log, reads = [], []
+        frontend_hooks(log, reads, add_at=2)
+        sim = frontend_langmuir(picmi, device)
+        before = kernel_counters()
+        t0 = time.perf_counter()
+        try:
+            sim.step(1)
+            sim.step()
+        finally:
+            cb.clear_callbacks()
+        if where == "card":
+            count(before)
+        runs[where] = dict(picmi=sim.extension, log=log, reads=reads,
+                           s=time.perf_counter() - t0)
+        frontend_buckets(pywarpx)
+        outdir = tempfile.mkdtemp()
+        try:
+            runs[where]["buckets"] = pywarpx.init(
+                output_dir=outdir, dtype=torch.float64, device=device)
+            before = kernel_counters()
+            pywarpx.evolve()
+        finally:
+            pywarpx.finalize()
+            shutil.rmtree(outdir, ignore_errors=True)
+        if where == "card":
+            count(before)
+    card, cpu = runs["card"], runs["cpu"]
+    steps = FRONTEND_STEPS
+    hooks = [h for h, _ in card["log"]]
+    if (card["log"] != cpu["log"] or hooks.count("afterstep") != steps
+            or hooks.count("beforestep") != steps
+            or len(card["reads"]) != steps):
+        raise AssertionError(f"frontend_parity: hooks {card['log']} on the "
+                             f"card, {cpu['log']} on the CPU")
+    counts = [n for _, n in card["reads"]]
+    if counts != [n for _, n in cpu["reads"]] or counts[-1] != counts[0] + 4:
+        raise AssertionError(f"frontend_parity: counts {card['reads']} "
+                             f"against {cpu['reads']}")
+    ez = max(abs(a - b) / max(abs(b), 1e-300) for (a, _), (b, _)
+             in zip(card["reads"], cpu["reads"]))
+    if not ez <= 1e-9:
+        raise AssertionError(f"frontend_parity: Ez's norm0 differs by {ez}")
+    out = {"hooks_fired": len(hooks), "reads": card["reads"],
+           "ez_norm0_max_rel_err": ez, "launches": launches}
+    if card["picmi"].cfg != card["buckets"].cfg:
+        raise AssertionError("frontend_parity: the buckets' configuration "
+                             "is not the PICMI scene's")
+    for kind in ("picmi", "buckets"):
+        c, r = card[kind], cpu[kind]
+        if not (c.binned and c.device == torch.device(dev)
+                and r.device.type == "cpu"):
+            raise AssertionError(f"frontend_parity {kind}: binned {c.binned}"
+                                 f" on {c.device}, {r.device}")
+        aux = {k: int(c.state.aux[k]) for k in ("tile_overflow",
+                                                  "tile_violations")}
+        if any(aux.values()):
+            raise AssertionError(f"frontend_parity {kind}: {aux}")
+        worst = states_agree(c, r, 1e-9, f"frontend_parity {kind}",
+                             by_family=True)
+        worst_sum = grouped_agree(c.checksums(), r.checksums(), 1e-9,
+                                  f"frontend_parity {kind}", b_from_e=True)
+        out[kind] = {"max_rel_err": worst, "checksum_max_rel_err": worst_sum,
+                     "steps": c.state.step, "alive": int(
+                         c.state.species["electrons"].alive.sum()), **aux}
+    if launches["fused_pic"] != 2 * steps or not launches["ragged_expand"]:
+        raise AssertionError(f"frontend_parity launched {launches}")
+    emit("frontend_parity", ok=True, tol=1e-9, cpu_s=cpu["s"],
+         card_s=card["s"], **out)
+    return launches
+
+
+MAIN_LWFA_PICMI_STEPS = 18
+# the fields of lwfa2d-2048x8192-picmi's configuration that PICMI cannot
+# write as main_lwfa_cfg has them, and why
+PICMI_CANNOT = {
+    "tiled_particles": "PICMI writes no tpu.* key (its warpx_* keyword "
+                       "arguments turn every '_' into '.'), so the reader's "
+                       "'auto' stands; on the card it takes the tile-binned "
+                       "step, as 'on' does",
+}
+
+
+def lwfa_picmi(picmi, nx, nz, steps, device=None, dtype=None):
+    """bench.py::run_lwfa's deck (``LWFA_2D_DECK``: 2 x 2 electrons a cell,
+    the beam, the Gaussian antenna, sort interval 16) written as PICMI
+    objects."""
+    c = picmi.constants.c
+    grid = picmi.Cartesian2DGrid(
+        number_of_cells=[nx, nz], lower_bound=[-30e-6, -56e-6],
+        upper_bound=[30e-6, 12e-6], lower_boundary_conditions=["open"] * 2,
+        upper_boundary_conditions=["open"] * 2,
+        moving_window_velocity=[0.0, c])
+    solver = picmi.ElectromagneticSolver(
+        grid=grid, method="Yee", cfl=0.98,
+        source_smoother=picmi.BinomialSmoother(n_pass=1))
+    sim = picmi.Simulation(solver=solver, max_steps=steps, verbose=0,
+                           particle_shape="cubic", warpx_sort_intervals=16,
+                           device=device, dtype=dtype)
+    plasma = picmi.UniformDistribution(
+        density=2e23, lower_bound=[-20e-6, None, -56e-6],
+        upper_bound=[20e-6, None, None], fill_in=True)
+    sim.add_species(picmi.Species(particle_type="electron", name="electrons",
+                                  initial_distribution=plasma),
+                    layout=picmi.GriddedLayout([2, 2], grid))
+    bunch = picmi.GaussianBunchDistribution(
+        n_physical_particles=1e-12 / picmi.constants.q_e,
+        rms_bunch_size=[0.5e-6] * 3, rms_velocity=[2 * c, 2 * c, 50 * c],
+        centroid_position=[0.0, 0.0, -28e-6],
+        centroid_velocity=[0.0, 0.0, 500 * c])
+    sim.add_species(picmi.Species(particle_type="electron", name="beam",
+                                  initial_distribution=bunch),
+                    layout=picmi.PseudoRandomLayout(n_macroparticles=100))
+    sim.add_laser(
+        picmi.GaussianLaser(
+            wavelength=0.8e-6, waist=5e-6, duration=15e-15,
+            focal_position=[0.0, 0.0, 109e-6],
+            centroid_position=[0.0, 0.0, 9e-6 - c * 30e-15],
+            propagation_direction=[0, 0, 1],
+            polarization_direction=[0, 1, 0], E0=16e12, name="laser1"),
+        injection_method=picmi.LaserAntenna(position=[0.0, 0.0, 9e-6]))
+    return sim
+
+
+def config_differences(got, ref):
+    """The fields of two SimConfigs that differ: {name: (got, ref)}."""
+    return {f.name: (getattr(got, f.name), getattr(ref, f.name))
+            for f in dataclasses.fields(ref)
+            if getattr(got, f.name) != getattr(ref, f.name)}
+
+
+def phase_main_lwfa_picmi(dev, smi, nx=2048, nz=8192,
+                          steps=MAIN_LWFA_PICMI_STEPS):
+    """lwfa2d-2048x8192-picmi: main_lwfa's deck written as PICMI objects
+    and stepped by ``picmi.Simulation.step`` in float32 on the card, with a
+    callback counting the afterstep calls all along: its configuration
+    main_lwfa_cfg's but for PICMI_CANNOT; 2 warm steps, 6 timed, 6 timed
+    with an afterstep callback reading EyWrapper().norm0(), the rest (a
+    rebin at 16, the closing +dt/2); one data-view read of the whole Ey and
+    one norm0 timed alone.  K1c ('f32') launched once a step and K3 once a
+    rebin, zero tile_overflow and tile_violations, the afterstep count the
+    steps, the electrons' count through ParticleContainerWrapper the alive
+    sum.  Returns the launches (by path)."""
+    from warpx_tpu_torch import fields, particle_containers, picmi
+    from warpx_tpu_torch.ops import fused_pic as fp
+    from warpx_tpu_torch.ops import tiling
+    from warpx_tpu_torch.utils import callbacks as cb
+
+    sim = lwfa_picmi(picmi, nx, nz, steps, device=dev, dtype=torch.float32)
+    count = [0]
+
+    def counted():
+        count[0] += 1
+
+    by_mode = fp.binned_push_deposit.launches_by_mode
+    try:
+        cb.installcallback("afterstep", counted)
+        for k in by_mode:
+            by_mode[k] = 0
+        fp.binned_push_deposit.launches_2d = 0
+        tiling.ragged_expand.launches = 0
+        t0 = time.perf_counter()
+        sim.initialize_warpx()
+        core = sim.extension
+        host_init_s = time.perf_counter() - t0
+        diff = config_differences(core.cfg, main_lwfa_cfg(nx, nz, steps))
+        if set(diff) != set(PICMI_CANNOT) or not (core.is_bounded
+                                                  and core.binned):
+            raise AssertionError(f"main_lwfa_picmi: the configuration "
+                                 f"differs in {diff}; bounded "
+                                 f"{core.is_bounded}, binned {core.binned}")
+        sim.step(2)
+        ey = []
+
+        def read_ey():
+            ey.append(fields.EyWrapper().norm0())
+
+        times = {}
+        for name in ("without", "with_norm0"):
+            if name == "with_norm0":
+                cb.installcallback("afterstep", read_ey)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            sim.step(6)
+            b.record()
+            b.synchronize()
+            times[name] = a.elapsed_time(b) / 6
+        cb.uninstallcallback("afterstep", read_ey)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole = fields.EyWrapper()[...]
+        read_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        norm0 = fields.EyWrapper().norm0()
+        norm0_ms = (time.perf_counter() - t0) * 1e3
+        sim.step()
+        torch.cuda.synchronize()
+    finally:
+        cb.clear_callbacks()
+    rebins = len(range(0, steps, core.cfg.sort_interval))
+    launches = {"fused_pic_2d": fp.binned_push_deposit.launches_2d,
+                "ragged_expand": tiling.ragged_expand.launches}
+    if (launches != {"fused_pic_2d": steps, "ragged_expand": rebins}
+            or by_mode["f32"] != steps or count[0] != steps
+            or core.state.step != steps):
+        raise AssertionError(f"main_lwfa_picmi: launches {launches} "
+                             f"({dict(by_mode)}), {count[0]} afterstep "
+                             f"calls in {core.state.step} of {steps} steps")
+    aux = {k: int(core.state.aux[k]) for k in ("tile_overflow",
+                                                 "tile_violations")}
+    alive = int(core.state.species["electrons"].alive.sum())
+    viewed = particle_containers.ParticleContainerWrapper(
+        "electrons").get_particle_count()
+    if any(aux.values()) or viewed != alive:
+        raise AssertionError(f"main_lwfa_picmi: {aux}, {viewed} electrons "
+                             f"viewed of {alive}")
+    if (whole.shape != tuple(core.state.fields.Ey.shape)
+            or not np.isfinite(whole).all()
+            or norm0 != float(np.abs(whole).max())):
+        raise AssertionError("main_lwfa_picmi: the data view read "
+                             f"{whole.shape}, norm0 {norm0}")
+    sums = core.checksums()
+    for group in sums.values():
+        for q, v in group.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"main_lwfa_picmi: checksum {q} {v}")
+    emit("main_lwfa_picmi", ok=True, n_cell=[nx, nz], steps=steps,
+         config_differences={k: {"picmi": v[0], "main_lwfa": v[1],
+                                 "why": PICMI_CANNOT[k]}
+                             for k, v in diff.items()},
+         ms_per_step=times["without"],
+         ms_per_step_with_norm0_callback=times["with_norm0"],
+         callback_ms=times["with_norm0"] - times["without"],
+         ey_norm0_each_step=ey, data_view_read_ms=read_ms,
+         data_view_bytes=int(whole.nbytes), norm0_ms=norm0_ms,
+         host_init_s=host_init_s, launches=launches, rebins=rebins,
+         afterstep_calls=count[0], electrons_alive=alive,
+         electrons_viewed=viewed, window_offset=int(
+             core.state.aux["window_offset"]), **aux,
+         checksum_Ey=sums["lev=0"]["Ey"], checksum_jz=sums["lev=0"]["jz"],
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    return launches
+
+
 def main() -> int:
     """Every phase in order."""
     if not torch.cuda.is_available():
@@ -11783,6 +12189,7 @@ def main() -> int:
     phase_mr_parity(dev)
     phase_rz_parity(dev)
     phase_dist_parity(dev)
+    frontend = phase_frontend_parity(dev)
     k1_row, k3_row = phase_main(dev, smi)
     k1_row["launches_by_path"] = {"main": k1_row["launches"]}
     phase_main_psatd(dev, smi, k1_row, k3_row)
@@ -11802,12 +12209,21 @@ def main() -> int:
     # the runtime attributes' tile-binned runs of dims1_parity (K1c: below)
     k2_row["launches_by_path"]["dims1_parity"] = dims1["fused_pic_2d"]
     k3_row["launches_by_path"]["dims1_parity"] = dims1["ragged_expand"]
+    # the front ends' 3D scene (PICMI and buckets, float64)
+    k1_row["launches_by_path"]["frontend_parity"] = frontend["fused_pic"]
+    k3_row["launches_by_path"]["frontend_parity"] = frontend["ragged_expand"]
     torch.cuda.empty_cache()
     k1c_row = phase_main_lwfa(dev, smi, k2_row, k3_row)
     k1c_row.setdefault("launches_by_path", {})["dims1_parity"] = dims1[
         "fused_pic_2d_window"]
     torch.cuda.empty_cache()
     k1c_mixed_row, waits = phase_main_lwfa_deck(dev, smi, k3_row)
+    torch.cuda.empty_cache()
+    picmi_launches = phase_main_lwfa_picmi(dev, smi)
+    k1c_row["launches_by_path"]["main_lwfa_picmi"] = picmi_launches[
+        "fused_pic_2d"]
+    k3_row["launches_by_path"]["main_lwfa_picmi"] = picmi_launches[
+        "ragged_expand"]
     torch.cuda.empty_cache()
     phase_main_lwfa_diags(dev, smi, k1c_mixed_row, k3_row, waits["idle"])
     torch.cuda.empty_cache()

@@ -316,8 +316,12 @@ def test_checkpoint_of_another_configuration_is_refused(lwfa, tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ("amr.plot_int = 10", "Queue A 15"),
-    ("amr.restart = chk000010", "Queue A 15"),
+    # the legacy output keys and a restart named in the deck, which neither
+    # package reads, name Queue C since Queue A 15 (the cases keep their ids)
+    pytest.param("amr.plot_int = 10", "Queue C",
+                 id="amr.plot_int = 10-Queue A 15"),
+    pytest.param("amr.restart = chk000010", "Queue C",
+                 id="amr.restart = chk000010-Queue A 15"),
     # the scraped particles' buffers are Simulation.scraped_particles since
     # Queue A 11.4; the JAX package writes this type as a Full diagnostic
     # of the fields (the case keeps its id)

@@ -21,6 +21,16 @@ boundaries; and runs over several devices on ``torch.distributed``
 (``parallel/``): the spatially decomposed ``core.simulation.
 DistSimulation`` with dynamic load balancing and the particle-decomposed
 ``core.particle_dist.ParticleDistSimulation``.
+
+The front ends a user writes sit on top: PICMI scripts (``picmi``, which
+lowers its objects to deck text, the JAX package's byte for byte, and runs
+it through ``Simulation.from_deck``; ``device=`` and ``dtype=`` choose
+where and in what precision), the pywarpx input buckets (``pywarpx``, whose
+``picmi`` attribute lets ``from pywarpx import picmi`` scripts run
+unchanged), the data views into the live run (``fields``,
+``particle_containers``, over the run that ``runtime`` registered), user
+callbacks at the hooks of ``Simulation.evolve`` (``utils/callbacks.py``)
+and the ready-made configurations of ``models``.
 """
 
 from . import constants  # noqa: F401

@@ -1011,20 +1011,6 @@ def _psatd_gates(deck: Deck) -> None:
             "Vay deposition not implemented with multi-J (WarpX.cpp:1162)")
 
 
-def _item_of_key(deck: Deck, key: str) -> str:
-    """The ROADMAP.md item a deck key the reader does not read waits for;
-    a key that neither package reads names Queue C (the JAX package lists
-    it as unused and runs without it; the port refuses it, so that a
-    misspelt key drops nothing silently)."""
-    head, _, tail = key.partition(".")
-    if (head == "amr" and tail.split("_")[0] in ("plot", "check")
-            or "checkpoint" in key or "restart" in key):
-        # the legacy AMReX output keys and a restart named in the deck,
-        # which neither package reads (the CLI's --restart does)
-        return "Queue A 15"
-    return "Queue C"
-
-
 _FORMATS = ("plotfile", "openpmd", "checkpoint")
 _FIELDS_TO_PLOT = ["Ex", "Ey", "Ez", "Bx", "By", "Bz", "jx", "jy", "jz"]
 
@@ -1234,6 +1220,11 @@ def _rz_config_from_deck(deck: Deck) -> SimConfig:
             _no(f"boundary.particle_{side} = {' '.join(got)} (the JAX "
                 "package's RZ steps absorb past rmax and wrap or absorb "
                 "along z whatever it says)", "Queue C")
+    if deck.get_int("amr.max_level", 0) > 0:
+        # the JAX reader leaves it unread under RZ and runs one level; 0,
+        # which every PICMI grid writes, changes nothing
+        _no("amr.max_level > 0 under RZ (the JAX package runs one level "
+            "whatever it says)", "Queue C")
     n_modes = deck.get_int("warpx.n_rz_azimuthal_modes", 1)
     cfl = deck.get_real("warpx.cfl", 0.999)
     const_dt = deck.get_real("warpx.const_dt", None)
@@ -1331,9 +1322,13 @@ def _check_unread(deck: Deck, outputs: dict) -> None:
     unread = [k for k in deck.unused_keys()
               if k not in NO_PHYSICS and k.partition(".")[0] not in names]
     if unread:
+        # neither package reads them (the JAX package lists them as unused
+        # and runs without them, the legacy amr.plot_*, amr.check_* and
+        # amr.restart among them; the CLI's --restart restarts); the port
+        # refuses them, so that a misspelt key drops nothing silently
         raise NotImplementedError(
             "deck keys the port does not read: " + ", ".join(
-                f"{k} (ROADMAP.md {_item_of_key(deck, k)})" for k in unread))
+                f"{k} (ROADMAP.md Queue C)" for k in unread))
 
 
 def config_from_deck(deck: Deck) -> SimConfig:

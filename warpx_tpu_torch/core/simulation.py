@@ -40,7 +40,10 @@ stepper carries the patch; ``init`` starts the patch at rest and injects
 ``warpx.refine_plasma``'s fine lattice, the checksums and plotfiles gain
 level 1.  An RZ configuration takes ``self.rz`` (``rz/core.py::RZStepper``
 or ``rz/spectral.py::RZSpectralStepper``) before any other path, with the
-RZ plotfile names and checksums.  The
+RZ plotfile names and checksums.  ``init``
+registers the run for the data views (``runtime.py``), and ``evolve``
+calls the user callbacks (``utils/callbacks.py``) at the JAX package's
+hook sites.  The
 simulation runs on the CUDA device unless the caller names another
 device; with no GPU it raises rather than run on the CPU unasked.
 """
@@ -69,11 +72,14 @@ from ..parallel.distribute import distribute_state, gather_particles
 from ..parallel.load_balance import (knapsack_assignment, morton_order,
                                      sfc_assignment)
 from ..parallel.topology import SpatialMesh, rank_device
+from ..runtime import set_simulation
 from ..rz.core import (RZStepper, check_rz_supported, rz_cell_centered_output,
                        rz_checksums, rz_init_state)
 from ..rz.spectral import RZSpectralStepper
 from ..solvers.div_cleaner import project_div_b
 from ..solvers.psatd import PsatdFirstOrder, PsatdSolver
+from ..utils.callbacks import _registry as _cb_registry
+from ..utils.callbacks import execute_callbacks as _cb
 from ..utils.draws import Draws
 from ..utils.expression import compile_expression
 from ..utils.intervals import IntervalsParser
@@ -625,6 +631,8 @@ class Simulation:
                 species={**self.state.species, sp_cfg.name: sp})
 
     def init(self, seed: int | None = None) -> SimState:
+        # first: the data views (fields.py) see this run
+        set_simulation(self)
         cfg = self.cfg
         geom = cfg.geometry
         rng = np.random.default_rng(seed if seed is not None else cfg.seed)
@@ -1015,10 +1023,21 @@ class Simulation:
         timer = StepTimer(self.device) if cfg.verbose else None
         signals = self.signals
         leapfrog = self.implicit is None
+        # the user callbacks (utils/callbacks.py) at JAX's sites and in its
+        # order (simulation.py:1352-1411); an empty registry costs nothing
+        hooks = _cb_registry
         for step in range(start, stop):
             if signals is not None and signals.break_requested:
                 # graceful break on a signal (WarpXEvolve.cpp:457-462)
+                if hooks:
+                    _cb("onbreaksignal")
                 break
+            if hooks:
+                # the hooks of phases inside the step fire at its start
+                for h in ("beforestep", "particleinjection",
+                          "particlescraper", "beforedeposition",
+                          "beforecollisions"):
+                    _cb(h)
             if self.is_synchronized and leapfrog:
                 # push the momenta back half a step (WarpXEvolve.cpp:493-505)
                 self.state = self._half_push(-0.5 * cfg.dt)
@@ -1036,17 +1055,29 @@ class Simulation:
                 self.state = self.stepper.step_window(
                     self.state, move_j=self.is_synchronized,
                     draws=self.draws)
-                if self.stepper.is_es:
-                    # the electrostatic solve at the end of the PIC loop
-                    # (WarpXEvolve.cpp:269-283)
-                    self.state = self.stepper.solve_es(self.state)
+            if hooks:
+                for h in ("afterdeposition", "aftercollisions"):
+                    _cb(h)
+            if self.is_bounded and self.stepper.is_es:
+                # the electrostatic solve at the end of the PIC loop
+                # (WarpXEvolve.cpp:269-283)
+                if hooks:
+                    _cb("beforeEsolve")
+                self.state = self.stepper.solve_es(self.state)
+                if hooks:
+                    _cb("afterEsolve")
             self.flush_diagnostics(step + 1)
             for btd in self.btd:
                 btd.update(self)
+            if hooks:
+                _cb("afterdiagnostics")
+                _cb("afterstep")
             if timer is not None:
                 timer.step_done(step + 1, float(self.state.time), cfg.dt)
             if signals is not None and signals.pop_checkpoint():
                 # checkpoint on a signal (WarpXEvolve.cpp:1248-1259)
+                if hooks:
+                    _cb("oncheckpointsignal")
                 save_checkpoint(
                     os.path.join(self.output_dir,
                                  f"chk_signal{step + 1:06d}"),
